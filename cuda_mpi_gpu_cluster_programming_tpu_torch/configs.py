@@ -5,7 +5,8 @@ The keys are the JAX package's, so the CLI and the analysis names map 1:1:
 - ``v1_jit``    ↔ V1 Serial: the reference-op tier (PyTorch library ops;
   cuDNN on the card). The oracle.
 - ``v3_pallas`` ↔ V3 CUDA: the hand-written CUDA kernel tier
-  (``ops/kernel_model.py``; the JAX package runs Pallas kernels here).
+  (``ops/kernel_model.py``; the JAX package runs Pallas kernels here);
+  ``TPU_FRAMEWORK_FUSE=block`` runs each block as one fused launch.
 
 The sharded and full-AlexNet configs wait for later slices (ROADMAP Queue 1).
 """
@@ -13,13 +14,18 @@ The sharded and full-AlexNet configs wait for later slices (ROADMAP Queue 1).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict
 
 import torch
 
 from .models.alexnet import BLOCKS12, forward_blocks12
 from .models.init import params_to
+from .ops.kernel_model import forward_blocks12_kernels
+from .ops.reference import true_fp32
+from .ops.variants import KernelVariants, require_ported
 from .precision.policy import resolve_policy
+from .precision.quantize import forward_blocks12_int8w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +45,7 @@ REGISTRY: Dict[str, ExecConfig] = {
         ),
         ExecConfig(
             "v3_pallas", "V3 CUDA", "kernels",
-            "single-device hand-written CUDA kernels (conv+bias+ReLU, max-pool, LRN)",
+            "single-device hand-written CUDA kernels (conv+bias+ReLU, max-pool, LRN; one per block when fused)",
         ),
     ]
 }
@@ -60,7 +66,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_forward(exec_cfg: ExecConfig, model_cfg=None, policy=None, device="cuda") -> Callable:
+def build_forward(exec_cfg: ExecConfig, model_cfg=None, policy=None, variants=None, device="cuda") -> Callable:
     """A ``(params, x) -> out`` callable for ``exec_cfg``.
 
     ``params`` and ``x`` are fp32 on ``device``, NHWC/HWIO; the output is
@@ -74,17 +80,36 @@ def build_forward(exec_cfg: ExecConfig, model_cfg=None, policy=None, device="cud
       fp32 bias and ReLU, pool in bf16, run LRN in fp32 and write bf16),
       and the output cast to fp32 — the cast points of the JAX package's
       ``configs.build_forward``.
+    - ``int8w``: ``precision.quantize.forward_blocks12_int8w`` on the
+      config's tier: weights quantized per output channel inside the
+      forward, bf16 activations, fp32 accumulation (TF32 off), fp32 output.
+
+    ``variants`` (kernel tier only; the reference tier ignores it): a
+    ``KernelVariants`` or per-layer ``LayerVariants``; None resolves the
+    ``TPU_FRAMEWORK_*`` environment now, once, so the returned function
+    keeps the variants it was built with. A knob the port cannot run
+    raises ``NotImplementedError`` here.
     """
     dev = resolve_device(device)
     pol = resolve_policy(policy)
     cfg = model_cfg or BLOCKS12
+    kv = None
     if exec_cfg.tier == "kernels":
-        from .ops.kernel_model import forward_blocks12_kernels as fwd
-    else:
-        fwd = forward_blocks12
-    if dev.type == "cuda" and pol.name == "fp32":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        kv = variants if variants is not None else KernelVariants.resolve()
+        require_ported(kv)
+    if pol.name != "bf16":
+        true_fp32(dev)
+
+    if pol.quantized:
+        tier = exec_cfg.tier
+
+        @torch.inference_mode()
+        def forward(p, x):
+            return forward_blocks12_int8w(p, x, cfg, variants=kv, tier=tier).contiguous()
+
+        return forward
+
+    fwd = functools.partial(forward_blocks12_kernels, variants=kv) if exec_cfg.tier == "kernels" else forward_blocks12
 
     if pol.name == "fp32":
         @torch.inference_mode()

@@ -1,12 +1,15 @@
-// Shared helpers for the port's kernels: fp32/bf16 load and store.
+// Shared helpers for the port's kernels: fp32/bf16/int8 load, fp32/bf16 store.
 //
 // Every kernel computes in fp32 and touches its element type only at the
-// load (to_f32) and at the single store (from_f32). __float2bfloat16 rounds
-// to nearest even, as JAX's astype(bfloat16) does.
+// load (to_f32, exact for all three types) and at the single store
+// (from_f32). __float2bfloat16 rounds to nearest even, as JAX's
+// astype(bfloat16) does.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace port {
 
@@ -14,6 +17,7 @@ using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);

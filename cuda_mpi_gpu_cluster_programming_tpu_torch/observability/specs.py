@@ -24,13 +24,16 @@ class DeviceSpec:
     hbm_gbps: float     # GB/s
 
     def peak_tflops(self, dtype: str) -> float:
-        """``dtype`` is a policy name: fp32 or bf16."""
+        """``dtype`` is a policy name: fp32, or bf16/int8w (bf16 operands
+        on the tensor cores)."""
         return self.fp32_tflops if dtype == "fp32" else self.bf16_tflops
 
-    def bound_ms(self, flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
-        """Least time for ``flops`` operations and ``nbytes`` moved, and
-        which of the two sets it ("operations" or "bytes")."""
-        t_ops = flops / (self.peak_tflops(dtype) * 1e12) * 1e3
+    def bound_ms(self, flops: float, nbytes: float, dtype: str, fp32_flops: float = 0.0) -> Tuple[float, str]:
+        """Least time for ``flops`` operations at ``dtype``'s peak plus
+        ``fp32_flops`` more outside the tensor cores (pool compares, LRN),
+        against ``nbytes`` moved; and which of the two sets it
+        ("operations" or "bytes")."""
+        t_ops = (flops / (self.peak_tflops(dtype) * 1e12) + fp32_flops / (self.fp32_tflops * 1e12)) * 1e3
         t_bytes = nbytes / (self.hbm_gbps * 1e9) * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 

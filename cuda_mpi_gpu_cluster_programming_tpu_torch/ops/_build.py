@@ -105,12 +105,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    # entry: (argtypes, dtype suffixes)
     # x, w, b, y, N, H, W, C, K, F, stride, pad, Ho, Wo, relu, stream
-    "conv2d_bias_relu": [_P, _P, _P, _P] + [_I] * 11 + [_P],
+    "conv2d_bias_relu": ([_P, _P, _P, _P] + [_I] * 11 + [_P], ("f32", "bf16")),
     # x, y, N, H, W, C, window, stride, Ho, Wo, stream
-    "maxpool2d": [_P, _P] + [_I] * 8 + [_P],
+    "maxpool2d": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
     # x, y, total, C, size, a, beta, k, stream
-    "lrn": [_P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P],
+    "lrn": ([_P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P], ("f32", "bf16")),
+    # x, w, b, scale, y, N, H, W, C, K, F, stride, pad, Ho, Wo, pool window, pool stride,
+    # Hp, Wp, band, lrn, lrn size, lrn a, beta, k, stream
+    "conv_block": ([_P] * 5 + [_I] * 17 + [_F, _F, _F, _P], ("f32", "bf16", "int8w")),
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -122,8 +126,8 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build().path))
-        for base, argtypes in _SIGNATURES.items():
-            for suffix in ("f32", "bf16"):
+        for base, (argtypes, suffixes) in _SIGNATURES.items():
+            for suffix in suffixes:
                 fn = getattr(lib, f"{base}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

@@ -8,9 +8,10 @@ an edge-truncated window, in the divide form. Tensors are NHWC and weights
 HWIO at every boundary; inside, the ops view them as NCHW/OIHW (an NHWC
 tensor seen as NCHW has channels-last strides, which cuDNN takes as is).
 
-Every op computes in its input's dtype. On CUDA, fp32 convolutions are
-true fp32 only when cuDNN's TF32 switch is off: the fp32 policy in
-``configs.build_forward`` turns it off before this tier runs.
+Every op computes in its input's dtype unless told otherwise. On CUDA,
+fp32 convolutions are true fp32 only when cuDNN's TF32 switch is off:
+:func:`true_fp32` turns it off, and ``configs.build_forward`` calls it
+before this tier runs under a policy that accumulates in fp32.
 """
 
 from __future__ import annotations
@@ -19,12 +20,35 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int) -> torch.Tensor:
+def true_fp32(device: torch.device) -> None:
+    """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls when
+    ``device`` is a GPU (the JAX package's ``Precision.HIGHEST``)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def conv2d(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int,
+    preferred_element_type: torch.dtype | None = None,
+) -> torch.Tensor:
     """``x`` (N, H, W, C), ``w`` (F, F, C, K), ``b`` (K,) -> (N, Ho, Wo, K).
 
+    ``preferred_element_type`` is the accumulation and output dtype (the
+    JAX reference's argument of the same name); by default ``x.dtype``.
+    With bf16 operands and an fp32 accumulator the function is: fp32
+    products of the bf16-valued operands, summed in fp32. ``F.conv2d`` on
+    bf16 tensors returns bf16, which is a different function, so here the
+    operands are first copied exactly to fp32 (every bf16 value is an fp32
+    value). On those copies, with TF32 off, fp32 ``F.conv2d`` is the same
+    function: every bf16 x bf16 product (8-bit significands) is exact in
+    fp32's 24 bits, and the sums are fp32. int8 weights widen exactly too.
     The bias is added after the convolution, in the output dtype, as the
     JAX reference does."""
-    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), stride=stride, padding=padding)
+    acc = preferred_element_type or x.dtype
+    out = F.conv2d(
+        x.permute(0, 3, 1, 2).to(acc), w.permute(3, 2, 0, 1).to(acc), stride=stride, padding=padding
+    )
     out = out.permute(0, 2, 3, 1)
     return out + b.to(out.dtype)
 

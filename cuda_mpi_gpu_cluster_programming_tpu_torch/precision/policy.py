@@ -6,9 +6,9 @@ and the dtype parameters are stored in (``params``). The presets:
 
 - ``fp32``: fp32 operands and accumulation, true fp32 on the card (no TF32);
 - ``bf16``: bf16 operands and params, fp32 accumulation, fp32 output;
-- ``int8w``: weight-only int8 with per-channel scales. Named here because
-  the JAX package has it; the port does not build it yet (ROADMAP Queue 1,
-  "Precision").
+- ``int8w``: weight-only int8 with per-output-channel symmetric scales,
+  bf16 activations, fp32 accumulation, the rescale applied once to the
+  conv's fp32 output before the bias (``precision/quantize.py``).
 """
 
 from __future__ import annotations
@@ -16,8 +16,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple, Union
 
+import torch
+
 POLICY_NAMES = ("fp32", "bf16", "int8w")
-BUILT_POLICIES = ("fp32", "bf16")
+
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def tdt(name: str) -> torch.dtype:
+    """The torch dtype for a policy dtype name."""
+    return _TORCH_DTYPES[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +46,12 @@ class DtypePolicy:
     default: LayerPrecision = LayerPrecision()
     layers: Tuple[Tuple[str, LayerPrecision], ...] = ()
 
+    def layer(self, layer_name: str) -> LayerPrecision:
+        for n, lp in self.layers:
+            if n == layer_name:
+                return lp
+        return self.default
+
     @property
     def quantized(self) -> bool:
         """True when any layer stores int8 params."""
@@ -53,21 +67,12 @@ PRESETS: Dict[str, DtypePolicy] = {
 
 def resolve_policy(spec: Union[str, DtypePolicy, None]) -> DtypePolicy:
     """A DtypePolicy from a preset name, a policy object, or None (fp32).
-
-    Raises ``ValueError`` for an unknown name and ``NotImplementedError``
-    for a policy the port cannot build yet."""
+    Raises ``ValueError`` for an unknown name."""
     if spec is None:
-        pol = PRESETS["fp32"]
-    elif isinstance(spec, DtypePolicy):
-        pol = spec
-    else:
-        name = str(spec).strip().lower()
-        if name not in PRESETS:
-            raise ValueError(f"unknown precision policy {spec!r} (known: {'|'.join(POLICY_NAMES)})")
-        pol = PRESETS[name]
-    if pol.quantized:
-        raise NotImplementedError(
-            f"policy {pol.name!r} (int8 weights) is not ported yet: ROADMAP Queue 1, "
-            "item 'Precision' (precision/quantize.py)"
-        )
-    return pol
+        return PRESETS["fp32"]
+    if isinstance(spec, DtypePolicy):
+        return spec
+    name = str(spec).strip().lower()
+    if name not in PRESETS:
+        raise ValueError(f"unknown precision policy {spec!r} (known: {'|'.join(POLICY_NAMES)})")
+    return PRESETS[name]

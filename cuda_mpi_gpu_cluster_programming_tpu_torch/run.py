@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from .precision.policy import BUILT_POLICIES
+from .precision.policy import POLICY_NAMES
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -29,9 +29,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--repeats", type=int, default=10, help="fenced passes for amortized timing")
     p.add_argument("--warmup", type=int, default=5, help="short-chain passes subtracted by the estimator")
-    p.add_argument("--compute", choices=BUILT_POLICIES, default="fp32",
+    p.add_argument("--compute", choices=["fp32", "bf16"], default="fp32",
                    help="precision policy (legacy spelling; --dtype supersedes it)")
-    p.add_argument("--dtype", choices=BUILT_POLICIES, default="", help="precision policy")
+    p.add_argument("--dtype", choices=POLICY_NAMES, default="",
+                   help="precision policy: fp32, bf16, or int8w (per-channel int8 weights)")
     p.add_argument("--height", type=int, default=227)
     p.add_argument("--width", type=int, default=227)
     p.add_argument("--lrn-form", choices=["cuda", "cpu"], default="cuda",

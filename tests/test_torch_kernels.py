@@ -111,7 +111,7 @@ def test_cpu_wrappers_take_the_plain_path_and_launch_nothing(rng):
     torch.testing.assert_close(p, ck.maxpool2d_plain(y, window=3, stride=2), rtol=0, atol=0)
     kw = dict(size=5, alpha=1e-4, beta=0.75, k=2.0)
     torch.testing.assert_close(ck.lrn(p, **kw), ck.lrn_plain(p, **kw), rtol=0, atol=0)
-    assert ck.LAUNCHES == {"conv2d": 0, "maxpool2d": 0, "lrn": 0}
+    assert ck.LAUNCHES == {"conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0}
 
 
 @pytest.mark.parametrize(
@@ -155,7 +155,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_key_follows_the_sources(monkeypatch, tmp_path):
-    assert {p.name for p in _build.sources()} == {"conv2d.cu", "maxpool.cu", "lrn.cu"}
+    assert {p.name for p in _build.sources()} == {"conv2d.cu", "maxpool.cu", "lrn.cu", "conv_block.cu"}
     for p in _build.CSRC_DIR.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)

@@ -156,7 +156,7 @@ def test_run_cli_stdout_contract(capsys):
     assert float(jharness._RE_TIME.search(out).group(1)) > 0
     assert re.search(r"^AlexNet CPU Forward Pass completed in", out, re.MULTILINE)
     assert re.search(r"^Timing stats: n=\d+ ci95=", out, re.MULTILINE)
-    assert re.search(r"^Kernel launches: conv2d=0 maxpool2d=0 lrn=0 passes=\d+$", out, re.MULTILINE)
+    assert re.search(r"^Kernel launches: conv2d=0 maxpool2d=0 lrn=0 conv_block=0 passes=\d+$", out, re.MULTILINE)
 
 
 def test_run_cli_lists_both_configs(capsys):
@@ -174,8 +174,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_int8w_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_policy("int8w")
+    pol = resolve_policy("int8w")
+    assert pol.name == "int8w" and pol.quantized and pol.layer("conv1").params == "int8"
     with pytest.raises(ValueError):
         resolve_policy("fp64")
     assert resolve_policy(None).name == "fp32"
