@@ -12,20 +12,37 @@ with a non-zero exit code and nothing is caught:
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
    one PyTorch library call with CUDA events, beside the card's bound; then
-   the fused ``conv_block`` kernel at both blocks in fp32, bf16 and int8w:
-   against its plain version, bitwise against the staged kernel chain of
-   the same block (fp32, bf16), timed beside that chain, its plain version,
-   the cuDNN chain (a note: no one library call computes a block) and the
-   bound; and every kernel again at edge shapes off the main path;
+   the conv and pool variants the autotuner sweeps: the taps, pairs and
+   im2col ("fused") conv kernels, the phases pool, and the hpool epilogue
+   and k_block modes of the vcol and taps convs with the pool's W stage,
+   each against its plain version and timed the same way, plus bitwise:
+   hpool + W stage against conv + maxpool2d (vcol, taps; conv1, conv2),
+   k_block 64 and 128 against 0 (vcol, taps; conv2), phases against
+   maxpool2d (pool1, pool2); then the fused ``conv_block`` kernel at both
+   blocks in fp32, bf16 and int8w: against its plain version, bitwise
+   against the staged kernel chain of the same block (fp32, bf16), timed
+   beside that chain, its plain version, the cuDNN chain (a note: no one
+   library call computes a block) and the bound; and every kernel again at
+   edge shapes off the main path (an even-fq pairs case, a ragged output,
+   C=5 with K=40 among them);
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
-   ``TPU_FRAMEWORK_FUSE=block`` in fp32, bf16 and int8w, and ``--dtype
-   int8w`` staged on both tiers, batch 128; check the golden first-10 on
-   the staged and fused fp32 routes, every route against ``v1_jit`` fp32
-   on numpy-seeded random params within the precision budgets, fused
-   int8w against staged int8w, and ``ToleranceGate().screen_blocks`` at
-   227x227 for fp32, bf16 and int8w.
+   ``TPU_FRAMEWORK_FUSE=block`` in fp32, bf16 and int8w, ``--dtype int8w``
+   staged on both tiers, and ``v3_pallas`` with ``TPU_FRAMEWORK_CONV=taps``,
+   ``pairs`` and ``fused``, ``POOL=phases``, ``FUSE=hpool`` and
+   ``KBLOCK=128`` in fp32 and bf16 (taps also in int8w), batch 128; check
+   the golden first-10 on every fp32 kernel route, every route against
+   ``v1_jit`` fp32 on numpy-seeded random params within the precision
+   budgets, fused int8w against staged int8w, and
+   ``ToleranceGate().screen_blocks`` at 227x227 for fp32, bf16 and int8w;
+4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
+   32, sweeping fp32, bf16 and int8w with the gate journaled and
+   preflighted; it must print ``Tune plan: swept``, every dtype's plan must
+   show no failed candidate and no degraded layer, the gate journal must
+   hold a ``gate_pass`` for fp32, and a second identical call must print
+   ``Tune plan: cache``. Each layer's winner is printed with its
+   ``best_ms`` and ``default_ms``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. Details of every
@@ -37,7 +54,7 @@ Tolerances, kernel against plain version on the same inputs:
 - conv and LRN bf16: per element, 1 bf16 ulp (where that order flips the
   one rounding to bf16) plus the fp32 term above (1e-5, LRN 1e-6, of the
   max), which dominates where a sum cancels to near zero;
-- pool: bitwise (max is exact);
+- pool, phases pool and W stage: bitwise (max is exact);
 - LRN fp32: max |diff| <= 1e-6 x max |plain| (same sums, same powf);
 - conv_block fp32: 1e-5 x max |plain|, as conv; bf16 and int8w: 1 bf16 ulp
   + 1e-5 of the max, and 2 ulps for a block that ends in LRN: a one-ulp
@@ -60,6 +77,7 @@ import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -71,10 +89,14 @@ TIMED_REPS = 25
 TPU_FILE = "cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py"
 PORT = "cuda_mpi_gpu_cluster_programming_tpu_torch"
 KERNELS = {
-    # name: (source, TPU kernel it replaces, stages on the main path)
-    "conv2d": (f"{PORT}/csrc/conv2d.cu", f"{TPU_FILE}:434", ("conv1", "conv2")),
-    "maxpool2d": (f"{PORT}/csrc/maxpool.cu", f"{TPU_FILE}:963", ("pool1", "pool2")),
-    "lrn": (f"{PORT}/csrc/lrn.cu", f"{TPU_FILE}:1024", ("lrn2",)),
+    # name: (source, TPU kernel it replaces, stages on the main path, the route's run)
+    "conv2d": (f"{PORT}/csrc/conv2d.cu", f"{TPU_FILE}:434", ("conv1", "conv2"), ""),
+    "maxpool2d": (f"{PORT}/csrc/maxpool.cu", f"{TPU_FILE}:963", ("pool1", "pool2"), ""),
+    "lrn": (f"{PORT}/csrc/lrn.cu", f"{TPU_FILE}:1024", ("lrn2",), ""),
+    "conv_taps": (f"{PORT}/csrc/conv_taps.cu", f"{TPU_FILE}:399", ("conv1", "conv2"), "+CONV=taps"),
+    "conv_pairs": (f"{PORT}/csrc/conv_pairs.cu", f"{TPU_FILE}:380", ("conv1", "conv2"), "+CONV=pairs"),
+    "conv_im2col": (f"{PORT}/csrc/conv_im2col.cu", f"{TPU_FILE}:328", ("conv1", "conv2"), "+CONV=fused"),
+    "maxpool_phases": (f"{PORT}/csrc/maxpool_phases.cu", f"{TPU_FILE}:889", ("pool1", "pool2"), "+POOL=phases"),
 }
 BLOCK_KERNEL = ("conv_block", f"{PORT}/csrc/conv_block.cu",
                 "cuda_mpi_gpu_cluster_programming_tpu/ops/megakernel.py:111", ("block1", "block2"))
@@ -206,22 +228,120 @@ def kernel_phase(spec, peak_name) -> list:
             flops=x.numel() * 12, nbytes=2 * x.numel() * es, peak="fp32",
             rule=1e-6 if pol == "fp32" else ("ulp", 1e-6),
         ))
-        for st in stages:
-            res = compare(st["rule"], st["run"](), st["plain"]())
-            torch.cuda.synchronize()
-            bound, by = spec.bound_ms(st["flops"], st["nbytes"], st["peak"])
-            row = dict(
-                kernel=st["kernel"], stage=st["stage"], dtype=pol, **res,
-                ms=gpu_time_ms(st["run"]), plain_ms=gpu_time_ms(st["plain"]),
-                library_ms=gpu_time_ms(st["library"]), library_call=st["library_call"],
-                bound_ms=bound, bound_by=by, flops=st["flops"], bytes=st["nbytes"],
-                peak=f"{spec.name} {peak_name(st['peak'])}",
-            )
-            log(f"kernel {row['kernel']:9s} {row['stage']:5s} {pol}: ok={row['ok']} tol={row['tol']} "
-                f"max_abs={row['max_abs_err']:.3g} max_rel={row['max_rel_err']:.3g} | ms={row['ms']:.4f} "
-                f"plain={row['plain_ms']:.4f} library={row['library_ms']:.4f} bound={row['bound_ms']:.4f} ({by})")
-            require(row["ok"], f"{row['kernel']} at {row['stage']} {pol} disagrees with its plain version: {res}")
-            rows.append(row)
+        rows += [measure(st, pol, spec, peak_name) for st in stages]
+        del t, stages
+        torch.cuda.empty_cache()
+    return rows
+
+
+def measure(st, pol, spec, peak_name) -> dict:
+    """One stage row: the kernel against its plain version by the stage's
+    rule (and, where ``st["same_as"]`` is given, bitwise against that
+    reference), then kernel, plain and library times beside the bound."""
+    got = st["run"]()
+    res = compare(st["rule"], got, st["plain"]())
+    if "same_as" in st:
+        res["bitwise_ref"] = st["same_as_name"]
+        res["bitwise_ok"] = bool(torch.equal(got, st["same_as"]()))
+    torch.cuda.synchronize()
+    bound, by = spec.bound_ms(st["flops"], st["nbytes"], st["peak"])
+    lib = st.get("library")
+    row = dict(
+        kernel=st["kernel"], stage=st["stage"], mode=st.get("mode", ""), dtype=pol, **res,
+        ms=gpu_time_ms(st["run"]), plain_ms=gpu_time_ms(st["plain"]),
+        library_ms=gpu_time_ms(lib) if lib is not None else None, library_call=st.get("library_call"),
+        bound_ms=bound, bound_by=by, flops=st["flops"], bytes=st["nbytes"],
+        peak=f"{spec.name} {peak_name(st['peak'])}",
+    )
+    name = f"{row['kernel']}{'[' + row['mode'] + ']' if row['mode'] else ''}"
+    lib_s = f"{row['library_ms']:.4f}" if lib is not None else "n/a"
+    log(f"kernel {name:14s} {row['stage']:5s} {pol}: ok={row['ok']} tol={row['tol']} "
+        f"max_abs={row['max_abs_err']:.3g} max_rel={row['max_rel_err']:.3g}"
+        + (f" bitwise_vs_{res['bitwise_ref']}={res['bitwise_ok']}" if "same_as" in st else "")
+        + f" | ms={row['ms']:.4f} plain={row['plain_ms']:.4f} library={lib_s} bound={row['bound_ms']:.4f} ({by})")
+    require(row["ok"], f"{name} at {row['stage']} {pol} disagrees with its plain version: {res}")
+    require(res.get("bitwise_ok", True), f"{name} at {row['stage']} {pol} differs from {res.get('bitwise_ref')}")
+    return row
+
+
+def variant_phase(spec, peak_name) -> list:
+    """Phase 2, the variants the tuner sweeps, at the main path's stages in
+    fp32 and bf16: the taps, pairs and im2col convs, the hpool and k_block
+    modes of the vcol and taps convs, the W stage after hpool, and the
+    phases pool; each against its plain version, with the bitwise checks
+    of the module docstring, timed beside its bound and a library call."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    conv_fns = {
+        "conv2d": (ck.conv2d_bias_relu, ck.conv2d_bias_relu_plain),
+        "conv_taps": (ck.conv_taps, ck.conv_taps_plain),
+        "conv_pairs": (ck.conv_pairs, ck.conv_pairs_plain),
+        "conv_im2col": (ck.conv_im2col, ck.conv_im2col_plain),
+    }
+    rows = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2026)
+        t = stage_inputs(dtype, gen)
+        es = t["x"].element_size()
+        rule = FP32_REL if pol == "fp32" else ("ulp", FP32_REL)
+        stages = []
+        convs = (("conv1", t["x"], t["w1"], t["b1"], 4, 0), ("conv2", t["q1"], t["w2"], t["b2"], 1, 2))
+        for stage, x, w, b, s, p in convs:
+            n, ho, wo, k = t["y1" if stage == "conv1" else "y2"].shape
+            flops = 2 * n * ho * wo * k * w.shape[0] * w.shape[1] * w.shape[2]
+            in_bytes = (x.numel() + w.numel() + b.numel()) * es
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib = lambda x=x, wl=wl, b=b, s=s, p=p: F.conv2d(x.permute(0, 3, 1, 2), wl, b, stride=s, padding=p)  # noqa: E731
+            hp = (ho - 3) // 2 + 1
+            modes = [(kname, "", {}) for kname in ("conv_taps", "conv_pairs", "conv_im2col")]
+            modes += [(kname, "hpool", dict(hpool=(3, 2))) for kname in ("conv2d", "conv_taps")]
+            if stage == "conv2":
+                modes += [(kname, f"k_block={kb}", dict(k_block=kb)) for kname in ("conv2d", "conv_taps")
+                          for kb in (64, 128)]
+            for kname, mode, extra in modes:
+                fn, plain = conv_fns[kname]
+                run = lambda fn=fn, x=x, w=w, b=b, s=s, p=p, e=extra: fn(x, w, b, stride=s, padding=p, **e)  # noqa: E731
+                st = dict(
+                    kernel=kname, stage=stage, mode=mode, run=run, peak=pol, rule=rule, flops=flops,
+                    plain=lambda plain=plain, x=x, w=w, b=b, s=s, p=p, e=extra: plain(x, w, b, stride=s, padding=p, **e),
+                    nbytes=in_bytes + n * (hp if mode == "hpool" else ho) * wo * k * es,
+                )
+                if mode == "hpool":
+                    # no one library call takes the H max in a conv's epilogue
+                    st.update(library=None, library_call=None)
+                    unfused = lambda fn=fn, x=x, w=w, b=b, s=s, p=p: ck.maxpool2d(  # noqa: E731
+                        fn(x, w, b, stride=s, padding=p), window=3, stride=2)
+                    y_h = run()
+                    stages.append(st)
+                    stages.append(dict(
+                        kernel="maxpool2d", stage="pool1" if stage == "conv1" else "pool2", mode=f"W stage after {kname}",
+                        run=lambda y=y_h: ck.maxpool2d_w(y, window=3, stride=2),
+                        plain=lambda y=y_h: ck.maxpool_rect_plain(y, window=(1, 3), stride=(1, 2)),
+                        library=lambda y=y_h: F.max_pool2d(y.permute(0, 3, 1, 2), (1, 3), (1, 2)),
+                        library_call="F.max_pool2d (1x3 / 1x2, channels-last)",
+                        flops=n * hp * hp * k * 3, nbytes=(y_h.numel() + n * hp * hp * k) * es, peak="fp32",
+                        rule="bitwise", same_as=unfused, same_as_name=f"{kname}+maxpool2d",
+                    ))
+                else:
+                    st.update(library=lib, library_call="F.conv2d (cuDNN, channels-last, bias, no ReLU)")
+                    if mode:
+                        st.update(same_as=lambda fn=fn, x=x, w=w, b=b, s=s, p=p: fn(x, w, b, stride=s, padding=p),
+                                  same_as_name="k_block=0")
+                    stages.append(st)
+        for stage, x in (("pool1", t["y1"]), ("pool2", t["y2"])):
+            y = ck.maxpool2d(x, window=3, stride=2)
+            stages.append(dict(
+                kernel="maxpool_phases", stage=stage,
+                run=lambda x=x: ck.maxpool_phases(x, window=3, stride=2),
+                plain=lambda x=x: ck.maxpool_phases_plain(x, window=3, stride=2),
+                library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
+                library_call="F.max_pool2d (channels-last)",
+                flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
+                same_as=lambda x=x: ck.maxpool2d(x, window=3, stride=2), same_as_name="maxpool2d",
+            ))
+        rows += [measure(st, pol, spec, peak_name) for st in stages]
         del t, stages
         torch.cuda.empty_cache()
     return rows
@@ -230,7 +350,9 @@ def kernel_phase(spec, peak_name) -> list:
 def edge_phase() -> list:
     """Kernel against plain version at shapes off the main path: channel
     and pixel counts that are not tile multiples, stride 2, an odd channel
-    count, other pool windows and LRN sizes, both alpha forms."""
+    count, other pool windows and LRN sizes, both alpha forms; the conv
+    variants at an even fq, a ragged output and C=5/K=40, with the hpool,
+    k_block and phases bitwise checks."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -245,11 +367,37 @@ def edge_phase() -> list:
             res = compare(rule, ck.conv2d_bias_relu(x, w, b, stride=s, padding=p),
                           ck.conv2d_bias_relu_plain(x, w, b, stride=s, padding=p))
             results.append((f"conv {n}x{h}x{h}x{c} F{f} K{k} s{s} p{p} {pol}", res))
+        # the variants: an even-fq pairs case (F8 s4: fq 2), a ragged output (23 rows), C=5 with K=40, and
+        # K=256 for both k_blocks
+        for n, h, c, f, k, s, p in ((2, 35, 5, 8, 40, 4, 1), (3, 45, 5, 3, 40, 2, 1),
+                                    (2, 31, 96, 5, 72, 1, 2), (1, 13, 16, 3, 256, 1, 1)):
+            x, w, b = r(n, h, h, c), r(f, f, c, k, scale=2 / (f * f * c) ** 0.5, shift=0.5), r(k, scale=0.2, shift=0.5)
+            kw = dict(stride=s, padding=p)
+            rule = FP32_REL if pol == "fp32" else ("ulp", FP32_REL)
+            tag = f"{n}x{h}x{h}x{c} F{f} K{k} s{s} p{p} {pol}"
+            pairs = [("conv_taps", ck.conv_taps, ck.conv_taps_plain), ("conv_im2col", ck.conv_im2col, ck.conv_im2col_plain)]
+            if -(-f // s) >= 2:
+                pairs.append(("conv_pairs", ck.conv_pairs, ck.conv_pairs_plain))
+            for name, fn, plain in pairs:
+                results.append((f"{name} {tag}", compare(rule, fn(x, w, b, **kw), plain(x, w, b, **kw))))
+            for name, fn in (("conv2d", ck.conv2d_bias_relu), ("conv_taps", ck.conv_taps)):
+                y = fn(x, w, b, **kw)
+                if y.shape[1] >= 3:
+                    got = ck.maxpool2d_w(fn(x, w, b, hpool=(3, 2), **kw), window=3, stride=2)
+                    results.append((f"{name} hpool+W vs staged {tag}", compare("bitwise", got, ck.maxpool2d(y, window=3, stride=2))))
+                for kb in (64, 128):
+                    if ck.effective_k_block(kb, k):
+                        results.append((f"{name} k_block={kb} vs 0 {tag}", compare("bitwise", fn(x, w, b, k_block=kb, **kw), y)))
+            if y.shape[1] >= 3:
+                results.append((f"maxpool_phases vs maxpool2d {tag}", compare(
+                    "bitwise", ck.maxpool_phases(y, window=3, stride=2), ck.maxpool2d(y, window=3, stride=2))))
         for shape, win, st in (((3, 14, 14, 40), 3, 2), ((2, 9, 9, 7), 2, 2), ((1, 8, 8, 3), 3, 1)):
             x = r(*shape, shift=0.5)
             res = compare("bitwise", ck.maxpool2d(x, window=win, stride=st),
                           ck.maxpool2d_plain(x, window=win, stride=st))
             results.append((f"pool {shape} {win}/{st} {pol}", res))
+            res = compare("bitwise", ck.maxpool_phases(x, window=win, stride=st), ck.maxpool_phases_plain(x, window=win, stride=st))
+            results.append((f"maxpool_phases {shape} {win}/{st} {pol}", res))
         for size, aos in ((5, False), (5, True), (3, False)):
             x = r(2, 5, 5, 40, scale=60, shift=0.5)
             kw = dict(size=size, alpha=1e-4, beta=0.75, k=2.0, alpha_over_size=aos)
@@ -425,39 +573,83 @@ def run_cli(argv) -> str:
     return out
 
 
-STAGED = {"conv2d": 2, "maxpool2d": 2, "lrn": 1, "conv_block": 0}
-FUSED = {"conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 2}
-INT8W_STAGED = {"conv2d": 2, "maxpool2d": 2, "lrn": 0, "conv_block": 0}  # the LRN is the fp32 reference op
-NONE = {"conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0}
-MAIN_RUNS = (
-    # (config, policy, TPU_FRAMEWORK_FUSE, kernel launches per forward)
-    ("v3_pallas", "fp32", "", STAGED), ("v3_pallas", "bf16", "", STAGED),
-    ("v1_jit", "fp32", "", NONE), ("v1_jit", "bf16", "", NONE),
-    ("v3_pallas", "fp32", "block", FUSED), ("v3_pallas", "bf16", "block", FUSED),
-    ("v3_pallas", "int8w", "block", FUSED),
-    ("v3_pallas", "int8w", "", INT8W_STAGED), ("v1_jit", "int8w", "", NONE),
-)
-
-
-def drive(key, pol, fuse, per_forward) -> dict:
-    """One main-path run through ``run.main`` with ``TPU_FRAMEWORK_FUSE``
-    set for the call and restored after; the launch counts are set to 0
-    just before it and read just after."""
+def _launches(**counts) -> dict:
+    """Kernel launches per forward: the counts given, 0 for every other kernel."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
-    before = os.environ.get("TPU_FRAMEWORK_FUSE")
-    os.environ["TPU_FRAMEWORK_FUSE"] = fuse
+    return {name: counts.get(name, 0) for name in ck.LAUNCHES}
+
+
+STAGED = dict(conv2d=2, maxpool2d=2, lrn=1)
+MAIN_RUNS = (
+    # (config, policy, TPU_FRAMEWORK_* knobs, kernel launches per forward)
+    ("v3_pallas", "fp32", {}, STAGED), ("v3_pallas", "bf16", {}, STAGED),
+    ("v1_jit", "fp32", {}, {}), ("v1_jit", "bf16", {}, {}),
+    ("v3_pallas", "fp32", {"FUSE": "block"}, dict(conv_block=2)),
+    ("v3_pallas", "bf16", {"FUSE": "block"}, dict(conv_block=2)),
+    ("v3_pallas", "int8w", {"FUSE": "block"}, dict(conv_block=2)),
+    # int8w staged: the LRN is the fp32 reference op
+    ("v3_pallas", "int8w", {}, dict(conv2d=2, maxpool2d=2)), ("v1_jit", "int8w", {}, {}),
+    *[(key, pol, knobs, counts) for knobs, counts in (
+        ({"CONV": "taps"}, dict(conv_taps=2, maxpool2d=2, lrn=1)),
+        ({"CONV": "pairs"}, dict(conv_pairs=2, maxpool2d=2, lrn=1)),
+        ({"CONV": "fused"}, dict(conv_im2col=2, maxpool2d=2, lrn=1)),
+        ({"POOL": "phases"}, dict(conv2d=2, maxpool_phases=2, lrn=1)),
+        # the conv kernel takes the pool's H max; maxpool2d runs the W stage
+        ({"FUSE": "hpool"}, dict(conv2d=2, maxpool2d=2, lrn=1)),
+        # k_block 128 applies to conv2 (K=256); conv1 (K=96) runs unblocked
+        ({"KBLOCK": "128"}, STAGED),
+    ) for key, pol in (("v3_pallas", "fp32"), ("v3_pallas", "bf16"))],
+    ("v3_pallas", "int8w", {"CONV": "taps"}, dict(conv_taps=2, maxpool2d=2)),
+)
+_KNOB_FIELD = {"FUSE": "fuse", "CONV": "conv", "POOL": "pool", "KBLOCK": "k_block", "ROWBLOCK": "row_block"}
+
+
+def run_name(key, pol, knobs) -> str:
+    return f"{key}{''.join(f'+{k}={v}' for k, v in knobs.items())}/{pol}"
+
+
+def run_variants(key, knobs):
+    """The KernelVariants a route's knobs set (None for the reference tier)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.variants import KernelVariants
+
+    if key != "v3_pallas":
+        return None
+    return KernelVariants(**{_KNOB_FIELD[k]: int(v) if k in ("KBLOCK", "ROWBLOCK") else v for k, v in knobs.items()})
+
+
+@contextlib.contextmanager
+def knob_env(knobs):
+    """Set the ``TPU_FRAMEWORK_*`` variables of ``knobs`` (and clear the
+    others) for the block; restore them after."""
+    names = [f"TPU_FRAMEWORK_{k}" for k in _KNOB_FIELD]
+    saved = {n: os.environ.get(n) for n in names}
     try:
+        for n in names:
+            os.environ.pop(n, None)
+        for k, v in knobs.items():
+            os.environ[f"TPU_FRAMEWORK_{k}"] = v
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+def drive(key, pol, knobs, per_forward) -> dict:
+    """One main-path run through ``run.main`` with the route's knobs set in
+    the environment for the call; the launch counts are set to 0 just
+    before it and read just after."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    with knob_env(knobs):
         ck.reset_launches()
         out = run_cli(["--config", key, "--dtype", pol, "--batch", str(BATCH), "--init", "random",
                        "--repeats", "10", "--warmup", "3"])
         launches = dict(ck.LAUNCHES)
-    finally:
-        if before is None:
-            del os.environ["TPU_FRAMEWORK_FUSE"]
-        else:
-            os.environ["TPU_FRAMEWORK_FUSE"] = before
-    name = f"{key}{'+fuse=' + fuse if fuse else ''}/{pol}"
+    name = run_name(key, pol, knobs)
     passes = int(re.search(r"^Kernel launches: .* passes=(\d+)$", out, re.M).group(1))
     shape = re.search(r"^Final Output Shape: (\S+)$", out, re.M).group(1)
     first10 = [float(v) for v in re.search(r"^Final Output \(first 10 values\): (.+)$", out, re.M).group(1).split()]
@@ -466,7 +658,7 @@ def drive(key, pol, fuse, per_forward) -> dict:
         f"launches={launches} passes={passes}")
     require(shape == "13x13x256", f"{name}: output shape {shape}")
     require(all(np.isfinite(first10)), f"{name}: non-finite output {first10}")
-    want = {k: n * passes for k, n in per_forward.items()}
+    want = {k: n * passes for k, n in _launches(**per_forward).items()}
     require(passes > 0 and launches == want, f"{name}: launches {launches}, want {want}")
     return dict(per_pass_ms=ms, images_per_sec=BATCH / ms * 1e3, launches=launches, passes=passes, stdout=out)
 
@@ -476,20 +668,22 @@ def main_path_phase() -> dict:
     from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
-    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.variants import KernelVariants
     from cuda_mpi_gpu_cluster_programming_tpu_torch.precision.gate import ToleranceGate
 
     result = {"runs": {}}
-    for key, pol, fuse, per_forward in MAIN_RUNS:
-        result["runs"][f"{key}{'+fuse=' + fuse if fuse else ''}/{pol}"] = drive(key, pol, fuse, per_forward)
+    for key, pol, knobs, per_forward in MAIN_RUNS:
+        result["runs"][run_name(key, pol, knobs)] = drive(key, pol, knobs, per_forward)
 
-    fused = KernelVariants(fuse="block")
-    for key, v in (("v3_pallas", None), ("v3_pallas+fuse=block", fused), ("v1_jit", None)):
-        fwd = configs.build_forward(configs.REGISTRY[key.split("+")[0]], variants=v)
+    for key, pol, knobs, _n in MAIN_RUNS:
+        if pol != "fp32":
+            continue
+        name = run_name(key, pol, knobs)
+        with knob_env({}):
+            fwd = configs.build_forward(configs.REGISTRY[key], variants=run_variants(key, knobs))
         got = fwd(init.init_params_deterministic(), init.deterministic_input(1))[0].reshape(-1)[:10].cpu().numpy()
-        log(f"golden {key}: {' '.join(f'{v:.4f}' for v in got)}")
-        require(np.allclose(got, GOLDEN_FIRST10, rtol=2e-5, atol=0), f"{key} golden first-10 {got}")
-        result[f"golden/{key}"] = got.tolist()
+        log(f"golden {name}: {' '.join(f'{v:.4f}' for v in got)}")
+        require(np.allclose(got, GOLDEN_FIRST10, rtol=2e-5, atol=0), f"{name} golden first-10 {got}")
+        result[f"golden/{name}"] = got.tolist()
 
     rng = np.random.default_rng(2026)
     params = init.params_from_jax({
@@ -498,10 +692,10 @@ def main_path_phase() -> dict:
     })
     x = torch.from_numpy(rng.random((BATCH, 227, 227, 3), dtype=np.float32)).cuda()
     outs = {}
-    for key, pol, fuse, _n in MAIN_RUNS:
-        v = KernelVariants(fuse=fuse or "none") if key == "v3_pallas" else None
-        outs[f"{key}{'+fuse=' + fuse if fuse else ''}/{pol}"] = configs.build_forward(
-            configs.REGISTRY[key], policy=pol, variants=v)(params, x)
+    for key, pol, knobs, _n in MAIN_RUNS:
+        with knob_env({}):
+            fwd = configs.build_forward(configs.REGISTRY[key], policy=pol, variants=run_variants(key, knobs))
+        outs[run_name(key, pol, knobs)] = fwd(params, x)
     oracle = outs["v1_jit/fp32"]
     omax = float(oracle.abs().max())
     for name, out in outs.items():
@@ -513,10 +707,18 @@ def main_path_phase() -> dict:
         require(ok, f"{name} outside its budget against the fp32 oracle")
         result[f"budget/{name}"] = dict(max_abs=err, rel_of_max=err / omax)
     for pol in ("fp32", "bf16"):
-        same = bool(torch.equal(outs[f"v3_pallas+fuse=block/{pol}"], outs[f"v3_pallas/{pol}"]))
-        log(f"fused v3_pallas {pol} bitwise equal to staged v3_pallas {pol}: {same}")
-        require(same, f"fused {pol} differs from the staged kernel chain")
-    staged, fused_out = outs["v3_pallas/int8w"], outs["v3_pallas+fuse=block/int8w"]
+        for knobs in ({"FUSE": "block"}, {"FUSE": "hpool"}, {"POOL": "phases"}, {"KBLOCK": "128"}):
+            name = run_name("v3_pallas", pol, knobs)
+            same = bool(torch.equal(outs[name], outs[f"v3_pallas/{pol}"]))
+            log(f"{name} bitwise equal to staged v3_pallas/{pol}: {same}")
+            require(same, f"{name} differs from the staged kernel chain")
+        # pairs and fused sum each output in the taps order: the same bits
+        for conv in ("pairs", "fused"):
+            same = bool(torch.equal(outs[run_name("v3_pallas", pol, {"CONV": conv})],
+                                    outs[run_name("v3_pallas", pol, {"CONV": "taps"})]))
+            log(f"v3_pallas+CONV={conv}/{pol} bitwise equal to v3_pallas+CONV=taps/{pol}: {same}")
+            require(same, f"CONV={conv} differs from CONV=taps")
+    staged, fused_out = outs["v3_pallas/int8w"], outs["v3_pallas+FUSE=block/int8w"]
     rel = float((fused_out - staged).abs().max() / staged.abs().max())
     log(f"budget fused int8w vs staged int8w: rel_of_max={rel:.3g} (budget {INT8W_REL})")
     require(rel <= INT8W_REL, "fused int8w outside the int8w budget of staged int8w")
@@ -545,25 +747,85 @@ def main_path_phase() -> dict:
     return result
 
 
+TUNE_BATCH = 32
+
+
+def tune_phase() -> dict:
+    """Phase 4: ``run.main --tune`` sweeps fp32, bf16 and int8w x every
+    candidate of both conv layers at 227x227 (the gate journaled and
+    preflighted), then a second identical call must hit the plan cache. No
+    candidate may fail and no layer degrade: a broken kernel must not hide
+    in the sweep's record of failed candidates."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+
+    out_dir = Path("chip_smoke_out")
+    out_dir.mkdir(exist_ok=True)
+    plan_path, journal = out_dir / "tune_plan.json", out_dir / "tune_plan_gate.jsonl"
+    for f in (plan_path, journal):
+        f.unlink(missing_ok=True)
+    argv = ["--config", "v3_pallas", "--tune", "--plan", str(plan_path), "--batch", str(TUNE_BATCH),
+            "--tune-repeats", "2", "--tune-warmup", "1", "--repeats", "3", "--warmup", "2"]
+    with knob_env({}):
+        t0 = time.perf_counter()
+        first = run_cli(argv)
+        t1 = time.perf_counter()
+        second = run_cli(argv)
+        t2 = time.perf_counter()
+    for what, out, word in (("first", first, "swept"), ("second", second, "cache")):
+        line = re.search(r"^Tune plan: .*$", out, re.M)
+        log(f"tune {what} call: {line.group(0) if line else 'no Tune plan line'}")
+        require(line is not None and line.group(0).startswith(f"Tune plan: {word} hash="),
+                f"the {what} --tune call did not print 'Tune plan: {word}':\n{out[-3000:]}")
+    obj = json.loads(plan_path.read_text())
+    by_dtype = {entry["dtype"]: entry for entry in obj["plans"].values()}
+    require(set(by_dtype) == {"fp32", "bf16", "int8w"}, f"plans for {sorted(by_dtype)}")
+    winners = {}
+    for dt, entry in sorted(by_dtype.items()):
+        require(entry["degraded"] == "", f"{dt} plan degraded: {entry['degraded']}")
+        for layer in ("conv1", "conv2"):
+            st = entry["stats"][layer]
+            v = entry["layers"][layer]
+            label = f"conv={v['conv']} pool={v['pool']} rb={v['row_block']} kb={v['k_block']} fuse={v['fuse']}"
+            log(f"tune winner {dt} {layer}: {label} best_ms={st.get('best_ms')} default_ms={st.get('default_ms')} "
+                f"timed={st.get('timed')} failed={st.get('failed')} pruned={st.get('pruned')}")
+            require(st.get("failed") == 0 and st.get("degraded", "") == "",
+                    f"{dt} {layer}: failed={st.get('failed')} degraded={st.get('degraded')} {st.get('failures')}")
+            winners[f"{dt}/{layer}"] = dict(variants=label, best_ms=st.get("best_ms"), default_ms=st.get("default_ms"),
+                                            timed=st.get("timed"), pruned=st.get("pruned"))
+    recs = Journal.load(journal)
+    require(any(r["kind"] == "gate_pass" and r.get("policy") == "fp32" for r in recs),
+            f"no gate_pass record for fp32 in {journal}")
+    (policy,) = obj["policies"].values()
+    log(f"tune dtype winner: {policy['dtype']} (sweep {t1 - t0:.1f} s, cached call {t2 - t1:.1f} s, "
+        f"{len(recs)} gate records)")
+    return dict(winners=winners, dtype_winner=policy["dtype"], sweep_s=t1 - t0, cached_s=t2 - t1,
+                gate_records=recs, stdout_sweep=first, stdout_cache=second)
+
+
 def kernels_line(rows, runs) -> dict:
     """One entry per (kernel, dtype): times summed over the kernel's stages
-    in one forward; launches from that dtype's main-path run of the route
-    that launches the kernel (staged, or fused for conv_block)."""
+    in one forward of its route; launches from that dtype's main-path run
+    of the route that launches the kernel (staged, a variant's, or fused for
+    conv_block). A kernel's other modes (hpool, k_block, the W stage) are
+    listed under ``modes``, outside the sums."""
     name, source, replaces, stages = BLOCK_KERNEL
-    table = [(k, src, rep, st, pol, f"v3_pallas/{pol}") for k, (src, rep, st) in KERNELS.items() for pol in ("fp32", "bf16")]
-    table += [(name, source, replaces, stages, pol, f"v3_pallas+fuse=block/{pol}") for pol in ("fp32", "bf16", "int8w")]
+    table = [(k, src, rep, st, pol, f"v3_pallas{route}/{pol}")
+             for k, (src, rep, st, route) in KERNELS.items() for pol in ("fp32", "bf16")]
+    table += [(name, source, replaces, stages, pol, f"v3_pallas+FUSE=block/{pol}") for pol in ("fp32", "bf16", "int8w")]
     entries = []
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
     for name, source, replaces, stages, pol, run_key in table:
-        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == pol]
+        every = [r for r in rows if r["kernel"] == name and r["dtype"] == pol]
+        mine = [r for r in every if not r.get("mode")]
+        modes = [r for r in every if r.get("mode")]
         require([r["stage"] for r in mine] == list(stages), f"{name} {pol}: stages {mine}")
         run = runs[run_key]
         ms = sum(r["ms"] for r in mine)
         block = name == "conv_block"
-        keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
-        entries.append(dict(
-            name=name, dtype=pol, route="cuda", source=source, replaces=replaces,
+        entry = dict(
+            name=name, dtype=pol, route="cuda", source=source, replaces=replaces, run=run_key,
             launches=run["launches"][name], launches_per_forward=run["launches"][name] / run["passes"],
-            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+            max_abs_err=max(r["max_abs_err"] for r in every), within_tolerance=all(r["ok"] for r in every),
             ms=ms, kernel_ms=ms, plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=sum(r["bound_ms"] for r in mine),
             # the stages' bounds add up; the label is the larger stage's
@@ -574,7 +836,10 @@ def kernels_line(rows, runs) -> dict:
                     cudnn_chain_ms_note=sum(r["cudnn_chain_ms"] for r in mine)) if block else {}),
             stages={r["stage"]: {k: r[k] for k in keys + (("staged_ms", "cudnn_chain_ms") if block else ())}
                     for r in mine},
-        ))
+        )
+        if modes:
+            entry["modes"] = {f"{r['mode']} @ {r['stage']}": {k: r[k] for k in keys} for r in modes}
+        entries.append(entry)
     return {"kernels": entries}
 
 
@@ -605,11 +870,13 @@ def main() -> int:
     def peak_name(p):
         return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (conv)"
 
-    rows = kernel_phase(spec, peak_name) + block_phase(spec, peak_name)
+    rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
     edges = edge_phase() + block_edge_phase()
     log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
+    tune = tune_phase()
+    log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
 
     out_dir = Path("chip_smoke_out")
@@ -617,7 +884,8 @@ def main() -> int:
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log,
-             stages=rows, edge_cases=edges, main_path=main, kernels=line["kernels"]), indent=1, default=str))
+             stages=rows, edge_cases=edges, main_path=main, tune=tune, kernels=line["kernels"]), indent=1,
+        default=str))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -6,7 +6,8 @@ The keys are the JAX package's, so the CLI and the analysis names map 1:1:
   cuDNN on the card). The oracle.
 - ``v3_pallas`` ↔ V3 CUDA: the hand-written CUDA kernel tier
   (``ops/kernel_model.py``; the JAX package runs Pallas kernels here);
-  ``TPU_FRAMEWORK_FUSE=block`` runs each block as one fused launch.
+  the ``TPU_FRAMEWORK_*`` knobs or a tuned plan pick each layer's conv,
+  pool and fusion variants.
 
 The sharded and full-AlexNet configs wait for later slices (ROADMAP Queue 1).
 """
@@ -66,7 +67,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_forward(exec_cfg: ExecConfig, model_cfg=None, policy=None, variants=None, device="cuda") -> Callable:
+def _resolve_variants(plan):
+    """Env-resolved variants, overlaid with a TunePlan's per-layer winners
+    when one is supplied. Precedence per knob: explicit env var beats the
+    tuned plan beats the code default (``tuning.plan.effective_layer_variants``
+    is the one implementation)."""
+    kv = KernelVariants.resolve()
+    if plan is None:
+        return kv
+    from .tuning.plan import effective_layer_variants
+
+    return effective_layer_variants(plan, base=kv)
+
+
+def build_forward(
+    exec_cfg: ExecConfig, model_cfg=None, policy=None, variants=None, device="cuda", plan=None,
+) -> Callable:
     """A ``(params, x) -> out`` callable for ``exec_cfg``.
 
     ``params`` and ``x`` are fp32 on ``device``, NHWC/HWIO; the output is
@@ -86,16 +102,18 @@ def build_forward(exec_cfg: ExecConfig, model_cfg=None, policy=None, variants=No
 
     ``variants`` (kernel tier only; the reference tier ignores it): a
     ``KernelVariants`` or per-layer ``LayerVariants``; None resolves the
-    ``TPU_FRAMEWORK_*`` environment now, once, so the returned function
-    keeps the variants it was built with. A knob the port cannot run
-    raises ``NotImplementedError`` here.
+    ``TPU_FRAMEWORK_*`` environment now, once, overlaid with ``plan`` (a
+    ``tuning.plan.TunePlan``) when one is given: per knob an explicit
+    environment variable beats the plan beats the default. The returned
+    function keeps the variants it was built with. A knob the port cannot
+    run raises ``NotImplementedError`` here.
     """
     dev = resolve_device(device)
     pol = resolve_policy(policy)
     cfg = model_cfg or BLOCKS12
     kv = None
     if exec_cfg.tier == "kernels":
-        kv = variants if variants is not None else KernelVariants.resolve()
+        kv = variants if variants is not None else _resolve_variants(plan)
         require_ported(kv)
     if pol.name != "bf16":
         true_fp32(dev)

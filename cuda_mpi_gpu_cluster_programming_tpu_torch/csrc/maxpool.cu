@@ -6,6 +6,11 @@
 // layout workaround for the TPU's vector unit; here one 2-D pass computes the
 // same window max. Max is exact, so the result is bitwise the same.
 //
+// The window is a rectangle (wh x ww taps, strides sh and sw) so that the
+// same kernel also runs the W-only stage (1 x window) that follows a conv
+// whose hpool epilogue already took the H-axis max (the TPU's
+// maxpool_pallas_w): the two stages give bitwise the 2-D pass's result.
+//
 // Bound on the H100: bytes (9 compares per output against 4.6 bytes moved
 // per output in fp32). Design: one thread per output element, channels
 // fastest, so a warp reads 32 neighbouring channels of one input pixel per
@@ -22,7 +27,7 @@ constexpr int THREADS = 256;
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 maxpool2d_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int H,
-                 int W, int C, int window, int stride, int Ho, int Wo) {
+                 int W, int C, int wh, int ww, int sh, int sw, int Ho, int Wo) {
   const long long total = static_cast<long long>(N) * Ho * Wo * C;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= total) return;
@@ -33,12 +38,12 @@ maxpool2d_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int H,
   const int oy = static_cast<int>(r % Ho);
   const long long n = r / Ho;
   const T* base =
-      x + ((n * H + static_cast<long long>(oy) * stride) * W +
-           static_cast<long long>(ox) * stride) * C + c;
+      x + ((n * H + static_cast<long long>(oy) * sh) * W +
+           static_cast<long long>(ox) * sw) * C + c;
   T best = base[0];
   float bf = port::to_f32(best);
-  for (int fy = 0; fy < window; ++fy) {
-    for (int fx = 0; fx < window; ++fx) {
+  for (int fy = 0; fy < wh; ++fy) {
+    for (int fx = 0; fx < ww; ++fx) {
       const T v = base[(static_cast<long long>(fy) * W + fx) * C];
       const float vf = port::to_f32(v);
       if (vf > bf || vf != vf) {
@@ -51,26 +56,27 @@ maxpool2d_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int H,
 }
 
 template <typename T>
-int launch(const void* x, void* y, int N, int H, int W, int C, int window,
-           int stride, int Ho, int Wo, void* stream) {
+int launch(const void* x, void* y, int N, int H, int W, int C, int wh, int ww,
+           int sh, int sw, int Ho, int Wo, void* stream) {
   const long long total = static_cast<long long>(N) * Ho * Wo * C;
   maxpool2d_kernel<T><<<port::blocks_for(total, THREADS), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), N, H, W, C, window, stride,
+      static_cast<const T*>(x), static_cast<T*>(y), N, H, W, C, wh, ww, sh, sw,
       Ho, Wo);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// A wh x ww window with strides sh (rows) and sw (columns).
 extern "C" int maxpool2d_f32(const void* x, void* y, int N, int H, int W, int C,
-                             int window, int stride, int Ho, int Wo,
+                             int wh, int ww, int sh, int sw, int Ho, int Wo,
                              void* stream) {
-  return launch<float>(x, y, N, H, W, C, window, stride, Ho, Wo, stream);
+  return launch<float>(x, y, N, H, W, C, wh, ww, sh, sw, Ho, Wo, stream);
 }
 
 extern "C" int maxpool2d_bf16(const void* x, void* y, int N, int H, int W,
-                              int C, int window, int stride, int Ho, int Wo,
-                              void* stream) {
-  return launch<port::bf16>(x, y, N, H, W, C, window, stride, Ho, Wo, stream);
+                              int C, int wh, int ww, int sh, int sw, int Ho,
+                              int Wo, void* stream) {
+  return launch<port::bf16>(x, y, N, H, W, C, wh, ww, sh, sw, Ho, Wo, stream);
 }

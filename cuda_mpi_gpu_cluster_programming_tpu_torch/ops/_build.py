@@ -106,10 +106,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # entry: (argtypes, dtype suffixes)
-    # x, w, b, y, N, H, W, C, K, F, stride, pad, Ho, Wo, relu, stream
-    "conv2d_bias_relu": ([_P, _P, _P, _P] + [_I] * 11 + [_P], ("f32", "bf16")),
-    # x, y, N, H, W, C, window, stride, Ho, Wo, stream
-    "maxpool2d": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
+    # x, w, b, y, N, H, W, C, K, F, stride, pad, Ho, Wo, relu, k_block, hpool window, hpool stride,
+    # Hp, stream
+    "conv2d_bias_relu": ([_P, _P, _P, _P] + [_I] * 15 + [_P], ("f32", "bf16")),
+    # xs, ws, b, y, N, Hs, Ws, cs, K, fq, Ho, Wo, relu, k_block, hpool window, hpool stride, Hp, stream
+    "conv_taps": ([_P, _P, _P, _P] + [_I] * 13 + [_P], ("f32", "bf16")),
+    # xpair, xs, wpair, wlast, b, y, N, Hs, Ws, cs, K, fq, Ho, Wo, relu, stream
+    "conv_pairs": ([_P] * 6 + [_I] * 9 + [_P], ("f32", "bf16")),
+    # xcol, w, b, y, N, Ho, Wo, KD, K, relu, stream
+    "conv_im2col": ([_P] * 4 + [_I] * 6 + [_P], ("f32", "bf16")),
+    # x, y, N, H, W, C, window rows, window cols, stride rows, stride cols, Ho, Wo, stream
+    "maxpool2d": ([_P, _P] + [_I] * 10 + [_P], ("f32", "bf16")),
+    # xph, y, N, hp, wp, C, window, stride, Ho, Wo, stream
+    "maxpool_phases": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
     # x, y, total, C, size, a, beta, k, stream
     "lrn": ([_P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P], ("f32", "bf16")),
     # x, w, b, scale, y, N, H, W, C, K, F, stride, pad, Ho, Wo, pool window, pool stride,

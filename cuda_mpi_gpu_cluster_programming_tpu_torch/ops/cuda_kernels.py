@@ -1,13 +1,29 @@
 """The port's hand-written CUDA kernels: wrappers and plain versions.
 
-Each kernel has:
+The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 
-- a wrapper (``conv2d_bias_relu``, ``maxpool2d``, ``lrn``, ``conv_block``) that checks
-  device, dtype, shape and contiguity, allocates its output with
-  ``torch.empty`` and launches on the current stream without
+- ``conv2d``: :func:`conv2d_bias_relu`, ``conv2d.cu``, vcol (with the hpool
+  epilogue and k_block);
+- ``conv_taps``: :func:`conv_taps`, ``conv_taps.cu``, taps (hpool, k_block);
+- ``conv_pairs``: :func:`conv_pairs`, ``conv_pairs.cu``, pairs;
+- ``conv_im2col``: :func:`conv_im2col`, ``conv_im2col.cu``, fused;
+- ``maxpool2d``: :func:`maxpool2d` and its W-only stage :func:`maxpool2d_w`,
+  ``maxpool.cu``, the sep2 pool;
+- ``maxpool_phases``: :func:`maxpool_phases`, ``maxpool_phases.cu``, the
+  phases pool;
+- ``lrn``: :func:`lrn`, ``lrn.cu``;
+- ``conv_block``: :func:`conv_block`, ``conv_block.cu``, fuse="block".
+
+The four conv kernels share one implicit-GEMM engine
+(``csrc/conv_engine.cuh``). Each kernel has:
+
+- a wrapper that checks device, dtype, shape and contiguity, packs the
+  operands its variant reads (``ops/packing.py``), allocates its output
+  with ``torch.empty`` and launches on the current stream without
   synchronising. A CUDA tensor goes to the kernel or the wrapper raises; a
   CPU tensor goes to the plain version, and only because it lies on the
-  CPU. Each launch adds one to ``LAUNCHES[<kernel>]``;
+  CPU. Each launch adds one to ``LAUNCHES[<kernel>]``, and
+  :func:`reset_launches` sets every count to 0;
 - a plain PyTorch version (``*_plain``) that repeats the kernel's
   arithmetic: the CPU path, and the yardstick ``chip_smoke.py`` holds each
   kernel against on the card.
@@ -24,11 +40,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, packing, variants
 from .shapes import conv_out_dim, pool_out_dim
 
 # Kernel launches since the last reset: a plain integer per kernel.
-LAUNCHES = {"conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0}
+LAUNCHES = {
+    "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
+    "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "maxpool_phases": 0,
+}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -76,6 +95,59 @@ def _window(x: torch.Tensor, fy: int, fx: int, stride: int, ho: int, wo: int) ->
 # --------------------------------------------------------------------- conv
 
 
+K_BLOCKS = (0, 64, 128)
+
+
+def effective_k_block(k_block: int, k: int) -> int:
+    """``variants.effective_k_block`` for a k_block the kernels take (0, or
+    a multiple of their 32-channel tile: 64, 128); raises for another."""
+    if k_block not in K_BLOCKS:
+        raise ValueError(f"k_block must be one of {K_BLOCKS}, got {k_block}")
+    return variants.effective_k_block(k_block, k)
+
+
+def _conv_geometry(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int):
+    """Check a conv's operands; return ``(device, (n, h, wd, c, f, k, ho, wo))``."""
+    dev = _check(name, x, w, b)
+    if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] or w.shape[2] != x.shape[3]:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit NHWC/HWIO")
+    if b.shape != (w.shape[3],):
+        raise ValueError(f"{name}: bias {tuple(b.shape)} for {w.shape[3]} channels")
+    n, h, wd, c = x.shape
+    f, k = w.shape[0], w.shape[3]
+    ho, wo = conv_out_dim(h, f, padding, stride), conv_out_dim(wd, f, padding, stride)
+    if min(n, ho, wo, k) <= 0:
+        raise ValueError(f"{name}: empty output for x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if max(x.numel(), n * ho * wo * k, f * f * c * k) >= 2**31:
+        raise ValueError(f"{name}: tensors past 2^31 elements")
+    return dev, (n, h, wd, c, f, k, ho, wo)
+
+
+def _hpool_dims(name: str, ho: int, hpool, k_block: int, n: int):
+    """``(pw, ps, hp)`` of an hpool epilogue ((0, 0, 0) without one)."""
+    if hpool is None:
+        return 0, 0, 0
+    pw, ps = hpool
+    hp = pool_out_dim(ho, pw, ps)
+    if hp <= 0:
+        raise ValueError(f"{name}: no {pw}/{ps} pool window fits {ho} conv rows")
+    if k_block:
+        raise ValueError(f"{name}: the hpool epilogue does not compose with k_block; unset one of them")
+    if n > 65535:
+        raise ValueError(f"{name}: the hpool epilogue takes a batch of at most 65535")
+    return pw, ps, hp
+
+
+def _epilogue_plain(acc: torch.Tensor, b: torch.Tensor, relu: bool, dtype: torch.dtype, hpool) -> torch.Tensor:
+    """The conv epilogue on an fp32 accumulator: fp32 bias, ReLU, one cast,
+    then (``hpool``) the H-axis max of the pool in tap order."""
+    out = acc + b.float()
+    if relu:
+        out = torch.relu(out)
+    out = out.to(dtype)
+    return out if hpool is None else maxpool_rect_plain(out, window=(hpool[0], 1), stride=(hpool[1], 1))
+
+
 def _conv_acc_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int, padding: int) -> torch.Tensor:
     """The conv's fp32 accumulator (N, Ho, Wo, K): tap by tap over (fy, fx),
     each tap one (pixels, C) x (C, K) matmul on fp32 copies of the operands
@@ -93,49 +165,210 @@ def _conv_acc_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int, padding: i
 
 
 def conv2d_bias_relu_plain(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    k_block: int = 0, hpool=None,
 ) -> torch.Tensor:
-    """Plain version of the conv kernel: the fp32 accumulator, then the fp32
-    bias, ReLU and one cast to ``x.dtype``."""
-    out = _conv_acc_plain(x, w, stride=stride, padding=padding) + b.float()
-    if relu:
-        out = torch.relu(out)
-    return out.to(x.dtype)
+    """Plain version of the vcol conv kernel: the fp32 accumulator, then the
+    fp32 bias, ReLU and one cast to ``x.dtype`` (then the hpool H max).
+    ``k_block`` changes no value."""
+    return _epilogue_plain(_conv_acc_plain(x, w, stride=stride, padding=padding), b, relu, x.dtype, hpool)
 
 
 def conv2d_bias_relu(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    k_block: int = 0, hpool=None,
 ) -> torch.Tensor:
-    """Direct conv (cross-correlation) + bias + optional ReLU.
+    """Direct conv (cross-correlation) + bias + optional ReLU: the vcol body.
 
     ``x`` (N, H, W, C), ``w`` (F, F, C, K) HWIO, ``b`` (K,), all fp32 or
-    all bf16 -> (N, Ho, Wo, K) in the same dtype.
+    all bf16 -> (N, Ho, Wo, K) in the same dtype. ``k_block`` (0, 64, 128):
+    output channels per block where it applies (:func:`effective_k_block`),
+    bitwise the unblocked result. ``hpool=(window, stride)``: also take the
+    pool's H-axis max, -> (N, Hp, Wo, K); :func:`maxpool2d_w` finishes it.
 
     Replaces ``_conv_vcol_kernel`` with ``_conv_epilogue``
     (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
     the H100: FFMA operations (conv1 27 GFLOP, conv2 115 GFLOP at batch
-    128; TF32 is out by the fp32 contract). Design (``csrc/conv2d.cu``):
-    an implicit GEMM over (pixels x channels) tiles staged through shared
-    memory in 16-term slices, an 8x4 register tile per thread, fp32 FMAs in
-    the fixed (fy, fx, c) order, and the bias/ReLU/cast epilogue fused."""
-    dev = _check("conv2d_bias_relu", x, w, b)
-    if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] or w.shape[2] != x.shape[3]:
-        raise ValueError(f"conv2d_bias_relu: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit NHWC/HWIO")
-    if b.shape != (w.shape[3],):
-        raise ValueError(f"conv2d_bias_relu: bias {tuple(b.shape)} for {w.shape[3]} channels")
-    n, h, wd, c = x.shape
-    f, k = w.shape[0], w.shape[3]
-    ho, wo = conv_out_dim(h, f, padding, stride), conv_out_dim(wd, f, padding, stride)
-    if min(n, ho, wo, k) <= 0:
-        raise ValueError(f"conv2d_bias_relu: empty output for x {tuple(x.shape)}, w {tuple(w.shape)}")
-    if max(x.numel(), n * ho * wo * k, f * f * c * k) >= 2**31:
-        raise ValueError("conv2d_bias_relu: tensors past 2^31 elements")
+    128; TF32 is out by the fp32 contract). Design (``csrc/conv2d.cu`` on
+    the engine of ``csrc/conv_engine.cuh``): an implicit GEMM over (pixels x
+    channels) tiles staged through shared memory in 16-term slices, an 8x4
+    register tile per thread, fp32 FMAs in the fixed (fy, fx, c) order, and
+    the bias/ReLU/cast (and hpool) epilogue fused."""
+    dev, (n, h, wd, c, f, k, ho, wo) = _conv_geometry("conv2d_bias_relu", x, w, b, stride, padding)
+    kb = effective_k_block(k_block, k)
+    pw, ps, hp = _hpool_dims("conv2d_bias_relu", ho, hpool, kb, n)
     if dev.type == "cpu":
-        return conv2d_bias_relu_plain(x, w, b, stride=stride, padding=padding, relu=relu)
-    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
+        return conv2d_bias_relu_plain(x, w, b, stride=stride, padding=padding, relu=relu, hpool=hpool)
+    y = torch.empty((n, hp if pw else ho, wo, k), dtype=x.dtype, device=dev)
     _launch(
         "conv2d", "conv2d_bias_relu", x, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, h, wd, c, k, f, stride, padding, ho, wo, int(relu),
+        n, h, wd, c, k, f, stride, padding, ho, wo, int(relu), kb, pw, ps, hp,
+    )
+    return y
+
+
+def _s2d_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+    """The taps/pairs/fused operands: ``(xs, ws, fq, ho, wo)`` with xs
+    (N, ho+fq-1, wo+fq-1, s*s*C) and ws (fq, fq, s*s*C, K), contiguous."""
+    f = w.shape[0]
+    fq = -(-f // stride)
+    ho = conv_out_dim(x.shape[1], f, padding, stride)
+    wo = conv_out_dim(x.shape[2], f, padding, stride)
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    xs = packing.space_to_depth(x, stride, ho + fq - 1, wo + fq - 1).contiguous()
+    return xs, packing.weights_to_depth(w, stride, fq).contiguous(), fq, ho, wo
+
+
+def conv_taps_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    k_block: int = 0, hpool=None,
+) -> torch.Tensor:
+    """Plain version of the taps kernel: on the s2d operands, one
+    (pixels, s*s*C) x (s*s*C, K) matmul per tap (qh, qw) in that order into
+    an fp32 accumulator, then the epilogue."""
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    n, cs, k = x.shape[0], xs.shape[3], w.shape[3]
+    acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=x.device)
+    for qh in range(fq):
+        for qw in range(fq):
+            acc.addmm_(xs[:, qh : qh + ho, qw : qw + wo, :].float().reshape(-1, cs), ws[qh, qw].float())
+    return _epilogue_plain(acc.reshape(n, ho, wo, k), b, relu, x.dtype, hpool)
+
+
+def conv_taps(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    k_block: int = 0, hpool=None,
+) -> torch.Tensor:
+    """Space-to-depth conv + bias + optional ReLU: the taps body. Arguments
+    and result as :func:`conv2d_bias_relu` (``k_block``, ``hpool`` too).
+
+    Replaces ``_conv_kernel`` with ``_conv_epilogue``
+    (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
+    the H100: FFMA operations (conv1 32 GFLOP with the zero taps past F,
+    conv2 115 GFLOP at batch 128). Design (``csrc/conv_taps.cu``): the
+    operands packed here (``ops/packing.py``), then the shared implicit
+    GEMM reading each qh row's fq*s*s*C terms as one contiguous run, in the
+    fixed (qh, qw, channel) order."""
+    dev, (n, _h, _wd, _c, _f, k, ho, wo) = _conv_geometry("conv_taps", x, w, b, stride, padding)
+    kb = effective_k_block(k_block, k)
+    pw, ps, hp = _hpool_dims("conv_taps", ho, hpool, kb, n)
+    if dev.type == "cpu":
+        return conv_taps_plain(x, w, b, stride=stride, padding=padding, relu=relu, hpool=hpool)
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    y = torch.empty((n, hp if pw else ho, wo, k), dtype=x.dtype, device=dev)
+    _launch(
+        "conv_taps", "conv_taps", xs, xs.data_ptr(), ws.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, xs.shape[1], xs.shape[2], xs.shape[3], k, fq, ho, wo, int(relu), kb, pw, ps, hp,
+    )
+    return y
+
+
+def _pairs_operands(xs: torch.Tensor, ws: torch.Tensor, fq: int):
+    """``(xpair, wpair, xs or None, wlast or None)``: column j's and j+1's
+    channels side by side, and the matching taps stacked; the leftover
+    operands only for odd fq."""
+    xpair = torch.cat([xs[:, :, :-1, :], xs[:, :, 1:, :]], dim=-1).contiguous()
+    m = fq // 2
+    wpair = torch.cat([ws[:, 0 : 2 * m : 2], ws[:, 1 : 2 * m : 2]], dim=2).contiguous()
+    if fq % 2:
+        return xpair, wpair, xs, ws[:, fq - 1].contiguous()
+    return xpair, wpair, None, None
+
+
+def conv_pairs_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """Plain version of the pairs kernel: per qh, one (pixels, 2*cs) x
+    (2*cs, K) matmul per pair of taps left to right, then the leftover tap
+    (odd fq), into an fp32 accumulator; then the epilogue."""
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    xpair, wpair, xl, wlast = _pairs_operands(xs, ws, fq)
+    n, k = x.shape[0], w.shape[3]
+    acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=x.device)
+    for qh in range(fq):
+        for p in range(fq // 2):
+            win = xpair[:, qh : qh + ho, 2 * p : 2 * p + wo, :]
+            acc.addmm_(win.float().reshape(n * ho * wo, -1), wpair[qh, p].float())
+        if xl is not None:
+            win = xl[:, qh : qh + ho, fq - 1 : fq - 1 + wo, :]
+            acc.addmm_(win.float().reshape(n * ho * wo, -1), wlast[qh].float())
+    return _epilogue_plain(acc.reshape(n, ho, wo, k), b, relu, x.dtype, None)
+
+
+def conv_pairs(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """Paired-tap conv + bias + optional ReLU: the pairs body, for fq =
+    ceil(F/stride) >= 2 (at fq = 1 there is nothing to pair: the caller
+    runs taps, as the JAX package does). Arguments and result as
+    :func:`conv2d_bias_relu` without ``k_block``/``hpool``.
+
+    Replaces ``_conv_pairs_kernel`` and ``_conv_pairs_even_kernel``
+    (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
+    the H100: FFMA operations, as taps. Design (``csrc/conv_pairs.cu``):
+    the pair operands packed here at 2x the input bytes (xpair, wpair; xs
+    and wlast for the odd leftover tap, absent for even fq), then the shared
+    implicit GEMM in the order qh, pairs left to right, leftover."""
+    dev, (n, _h, _wd, _c, f, k, ho, wo) = _conv_geometry("conv_pairs", x, w, b, stride, padding)
+    if -(-f // stride) < 2:
+        raise ValueError(f"conv_pairs: nothing to pair at F={f}, stride={stride} (fq=1); run taps")
+    if dev.type == "cpu":
+        return conv_pairs_plain(x, w, b, stride=stride, padding=padding, relu=relu)
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    xpair, wpair, xl, wlast = _pairs_operands(xs, ws, fq)
+    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
+    _launch(
+        "conv_pairs", "conv_pairs", xpair, xpair.data_ptr(), None if xl is None else xl.data_ptr(),
+        wpair.data_ptr(), None if wlast is None else wlast.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, xs.shape[1], xs.shape[2], xs.shape[3], k, fq, ho, wo, int(relu),
+    )
+    return y
+
+
+def _im2col_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+    """``(xcol, wmat, ho, wo)``: the s2d windows of every tap (qh, qw)
+    concatenated on the channel axis, (N*ho*wo, fq*fq*s*s*C), and the s2d
+    weights as a (fq*fq*s*s*C, K) matrix."""
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    wins = [xs[:, qh : qh + ho, qw : qw + wo, :] for qh in range(fq) for qw in range(fq)]
+    xcol = torch.cat(wins, dim=-1).reshape(-1, fq * fq * xs.shape[3])
+    return xcol, ws.reshape(-1, w.shape[3]), ho, wo
+
+
+def conv_im2col_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """Plain version of the im2col kernel: one (pixels, KD) x (KD, K)
+    matmul into an fp32 accumulator, then the epilogue."""
+    xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding)
+    acc = torch.zeros((xcol.shape[0], w.shape[3]), dtype=torch.float32, device=x.device)
+    acc.addmm_(xcol.float(), wmat.float())
+    return _epilogue_plain(acc.reshape(x.shape[0], ho, wo, -1), b, relu, x.dtype, None)
+
+
+def conv_im2col(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """im2col + one GEMM + bias + optional ReLU: the fused body. Arguments
+    and result as :func:`conv2d_bias_relu` without ``k_block``/``hpool``.
+
+    Replaces ``_conv_fused_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/
+    ops/pallas_kernels.py). Bound on the H100: FFMA operations (the xcol
+    buffer, 0.67 GB on conv1 and 0.90 GB on conv2 in fp32 at batch 128, adds
+    bytes but not the bound). Design (``csrc/conv_im2col.cu``): xcol built
+    here with tensor code, as the JAX package does, into ``torch.empty``
+    storage; then a tiled (M, KD) x (KD, K) GEMM with the shared epilogue."""
+    dev, (n, _h, _wd, _c, _f, k, ho, wo) = _conv_geometry("conv_im2col", x, w, b, stride, padding)
+    if dev.type == "cpu":
+        return conv_im2col_plain(x, w, b, stride=stride, padding=padding, relu=relu)
+    xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding)
+    if xcol.numel() >= 2**31:
+        raise ValueError(f"conv_im2col: an im2col buffer of {tuple(xcol.shape)} is past 2^31 elements")
+    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
+    _launch(
+        "conv_im2col", "conv_im2col", xcol, xcol.data_ptr(), wmat.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, ho, wo, xcol.shape[1], k, int(relu),
     )
     return y
 
@@ -143,16 +376,45 @@ def conv2d_bias_relu(
 # --------------------------------------------------------------------- pool
 
 
-def maxpool2d_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+def _pair(v) -> tuple:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def maxpool_rect_plain(x: torch.Tensor, *, window, stride) -> torch.Tensor:
     """Plain version of the pool kernel: NaN-propagating max over the
-    window's taps, in the input dtype (max is exact)."""
+    window's taps (``window``/``stride``: an int, or (rows, cols)) in (fy,
+    fx) order from tap (0, 0), in the input dtype (max is exact)."""
+    (wh, ww), (sh, sw) = _pair(window), _pair(stride)
     _n, h, wd, _c = x.shape
-    ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
-    out = _window(x, 0, 0, stride, ho, wo)
-    for fy in range(window):
-        for fx in range(window):
-            out = torch.maximum(out, _window(x, fy, fx, stride, ho, wo))
+    ho, wo = pool_out_dim(h, wh, sh), pool_out_dim(wd, ww, sw)
+
+    def tap(fy, fx):
+        return x[:, fy : fy + sh * (ho - 1) + 1 : sh, fx : fx + sw * (wo - 1) + 1 : sw, :]
+
+    out = tap(0, 0)
+    for fy in range(wh):
+        for fx in range(ww):
+            out = torch.maximum(out, tap(fy, fx))
     return out.contiguous()
+
+
+def maxpool2d_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    return maxpool_rect_plain(x, window=window, stride=stride)
+
+
+def _pool(x: torch.Tensor, wh: int, ww: int, sh: int, sw: int, name: str) -> torch.Tensor:
+    dev = _check(name, x)
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not NHWC")
+    n, h, wd, c = x.shape
+    ho, wo = pool_out_dim(h, wh, sh), pool_out_dim(wd, ww, sw)
+    if min(n, ho, wo, c) <= 0:
+        raise ValueError(f"{name}: empty output for x {tuple(x.shape)}, window {wh}x{ww}")
+    if dev.type == "cpu":
+        return maxpool_rect_plain(x, window=(wh, ww), stride=(sh, sw))
+    y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=dev)
+    _launch("maxpool2d", "maxpool2d", x, x.data_ptr(), y.data_ptr(), n, h, wd, c, wh, ww, sh, sw, ho, wo)
+    return y
 
 
 def maxpool2d(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
@@ -163,17 +425,63 @@ def maxpool2d(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
     TPU launches twice per pool. Bound on the H100: bytes. Design
     (``csrc/maxpool.cu``): one 2-D pass, one thread per output, channels
     fastest so each tap's reads coalesce; bitwise equal to the two passes."""
-    dev = _check("maxpool2d", x)
+    return _pool(x, window, window, stride, stride, "maxpool2d")
+
+
+def maxpool2d_w(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """The W-axis stage of a ``window``/``stride`` max-pool alone (a 1 x
+    window pool): what follows a conv whose hpool epilogue took the H-axis
+    max. The TPU's ``maxpool_pallas_w`` (``_axis_pool_kernel`` on the
+    transposed tensor); here the same ``csrc/maxpool.cu`` kernel as
+    :func:`maxpool2d` (counted as ``maxpool2d``) with a rectangular window,
+    so hpool conv + this is bitwise conv + :func:`maxpool2d`."""
+    return _pool(x, 1, window, 1, stride, "maxpool2d_w")
+
+
+def maxpool_phases_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """Plain version of the phases kernel: on the phase stack, the max over
+    the taps (fy, fx) in order, each tap a unit-stride slice of phase
+    (fy%s)*s + fx%s."""
+    s = stride
+    _n, h, wd, _c = x.shape
+    ho, wo = pool_out_dim(h, window, s), pool_out_dim(wd, window, s)
+    xph = packing.pool_phases(x, s, ho + (window - 1) // s, wo + (window - 1) // s)
+
+    def tap(fy, fx):
+        return xph[(fy % s) * s + fx % s, :, fy // s : fy // s + ho, fx // s : fx // s + wo, :]
+
+    out = tap(0, 0)
+    for fy in range(window):
+        for fx in range(window):
+            out = torch.maximum(out, tap(fy, fx))
+    return out.contiguous()
+
+
+def maxpool_phases(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """VALID ``window`` x ``window`` / ``stride`` max-pool over a stride-phase
+    stack: the phases pool body. Bitwise :func:`maxpool2d`.
+
+    Replaces ``_pool_kernel`` behind ``_maxpool_phases``
+    (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
+    the H100: bytes. Design (``csrc/maxpool_phases.cu``): the (s*s, N, hp,
+    wp, C) stack packed here (``ops/packing.py``), then one thread per
+    output, channels fastest, tap (fy, fx) read from its phase."""
+    dev = _check("maxpool_phases", x)
     if x.dim() != 4:
-        raise ValueError(f"maxpool2d: x {tuple(x.shape)} is not NHWC")
+        raise ValueError(f"maxpool_phases: x {tuple(x.shape)} is not NHWC")
     n, h, wd, c = x.shape
     ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
     if min(n, ho, wo, c) <= 0:
-        raise ValueError(f"maxpool2d: empty output for x {tuple(x.shape)}, window {window}")
+        raise ValueError(f"maxpool_phases: empty output for x {tuple(x.shape)}, window {window}")
     if dev.type == "cpu":
-        return maxpool2d_plain(x, window=window, stride=stride)
+        return maxpool_phases_plain(x, window=window, stride=stride)
+    hp, wp = ho + (window - 1) // stride, wo + (window - 1) // stride
+    xph = packing.pool_phases(x, stride, hp, wp).contiguous()
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=dev)
-    _launch("maxpool2d", "maxpool2d", x, x.data_ptr(), y.data_ptr(), n, h, wd, c, window, stride, ho, wo)
+    _launch(
+        "maxpool_phases", "maxpool_phases", xph, xph.data_ptr(), y.data_ptr(),
+        n, hp, wp, c, window, stride, ho, wo,
+    )
     return y
 
 

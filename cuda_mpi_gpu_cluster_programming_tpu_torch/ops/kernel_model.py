@@ -1,13 +1,20 @@
 """Blocks 1-2 forward pass on the CUDA kernel tier (``v3_pallas``).
 
-The counterpart of the JAX package's ``forward_blocks12_pallas``. Two
-routes, chosen per layer by its ``KernelVariants``:
+The counterpart of the JAX package's ``forward_blocks12_pallas``. Each
+block (conv -> pool, plus block 2's LRN) goes through
+:func:`_conv_then_pool`, which picks the route from the layer's
+``KernelVariants``:
 
-- ``fuse="none"`` (default): five launches per forward, conv1+bias+ReLU,
-  pool1, conv2+bias+ReLU, pool2, LRN2 (the TPU's two-pass pools take seven);
 - ``fuse="block"``: one ``conv_block`` launch per block where
-  ``megakernel.block_fusible_reason`` allows it, two per forward; bitwise
-  the staged route's output in fp32 and bf16.
+  ``megakernel.block_fusible_reason`` allows it; bitwise the staged route's
+  output in fp32 and bf16;
+- ``fuse="hpool"`` with a taps/vcol conv, the sep2 pool, a whole image per
+  program and no k_block: the conv kernel takes the pool's H-axis max in
+  its epilogue, then the pool's W stage; bitwise the staged route;
+- otherwise staged: the conv of ``v.conv`` (taps, pairs, fused or vcol,
+  with ``v.k_block``), the pool of ``v.pool`` (sep2 or phases), then LRN.
+  With the defaults that is five launches per forward (the TPU's two-pass
+  pools take seven).
 """
 
 from __future__ import annotations
@@ -26,14 +33,50 @@ def _layer_variants(v: KernelVariants | LayerVariants, name: str) -> KernelVaria
     return v.for_layer(name) if isinstance(v, LayerVariants) else v
 
 
+def conv(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool,
+    variant: str, k_block: int = 0, hpool=None,
+) -> torch.Tensor:
+    """The conv kernel of one variant, as the JAX package's
+    ``conv2d_pallas(variant=...)`` lowers it: k_block and hpool reach the
+    taps/vcol bodies only (pairs and fused ignore k_block and refuse hpool),
+    and pairs at fq = ceil(F/stride) < 2 runs taps (nothing to pair)."""
+    require_ported(KernelVariants(conv=variant))
+    if variant not in ("taps", "pairs", "fused", "vcol"):
+        raise ValueError(f"unknown conv variant {variant!r}")
+    if hpool is not None and variant not in ("taps", "vcol"):
+        raise ValueError(f"hpool fusion supports the taps/vcol lowering only, got {variant!r}")
+    kw = dict(stride=stride, padding=padding, relu=relu)
+    if variant == "vcol":
+        return ck.conv2d_bias_relu(x, w, b, k_block=k_block, hpool=hpool, **kw)
+    if variant == "fused":
+        return ck.conv_im2col(x, w, b, **kw)
+    if variant == "pairs" and -(-w.shape[0] // stride) >= 2:
+        return ck.conv_pairs(x, w, b, **kw)
+    return ck.conv_taps(x, w, b, k_block=k_block, hpool=hpool, **kw)
+
+
+def pool(x: torch.Tensor, *, window: int, stride: int, variant: str) -> torch.Tensor:
+    """The max-pool kernel of one variant: sep2 (``maxpool2d``, one 2-D
+    pass) or phases (``maxpool_phases``); bitwise the same."""
+    if variant == "phases":
+        return ck.maxpool_phases(x, window=window, stride=stride)
+    if variant == "sep2":
+        return ck.maxpool2d(x, window=window, stride=stride)
+    raise ValueError(f"unknown pool variant {variant!r}")
+
+
 def _conv_then_pool(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, cspec: ConvSpec, pspec: PoolSpec,
     v: KernelVariants, lrn: LrnSpec | None = None,
 ) -> torch.Tensor:
-    """One block, the one place that decides whether it runs fused:
-    ``fuse="block"`` and a geometry the gate accepts take the ``conv_block``
-    kernel (with ``lrn`` folded in); otherwise the conv (+bias, ReLU)
-    kernel, the pool kernel, then the LRN kernel when ``lrn`` is given."""
+    """One block, the one place that decides its route, with the JAX
+    package's gates in the same order: ``fuse="block"`` where the gate
+    accepts the geometry (with ``lrn`` folded in); else ``fuse="hpool"``
+    with a taps/vcol conv, the sep2 pool, a whole image per program
+    (``row_block >= ho``) and no k_block; else the staged conv of ``v.conv`` and pool
+    of ``v.pool``. A staged or hpool route runs the LRN kernel after, when
+    ``lrn`` is given."""
     require_ported(v)
     ho = conv_out_dim(x.shape[1], cspec.filter_size, cspec.padding, cspec.stride)
     if v.fuse == "block" and not mk.block_fusible_reason(
@@ -45,8 +88,14 @@ def _conv_then_pool(
             pool_window=pspec.window, pool_stride=pspec.stride,
             lrn=lrn, variant=v.conv, row_block=v.row_block,
         )
-    y = ck.conv2d_bias_relu(x, w, b, stride=cspec.stride, padding=cspec.padding, relu=True)
-    out = ck.maxpool2d(y, window=pspec.window, stride=pspec.stride)
+    kw = dict(stride=cspec.stride, padding=cspec.padding, relu=True, variant=v.conv)
+    if (v.fuse == "hpool" and v.conv in ("taps", "vcol") and v.pool == "sep2"
+            and v.row_block >= ho and v.k_block == 0):
+        y = conv(x, w, b, hpool=(pspec.window, pspec.stride), **kw)
+        out = ck.maxpool2d_w(y, window=pspec.window, stride=pspec.stride)
+    else:
+        y = conv(x, w, b, k_block=v.k_block, **kw)
+        out = pool(y, window=pspec.window, stride=pspec.stride, variant=v.pool)
     if lrn is not None:
         out = ck.lrn(
             out, size=lrn.size, alpha=lrn.alpha, beta=lrn.beta, k=lrn.k,

@@ -11,11 +11,10 @@ for the other:
 - ``TPU_FRAMEWORK_KBLOCK``   output-channel grid block: 0 | 64 | 128 (default 0)
 - ``TPU_FRAMEWORK_FUSE``     epilogue fusion: none | hpool | block (default none)
 
-The port builds ``conv="vcol"``, ``pool="sep2"``, ``k_block=0`` and
-``fuse`` in {none, block}; :func:`require_ported` raises for any other
-value, naming its ROADMAP Queue 2 item. ``row_block`` runs no kernel here
-(the CUDA kernels tile on their own); it is carried because
-``megakernel.block_fusible_reason`` and tuning plans speak of it.
+The port builds every value except ``conv="g8"``: :func:`require_ported`
+raises for it, naming its ROADMAP Queue 2 item. ``row_block`` sets no tile
+here (the CUDA kernels tile on their own); only the hpool and block gates
+read it (a whole image per program), and tuning plans carry it.
 """
 
 from __future__ import annotations
@@ -27,12 +26,7 @@ ROW_BLOCK = 64
 
 # Knob value -> the ROADMAP Queue 2 item whose kernel it needs.
 _UNPORTED = {
-    ("conv", "taps"): "item 2 (_conv_kernel, the taps conv body)",
-    ("conv", "fused"): "item 3 (_conv_fused_kernel)",
-    ("conv", "pairs"): "items 4-5 (_conv_pairs_kernel, _conv_pairs_even_kernel)",
     ("conv", "g8"): "item 6 (_conv_g8_kernel)",
-    ("pool", "phases"): "item 7 (_pool_kernel, the phases pool body)",
-    ("fuse", "hpool"): "item 2 (the hpool epilogue of _conv_kernel)",
 }
 
 
@@ -45,6 +39,12 @@ def env_variant(env_name: str, default: str, allowed: tuple) -> str:
     if v not in allowed:
         raise ValueError(f"{env_name} must be {'|'.join(allowed)}, got {v!r}")
     return v
+
+
+def effective_k_block(k_block: int, k: int) -> int:
+    """The k_block that applies to K output channels: ``k_block`` when K is
+    a multiple of it and larger, else 0 (the conv runs unblocked)."""
+    return k_block if k_block and k % k_block == 0 and k > k_block else 0
 
 
 class KernelVariants(NamedTuple):
@@ -81,13 +81,11 @@ class KernelVariants(NamedTuple):
 
     @property
     def effective_k_block(self) -> int:
-        """The k_block that applies at K=k_channels (K % k_block == 0 and
-        K > k_block, else unblocked); unbound variants report the request."""
+        """The k_block that applies at K=k_channels (see
+        :func:`effective_k_block`); unbound variants report the request."""
         if not self.k_block or not self.k_channels:
             return self.k_block
-        if self.k_channels % self.k_block == 0 and self.k_channels > self.k_block:
-            return self.k_block
-        return 0
+        return effective_k_block(self.k_block, self.k_channels)
 
     def label(self) -> str:
         kb = str(self.k_block)
@@ -113,18 +111,20 @@ class LayerVariants(NamedTuple):
         return self.default
 
 
+def unported_reason(v: KernelVariants) -> str:
+    """Why the port cannot run this knob set yet ('' = it can), naming the
+    ROADMAP Queue 2 item that would build it."""
+    for knob in ("conv", "pool", "fuse"):
+        item = _UNPORTED.get((knob, getattr(v, knob)))
+        if item:
+            return f"{knob}={getattr(v, knob)} is not ported to CUDA yet: ROADMAP Queue 2, {item}"
+    return ""
+
+
 def require_ported(v: Union[KernelVariants, LayerVariants]) -> None:
-    """Raise ``NotImplementedError`` for a knob the port cannot run yet,
-    naming the ROADMAP Queue 2 item that would build it."""
+    """Raise ``NotImplementedError`` with :func:`unported_reason` for a knob
+    set, or any layer of a plan, the port cannot run yet."""
     for kv in (*(lv for _n, lv in v.layers), v.default) if isinstance(v, LayerVariants) else (v,):
-        for knob in ("conv", "pool", "fuse"):
-            item = _UNPORTED.get((knob, getattr(kv, knob)))
-            if item:
-                raise NotImplementedError(
-                    f"{knob}={getattr(kv, knob)} is not ported to CUDA yet: ROADMAP Queue 2, {item}"
-                )
-        if kv.k_block:
-            raise NotImplementedError(
-                f"k_block={kv.k_block} is not ported to CUDA yet: ROADMAP Queue 2, item 2 "
-                "(the k_block grid of _conv_kernel)"
-            )
+        why = unported_reason(kv)
+        if why:
+            raise NotImplementedError(why)

@@ -12,10 +12,14 @@ oracle stage's max |value| (elementwise relative error explodes near the
 zeros LRN outputs cross). ``margin`` is the fraction of budget left (1.0 =
 exact, 0.0 = at budget, negative = fail).
 
-Not ported yet (ROADMAP Queue 1, item 8, ``resilience/``): the journal of
-verdicts and the oracle preflight against the numpy loop oracle. Until
-then ``journal`` must be None and ``preflight`` defaults to False;
-``preflight=True`` raises ``NotImplementedError``. A kernel that fails to
+Each screening journals a ``gate_pass``/``gate_fail`` record (with the
+trace ids of an open span) when the gate has a journal
+(``resilience.journal.Journal``): the evidence the autotuner's dtype sweep
+keys on. Before trusting the fp32 reference forward as the oracle, the gate
+preflights ``resilience.sentinel.oracle_spot_check`` on the screened
+input's device (default ``preflight=True``, as in the JAX package): a
+reference conv that deviates from the numpy loop oracle by more than 1e-3
+fails every candidate with an ``oracle_fault``. A kernel that fails to
 build or launch raises out of a screening; it is not turned into a verdict.
 """
 
@@ -34,9 +38,6 @@ from ..ops import reference as ops
 from ..ops.shapes import conv_out_dim
 from ..ops.variants import KernelVariants
 from .policy import DtypePolicy, resolve_policy, tdt
-
-_NOT_PORTED = "ROADMAP Queue 1, item 8 (resilience/: the journal and sentinel.oracle_spot_check)"
-
 
 # Per-policy, per-stage budgets; "*" is the any-stage default. bf16 carries
 # ~2^-8 operand rounding through two convs; int8w adds <= scale/2 per
@@ -242,52 +243,86 @@ class ToleranceGate:
     """Screen a candidate policy against the fp32 oracle, stage by stage.
 
     ``budgets``: ``{policy_name: {stage_or_"*": StageBudget}}`` overrides
-    (missing entries fall back to :data:`DEFAULT_BUDGETS`). ``journal``
-    and ``preflight=True`` are not ported yet (see the module docstring)."""
+    (missing entries fall back to :data:`DEFAULT_BUDGETS`). ``journal``: a
+    ``resilience.journal.Journal`` receiving one fsync'd ``gate_pass`` /
+    ``gate_fail`` record per screening. ``preflight``: run the oracle spot
+    check before each screening (see the module docstring)."""
 
-    def __init__(self, budgets=None, journal=None, preflight: bool = False):
-        if journal is not None:
-            raise NotImplementedError(f"the gate's journal is not ported yet: {_NOT_PORTED}")
-        if preflight:
-            raise NotImplementedError(f"the gate's oracle preflight is not ported yet: {_NOT_PORTED}")
+    def __init__(self, budgets=None, journal=None, preflight: bool = True):
         self.budgets = dict(DEFAULT_BUDGETS)
         if budgets:
             self.budgets.update(budgets)
+        self.journal = journal
+        self.preflight = preflight
 
     def budget_for(self, policy: str, stage: str) -> StageBudget:
         table = self.budgets.get(policy, {})
         return table.get(stage) or table.get("*") or StageBudget()
 
-    def screen(self, policy, params, x, model_cfg=BLOCKS12, *, candidate_params=None) -> GateResult:
-        """Oracle and candidate staged forwards, compared stage by stage.
-        ``candidate_params``: an optional distinct param tree for the
-        candidate side (a corrupted replica must fail against the clean
-        oracle)."""
+    def _preflight_fault(self, device) -> str:
+        """The oracle fault the preflight finds on ``device`` ('' = none)."""
+        if not self.preflight:
+            return ""
+        from ..resilience.sentinel import oracle_spot_check
+
+        err = oracle_spot_check(device=device)
+        if err > 1e-3:
+            return (
+                f"fp32 oracle failed preflight: device fp32 conv deviates "
+                f"from the tests/oracle.py loop oracle by {err:.3e}"
+            )
+        return ""
+
+    def screen(self, policy, params, x, model_cfg=BLOCKS12, *, key: str = "", candidate_params=None) -> GateResult:
+        """Oracle and candidate staged forwards, compared stage by stage;
+        the verdict is journaled under ``key``. ``candidate_params``: an
+        optional distinct param tree for the candidate side (a corrupted
+        replica must fail against the clean oracle)."""
         pol: DtypePolicy = resolve_policy(policy)
-        res = GateResult(policy=pol.name)
+        res = GateResult(policy=pol.name, oracle_fault=self._preflight_fault(x.device))
+        if res.oracle_fault:
+            self._journal(res, key)
+            return res
         oracle = staged_policy_outputs(params, x, model_cfg, "fp32")
         if pol.name == "fp32" and candidate_params is None:
             # The oracle matches itself; exact stages keep the schema uniform.
             for stage in oracle:
                 b = self.budget_for("fp32", stage)
                 res.stages.append(StageCheck(stage, 0.0, 0.0, b.max_abs, b.max_rel))
+            self._journal(res, key)
             return res
         cand = staged_policy_outputs(
             candidate_params if candidate_params is not None else params, x, model_cfg, pol
         )
         for stage, want in oracle.items():
             res.stages.append(_stage_check(stage, cand[stage], want, self.budget_for(pol.name, stage)))
+        self._journal(res, key)
         return res
 
-    def screen_blocks(self, policy, params, x, model_cfg=BLOCKS12, *, variants=None) -> GateResult:
+    def screen_blocks(self, policy, params, x, model_cfg=BLOCKS12, *, variants=None, key: str = "") -> GateResult:
         """Screen the fused blocks at BLOCK granularity: each block's single
         output against the fp32 staged oracle at its boundary stage
         (``BLOCK_BOUNDARIES``), with the block's budget (falling back to
-        the policy's "*" row)."""
+        the policy's "*" row); journaled like :meth:`screen`."""
         pol: DtypePolicy = resolve_policy(policy)
-        res = GateResult(policy=pol.name)
+        res = GateResult(policy=pol.name, oracle_fault=self._preflight_fault(x.device))
+        if res.oracle_fault:
+            self._journal(res, key)
+            return res
         oracle = staged_policy_outputs(params, x, model_cfg, "fp32")
         cand = megakernel_block_outputs(params, x, model_cfg, pol, variants=variants)
         for bname, boundary in BLOCK_BOUNDARIES:
             res.stages.append(_stage_check(bname, cand[bname], oracle[boundary], self.budget_for(pol.name, bname)))
+        self._journal(res, key)
         return res
+
+    def _journal(self, res: GateResult, key: str) -> None:
+        if self.journal is not None:
+            from ..observability.trace import current_ids
+
+            self.journal.append(
+                "gate_pass" if res.passed else "gate_fail",
+                key=key or f"gate:{res.policy}",
+                **current_ids(),
+                **res.to_obj(),
+            )

@@ -16,12 +16,15 @@ The JAX package's ``precision/quantize.py`` with the same cast points:
   ``relu(conv(x_bf16, q) * scale + b)``, then bf16 for the next stage.
 
 Tiers: ``reference`` runs ``ops.reference.conv2d`` with an fp32
-accumulator; ``kernels`` runs the conv kernel with its epilogue off
-(``relu=False``, zero bf16 bias), which writes bf16, then rescales in
-fp32 here, then the pool kernel. The staged chain ends in the reference
-LRN in fp32, as the JAX package's does: per forward the kernel tier
-launches conv2d 2, maxpool2d 2 and lrn 0. With ``fuse="block"`` each block
-is one ``conv_block`` launch instead (``ops.megakernel.int8w_conv_block``).
+accumulator; ``kernels`` runs the conv kernel of the layer's ``v.conv``
+(with ``v.k_block``) with its epilogue off (``relu=False``, zero bf16
+bias), which writes bf16, then rescales in fp32 here, then the pool kernel
+of ``v.pool``, as the JAX package passes its variants on. The staged chain
+ends in the reference LRN in fp32, as the JAX package's does: per forward
+the kernel tier launches two convs, two pools and no LRN kernel. With
+``fuse="block"`` each block is one ``conv_block`` launch instead
+(``ops.megakernel.int8w_conv_block``). hpool is not an int8w route: its
+epilogue would pool before the rescale (``tuning.space`` prunes it).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Tuple
 import torch
 
 from ..models.alexnet import BLOCKS12, Blocks12Config
-from ..ops import cuda_kernels as ck
+from ..ops import kernel_model as km
 from ..ops import megakernel as mk
 from ..ops import reference as ops
 from ..ops.kernel_model import _layer_variants
@@ -84,11 +87,11 @@ def int8w_conv(
     xq = x.to(torch.bfloat16)
     wq = q.to(torch.bfloat16)  # exact for |q| <= 127
     if tier == "kernels":
-        require_ported(variants if variants is not None else KernelVariants())
+        v = variants if variants is not None else KernelVariants()
         # Epilogue off: the rescale lands between accumulation and bias.
-        y = ck.conv2d_bias_relu(
+        y = km.conv(
             xq, wq, torch.zeros(q.shape[-1], dtype=torch.bfloat16, device=x.device),
-            stride=stride, padding=padding, relu=False,
+            stride=stride, padding=padding, relu=False, variant=v.conv, k_block=v.k_block,
         ).float()
     else:
         y = ops.conv2d(
@@ -108,9 +111,9 @@ def _lrn_fp32(x: torch.Tensor, lrn) -> torch.Tensor:
     )
 
 
-def _pool(x: torch.Tensor, pspec, tier: str) -> torch.Tensor:
+def _pool(x: torch.Tensor, pspec, tier: str, v: KernelVariants | None) -> torch.Tensor:
     if tier == "kernels":
-        return ck.maxpool2d(x, window=pspec.window, stride=pspec.stride)
+        return km.pool(x, window=pspec.window, stride=pspec.stride, variant=v.pool if v is not None else "sep2")
     return ops.maxpool(x, window=pspec.window, stride=pspec.stride)
 
 
@@ -135,7 +138,7 @@ def int8w_conv_then_pool(x, q, scale, b, cspec, pspec, v=None, *, tier="kernels"
         x, q, scale, b, stride=cspec.stride, padding=cspec.padding,
         relu=True, tier=tier, variants=v,
     )
-    out = _pool(y, pspec, tier)
+    out = _pool(y, pspec, tier, v)
     return _lrn_fp32(out, lrn) if lrn is not None else out
 
 
@@ -179,7 +182,7 @@ def forward_blocks12_int8w(
         )
         if taps:
             stages[cname] = cur.float()
-        cur = _pool(cur, pspec, tier)
+        cur = _pool(cur, pspec, tier, _layer_variants(v, cname))
         if taps:
             stages[pname] = cur.float()
     out = _lrn_fp32(cur, n2)

@@ -2,11 +2,23 @@
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --batch 128
 
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --tune
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. Prints the JAX package's stdout contract
-(``Precision:``, ``Compile time:``, ``Final Output Shape:``, ``Final Output
-(first 10 values):``, ``... completed in X ms``, ``Timing stats:``), which
-the harness regexes read.
+(``Tune plan:``, ``Precision:``, ``Compile time:``, ``Final Output Shape:``,
+``Final Output (first 10 values):``, ``... completed in X ms``, ``Timing
+stats:``), which the harness regexes read.
+
+``--tune`` sweeps {fp32, bf16, int8w} x the kernel variants of each conv
+layer (``tuning.autotune.autotune_precision``: every dtype screened by the
+journaled, preflighted tolerance gate first), saves the plan and the
+winning dtype in ``--plan`` (default ``<package>/_build/tune_plan.json``,
+git-ignored) and runs with them; a fresh matching plan is loaded instead
+of swept. ``--plan`` alone loads a plan; ``--policy tuned`` runs the
+saved winning dtype. Precedence of the run's dtype: ``--dtype`` or a preset
+``--policy`` pins it (and pins the sweep to it); else ``--policy tuned`` or
+``--tune`` adopt the sweep's winner; else ``--compute``.
 """
 
 from __future__ import annotations
@@ -32,7 +44,27 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute", choices=["fp32", "bf16"], default="fp32",
                    help="precision policy (legacy spelling; --dtype supersedes it)")
     p.add_argument("--dtype", choices=POLICY_NAMES, default="",
-                   help="precision policy: fp32, bf16, or int8w (per-channel int8 weights)")
+                   help="precision policy: fp32, bf16, or int8w (per-channel int8 weights); "
+                        "with --tune it pins the sweep to this dtype")
+    p.add_argument("--policy", choices=["", "tuned", *POLICY_NAMES], default="",
+                   help="'tuned' runs the winning dtype of the saved dtype sweep (falls back to "
+                        "--compute with a note when none matches); a preset name acts as --dtype")
+    p.add_argument("--tune", action="store_true",
+                   help="autotune the per-layer kernel variants (and the dtype) for this geometry "
+                        "and batch, save the plan in --plan and run with it")
+    p.add_argument("--tune-force", action="store_true", help="with --tune: sweep even when a fresh plan exists")
+    p.add_argument("--tune-repeats", type=int, default=5, help="timed chain length per tuning candidate")
+    p.add_argument("--tune-warmup", type=int, default=2, help="warmup chain length per tuning candidate")
+    p.add_argument("--plan", default="",
+                   help="TunePlan JSON path: with --tune the cache target (default "
+                        "<package>/_build/tune_plan.json), otherwise load per-layer kernel variants "
+                        "from it; explicit TPU_FRAMEWORK_* env knobs still win")
+    p.add_argument("--gate-journal", default="",
+                   help="with --tune: journal every tolerance-gate verdict to this jsonl path "
+                        "(default: <plan>_gate.jsonl next to the plan file)")
+    p.add_argument("--deadline-s", type=float, default=0.0,
+                   help="wall-clock budget of the --tune sweep (0 = unbounded); when it runs out the "
+                        "remaining candidates are skipped and the plan says so")
     p.add_argument("--height", type=int, default=227)
     p.add_argument("--width", type=int, default=227)
     p.add_argument("--lrn-form", choices=["cuda", "cpu"], default="cuda",
@@ -40,6 +72,67 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--list-configs", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
+
+
+def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
+    """The JAX package's ``--tune``/``--plan``/``--policy tuned`` handling:
+    returns ``(run_dtype, source, gate_info, plan)`` and prints the
+    ``Policy:``/``Gate pruned:``/``Tune plan:`` lines."""
+    from pathlib import Path
+
+    from .observability.trace import span as obs_span
+    from .resilience.policy import Deadline
+    from .tuning.autotune import DTYPES, autotune_precision
+    from .tuning.plan import device_kind, load_plan, load_policy
+
+    plan_path = args.plan or str(Path(__file__).resolve().parent / "_build" / "tune_plan.json")
+    kind = device_kind(device)
+    gate_info = plan = None
+    if args.policy == "tuned" and not args.tune:
+        rec = load_policy(plan_path, device_kind=kind, model_cfg=model_cfg, batch=args.batch)
+        if rec is None:
+            print(f"Policy: no tuned dtype record in {plan_path} "
+                  f"(falling back to --compute {args.compute}; run --tune to sweep)")
+        else:
+            run_dtype, source = rec["dtype"], "tuned"
+            gate_info = rec.get("gates", {}).get(run_dtype)
+    if args.tune:
+        res = None
+        try:
+            with obs_span("run.tune", config=args.config, batch=args.batch):
+                res = autotune_precision(
+                    plan_path, model_cfg, batch=args.batch, dtypes=(run_dtype,) if pinned else DTYPES,
+                    force=args.tune_force, deadline=Deadline.after(args.deadline_s or None),
+                    repeats=args.tune_repeats, warmup=args.tune_warmup, device=device, device_kind=kind,
+                    gate_journal=args.gate_journal, seed=args.seed,
+                )
+        except RuntimeError as e:
+            # Every requested dtype gate-pruned: say so and run the forced
+            # dtype untuned (the gate blocks saved winners, not forced runs).
+            print(f"Gate pruned: {e}")
+        if res is not None:
+            for dt, why in sorted(res.pruned.items()):
+                print(f"Gate pruned: {dt} ({why})")
+            if not pinned:
+                run_dtype, source = res.winner, "tuned"
+            gate_info = res.gates.get(run_dtype)
+            plan = res.plans.get(run_dtype)
+        if plan is not None:
+            print(f"Tune plan: {'cache' if res.cached else 'swept'} hash={plan.plan_hash()} key={plan.key} "
+                  f"path={plan_path}" + (f" DEGRADED({plan.degraded})" if plan.degraded else ""))
+        else:
+            print(f"Tune plan: none for dtype {run_dtype} (gate-pruned; untuned defaults)")
+    else:  # --plan and/or --policy tuned: load, never sweep
+        plan = load_plan(plan_path, device_kind=kind, model_cfg=model_cfg, dtype=run_dtype, batch=args.batch)
+        if plan is None:
+            print(f"Tune plan: none matching in {plan_path} (untuned defaults; run --tune to sweep)")
+        else:
+            print(f"Tune plan: loaded hash={plan.plan_hash()} key={plan.key}")
+        if gate_info is None:
+            rec = load_policy(plan_path, device_kind=kind, model_cfg=model_cfg, batch=args.batch)
+            if rec is not None:
+                gate_info = rec.get("gates", {}).get(run_dtype)
+    return run_dtype, source, gate_info, plan
 
 
 def main(argv=None) -> int:
@@ -77,9 +170,26 @@ def main(argv=None) -> int:
     print(f"--- AlexNet {label} {exec_cfg.version_name} [{exec_cfg.key}] (batch={args.batch}) ---")
     print(f"Devices: 1 x {dev_name} ({device.type})")
 
-    run_dtype = args.dtype or args.compute
-    source = "dtype" if args.dtype else "compute"
-    print(f"Precision: dtype={run_dtype} source={source} gate={'ref' if run_dtype == 'fp32' else 'none'}")
+    if args.dtype and args.policy:
+        print("--dtype and --policy are mutually exclusive", file=sys.stderr)
+        return 2
+    pinned = args.dtype or (args.policy if args.policy not in ("", "tuned") else "")
+    run_dtype = pinned or args.compute
+    source = "dtype" if args.dtype else ("policy" if pinned else "compute")
+    gate_info = None
+    plan = None
+    if args.tune or args.plan or args.policy == "tuned":
+        run_dtype, source, gate_info, plan = _tuning(args, model_cfg, device, pinned, run_dtype, source)
+    if run_dtype == "fp32":
+        gate_str = "ref"  # fp32 IS the oracle: nothing to gate against
+    elif isinstance(gate_info, dict):
+        margin = gate_info.get("margin")
+        gate_str = ("pass" if gate_info.get("passed") else "fail") + (
+            f" margin={margin:.4f}" if isinstance(margin, (int, float)) else ""
+        )
+    else:
+        gate_str = "none"
+    print(f"Precision: dtype={run_dtype} source={source} gate={gate_str}")
 
     # One generator, params first and input second: --seed S reproduces both.
     gen = torch.Generator().manual_seed(args.seed)
@@ -91,7 +201,7 @@ def main(argv=None) -> int:
         x = random_input(gen, args.batch, model_cfg, device=device)
 
     try:
-        fwd = build_forward(exec_cfg, model_cfg, policy=run_dtype, device=device)
+        fwd = build_forward(exec_cfg, model_cfg, policy=run_dtype, device=device, plan=plan)
     except (ValueError, NotImplementedError) as e:
         print(f"cannot build config {exec_cfg.key!r}: {e}", file=sys.stderr)
         return 2

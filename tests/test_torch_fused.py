@@ -226,7 +226,7 @@ def test_screen_blocks_passes_all_policies(policy):
 def _counting(monkeypatch):
     """Count the wrapper calls of the kernel module (on the CPU the
     wrappers launch nothing, so the route is read from the calls)."""
-    calls = {name: 0 for name in ck.LAUNCHES}
+    calls = {name: 0 for name in ("conv2d", "maxpool2d", "lrn", "conv_block")}
     for name, fn in (("conv2d", "conv2d_bias_relu"), ("maxpool2d", "maxpool2d"), ("lrn", "lrn"),
                      ("conv_block", "conv_block")):
         orig = getattr(ck, fn)
@@ -280,13 +280,22 @@ def test_fuse_block_with_a_refused_geometry_runs_staged(monkeypatch):
      (dict(conv="taps"), "item 2"), (dict(k_block=128), "item 2")],
 )
 def test_unported_knob_raises_naming_roadmap(knob, item):
+    """Only conv=g8 is still unported (ROADMAP Queue 2, item 6): it raises
+    naming its item. The other knobs, whose kernels items 2-5 and 7
+    ported, build and run."""
     v = tv.KernelVariants(**knob)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 2, {item}"):
-        tcfg.build_forward(tcfg.REGISTRY["v3_pallas"], variants=v, device="cpu")
     params, x = _numpy_case(43)
     _, tgeo = _geometry(43)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_blocks12_kernels(tinit.params_from_jax(params, "cpu"), torch.from_numpy(x), tgeo, variants=v)
+    tp, tx = tinit.params_from_jax(params, "cpu"), torch.from_numpy(x)
+    if knob.get("conv") == "g8":
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 2, {item}"):
+            tcfg.build_forward(tcfg.REGISTRY["v3_pallas"], variants=v, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            forward_blocks12_kernels(tp, tx, tgeo, variants=v)
+        return
+    got = tcfg.build_forward(tcfg.REGISTRY["v3_pallas"], tgeo, variants=v, device="cpu")(tp, tx)
+    want = forward_blocks12_kernels(tp, tx, tgeo, variants=tv.KernelVariants())
+    assert got.shape == want.shape and _rel_of_max(got.numpy(), want.numpy()) <= FP32_REL
 
 
 def test_reference_tier_ignores_variants():
@@ -330,6 +339,10 @@ def test_fuse_env_reaches_the_cli(monkeypatch, capsys):
     monkeypatch.setenv("TPU_FRAMEWORK_FUSE", "hpool")
     rc = trun.main(["--config", "v3_pallas", "--device", "cpu", "--height", "67", "--width", "67",
                     "--repeats", "1", "--warmup", "1"])
+    assert rc == 0 and "Final Output Shape: 3x3x256" in capsys.readouterr().out
+    monkeypatch.setenv("TPU_FRAMEWORK_CONV", "g8")
+    rc = trun.main(["--config", "v3_pallas", "--device", "cpu", "--height", "67", "--width", "67",
+                    "--repeats", "1", "--warmup", "1"])
     assert rc == 2 and "ROADMAP Queue 2" in capsys.readouterr().err
 
 
@@ -342,7 +355,7 @@ def test_cpu_conv_block_takes_the_plain_path_and_launches_nothing():
     ck.reset_launches()
     got = ck.conv_block(xt, wt, bt, lrn=lrn, **kw)
     assert torch.equal(got, ck.conv_block_plain(xt, wt, bt, lrn=lrn, **kw))
-    assert ck.LAUNCHES == {"conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0}
+    assert ck.LAUNCHES == dict.fromkeys(ck.LAUNCHES, 0)
 
 
 @pytest.mark.parametrize("bad", ["fp16", "mixed", "int8w_fp32_x", "int8w_bf16_bias", "bias_shape", "empty"])

@@ -225,9 +225,22 @@ def test_screen_fails_a_corrupted_candidate():
 
 
 @pytest.mark.parametrize("kw", [dict(preflight=True), dict(journal=object())])
-def test_gate_journal_and_preflight_name_the_roadmap(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        tgate.ToleranceGate(**kw)
+def test_gate_journal_and_preflight_name_the_roadmap(kw, tmp_path):
+    """ROADMAP Queue 1, item 4 ported both: the gate takes a journal and
+    preflights by default, as in the JAX package."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+
+    if "journal" in kw:
+        kw = dict(journal=Journal(tmp_path / "gate.jsonl"))
+    gate = tgate.ToleranceGate(**kw)
+    assert gate.preflight is True
+    params, x = _numpy_case(43)
+    _, tgeo = _geometry(43)
+    res = gate.screen("fp32", tinit.params_from_jax(params, "cpu"), torch.from_numpy(x), tgeo, key="k")
+    assert res.passed and not res.oracle_fault
+    if "journal" in kw:
+        (rec,) = Journal.load(tmp_path / "gate.jsonl")
+        assert rec["kind"] == "gate_pass" and rec["key"] == "k"
 
 
 def test_run_cli_int8w(capsys):

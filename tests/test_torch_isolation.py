@@ -22,6 +22,10 @@ import sys
 import cuda_mpi_gpu_cluster_programming_tpu_torch.run as run
 import cuda_mpi_gpu_cluster_programming_tpu_torch.configs
 import cuda_mpi_gpu_cluster_programming_tpu_torch.ops.kernel_model
+import cuda_mpi_gpu_cluster_programming_tpu_torch.observability.trace
+import cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.chaos
+import cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.sentinel
+import cuda_mpi_gpu_cluster_programming_tpu_torch.tuning
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
