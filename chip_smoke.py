@@ -12,8 +12,8 @@ with a non-zero exit code and nothing is caught:
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
    one PyTorch library call with CUDA events, beside the card's bound; then
-   the conv and pool variants the autotuner sweeps: the taps, pairs and
-   im2col ("fused") conv kernels, the phases pool, and the hpool epilogue
+   the conv and pool variants the autotuner sweeps: the taps, pairs,
+   im2col ("fused") and g8 (conv1) conv kernels, the phases pool, and the hpool epilogue
    and k_block modes of the vcol and taps convs with the pool's W stage,
    each against its plain version and timed the same way, plus bitwise:
    hpool + W stage against conv + maxpool2d (vcol, taps; conv1, conv2),
@@ -24,13 +24,13 @@ with a non-zero exit code and nothing is caught:
    beside that chain, its plain version, the cuDNN chain (a note: no one
    library call computes a block) and the bound; and every kernel again at
    edge shapes off the main path (an even-fq pairs case, a ragged output,
-   C=5 with K=40 among them);
+   C=5 with K=40, g8 at strides 2, 3 and 4 among them);
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
    ``TPU_FRAMEWORK_FUSE=block`` in fp32, bf16 and int8w, ``--dtype int8w``
    staged on both tiers, and ``v3_pallas`` with ``TPU_FRAMEWORK_CONV=taps``,
-   ``pairs`` and ``fused``, ``POOL=phases``, ``FUSE=hpool`` and
+   ``pairs``, ``fused`` and ``g8``, ``POOL=phases``, ``FUSE=hpool`` and
    ``KBLOCK=128`` in fp32 and bf16 (taps also in int8w), batch 128; check
    the golden first-10 on every fp32 kernel route, every route against
    ``v1_jit`` fp32 on numpy-seeded random params within the precision
@@ -96,6 +96,8 @@ KERNELS = {
     "conv_taps": (f"{PORT}/csrc/conv_taps.cu", f"{TPU_FILE}:399", ("conv1", "conv2"), "+CONV=taps"),
     "conv_pairs": (f"{PORT}/csrc/conv_pairs.cu", f"{TPU_FILE}:380", ("conv1", "conv2"), "+CONV=pairs"),
     "conv_im2col": (f"{PORT}/csrc/conv_im2col.cu", f"{TPU_FILE}:328", ("conv1", "conv2"), "+CONV=fused"),
+    # g8 packs phases of a strided conv: conv1 (stride 4); conv2 (stride 1) runs vcol on that route
+    "conv_g8": (f"{PORT}/csrc/conv_g8.cu", f"{TPU_FILE}:476", ("conv1",), "+CONV=g8"),
     "maxpool_phases": (f"{PORT}/csrc/maxpool_phases.cu", f"{TPU_FILE}:889", ("pool1", "pool2"), "+POOL=phases"),
 }
 BLOCK_KERNEL = ("conv_block", f"{PORT}/csrc/conv_block.cu",
@@ -279,6 +281,7 @@ def variant_phase(spec, peak_name) -> list:
         "conv_taps": (ck.conv_taps, ck.conv_taps_plain),
         "conv_pairs": (ck.conv_pairs, ck.conv_pairs_plain),
         "conv_im2col": (ck.conv_im2col, ck.conv_im2col_plain),
+        "conv_g8": (ck.conv_g8, ck.conv_g8_plain),
     }
     rows = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -296,6 +299,8 @@ def variant_phase(spec, peak_name) -> list:
             lib = lambda x=x, wl=wl, b=b, s=s, p=p: F.conv2d(x.permute(0, 3, 1, 2), wl, b, stride=s, padding=p)  # noqa: E731
             hp = (ho - 3) // 2 + 1
             modes = [(kname, "", {}) for kname in ("conv_taps", "conv_pairs", "conv_im2col")]
+            if s >= 2:
+                modes.append(("conv_g8", "", {}))
             modes += [(kname, "hpool", dict(hpool=(3, 2))) for kname in ("conv2d", "conv_taps")]
             if stage == "conv2":
                 modes += [(kname, f"k_block={kb}", dict(k_block=kb)) for kname in ("conv2d", "conv_taps")
@@ -367,10 +372,11 @@ def edge_phase() -> list:
             res = compare(rule, ck.conv2d_bias_relu(x, w, b, stride=s, padding=p),
                           ck.conv2d_bias_relu_plain(x, w, b, stride=s, padding=p))
             results.append((f"conv {n}x{h}x{h}x{c} F{f} K{k} s{s} p{p} {pol}", res))
-        # the variants: an even-fq pairs case (F8 s4: fq 2), a ragged output (23 rows), C=5 with K=40, and
-        # K=256 for both k_blocks
+        # the variants: an even-fq pairs case (F8 s4: fq 2), a ragged output (23 rows), C=5 with K=40,
+        # K=256 for both k_blocks, and g8 at strides 4 (an odd output), 2 and 3
         for n, h, c, f, k, s, p in ((2, 35, 5, 8, 40, 4, 1), (3, 45, 5, 3, 40, 2, 1),
-                                    (2, 31, 96, 5, 72, 1, 2), (1, 13, 16, 3, 256, 1, 1)):
+                                    (2, 31, 96, 5, 72, 1, 2), (1, 13, 16, 3, 256, 1, 1),
+                                    (2, 37, 3, 11, 16, 4, 0), (2, 37, 3, 7, 16, 3, 2)):
             x, w, b = r(n, h, h, c), r(f, f, c, k, scale=2 / (f * f * c) ** 0.5, shift=0.5), r(k, scale=0.2, shift=0.5)
             kw = dict(stride=s, padding=p)
             rule = FP32_REL if pol == "fp32" else ("ulp", FP32_REL)
@@ -378,6 +384,8 @@ def edge_phase() -> list:
             pairs = [("conv_taps", ck.conv_taps, ck.conv_taps_plain), ("conv_im2col", ck.conv_im2col, ck.conv_im2col_plain)]
             if -(-f // s) >= 2:
                 pairs.append(("conv_pairs", ck.conv_pairs, ck.conv_pairs_plain))
+            if s >= 2:
+                pairs.append(("conv_g8", ck.conv_g8, ck.conv_g8_plain))
             for name, fn, plain in pairs:
                 results.append((f"{name} {tag}", compare(rule, fn(x, w, b, **kw), plain(x, w, b, **kw))))
             for name, fn in (("conv2d", ck.conv2d_bias_relu), ("conv_taps", ck.conv_taps)):
@@ -594,6 +602,8 @@ MAIN_RUNS = (
         ({"CONV": "taps"}, dict(conv_taps=2, maxpool2d=2, lrn=1)),
         ({"CONV": "pairs"}, dict(conv_pairs=2, maxpool2d=2, lrn=1)),
         ({"CONV": "fused"}, dict(conv_im2col=2, maxpool2d=2, lrn=1)),
+        # g8 runs conv1 (stride 4); conv2 (stride 1) falls back to vcol, as in the JAX package
+        ({"CONV": "g8"}, dict(conv_g8=1, conv2d=1, maxpool2d=2, lrn=1)),
         ({"POOL": "phases"}, dict(conv2d=2, maxpool_phases=2, lrn=1)),
         # the conv kernel takes the pool's H max; maxpool2d runs the W stage
         ({"FUSE": "hpool"}, dict(conv2d=2, maxpool2d=2, lrn=1)),

@@ -24,7 +24,7 @@ from .models.alexnet import BLOCKS12, forward_blocks12
 from .models.init import params_to
 from .ops.kernel_model import forward_blocks12_kernels
 from .ops.reference import true_fp32
-from .ops.variants import KernelVariants, require_ported
+from .ops.variants import KernelVariants
 from .precision.policy import resolve_policy
 from .precision.quantize import forward_blocks12_int8w
 
@@ -105,8 +105,7 @@ def build_forward(
     ``TPU_FRAMEWORK_*`` environment now, once, overlaid with ``plan`` (a
     ``tuning.plan.TunePlan``) when one is given: per knob an explicit
     environment variable beats the plan beats the default. The returned
-    function keeps the variants it was built with. A knob the port cannot
-    run raises ``NotImplementedError`` here.
+    function keeps the variants it was built with.
     """
     dev = resolve_device(device)
     pol = resolve_policy(policy)
@@ -114,7 +113,6 @@ def build_forward(
     kv = None
     if exec_cfg.tier == "kernels":
         kv = variants if variants is not None else _resolve_variants(plan)
-        require_ported(kv)
     if pol.name != "bf16":
         true_fp32(dev)
 

@@ -1,5 +1,5 @@
 // The implicit-GEMM engine shared by the port's conv kernels: conv2d.cu
-// (vcol), conv_taps.cu, conv_pairs.cu and conv_im2col.cu.
+// (vcol), conv_taps.cu, conv_pairs.cu, conv_im2col.cu and conv_g8.cu.
 //
 // Every conv variant is one GEMM: rows are output pixels (n, oy, ox),
 // columns are output channels, and the reduction runs over KG terms in the
@@ -95,6 +95,45 @@ __device__ __forceinline__ void accumulate(const Op& op, typename Op::Loader a, 
     __syncthreads();
   }
 }
+
+// The space-to-depth window operand policy of conv_taps.cu and conv_g8.cu:
+// xs (N, Hs, Ws, cs) and w (fq, fq, cs, K). Output pixel (oy, ox), term
+// kg = (qh*fq + qw)*cs + c (the row-major order of w viewed as a (fq*fq*cs,
+// K) matrix) reads xs pixel (oy + qh, ox + qw), channel c. The fq*cs terms
+// of one qh row are contiguous in xs (pixel ox + qw + 1 follows ox + qw), so
+// the gather is a pointer that steps by one and jumps once per qh row.
+template <typename T>
+struct S2dOp {
+  using Elem = T;
+  const T* xs;
+  const T* w;
+  int K, KG;
+  int Hs, Ws, cs, fq;
+
+  struct Loader {
+    const T* p;  // the next term
+    int left;    // terms left in this qh row
+    int run;     // fq * cs terms per qh row
+    int skip;    // (Ws - fq) * cs: from the end of one qh row to the next
+    bool ok;
+
+    __device__ __forceinline__ float next(bool valid) {
+      const float v = (ok && valid) ? port::to_f32(*p) : 0.f;
+      ++p;
+      if (--left == 0) {
+        left = run;
+        p += skip;
+      }
+      return v;
+    }
+  };
+
+  __device__ __forceinline__ Loader loader(bool ok, int n, int oy, int ox) const {
+    return Loader{xs + ((static_cast<size_t>(n) * Hs + oy) * Ws + ox) * cs, fq * cs, fq * cs,
+                  (Ws - fq) * cs, ok};
+  }
+  __device__ __forceinline__ const T* row(int kg) const { return w + static_cast<size_t>(kg) * K; }
+};
 
 template <typename T>
 __device__ __forceinline__ T epilogue(float acc, const T* bias, int n, int relu) {

@@ -21,48 +21,15 @@
 // zeros: 19% more FMAs on conv1, none on conv2 (s = 1).
 //
 // Bound on the H100: operations (FFMA), as conv2d.cu. Design: the shared
-// implicit-GEMM engine (conv_engine.cuh) with this operand policy.
+// implicit-GEMM engine (conv_engine.cuh) with its s2d window operand policy.
 #include "conv_engine.cuh"
 
 namespace {
 
 template <typename T>
-struct TapsOp {
-  using Elem = T;
-  const T* xs;
-  const T* w;
-  int K, KG;
-  int Hs, Ws, cs, fq;
-
-  struct Loader {
-    const T* p;  // the next term
-    int left;    // terms left in this qh row
-    int run;     // fq * cs terms per qh row
-    int skip;    // (Ws - fq) * cs: from the end of one qh row to the next
-    bool ok;
-
-    __device__ __forceinline__ float next(bool valid) {
-      const float v = (ok && valid) ? port::to_f32(*p) : 0.f;
-      ++p;
-      if (--left == 0) {
-        left = run;
-        p += skip;
-      }
-      return v;
-    }
-  };
-
-  __device__ __forceinline__ Loader loader(bool ok, int n, int oy, int ox) const {
-    return Loader{xs + ((static_cast<size_t>(n) * Hs + oy) * Ws + ox) * cs, fq * cs, fq * cs,
-                  (Ws - fq) * cs, ok};
-  }
-  __device__ __forceinline__ const T* row(int kg) const { return w + static_cast<size_t>(kg) * K; }
-};
-
-template <typename T>
 int launch(const void* xs, const void* w, const void* b, void* y, int N, int Hs, int Ws, int cs,
            int K, int fq, int Ho, int Wo, int relu, int k_block, int pw, int ps, int Hp, void* stream) {
-  const TapsOp<T> op{static_cast<const T*>(xs), static_cast<const T*>(w), K, fq * fq * cs,
+  const engine::S2dOp<T> op{static_cast<const T*>(xs), static_cast<const T*>(w), K, fq * fq * cs,
                      Hs, Ws, cs, fq};
   return pw > 0 ? engine::launch_hpool(op, b, y, N, Wo, relu, pw, ps, Hp, stream)
                 : engine::launch_tiles(op, b, y, N, Ho, Wo, relu, k_block, stream);

@@ -113,6 +113,8 @@ _SIGNATURES = {
     "conv_taps": ([_P, _P, _P, _P] + [_I] * 13 + [_P], ("f32", "bf16")),
     # xpair, xs, wpair, wlast, b, y, N, Hs, Ws, cs, K, fq, Ho, Wo, relu, stream
     "conv_pairs": ([_P] * 6 + [_I] * 9 + [_P], ("f32", "bf16")),
+    # xs8, w8, b, y, N, Hs8, Ws8, G, K, fq8, Ho, Wo, relu, stream
+    "conv_g8": ([_P] * 4 + [_I] * 9 + [_P], ("f32", "bf16")),
     # xcol, w, b, y, N, Ho, Wo, KD, K, relu, stream
     "conv_im2col": ([_P] * 4 + [_I] * 6 + [_P], ("f32", "bf16")),
     # x, y, N, H, W, C, window rows, window cols, stride rows, stride cols, Ho, Wo, stream

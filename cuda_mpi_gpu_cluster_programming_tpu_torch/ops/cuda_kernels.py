@@ -7,6 +7,7 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``conv_taps``: :func:`conv_taps`, ``conv_taps.cu``, taps (hpool, k_block);
 - ``conv_pairs``: :func:`conv_pairs`, ``conv_pairs.cu``, pairs;
 - ``conv_im2col``: :func:`conv_im2col`, ``conv_im2col.cu``, fused;
+- ``conv_g8``: :func:`conv_g8`, ``conv_g8.cu``, g8 (stride >= 2);
 - ``maxpool2d``: :func:`maxpool2d` and its W-only stage :func:`maxpool2d_w`,
   ``maxpool.cu``, the sep2 pool;
 - ``maxpool_phases``: :func:`maxpool_phases`, ``maxpool_phases.cu``, the
@@ -14,7 +15,7 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``lrn``: :func:`lrn`, ``lrn.cu``;
 - ``conv_block``: :func:`conv_block`, ``conv_block.cu``, fuse="block".
 
-The four conv kernels share one implicit-GEMM engine
+The five conv kernels share one implicit-GEMM engine
 (``csrc/conv_engine.cuh``). Each kernel has:
 
 - a wrapper that checks device, dtype, shape and contiguity, packs the
@@ -46,7 +47,7 @@ from .shapes import conv_out_dim, pool_out_dim
 # Kernel launches since the last reset: a plain integer per kernel.
 LAUNCHES = {
     "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
-    "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "maxpool_phases": 0,
+    "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "maxpool_phases": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -369,6 +370,76 @@ def conv_im2col(
     _launch(
         "conv_im2col", "conv_im2col", xcol, xcol.data_ptr(), wmat.data_ptr(), b.data_ptr(), y.data_ptr(),
         n, ho, wo, xcol.shape[1], k, int(relu),
+    )
+    return y
+
+
+def _g8_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+    """The g8 operands: ``(xs8, w8, fq8, ho, wo)`` with xs8 (N, ho2+fq8-1,
+    wo2+fq8-1, g*g*C) packed at g = 2*stride, ho2 = ceil(ho/2), and w8 the
+    (2, 2, fq8, fq8, g*g*C, K) phase weight frames, contiguous."""
+    f, s = w.shape[0], stride
+    g = 2 * s
+    fq8 = -(-(f + s) // g)
+    ho = conv_out_dim(x.shape[1], f, padding, s)
+    wo = conv_out_dim(x.shape[2], f, padding, s)
+    if padding:
+        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    xs8 = packing.space_to_depth(x, g, -(-ho // 2) + fq8 - 1, -(-wo // 2) + fq8 - 1).contiguous()
+    return xs8, packing.weights_to_phase_depth(w, s, g, fq8).contiguous(), fq8, ho, wo
+
+
+def conv_g8_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """Plain version of the g8 kernel: per output phase (ph, pw), one
+    (pixels, g*g*C) x (g*g*C, K) matmul per tap (qh, qw) of the phase's
+    weight frame into an fp32 accumulator, the phases interleaved into the
+    (N, Ho, Wo, K) accumulator, then the epilogue."""
+    xs8, w8, fq8, ho, wo = _g8_operands(x, w, stride, padding)
+    n, gch, k = x.shape[0], xs8.shape[3], w.shape[3]
+    ho2, wo2 = -(-ho // 2), -(-wo // 2)
+    acc = torch.zeros((n, ho2 * 2, wo2 * 2, k), dtype=torch.float32, device=x.device)
+    for ph in range(2):
+        for pw in range(2):
+            part = torch.zeros((n * ho2 * wo2, k), dtype=torch.float32, device=x.device)
+            for qh in range(fq8):
+                for qw in range(fq8):
+                    win = xs8[:, qh : qh + ho2, qw : qw + wo2, :].float().reshape(-1, gch)
+                    part.addmm_(win, w8[ph, pw, qh, qw].float())
+            acc[:, ph::2, pw::2, :] = part.reshape(n, ho2, wo2, k)
+    return _epilogue_plain(acc[:, :ho, :wo, :], b, relu, x.dtype, None)
+
+
+def conv_g8(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """Phase-packed conv + bias + optional ReLU: the g8 body, for stride >=
+    2 (at stride 1 there are no phases to pack: the caller runs vcol, as
+    the JAX package does). Arguments and result as :func:`conv2d_bias_relu`
+    without ``k_block``/``hpool``, which the JAX package's g8 route ignores
+    and refuses.
+
+    Replaces ``_conv_g8_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
+    pallas_kernels.py). Bound on the H100: FFMA operations (conv1 59 GFLOP
+    at batch 128 with the weight frames' zeros, against vcol's 27). Design
+    (``csrc/conv_g8.cu``): the input packed at g = 2*stride (g*g*C
+    channels) and the four phase weight frames packed here
+    (``ops/packing.py``); then the shared implicit GEMM on a grid with the
+    output phase as its third dimension, each block writing its pixels
+    straight into the interleaved (N, Ho, Wo, K) output."""
+    dev, (n, _h, _wd, _c, _f, k, ho, wo) = _conv_geometry("conv_g8", x, w, b, stride, padding)
+    if stride < 2:
+        raise ValueError(f"conv_g8: no phases to pack at stride {stride}; run vcol")
+    if dev.type == "cpu":
+        return conv_g8_plain(x, w, b, stride=stride, padding=padding, relu=relu)
+    xs8, w8, fq8, ho, wo = _g8_operands(x, w, stride, padding)
+    if xs8.numel() >= 2**31:
+        raise ValueError(f"conv_g8: a packed input of {tuple(xs8.shape)} is past 2^31 elements")
+    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
+    _launch(
+        "conv_g8", "conv_g8", xs8, xs8.data_ptr(), w8.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, xs8.shape[1], xs8.shape[2], xs8.shape[3], k, fq8, ho, wo, int(relu),
     )
     return y
 

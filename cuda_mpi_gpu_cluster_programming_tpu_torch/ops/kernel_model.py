@@ -11,8 +11,8 @@ block (conv -> pool, plus block 2's LRN) goes through
 - ``fuse="hpool"`` with a taps/vcol conv, the sep2 pool, a whole image per
   program and no k_block: the conv kernel takes the pool's H-axis max in
   its epilogue, then the pool's W stage; bitwise the staged route;
-- otherwise staged: the conv of ``v.conv`` (taps, pairs, fused or vcol,
-  with ``v.k_block``), the pool of ``v.pool`` (sep2 or phases), then LRN.
+- otherwise staged: the conv of ``v.conv`` (taps, pairs, fused, vcol or
+  g8, with ``v.k_block``), the pool of ``v.pool`` (sep2 or phases), then LRN.
   With the defaults that is five launches per forward (the TPU's two-pass
   pools take seven).
 """
@@ -25,7 +25,7 @@ from ..models.alexnet import BLOCKS12, Blocks12Config, ConvSpec, LrnSpec, PoolSp
 from . import cuda_kernels as ck
 from . import megakernel as mk
 from .shapes import conv_out_dim
-from .variants import KernelVariants, LayerVariants, require_ported
+from .variants import KernelVariants, LayerVariants
 
 
 def _layer_variants(v: KernelVariants | LayerVariants, name: str) -> KernelVariants:
@@ -39,15 +39,17 @@ def conv(
 ) -> torch.Tensor:
     """The conv kernel of one variant, as the JAX package's
     ``conv2d_pallas(variant=...)`` lowers it: k_block and hpool reach the
-    taps/vcol bodies only (pairs and fused ignore k_block and refuse hpool),
-    and pairs at fq = ceil(F/stride) < 2 runs taps (nothing to pair)."""
-    require_ported(KernelVariants(conv=variant))
-    if variant not in ("taps", "pairs", "fused", "vcol"):
+    taps/vcol bodies only (pairs, fused and g8 ignore k_block and refuse
+    hpool), pairs at fq = ceil(F/stride) < 2 runs taps (nothing to pair)
+    and g8 at stride 1 runs vcol (no phases to pack)."""
+    if variant not in ("taps", "pairs", "fused", "vcol", "g8"):
         raise ValueError(f"unknown conv variant {variant!r}")
     if hpool is not None and variant not in ("taps", "vcol"):
         raise ValueError(f"hpool fusion supports the taps/vcol lowering only, got {variant!r}")
     kw = dict(stride=stride, padding=padding, relu=relu)
-    if variant == "vcol":
+    if variant == "g8" and stride >= 2:
+        return ck.conv_g8(x, w, b, **kw)
+    if variant in ("vcol", "g8"):
         return ck.conv2d_bias_relu(x, w, b, k_block=k_block, hpool=hpool, **kw)
     if variant == "fused":
         return ck.conv_im2col(x, w, b, **kw)
@@ -77,7 +79,6 @@ def _conv_then_pool(
     (``row_block >= ho``) and no k_block; else the staged conv of ``v.conv`` and pool
     of ``v.pool``. A staged or hpool route runs the LRN kernel after, when
     ``lrn`` is given."""
-    require_ported(v)
     ho = conv_out_dim(x.shape[1], cspec.filter_size, cspec.padding, cspec.stride)
     if v.fuse == "block" and not mk.block_fusible_reason(
         variant=v.conv, row_block=v.row_block, k_block=v.k_block,

@@ -11,23 +11,17 @@ for the other:
 - ``TPU_FRAMEWORK_KBLOCK``   output-channel grid block: 0 | 64 | 128 (default 0)
 - ``TPU_FRAMEWORK_FUSE``     epilogue fusion: none | hpool | block (default none)
 
-The port builds every value except ``conv="g8"``: :func:`require_ported`
-raises for it, naming its ROADMAP Queue 2 item. ``row_block`` sets no tile
-here (the CUDA kernels tile on their own); only the hpool and block gates
-read it (a whole image per program), and tuning plans carry it.
+The port builds every value. ``row_block`` sets no tile here (the CUDA
+kernels tile on their own); only the hpool and block gates read it (a whole
+image per program), and tuning plans carry it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Union
+from typing import NamedTuple
 
 ROW_BLOCK = 64
-
-# Knob value -> the ROADMAP Queue 2 item whose kernel it needs.
-_UNPORTED = {
-    ("conv", "g8"): "item 6 (_conv_g8_kernel)",
-}
 
 
 def env_variant(env_name: str, default: str, allowed: tuple) -> str:
@@ -109,22 +103,3 @@ class LayerVariants(NamedTuple):
             if n == name:
                 return v
         return self.default
-
-
-def unported_reason(v: KernelVariants) -> str:
-    """Why the port cannot run this knob set yet ('' = it can), naming the
-    ROADMAP Queue 2 item that would build it."""
-    for knob in ("conv", "pool", "fuse"):
-        item = _UNPORTED.get((knob, getattr(v, knob)))
-        if item:
-            return f"{knob}={getattr(v, knob)} is not ported to CUDA yet: ROADMAP Queue 2, {item}"
-    return ""
-
-
-def require_ported(v: Union[KernelVariants, LayerVariants]) -> None:
-    """Raise ``NotImplementedError`` with :func:`unported_reason` for a knob
-    set, or any layer of a plan, the port cannot run yet."""
-    for kv in (*(lv for _n, lv in v.layers), v.default) if isinstance(v, LayerVariants) else (v,):
-        why = unported_reason(kv)
-        if why:
-            raise NotImplementedError(why)

@@ -39,7 +39,7 @@ from ..ops import megakernel as mk
 from ..ops import reference as ops
 from ..ops.kernel_model import _layer_variants
 from ..ops.shapes import conv_out_dim
-from ..ops.variants import KernelVariants, require_ported
+from ..ops.variants import KernelVariants
 
 QMAX = 127  # symmetric int8: [-127, 127]; -128 is unused (no zero-point)
 
@@ -123,7 +123,6 @@ def int8w_conv_then_pool(x, q, scale, b, cspec, pspec, v=None, *, tier="kernels"
     tier runs the whole block as one ``conv_block`` launch where the gate
     allows it; otherwise the staged chain with the reference LRN in fp32."""
     if tier == "kernels" and v is not None and v.fuse == "block":
-        require_ported(v)
         ho = conv_out_dim(x.shape[1], cspec.filter_size, cspec.padding, cspec.stride)
         if not mk.block_fusible_reason(
             variant=v.conv, row_block=v.row_block, k_block=v.k_block,

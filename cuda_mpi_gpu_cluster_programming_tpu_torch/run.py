@@ -82,7 +82,7 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
 
     from .observability.trace import span as obs_span
     from .resilience.policy import Deadline
-    from .tuning.autotune import DTYPES, autotune_precision
+    from .tuning.autotune import DTYPES, AllDtypesPruned, autotune_precision
     from .tuning.plan import device_kind, load_plan, load_policy
 
     plan_path = args.plan or str(Path(__file__).resolve().parent / "_build" / "tune_plan.json")
@@ -106,9 +106,10 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
                     repeats=args.tune_repeats, warmup=args.tune_warmup, device=device, device_kind=kind,
                     gate_journal=args.gate_journal, seed=args.seed,
                 )
-        except RuntimeError as e:
+        except AllDtypesPruned as e:
             # Every requested dtype gate-pruned: say so and run the forced
             # dtype untuned (the gate blocks saved winners, not forced runs).
+            # A build or launch error is no verdict of the gate: it propagates.
             print(f"Gate pruned: {e}")
         if res is not None:
             for dt, why in sorted(res.pruned.items()):
@@ -202,7 +203,7 @@ def main(argv=None) -> int:
 
     try:
         fwd = build_forward(exec_cfg, model_cfg, policy=run_dtype, device=device, plan=plan)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"cannot build config {exec_cfg.key!r}: {e}", file=sys.stderr)
         return 2
 

@@ -6,7 +6,7 @@ TPU_FRAMEWORK_* variant knobs. Precedence: an explicit env var beats a
 tuned plan beats the code default.
 """
 
-from .autotune import DTYPES, autotune, autotune_model, autotune_precision, tune_layer
+from .autotune import DTYPES, AllDtypesPruned, autotune, autotune_model, autotune_precision, tune_layer
 from .plan import (
     VARIANT_ENV,
     TunePlan,
@@ -23,6 +23,7 @@ from .plan import (
 from .space import ConvGeometry, candidate_space, conv_geometries, prune_reason
 
 __all__ = [
+    "AllDtypesPruned",
     "ConvGeometry",
     "DTYPES",
     "TunePlan",

@@ -306,6 +306,10 @@ def _plan_score(plan: TunePlan) -> float:
     return total
 
 
+class AllDtypesPruned(RuntimeError):
+    """:func:`autotune_precision` found no dtype that passed its gate."""
+
+
 def autotune_precision(
     path,
     model_cfg,
@@ -415,7 +419,7 @@ def autotune_precision(
         log(f"tune dtype {dt}: plan {'cache' if was_cached else 'swept'} hash={plan.plan_hash()}")
 
     if not plans:
-        raise RuntimeError(
+        raise AllDtypesPruned(
             "every sweep dtype was gate-pruned: " + "; ".join(f"{d}: {r}" for d, r in pruned.items())
         )
     scores = {dt: _plan_score(p) for dt, p in plans.items()}

@@ -8,18 +8,17 @@ combinations that can run and DEDUPED to distinct effective lowerings, so
 the sweep never spends timing budget on a candidate the port would reject,
 silently degrade (a geometry-dropped k_block) or alias.
 
-Three differences from the JAX package's space, each for a reason:
+Two differences from the JAX package's space, each for a reason:
 
 - the TPU's lane rule (a k_block that is not a multiple of 128 cannot
   lower on hardware) is no rule for the CUDA kernels, so ``k_block=64`` is
   a legal candidate (on conv2: K = 256);
-- ``conv="g8"`` is pruned where the JAX package would time it, with
-  ``ops.variants.require_ported``'s message: its kernel is not ported yet;
-- :func:`_effective_signature` keys ``row_block`` as "a whole image per
-  program or not" (``min(rb, out_h) >= out_h``): the CUDA kernels tile on
-  their own, and only the hpool and block gates read ``row_block``. Row
+- :func:`_effective_signature` leaves ``row_block`` out: the CUDA kernels
+  tile on their own, and only the hpool and block gates read it, which
+  :func:`prune_reason` already holds to a whole image per program. Row
   blocks that give the same lowering are pruned as a "duplicate effective
-  lowering" and never timed.
+  lowering" and never timed: one staged candidate per (conv, pool,
+  k_block), where the JAX package times one per row block.
 
 Every other prune string is the JAX package's word for word. Every prune is
 attributable: ``prune_reason`` returns WHY a combo is out, and
@@ -33,7 +32,7 @@ import itertools
 from typing import Callable, List, Optional, Tuple
 
 from ..ops.megakernel import block_fusible_reason
-from ..ops.variants import KernelVariants, unported_reason
+from ..ops.variants import KernelVariants
 
 # Knob domains: the environment interface's allowed sets (ops.variants).
 CONV_VARIANTS = ("taps", "pairs", "fused", "vcol", "g8")
@@ -157,20 +156,14 @@ def prune_reason(v: KernelVariants, g: ConvGeometry, *, dtype: str = "fp32") -> 
         )
         if why:
             return why
-    return unported_reason(v)
+    return ""
 
 
 def _effective_signature(v: KernelVariants, g: ConvGeometry) -> tuple:
-    """What actually runs: the row block matters only as "whole image per
-    program" (the hpool and block gates), and the pool knob is moot without
-    an adjacent pool."""
-    return (
-        v.conv,
-        v.pool if g.has_pool else "-",
-        min(v.row_block, g.out_h) >= g.out_h,
-        v.k_block,
-        v.fuse,
-    )
+    """What actually runs: no kernel reads the row block (the hpool and
+    block gates that do have passed :func:`prune_reason` with a whole image
+    per program), and the pool knob is moot without an adjacent pool."""
+    return (v.conv, v.pool if g.has_pool else "-", v.k_block, v.fuse)
 
 
 def candidate_space(

@@ -58,14 +58,11 @@ def _no_knob_env(monkeypatch):
 
 def _key(g, v, dtype):
     """What a deterministic timer may depend on: the knobs both packages'
-    spaces keep apart (the port merges row blocks on one side of out_h)."""
-    whole = min(v.row_block, g.out_h) >= g.out_h
-    return f"{g.name}|{dtype}|{v.conv}|{v.pool}|{v.k_block}|{v.fuse}|{whole}"
+    spaces keep apart (the port times one row block per lowering)."""
+    return f"{g.name}|{dtype}|{v.conv}|{v.pool}|{v.k_block}|{v.fuse}"
 
 
 def hashed_timer(g, v, dtype, batch, repeats, warmup):
-    if v.conv == "g8":
-        return 99.0, 0.01, 3  # never the winner: the port has no g8 to time
     return 1.0 + zlib.crc32(_key(g, v, dtype).encode()) % 1000 / 100.0, 0.01, 3
 
 
@@ -90,8 +87,7 @@ def _knobs(v):
 def test_candidate_space_differs_from_jax_exactly(layer, dtype):
     """Against the JAX space with interpret=True (no lane rule): every combo
     the JAX space prunes, the port prunes with the same words; every combo
-    it keeps, the port keeps unless it is g8 (pruned with require_ported's
-    message) or a row-block alias of a kept one."""
+    it keeps, the port keeps unless it is a row-block alias of a kept one."""
     jg = {g.name: g for g in jspace.conv_geometries(jalex.BLOCKS12)}[layer]
     tg = {g.name: g for g in tspace.conv_geometries(talex.BLOCKS12)}[layer]
     assert dataclasses.astuple(jg) == dataclasses.astuple(tg)
@@ -102,16 +98,11 @@ def test_candidate_space_differs_from_jax_exactly(layer, dtype):
         kw = dict(zip(("conv", "pool", "row_block", "k_block", "fuse"), combo))
         jwhy = jspace.prune_reason(pk.KernelVariants(**kw), jg, interpret=True, dtype=dtype)
         twhy = tspace.prune_reason(tv.KernelVariants(**kw), tg, dtype=dtype)
-        if jwhy:
-            assert twhy == jwhy
-        elif kw["conv"] == "g8":
-            assert twhy == "conv=g8 is not ported to CUDA yet: ROADMAP Queue 2, item 6 (_conv_g8_kernel)"
-        else:
-            assert twhy == ""
+        assert twhy == jwhy
     want, seen = [], set()
     for v in jcands:
         sig = tspace._effective_signature(v, tg)
-        if v.conv != "g8" and sig not in seen:
+        if sig not in seen:
             seen.add(sig)
             want.append(_knobs(v))
     assert [_knobs(v) for v in tcands] == want
@@ -119,14 +110,16 @@ def test_candidate_space_differs_from_jax_exactly(layer, dtype):
 
 
 def test_candidate_space_counts_and_the_lane_rule():
-    """At 227x227: conv1 keeps 20 of the JAX package's 44 fp32 candidates
-    (8 g8, 16 row-block aliases), conv2 36 of 40 plus k_block=64, which the
-    JAX package's hardware space prunes by the TPU lane rule."""
+    """At 227x227: conv1 keeps 14 of the JAX package's 44 fp32 candidates
+    (30 row-block aliases, g8 among the kept), conv2 16 of 40 plus 4 with
+    k_block=64, which the JAX package's hardware space prunes by the TPU
+    lane rule."""
     tg = {g.name: g for g in tspace.conv_geometries(talex.BLOCKS12)}
     jg = {g.name: g for g in jspace.conv_geometries(jalex.BLOCKS12)}
     counts = {n: len(tspace.candidate_space(tg[n])) for n in tg}
     jcounts = {n: len(jspace.candidate_space(jg[n], interpret=False)) for n in jg}
-    assert counts == {"conv1": 20, "conv2": 36} and jcounts == {"conv1": 44, "conv2": 40}
+    assert counts == {"conv1": 14, "conv2": 20} and jcounts == {"conv1": 44, "conv2": 40}
+    assert sum(v.conv == "g8" for v in tspace.candidate_space(tg["conv1"])) == 2
     t64 = [v for v in tspace.candidate_space(tg["conv2"]) if v.k_block == 64]
     assert t64 and not [v for v in jspace.candidate_space(jg["conv2"], interpret=False) if v.k_block == 64]
     why = jspace.prune_reason(pk.KernelVariants(conv="taps", k_block=64), jg["conv2"], interpret=False)
@@ -134,7 +127,7 @@ def test_candidate_space_counts_and_the_lane_rule():
     assert tspace.prune_reason(tv.KernelVariants(conv="taps", k_block=64), tg["conv2"]) == ""
     aliases = []
     tspace.candidate_space(tg["conv1"], on_prune=lambda v, why: aliases.append(why))
-    assert sum("duplicate effective lowering" in w for w in aliases) >= 16
+    assert sum("duplicate effective lowering" in w for w in aliases) >= 30
 
 
 # ------------------------------------------------------------------- plans ---
@@ -243,8 +236,8 @@ def test_explicit_env_knob_beats_the_plan(monkeypatch):
 
 def _counting_wrappers(monkeypatch):
     calls = {}
-    for fn in ("conv2d_bias_relu", "conv_taps", "conv_pairs", "conv_im2col", "maxpool2d", "maxpool2d_w",
-               "maxpool_phases", "lrn", "conv_block"):
+    for fn in ("conv2d_bias_relu", "conv_taps", "conv_pairs", "conv_im2col", "conv_g8", "maxpool2d",
+               "maxpool2d_w", "maxpool_phases", "lrn", "conv_block"):
         orig = getattr(ck, fn)
 
         def wrapped(*a, _orig=orig, _name=fn, **kw):
@@ -338,7 +331,7 @@ def test_oracle_spot_check_and_a_corrupted_one_trips(tmp_path, monkeypatch):
     recs = Journal.load(tmp_path / "g.jsonl")
     assert [r["kind"] for r in recs] == ["gate_fail", "gate_fail"] and "preflight" in recs[0]["reason"]
     assert tgate.ToleranceGate(preflight=False).screen("fp32", params, x, T_SMALL).passed
-    with pytest.raises(RuntimeError, match="every sweep dtype was gate-pruned"):
+    with pytest.raises(tat.AllDtypesPruned, match="every sweep dtype was gate-pruned"):
         tat.autotune_precision(tmp_path / "p.json", T_SMALL, batch=2, timer=hashed_timer, log=lambda s: None,
                                device="cpu", gate_journal=str(tmp_path / "g2.jsonl"))
 
@@ -386,6 +379,27 @@ def test_run_tune_sweeps_then_caches(tmp_path, monkeypatch, capsys):
                       "--repeats", "1", "--warmup", "1"]) == 0
     out3 = capsys.readouterr().out
     assert "Tune plan: loaded hash=" in out3 and "source=tuned" in out3
+
+
+@pytest.mark.parametrize("error", ["gate_pruned", "launch_error"])
+def test_run_tune_reports_only_gate_prunes(monkeypatch, capsys, tmp_path, error):
+    """Every dtype gate-pruned: run says so and runs untuned. Any other
+    error of the sweep (a kernel build or launch) propagates."""
+    def fail(*a, **kw):
+        if error == "gate_pruned":
+            raise tat.AllDtypesPruned("every sweep dtype was gate-pruned: fp32: stage conv1")
+        raise RuntimeError("conv_taps: CUDA error 700 (an illegal memory access was encountered)")
+
+    monkeypatch.setattr(tat, "autotune_precision", fail)
+    argv = ["--config", "v3_pallas", "--device", "cpu", "--height", "43", "--width", "43", "--batch", "1",
+            "--tune", "--plan", str(tmp_path / "plan.json"), "--repeats", "1", "--warmup", "1"]
+    if error == "launch_error":
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            trun.main(argv)
+        return
+    assert trun.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "Gate pruned: every sweep dtype was gate-pruned" in out and "Tune plan: none for dtype" in out
 
 
 def test_run_dtype_and_policy_are_exclusive(capsys):

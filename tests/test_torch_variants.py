@@ -1,5 +1,5 @@
-"""The port's conv and pool variants (taps, pairs, fused, phases, the hpool
-epilogue, k_block) against the JAX package's Pallas kernels, on the CPU.
+"""The port's conv and pool variants (taps, pairs, fused, g8, phases, the
+hpool epilogue, k_block) against the JAX package's Pallas kernels, on the CPU.
 
 On the CPU each wrapper of ``ops.cuda_kernels`` runs its plain PyTorch
 version (the CUDA kernels run only on the card, where ``chip_smoke.py``
@@ -47,7 +47,11 @@ CONV_CASES = {
     "conv2_like": (2, 9, 9, 12, 5, 16, 1, 2),
     "even_fq": (2, 21, 21, 5, 8, 8, 4, 1),  # fq = 2: pairs has no leftover tap
 }
-WRAPPERS = {"taps": ck.conv_taps, "pairs": ck.conv_pairs, "fused": ck.conv_im2col}
+WRAPPERS = {
+    "taps": ck.conv_taps, "pairs": ck.conv_pairs, "fused": ck.conv_im2col,
+    # g8 through the model's dispatch: at stride 1 (conv2_like) it runs vcol, as in JAX
+    "g8": lambda *a, **kw: km.conv(*a, variant="g8", **kw),
+}
 
 
 def _conv_case(name, dtype, seed=5):
@@ -93,6 +97,15 @@ def test_weights_to_depth_bitwise(f, s, c, k):
     fq = -(-f // s)
     want = np.asarray(pk._weights_to_depth(jnp.asarray(w), s, fq))
     got = packing.weights_to_depth(torch.from_numpy(w), s, fq).numpy()
+    assert got.shape == want.shape and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("f, s, c, k", [(11, 4, 3, 8), (5, 2, 3, 4), (7, 3, 2, 5)])
+def test_weights_to_phase_depth_bitwise(f, s, c, k):
+    w = np.random.default_rng(4).standard_normal((f, f, c, k)).astype(np.float32)
+    g, fq8 = 2 * s, -(-(f + s) // (2 * s))
+    want = np.asarray(pk._weights_to_phase_depth(jnp.asarray(w), s, g, fq8))
+    got = packing.weights_to_phase_depth(torch.from_numpy(w), s, g, fq8).numpy()
     assert got.shape == want.shape and np.array_equal(got, want)
 
 
@@ -155,6 +168,37 @@ def test_conv_hpool_matches_pallas_and_is_bitwise_staged(variant, case, dtype):
     _assert_close(_np(fused), _np(pk.maxpool_pallas_w(want, window=3, stride=2)), dtype)
 
 
+@pytest.mark.parametrize("f, s, pad, relu", [(11, 4, 0, True), (5, 2, 1, True), (7, 3, 2, False)])
+def test_conv_g8_matches_pallas_and_taps(f, s, pad, relu):
+    """The JAX package's g8 geometries (conv1-like with an odd output, s=2
+    with padding, s=3 without ReLU): the port's g8 kernel against the
+    Pallas g8 kernel and against the port's taps, fp32."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 37, 37, 3)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((f, f, 3, 16))).astype(np.float32)
+    b = np.full(16, 0.1, np.float32)
+    kw = dict(stride=s, padding=pad, relu=relu)
+    want = pk.conv2d_pallas(*(jnp.asarray(a) for a in (x, w, b)), variant="g8", **kw)
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    got = ck.conv_g8(tx, tw, tb, **kw)
+    assert tuple(got.shape) == want.shape
+    _assert_close(got.numpy(), _np(want), "fp32")
+    _assert_close(got.numpy(), ck.conv_taps(tx, tw, tb, **kw).numpy(), "fp32")
+
+
+def test_g8_at_stride1_runs_vcol_as_in_jax():
+    rng = np.random.default_rng(16)
+    tx = torch.from_numpy(rng.standard_normal((2, 9, 9, 3)).astype(np.float32))
+    tw = torch.from_numpy((0.1 * rng.standard_normal((3, 3, 3, 8))).astype(np.float32))
+    tb = torch.zeros(8)
+    got = km.conv(tx, tw, tb, stride=1, padding=1, relu=True, variant="g8", k_block=0)
+    assert torch.equal(got, ck.conv2d_bias_relu(tx, tw, tb, stride=1, padding=1))
+    with pytest.raises(ValueError, match="no phases to pack"):
+        ck.conv_g8(tx, tw, tb, stride=1, padding=1)
+    with pytest.raises(ValueError, match="taps/vcol"):
+        km.conv(tx, tw, tb, stride=4, padding=0, relu=True, variant="g8", hpool=(3, 2))
+
+
 def test_hpool_refuses_k_block_and_pairs():
     tx, tw, tb = torch.zeros(1, 7, 7, 8), torch.zeros(5, 5, 8, 256), torch.zeros(256)
     kw = dict(stride=1, padding=2)
@@ -212,6 +256,7 @@ FORWARD_VARIANTS = {
     "taps": dict(conv="taps"),
     "pairs": dict(conv="pairs"),
     "fused": dict(conv="fused"),
+    "g8": dict(conv="g8"),
     "phases": dict(pool="phases"),
     "hpool_vcol": dict(fuse="hpool"),
     "kb128": dict(k_block=128),
@@ -268,8 +313,8 @@ def _counting(monkeypatch):
     """Count the calls of each kernel wrapper (on the CPU they launch
     nothing, so the route is read from the calls)."""
     calls = {}
-    for fn in ("conv2d_bias_relu", "conv_taps", "conv_pairs", "conv_im2col", "maxpool2d", "maxpool2d_w",
-               "maxpool_phases", "lrn", "conv_block"):
+    for fn in ("conv2d_bias_relu", "conv_taps", "conv_pairs", "conv_im2col", "conv_g8", "maxpool2d",
+               "maxpool2d_w", "maxpool_phases", "lrn", "conv_block"):
         orig = getattr(ck, fn)
 
         def wrapped(*a, _orig=orig, _name=fn, **kw):
@@ -286,6 +331,8 @@ def _counting(monkeypatch):
         ("taps", "fp32", {"conv_taps": 2, "maxpool2d": 2, "lrn": 1}),
         ("pairs", "bf16", {"conv_pairs": 2, "maxpool2d": 2, "lrn": 1}),
         ("fused", "fp32", {"conv_im2col": 2, "maxpool2d": 2, "lrn": 1}),
+        # g8 is conv1's (stride 4); conv2 (stride 1) runs vcol
+        ("g8", "bf16", {"conv_g8": 1, "conv2d_bias_relu": 1, "maxpool2d": 2, "lrn": 1}),
         ("phases", "fp32", {"conv2d_bias_relu": 2, "maxpool_phases": 2, "lrn": 1}),
         ("hpool_vcol", "fp32", {"conv2d_bias_relu": 2, "maxpool2d_w": 2, "lrn": 1}),
         ("mixed", "int8w", {"conv_taps": 1, "maxpool_phases": 1, "conv_im2col": 1, "maxpool2d": 1}),
@@ -314,13 +361,3 @@ def test_hpool_gate_sends_a_refused_geometry_staged(monkeypatch):
     assert calls == {"conv2d_bias_relu": 2, "maxpool2d": 1, "maxpool2d_w": 1, "lrn": 1}
     ref = tcfg.build_forward(tcfg.REGISTRY["v3_pallas"], tgeo, variants=tv.KernelVariants(), device="cpu")(params, x)
     assert torch.equal(out, ref)
-
-
-def test_require_ported_raises_for_g8_only():
-    for conv in ("taps", "pairs", "fused", "vcol"):
-        for pool in ("sep2", "phases"):
-            for fuse in ("none", "hpool", "block"):
-                for kb in (0, 64, 128):
-                    tv.require_ported(tv.KernelVariants(conv=conv, pool=pool, fuse=fuse, k_block=kb))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2, item 6"):
-        tv.require_ported(tv.LayerVariants(layers=(("conv1", tv.KernelVariants(conv="g8")),)))
