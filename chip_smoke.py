@@ -24,7 +24,13 @@ with a non-zero exit code and nothing is caught:
    beside that chain, its plain version, the cuDNN chain (a note: no one
    library call computes a block) and the bound; and every kernel again at
    edge shapes off the main path (an even-fq pairs case, a ragged output,
-   C=5 with K=40, g8 at strides 2, 3 and 4 among them);
+   C=5 with K=40, g8 at strides 2, 3 and 4 among them); then the LM
+   slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
+   and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
+   TINY_LM's attention (8x1024x4x32), causal and full, timed beside SDPA,
+   and off those shapes (the JAX tests' ragged blocks, D = 16 and 128,
+   strided q/k/v, a rejected head dim, relu on a NaN, -0.0 and an
+   unaligned view);
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
@@ -36,6 +42,14 @@ with a non-zero exit code and nothing is caught:
    ``v1_jit`` fp32 on numpy-seeded random params within the precision
    budgets, fused int8w against staged int8w, and
    ``ToleranceGate().screen_blocks`` at 227x227 for fp32, bf16 and int8w;
+   3b. the transformer LM's forward family, launch counts set to 0 before
+   each run and read after: ``examples.long_context.main`` at its defaults
+   (``--strategy flash --verify`` fp32 and bf16, one flash_fwd launch per
+   call; ``--strategy single``), and at TINY_LM, batch 8, L=1024,
+   ``forward_lm`` flash against reference (2 launches per forward, TF32
+   turned off by the path itself) in fp32 and bf16, ``lm_loss``,
+   ``decode_logits`` against ``forward_lm`` and greedy ``generate`` (32
+   steps); then the unfused conv1 -> relu sequence, bitwise the fused conv;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -60,10 +74,17 @@ Tolerances, kernel against plain version on the same inputs:
   + 1e-5 of the max, and 2 ulps for a block that ends in LRN: a one-ulp
   flip of the bf16 interior (the conv's other summation order) moves the
   LRN result, which is then rounded once more; against the staged kernel
-  chain, fp32 and bf16: bitwise.
+  chain, fp32 and bf16: bitwise;
+- relu: bitwise (NaN bits included);
+- flash_fwd out: fp32 2e-6 x max |v| (one fp32 recurrence, other sum
+  orders; out mixes v's rows, so its error scales with v), bf16 1 ulp +
+  that term; lse 1e-6 x its max; out against the
+  O(L^2) oracle 2e-5 (fp32) or 3e-2 (bf16) abs + rel, the JAX flash tests'.
 Main path: ``precision/gate.py`` budgets of the JAX package: fp32 1e-4 abs
 and 1e-5 of the max; bf16 2e-2 and int8w 6e-2 of the max against the fp32
-oracle.
+oracle. LM: flash against reference and decode against forward, rtol 1e-4
+/ atol 2e-4 (``tests/test_decode.py``), bf16 rtol 0.1 / atol 0.3 (the same
+file's bf16 parity).
 """
 
 from __future__ import annotations
@@ -102,6 +123,25 @@ KERNELS = {
 }
 BLOCK_KERNEL = ("conv_block", f"{PORT}/csrc/conv_block.cu",
                 "cuda_mpi_gpu_cluster_programming_tpu/ops/megakernel.py:111", ("block1", "block2"))
+# the transformer LM's forward family: the standalone ReLU and the flash-attention forward
+FLASH_FILE = "cuda_mpi_gpu_cluster_programming_tpu/ops/flash_attention.py"
+LM_KERNELS = {
+    # name: (source, TPU kernel it replaces)
+    "relu": (f"{PORT}/csrc/relu.cu", f"{TPU_FILE}:1084"),
+    "flash_fwd": (f"{PORT}/csrc/flash_fwd.cu", f"{FLASH_FILE}:60"),
+}
+LONG_CONTEXT = (1, 4096, 8, 64)  # examples.long_context's defaults: B, L, H, D
+LM_BATCH = 8
+TINY_LM_ATTN = (LM_BATCH, 1024, 4, 32)  # TINY_LM's attention at batch 8 and L = max_len
+FLASH_REF_TOL = {"fp32": 2e-5, "bf16": 3e-2}  # tests/test_flash_attention.py, abs and rel against the oracle
+# flash_fwd against its plain version: out within 2e-6 x max |v| (the same fp32 recurrence, sums in
+# another order; out is a convex mix of v's rows, so its error scales with v, not with out, which
+# averages toward 0 over a long full row); bf16 1 ulp + that term (one rounding of an fp32 result);
+# lse within 1e-6 x its max
+FLASH_PLAIN_V_REL = 2e-6
+LSE_REL = 1e-6
+LM_RTOL, LM_ATOL = 1e-4, 2e-4  # tests/test_decode.py's fp32 parity
+LM_BF16_RTOL, LM_BF16_ATOL = 0.1, 0.3  # tests/test_decode.py's bf16 parity
 FP32_ABS, FP32_REL, BF16_REL, INT8W_REL = 1e-4, 1e-5, 2e-2, 6e-2
 BUDGET_REL = {"bf16": BF16_REL, "int8w": INT8W_REL}
 
@@ -812,6 +852,347 @@ def tune_phase() -> dict:
                 gate_records=recs, stdout_sweep=first, stdout_cache=second)
 
 
+def lm_kernel_phase(spec, peak_name) -> list:
+    """Phase 2, the LM slice's kernels in fp32 and bf16: ``relu`` at conv1's
+    output (bitwise against its plain version), and ``flash_fwd`` at
+    ``long_context``'s defaults and at TINY_LM's attention, causal and full:
+    out and lse against the plain version, out against the O(L^2) oracle
+    (``ops.attention``), timed beside SDPA and the bound."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    rows = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2028)
+        x = torch.randn((BATCH, 55, 55, 96), generator=gen, device="cuda").to(dtype)
+        rows.append(measure(dict(
+            kernel="relu", stage="conv1 out", run=lambda x=x: ck.relu(x), plain=lambda x=x: ck.relu_plain(x),
+            library=lambda x=x: torch.relu(x), library_call="torch.relu",
+            flops=x.numel(), nbytes=2 * x.numel() * x.element_size(), peak="fp32", rule="bitwise",
+        ), pol, spec, peak_name))
+        del x
+        for stage, shape in (("long_context", LONG_CONTEXT), ("tiny_lm", TINY_LM_ATTN)):
+            for causal in (True, False):
+                rows.append(flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def flash_case(shape, causal, dtype, gen, block_q=128, block_k=128) -> dict:
+    """flash_fwd on standard-normal q, k, v against its plain version (out:
+    ``FLASH_PLAIN_V_REL`` of max |v|, plus 1 ulp in bf16; lse: ``LSE_REL``
+    of its max) and against the oracle (``FLASH_REF_TOL``, abs and rel,
+    elementwise)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.attention import attention
+
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    pol = "fp32" if dtype == torch.float32 else "bf16"
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    out, lse = ck.flash_fwd(q, k, v, **kw)
+    p_out, p_lse = ck.flash_fwd_plain(q, k, v, **kw)
+    slack = FLASH_PLAIN_V_REL * float(v.float().abs().max())
+    diff = (out.float() - p_out.float()).abs()
+    if pol == "bf16":
+        ulps = bf16_ulp(torch.maximum(out.float().abs(), p_out.float().abs()))
+        ok = bool((diff <= ulps + slack).all())
+        tol = f"1 bf16 ulp + {FLASH_PLAIN_V_REL:g} x max|v|"
+    else:
+        ok = float(diff.max()) <= slack
+        tol = f"{FLASH_PLAIN_V_REL:g} x max|v|"
+    res = dict(max_abs_err=float(diff.max()), max_rel_err=float(diff.max()) / float(p_out.float().abs().max()),
+               tol=tol, ok=ok)
+    res_lse = compare(LSE_REL, lse, p_lse)
+    ref = attention(q, k, v, causal=causal).float()
+    diff = (out.float() - ref).abs()
+    tol = FLASH_REF_TOL[pol]
+    res.update(lse_max_abs_err=res_lse["max_abs_err"], lse_ok=res_lse["ok"], lse_tol=res_lse["tol"],
+               ref_max_abs_err=float(diff.max()), ref_ok=bool((diff <= tol + tol * ref.abs()).all()),
+               ref_tol=f"{tol:g} abs + {tol:g} rel vs ops.attention")
+    res["ok_all"] = res["ok"] and res["lse_ok"] and res["ref_ok"]
+    return dict(q=q, k=k, v=v, res=res)
+
+
+def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> dict:
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    case = flash_case(shape, causal, dtype, gen)
+    q, k, v, res = case["q"], case["k"], case["v"], case["res"]
+    torch.cuda.synchronize()
+    b, l, h, d = shape
+    flops = 4 * b * h * l * l * d // (2 if causal else 1)
+    nbytes = 4 * q.numel() * q.element_size() + b * h * l * 4  # q, k, v read, out written once; the fp32 lse
+    bound, by = spec.bound_ms(flops, nbytes, pol)
+    run = lambda: ck.flash_fwd(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: ck.flash_fwd_plain(q, k, v, causal=causal)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal)
+    row = dict(
+        kernel="flash_fwd", stage=stage, mode="" if causal else "full", dtype=pol, shape=list(shape), **res,
+        ms=gpu_time_ms(run), plain_ms=gpu_time_ms(plain), library_ms=gpu_time_ms(sdpa),
+        library_call="F.scaled_dot_product_attention (is_causal; (B, H, L, D) views)",
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}",
+    )
+    log(f"kernel flash_fwd{'' if causal else '[full]'} {stage} {'x'.join(map(str, shape))} {pol}: "
+        f"ok={res['ok']} tol={res['tol']} max_abs={res['max_abs_err']:.3g} lse_max_abs={res['lse_max_abs_err']:.3g} "
+        f"vs_oracle={res['ref_max_abs_err']:.3g} ({res['ref_ok']}) | ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+        f"sdpa={row['library_ms']:.4f} bound={bound:.4f} ({by})")
+    require(res["ok_all"], f"flash_fwd {stage} {pol} causal={causal}: {res}")
+    del case
+    return row
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def lm_edge_phase() -> list:
+    """The LM slice's kernels off the main path: flash_fwd at the JAX
+    tests' ragged (L, block_q, block_k) = (24, 8, 12) and (192, 48, 64),
+    at D = 16 and 128, causal and full; on strided q, k, v (slices of one
+    packed qkv tensor) bitwise against contiguous copies; a head dim the
+    kernel does not take raises; relu at an odd size, on a NaN (kept, bits
+    and all) and -0.0 (to +0.0), and on a view 4 bytes off 16-byte alignment."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    results = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for b, l, h, d, bq, bk in ((2, 24, 3, 16, 8, 12), (2, 192, 3, 64, 48, 64), (2, 24, 2, 128, 8, 12),
+                                   (1, 192, 2, 128, 48, 64), (3, 192, 2, 16, 48, 64)):
+            for causal in (True, False):
+                res = flash_case((b, l, h, d), causal, dtype, gen, bq, bk)["res"]
+                results.append((f"flash_fwd {b}x{l}x{h}x{d} blocks ({bq}, {bk}) causal={causal} {pol}",
+                                dict(res, ok=res["ok_all"])))
+        packed = torch.randn((2, 256, 3, 4 * 32), generator=gen, device="cuda").to(dtype)
+        q, k, v = (packed[:, :, i].view(2, 256, 4, 32) for i in range(3))
+        got = ck.flash_fwd(q, k, v, causal=True)
+        want = ck.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        results.append((f"flash_fwd strided qkv views vs contiguous {pol}", dict(ok=same, max_abs_err=0.0)))
+        for d in (48, 256):
+            x = torch.zeros((1, 64, 2, d), device="cuda", dtype=dtype)
+            try:
+                ck.flash_fwd(x, x, x, causal=True)
+                raised = False
+            except ValueError:
+                raised = True
+            results.append((f"flash_fwd rejects head dim {d} {pol}", dict(ok=raised, max_abs_err=0.0)))
+        x = torch.randn((7, 13, 5), generator=gen, device="cuda").to(dtype)
+        x.view(-1)[:4] = torch.tensor([float("nan"), -0.0, float("-inf"), -float("nan")], dtype=dtype)
+        for name, t in (("odd 7x13x5 with NaN, -0.0, -inf", x), ("view off alignment", x.view(-1)[1:])):
+            got, want = ck.relu(t), ck.relu_plain(t)
+            ok = torch.equal(_bits(got), _bits(want)) and bool(torch.isnan(got.view(-1)[0] if t is x else got.view(-1)[2]))
+            results.append((f"relu {name} {pol} (bitwise)", dict(ok=ok, max_abs_err=0.0)))
+        got = ck.relu(x)
+        results.append((f"relu -0.0 to +0.0 {pol}", dict(ok=not bool(torch.signbit(got.view(-1)[1])), max_abs_err=0.0)))
+    torch.cuda.synchronize()
+    for what, res in results:
+        log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
+            + (f" lse_max_abs={res['lse_max_abs_err']:.3g} vs_oracle={res['ref_max_abs_err']:.3g}"
+               if "lse_max_abs_err" in res else ""))
+        require(res["ok"], f"edge case {what}: {res}")
+    return results
+
+
+def run_long_context(argv) -> dict:
+    """``examples.long_context.main`` with the launch counts set to 0 just
+    before and read just after; its contract lines parsed."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    buf = io.StringIO()
+    ck.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = long_context.main(argv)
+    launches = dict(ck.LAUNCHES)
+    out = buf.getvalue()
+    require(rc == 0, f"long_context {argv} returned {rc}:\n{out}")
+    calls = int(re.search(r"^Kernel launches: .* calls=(\d+)$", out, re.M).group(1))
+    m = re.search(r"^Attention completed in ([0-9.]+) ms \((\d+) tok/s\)$", out, re.M)
+    verdict = re.search(r"^Verification: max\|delta\| = (\S+) .* -> (PASSED|FAILED)$", out, re.M)
+    shape = re.search(r"^Final Output Shape: (\S+)$", out, re.M).group(1)
+    first10 = [float(x) for x in re.search(r"^Final Output \(first 10 values\): (.+)$", out, re.M).group(1).split()]
+    require(m is not None and verdict is not None and verdict.group(2) == "PASSED", f"long_context {argv}:\n{out}")
+    require(re.search(r"^KV resident per device: ", out, re.M) is not None, "no KV residency line")
+    require(len(first10) == 10 and all(np.isfinite(first10)), f"first 10 values {first10}")
+    return dict(ms=float(m.group(1)), tok_s=int(m.group(2)), max_delta=float(verdict.group(1)), calls=calls,
+                launches=launches, shape=shape, stdout=out)
+
+
+def lm_path_phase() -> dict:
+    """Phase 3b: the transformer LM's forward family on the card.
+
+    ``examples.long_context.main`` at its defaults (B=1, L=4096, H=8, D=64,
+    causal): ``--strategy flash --verify`` in fp32 and bf16 (one flash_fwd
+    launch per call) and ``--strategy single``. At TINY_LM (d_model 128, 4
+    heads, d_ff 512, 2 layers, vocab 256), batch 8, L=1024: ``forward_lm``
+    with flash against reference (2 launches per forward, TF32 off),
+    fp32 and bf16; ``lm_loss`` for both; ``decode_logits`` against
+    ``forward_lm``; greedy ``generate`` for 32 steps, each token the argmax
+    of the forward's logits within the fp32 tolerance. Then the unfused
+    conv1 -> relu launch sequence, bitwise the fused conv."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as tf
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    result = {"runs": {}}
+    lc_shape = "x".join(map(str, LONG_CONTEXT))
+    for strategy, pol in (("flash", "fp32"), ("flash", "bf16"), ("single", "fp32")):
+        r = run_long_context(["--strategy", strategy, "--verify", "--dtype", pol])
+        name = f"long_context --strategy {strategy}/{pol}"
+        per_call = 1 if strategy == "flash" else 0
+        want = _launches(flash_fwd=per_call * r["calls"])
+        log(f"path {name}: {r['ms']:.4f} ms ({r['tok_s']} tok/s) max|delta|={r['max_delta']:.3g} "
+            f"shape={r['shape']} launches flash_fwd={r['launches']['flash_fwd']} calls={r['calls']}")
+        require(r["shape"] == lc_shape, f"{name}: shape {r['shape']}")
+        require(r["calls"] > 0 and r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+        result["runs"][name] = dict(r, passes=r["calls"])
+
+    cfg = tf.TINY_LM
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    gen = torch.Generator().manual_seed(2026)
+    params = tf.init_transformer(cfg, generator=gen, device="cuda")
+    # lm_loss predicts token t + 1 from tokens 0..t: max_len + 1 tokens give a forward over max_len
+    loss_toks = torch.randint(0, cfg.vocab, (LM_BATCH, cfg.max_len + 1), generator=gen).cuda()
+    toks = loss_toks[:, :-1]
+    n_tok = LM_BATCH * cfg.max_len
+
+    def forward(p, c, name, per_forward):
+        ck.reset_launches()
+        with torch.inference_mode():
+            out = tf.forward_lm(p, toks, c)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        want = _launches(flash_fwd=per_forward)
+        require(launches == want, f"{name}: launches {launches}, want {want}")
+        require(tuple(out.shape) == (LM_BATCH, cfg.max_len, cfg.vocab) and bool(torch.isfinite(out).all()),
+                f"{name}: output {tuple(out.shape)} or non-finite")
+        with torch.inference_mode():
+            ms = gpu_time_ms(lambda: tf.forward_lm(p, toks, c), reps=10)
+        log(f"path {name}: {ms:.4f} ms ({n_tok / ms * 1e3:.0f} tok/s) launches flash_fwd={launches['flash_fwd']}")
+        result["runs"][name] = dict(ms=ms, tok_s=n_tok / ms * 1e3, launches=launches, passes=1)
+        return out
+
+    # the LM path must turn TF32 off itself: switch it on and read it back after a forward
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    lf = forward(params, flash_cfg, "forward_lm flash/fp32", cfg.n_layers)
+    require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+            "forward_lm left TF32 on")
+    lr = forward(params, cfg, "forward_lm reference/fp32", 0)
+    err = float((lf - lr).abs().max())
+    ok = bool(torch.allclose(lf, lr, rtol=LM_RTOL, atol=LM_ATOL))
+    log(f"forward_lm flash vs reference fp32: max_abs={err:.3g} (rtol {LM_RTOL:g}, atol {LM_ATOL:g}) ok={ok}")
+    require(ok, "forward_lm flash disagrees with reference (fp32)")
+    result["forward_flash_vs_reference/fp32"] = err
+
+    pb = _tree_to(params, torch.bfloat16)
+    lfb = forward(pb, flash_cfg, "forward_lm flash/bf16", cfg.n_layers)
+    lrb = forward(pb, cfg, "forward_lm reference/bf16", 0)
+    errb = float((lfb.float() - lrb.float()).abs().max())
+    okb = bool(torch.allclose(lfb.float(), lrb.float(), rtol=LM_BF16_RTOL, atol=LM_BF16_ATOL))
+    log(f"forward_lm flash vs reference bf16: max_abs={errb:.3g} (rtol {LM_BF16_RTOL:g}, atol {LM_BF16_ATOL:g}) ok={okb}")
+    require(okb, "forward_lm flash disagrees with reference (bf16)")
+    result["forward_flash_vs_reference/bf16"] = errb
+    del pb, lfb, lrb
+
+    with torch.inference_mode():
+        loss_f, loss_r = (float(tf.lm_loss(params, loss_toks, c)) for c in (flash_cfg, cfg))
+    log(f"lm_loss flash={loss_f:.6f} reference={loss_r:.6f}")
+    require(np.isfinite(loss_f) and abs(loss_f - loss_r) <= 1e-5 * abs(loss_r), "lm_loss flash vs reference")
+    result["lm_loss"] = dict(flash=loss_f, reference=loss_r)
+
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    dl = tf.decode_logits(params, toks, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    err = float((dl - lr).abs().max())
+    ok = bool(torch.allclose(dl, lr, rtol=LM_RTOL, atol=LM_ATOL))
+    log(f"decode_logits vs forward_lm fp32: max_abs={err:.3g} ok={ok} | {dt * 1e3:.1f} ms "
+        f"({n_tok / dt:.0f} tok/s teacher-forced, batch {LM_BATCH})")
+    require(ok and dict(ck.LAUNCHES) == _launches(), "decode_logits vs forward_lm, or it launched a kernel")
+    result["runs"]["decode_logits/fp32"] = dict(ms=dt * 1e3, tok_s=n_tok / dt, max_abs=err, launches=dict(ck.LAUNCHES))
+    del dl, lf, lr
+
+    steps, plen = 32, 64
+    prompt = toks[:, :plen]
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    seq = tf.generate(params, prompt, cfg, steps=steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    require(tuple(seq.shape) == (LM_BATCH, plen + steps) and torch.equal(seq[:, :plen], prompt.long())
+            and int(seq.min()) >= 0 and int(seq.max()) < cfg.vocab, f"generate output {tuple(seq.shape)}")
+    with torch.inference_mode():
+        lg = tf.forward_lm(params, seq[:, :-1], cfg)[:, plen - 1:]
+    chosen = lg.gather(-1, seq[:, plen:, None])[..., 0]
+    gap = float((lg.amax(-1) - chosen).max())
+    log(f"generate greedy {steps} steps, batch {LM_BATCH}, prompt {plen}: {dt * 1e3:.1f} ms "
+        f"({LM_BATCH * steps / dt:.0f} tok/s); largest logit gap of a chosen token {gap:.3g}")
+    require(bool((lg.amax(-1) - chosen <= LM_ATOL + LM_RTOL * lg.amax(-1).abs()).all()),
+            "generate: a greedy token is not the argmax of forward_lm's logits")
+    result["runs"]["generate/fp32"] = dict(ms=dt * 1e3, tok_s=LM_BATCH * steps / dt, gap=gap, launches=dict(ck.LAUNCHES))
+
+    # the standalone ReLU: the unfused conv1 -> relu sequence, bitwise the conv's fused ReLU
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(2029)
+        x = torch.rand((BATCH, 227, 227, 3), generator=g, device="cuda").to(dtype)
+        w = ((torch.rand((11, 11, 3, 96), generator=g, device="cuda") - 0.5) * (2 / 363**0.5)).to(dtype)
+        b = ((torch.rand((96,), generator=g, device="cuda") - 0.5) * 0.2).to(dtype)
+        ck.reset_launches()
+        y = ck.relu(ck.conv2d_bias_relu(x, w, b, stride=4, padding=0, relu=False))
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        same = torch.equal(y, ck.conv2d_bias_relu(x, w, b, stride=4, padding=0))
+        name = f"unfused conv1 -> relu/{pol}"
+        log(f"path {name}: launches conv2d={launches['conv2d']} relu={launches['relu']}; bitwise the fused conv: {same}")
+        require(launches == _launches(conv2d=1, relu=1) and same, f"{name}: {launches}, same={same}")
+        result["runs"][name] = dict(launches=launches, passes=1)
+    return result
+
+
+def _tree_to(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def lm_kernels_entries(rows, runs) -> list:
+    """The ``kernels`` line's entries of the LM slice: relu per dtype (its
+    run: the unfused conv1 -> relu sequence; no path calls it), flash_fwd
+    per dtype at long_context's shape (its run: ``long_context --strategy
+    flash``) and at TINY_LM's (its run: ``forward_lm`` with flash). Times
+    are the causal rows'; the full-attention rows go under ``modes``."""
+    plan = [("relu", pol, "conv1 out", f"unfused conv1 -> relu/{pol}") for pol in ("fp32", "bf16")]
+    plan += [("flash_fwd", pol, "long_context", f"long_context --strategy flash/{pol}") for pol in ("fp32", "bf16")]
+    plan += [("flash_fwd", pol, "tiny_lm", f"forward_lm flash/{pol}") for pol in ("fp32", "bf16")]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    entries = []
+    for name, pol, stage, run_key in plan:
+        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == pol and r["stage"] == stage]
+        (row,) = [r for r in mine if not r.get("mode")]
+        run = runs[run_key]
+        source, replaces = LM_KERNELS[name]
+        entry = dict(
+            name=name, dtype=pol, route="cuda", source=source, replaces=replaces, run=run_key, stage=stage,
+            launches=run["launches"][name], launches_per_forward=run["launches"][name] / run["passes"],
+            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+            ms=row["ms"], kernel_ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"], library_call=row["library_call"],
+        )
+        if "shape" in row:
+            entry["shape"] = row["shape"]
+        modes = [r for r in mine if r.get("mode")]
+        if modes:
+            entry["modes"] = {r["mode"]: {k: r[k] for k in keys} for r in modes}
+        entries.append(entry)
+    return entries
+
+
 def kernels_line(rows, runs) -> dict:
     """One entry per (kernel, dtype): times summed over the kernel's stages
     in one forward of its route; launches from that dtype's main-path run
@@ -878,23 +1259,28 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def peak_name(p):
-        return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (conv)"
+        return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (tensor cores)"
 
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
-    edges = edge_phase() + block_edge_phase()
+    lm_rows = lm_kernel_phase(spec, peak_name)
+    edges = edge_phase() + block_edge_phase() + lm_edge_phase()
     log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
+    lm = lm_path_phase()
+    log("phase 3b: long_context and the LM's forward, loss, decode and generation ran through flash_fwd")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
+    line["kernels"] += lm_kernels_entries(lm_rows, lm["runs"])
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log,
-             stages=rows, edge_cases=edges, main_path=main, tune=tune, kernels=line["kernels"]), indent=1,
+             stages=rows + lm_rows, edge_cases=edges, main_path=main, lm_path=lm, tune=tune,
+             kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)

@@ -16,3 +16,15 @@ from .init import (  # noqa: F401
     from_reference_layout,
     params_from_jax,
 )
+from .transformer import (  # noqa: F401
+    TransformerConfig,
+    TINY_LM,
+    TransformerLM,
+    init_transformer,
+    lm_params_from_jax,
+    forward_lm,
+    lm_loss,
+    init_kv_cache,
+    decode_logits,
+    generate,
+)

@@ -126,6 +126,10 @@ _SIGNATURES = {
     # x, w, b, scale, y, N, H, W, C, K, F, stride, pad, Ho, Wo, pool window, pool stride,
     # Hp, Wp, band, lrn, lrn size, lrn a, beta, k, stream
     "conv_block": ([_P] * 5 + [_I] * 17 + [_F, _F, _F, _P], ("f32", "bf16", "int8w")),
+    # x, y, total, stream
+    "relu": ([_P, _P, ctypes.c_longlong, _P], ("f32", "bf16")),
+    # q, k, v, out, lse, B, L, H, D, (b, l, h) strides of q, k and v, causal, scale, stream
+    "flash_fwd": ([_P] * 5 + [_I] * 4 + [ctypes.c_longlong] * 9 + [_I, _F, _P], ("f32", "bf16")),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

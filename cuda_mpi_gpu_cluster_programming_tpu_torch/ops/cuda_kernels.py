@@ -13,7 +13,11 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``maxpool_phases``: :func:`maxpool_phases`, ``maxpool_phases.cu``, the
   phases pool;
 - ``lrn``: :func:`lrn`, ``lrn.cu``;
-- ``conv_block``: :func:`conv_block`, ``conv_block.cu``, fuse="block".
+- ``conv_block``: :func:`conv_block`, ``conv_block.cu``, fuse="block";
+- ``relu``: :func:`relu`, ``relu.cu``, the standalone ReLU (no path calls
+  it; the convs fuse theirs);
+- ``flash_fwd``: :func:`flash_fwd`, ``flash_fwd.cu``, the flash-attention
+  forward behind ``ops/flash_attention.py``.
 
 The five conv kernels share one implicit-GEMM engine
 (``csrc/conv_engine.cuh``). Each kernel has:
@@ -42,12 +46,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, packing, variants
+from .attention import NEG_INF
 from .shapes import conv_out_dim, pool_out_dim
 
 # Kernel launches since the last reset: a plain integer per kernel.
 LAUNCHES = {
     "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
     "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "maxpool_phases": 0,
+    "relu": 0, "flash_fwd": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -692,3 +698,131 @@ def conv_block(
         suffix="int8w" if quant else "",
     )
     return y
+
+
+# --------------------------------------------------------------------- relu
+
+
+def relu_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ReLU kernel, ``jnp.maximum(x, 0)``: NaN kept
+    with its bits, -0.0 and everything else not above 0 to +0.0."""
+    return torch.where((x > 0) | torch.isnan(x), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise ReLU of any shape, fp32 or bf16, output in ``x.dtype``.
+
+    Replaces the inline kernel of ``relu_pallas`` (cuda_mpi_gpu_cluster_
+    programming_tpu/ops/pallas_kernels.py). No path calls it: the conv
+    kernels fuse their ReLU, and this is the unfused launch. Bound on the
+    H100: bytes. Design (``csrc/relu.cu``): one launch, a grid-stride loop
+    over 16-byte chunks, then the tail element by element."""
+    dev = _check("relu", x)
+    if dev.type == "cpu":
+        return relu_plain(x)
+    y = torch.empty_like(x)
+    if x.numel():
+        _launch("relu", "relu", x, x.data_ptr(), y.data_ptr(), x.numel())
+    return y
+
+
+# ---------------------------------------------------- flash attention forward
+
+
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_blocks(l: int, block_q: int, block_k: int) -> tuple:
+    """The clamped ``(bq, bk)`` for sequence length ``l``; raises, in the
+    JAX package's words, when ``l`` is not a multiple of both."""
+    bq, bk = min(block_q, l), min(block_k, l)
+    if l % bq or l % bk:
+        raise ValueError(f"sequence length {l} not divisible by blocks ({bq}, {bk})")
+    return bq, bk
+
+
+def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.device:
+    first = q
+    for t in (q, k, v):
+        if t.device != first.device:
+            raise ValueError(f"flash_fwd: tensors on {first.device} and {t.device}")
+        if t.dtype not in _SUFFIX or t.dtype != first.dtype:
+            raise TypeError(f"flash_fwd: needs q, k, v all fp32 or all bf16, got {[u.dtype for u in (q, k, v)]}")
+        if t.dim() != 4 or t.shape != q.shape:
+            raise ValueError(f"flash_fwd: needs q, k, v of one (B, L, H, D) shape, got "
+                             f"{[tuple(u.shape) for u in (q, k, v)]}")
+        if t.stride(-1) != 1:
+            raise ValueError("flash_fwd: the head axis (last) must be contiguous")
+    if first.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_fwd: unsupported device {first.device}")
+    b, l, h, d = q.shape
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_fwd: head dim {d} not supported (one of {FLASH_HEAD_DIMS})")
+    if min(b, l, h) <= 0 or b > 65535 or h > 65535:
+        raise ValueError(f"flash_fwd: shape {tuple(q.shape)} (B and H at most 65535, none empty)")
+    return first.device
+
+
+def flash_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, block_q: int = 128, block_k: int = 128,
+) -> tuple:
+    """Plain version of the flash forward kernel: the same recurrence in
+    PyTorch, every q row at once, over k-blocks of the clamped ``block_k``.
+
+    Exact, not approximate: the running max starts at ``NEG_INF`` and block
+    0 holds key 0, which every row sees, so a masked score adds
+    exp(NEG_INF - m) = 0, as in the JAX kernel. Returns ``(out, lse)``:
+    out (B, L, H, D) in q's dtype, lse (B, H, L) fp32."""
+    b, l, h, d = q.shape
+    _bq, bk = flash_blocks(l, block_q, block_k)
+    scale = 1.0 / d**0.5
+    qf = (q.float() * scale).permute(0, 2, 1, 3)  # (B, H, L, D)
+    kf, vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
+    m = torch.full((b, h, l), NEG_INF, device=q.device)
+    den = torch.zeros((b, h, l), device=q.device)
+    acc = torch.zeros((b, h, l, d), device=q.device)
+    rows = torch.arange(l, device=q.device)[:, None]
+    for k0 in range(0, l, bk):
+        s = qf @ kf[:, :, k0 : k0 + bk].transpose(-1, -2)  # (B, H, L, bk)
+        if causal:
+            s = torch.where(rows >= torch.arange(k0, k0 + bk, device=q.device)[None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        acc = acc * corr[..., None] + p @ vf[:, :, k0 : k0 + bk]
+        den = den * corr + p.sum(dim=-1)
+        m = m_new
+    den = den.clamp_min(1e-30)
+    out = (acc / den[..., None]).to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    return out, m + torch.log(den)
+
+
+def flash_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, block_q: int = 128, block_k: int = 128,
+) -> tuple:
+    """Flash-attention forward: ``(out, lse)`` for q, k, v of shape
+    (B, L, H, D), fp32 or bf16, D in :data:`FLASH_HEAD_DIMS`; out in q's
+    dtype, lse (B, H, L) fp32 = m + log(max(den, 1e-30)).
+
+    ``block_q``/``block_k`` are clamped to L and L must be a multiple of
+    both (:func:`flash_blocks`); the kernel tiles by its own 64 x 64. The
+    last axis must be contiguous; the others are read through their
+    strides (a slice of a packed qkv tensor needs no copy).
+
+    Replaces ``_fwd_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
+    flash_attention.py). Bound on the H100: operations (4 B H L^2 D FLOPs,
+    half when causal). Design (``csrc/flash_fwd.cu``): one block per
+    (b, h, 64-row q tile), K/V tiles streamed through shared memory, the
+    row statistics in registers, fp32 FFMA for both dtypes."""
+    dev = _flash_check(q, k, v)
+    b, l, h, d = q.shape
+    flash_blocks(l, block_q, block_k)
+    if dev.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+    out = torch.empty((b, l, h, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=dev)
+    _launch(
+        "flash_fwd", "flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        b, l, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / d**0.5,
+    )
+    return out, lse

@@ -138,3 +138,14 @@ def amortized_stats(
         samples_ms=samples, n_chain=n, shadowed=False, total_measured_s=total,
         underconverged=len(samples) < min_samples,
     )
+
+
+def amortized_ms(
+    fn: Callable, *args: Any, n_small: int = 10, n_large: int = 110, max_chain: int = 4096,
+) -> float:
+    """Scalar form of :func:`amortized_stats` (one sample, no work floor),
+    as the JAX package's: the long-context example times with it."""
+    return amortized_stats(
+        fn, *args, n_small=n_small, n_large=n_large, max_chain=max_chain,
+        work_floor_ms=0.0, min_samples=1, max_samples=1,
+    ).per_call_ms

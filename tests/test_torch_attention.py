@@ -1,0 +1,187 @@
+"""The port's attention ops and ReLU against the JAX package's.
+
+On the CPU, ``flash_attention``/``flash_attention_with_lse`` run the plain
+PyTorch version of the flash forward kernel (``cuda_kernels.flash_fwd_plain``,
+the same online-softmax recurrence) and ``relu`` runs ``relu_plain``; the
+JAX package's Pallas kernels run in interpret mode, as its own tests run
+them. The kernels themselves run only on the card, where ``chip_smoke.py``
+holds them against the same plain versions. Inputs are made with numpy from
+a seed and handed to both packages.
+
+Tolerances and why:
+- fp32: 2e-5 abs and rel, as ``tests/test_flash_attention.py`` holds the
+  Pallas kernel to the oracle: both accumulate in fp32 in other orders.
+- bf16: 3e-2 abs and rel, the same file's bf16 tolerance: the inputs are
+  the same bf16 values, and one fp32 result is rounded once to bf16 on
+  each side.
+- lse (fp32 in both dtypes): 2e-5 abs/rel, the fp32 rule.
+- relu: bitwise outside NaN (signed zeros and infinities included), NaN
+  where the JAX package has NaN. A NaN keeps its bits here; XLA on the CPU
+  gives a bf16 NaN the canonical payload (sign kept), so payloads are not
+  compared across packages.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cuda_mpi_gpu_cluster_programming_tpu.ops import attention as jattn
+from cuda_mpi_gpu_cluster_programming_tpu.ops import flash_attention as jflash
+from cuda_mpi_gpu_cluster_programming_tpu.ops import pallas_kernels as pk
+from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import attention as tattn
+from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import flash_attention as tflash
+
+DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"fp32": 2e-5, "bf16": 3e-2}
+# tests/test_flash_attention.py's (L, block_q, block_k) cases
+CASES = [(128, 128, 128), (256, 64, 64), (256, 64, 128), (24, 8, 12), (192, 48, 64)]
+
+
+def _qkv(l: int, dtype: str, *, b: int = 1, h: int = 2, d: int = 16, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((b, l, h, d)).astype(np.float32) for _ in range(3)]
+    jdt, tdt = DTYPES[dtype]
+    return [jnp.asarray(a).astype(jdt) for a in arrs], [torch.from_numpy(a).to(tdt) for a in arrs]
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.float().numpy()
+    return np.asarray(t.astype(jnp.float32))
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [24, 128])
+def test_reference_attention_matches_jax(l, causal, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(l, dtype, seed=l)
+    got = tattn.attention(tq, tk, tv, causal=causal)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == tq.shape
+    _close(got, jattn.attention(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,block_q,block_k", CASES)
+def test_flash_matches_jax_flash(l, block_q, block_k, causal, dtype):
+    """out and lse of both public functions against the JAX package's
+    Pallas kernel, at its own tests' block cases (non-dividing ratios among them)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(l, dtype, seed=block_q + block_k)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    want_out, want_lse = jflash.flash_attention_with_lse(jq, jk, jv, **kw)
+    out, lse = tflash.flash_attention_with_lse(tq, tk, tv, **kw)
+    assert out.dtype == DTYPES[dtype][1] and lse.dtype == torch.float32
+    assert tuple(lse.shape) == tuple(want_lse.shape) == (1, 2, l)
+    _close(out, want_out, dtype)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=TOL["fp32"], atol=TOL["fp32"])
+    _close(tflash.flash_attention(tq, tk, tv, **kw), want_out, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_matches_jax_flash_function_and_oracle(causal):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(192, "fp32", b=2, h=3, d=32, seed=5)
+    got = tflash.flash_attention(tq, tk, tv, causal=causal, block_q=48, block_k=64)
+    _close(got, jflash.flash_attention(jq, jk, jv, causal=causal, block_q=48, block_k=64), "fp32")
+    _close(got, tattn.attention(tq, tk, tv, causal=causal), "fp32")
+
+
+def test_small_sequence_clamps_blocks():
+    (jq, jk, jv), (tq, tk, tv) = _qkv(32, "fp32", seed=1)
+    assert tflash.flash_block(32) == 32 and tflash.flash_block(4096) == 128
+    got = tflash.flash_attention(tq, tk, tv, causal=True)  # blocks clamp 128 -> 32
+    _close(got, jattn.attention(jq, jk, jv, causal=True), "fp32")
+
+
+def test_indivisible_rejected_in_the_jax_words():
+    (jq, jk, jv), (tq, tk, tv) = _qkv(96, "fp32")
+    with pytest.raises(ValueError) as want:
+        jflash.flash_attention(jq, jk, jv, block_q=64, block_k=64)
+    with pytest.raises(ValueError) as got:
+        tflash.flash_attention(tq, tk, tv, block_q=64, block_k=64)
+    assert str(got.value) == str(want.value) == "sequence length 96 not divisible by blocks (64, 64)"
+
+
+@pytest.mark.parametrize("d", [8, 48, 256])
+def test_head_dims_the_kernel_does_not_take_raise(d):
+    _, (tq, tk, tv) = _qkv(32, "fp32", d=d)
+    with pytest.raises(ValueError, match="head dim"):
+        ck.flash_fwd(tq, tk, tv, causal=True)
+
+
+def test_mismatched_operands_raise():
+    _, (tq, tk, tv) = _qkv(32, "fp32")
+    with pytest.raises(TypeError):
+        ck.flash_fwd(tq, tk.to(torch.bfloat16), tv, causal=True)
+    with pytest.raises(ValueError, match="shape"):
+        ck.flash_fwd(tq, tk[:, :16], tv, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.flash_fwd(tq.transpose(2, 3), tk.transpose(2, 3), tv.transpose(2, 3), causal=True)
+
+
+def test_strided_views_read_in_place():
+    """q, k, v as slices of one packed (B, L, 3, H*D) tensor, as the LM passes them."""
+    rng = np.random.default_rng(3)
+    packed = torch.from_numpy(rng.standard_normal((2, 64, 3, 2 * 16)).astype(np.float32))
+    q, k, v = (packed[:, :, i].view(2, 64, 2, 16) for i in range(3))
+    assert not q.is_contiguous()
+    out, lse = ck.flash_fwd(q, k, v, causal=True)
+    want_out, want_lse = ck.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_with_lse"])
+def test_backward_raises_naming_the_roadmap_items(fn):
+    _, (tq, tk, tv) = _qkv(32, "fp32")
+    tq.requires_grad_(True)
+    res = getattr(tflash, fn)(tq, tk, tv, causal=True)
+    out = res[0] if isinstance(res, tuple) else res
+    assert out.grad_fn is not None  # the gradient does not silently stop here
+    with pytest.raises(NotImplementedError, match="Queue 2 items 10-11"):
+        out.sum().backward()
+
+
+def test_flash_plain_is_the_recurrence_of_the_oracle():
+    """flash_fwd_plain's lse against a direct logsumexp of the masked scores."""
+    _, (tq, tk, tv) = _qkv(24, "fp32", h=3)
+    out, lse = ck.flash_fwd_plain(tq, tk, tv, causal=True, block_q=8, block_k=12)
+    s = torch.einsum("blhd,bmhd->bhlm", tq * 0.25, tk)
+    s = s.masked_fill(~torch.ones(24, 24, dtype=torch.bool).tril(), float("-inf"))
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), rtol=2e-6, atol=2e-6)
+    np.testing.assert_allclose(out.numpy(), tattn.attention(tq, tk, tv, causal=True).numpy(), rtol=2e-6, atol=2e-6)
+
+
+def _bits(x) -> np.ndarray:
+    """The raw bits of a torch tensor or a JAX/numpy array (fp32 or bf16)."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32).numpy().view(
+            np.uint16 if x.dtype == torch.bfloat16 else np.uint32)
+    a = np.asarray(x)
+    return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(3,), (2, 9), (2, 5, 7), (2, 3, 5, 8)])
+def test_relu_bitwise_equals_relu_pallas(shape, dtype):
+    """Both packages get the same input bits (a NaN of each sign, signed
+    zeros and infinities first)."""
+    rng = np.random.default_rng(11)
+    a = rng.standard_normal(shape).astype(np.float32).reshape(-1)
+    specials = [np.nan, -0.0, -np.inf, 0.0, np.inf, -np.nan]
+    a[: min(a.size, len(specials))] = specials[: a.size]
+    jdt, tdt = DTYPES[dtype]
+    x = torch.from_numpy(a.reshape(shape)).to(tdt)
+    want = pk.relu_pallas(jnp.asarray(_bits(x).view(jdt)))
+    got = ck.relu(x)
+    assert got.dtype == tdt and tuple(got.shape) == shape
+    nan = np.isnan(_np(got))
+    np.testing.assert_array_equal(nan, np.isnan(_np(want)))
+    np.testing.assert_array_equal(_bits(got)[~nan], _bits(want)[~nan])
+    assert nan.reshape(-1)[0] and not bool(torch.signbit(got.reshape(-1)[1]))
+    # the NaN keeps its own bits (the kernel's plain version, which chip_smoke.py holds the kernel to bitwise)
+    np.testing.assert_array_equal(_bits(got)[nan], _bits(x)[nan])
