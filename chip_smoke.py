@@ -30,7 +30,13 @@ with a non-zero exit code and nothing is caught:
    TINY_LM's attention (8x1024x4x32), causal and full, timed beside SDPA,
    and off those shapes (the JAX tests' ragged blocks, D = 16 and 128,
    strided q/k/v, a rejected head dim, relu on a NaN, -0.0 and an
-   unaligned view);
+   unaligned view); then the flash backward, ``flash_dq`` and
+   ``flash_dkv``, in fp32 and bf16 at the same two shapes, causal and full,
+   each against its plain version, a second launch bitwise the first and
+   (fp32) autograd through ``ops.attention``, timed beside SDPA's backward,
+   and off those shapes (the ragged blocks, D = 16 and 128, an lse
+   cotangent, strided q/k/v with a zero-stride dO, the joint (out, lse)
+   gradient against the oracle);
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
@@ -50,6 +56,15 @@ with a non-zero exit code and nothing is caught:
    turned off by the path itself) in fp32 and bf16, ``lm_loss``,
    ``decode_logits`` against ``forward_lm`` and greedy ``generate`` (32
    steps); then the unfused conv1 -> relu sequence, bitwise the fused conv;
+   3c. the LM's training, launch counts set to 0 before each run and read
+   after: at TINY_LM, batch 8 x 1025 tokens, one ``make_lm_train_step``
+   step with flash and one with the reference attention in fp32 and in bf16
+   mixed precision (losses and every gradient leaf compared; flash_fwd,
+   flash_dq and flash_dkv 2 launches each a step), the counts again with
+   ``accum_steps=2`` (4 each) and ``remat`` (flash_fwd 4), ms a step and
+   tok/s, and a ``torch.profiler`` split of a step's device time; then
+   ``examples.lm.main`` at its defaults with ``--attn flash --generate 16``
+   in fp32 and with ``--compute bf16``, every line PASSED;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -79,12 +94,19 @@ Tolerances, kernel against plain version on the same inputs:
 - flash_fwd out: fp32 2e-6 x max |v| (one fp32 recurrence, other sum
   orders; out mixes v's rows, so its error scales with v), bf16 1 ulp +
   that term; lse 1e-6 x its max; out against the
-  O(L^2) oracle 2e-5 (fp32) or 3e-2 (bf16) abs + rel, the JAX flash tests'.
+  O(L^2) oracle 2e-5 (fp32) or 3e-2 (bf16) abs + rel, the JAX flash tests';
+- flash_dq, flash_dkv: fp32 max |diff| <= 1e-5 x max |plain| for each
+  output (the same fp32 recompute, sums in another order), bf16 1 ulp plus
+  that term; a second launch bitwise the first (no atomics); fp32 against
+  autograd through the oracle 5e-5 abs + rel (the JAX tests' gradient
+  tolerance), the joint (out, lse) gradient 1e-4.
 Main path: ``precision/gate.py`` budgets of the JAX package: fp32 1e-4 abs
 and 1e-5 of the max; bf16 2e-2 and int8w 6e-2 of the max against the fp32
 oracle. LM: flash against reference and decode against forward, rtol 1e-4
 / atol 2e-4 (``tests/test_decode.py``), bf16 rtol 0.1 / atol 0.3 (the same
-file's bf16 parity).
+file's bf16 parity). Training, flash against reference: the loss within
+1e-5 rel (fp32; bf16 1e-2: bf16 logits round in other places), every
+gradient leaf within 1e-3 (fp32) or 5e-2 (bf16) of its max |grad|.
 """
 
 from __future__ import annotations
@@ -129,7 +151,21 @@ LM_KERNELS = {
     # name: (source, TPU kernel it replaces)
     "relu": (f"{PORT}/csrc/relu.cu", f"{TPU_FILE}:1084"),
     "flash_fwd": (f"{PORT}/csrc/flash_fwd.cu", f"{FLASH_FILE}:60"),
+    "flash_dq": (f"{PORT}/csrc/flash_dq.cu", f"{FLASH_FILE}:184"),
+    "flash_dkv": (f"{PORT}/csrc/flash_dkv.cu", f"{FLASH_FILE}:217"),
 }
+# the flash backward kernels: FLOPs per B H L^2 D (2 per multiply-add of each product: dQ 3 products,
+# dK/dV 4, as the TPU kernels count them; half when causal) and (B, L, H, D) tensors moved once
+# (dQ reads q, k, v, dO and writes dq; dK/dV also writes dv), beside the fp32 lse and delta (B, H, L)
+FLASH_BWD_WORK = {"flash_dq": (6, 5), "flash_dkv": (8, 6)}
+BWD_PLAIN_REL = 1e-5  # against the plain version: max |diff| <= 1e-5 x max |plain| (bf16: + 1 ulp)
+BWD_ORACLE_TOL = 5e-5  # fp32 against autograd through ops.attention: tests/test_flash_attention.py's grad tolerance
+JOINT_TOL = 1e-4  # the joint (out, lse) gradient against the oracle: test_with_lse_joint_vjp_matches_oracle's
+# training, flash against reference at TINY_LM: the loss (fp32 rtol; bf16: the bf16 logits' rounding
+# moves it) and every gradient leaf within a share of its max |grad|
+TRAIN_LOSS_RTOL = {"fp32": 1e-5, "bf16": 1e-2}
+TRAIN_GRAD_REL = {"fp32": 1e-3, "bf16": 5e-2}
+TRAIN_STEPS_TIMED = 10
 LONG_CONTEXT = (1, 4096, 8, 64)  # examples.long_context's defaults: B, L, H, D
 LM_BATCH = 8
 TINY_LM_ATTN = (LM_BATCH, 1024, 4, 32)  # TINY_LM's attention at batch 8 and L = max_len
@@ -943,6 +979,165 @@ def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> dict:
     return row
 
 
+def flash_bwd_case(shape, causal, dtype, gen, block_q=128, block_k=128, lse_grad=False) -> dict:
+    """flash_dq and flash_dkv on standard-normal q, k, v, dO (and, with
+    ``lse_grad``, a standard-normal lse cotangent shifting delta), after a
+    flash_fwd: each output against its plain version (``BWD_PLAIN_REL`` of
+    its max, plus 1 ulp in bf16), a second launch bitwise the first, and in
+    fp32 without an lse cotangent against autograd through the O(L^2)
+    oracle ``ops.attention`` (``BWD_ORACLE_TOL`` abs + rel)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.attention import attention
+
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(4))
+    pol = "fp32" if dtype == torch.float32 else "bf16"
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    out, lse = ck.flash_fwd(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    if lse_grad:
+        delta = delta - torch.randn(delta.shape, generator=gen, device="cuda")
+    args = (q, k, v, g, lse, delta)
+    got = dict(flash_dq=(ck.flash_dq(*args, **kw),), flash_dkv=ck.flash_dkv(*args, **kw))
+    again = dict(flash_dq=(ck.flash_dq(*args, **kw),), flash_dkv=ck.flash_dkv(*args, **kw))
+    plain = dict(flash_dq=(ck.flash_dq_plain(*args, **kw),), flash_dkv=ck.flash_dkv_plain(*args, **kw))
+    oracle = None
+    if pol == "fp32" and not lse_grad:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        oracle = torch.autograd.grad(attention(*leaves, causal=causal), leaves, g)
+    rule = BWD_PLAIN_REL if pol == "fp32" else ("ulp", BWD_PLAIN_REL)
+    res = {}
+    for name, outs, ref_idx in (("flash_dq", ("dq",), (0,)), ("flash_dkv", ("dk", "dv"), (1, 2))):
+        mine, twice, base = got[name], again[name], plain[name]
+        parts = [compare(rule, a, b) for a, b in zip(mine, base)]
+        r = dict(max_abs_err=max(x["max_abs_err"] for x in parts), max_rel_err=max(x["max_rel_err"] for x in parts),
+                 tol=parts[0]["tol"], ok=all(x["ok"] for x in parts),
+                 bitwise_rerun=all(torch.equal(a, b) for a, b in zip(mine, twice)),
+                 finite=all(bool(torch.isfinite(a).all()) for a in mine))
+        r.update({f"{o}_max_abs_err": x["max_abs_err"] for o, x in zip(outs, parts)})
+        if oracle is not None:
+            diffs = [(a.float() - oracle[i]).abs() for a, i in zip(mine, ref_idx)]
+            r.update(ref_max_abs_err=max(float(d.max()) for d in diffs),
+                     ref_ok=all(bool((d <= BWD_ORACLE_TOL + BWD_ORACLE_TOL * oracle[i].abs()).all())
+                                for d, i in zip(diffs, ref_idx)),
+                     ref_tol=f"{BWD_ORACLE_TOL:g} abs + rel vs autograd through ops.attention")
+        r["ok_all"] = r["ok"] and r["bitwise_rerun"] and r["finite"] and r.get("ref_ok", True)
+        res[name] = r
+    return dict(args=args, kw=kw, res=res)
+
+
+def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> list:
+    """Phase 2 rows of flash_dq and flash_dkv at one shape: checked by
+    :func:`flash_bwd_case`, timed beside their plain versions, SDPA's
+    backward (one ``torch.autograd.grad`` on a retained
+    ``scaled_dot_product_attention`` graph: dq, dk and dv together, so the
+    same time stands in both rows) and the bound."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    case = flash_bwd_case(shape, causal, dtype, gen)
+    args, kw = case["args"], case["kw"]
+    q, k, v, g = args[:4]
+    torch.cuda.synchronize()
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    g_t = g.transpose(1, 2).contiguous()
+    library_ms = gpu_time_ms(lambda: torch.autograd.grad(o, leaves, g_t, retain_graph=True))
+    del o, leaves
+    b, l, h, d = shape
+    rows = []
+    for name, run, plain in (
+        ("flash_dq", lambda: ck.flash_dq(*args, **kw), lambda: ck.flash_dq_plain(*args, **kw)),
+        ("flash_dkv", lambda: ck.flash_dkv(*args, **kw), lambda: ck.flash_dkv_plain(*args, **kw)),
+    ):
+        res = case["res"][name]
+        products, tensors = FLASH_BWD_WORK[name]
+        flops = products * b * h * l * l * d // (2 if causal else 1)
+        nbytes = tensors * q.numel() * q.element_size() + 2 * b * h * l * 4
+        bound, by = spec.bound_ms(flops, nbytes, pol)
+        row = dict(
+            kernel=name, stage=stage, mode="" if causal else "full", dtype=pol, shape=list(shape), **res,
+            ms=gpu_time_ms(run), plain_ms=gpu_time_ms(plain), library_ms=library_ms,
+            library_call="torch.autograd.grad of F.scaled_dot_product_attention (is_causal; dq, dk, dv together)",
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}",
+        )
+        log(f"kernel {name}{'' if causal else '[full]'} {stage} {'x'.join(map(str, shape))} {pol}: "
+            f"ok={res['ok']} tol={res['tol']} max_abs={res['max_abs_err']:.3g} bitwise_rerun={res['bitwise_rerun']} "
+            + (f"vs_oracle={res['ref_max_abs_err']:.3g} ({res['ref_ok']}) " if "ref_ok" in res else "")
+            + f"| ms={row['ms']:.4f} plain={row['plain_ms']:.4f} sdpa_bwd={library_ms:.4f} bound={bound:.4f} ({by})")
+        require(res["ok_all"], f"{name} {stage} {pol} causal={causal}: {res}")
+        rows.append(row)
+    del case
+    return rows
+
+
+def lm_bwd_kernel_phase(spec, peak_name) -> list:
+    """Phase 2, the flash backward in fp32 and bf16: ``flash_dq`` and
+    ``flash_dkv`` at ``long_context``'s defaults and at TINY_LM's
+    attention, causal and full (:func:`flash_bwd_rows`)."""
+    rows = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2031)
+        for stage, shape in (("long_context", LONG_CONTEXT), ("tiny_lm", TINY_LM_ATTN)):
+            for causal in (True, False):
+                rows += flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_bwd_edge_phase() -> list:
+    """The flash backward off the main path: flash_dq and flash_dkv at the
+    JAX tests' ragged (L, block_q, block_k) = (24, 8, 12) and (192, 48, 64),
+    at D = 16 and 128, causal and full, with and without an lse cotangent;
+    the gradient of ``out.sum()`` (a zero-stride dO) with q, k, v slices of
+    one packed qkv tensor, bitwise the gradient through contiguous copies;
+    and the joint (out, lse) gradient of ``flash_attention_with_lse``
+    against the oracle (``JOINT_TOL``)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    results = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for b, l, h, d, bq, bk in ((2, 24, 3, 16, 8, 12), (2, 192, 3, 64, 48, 64), (2, 24, 2, 128, 8, 12),
+                                   (1, 192, 2, 128, 48, 64), (3, 192, 2, 16, 48, 64)):
+            for causal in (True, False):
+                for lse_grad in (False, True):
+                    case = flash_bwd_case((b, l, h, d), causal, dtype, gen, bq, bk, lse_grad=lse_grad)
+                    for name, res in case["res"].items():
+                        results.append((f"{name} {b}x{l}x{h}x{d} blocks ({bq}, {bk}) causal={causal} "
+                                        f"lse_grad={lse_grad} {pol}", dict(res, ok=res["ok_all"])))
+        for causal in (True, False):
+            packed = torch.randn((2, 256, 3, 4 * 32), generator=gen, device="cuda").to(dtype).requires_grad_(True)
+            q, k, v = (packed[:, :, i].view(2, 256, 4, 32) for i in range(3))
+            (got,) = torch.autograd.grad(fa.flash_attention(q, k, v, causal=causal).sum(), (packed,))
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            out = fa.flash_attention(*leaves, causal=causal)
+            want = torch.autograd.grad(out, leaves, torch.ones_like(out))
+            same = all(torch.equal(got[:, :, i].reshape(2, 256, 4, 32), w) for i, w in enumerate(want))
+            results.append((f"flash backward: strided qkv views and a zero-stride dO, bitwise contiguous, "
+                            f"causal={causal} {pol}", dict(ok=same, max_abs_err=0.0)))
+    for causal in (True, False):
+        leaves = [torch.randn((2, 64, 2, 16), generator=gen, device="cuda").requires_grad_(True) for _ in range(3)]
+        o, s = fa.flash_attention_with_lse(*leaves, causal=causal)
+        got = torch.autograd.grad((o**2).sum() + torch.sin(s).sum(), leaves)
+        sc = torch.einsum("blhd,bmhd->bhlm", leaves[0], leaves[1]) / 16**0.5
+        if causal:
+            sc = sc.masked_fill(~torch.ones(64, 64, dtype=torch.bool, device="cuda").tril(), -1e30)
+        oo = torch.einsum("bhlm,bmhd->blhd", sc.softmax(-1), leaves[2])
+        want = torch.autograd.grad((oo**2).sum() + torch.sin(torch.logsumexp(sc, -1)).sum(), leaves)
+        err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        ok = all(bool(((a - w).abs() <= JOINT_TOL + JOINT_TOL * w.abs()).all()) for a, w in zip(got, want))
+        results.append((f"flash_attention_with_lse joint (out, lse) gradient vs the oracle causal={causal} fp32",
+                        dict(ok=ok, max_abs_err=err)))
+    torch.cuda.synchronize()
+    for what, res in results:
+        log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
+            + (f" bitwise_rerun={res['bitwise_rerun']}" if "bitwise_rerun" in res else "")
+            + (f" vs_oracle={res['ref_max_abs_err']:.3g}" if "ref_max_abs_err" in res else ""))
+        require(res["ok"], f"edge case {what}: {res}")
+    return results
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
@@ -1035,6 +1230,7 @@ def lm_path_phase() -> dict:
     conv1 -> relu launch sequence, bitwise the fused conv."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as tf
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.tree import tree_map
 
     result = {"runs": {}}
     lc_shape = "x".join(map(str, LONG_CONTEXT))
@@ -1087,7 +1283,7 @@ def lm_path_phase() -> dict:
     require(ok, "forward_lm flash disagrees with reference (fp32)")
     result["forward_flash_vs_reference/fp32"] = err
 
-    pb = _tree_to(params, torch.bfloat16)
+    pb = tree_map(lambda t: t.to(torch.bfloat16), params)
     lfb = forward(pb, flash_cfg, "forward_lm flash/bf16", cfg.n_layers)
     lrb = forward(pb, cfg, "forward_lm reference/bf16", 0)
     errb = float((lfb.float() - lrb.float()).abs().max())
@@ -1153,23 +1349,197 @@ def lm_path_phase() -> dict:
     return result
 
 
-def _tree_to(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_to(v, dtype) for v in tree]
-    return tree.to(dtype)
+def run_lm_cli(argv) -> dict:
+    """``examples.lm.main`` with the launch counts set to 0 just before and
+    read just after; its contract lines parsed, every verdict PASSED."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import lm
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    buf = io.StringIO()
+    ck.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = lm.main(argv)
+    launches = dict(ck.LAUNCHES)
+    out = buf.getvalue()
+    require(rc == 0, f"examples.lm {argv} returned {rc}:\n{out}")
+    require(re.search(r"^--- Byte-LM training \[", out, re.M) is not None, f"no banner:\n{out}")
+    m = re.search(r"^Training completed in ([0-9.]+) ms \((\d+) tok/s\)$", out, re.M)
+    verdict = re.search(r"^Verification: loss (\S+) -> (\S+) .* -> (PASSED|FAILED)$", out, re.M)
+    gen_ok = re.search(r"^Generation continuation: (PASSED|FAILED)$", out, re.M)
+    steps = int(re.search(r"^Step \d+/(\d+): loss = ", out, re.M).group(1))
+    require(m is not None and verdict is not None and verdict.group(3) == "PASSED", f"examples.lm {argv}:\n{out}")
+    require(gen_ok is not None and gen_ok.group(1) == "PASSED", f"examples.lm {argv}: generation\n{out}")
+    return dict(ms=float(m.group(1)), tok_s=int(m.group(2)), loss_first=float(verdict.group(1)),
+                loss_last=float(verdict.group(2)), steps=steps, launches=launches, passes=steps, stdout=out)
+
+
+PROFILED_STEPS = 3
+# kernel-name markers of the groups a training step's device time is split into
+STEP_GROUPS = (("flash_fwd", ("flash_fwd_kernel",)), ("flash_dq", ("flash_dq_kernel",)),
+               ("flash_dkv", ("flash_dkv_kernel",)), ("matmul (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet")))
+
+
+def profile_steps(step, params, state, toks) -> dict:
+    """Device time of a training step by kernel group, from ``torch.profiler``
+    over ``PROFILED_STEPS`` steps after two warm ones: each group's ms a step,
+    the device's busy ms (the sum over kernels and copies) against the host's
+    wall ms a step, the idle share 1 - busy / wall, and the 8 costliest
+    kernels by name. A trace that shows no device time leaves them None
+    (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        params, state, _ = step(params, state, toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            params, state, _ = step(params, state, toks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / PROFILED_STEPS
+    groups = {name: 0.0 for name, _ in STEP_GROUPS}
+    groups["other kernels and copies"] = 0.0
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / PROFILED_STEPS
+        name = next((g for g, marks in STEP_GROUPS if any(m in e.key for m in marks)), "other kernels and copies")
+        groups[name] += ms
+        by_kernel[e.key[:80]] = by_kernel.get(e.key[:80], 0.0) + ms
+    busy = sum(groups.values())
+    if busy <= 0:
+        return dict(wall_ms=wall, busy_ms=None, idle_share=None, groups=None, top=None)
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall, groups=groups, top=top)
+
+
+def train_path_phase() -> dict:
+    """Phase 3c: the LM's training on the card, at TINY_LM, batch 8 x 1025
+    tokens (1024 predicted positions), launch counts set to 0 just before
+    each run and read just after.
+
+    In fp32 and in bf16 mixed precision (fp32 masters): one
+    ``make_lm_train_step`` step with flash attention and one with the
+    reference, the gradients caught on their way to the optimizer: the
+    losses within ``TRAIN_LOSS_RTOL``, every gradient leaf within
+    ``TRAIN_GRAD_REL`` x its max |grad|, flash_fwd, flash_dq and flash_dkv 2
+    launches each in the flash step (one a layer) and none in the
+    reference's; the counts again for ``accum_steps=2`` (each x 2) and for
+    ``remat`` (flash_fwd 4: the backward runs each block's forward again);
+    ms per step and tok/s for both attentions, with a ``torch.profiler``
+    split of a step's device time (:func:`profile_steps`). Then ``examples.lm.main`` at
+    its defaults with ``--attn flash --generate 16``, in fp32 and with
+    ``--compute bf16``: every line PASSED, 2 launches of each kernel a step."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as tf
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.optim import adam
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.tree import tree_leaves
+
+    cfg = tf.TINY_LM
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    gen = torch.Generator().manual_seed(2032)
+    params = tf.init_transformer(cfg, generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, cfg.max_len + 1), generator=gen).cuda()
+    n_tok = LM_BATCH * cfg.max_len
+    per_layer = cfg.n_layers
+    result = {"runs": {}}
+    for pol, cdt in (("fp32", None), ("bf16", torch.bfloat16)):
+        caught, losses = {}, {}
+        for impl, c in (("flash", flash_cfg), ("reference", cfg)):
+            init, update = adam(1e-3)
+
+            def spy(grads, state, p=None, impl=impl, update=update):
+                caught[impl] = grads
+                return update(grads, state, p)
+
+            _, step = tf.make_lm_train_step(c, optimizer=(init, spy), compute_dtype=cdt)
+            state = init(params)
+            ck.reset_launches()
+            new, _, loss = step(params, state, toks)
+            torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+            want = (_launches(flash_fwd=per_layer, flash_dq=per_layer, flash_dkv=per_layer) if impl == "flash"
+                    else _launches())
+            name = f"make_lm_train_step {impl}/{pol}"
+            require(launches == want, f"{name}: launches {launches}, want {want}")
+            require(np.isfinite(float(loss)) and all(bool(torch.isfinite(t).all()) for t in tree_leaves(new)),
+                    f"{name}: non-finite loss or params")
+            require(all(t.dtype == torch.float32 for t in tree_leaves(new)), f"{name}: masters left fp32")
+            losses[impl] = float(loss)
+            p_run, s_run = params, init(params)
+
+            def one_step(step=step):
+                nonlocal p_run, s_run
+                p_run, s_run, _ = step(p_run, s_run, toks)
+
+            ms = gpu_time_ms(one_step, reps=TRAIN_STEPS_TIMED, warmup=2)
+            prof = profile_steps(step, params, init(params), toks)
+            log(f"path {name}: {ms:.4f} ms a step ({n_tok / ms * 1e3:.0f} tok/s) loss {float(loss):.6f} "
+                f"launches flash_fwd={launches['flash_fwd']} flash_dq={launches['flash_dq']} "
+                f"flash_dkv={launches['flash_dkv']}")
+            busy = "not measured" if prof["busy_ms"] is None else (
+                f"device busy {prof['busy_ms']:.4f} ms, idle share {prof['idle_share']:.3f}; "
+                + ", ".join(f"{g} {t:.4f}" for g, t in prof["groups"].items()))
+            log(f"  profile {name}: host {prof['wall_ms']:.4f} ms a step; {busy}")
+            result["runs"][name] = dict(ms=ms, tok_s=n_tok / ms * 1e3, loss=float(loss), launches=launches, passes=1,
+                                        profile=prof)
+            del p_run, s_run
+        loss_err = abs(losses["flash"] - losses["reference"]) / abs(losses["reference"])
+        grad_errs = [float((a.float() - b.float()).abs().max()) / float(b.float().abs().max().clamp_min(1e-30))
+                     for a, b in zip(tree_leaves(caught["flash"]), tree_leaves(caught["reference"]))]
+        ok = loss_err <= TRAIN_LOSS_RTOL[pol] and max(grad_errs) <= TRAIN_GRAD_REL[pol]
+        log(f"train step flash vs reference {pol}: loss rel {loss_err:.3g} (tol {TRAIN_LOSS_RTOL[pol]:g}); "
+            f"largest gradient gap {max(grad_errs):.3g} of its leaf's max |grad| (tol {TRAIN_GRAD_REL[pol]:g}) ok={ok}")
+        require(ok, f"train step flash vs reference {pol}: loss rel {loss_err}, grad gaps {grad_errs}")
+        result[f"flash_vs_reference/{pol}"] = dict(loss_rel=loss_err, grad_rel=max(grad_errs), losses=losses)
+        for what, c, accum, per in (
+            # launches per layer: two microbatches; with remat the backward runs the block's forward again
+            ("accum_steps=2", flash_cfg, 2, dict(flash_fwd=2, flash_dq=2, flash_dkv=2)),
+            ("remat", dataclasses.replace(flash_cfg, remat=True), 1, dict(flash_fwd=2, flash_dq=1, flash_dkv=1)),
+        ):
+            init, step = tf.make_lm_train_step(c, accum_steps=accum, compute_dtype=cdt)
+            state = init(params)
+            ck.reset_launches()
+            _, _, loss = step(params, state, toks)
+            torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+            want = _launches(**{k: n * per_layer for k, n in per.items()})
+            name = f"make_lm_train_step flash {what}/{pol}"
+            log(f"path {name}: loss {float(loss):.6f} (accum 1: {losses['flash']:.6f}) launches "
+                f"flash_fwd={launches['flash_fwd']} flash_dq={launches['flash_dq']} flash_dkv={launches['flash_dkv']}")
+            require(launches == want, f"{name}: launches {launches}, want {want}")
+            require(abs(float(loss) - losses["flash"]) <= TRAIN_LOSS_RTOL[pol] * abs(losses["flash"]),
+                    f"{name}: loss {float(loss)} vs {losses['flash']}")
+            result["runs"][name] = dict(loss=float(loss), launches=launches, passes=1)
+    for pol in ("fp32", "bf16"):
+        r = run_lm_cli(["--attn", "flash", "--generate", "16"] + (["--compute", "bf16"] if pol == "bf16" else []))
+        name = f"examples.lm --attn flash/{pol}"
+        want = _launches(flash_fwd=per_layer * r["steps"], flash_dq=per_layer * r["steps"],
+                         flash_dkv=per_layer * r["steps"])
+        log(f"path {name}: {r['ms']:.1f} ms for {r['steps']} steps ({r['tok_s']} tok/s) loss {r['loss_first']:.4f} -> "
+            f"{r['loss_last']:.4f}; launches flash_fwd={r['launches']['flash_fwd']} "
+            f"flash_dq={r['launches']['flash_dq']} flash_dkv={r['launches']['flash_dkv']}; PASSED, generation PASSED")
+        require(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+        result["runs"][name] = r
+    return result
 
 
 def lm_kernels_entries(rows, runs) -> list:
-    """The ``kernels`` line's entries of the LM slice: relu per dtype (its
+    """The ``kernels`` line's entries of the LM slices: relu per dtype (its
     run: the unfused conv1 -> relu sequence; no path calls it), flash_fwd
     per dtype at long_context's shape (its run: ``long_context --strategy
-    flash``) and at TINY_LM's (its run: ``forward_lm`` with flash). Times
-    are the causal rows'; the full-attention rows go under ``modes``."""
+    flash``) and at TINY_LM's (its run: ``forward_lm`` with flash), and
+    flash_dq and flash_dkv per dtype at TINY_LM's (its run: one
+    ``make_lm_train_step`` step with flash; launches per forward are per
+    step). Times are the causal rows'; the full-attention rows go under
+    ``modes``."""
     plan = [("relu", pol, "conv1 out", f"unfused conv1 -> relu/{pol}") for pol in ("fp32", "bf16")]
     plan += [("flash_fwd", pol, "long_context", f"long_context --strategy flash/{pol}") for pol in ("fp32", "bf16")]
     plan += [("flash_fwd", pol, "tiny_lm", f"forward_lm flash/{pol}") for pol in ("fp32", "bf16")]
+    plan += [(name, pol, "tiny_lm", f"make_lm_train_step flash/{pol}")
+             for name in ("flash_dq", "flash_dkv") for pol in ("fp32", "bf16")]
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
     entries = []
     for name, pol, stage, run_key in plan:
@@ -1262,24 +1632,26 @@ def main() -> int:
         return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (tensor cores)"
 
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
-    lm_rows = lm_kernel_phase(spec, peak_name)
-    edges = edge_phase() + block_edge_phase() + lm_edge_phase()
+    lm_rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
+    edges = edge_phase() + block_edge_phase() + lm_edge_phase() + lm_bwd_edge_phase()
     log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
     lm = lm_path_phase()
     log("phase 3b: long_context and the LM's forward, loss, decode and generation ran through flash_fwd")
+    train = train_path_phase()
+    log("phase 3c: the LM's training step and examples.lm ran through flash_fwd, flash_dq and flash_dkv")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
-    line["kernels"] += lm_kernels_entries(lm_rows, lm["runs"])
+    line["kernels"] += lm_kernels_entries(lm_rows, {**lm["runs"], **train["runs"]})
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log,
-             stages=rows + lm_rows, edge_cases=edges, main_path=main, lm_path=lm, tune=tune,
+             stages=rows + lm_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train, tune=tune,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

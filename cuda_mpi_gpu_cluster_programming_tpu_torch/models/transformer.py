@@ -1,13 +1,13 @@
-"""Decoder-only transformer LM: forward, loss and KV-cache decode.
+"""Decoder-only transformer LM: forward, loss, training step and KV-cache decode.
 
-The port of the JAX package's ``models/transformer.py`` minus training
-(``make_lm_train_step`` comes with the flash backward). Pre-norm decoder
-blocks with RMSNorm, learned positions, a weight-tied head, and a
-pluggable attention op:
+The port of the JAX package's ``models/transformer.py`` on one device.
+Pre-norm decoder blocks with RMSNorm, learned positions, a weight-tied
+head, and a pluggable attention op:
 
 - ``attn_impl="reference"``: the O(L^2) oracle (``ops.attention``);
-- ``attn_impl="flash"``: the hand-written flash kernel
-  (``ops.flash_attention``, one ``flash_fwd`` launch per layer);
+- ``attn_impl="flash"``: the hand-written flash kernels
+  (``ops.flash_attention``: one ``flash_fwd`` launch per layer forward,
+  one ``flash_dq`` and one ``flash_dkv`` per layer backward);
 - ``"ring"``/``"ulysses"`` (sequence parallel) are not ported yet and raise.
 
 The FFN is dense, or a Switch-style top-1 mixture of experts
@@ -29,10 +29,13 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import NEG_INF, attention
 from ..ops.reference import true_fp32
+from ..utils.optim import adam, apply_updates
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .init import _tensor_from_array
 
 Params = Dict[str, Any]
@@ -59,8 +62,10 @@ class TransformerConfig:
     # Mixture-of-experts FFN (0 = dense): top-1 (Switch) routing with a capacity limit.
     n_experts: int = 0
     capacity_factor: float = 1.25
-    # jax.checkpoint of each block in the JAX package: a training lever that
-    # changes no forward value, so the forward here ignores it.
+    # Rematerialization: each decoder block runs under torch.utils.checkpoint
+    # (the JAX package's jax.checkpoint), so the backward recomputes the
+    # block's activations instead of keeping them: one more forward of work
+    # for activation memory O(B L D) instead of O(n_layers B L D).
     remat: bool = False
 
     @property
@@ -123,11 +128,7 @@ def lm_params_from_jax(tree: Any, device="cuda") -> Params:
     """The JAX package's LM params (its tree, leaves as numpy arrays or
     anything ``np.asarray`` takes) as the port's: the same nesting, each
     leaf a tensor of the same shape and dtype (bf16 through fp32, exact)."""
-    if isinstance(tree, dict):
-        return {key: lm_params_from_jax(val, device) for key, val in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [lm_params_from_jax(val, device) for val in tree]
-    return _tensor_from_array(tree, device)
+    return tree_map(lambda a: _tensor_from_array(a, device), tree)
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -225,8 +226,15 @@ def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TI
     true_fp32(params["embed"].device)
     x = params["embed"][tokens.long()] + params["pos"][:l][None]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def block(lyr, h):
+        return decoder_block(lyr, h, cfg=cfg, return_aux=True)
+
     for layer in params["layers"]:
-        x, aux = decoder_block(layer, x, cfg=cfg, return_aux=True)
+        if cfg.remat:
+            x, aux = torch.utils.checkpoint.checkpoint(block, layer, x, use_reentrant=False)
+        else:
+            x, aux = block(layer, x)
         aux_total = aux_total + aux
     x = rmsnorm(x, params["final_norm"]["g"])
     logits = x @ params["embed"].T  # weight-tied LM head
@@ -237,8 +245,7 @@ def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TI
 
 def lm_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_LM, aux_coef: float = 0.01):
     """Next-token cross-entropy (fp32), mean over (B, L-1); MoE configs add
-    ``aux_coef`` x the Switch load-balance loss. Forward only here: the
-    flash attention's backward is not ported yet."""
+    ``aux_coef`` x the Switch load-balance loss."""
     logits, aux = forward_lm(params, tokens[:, :-1], cfg, return_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, tokens[:, 1:].long()[..., None])[..., 0]
@@ -246,6 +253,70 @@ def lm_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_
     if cfg.n_experts:
         loss = loss + aux_coef * aux
     return loss
+
+
+def make_lm_train_step(
+    cfg: TransformerConfig = TINY_LM, optimizer=None, lr: float = 1e-3, loss_fn=None, accum_steps: int = 1,
+    compute_dtype=None,
+):
+    """``(init_fn, step_fn)`` for LM training on one device.
+
+    ``optimizer`` is an ``(init, update)`` pair in optax's convention
+    (default ``utils.optim.adam(lr)``, optax's arithmetic). ``loss_fn(params,
+    tokens)`` overrides ``lm_loss``. ``step_fn(params, opt_state, tokens)``
+    returns ``(params, opt_state, loss)``: new param tensors (the old ones
+    are left as they were) and the fp32 loss.
+
+    ``accum_steps > 1``: the batch is split into that many microbatches;
+    their gradients are summed at the params' (master) precision, then
+    divided by ``accum_steps``, before one optimizer update: the full-batch
+    step up to rounding, at one microbatch's activation memory.
+
+    ``compute_dtype=torch.bfloat16``: mixed precision with fp32 masters.
+    The params are cast to bf16 once a step, the forward and backward run
+    at bf16 (the flash kernels on bf16 operands), and the gradients are
+    cast back to fp32 for the update, so small Adam steps are not rounded
+    away. fp32 runs in true fp32 (TF32 off)."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    opt_init, opt_update = optimizer if optimizer is not None else adam(lr)
+    if loss_fn is None:
+        loss_fn = lambda p, t: lm_loss(p, t, cfg)  # noqa: E731
+
+    def value_and_grad(gp, tokens):
+        leaves = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(gp)]
+        loss = loss_fn(tree_unflatten(gp, leaves), tokens)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if gr is None else gr for x, gr in zip(leaves, grads)]
+        return loss.detach(), tree_unflatten(gp, grads)
+
+    def step(params, opt_state, tokens):
+        true_fp32(tokens.device)
+        # cast once a step (not per microbatch) and differentiate at the low-precision point:
+        # the cast's gradient is the final cast of the grads back to the fp32 masters
+        gp = params if compute_dtype is None else tree_map(
+            lambda a: a.to(compute_dtype) if a.is_floating_point() else a, params)
+        if accum_steps == 1:
+            loss, grads = value_and_grad(gp, tokens)
+        else:
+            b = tokens.shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = tree_map(torch.zeros_like, params)
+            for micro in tokens.reshape(accum_steps, b // accum_steps, *tokens.shape[1:]):
+                l_mb, g_mb = value_and_grad(gp, micro)
+                loss = loss + l_mb
+                # accumulate at master precision: bf16 sums would lose the low bits
+                grads = tree_map(lambda s, g: s + g.to(s.dtype), grads, g_mb)
+            loss = loss / accum_steps
+            grads = tree_map(lambda g: g / accum_steps, grads)
+        if compute_dtype is not None:
+            grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
+        updates, opt_state = opt_update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return opt_init, step
 
 
 class TransformerLM(nn.Module):

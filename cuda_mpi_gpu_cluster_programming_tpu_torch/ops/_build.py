@@ -130,6 +130,10 @@ _SIGNATURES = {
     "relu": ([_P, _P, ctypes.c_longlong, _P], ("f32", "bf16")),
     # q, k, v, out, lse, B, L, H, D, (b, l, h) strides of q, k and v, causal, scale, stream
     "flash_fwd": ([_P] * 5 + [_I] * 4 + [ctypes.c_longlong] * 9 + [_I, _F, _P], ("f32", "bf16")),
+    # q, k, v, g, lse, delta, dq, B, L, H, D, (b, l, h) strides of q, k, v and g, causal, scale, stream
+    "flash_dq": ([_P] * 7 + [_I] * 4 + [ctypes.c_longlong] * 12 + [_I, _F, _P], ("f32", "bf16")),
+    # q, k, v, g, lse, delta, dk, dv, B, L, H, D, (b, l, h) strides of q, k, v and g, causal, scale, stream
+    "flash_dkv": ([_P] * 8 + [_I] * 4 + [ctypes.c_longlong] * 12 + [_I, _F, _P], ("f32", "bf16")),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

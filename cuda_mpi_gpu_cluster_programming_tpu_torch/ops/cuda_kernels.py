@@ -17,7 +17,10 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``relu``: :func:`relu`, ``relu.cu``, the standalone ReLU (no path calls
   it; the convs fuse theirs);
 - ``flash_fwd``: :func:`flash_fwd`, ``flash_fwd.cu``, the flash-attention
-  forward behind ``ops/flash_attention.py``.
+  forward behind ``ops/flash_attention.py``;
+- ``flash_dq``, ``flash_dkv``: :func:`flash_dq`, :func:`flash_dkv`,
+  ``flash_dq.cu`` and ``flash_dkv.cu`` (over ``flash_bwd.cuh``), its
+  backward.
 
 The five conv kernels share one implicit-GEMM engine
 (``csrc/conv_engine.cuh``). Each kernel has:
@@ -53,7 +56,7 @@ from .shapes import conv_out_dim, pool_out_dim
 LAUNCHES = {
     "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
     "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "maxpool_phases": 0,
-    "relu": 0, "flash_fwd": 0,
+    "relu": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -741,25 +744,28 @@ def flash_blocks(l: int, block_q: int, block_k: int) -> tuple:
     return bq, bk
 
 
-def _flash_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.device:
-    first = q
-    for t in (q, k, v):
+def _flash_check(*tensors: torch.Tensor, name: str = "flash_fwd") -> torch.device:
+    """Check the (B, L, H, D) operands of a flash kernel (q, k, v, and the
+    output gradient for the backward): one device, one dtype, one shape,
+    the last axis contiguous (the others are read through their strides)."""
+    first = tensors[0]
+    for t in tensors:
         if t.device != first.device:
-            raise ValueError(f"flash_fwd: tensors on {first.device} and {t.device}")
+            raise ValueError(f"{name}: tensors on {first.device} and {t.device}")
         if t.dtype not in _SUFFIX or t.dtype != first.dtype:
-            raise TypeError(f"flash_fwd: needs q, k, v all fp32 or all bf16, got {[u.dtype for u in (q, k, v)]}")
-        if t.dim() != 4 or t.shape != q.shape:
-            raise ValueError(f"flash_fwd: needs q, k, v of one (B, L, H, D) shape, got "
-                             f"{[tuple(u.shape) for u in (q, k, v)]}")
+            raise TypeError(f"{name}: needs q, k, v all fp32 or all bf16, got {[u.dtype for u in tensors]}")
+        if t.dim() != 4 or t.shape != first.shape:
+            raise ValueError(f"{name}: needs q, k, v of one (B, L, H, D) shape, got "
+                             f"{[tuple(u.shape) for u in tensors]}")
         if t.stride(-1) != 1:
-            raise ValueError("flash_fwd: the head axis (last) must be contiguous")
+            raise ValueError(f"{name}: the head axis (last) must be contiguous")
     if first.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash_fwd: unsupported device {first.device}")
-    b, l, h, d = q.shape
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    b, l, h, d = first.shape
     if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_fwd: head dim {d} not supported (one of {FLASH_HEAD_DIMS})")
+        raise ValueError(f"{name}: head dim {d} not supported (one of {FLASH_HEAD_DIMS})")
     if min(b, l, h) <= 0 or b > 65535 or h > 65535:
-        raise ValueError(f"flash_fwd: shape {tuple(q.shape)} (B and H at most 65535, none empty)")
+        raise ValueError(f"{name}: shape {tuple(first.shape)} (B and H at most 65535, none empty)")
     return first.device
 
 
@@ -826,3 +832,135 @@ def flash_fwd(
         b, l, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / d**0.5,
     )
     return out, lse
+
+
+# --------------------------------------------------- flash attention backward
+
+
+def _flash_bwd_check(name: str, q, k, v, g, lse, delta) -> torch.device:
+    dev = _flash_check(q, k, v, g, name=name)
+    b, l, h, _d = q.shape
+    for what, t in (("lse", lse), ("delta", delta)):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != (b, h, l) or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous fp32 (B, H, L) = {(b, h, l)} tensor on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return dev
+
+
+def _bwd_operands(q, k, v, g):
+    """fp32 (B, H, L, D) views of q (times the scale), q, k, v and g."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, gf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, g))
+    return scale, qf * scale, qf, kf, vf, gf
+
+
+def flash_dq_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+    causal: bool, block_q: int = 128, block_k: int = 128,
+) -> torch.Tensor:
+    """Plain version of the dQ kernel: ``_dq_kernel``'s blockwise recompute,
+    every q row at once, over k-blocks of the clamped ``block_k``:
+    p = exp(s - lse) with masked scores at ``NEG_INF`` (p exactly 0),
+    dS = p (dO v^T - delta), dq += scale dS k. Returns dq (B, L, H, D) in
+    q's dtype."""
+    b, l, h, d = q.shape
+    _bq, bk = flash_blocks(l, block_q, block_k)
+    scale, qs, _qf, kf, vf, gf = _bwd_operands(q, k, v, g)
+    dq = torch.zeros((b, h, l, d), device=q.device)
+    rows = torch.arange(l, device=q.device)[:, None]
+    for k0 in range(0, l, bk):
+        kb, vb = kf[:, :, k0 : k0 + bk], vf[:, :, k0 : k0 + bk]
+        s = qs @ kb.transpose(-1, -2)  # (B, H, L, bk)
+        if causal:
+            s = torch.where(rows >= torch.arange(k0, k0 + bk, device=q.device)[None, :], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        ds = p * (gf @ vb.transpose(-1, -2) - delta[..., None])
+        dq = dq + scale * (ds @ kb)
+    return dq.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def flash_dkv_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+    causal: bool, block_q: int = 128, block_k: int = 128,
+) -> tuple:
+    """Plain version of the dK/dV kernel: ``_dkv_kernel``'s blockwise
+    recompute, every key at once, over q-blocks of the clamped ``block_q``:
+    dv += p^T dO, dk += scale dS^T q (q unscaled). Returns ``(dk, dv)``
+    (B, L, H, D) in k's and v's dtype."""
+    b, l, h, d = q.shape
+    bq, _bk = flash_blocks(l, block_q, block_k)
+    scale, qs, qf, kf, vf, gf = _bwd_operands(q, k, v, g)
+    dk = torch.zeros((b, h, l, d), device=q.device)
+    dv = torch.zeros((b, h, l, d), device=q.device)
+    keys = torch.arange(l, device=q.device)[None, :]
+    for q0 in range(0, l, bq):
+        gb = gf[:, :, q0 : q0 + bq]
+        s = qs[:, :, q0 : q0 + bq] @ kf.transpose(-1, -2)  # (B, H, bq, L)
+        if causal:
+            s = torch.where(torch.arange(q0, q0 + bq, device=q.device)[:, None] >= keys, s, NEG_INF)
+        p = torch.exp(s - lse[:, :, q0 : q0 + bq, None])
+        dv = dv + p.transpose(-1, -2) @ gb
+        ds = p * (gb @ vf.transpose(-1, -2) - delta[:, :, q0 : q0 + bq, None])
+        dk = dk + scale * (ds.transpose(-1, -2) @ qf[:, :, q0 : q0 + bq])
+    return (dk.to(k.dtype).permute(0, 2, 1, 3).contiguous(), dv.to(v.dtype).permute(0, 2, 1, 3).contiguous())
+
+
+def _bwd_args(q, k, v, g) -> tuple:
+    b, l, h, d = q.shape
+    return (b, l, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3])
+
+
+def flash_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+    causal: bool, block_q: int = 128, block_k: int = 128,
+) -> torch.Tensor:
+    """Flash-attention backward, dQ: dq (B, L, H, D) in q's dtype from q, k,
+    v and the output gradient g (all (B, L, H, D), one dtype, last axis
+    contiguous, the others read through their strides) and the fp32
+    (B, H, L) ``lse`` (the forward's) and ``delta`` (sum_d g o, less the
+    lse gradient). Blocks as :func:`flash_fwd`.
+
+    Replaces ``_dq_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
+    flash_attention.py). Bound on the H100: operations (3 products, 6 B H
+    L^2 D FLOPs, half when causal). Design (``csrc/flash_dq.cu``): one block
+    per (b, h, 64-row q tile), K/V tiles streamed through shared memory,
+    dS through shared memory to the dS k product, the dq sums in a
+    shared-memory accumulator; fp32 FFMA for both dtypes; no atomics."""
+    dev = _flash_bwd_check("flash_dq", q, k, v, g, lse, delta)
+    flash_blocks(q.shape[1], block_q, block_k)
+    if dev.type == "cpu":
+        return flash_dq_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    _launch(
+        "flash_dq", "flash_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *_bwd_args(q, k, v, g), int(causal), 1.0 / q.shape[-1] ** 0.5,
+    )
+    return dq
+
+
+def flash_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+    causal: bool, block_q: int = 128, block_k: int = 128,
+) -> tuple:
+    """Flash-attention backward, dK and dV: ``(dk, dv)`` (B, L, H, D) in k's
+    and v's dtype, on the operands of :func:`flash_dq`.
+
+    Replaces ``_dkv_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
+    flash_attention.py). Bound on the H100: operations (4 products, 8 B H
+    L^2 D FLOPs, half when causal). Design (``csrc/flash_dkv.cu``): one
+    block per (b, h, 64-key tile), q/dO tiles streamed through shared
+    memory from the diagonal on (causal), p^T and then dS^T through shared
+    memory, the dK and dV sums in shared-memory accumulators; fp32 FFMA
+    for both dtypes; no atomics."""
+    dev = _flash_bwd_check("flash_dkv", q, k, v, g, lse, delta)
+    flash_blocks(q.shape[1], block_q, block_k)
+    if dev.type == "cpu":
+        return flash_dkv_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
+    _launch(
+        "flash_dkv", "flash_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_bwd_args(q, k, v, g), int(causal),
+        1.0 / q.shape[-1] ** 0.5,
+    )
+    return dk, dv

@@ -1,15 +1,19 @@
 """Flash attention: fused online-softmax attention, O(L) memory.
 
 The counterpart of the JAX package's ``ops/flash_attention.py``, over the
-port's hand-written forward kernel (``ops.cuda_kernels.flash_fwd``,
-``csrc/flash_fwd.cu``). The public functions keep the JAX signatures,
-except ``vma`` (a ``shard_map`` notion with no counterpart here).
+port's hand-written kernels (``ops.cuda_kernels``): the forward
+``flash_fwd`` (``csrc/flash_fwd.cu``) and the FA-2 recompute backward,
+``flash_dq`` and ``flash_dkv`` (``csrc/flash_dq.cu``, ``csrc/flash_dkv.cu``,
+the JAX package's ``_dq_kernel`` and ``_dkv_kernel``). The public
+functions keep the JAX signatures, except ``vma`` (a ``shard_map`` notion
+with no counterpart here).
 
-Each is a ``torch.autograd.Function`` whose forward launches the kernel: a
-kernel that writes into a ``torch.empty`` output leaves no ``grad_fn``, so
-without the Function a gradient would stop at the attention output without
-a word. The backward (the FA-2 recompute, ``_dq_kernel`` and
-``_dkv_kernel`` of the JAX package) is not ported yet and raises.
+Both go through one ``torch.autograd.Function`` whose forward launches the
+forward kernel and saves ``(q, k, v, out, lse)``; its backward computes the
+rowwise ``delta = sum_d dO o`` (fp32, shifted by ``-g_lse`` when the lse
+has a gradient) with plain torch ops, as the JAX package does outside its
+kernels, then launches one ``flash_dq`` and one ``flash_dkv``. No (L, L)
+tensor is kept between the two passes.
 """
 
 from __future__ import annotations
@@ -18,32 +22,40 @@ import torch
 
 from . import cuda_kernels
 
-_BACKWARD_MISSING = (
-    "flash attention backward is not ported yet (the _dq_kernel and _dkv_kernel "
-    "of the JAX package, ROADMAP Queue 2 items 10-11): use attn_impl='reference' "
-    "to differentiate"
-)
 
+class _Flash(torch.autograd.Function):
+    """``(out, lse)`` of the flash forward kernel; the backward launches the
+    two backward kernels. Gradients are not materialised: an output that
+    takes no part in the loss comes in as None."""
 
-class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k):
-        out, _lse = cuda_kernels.flash_fwd(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        raise NotImplementedError(_BACKWARD_MISSING)
-
-
-class _FlashAttentionLse(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k):
-        return cuda_kernels.flash_fwd(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+        ctx.set_materialize_grads(False)
+        out, lse = cuda_kernels.flash_fwd(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = dict(causal=causal, block_q=block_q, block_k=block_k)
+        return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise NotImplementedError(_BACKWARD_MISSING)
+        """dq, dk, dv for the output gradient ``g_out`` (None: zeros) and the
+        lse gradient ``g_lse`` (None: no shift). ``g_out`` may be an expanded
+        zero-stride tensor (the gradient of ``out.sum()``) or any other
+        layout: it is made contiguous when its last stride is not 1, as the
+        kernels read the head axis contiguously."""
+        q, k, v, out, lse = ctx.saved_tensors
+        g = torch.zeros_like(out) if g_out is None else g_out.to(q.dtype)
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        # delta_i = sum_d dO_i o_i (FA-2 eq. 4), (B, H, L) like the lse
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        if g_lse is not None:
+            # d lse_i / d s_ij = p_ij: an lse cotangent adds p_ij g_lse_i to dS, which is the same
+            # kernels with delta shifted by -g_lse (dV does not depend on lse)
+            delta = delta - g_lse.float()
+        dq = cuda_kernels.flash_dq(q, k, v, g, lse, delta, **ctx.blocks)
+        dk, dv = cuda_kernels.flash_dkv(q, k, v, g, lse, delta, **ctx.blocks)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -54,8 +66,10 @@ def flash_attention(
 
     ``L`` must be divisible by the blocks clamped to L (:func:`flash_block`);
     the kernel itself tiles by 64 x 64, so the blocks only validate. D is
-    one of ``cuda_kernels.FLASH_HEAD_DIMS``. Forward only for now."""
-    return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+    one of ``cuda_kernels.FLASH_HEAD_DIMS``. Differentiable with O(L)
+    memory: the backward recomputes the probabilities blockwise from the
+    saved lse (one ``flash_dq`` and one ``flash_dkv`` launch)."""
+    return _Flash.apply(q, k, v, causal, block_q, block_k)[0]
 
 
 def flash_block(l: int, block_q: int = 128) -> int:
@@ -74,5 +88,7 @@ def flash_attention_with_lse(
 
         lse = logaddexp(lse1, lse2)
         out = exp(lse1 - lse) * out1 + exp(lse2 - lse) * out2
-    """
-    return _FlashAttentionLse.apply(q, k, v, causal, block_q, block_k)
+
+    Differentiable jointly in both outputs: the lse gradient shifts the
+    backward's delta term by -g_lse."""
+    return _Flash.apply(q, k, v, causal, block_q, block_k)

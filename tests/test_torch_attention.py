@@ -1,8 +1,10 @@
-"""The port's attention ops and ReLU against the JAX package's.
+"""The port's attention ops, their gradients, and ReLU against the JAX package's.
 
 On the CPU, ``flash_attention``/``flash_attention_with_lse`` run the plain
 PyTorch version of the flash forward kernel (``cuda_kernels.flash_fwd_plain``,
-the same online-softmax recurrence) and ``relu`` runs ``relu_plain``; the
+the same online-softmax recurrence), their backward the plain versions of
+the dQ and dK/dV kernels (``flash_dq_plain``, ``flash_dkv_plain``), and
+``relu`` runs ``relu_plain``; the
 JAX package's Pallas kernels run in interpret mode, as its own tests run
 them. The kernels themselves run only on the card, where ``chip_smoke.py``
 holds them against the same plain versions. Inputs are made with numpy from
@@ -15,12 +17,16 @@ Tolerances and why:
   the same bf16 values, and one fp32 result is rounded once to bf16 on
   each side.
 - lse (fp32 in both dtypes): 2e-5 abs/rel, the fp32 rule.
+- gradients: 5e-5 abs/rel in fp32 (``test_grad_matches_reference_blocked``'s),
+  1e-4 for the joint (out, lse) VJP against the oracle
+  (``test_with_lse_joint_vjp_matches_oracle``'s), 3e-2 in bf16.
 - relu: bitwise outside NaN (signed zeros and infinities included), NaN
   where the JAX package has NaN. A NaN keeps its bits here; XLA on the CPU
   gives a bf16 NaN the canonical payload (sign kept), so payloads are not
   compared across packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,15 +141,136 @@ def test_strided_views_read_in_place():
     assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
 
 
-@pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_with_lse"])
-def test_backward_raises_naming_the_roadmap_items(fn):
+def _vjp_jax(fn, arrs, cot):
+    out, vjp = jax.vjp(fn, *arrs)
+    return out, vjp(cot)
+
+
+def _grads_torch(fn, tensors, cot):
+    leaves = [t.clone().requires_grad_(True) for t in tensors]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, cot)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,block_q,block_k", CASES)
+def test_flash_grad_matches_jax_vjp(l, block_q, block_k, causal):
+    """dq, dk, dv of ``flash_attention`` (the plain versions of flash_dq and
+    flash_dkv on the CPU) against ``jax.vjp`` of the JAX package's (its
+    Pallas _dq_kernel and _dkv_kernel in interpret mode), at 5e-5 abs/rel:
+    the tolerance tests/test_flash_attention.py holds those kernels to."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(l, "fp32", b=2, d=32, seed=l + block_q)
+    cot = np.random.default_rng(7).standard_normal(tq.shape).astype(np.float32)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    _, want = _vjp_jax(lambda q, k, v: jflash.flash_attention(q, k, v, **kw), (jq, jk, jv), jnp.asarray(cot))
+    _, got = _grads_torch(lambda q, k, v: tflash.flash_attention(q, k, v, **kw), (tq, tk, tv),
+                          torch.from_numpy(cot))
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.dtype == torch.float32 and g.shape == tq.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,block_q,block_k", [(24, 8, 12), (192, 48, 64)])
+def test_flash_grad_bf16_matches_jax_vjp(l, block_q, block_k, causal):
+    """bf16 q, k, v and cotangent: the gradients in bf16, against the JAX
+    package's at the bf16 tolerance (3e-2), each an fp32 result rounded once."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(l, "bf16", b=2, d=32, seed=3 * l)
+    cot = np.random.default_rng(8).standard_normal(tq.shape).astype(np.float32)
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k)
+    _, want = _vjp_jax(lambda q, k, v: jflash.flash_attention(q, k, v, **kw), (jq, jk, jv),
+                       jnp.asarray(cot).astype(jnp.bfloat16))
+    _, got = _grads_torch(lambda q, k, v: tflash.flash_attention(q, k, v, **kw), (tq, tk, tv),
+                          torch.from_numpy(cot).to(torch.bfloat16))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        _close(g, w, "bf16")
+
+
+@pytest.mark.parametrize("with_lse_grad", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_plain_versions_match_jax_flash_backward(causal, with_lse_grad):
+    """flash_dq_plain and flash_dkv_plain against the JAX package's
+    ``_flash_backward`` on the same (q, k, v, out, lse, g) and lse
+    cotangent (the delta shift), at the fp32 kernel tolerance 5e-5."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(192, "fp32", b=2, h=3, d=16, seed=21)
+    rng = np.random.default_rng(22)
+    g = rng.standard_normal(tq.shape).astype(np.float32)
+    g_lse = rng.standard_normal((2, 3, 192)).astype(np.float32) if with_lse_grad else None
+    kw = dict(causal=causal, block_q=48, block_k=64)
+    out, lse4 = jflash._flash_forward(jq, jk, jv, return_lse=True, **kw)  # lse (B, H, 1, L)
+    want = jflash._flash_backward(jq, jk, jv, out, lse4, jnp.asarray(g),
+                                  lse_grad=None if g_lse is None else jnp.asarray(g_lse), **kw)
+    tout, tg = torch.from_numpy(np.array(out)), torch.from_numpy(g)
+    lse = torch.from_numpy(np.asarray(lse4)[:, :, 0, :].copy())
+    delta = (tg * tout).sum(-1).permute(0, 2, 1).contiguous()
+    if g_lse is not None:
+        delta = delta - torch.from_numpy(g_lse)
+    dq = ck.flash_dq_plain(tq, tk, tv, tg, lse, delta, **kw)
+    dk, dv = ck.flash_dkv_plain(tq, tk, tv, tg, lse, delta, **kw)
+    assert torch.equal(dq, ck.flash_dq(tq, tk, tv, tg, lse, delta, **kw))  # the CPU wrapper is the plain version
+    for got, w, name in zip((dq, dk, dv), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5, err_msg=f"d{name}")
+
+
+def _oracle_with_lse(q, k, v, causal):
+    l, d = q.shape[1], q.shape[-1]
+    s = jnp.einsum("blhd,bmhd->bhlm", q, k) / jnp.sqrt(jnp.asarray(d, jnp.float32))
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((l, l), bool))[None, None], s, -1e30)
+    out = jnp.einsum("bhlm,bmhd->blhd", jax.nn.softmax(s, -1), v)
+    return out, jax.scipy.special.logsumexp(s, -1)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_with_lse_joint_vjp_matches_oracle(causal):
+    """``flash_attention_with_lse`` differentiated through both outputs,
+    ``sum(o^2) + sum(sin(lse))``, against the XLA oracle's gradients at
+    1e-4, as tests/test_flash_attention.py holds the JAX package's joint VJP."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(64, "fp32", b=2, d=16, seed=11)
+
+    def loss_o(q, k, v):
+        o, s = _oracle_with_lse(q, k, v, causal)
+        return jnp.sum(o**2) + jnp.sum(jnp.sin(s))
+
+    want = jax.grad(loss_o, (0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    o, s = tflash.flash_attention_with_lse(*leaves, causal=causal)
+    got = torch.autograd.grad((o**2).sum() + torch.sin(s).sum(), leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_grad_of_strided_views_and_a_zero_stride_cotangent(causal):
+    """q, k, v as slices of one packed qkv tensor (the LM's layout) and the
+    gradient of ``out.sum()`` (an expanded, zero-stride cotangent): the
+    packed tensor's gradient against ``jax.vjp`` with a cotangent of ones."""
+    rng = np.random.default_rng(31)
+    packed = rng.standard_normal((2, 48, 3, 2 * 16)).astype(np.float32)
+    jqkv = [jnp.asarray(packed[:, :, i].reshape(2, 48, 2, 16)) for i in range(3)]
+    _, want = _vjp_jax(lambda q, k, v: jflash.flash_attention(q, k, v, causal=causal, block_q=16, block_k=16),
+                       jqkv, jnp.ones((2, 48, 2, 16), jnp.float32))
+    tp = torch.from_numpy(packed).requires_grad_(True)
+    q, k, v = (tp[:, :, i].view(2, 48, 2, 16) for i in range(3))
+    assert not q.is_contiguous()
+    out = tflash.flash_attention(q, k, v, causal=causal, block_q=16, block_k=16)
+    (grad,) = torch.autograd.grad(out.sum(), (tp,))
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(grad[:, :, i].reshape(2, 48, 2, 16).numpy(), np.asarray(w), rtol=5e-5, atol=5e-5)
+
+
+def test_backward_operands_are_checked():
     _, (tq, tk, tv) = _qkv(32, "fp32")
-    tq.requires_grad_(True)
-    res = getattr(tflash, fn)(tq, tk, tv, causal=True)
-    out = res[0] if isinstance(res, tuple) else res
-    assert out.grad_fn is not None  # the gradient does not silently stop here
-    with pytest.raises(NotImplementedError, match="Queue 2 items 10-11"):
-        out.sum().backward()
+    lse = torch.zeros((1, 2, 32))
+    with pytest.raises(ValueError, match="lse must be a contiguous fp32"):
+        ck.flash_dq(tq, tk, tv, tq, lse[:, :, :16], lse, causal=True)
+    with pytest.raises(ValueError, match="delta must be a contiguous fp32"):
+        ck.flash_dkv(tq, tk, tv, tq, lse, lse.double(), causal=True)
+    with pytest.raises(TypeError):
+        ck.flash_dkv(tq, tk, tv, tq.to(torch.bfloat16), lse, lse, causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.flash_dq(tq, tk, tv, torch.zeros((1, 32, 2, 32))[..., ::2], lse, lse, causal=True)
 
 
 def test_flash_plain_is_the_recurrence_of_the_oracle():

@@ -28,7 +28,7 @@ import cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.sentinel
 import cuda_mpi_gpu_cluster_programming_tpu_torch.tuning
 import cuda_mpi_gpu_cluster_programming_tpu_torch.ops.flash_attention
 import cuda_mpi_gpu_cluster_programming_tpu_torch.models.transformer as tf
-from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context
+from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context, lm
 import torch
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1"]) == 0
@@ -37,6 +37,8 @@ assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", 
 cfg = tf.TransformerConfig(d_model=32, n_heads=2, n_layers=1, d_ff=64, max_len=32, attn_impl="flash")
 params = tf.init_transformer(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
 assert tf.generate(params, torch.zeros((1, 4), dtype=torch.int64), cfg, steps=2).shape == (1, 6)
+assert lm.main(["--device", "cpu", "--attn", "flash", "--steps", "1", "--seq-len", "16", "--batch", "2",
+                "--target-loss", "1000"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print("LOADED", bad)
 sys.exit(1 if bad else 0)

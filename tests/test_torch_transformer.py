@@ -1,5 +1,5 @@
 """The port's transformer LM (forward, loss, KV-cache decode, generation)
-and long-context CLI against the JAX package's.
+and long-context CLI against the JAX package's (training: test_torch_train.py).
 
 Both packages run on the CPU with the same weights: the JAX package's
 ``init_transformer`` tree, carried over by ``lm_params_from_jax``. The
@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from cuda_mpi_gpu_cluster_programming_tpu.models import transformer as jtf
-from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context
+from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import lm, long_context
 from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as ttf
 
 # tests/test_decode.py's config
@@ -246,3 +246,5 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         long_context.main(["--strategy", "flash", "--seq-len", "64"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttf.init_transformer(TCFG, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.main(["--attn", "flash", "--steps", "1"])
