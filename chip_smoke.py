@@ -28,15 +28,22 @@ with a non-zero exit code and nothing is caught:
    slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
    and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
    TINY_LM's attention (8x1024x4x32), causal and full, timed beside SDPA,
-   and off those shapes (the JAX tests' ragged blocks, D = 16 and 128,
-   strided q/k/v, a rejected head dim, relu on a NaN, -0.0 and an
-   unaligned view); then the flash backward, ``flash_dq`` and
+   and off those shapes (the JAX tests' ragged blocks, D = 16 and 128, the
+   zero-padded D = 8, 24 and 48, every D from 1 to 128 through the three
+   flash kernels, D = 256 refused on the card, strided q/k/v, relu on a
+   NaN, -0.0 and an unaligned view); then the flash backward, ``flash_dq`` and
    ``flash_dkv``, in fp32 and bf16 at the same two shapes, causal and full,
    each against its plain version, a second launch bitwise the first and
    (fp32) autograd through ``ops.attention``, timed beside SDPA's backward,
-   and off those shapes (the ragged blocks, D = 16 and 128, an lse
-   cotangent, strided q/k/v with a zero-stride dO, the joint (out, lse)
-   gradient against the oracle);
+   and off those shapes (the ragged blocks, D = 16 and 128, the padded
+   D = 8, 24 and 48, an lse cotangent, strided q/k/v with a zero-stride dO,
+   the joint (out, lse) gradient against the oracle); then the pool A/B's
+   space-to-depth pool ``maxpool_s2d`` at pool1 and pool2 (batch 128,
+   standard normal) in fp32 and bf16, bitwise against its plain version and
+   maxpool2d, the wrapper (C pad and repack included) and the kernel alone
+   on its packed operand timed beside the plain version, ``F.max_pool2d``
+   and the bound, and off those shapes (C = 20, 128 and 130, window/stride
+   2/2, 3/1 and 5/3, H != W, NaN, -inf and -0.0 in the input);
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
@@ -65,6 +72,11 @@ with a non-zero exit code and nothing is caught:
    tok/s, and a ``torch.profiler`` split of a step's device time; then
    ``examples.lm.main`` at its defaults with ``--attn flash --generate 16``
    in fp32 and with ``--compute bf16``, every line PASSED;
+   3d. the pool A/B, ``pool_ab.main`` at batch 128 for pool1 and pool2 in
+   fp32 and bf16, launch counts set to 0 before each run and read after:
+   six rows in the JAX script's order, every compared strategy bitwise
+   ``F.max_pool2d`` (no ``mismatch``, no ``error``), maxpool_s2d,
+   maxpool_phases and maxpool2d launched;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -83,7 +95,7 @@ Tolerances, kernel against plain version on the same inputs:
 - conv and LRN bf16: per element, 1 bf16 ulp (where that order flips the
   one rounding to bf16) plus the fp32 term above (1e-5, LRN 1e-6, of the
   max), which dominates where a sum cancels to near zero;
-- pool, phases pool and W stage: bitwise (max is exact);
+- pool, phases pool, W stage and s2d pool: bitwise (max is exact);
 - LRN fp32: max |diff| <= 1e-6 x max |plain| (same sums, same powf);
 - conv_block fp32: 1e-5 x max |plain|, as conv; bf16 and int8w: 1 bf16 ulp
   + 1e-5 of the max, and 2 ulps for a block that ends in LRN: a one-ulp
@@ -154,6 +166,9 @@ LM_KERNELS = {
     "flash_dq": (f"{PORT}/csrc/flash_dq.cu", f"{FLASH_FILE}:184"),
     "flash_dkv": (f"{PORT}/csrc/flash_dkv.cu", f"{FLASH_FILE}:217"),
 }
+# the pool A/B's space-to-depth pool: (source, TPU kernel it replaces); its run is pool_ab
+S2D_KERNEL = (f"{PORT}/csrc/maxpool_s2d.cu", "scripts/pool_ab.py:63")
+POOL_AB_SHAPES = {"pool1": (55, 55, 96), "pool2": (27, 27, 256)}  # pool_ab.POOL_SHAPES, window 3, stride 2
 # the flash backward kernels: FLOPs per B H L^2 D (2 per multiply-add of each product: dQ 3 products,
 # dK/dV 4, as the TPU kernels count them; half when causal) and (B, L, H, D) tensors moved once
 # (dQ reads q, k, v, dO and writes dq; dK/dV also writes dv), beside the fp32 lse and delta (B, H, L)
@@ -888,6 +903,88 @@ def tune_phase() -> dict:
                 gate_records=recs, stdout_sweep=first, stdout_cache=second)
 
 
+def s2d_phase(spec, peak_name) -> list:
+    """Phase 2, the pool A/B's s2d pool at pool1 and pool2 (batch 128,
+    standard normal, as ``pool_ab`` makes its input) in fp32 and bf16:
+    bitwise against its plain version and against maxpool2d; the wrapper
+    timed with its C pad and repack (as the phases and taps rows include
+    their packing), the kernel alone on the packed operand (``kernel_ms``,
+    beside the bound of its own bytes), the plain version and
+    ``F.max_pool2d``, beside the function's bytes bound (x read once, y
+    written once)."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    rows = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2032)
+        for stage, (h, w, c) in POOL_AB_SHAPES.items():
+            x = torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype)
+            es = x.element_size()
+            y = ck.maxpool_s2d(x, window=3, stride=2)
+            row = measure(dict(
+                kernel="maxpool_s2d", stage=stage,
+                run=lambda x=x: ck.maxpool_s2d(x, window=3, stride=2),
+                plain=lambda x=x: ck.maxpool_s2d_plain(x, window=3, stride=2),
+                library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
+                library_call="F.max_pool2d (channels-last)",
+                flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
+                same_as=lambda x=x: ck.maxpool2d(x, window=3, stride=2), same_as_name="maxpool2d",
+            ), pol, spec, peak_name)
+            xs = ck.s2d_pool_operand(x, window=3, stride=2).contiguous()
+            packed = lambda xs=xs, c=c: ck.maxpool_s2d_packed(xs, c, window=3, stride=2)  # noqa: E731
+            require(torch.equal(packed(), y), f"maxpool_s2d_packed {stage} {pol} differs from the wrapper")
+            k_bound, k_by = spec.bound_ms(0, (xs.numel() + y.numel()) * es, "fp32", fp32_flops=y.numel() * 9)
+            row.update(kernel_ms=gpu_time_ms(packed), kernel_bound_ms=k_bound, kernel_bound_by=k_by,
+                       operand_shape=list(xs.shape), operand_bytes=xs.numel() * es)
+            log(f"kernel maxpool_s2d {stage} {pol}: kernel alone on the packed {tuple(xs.shape)} operand "
+                f"{row['kernel_ms']:.4f} ms (bound of its own bytes {k_bound:.4f}, {k_by})")
+            rows.append(row)
+            del x, xs, y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def s2d_edge_phase() -> list:
+    """The s2d pool off pool1 and pool2, bitwise against its plain version
+    and (where the input holds no NaN) against maxpool2d: C = 20, 128 and
+    130 (20 in bf16 takes the store's scalar tail), window/stride 2/2, 3/1
+    and 5/3, an H != W input, and NaN (its payload kept), -inf and -0.0 in
+    the input."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    results = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for shape, win, st in (((3, 15, 15, 20), 3, 2), ((3, 15, 15, 128), 3, 2), ((3, 15, 15, 130), 3, 2),
+                               ((2, 16, 16, 96), 2, 2), ((2, 9, 9, 130), 3, 1), ((2, 17, 17, 20), 5, 3),
+                               ((2, 13, 21, 96), 3, 2), ((2, 27, 19, 256), 3, 2)):
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            got = ck.maxpool_s2d(x, window=win, stride=st)
+            res = compare("bitwise", got, ck.maxpool_s2d_plain(x, window=win, stride=st))
+            res["bitwise_maxpool2d"] = bool(torch.equal(got, ck.maxpool2d(x, window=win, stride=st)))
+            res["ok"] = res["ok"] and res["bitwise_maxpool2d"]
+            results.append((f"maxpool_s2d {shape} {win}/{st} {pol} (bitwise, and vs maxpool2d)", res))
+        x = torch.randn((2, 11, 11, 20), generator=gen, device="cuda").to(dtype)
+        flat = x.view(-1)
+        flat[::7] = float("-inf")
+        flat[1::11] = -0.0
+        flat[2::11] = 0.0
+        nan = torch.tensor([0x7FC00123 if dtype == torch.float32 else 0x7FC1],
+                           dtype=torch.int32 if dtype == torch.float32 else torch.int16, device="cuda")
+        flat[3::13] = nan.view(dtype)
+        got = ck.maxpool_s2d(x, window=3, stride=2)
+        want = ck.maxpool_s2d_plain(x, window=3, stride=2)
+        ok = torch.equal(_bits(got), _bits(want)) and bool(torch.isnan(got).any())
+        results.append((f"maxpool_s2d NaN (payload), -inf, -0.0 {pol} (bitwise)", dict(ok=ok, max_abs_err=0.0)))
+    torch.cuda.synchronize()
+    for what, res in results:
+        log(f"edge {what}: ok={res['ok']}")
+        require(res["ok"], f"edge case {what}: {res}")
+    return results
+
+
 def lm_kernel_phase(spec, peak_name) -> list:
     """Phase 2, the LM slice's kernels in fp32 and bf16: ``relu`` at conv1's
     output (bitwise against its plain version), and ``flash_fwd`` at
@@ -1088,7 +1185,7 @@ def lm_bwd_kernel_phase(spec, peak_name) -> list:
 def lm_bwd_edge_phase() -> list:
     """The flash backward off the main path: flash_dq and flash_dkv at the
     JAX tests' ragged (L, block_q, block_k) = (24, 8, 12) and (192, 48, 64),
-    at D = 16 and 128, causal and full, with and without an lse cotangent;
+    at D = 16 and 128 and the padded D = 8, 24 and 48, causal and full, with and without an lse cotangent;
     the gradient of ``out.sum()`` (a zero-stride dO) with q, k, v slices of
     one packed qkv tensor, bitwise the gradient through contiguous copies;
     and the joint (out, lse) gradient of ``flash_attention_with_lse``
@@ -1099,7 +1196,8 @@ def lm_bwd_edge_phase() -> list:
     results = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for b, l, h, d, bq, bk in ((2, 24, 3, 16, 8, 12), (2, 192, 3, 64, 48, 64), (2, 24, 2, 128, 8, 12),
-                                   (1, 192, 2, 128, 48, 64), (3, 192, 2, 16, 48, 64)):
+                                   (1, 192, 2, 128, 48, 64), (3, 192, 2, 16, 48, 64),
+                                   (2, 64, 2, 8, 64, 64), (2, 192, 3, 24, 48, 64), (1, 256, 2, 48, 128, 128)):
             for causal in (True, False):
                 for lse_grad in (False, True):
                     case = flash_bwd_case((b, l, h, d), causal, dtype, gen, bq, bk, lse_grad=lse_grad)
@@ -1146,9 +1244,12 @@ def lm_edge_phase() -> list:
     """The LM slice's kernels off the main path: flash_fwd at the JAX
     tests' ragged (L, block_q, block_k) = (24, 8, 12) and (192, 48, 64),
     at D = 16 and 128, causal and full; on strided q, k, v (slices of one
-    packed qkv tensor) bitwise against contiguous copies; a head dim the
-    kernel does not take raises; relu at an odd size, on a NaN (kept, bits
-    and all) and -0.0 (to +0.0), and on a view 4 bytes off 16-byte alignment."""
+    packed qkv tensor) bitwise against contiguous copies; at D = 8, 24 and
+    48, which the wrappers zero-pad to the next kernel width, and every D
+    from 1 to 128 (fp32, through the kernel: the launch counted), D = 256
+    refused by all three flash wrappers; relu at an odd size, on a NaN
+    (kept, bits and all) and -0.0 (to +0.0), and on a view 4 bytes off
+    16-byte alignment."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1166,14 +1267,22 @@ def lm_edge_phase() -> list:
         want = ck.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
         same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         results.append((f"flash_fwd strided qkv views vs contiguous {pol}", dict(ok=same, max_abs_err=0.0)))
-        for d in (48, 256):
-            x = torch.zeros((1, 64, 2, d), device="cuda", dtype=dtype)
+        for b, l, h, d, bq, bk in ((2, 64, 2, 8, 64, 64), (2, 192, 3, 24, 48, 64), (1, 256, 2, 48, 128, 128)):
+            for causal in (True, False):
+                res = flash_case((b, l, h, d), causal, dtype, gen, bq, bk)["res"]
+                results.append((f"flash_fwd {b}x{l}x{h}x{d} (padded) blocks ({bq}, {bk}) causal={causal} {pol}",
+                                dict(res, ok=res["ok_all"])))
+        x = torch.zeros((1, 64, 2, 256), device="cuda", dtype=dtype)
+        lse = torch.zeros((1, 2, 64), device="cuda")
+        for name, call in (("flash_fwd", lambda: ck.flash_fwd(x, x, x, causal=True)),
+                           ("flash_dq", lambda: ck.flash_dq(x, x, x, x, lse, lse, causal=True)),
+                           ("flash_dkv", lambda: ck.flash_dkv(x, x, x, x, lse, lse, causal=True))):
             try:
-                ck.flash_fwd(x, x, x, causal=True)
+                call()
                 raised = False
-            except ValueError:
-                raised = True
-            results.append((f"flash_fwd rejects head dim {d} {pol}", dict(ok=raised, max_abs_err=0.0)))
+            except ValueError as e:
+                raised = "limit of 128" in str(e)
+            results.append((f"{name} refuses head dim 256 on the card {pol}", dict(ok=raised, max_abs_err=0.0)))
         x = torch.randn((7, 13, 5), generator=gen, device="cuda").to(dtype)
         x.view(-1)[:4] = torch.tensor([float("nan"), -0.0, float("-inf"), -float("nan")], dtype=dtype)
         for name, t in (("odd 7x13x5 with NaN, -0.0, -inf", x), ("view off alignment", x.view(-1)[1:])):
@@ -1182,6 +1291,8 @@ def lm_edge_phase() -> list:
             results.append((f"relu {name} {pol} (bitwise)", dict(ok=ok, max_abs_err=0.0)))
         got = ck.relu(x)
         results.append((f"relu -0.0 to +0.0 {pol}", dict(ok=not bool(torch.signbit(got.view(-1)[1])), max_abs_err=0.0)))
+    results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 128 (fp32, 1x64x2xD, causal) "
+                    "through the kernels", head_dim_sweep(gen)))
     torch.cuda.synchronize()
     for what, res in results:
         log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
@@ -1189,6 +1300,35 @@ def lm_edge_phase() -> list:
                if "lse_max_abs_err" in res else ""))
         require(res["ok"], f"edge case {what}: {res}")
     return results
+
+
+def head_dim_sweep(gen) -> dict:
+    """Every head dim from 1 to 128, fp32, (1, 64, 2, D) causal: flash_fwd,
+    flash_dq and flash_dkv each launch their kernel once (the count says
+    so) and agree with their plain versions (out: ``FLASH_PLAIN_V_REL`` of
+    max |v|; dq, dk, dv: ``BWD_PLAIN_REL`` of each one's max)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    worst, bad = 0.0, []
+    for d in range(1, 129):
+        q, k, v, g = (torch.randn((1, 64, 2, d), generator=gen, device="cuda") for _ in range(4))
+        ck.reset_launches()
+        out, lse = ck.flash_fwd(q, k, v, causal=True)
+        delta = (g * out).sum(-1).permute(0, 2, 1).contiguous()
+        dq = ck.flash_dq(q, k, v, g, lse, delta, causal=True)
+        dk, dv = ck.flash_dkv(q, k, v, g, lse, delta, causal=True)
+        launched = ck.LAUNCHES["flash_fwd"] == ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+        p_out, _ = ck.flash_fwd_plain(q, k, v, causal=True)
+        parts = [float((out - p_out).abs().max()) / float(v.abs().max()) / FLASH_PLAIN_V_REL]
+        want = (ck.flash_dq_plain(q, k, v, g, lse, delta, causal=True),
+                *ck.flash_dkv_plain(q, k, v, g, lse, delta, causal=True))
+        parts += [compare(BWD_PLAIN_REL, a, b)["max_rel_err"] / BWD_PLAIN_REL for a, b in zip((dq, dk, dv), want)]
+        shapes = all(t.shape == q.shape and t.is_contiguous() for t in (out, dq, dk, dv))
+        worst = max(worst, *parts)
+        if not (launched and shapes and max(parts) <= 1.0):
+            bad.append(d)
+    ck.reset_launches()
+    return dict(ok=not bad, failing_head_dims=bad, max_abs_err=0.0, worst_share_of_tolerance=worst)
 
 
 def run_long_context(argv) -> dict:
@@ -1371,6 +1511,47 @@ def run_lm_cli(argv) -> dict:
     require(gen_ok is not None and gen_ok.group(1) == "PASSED", f"examples.lm {argv}: generation\n{out}")
     return dict(ms=float(m.group(1)), tok_s=int(m.group(2)), loss_first=float(verdict.group(1)),
                 loss_last=float(verdict.group(2)), steps=steps, launches=launches, passes=steps, stdout=out)
+
+
+def pool_ab_phase() -> dict:
+    """Phase 3d: the pool A/B, ``pool_ab.main`` at batch 128 for pool1 and
+    pool2 in fp32 and bf16, the launch counts set to 0 just before each run
+    and read just after: exit 0, six rows in the JAX script's order, no
+    ``mismatch`` and no ``error`` (every compared strategy bitwise
+    ``F.max_pool2d``), and maxpool_s2d, maxpool_phases and maxpool2d
+    launched. Then one ``s2d128`` call launches maxpool_s2d once."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    order = ["xla", "current", "phases", "s2d128", "sep2", "sep2p"]
+    result = {"runs": {}}
+    for pol in ("fp32", "bf16"):
+        for pool in POOL_AB_SHAPES:
+            argv = ["--pool", pool, "--dtype", pol, "--batch", str(BATCH)]
+            buf = io.StringIO()
+            ck.reset_launches()
+            with contextlib.redirect_stdout(buf):
+                rc = pool_ab.main(argv)
+            launches = dict(ck.LAUNCHES)
+            rows = [json.loads(line) for line in buf.getvalue().splitlines()]
+            name = f"pool_ab --pool {pool}/{pol}"
+            log(f"path {name}: rc={rc} " + " ".join(
+                f"{r['strategy']}={r.get('ms_per_pass', r.get('error'))}{' MISMATCH' if r.get('mismatch') else ''}"
+                for r in rows) + f"; launches maxpool_s2d={launches['maxpool_s2d']} "
+                f"maxpool_phases={launches['maxpool_phases']} maxpool2d={launches['maxpool2d']}")
+            require(rc == 0, f"{name} returned {rc}: {rows}")
+            require([r["strategy"] for r in rows] == order, f"{name}: strategies {rows}")
+            require(not any("mismatch" in r or "error" in r for r in rows), f"{name}: {rows}")
+            require(all(launches[k] > 0 for k in ("maxpool_s2d", "maxpool_phases", "maxpool2d")),
+                    f"{name}: launches {launches}")
+            result["runs"][name] = dict(rc=rc, rows=rows, launches=launches)
+    (h, w, c) = POOL_AB_SHAPES["pool2"]
+    x = torch.randn((2, h, w, c), device="cuda")
+    ck.reset_launches()
+    pool_ab.strategies(x, 3, 2)["s2d128"]()
+    require(ck.LAUNCHES == _launches(maxpool_s2d=1), f"one s2d128 call: launches {ck.LAUNCHES}")
+    ck.reset_launches()
+    return result
 
 
 PROFILED_STEPS = 3
@@ -1563,6 +1744,34 @@ def lm_kernels_entries(rows, runs) -> list:
     return entries
 
 
+def s2d_kernels_entries(rows, runs) -> list:
+    """The ``kernels`` line's maxpool_s2d entries, one per dtype: its run is
+    ``pool_ab`` (``--pool pool1`` and ``--pool pool2``; launches summed over
+    the two), its stages pool1 and pool2. ``ms`` is the wrapper's (C pad
+    and repack included), ``kernel_ms`` the kernel alone on the packed
+    operand; times and bounds summed over the stages."""
+    source, replaces = S2D_KERNEL
+    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_bound_ms", "max_abs_err",
+            "tol", "operand_shape")
+    entries = []
+    for pol in ("fp32", "bf16"):
+        mine = [r for r in rows if r["kernel"] == "maxpool_s2d" and r["dtype"] == pol]
+        require([r["stage"] for r in mine] == list(POOL_AB_SHAPES), f"maxpool_s2d {pol}: stages {mine}")
+        launches = {pool: runs[f"pool_ab --pool {pool}/{pol}"]["launches"]["maxpool_s2d"] for pool in POOL_AB_SHAPES}
+        entries.append(dict(
+            name="maxpool_s2d", dtype=pol, route="cuda", source=source, replaces=replaces,
+            run=f"pool_ab --pool pool1/pool2 --dtype {pol}", launches=sum(launches.values()),
+            launches_by_run=launches, launches_per_s2d128_call=1,
+            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+            ms=sum(r["ms"] for r in mine), kernel_ms=sum(r["kernel_ms"] for r in mine),
+            plain_ms=sum(r["plain_ms"] for r in mine), bound_ms=sum(r["bound_ms"] for r in mine),
+            bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+            library_ms=sum(r["library_ms"] for r in mine), library_call=mine[0]["library_call"],
+            stages={r["stage"]: {k: r[k] for k in keys} for r in mine},
+        ))
+    return entries
+
+
 def kernels_line(rows, runs) -> dict:
     """One entry per (kernel, dtype): times summed over the kernel's stages
     in one forward of its route; launches from that dtype's main-path run
@@ -1633,7 +1842,8 @@ def main() -> int:
 
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
     lm_rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
-    edges = edge_phase() + block_edge_phase() + lm_edge_phase() + lm_bwd_edge_phase()
+    s2d_rows = s2d_phase(spec, peak_name)
+    edges = edge_phase() + block_edge_phase() + s2d_edge_phase() + lm_edge_phase() + lm_bwd_edge_phase()
     log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
@@ -1641,17 +1851,21 @@ def main() -> int:
     log("phase 3b: long_context and the LM's forward, loss, decode and generation ran through flash_fwd")
     train = train_path_phase()
     log("phase 3c: the LM's training step and examples.lm ran through flash_fwd, flash_dq and flash_dkv")
+    ab = pool_ab_phase()
+    log("phase 3d: pool_ab ran every strategy through its kernel, each bitwise F.max_pool2d")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
     line["kernels"] += lm_kernels_entries(lm_rows, {**lm["runs"], **train["runs"]})
+    line["kernels"] += s2d_kernels_entries(s2d_rows, ab["runs"])
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log,
-             stages=rows + lm_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train, tune=tune,
+             stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
+             pool_ab=ab, tune=tune,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

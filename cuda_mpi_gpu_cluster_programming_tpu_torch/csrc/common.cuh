@@ -1,4 +1,5 @@
-// Shared helpers for the port's kernels: fp32/bf16/int8 load, fp32/bf16 store.
+// Shared helpers for the port's kernels: fp32/bf16/int8 load, fp32/bf16 store,
+// the pools' max step.
 //
 // Every kernel computes in fp32 and touches its element type only at the
 // load (to_f32, exact for all three types) and at the single store
@@ -30,6 +31,20 @@ __device__ __forceinline__ float from_f32<float>(float v) {
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
+}
+
+// One step of the pools' window max, taps taken in (fy, fx) order from tap
+// (0, 0): v replaces the running best when it is greater or a NaN. So a NaN
+// propagates, as jnp.maximum does (fmaxf would drop it), equal values keep
+// the earlier element, and the winning element itself is kept and stored, so
+// bf16 needs no conversion back.
+template <typename T>
+__device__ __forceinline__ void max_step(T& best, float& best_f, T v) {
+  const float vf = to_f32(v);
+  if (vf > best_f || vf != vf) {
+    best = v;
+    best_f = vf;
+  }
 }
 
 inline int blocks_for(long long n, int threads) {

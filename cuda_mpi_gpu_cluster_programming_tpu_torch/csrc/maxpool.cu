@@ -45,11 +45,7 @@ maxpool2d_kernel(const T* __restrict__ x, T* __restrict__ y, int N, int H,
   for (int fy = 0; fy < wh; ++fy) {
     for (int fx = 0; fx < ww; ++fx) {
       const T v = base[(static_cast<long long>(fy) * W + fx) * C];
-      const float vf = port::to_f32(v);
-      if (vf > bf || vf != vf) {
-        best = v;
-        bf = vf;
-      }
+      port::max_step(best, bf, v);
     }
   }
   y[i] = best;

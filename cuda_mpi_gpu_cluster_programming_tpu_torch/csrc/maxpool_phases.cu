@@ -44,11 +44,7 @@ maxpool_phases_kernel(const T* __restrict__ xph, T* __restrict__ y, int N, int h
     for (int fx = 0; fx < window; ++fx) {
       const T v = base[((fy % s) * s + fx % s) * phase +
                        (static_cast<long long>(fy / s) * wp + fx / s) * C];
-      const float vf = port::to_f32(v);
-      if (vf > bf || vf != vf) {
-        best = v;
-        bf = vf;
-      }
+      port::max_step(best, bf, v);
     }
   }
   y[i] = best;

@@ -121,6 +121,8 @@ _SIGNATURES = {
     "maxpool2d": ([_P, _P] + [_I] * 10 + [_P], ("f32", "bf16")),
     # xph, y, N, hp, wp, C, window, stride, Ho, Wo, stream
     "maxpool_phases": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
+    # xs, y, N, hs, ws, cp, C, window, stride, Ho, Wo, stream
+    "maxpool_s2d": ([_P, _P] + [_I] * 9 + [_P], ("f32", "bf16")),
     # x, y, total, C, size, a, beta, k, stream
     "lrn": ([_P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P], ("f32", "bf16")),
     # x, w, b, scale, y, N, H, W, C, K, F, stride, pad, Ho, Wo, pool window, pool stride,

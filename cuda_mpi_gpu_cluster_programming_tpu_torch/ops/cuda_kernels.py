@@ -12,6 +12,9 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
   ``maxpool.cu``, the sep2 pool;
 - ``maxpool_phases``: :func:`maxpool_phases`, ``maxpool_phases.cu``, the
   phases pool;
+- ``maxpool_s2d``: :func:`maxpool_s2d` (the launch on the packed operand:
+  :func:`maxpool_s2d_packed`), ``maxpool_s2d.cu``, the space-to-depth pool
+  of the pool A/B (``pool_ab.py``'s ``s2d128``; no model path calls it);
 - ``lrn``: :func:`lrn`, ``lrn.cu``;
 - ``conv_block``: :func:`conv_block`, ``conv_block.cu``, fuse="block";
 - ``relu``: :func:`relu`, ``relu.cu``, the standalone ReLU (no path calls
@@ -56,7 +59,7 @@ from .shapes import conv_out_dim, pool_out_dim
 LAUNCHES = {
     "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
     "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "maxpool_phases": 0,
-    "relu": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+    "maxpool_s2d": 0, "relu": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -565,6 +568,104 @@ def maxpool_phases(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor
     return y
 
 
+# The s2d pool pads C to a multiple of this, so that every phase's channel
+# block starts on a 16-byte boundary (the TPU's 128 lanes).
+S2D_LANES = 128
+
+
+def s2d_pool_operand(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """The operand of the s2d pool kernel for NHWC ``x``: C zero-padded to a
+    multiple of :data:`S2D_LANES`, then the space-to-depth repack
+    (N, ho + q, wo + q, s*s*cp), q = (window-1)//s, as ``pool_s2d128``
+    builds it. The zero rows and columns of the repack are never read."""
+    _n, h, wd, _c = x.shape
+    q = (window - 1) // stride
+    ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
+    return packing.space_to_depth(packing.pad_channels(x, S2D_LANES), stride, ho + q, wo + q)
+
+
+def _s2d_dims(xs: torch.Tensor, c: int, window: int, stride: int) -> tuple:
+    """``(n, hs, ws, cp, ho, wo)`` of an s2d operand holding ``c`` channels."""
+    n, hs, ws, depth = xs.shape
+    q = (window - 1) // stride
+    return n, hs, ws, depth // (stride * stride), hs - q, ws - q
+
+
+def maxpool_s2d_packed_plain(xs: torch.Tensor, c: int, *, window: int, stride: int) -> torch.Tensor:
+    """Plain version of the s2d kernel on its operand ``xs``: over the taps
+    (fy, fx) in order from tap (0, 0), each a unit-stride slice of channel
+    block (fy%s)*s + fx%s, the kernel's max step (``common.cuh``
+    ``max_step``: greater or NaN wins, so a NaN keeps its bits and equal
+    values the first), cropped to ``c`` channels."""
+    s = stride
+    _n, _hs, _ws, cp, ho, wo = _s2d_dims(xs, c, window, s)
+
+    def tap(fy, fx):
+        ph = (fy % s) * s + fx % s
+        return xs[:, fy // s : fy // s + ho, fx // s : fx // s + wo, ph * cp : ph * cp + c]
+
+    out = tap(0, 0)
+    for fy in range(window):
+        for fx in range(window):
+            v = tap(fy, fx)
+            out = torch.where((v > out) | torch.isnan(v), v, out)
+    return out.contiguous()
+
+
+def maxpool_s2d_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """Plain version of :func:`maxpool_s2d`: the same operand, then
+    :func:`maxpool_s2d_packed_plain`."""
+    return maxpool_s2d_packed_plain(
+        s2d_pool_operand(x, window=window, stride=stride), x.shape[3], window=window, stride=stride)
+
+
+def maxpool_s2d_packed(xs: torch.Tensor, c: int, *, window: int, stride: int) -> torch.Tensor:
+    """The s2d pool kernel on its operand ``xs`` (:func:`s2d_pool_operand`,
+    contiguous): (N, ho, wo, c) in ``xs``'s dtype. A CPU tensor runs
+    :func:`maxpool_s2d_packed_plain`."""
+    dev = _check("maxpool_s2d", xs)
+    if xs.dim() != 4 or xs.shape[3] % (stride * stride * S2D_LANES):
+        raise ValueError(f"maxpool_s2d: operand {tuple(xs.shape)} is not (N, hs, ws, s*s*cp), cp a multiple of "
+                         f"{S2D_LANES}")
+    n, hs, ws, cp, ho, wo = _s2d_dims(xs, c, window, stride)
+    if min(n, ho, wo, c) <= 0 or c > cp:
+        raise ValueError(f"maxpool_s2d: empty output or {c} channels for operand {tuple(xs.shape)}")
+    if dev.type == "cpu":
+        return maxpool_s2d_packed_plain(xs, c, window=window, stride=stride)
+    if xs.data_ptr() % 16:
+        xs = xs.clone()  # the kernel's vector loads need a 16-byte aligned operand
+    y = torch.empty((n, ho, wo, c), dtype=xs.dtype, device=dev)
+    _launch("maxpool_s2d", "maxpool_s2d", xs, xs.data_ptr(), y.data_ptr(), n, hs, ws, cp, c, window, stride, ho, wo)
+    return y
+
+
+def maxpool_s2d(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """VALID ``window`` x ``window`` / ``stride`` max-pool over a
+    space-to-depth repack, NHWC in, (N, ho, wo, C) out, fp32 or bf16:
+    ``pool_s2d128``, the A/B's ``s2d128``. Bitwise :func:`maxpool2d`.
+
+    Replaces ``_s2d_pool_kernel`` (scripts/pool_ab.py). Bound on the H100:
+    bytes; the function's own are x read once and y written once, but the
+    C pad and the repack (``packing.pad_channels``,
+    ``packing.space_to_depth``) come first and the kernel reads the padded
+    repack: at pool1 the wrapper moves about 6.7 times x's bytes. Design
+    (``csrc/maxpool_s2d.cu``): one thread per output pixel and 16-byte
+    channel vector, each tap one vector load from its channel block (C
+    padded to 128 keeps the blocks aligned), the cropped C channels stored
+    directly."""
+    dev = _check("maxpool_s2d", x)
+    if x.dim() != 4:
+        raise ValueError(f"maxpool_s2d: x {tuple(x.shape)} is not NHWC")
+    n, h, wd, c = x.shape
+    ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
+    if min(n, ho, wo, c) <= 0:
+        raise ValueError(f"maxpool_s2d: empty output for x {tuple(x.shape)}, window {window}")
+    if dev.type == "cpu":
+        return maxpool_s2d_plain(x, window=window, stride=stride)
+    xs = s2d_pool_operand(x, window=window, stride=stride).contiguous()
+    return maxpool_s2d_packed(xs, c, window=window, stride=stride)
+
+
 # ---------------------------------------------------------------------- LRN
 
 
@@ -732,6 +833,10 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------- flash attention forward
 
 
+# The head dims the flash kernels are instantiated for. A CUDA tensor with
+# another D up to 128 is zero-padded to the next of them (:func:`_flash_pad`);
+# above 128 the kernels raise (the dK/dV accumulators already take 210 KB of
+# shared memory at 128). The plain versions, and so the CPU, take any D.
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -747,7 +852,8 @@ def flash_blocks(l: int, block_q: int, block_k: int) -> tuple:
 def _flash_check(*tensors: torch.Tensor, name: str = "flash_fwd") -> torch.device:
     """Check the (B, L, H, D) operands of a flash kernel (q, k, v, and the
     output gradient for the backward): one device, one dtype, one shape,
-    the last axis contiguous (the others are read through their strides)."""
+    the last axis contiguous (the others are read through their strides).
+    Any D passes here; the CUDA branch pads it (:func:`_flash_pad`)."""
     first = tensors[0]
     for t in tensors:
         if t.device != first.device:
@@ -762,15 +868,32 @@ def _flash_check(*tensors: torch.Tensor, name: str = "flash_fwd") -> torch.devic
     if first.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: unsupported device {first.device}")
     b, l, h, d = first.shape
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not supported (one of {FLASH_HEAD_DIMS})")
-    if min(b, l, h) <= 0 or b > 65535 or h > 65535:
+    if min(b, l, h, d) <= 0 or b > 65535 or h > 65535:
         raise ValueError(f"{name}: shape {tuple(first.shape)} (B and H at most 65535, none empty)")
     return first.device
 
 
+def _flash_pad(name: str, *tensors: torch.Tensor) -> tuple:
+    """The CUDA operands of a flash kernel at head dim D: unchanged when D is
+    one of :data:`FLASH_HEAD_DIMS`, else copies zero-padded on the last axis
+    to the next of them. Zero columns leave every score q.k, lse and
+    delta = sum dO.o unchanged, and the padded columns of out, dq, dk and
+    dv come out exactly 0; the caller passes the scale of the true D and
+    slices them away. A padded operand is a copy, so the kernels lose their
+    strided read of a packed qkv at such a D. Raises above 128."""
+    d = tensors[0].shape[-1]
+    if d > FLASH_HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {d} is above the CUDA kernels' limit of {FLASH_HEAD_DIMS[-1]} "
+                         f"(the CPU runs any head dim)")
+    dp = next(w for w in FLASH_HEAD_DIMS if w >= d)
+    if dp == d:
+        return tensors
+    return tuple(F.pad(t, (0, dp - d)) for t in tensors)
+
+
 def flash_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, block_q: int = 128, block_k: int = 128,
+    scale: float | None = None,
 ) -> tuple:
     """Plain version of the flash forward kernel: the same recurrence in
     PyTorch, every q row at once, over k-blocks of the clamped ``block_k``.
@@ -778,10 +901,11 @@ def flash_fwd_plain(
     Exact, not approximate: the running max starts at ``NEG_INF`` and block
     0 holds key 0, which every row sees, so a masked score adds
     exp(NEG_INF - m) = 0, as in the JAX kernel. Returns ``(out, lse)``:
-    out (B, L, H, D) in q's dtype, lse (B, H, L) fp32."""
+    out (B, L, H, D) in q's dtype, lse (B, H, L) fp32. ``scale`` (default
+    1/sqrt(D)) is the padded kernels' true-D scale, for the tests."""
     b, l, h, d = q.shape
     _bq, bk = flash_blocks(l, block_q, block_k)
-    scale = 1.0 / d**0.5
+    scale = 1.0 / d**0.5 if scale is None else scale
     qf = (q.float() * scale).permute(0, 2, 1, 3)  # (B, H, L, D)
     kf, vf = k.float().permute(0, 2, 1, 3), v.float().permute(0, 2, 1, 3)
     m = torch.full((b, h, l), NEG_INF, device=q.device)
@@ -807,8 +931,9 @@ def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, block_q: int = 128, block_k: int = 128,
 ) -> tuple:
     """Flash-attention forward: ``(out, lse)`` for q, k, v of shape
-    (B, L, H, D), fp32 or bf16, D in :data:`FLASH_HEAD_DIMS`; out in q's
-    dtype, lse (B, H, L) fp32 = m + log(max(den, 1e-30)).
+    (B, L, H, D), fp32 or bf16; out in q's dtype, lse (B, H, L) fp32 =
+    m + log(max(den, 1e-30)). Any D on the CPU; on CUDA D <= 128, run at
+    the next width of :data:`FLASH_HEAD_DIMS` (:func:`_flash_pad`).
 
     ``block_q``/``block_k`` are clamped to L and L must be a multiple of
     both (:func:`flash_blocks`); the kernel tiles by its own 64 x 64. The
@@ -825,13 +950,15 @@ def flash_fwd(
     flash_blocks(l, block_q, block_k)
     if dev.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
-    out = torch.empty((b, l, h, d), dtype=q.dtype, device=dev)
+    q, k, v = _flash_pad("flash_fwd", q, k, v)
+    dp = q.shape[-1]
+    out = torch.empty((b, l, h, dp), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=dev)
     _launch(
         "flash_fwd", "flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, l, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / d**0.5,
+        b, l, h, dp, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / d**0.5,
     )
-    return out, lse
+    return (out if dp == d else out[..., :d].contiguous()), lse
 
 
 # --------------------------------------------------- flash attention backward
@@ -847,25 +974,26 @@ def _flash_bwd_check(name: str, q, k, v, g, lse, delta) -> torch.device:
     return dev
 
 
-def _bwd_operands(q, k, v, g):
-    """fp32 (B, H, L, D) views of q (times the scale), q, k, v and g."""
-    scale = 1.0 / q.shape[-1] ** 0.5
+def _bwd_operands(q, k, v, g, scale):
+    """fp32 (B, H, L, D) views of q (times the scale), q, k, v and g; the
+    scale defaults to 1/sqrt(D)."""
+    scale = 1.0 / q.shape[-1] ** 0.5 if scale is None else scale
     qf, kf, vf, gf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, g))
     return scale, qf * scale, qf, kf, vf, gf
 
 
 def flash_dq_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
-    causal: bool, block_q: int = 128, block_k: int = 128,
+    causal: bool, block_q: int = 128, block_k: int = 128, scale: float | None = None,
 ) -> torch.Tensor:
     """Plain version of the dQ kernel: ``_dq_kernel``'s blockwise recompute,
     every q row at once, over k-blocks of the clamped ``block_k``:
     p = exp(s - lse) with masked scores at ``NEG_INF`` (p exactly 0),
     dS = p (dO v^T - delta), dq += scale dS k. Returns dq (B, L, H, D) in
-    q's dtype."""
+    q's dtype. ``scale`` as in :func:`flash_fwd_plain`."""
     b, l, h, d = q.shape
     _bq, bk = flash_blocks(l, block_q, block_k)
-    scale, qs, _qf, kf, vf, gf = _bwd_operands(q, k, v, g)
+    scale, qs, _qf, kf, vf, gf = _bwd_operands(q, k, v, g, scale)
     dq = torch.zeros((b, h, l, d), device=q.device)
     rows = torch.arange(l, device=q.device)[:, None]
     for k0 in range(0, l, bk):
@@ -881,15 +1009,15 @@ def flash_dq_plain(
 
 def flash_dkv_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
-    causal: bool, block_q: int = 128, block_k: int = 128,
+    causal: bool, block_q: int = 128, block_k: int = 128, scale: float | None = None,
 ) -> tuple:
     """Plain version of the dK/dV kernel: ``_dkv_kernel``'s blockwise
     recompute, every key at once, over q-blocks of the clamped ``block_q``:
     dv += p^T dO, dk += scale dS^T q (q unscaled). Returns ``(dk, dv)``
-    (B, L, H, D) in k's and v's dtype."""
+    (B, L, H, D) in k's and v's dtype. ``scale`` as in :func:`flash_fwd_plain`."""
     b, l, h, d = q.shape
     bq, _bk = flash_blocks(l, block_q, block_k)
-    scale, qs, qf, kf, vf, gf = _bwd_operands(q, k, v, g)
+    scale, qs, qf, kf, vf, gf = _bwd_operands(q, k, v, g, scale)
     dk = torch.zeros((b, h, l, d), device=q.device)
     dv = torch.zeros((b, h, l, d), device=q.device)
     keys = torch.arange(l, device=q.device)[None, :]
@@ -918,7 +1046,7 @@ def flash_dq(
     v and the output gradient g (all (B, L, H, D), one dtype, last axis
     contiguous, the others read through their strides) and the fp32
     (B, H, L) ``lse`` (the forward's) and ``delta`` (sum_d g o, less the
-    lse gradient). Blocks as :func:`flash_fwd`.
+    lse gradient). Blocks and head dims as :func:`flash_fwd`.
 
     Replaces ``_dq_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
     flash_attention.py). Bound on the H100: operations (3 products, 6 B H
@@ -930,12 +1058,14 @@ def flash_dq(
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":
         return flash_dq_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
+    d = q.shape[-1]
+    q, k, v, g = _flash_pad("flash_dq", q, k, v, g)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _launch(
         "flash_dq", "flash_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), *_bwd_args(q, k, v, g), int(causal), 1.0 / q.shape[-1] ** 0.5,
+        delta.data_ptr(), dq.data_ptr(), *_bwd_args(q, k, v, g), int(causal), 1.0 / d**0.5,
     )
-    return dq
+    return dq if dq.shape[-1] == d else dq[..., :d].contiguous()
 
 
 def flash_dkv(
@@ -956,11 +1086,14 @@ def flash_dkv(
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":
         return flash_dkv_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
+    d = q.shape[-1]
+    q, k, v, g = _flash_pad("flash_dkv", q, k, v, g)
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
     _launch(
         "flash_dkv", "flash_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_bwd_args(q, k, v, g), int(causal),
-        1.0 / q.shape[-1] ** 0.5,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_bwd_args(q, k, v, g), int(causal), 1.0 / d**0.5,
     )
-    return dk, dv
+    if dk.shape[-1] == d:
+        return dk, dv
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()

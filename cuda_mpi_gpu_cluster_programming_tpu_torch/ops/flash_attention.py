@@ -65,8 +65,10 @@ def flash_attention(
     """Fused attention. q, k, v: (B, L, H, D) -> (B, L, H, D).
 
     ``L`` must be divisible by the blocks clamped to L (:func:`flash_block`);
-    the kernel itself tiles by 64 x 64, so the blocks only validate. D is
-    one of ``cuda_kernels.FLASH_HEAD_DIMS``. Differentiable with O(L)
+    the kernel itself tiles by 64 x 64, so the blocks only validate. Any D
+    runs on the CPU, as in the JAX package; on CUDA D is at most 128 and
+    is zero-padded to the next of ``cuda_kernels.FLASH_HEAD_DIMS`` (a
+    copy of q, k, v), with the scale of the true D. Differentiable with O(L)
     memory: the backward recomputes the probabilities blockwise from the
     saved lse (one ``flash_dq`` and one ``flash_dkv`` launch)."""
     return _Flash.apply(q, k, v, causal, block_q, block_k)[0]

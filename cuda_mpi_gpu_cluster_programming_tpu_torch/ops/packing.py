@@ -2,7 +2,8 @@
 
 The JAX package's ``_space_to_depth``, ``_weights_to_depth``,
 ``_weights_to_phase_depth`` and ``_pool_phases``
-(``ops/pallas_kernels.py``) as plain tensor code, bitwise
+(``ops/pallas_kernels.py``), and the channel pad of ``scripts/pool_ab.py``,
+as plain tensor code, bitwise
 the same (they only move and zero-fill values). Strided convolution is
 lowered by phase decomposition: the input is repacked to (N, Hs, Ws,
 s*s*C) and the weights to (fq, fq, s*s*C, K) with fq = ceil(F/s), so output
@@ -15,6 +16,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def pad_channels(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H, W, cp): C zero-padded to cp, the next multiple
+    of ``multiple``; ``x`` itself when C already is one."""
+    c = x.shape[-1]
+    cp = -(-c // multiple) * multiple
+    return x if cp == c else F.pad(x, (0, cp - c))
 
 
 def space_to_depth(x: torch.Tensor, s: int, hs: int, ws: int) -> torch.Tensor:

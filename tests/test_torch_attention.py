@@ -113,11 +113,74 @@ def test_indivisible_rejected_in_the_jax_words():
     assert str(got.value) == str(want.value) == "sequence length 96 not divisible by blocks (64, 64)"
 
 
-@pytest.mark.parametrize("d", [8, 48, 256])
-def test_head_dims_the_kernel_does_not_take_raise(d):
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [8, 24, 48, 256])
+def test_any_head_dim_matches_jax_flash_forward_and_vjp(d, causal):
+    """Head dims off the kernels' instantiations (and above 128, which only
+    the CPU takes): out and dq, dk, dv of ``flash_attention`` against the
+    JAX package's, at the fp32 forward (2e-5) and gradient (5e-5) tolerances."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(64, "fp32", d=d, seed=d)
+    cot = np.random.default_rng(d + 1).standard_normal(tq.shape).astype(np.float32)
+    kw = dict(causal=causal, block_q=32, block_k=32)
+    want_out, want = _vjp_jax(lambda q, k, v: jflash.flash_attention(q, k, v, **kw), (jq, jk, jv),
+                              jnp.asarray(cot))
+    out, got = _grads_torch(lambda q, k, v: tflash.flash_attention(q, k, v, **kw), (tq, tk, tv),
+                            torch.from_numpy(cot))
+    assert tuple(out.shape) == (1, 64, 2, d)
+    _close(out.detach(), want_out, "fp32")
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [1, 8, 24, 48, 100])
+def test_zero_padded_head_dim_with_the_true_scale_is_exact(d, causal):
+    """What the CUDA wrappers do at such a D: the plain versions on the
+    operands ``_flash_pad`` pads, with the true D's scale, sliced back,
+    against the plain versions on the unpadded operands; out, lse, dq, dk
+    and dv within 1e-6 of each one's max (the padded columns add exact zeros)."""
+    _, (tq, tk, tv) = _qkv(48, "fp32", b=2, d=d, seed=40 + d)
+    tg = torch.from_numpy(np.random.default_rng(d).standard_normal(tq.shape).astype(np.float32))
+    pq, pk_, pv, pg = ck._flash_pad("flash_fwd", tq, tk, tv, tg)
+    dp = pq.shape[-1]
+    assert dp == next(w for w in ck.FLASH_HEAD_DIMS if w >= d) and dp > d
+    assert torch.equal(pq[..., :d], tq) and not pq[..., d:].any()
+    kw = dict(causal=causal, block_q=16, block_k=24)
+    out, lse = ck.flash_fwd_plain(tq, tk, tv, **kw)
+    p_out, p_lse = ck.flash_fwd_plain(pq, pk_, pv, scale=1.0 / d**0.5, **kw)
+    delta = (tg * out).sum(-1).permute(0, 2, 1).contiguous()
+    want = [out, lse, ck.flash_dq_plain(tq, tk, tv, tg, lse, delta, **kw),
+            *ck.flash_dkv_plain(tq, tk, tv, tg, lse, delta, **kw)]
+    got = [p_out[..., :d], p_lse, ck.flash_dq_plain(pq, pk_, pv, pg, lse, delta, scale=1.0 / d**0.5, **kw)[..., :d],
+           *(t[..., :d] for t in ck.flash_dkv_plain(pq, pk_, pv, pg, lse, delta, scale=1.0 / d**0.5, **kw))]
+    assert not p_out[..., d:].any()
+    for g, w, name in zip(got, want, ("out", "lse", "dq", "dk", "dv")):
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_kernel_head_dims_are_not_padded(d):
+    """At an instantiated D the operands go to the kernel as they are (no
+    copy: a packed qkv is read through its strides)."""
     _, (tq, tk, tv) = _qkv(32, "fp32", d=d)
-    with pytest.raises(ValueError, match="head dim"):
-        ck.flash_fwd(tq, tk, tv, causal=True)
+    assert all(a is b for a, b in zip(ck._flash_pad("flash_fwd", tq, tk, tv), (tq, tk, tv)))
+
+
+@pytest.mark.parametrize("d", [1, 8, 48, 256, 512])
+def test_flash_check_takes_any_head_dim_on_the_cpu(d):
+    _, (tq, tk, tv) = _qkv(32, "fp32", d=d)
+    assert ck._flash_check(tq, tk, tv).type == "cpu"
+    out, lse = ck.flash_fwd(tq, tk, tv, causal=True)
+    assert tuple(out.shape) == (1, 32, 2, d) and tuple(lse.shape) == (1, 2, 32)
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
+def test_head_dims_above_128_are_refused_for_the_kernels(name):
+    """The CUDA branch of each wrapper pads through ``_flash_pad``, which
+    names the 128 limit above it."""
+    _, (tq, tk, tv) = _qkv(32, "fp32", d=256)
+    with pytest.raises(ValueError, match=f"{name}: head dim 256 is above the CUDA kernels' limit of 128"):
+        ck._flash_pad(name, tq, tk, tv)
 
 
 def test_mismatched_operands_raise():

@@ -29,6 +29,7 @@ import cuda_mpi_gpu_cluster_programming_tpu_torch.tuning
 import cuda_mpi_gpu_cluster_programming_tpu_torch.ops.flash_attention
 import cuda_mpi_gpu_cluster_programming_tpu_torch.models.transformer as tf
 from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context, lm
+from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
 import torch
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1"]) == 0
@@ -39,6 +40,7 @@ params = tf.init_transformer(cfg, generator=torch.Generator().manual_seed(0), de
 assert tf.generate(params, torch.zeros((1, 4), dtype=torch.int64), cfg, steps=2).shape == (1, 6)
 assert lm.main(["--device", "cpu", "--attn", "flash", "--steps", "1", "--seq-len", "16", "--batch", "2",
                 "--target-loss", "1000"]) == 0
+assert pool_ab.main(["--device", "cpu", "--batch", "1", "--pool", "pool2"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print("LOADED", bad)
 sys.exit(1 if bad else 0)

@@ -159,7 +159,7 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     assert {p.name for p in _build.sources()} == {
         "conv2d.cu", "maxpool.cu", "lrn.cu", "conv_block.cu",
         "conv_taps.cu", "conv_pairs.cu", "conv_im2col.cu", "conv_g8.cu", "maxpool_phases.cu",
-        "relu.cu", "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu",
+        "maxpool_s2d.cu", "relu.cu", "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu",
     }
     for p in _build.CSRC_DIR.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
