@@ -8,10 +8,15 @@ CUDA toolkit (``nvcc``). Phases, in order; a phase that fails ends the run
 with a non-zero exit code and nothing is caught:
 
 1. build the kernel library from ``cuda_mpi_gpu_cluster_programming_tpu_torch/csrc``;
+   1b. read its SASS (``cuobjdump --dump-sass``): every bf16 and int8w
+   instance of the conv2d.cu and conv_block.cu kernels contains HMMA (the
+   tensor cores), every fp32 one FFMA and no HMMA (no TF32);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
-   one PyTorch library call with CUDA events, beside the card's bound; then
+   one PyTorch library call with CUDA events, beside the card's bound (conv2
+   fp32 also bitwise ``conv_taps``, whose stride-1 term order is vcol's, and
+   the cuDNN kernels behind its library call named by ``torch.profiler``); then
    the conv and pool variants the autotuner sweeps: the taps, pairs,
    im2col ("fused") and g8 (conv1) conv kernels, the phases pool, and the hpool epilogue
    and k_block modes of the vcol and taps convs with the pool's W stage,
@@ -27,16 +32,18 @@ with a non-zero exit code and nothing is caught:
    C=5 with K=40, g8 at strides 2, 3 and 4 among them); then the LM
    slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
    and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
-   TINY_LM's attention (8x1024x4x32), causal and full, timed beside SDPA,
+   TINY_LM's attention (8x1024x4x32), causal and full, and at D = 256
+   (1x4096x2x256, causal), timed beside SDPA,
    and off those shapes (the JAX tests' ragged blocks, D = 16 and 128, the
-   zero-padded D = 8, 24 and 48, every D from 1 to 128 through the three
-   flash kernels, D = 256 refused on the card, strided q/k/v, relu on a
+   zero-padded D = 8, 24 and 48, D = 256 and the padded D = 200, every D
+   from 1 to 256 through the three flash kernels, D = 512 refused on the
+   card, strided q/k/v, relu on a
    NaN, -0.0 and an unaligned view); then the flash backward, ``flash_dq`` and
    ``flash_dkv``, in fp32 and bf16 at the same two shapes, causal and full,
    each against its plain version, a second launch bitwise the first and
    (fp32) autograd through ``ops.attention``, timed beside SDPA's backward,
-   and off those shapes (the ragged blocks, D = 16 and 128, the padded
-   D = 8, 24 and 48, an lse cotangent, strided q/k/v with a zero-stride dO,
+   and off those shapes (the ragged blocks, D = 16, 128 and 256, the padded
+   D = 8, 24, 48 and 200, an lse cotangent, strided q/k/v with a zero-stride dO,
    the joint (out, lse) gradient against the oracle); then the pool A/B's
    space-to-depth pool ``maxpool_s2d`` at pool1 and pool2 (batch 128,
    standard normal) in fp32 and bf16, bitwise against its plain version and
@@ -184,6 +191,7 @@ TRAIN_STEPS_TIMED = 10
 LONG_CONTEXT = (1, 4096, 8, 64)  # examples.long_context's defaults: B, L, H, D
 LM_BATCH = 8
 TINY_LM_ATTN = (LM_BATCH, 1024, 4, 32)  # TINY_LM's attention at batch 8 and L = max_len
+FLASH_D256 = (1, 4096, 2, 256)  # the widest head dim the kernels take, at long_context's length (causal, timed)
 FLASH_REF_TOL = {"fp32": 2e-5, "bf16": 3e-2}  # tests/test_flash_attention.py, abs and rel against the oracle
 # flash_fwd against its plain version: out within 2e-6 x max |v| (the same fp32 recurrence, sums in
 # another order; out is a convex mix of v's rows, so its error scales with v, not with out, which
@@ -290,7 +298,7 @@ def kernel_phase(spec, peak_name) -> list:
             y = ck.conv2d_bias_relu(x, w, b, stride=s, padding=p)
             wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             n, ho, wo, k = y.shape
-            stages.append(dict(
+            st = dict(
                 kernel="conv2d", stage=stage,
                 run=lambda x=x, w=w, b=b, s=s, p=p: ck.conv2d_bias_relu(x, w, b, stride=s, padding=p),
                 plain=lambda x=x, w=w, b=b, s=s, p=p: ck.conv2d_bias_relu_plain(x, w, b, stride=s, padding=p),
@@ -299,7 +307,14 @@ def kernel_phase(spec, peak_name) -> list:
                 flops=2 * n * ho * wo * k * w.shape[0] * w.shape[1] * w.shape[2],
                 nbytes=(x.numel() + w.numel() + b.numel() + y.numel()) * es,
                 peak=pol, rule=FP32_REL if pol == "fp32" else ("ulp", FP32_REL),
-            ))
+            )
+            if s == 1 and pol == "fp32":
+                # at stride 1 taps' term order (qh, qw, c) is vcol's (fy, fx, c): one fmaf chain each
+                st.update(same_as=lambda x=x, w=w, b=b, p=p: ck.conv_taps(x, w, b, stride=1, padding=p),
+                          same_as_name="conv_taps")
+                CUDNN_KERNELS[f"{stage} {pol}"] = library_kernels(st["library"])
+                log(f"library F.conv2d at {stage} {pol} runs: {CUDNN_KERNELS[f'{stage} {pol}']}")
+            stages.append(st)
         for stage, x in (("pool1", t["y1"]), ("pool2", t["y2"])):
             y = ck.maxpool2d(x, window=3, stride=2)
             stages.append(dict(
@@ -325,6 +340,55 @@ def kernel_phase(spec, peak_name) -> list:
         del t, stages
         torch.cuda.empty_cache()
     return rows
+
+
+# the cuDNN kernels behind the fp32 conv2 library call (torch.profiler), for the record
+CUDNN_KERNELS = {}
+
+
+def library_kernels(fn) -> list:
+    """Names of the CUDA kernels one call of ``fn`` launches, by device time
+    (``torch.profiler``; the warm-up call picks cuDNN's algorithm first)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [(e.key, getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0)))
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    return [k for k, _t in sorted(names, key=lambda kv: -kv[1])]
+
+
+def sass_phase(info) -> dict:
+    """The instructions the conv entry points compiled to, from
+    ``cuobjdump --dump-sass`` on the built library: every bf16 (and int8w)
+    instance of conv2d.cu's and conv_block.cu's kernels must contain HMMA
+    (mma.sync on the tensor cores), every fp32 one FFMA and no HMMA (no
+    TF32: the fp32 contract)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass", str(info.path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    found = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        # the kernels of conv2d.cu and conv_block.cu (their anonymous namespaces carry the file names)
+        if "conv2d_cu" not in name and "conv_block_cu" not in name:
+            continue
+        bf16 = "bfloat16" in name
+        found[name] = dict(dtype="bf16" if bf16 else "fp32", hmma=chunk.count("HMMA"), ffma=chunk.count("FFMA"))
+    kinds = {("conv_block" if "conv_block" in k else "conv2d", v["dtype"]) for k, v in found.items()}
+    require({("conv2d", "fp32"), ("conv2d", "bf16"), ("conv_block", "fp32"), ("conv_block", "bf16")} <= kinds,
+            f"SASS: the conv entry points were not all found: {sorted(kinds)}")
+    for name, v in found.items():
+        ok = v["hmma"] > 0 if v["dtype"] == "bf16" else (v["ffma"] > 0 and v["hmma"] == 0)
+        log(f"sass {v['dtype']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
+        require(ok, f"SASS of {name}: {v}")
+    return found
 
 
 def measure(st, pol, spec, peak_name) -> dict:
@@ -988,9 +1052,10 @@ def s2d_edge_phase() -> list:
 def lm_kernel_phase(spec, peak_name) -> list:
     """Phase 2, the LM slice's kernels in fp32 and bf16: ``relu`` at conv1's
     output (bitwise against its plain version), and ``flash_fwd`` at
-    ``long_context``'s defaults and at TINY_LM's attention, causal and full:
-    out and lse against the plain version, out against the O(L^2) oracle
-    (``ops.attention``), timed beside SDPA and the bound."""
+    ``long_context``'s defaults and at TINY_LM's attention, causal and full,
+    and at D = 256 (``FLASH_D256``, causal): out and lse against the plain
+    version, out against the O(L^2) oracle (``ops.attention``), timed beside
+    SDPA and the bound."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     rows = []
@@ -1003,8 +1068,9 @@ def lm_kernel_phase(spec, peak_name) -> list:
             flops=x.numel(), nbytes=2 * x.numel() * x.element_size(), peak="fp32", rule="bitwise",
         ), pol, spec, peak_name))
         del x
-        for stage, shape in (("long_context", LONG_CONTEXT), ("tiny_lm", TINY_LM_ATTN)):
-            for causal in (True, False):
+        for stage, shape, causals in (("long_context", LONG_CONTEXT, (True, False)),
+                                      ("tiny_lm", TINY_LM_ATTN, (True, False)), ("d256", FLASH_D256, (True,))):
+            for causal in causals:
                 rows.append(flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name))
         torch.cuda.empty_cache()
     return rows
@@ -1171,12 +1237,13 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
 def lm_bwd_kernel_phase(spec, peak_name) -> list:
     """Phase 2, the flash backward in fp32 and bf16: ``flash_dq`` and
     ``flash_dkv`` at ``long_context``'s defaults and at TINY_LM's
-    attention, causal and full (:func:`flash_bwd_rows`)."""
+    attention, causal and full, and at D = 256 causal (:func:`flash_bwd_rows`)."""
     rows = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device="cuda").manual_seed(2031)
-        for stage, shape in (("long_context", LONG_CONTEXT), ("tiny_lm", TINY_LM_ATTN)):
-            for causal in (True, False):
+        for stage, shape, causals in (("long_context", LONG_CONTEXT, (True, False)),
+                                      ("tiny_lm", TINY_LM_ATTN, (True, False)), ("d256", FLASH_D256, (True,))):
+            for causal in causals:
                 rows += flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name)
         torch.cuda.empty_cache()
     return rows
@@ -1185,7 +1252,8 @@ def lm_bwd_kernel_phase(spec, peak_name) -> list:
 def lm_bwd_edge_phase() -> list:
     """The flash backward off the main path: flash_dq and flash_dkv at the
     JAX tests' ragged (L, block_q, block_k) = (24, 8, 12) and (192, 48, 64),
-    at D = 16 and 128 and the padded D = 8, 24 and 48, causal and full, with and without an lse cotangent;
+    at D = 16, 128 and 256 and the padded D = 8, 24, 48 and 200, causal and full, with and without an lse
+    cotangent;
     the gradient of ``out.sum()`` (a zero-stride dO) with q, k, v slices of
     one packed qkv tensor, bitwise the gradient through contiguous copies;
     and the joint (out, lse) gradient of ``flash_attention_with_lse``
@@ -1197,7 +1265,8 @@ def lm_bwd_edge_phase() -> list:
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for b, l, h, d, bq, bk in ((2, 24, 3, 16, 8, 12), (2, 192, 3, 64, 48, 64), (2, 24, 2, 128, 8, 12),
                                    (1, 192, 2, 128, 48, 64), (3, 192, 2, 16, 48, 64),
-                                   (2, 64, 2, 8, 64, 64), (2, 192, 3, 24, 48, 64), (1, 256, 2, 48, 128, 128)):
+                                   (2, 64, 2, 8, 64, 64), (2, 192, 3, 24, 48, 64), (1, 256, 2, 48, 128, 128),
+                                   (2, 192, 2, 256, 48, 64), (1, 256, 3, 200, 128, 128)):
             for causal in (True, False):
                 for lse_grad in (False, True):
                     case = flash_bwd_case((b, l, h, d), causal, dtype, gen, bq, bk, lse_grad=lse_grad)
@@ -1245,9 +1314,10 @@ def lm_edge_phase() -> list:
     tests' ragged (L, block_q, block_k) = (24, 8, 12) and (192, 48, 64),
     at D = 16 and 128, causal and full; on strided q, k, v (slices of one
     packed qkv tensor) bitwise against contiguous copies; at D = 8, 24 and
-    48, which the wrappers zero-pad to the next kernel width, and every D
-    from 1 to 128 (fp32, through the kernel: the launch counted), D = 256
-    refused by all three flash wrappers; relu at an odd size, on a NaN
+    48, which the wrappers zero-pad to the next kernel width, at D = 256
+    and the padded D = 200, and every D from 1 to 256 (fp32, through the
+    kernel: the launch counted), D = 512 refused by all three flash
+    wrappers; relu at an odd size, on a NaN
     (kept, bits and all) and -0.0 (to +0.0), and on a view 4 bytes off
     16-byte alignment."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
@@ -1272,7 +1342,13 @@ def lm_edge_phase() -> list:
                 res = flash_case((b, l, h, d), causal, dtype, gen, bq, bk)["res"]
                 results.append((f"flash_fwd {b}x{l}x{h}x{d} (padded) blocks ({bq}, {bk}) causal={causal} {pol}",
                                 dict(res, ok=res["ok_all"])))
-        x = torch.zeros((1, 64, 2, 256), device="cuda", dtype=dtype)
+        # the widest instantiation (D = 256, the tiles in 64-column chunks) and D = 200 padded to it
+        for b, l, h, d, bq, bk in ((2, 192, 2, 256, 48, 64), (1, 256, 3, 200, 128, 128)):
+            for causal in (True, False):
+                res = flash_case((b, l, h, d), causal, dtype, gen, bq, bk)["res"]
+                results.append((f"flash_fwd {b}x{l}x{h}x{d} blocks ({bq}, {bk}) causal={causal} {pol}",
+                                dict(res, ok=res["ok_all"])))
+        x = torch.zeros((1, 64, 2, 512), device="cuda", dtype=dtype)
         lse = torch.zeros((1, 2, 64), device="cuda")
         for name, call in (("flash_fwd", lambda: ck.flash_fwd(x, x, x, causal=True)),
                            ("flash_dq", lambda: ck.flash_dq(x, x, x, x, lse, lse, causal=True)),
@@ -1281,8 +1357,8 @@ def lm_edge_phase() -> list:
                 call()
                 raised = False
             except ValueError as e:
-                raised = "limit of 128" in str(e)
-            results.append((f"{name} refuses head dim 256 on the card {pol}", dict(ok=raised, max_abs_err=0.0)))
+                raised = "limit of 256" in str(e)
+            results.append((f"{name} refuses head dim 512 on the card {pol}", dict(ok=raised, max_abs_err=0.0)))
         x = torch.randn((7, 13, 5), generator=gen, device="cuda").to(dtype)
         x.view(-1)[:4] = torch.tensor([float("nan"), -0.0, float("-inf"), -float("nan")], dtype=dtype)
         for name, t in (("odd 7x13x5 with NaN, -0.0, -inf", x), ("view off alignment", x.view(-1)[1:])):
@@ -1291,7 +1367,7 @@ def lm_edge_phase() -> list:
             results.append((f"relu {name} {pol} (bitwise)", dict(ok=ok, max_abs_err=0.0)))
         got = ck.relu(x)
         results.append((f"relu -0.0 to +0.0 {pol}", dict(ok=not bool(torch.signbit(got.view(-1)[1])), max_abs_err=0.0)))
-    results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 128 (fp32, 1x64x2xD, causal) "
+    results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 256 (fp32, 1x64x2xD, causal) "
                     "through the kernels", head_dim_sweep(gen)))
     torch.cuda.synchronize()
     for what, res in results:
@@ -1303,14 +1379,14 @@ def lm_edge_phase() -> list:
 
 
 def head_dim_sweep(gen) -> dict:
-    """Every head dim from 1 to 128, fp32, (1, 64, 2, D) causal: flash_fwd,
+    """Every head dim from 1 to 256, fp32, (1, 64, 2, D) causal: flash_fwd,
     flash_dq and flash_dkv each launch their kernel once (the count says
     so) and agree with their plain versions (out: ``FLASH_PLAIN_V_REL`` of
     max |v|; dq, dk, dv: ``BWD_PLAIN_REL`` of each one's max)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     worst, bad = 0.0, []
-    for d in range(1, 129):
+    for d in range(1, 257):
         q, k, v, g = (torch.randn((1, 64, 2, d), generator=gen, device="cuda") for _ in range(4))
         ck.reset_launches()
         out, lse = ck.flash_fwd(q, k, v, causal=True)
@@ -1834,6 +1910,8 @@ def main() -> int:
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    sass = sass_phase(info)
+    log("phase 1b: the bf16 and int8w conv entry points contain HMMA, the fp32 ones FFMA and no HMMA")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1863,8 +1941,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
-        dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log,
-             stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
+        dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, sass=sass,
+             cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
              pool_ab=ab, tune=tune,
              kernels=line["kernels"]), indent=1,
         default=str))

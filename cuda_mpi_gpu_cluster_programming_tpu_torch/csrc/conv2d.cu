@@ -7,72 +7,32 @@
 // function without the TPU's space-to-depth repacking: strided reads are
 // cheap here, so the kernel indexes the padded input directly.
 //
-// Shape of the work: an implicit GEMM (conv_engine.cuh). Rows are output
-// pixels m = (n, oy, ox) (M = N*Ho*Wo), columns are output channels (K), and
-// the reduction runs over kg = (fy*F + fx)*C + c (KG = F*F*C), which is
-// exactly the row-major order of the HWIO weight tensor viewed as a (KG, K)
-// matrix.
+// Shape of the work: an implicit GEMM. Rows are output pixels m = (n, oy, ox)
+// (M = N*Ho*Wo), columns are output channels (K), and the reduction runs
+// over kg = (fy*F + fx)*C + c (KG = F*F*C), exactly the row-major order of
+// the HWIO weight tensor viewed as a (KG, K) matrix.
 //
 // Bound on the H100: operations. conv1 at batch 128 is 27 GFLOP against
-// 0.23 GB of tensors, conv2 115 GFLOP against 0.11 GB, far above the card's
-// ~20 FLOP/byte fp32 ridge. The fp32 contract forbids the TF32 tensor-core
-// path, so the ceiling is FFMA. Design against that bound: the engine's
-// tiles (every loaded input value feeds BN FMAs and every weight BM); the
-// input gather here keeps a running (fy, fx, c) cursor per thread instead of
-// dividing per element, and reads zero outside the padded image.
-// bf16: operands are loaded as bf16 and widened; the accumulation is the same
-// fp32 FFMA chain. No wgmma/TMA yet: a later tuning step.
-#include "conv_engine.cuh"
+// 0.23 GB of tensors, conv2 115 GFLOP against 0.11 GB: far above the ridge in
+// both dtypes. fp32 runs on FFMA (the fp32 contract forbids TF32), bf16 on
+// the tensor cores. Design: the Hopper mainloop of conv_sm90.cuh, a 128 x 128
+// tile (128 x 64 for k_block = 64 and hpool) of 256 threads, a 3-stage (fp32)
+// or 4-stage (bf16) cp.async ring of 32-term slices, the pixels gathered
+// channel-major in 16-byte runs (conv2, C = 96) or term by term (conv1,
+// C = 3); fp32 as one fmaf chain per output in kg order (bitwise
+// conv_taps.cu's at stride 1), bf16 as mma.sync.m16n8k16 steps in kg order
+// (the same steps as conv_block.cu's conv, so the fused block stays bitwise
+// the staged chain).
+#include "conv_sm90.cuh"
 
 namespace {
 
 template <typename T>
-struct DirectOp {
-  using Elem = T;
-  const T* x;
-  const T* w;
-  int K, KG;
-  int H, W, C, F, stride, pad;
-
-  struct Loader {
-    const T* xn;
-    int iy0, ix0, H, W, C, F;
-    bool ok;
-    int cy, cx, cc;  // (fy, fx, c) of the next reduction term
-
-    __device__ __forceinline__ float next(bool valid) {
-      float v = 0.f;
-      const int iy = iy0 + cy;
-      const int ix = ix0 + cx;
-      if (ok && valid && iy >= 0 && iy < H && ix >= 0 && ix < W) {
-        v = port::to_f32(xn[(static_cast<size_t>(iy) * W + ix) * C + cc]);
-      }
-      if (++cc == C) {
-        cc = 0;
-        if (++cx == F) {
-          cx = 0;
-          ++cy;
-        }
-      }
-      return v;
-    }
-  };
-
-  __device__ __forceinline__ Loader loader(bool ok, int n, int oy, int ox) const {
-    return Loader{x + static_cast<size_t>(n) * H * W * C, oy * stride - pad, ox * stride - pad,
-                  H, W, C, F, ok, 0, 0, 0};
-  }
-  __device__ __forceinline__ const T* row(int kg) const { return w + static_cast<size_t>(kg) * K; }
-};
-
-template <typename T>
-int launch(const void* x, const void* w, const void* b, void* y, int N, int H, int W, int C, int K,
-           int F, int stride, int pad, int Ho, int Wo, int relu, int k_block, int pw, int ps, int Hp,
-           void* stream) {
-  const DirectOp<T> op{static_cast<const T*>(x), static_cast<const T*>(w), K, F * F * C,
-                       H, W, C, F, stride, pad};
-  return pw > 0 ? engine::launch_hpool(op, b, y, N, Wo, relu, pw, ps, Hp, stream)
-                : engine::launch_tiles(op, b, y, N, Ho, Wo, relu, k_block, stream);
+int launch(const void* x, const void* w, const void* b, void* y, int N, int H, int W, int C, int K, int F,
+           int stride, int pad, int Ho, int Wo, int relu, int k_block, int pw, int ps, int Hp, void* stream) {
+  const auto g = sm90::make_conv<T>(x, w, H, W, C, K, F, stride, pad);
+  return pw > 0 ? sm90::launch_hpool(g, b, y, N, Wo, relu, pw, ps, Hp, stream)
+                : sm90::launch_tiles(g, b, y, N, Ho, Wo, relu, k_block, stream);
 }
 
 }  // namespace

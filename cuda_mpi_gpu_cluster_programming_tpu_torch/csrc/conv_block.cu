@@ -19,58 +19,42 @@
 // conv2d -> maxpool2d (-> lrn). int8w is not bitwise to its staged chain,
 // which rounds the accumulator to bf16 before the host rescale.
 //
-// Operand types: fp32; bf16 (widened in registers); int8w = bf16 activations
-// and int8 weights loaded as bytes and widened exactly (a quarter of fp32's
-// weight bytes). Scale and int8w bias are fp32.
+// Operand types: fp32; bf16; int8w = bf16 activations and int8 weights
+// loaded as bytes and widened exactly to bf16 at the copy into shared memory
+// (a quarter of fp32's weight bytes). Scale and int8w bias are fp32.
 //
 // Bound on the H100 SXM: operations, in every dtype. At batch 128:
 //   block 1 (227x227x3 -> 27x27x96, F=11 s=4): 27.0 GFLOP; 115 MB in fp32;
 //   block 2 (27x27x96 -> 13x13x256, F=5 s=1 p=2, + LRN): 114.7 GFLOP; 60 MB.
 // fp32 on FFMA (67 TFLOP/s): 0.403 ms and 1.711 ms. bf16 and int8w against the
-// tensor cores' 989 TFLOP/s: 0.027 ms and 0.116 ms. This kernel stays on FFMA
-// (no wgmma, no TMA): making it fast is later work.
+// tensor cores' 989 TFLOP/s: 0.027 ms and 0.116 ms.
 //
 // Design. The TPU keeps one whole image per program in VMEM; here one image
 // of conv1 output (1.16 MB in fp32) is far past the 227 KB of shared memory
 // a block has. So a block owns one image, a band of `band` pooled rows and a
 // channel range, and walks its pooled rows in order. For each pooled row it
-// computes only the conv rows the pool window needs that it does not hold
+// computes only the conv rows the pool windows need that it does not hold
 // yet (3 for the first row, then 2: the 3/2 window shares one row) into a
-// ring of pw conv rows in shared memory, then pools (and normalises) that
-// row from the ring and writes it. Only the first conv row of each band after
+// ring of conv rows in shared memory, then pools (and normalises) those
+// rows from the ring and writes them. Only the first conv row of each band after
 // the first is computed twice: 3 of 55 rows in block 1, 1 of 27 in block 2.
-// The conv step is an implicit GEMM over (new pixels x channels) chunks,
-// reduction slices of BK terms staged in static shared memory, a TM x TN
-// register tile per thread; a thread's channels are TX apart, so the weight
-// reads of a warp fall in distinct banks.
+// The conv step is conv2d.cu's: the Hopper mainloop of conv_sm90.cuh over
+// (new pixels x channels) tiles, fp32 as the same fmaf chain, bf16 and int8w
+// as the same mma.sync.m16n8k16 steps in kg order, its stages in shared
+// memory before the ring. Block 1 (no LRN) takes a 128 x 128 tile: the
+// 110 new pixels of a pooled row, and all of conv1's 96 channels. Block 2
+// (LRN) in bf16 and int8w walks two pooled rows a step: their 108 new pixels
+// (4 conv rows of 27) are one 128 x 128 tile, in two channel chunks, and the
+// ring holds the 5 conv rows they read. In fp32 it walks one: 54 new pixels,
+// a 64 x 128 tile, a ring of 3 rows (beside a 5-row fp32 ring only short
+// stages fit, and those ran slower on the H100).
 // LRN needs channel neighbours +-2: a block-2 launch keeps ALL channels of
-// its band in the ring (3 x 27 x 256 x 4 B = 83 KB in fp32, above the 48 KB
-// of static shared memory, so dynamic, raised by cudaFuncSetAttribute) and
-// computes them in chunks of 256; a pooled neighbour is re-maxed from the
-// ring where LRN reads it (9 compares), no halo and no second buffer.
-// Without LRN a block takes 32 channels, which keeps the ring at 21 KB for
-// block 1 and gives the card 3x more blocks.
-#include "common.cuh"
+// its band in the ring (3 x 27 x 256 x 4 B = 83 KB in fp32; bf16 5 x 27 x
+// 256 x 2 B = 69 KB) and a pooled neighbour is re-maxed from the ring where
+// LRN reads it (9 compares), no halo and no second buffer.
+#include "conv_sm90.cuh"
 
 namespace {
-
-constexpr int BK = 16;  // reduction terms staged per step
-
-// TY x TX threads; each computes TM pixels (TY apart) x TN channels (TX
-// apart). QA threads load one pixel's BK-term slice, BK/QA terms each.
-template <int TY_, int TX_, int TM_, int TN_, int QA_>
-struct Tiling {
-  static constexpr int TY = TY_, TX = TX_, TM = TM_, TN = TN_, QA = QA_;
-  static constexpr int THREADS = TY * TX;
-  static constexpr int BM = TY * TM;  // pixels per GEMM chunk
-  static constexpr int KT = TX * TN;  // channels per GEMM chunk
-  static_assert(QA * BM <= THREADS && BK % QA == 0, "A loader");
-  static_assert((BK * KT) % THREADS == 0, "B loader");
-};
-// Block without LRN: 112 pixels (two conv1 rows of 55) x 32 channels.
-using PlainTiling = Tiling<16, 8, 7, 4, 1>;
-// Block with LRN: 56 pixels (two conv2 rows of 27) x 256 channels.
-using LrnTiling = Tiling<8, 32, 7, 8, 4>;
 
 struct Geometry {
   int N, H, W, C, K, F, stride, pad, Ho, Wo;
@@ -82,14 +66,15 @@ struct Geometry {
 // The pooled value at (pooled row whose window starts at conv row `top`,
 // column px, ring channel cl), as maxpool.cu takes it: start from tap (0,0),
 // keep the first of equal values, let a NaN win.
+// The ring holds `rows` conv rows, conv row r in slot r % rows.
 template <typename MID>
-__device__ __forceinline__ MID pool_at(const MID* ring, const Geometry& g, int cr, int top,
+__device__ __forceinline__ MID pool_at(const MID* ring, const Geometry& g, int rows, int cr, int top,
                                        int px, int cl) {
   const int x0 = px * g.ps;
-  MID best = ring[(static_cast<size_t>(top % g.pw) * g.Wo + x0) * cr + cl];
+  MID best = ring[(static_cast<size_t>(top % rows) * g.Wo + x0) * cr + cl];
   float bf = port::to_f32(best);
   for (int fy = 0; fy < g.pw; ++fy) {
-    const MID* row = ring + static_cast<size_t>((top + fy) % g.pw) * g.Wo * cr;
+    const MID* row = ring + static_cast<size_t>((top + fy) % rows) * g.Wo * cr;
     for (int fx = 0; fx < g.pw; ++fx) {
       const MID v = row[static_cast<size_t>(x0 + fx) * cr + cl];
       const float vf = port::to_f32(v);
@@ -102,170 +87,102 @@ __device__ __forceinline__ MID pool_at(const MID* ring, const Geometry& g, int c
   return best;
 }
 
-template <class Tl, bool LRN, typename X, typename WT, typename BT, typename MID, typename OUT>
-__global__ void __launch_bounds__(Tl::THREADS)
-conv_block_kernel(const X* __restrict__ x, const WT* __restrict__ w,
-                  const BT* __restrict__ bias, const float* __restrict__ scale,
+// R pooled rows a step: their new conv rows are one GEMM of up to R*ps*Wo pixels.
+template <class C, int R, bool LRN, typename X, typename WT, typename BT, typename MID, typename OUT>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+conv_block_kernel(sm90::Conv<X, WT> cv, const BT* __restrict__ bias, const float* __restrict__ scale,
                   OUT* __restrict__ y, Geometry g) {
   static_assert(LRN || sizeof(OUT) == sizeof(MID), "a block without LRN writes the pooled MID");
-  extern __shared__ __align__(16) unsigned char ring_bytes[];
-  MID* ring = reinterpret_cast<MID*>(ring_bytes);  // [pw][Wo][cr]
-  __shared__ float As[BK][Tl::BM];
-  __shared__ float Bs[BK][Tl::KT];
+  extern __shared__ __align__(128) unsigned char smem[];
+  MID* ring = reinterpret_cast<MID*>(smem + C::SMEM_BYTES);  // [rows][Wo][cr], after the stages
+  const int rows = (R - 1) * g.ps + g.pw;  // the conv rows R pooled rows read
 
   const int tid = threadIdx.x;
   const int n = blockIdx.z;
-  const int c_lo = LRN ? 0 : blockIdx.x * Tl::KT;
-  const int c_hi = LRN ? g.K : min(g.K, c_lo + Tl::KT);
+  const int c_lo = LRN ? 0 : blockIdx.x * C::BN;
+  const int c_hi = LRN ? g.K : min(g.K, c_lo + C::BN);
   const int cr = c_hi - c_lo;
   const int py0 = blockIdx.y * g.band;
   const int py1 = min(g.Hp, py0 + g.band);
-  const int KG = g.F * g.F * g.C;
-  const X* xn = x + static_cast<size_t>(n) * g.H * g.W * g.C;
-
-  const int tx = tid % Tl::TX;
-  const int ty = tid / Tl::TX;
-  constexpr int A_TERMS = BK / Tl::QA;
-  const int a_pix = tid % Tl::BM;
-  const int a_part = tid / Tl::BM;
-  const bool a_loader = a_part < Tl::QA;
 
   int have = py0 * g.ps;  // conv rows before `have` are in the ring (none yet)
-  for (int py = py0; py < py1; ++py) {
+  for (int py = py0; py < py1; py += R) {
+    const int nr = min(R, py1 - py);  // pooled rows this step
     const int top = py * g.ps;
+    const int last = top + (nr - 1) * g.ps + g.pw;  // one past the last conv row they read
     const int r_lo = max(have, top);
-    const int npix = (top + g.pw - r_lo) * g.Wo;  // the new conv rows' pixels
-    for (int kc = c_lo; kc < c_hi; kc += Tl::KT) {
-      for (int m0 = 0; m0 < npix; m0 += Tl::BM) {
-        const int ap = m0 + a_pix;
-        const bool a_ok = a_loader && ap < npix;
-        int iy0 = 0, ix0 = 0;
-        if (a_ok) {
-          const int dr = ap / g.Wo;
-          iy0 = (r_lo + dr) * g.stride - g.pad;
-          ix0 = (ap - dr * g.Wo) * g.stride - g.pad;
-        }
-        float acc[Tl::TM][Tl::TN];
-#pragma unroll
-        for (int i = 0; i < Tl::TM; ++i)
-#pragma unroll
-          for (int j = 0; j < Tl::TN; ++j) acc[i][j] = 0.f;
-
-        for (int k0 = 0; k0 < KG; k0 += BK) {
-          if (a_loader) {
-            const int kg = k0 + a_part * A_TERMS;
-            int cy = kg / (g.F * g.C);
-            const int rem = kg - cy * g.F * g.C;
-            int cx = rem / g.C;
-            int cc = rem - cx * g.C;
-#pragma unroll
-            for (int j = 0; j < A_TERMS; ++j) {
-              float v = 0.f;
-              const int iy = iy0 + cy;
-              const int ix = ix0 + cx;
-              if (a_ok && kg + j < KG && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
-                v = port::to_f32(xn[(static_cast<size_t>(iy) * g.W + ix) * g.C + cc]);
-              }
-              As[a_part * A_TERMS + j][a_pix] = v;
-              if (++cc == g.C) {
-                cc = 0;
-                if (++cx == g.F) {
-                  cx = 0;
-                  ++cy;
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < BK * Tl::KT / Tl::THREADS; ++e) {
-            const int i = tid + e * Tl::THREADS;
-            const int row = i / Tl::KT;
-            const int col = i % Tl::KT;
-            const int kg = k0 + row;
-            const int ch = kc + col;
-            Bs[row][col] = (kg < KG && ch < c_hi)
-                               ? port::to_f32(w[static_cast<size_t>(kg) * g.K + ch])
-                               : 0.f;
-          }
-          __syncthreads();
-#pragma unroll
-          for (int kk = 0; kk < BK; ++kk) {
-            float a[Tl::TM], b[Tl::TN];
-#pragma unroll
-            for (int i = 0; i < Tl::TM; ++i) a[i] = As[kk][ty + Tl::TY * i];
-#pragma unroll
-            for (int j = 0; j < Tl::TN; ++j) b[j] = Bs[kk][tx + Tl::TX * j];
-#pragma unroll
-            for (int i = 0; i < Tl::TM; ++i)
-#pragma unroll
-              for (int j = 0; j < Tl::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
-          __syncthreads();
-        }
-
+    const int npix = (last - r_lo) * g.Wo;  // the new conv rows' pixels
+    const sm90::PixMap pm{npix, npix, n, r_lo, g.Wo};
+    for (int kc = c_lo; kc < c_hi; kc += C::BN) {
+      for (int m0 = 0; m0 < npix; m0 += C::BM) {
+        float acc[C::ACC];
+        sm90::mainloop<C>(cv, pm, m0, kc, smem, acc);
         // Epilogue into the ring: (rescale), bias, ReLU, cast to MID.
 #pragma unroll
-        for (int i = 0; i < Tl::TM; ++i) {
-          const int p = m0 + ty + Tl::TY * i;
-          if (p >= npix) continue;
+        for (int e = 0; e < C::ACC; ++e) {
+          int m, nn;
+          C::coord(e, m, nn);
+          const int p = m0 + m, ch = kc + nn;
+          if (p >= npix || ch >= c_hi) continue;
           const int dr = p / g.Wo;
-          MID* dst = ring + (static_cast<size_t>((r_lo + dr) % g.pw) * g.Wo + (p - dr * g.Wo)) * cr;
-#pragma unroll
-          for (int j = 0; j < Tl::TN; ++j) {
-            const int ch = kc + tx + Tl::TX * j;
-            if (ch >= c_hi) continue;
-            float v = acc[i][j];
-            if (scale != nullptr) v = __fmul_rn(v, scale[ch]);
-            v = v + port::to_f32(bias[ch]);
-            if (v < 0.f) v = 0.f;
-            dst[ch - c_lo] = port::from_f32<MID>(v);
-          }
+          float v = acc[e];
+          if (scale != nullptr) v = __fmul_rn(v, scale[ch]);
+          v = v + port::to_f32(bias[ch]);
+          if (v < 0.f) v = 0.f;
+          ring[(static_cast<size_t>((r_lo + dr) % rows) * g.Wo + (p - dr * g.Wo)) * cr + ch - c_lo] =
+              port::from_f32<MID>(v);
         }
       }
     }
-    have = top + g.pw;
+    have = last;
     __syncthreads();
 
-    // Pool (and normalise) pooled row py from the ring; one write.
-    OUT* out_row = y + static_cast<size_t>(n * g.Hp + py) * g.Wp * g.K;
-    for (int i = tid; i < g.Wp * cr; i += Tl::THREADS) {
-      const int px = i / cr;
-      const int cl = i - px * cr;
-      OUT* dst = out_row + static_cast<size_t>(px) * g.K + c_lo + cl;
+    // Pool (and normalise) pooled rows py .. py + nr - 1 from the ring; one write.
+    for (int i = tid; i < nr * g.Wp * cr; i += sm90::THREADS) {
+      const int pr = i / (g.Wp * cr);
+      const int rest = i - pr * g.Wp * cr;
+      const int px = rest / cr;
+      const int cl = rest - px * cr;
+      const int ptop = top + pr * g.ps;
+      OUT* dst = y + (static_cast<size_t>(n * g.Hp + py + pr) * g.Wp + px) * g.K + c_lo + cl;
       if constexpr (LRN) {
         const int half = g.lrn_size / 2;
         const int lo = cl - half < 0 ? 0 : cl - half;
         const int hi = cl + half > g.K - 1 ? g.K - 1 : cl + half;
         float s = 0.f;
         for (int j = lo; j <= hi; ++j) {
-          const float v = port::to_f32(pool_at(ring, g, cr, top, px, j));
+          const float v = port::to_f32(pool_at(ring, g, rows, cr, ptop, px, j));
           s = __fadd_rn(s, __fmul_rn(v, v));
         }
         const float sc = __fadd_rn(g.lrn_k, __fmul_rn(g.lrn_a, s));
-        const float v = port::to_f32(pool_at(ring, g, cr, top, px, cl));
+        const float v = port::to_f32(pool_at(ring, g, rows, cr, ptop, px, cl));
         *dst = port::from_f32<OUT>(__fdiv_rn(v, powf(sc, g.lrn_beta)));
       } else {
-        *dst = pool_at(ring, g, cr, top, px, cl);
+        *dst = pool_at(ring, g, rows, cr, ptop, px, cl);
       }
     }
     __syncthreads();
   }
 }
 
-template <class Tl, bool LRN, typename X, typename WT, typename BT, typename MID, typename OUT>
+template <class C, int R, bool LRN, typename X, typename WT, typename BT, typename MID, typename OUT>
 int launch(const void* x, const void* w, const void* b, const void* scale, void* y,
            const Geometry& g, void* stream) {
-  auto kernel = conv_block_kernel<Tl, LRN, X, WT, BT, MID, OUT>;
-  const int cr = LRN ? g.K : (g.K < Tl::KT ? g.K : Tl::KT);
-  const size_t ring = sizeof(MID) * g.pw * g.Wo * cr;
+  auto kernel = conv_block_kernel<C, R, LRN, X, WT, BT, MID, OUT>;
+  const int cr = LRN ? g.K : (g.K < C::BN ? g.K : C::BN);
+  const size_t bytes = C::SMEM_BYTES + sizeof(MID) * ((R - 1) * g.ps + g.pw) * g.Wo * cr;
   // A ring past what the card allows is refused here, with this error code.
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(ring));
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(LRN ? 1 : port::blocks_for(g.K, Tl::KT), port::blocks_for(g.Hp, g.band), g.N);
-  kernel<<<grid, Tl::THREADS, ring, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const X*>(x), static_cast<const WT*>(w), static_cast<const BT*>(b),
-      static_cast<const float*>(scale), static_cast<OUT*>(y), g);
+  constexpr int VEC = C::VEC;
+  const sm90::Conv<X, WT> cv{static_cast<const X*>(x), static_cast<const WT*>(w), g.H, g.W, g.C, g.K, g.F,
+                             g.stride, g.pad, g.F * g.F * g.C, g.C % VEC == 0 && sm90::aligned16(x),
+                             g.K % (std::is_same<X, WT>::value ? VEC : 16) == 0 && sm90::aligned16(w)};
+  if (!sm90::fits(cv)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(LRN ? 1 : port::blocks_for(g.K, C::BN), port::blocks_for(g.Hp, g.band), g.N);
+  kernel<<<grid, sm90::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      cv, static_cast<const BT*>(b), static_cast<const float*>(scale), static_cast<OUT*>(y), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,8 +194,17 @@ int dispatch(const void* x, const void* w, const void* b, const void* scale, voi
              float lrn_beta, float lrn_k, void* stream) {
   const Geometry g{N, H, W, C, K, F, stride, pad, Ho, Wo, pw, ps, Hp, Wp, band,
                    lrn_size, lrn_a, lrn_beta, lrn_k};
-  if (lrn) return launch<LrnTiling, true, X, WT, BT, MID, OUT_LRN>(x, w, b, scale, y, g, stream);
-  return launch<PlainTiling, false, X, WT, BT, MID, MID>(x, w, b, scale, y, g, stream);
+  // Block 2 (LRN), bf16 and int8w: two pooled rows a step, their 108 new pixels one 128-row tile
+  // beside a 5-row ring of all channels. fp32, whose ring is twice the bytes: one pooled row a step,
+  // its 54 new pixels a 64-row tile with 3 stages. Block 1: one pooled row, 110 pixels.
+  if (lrn) {
+    if constexpr (sizeof(X) == 4) {
+      return launch<sm90::Cfg<X, 64, 128>, 1, true, X, WT, BT, MID, OUT_LRN>(x, w, b, scale, y, g, stream);
+    } else {
+      return launch<sm90::Cfg<X, 128, 128>, 2, true, X, WT, BT, MID, OUT_LRN>(x, w, b, scale, y, g, stream);
+    }
+  }
+  return launch<sm90::Cfg<X, 128, 128>, 1, false, X, WT, BT, MID, MID>(x, w, b, scale, y, g, stream);
 }
 
 }  // namespace

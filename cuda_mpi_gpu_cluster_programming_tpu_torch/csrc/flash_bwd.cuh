@@ -8,14 +8,21 @@
 //
 // Layout of a block: 128 threads; a thread owns 4 rows (rg) and every 8th
 // column (cg + 8 j) of the 64 x 64 tile, as flash_fwd.cu lays out its scores.
-// Operand tiles live in shared memory as fp32 with odd row strides (D + 1),
-// so the 4 rows and 8 columns a warp reads hit distinct banks. The output
-// accumulators (64 x D each) live in shared memory too: at D = 128 a thread's
-// share of two of them would be 128 registers on top of the 64 that hold s
-// and dp. Each tile's contribution to them is summed in registers, at most
-// 8 columns at a time, and added to the accumulator once; every element has
-// one owner thread, so there are no atomics and a launch is bitwise
+// Operand tiles live in shared memory as fp32 with odd row strides (W + 1 for
+// W columns), so the 4 rows and 8 columns a warp reads hit distinct banks. The
+// output accumulators (64 x D each) live in shared memory too: at D = 128 a
+// thread's share of two of them would be 128 registers on top of the 64 that
+// hold s and dp. Each tile's contribution to them is summed in registers, at
+// most 8 columns at a time, and added to the accumulator once; every element
+// has one owner thread, so there are no atomics and a launch is bitwise
 // repeatable.
+//
+// Head dims above 128 (D = 256): the accumulators alone take 64 x 256 x 4 B
+// each, so the operand tiles are held DC = 64 columns at a time (Dims<D>):
+// the scores sum chunk after chunk (d still ascending, one fmaf a term), and
+// each product into an accumulator runs chunk by chunk, reloading the
+// operand's chunks from global memory (L2). At D <= 128 there is one chunk
+// and the kernels run as before.
 #pragma once
 
 #include "common.cuh"
@@ -29,24 +36,28 @@ constexpr int THREADS = (BT / RG) * CG;  // 128
 constexpr int CJ = BT / CG;  // tile columns per thread
 constexpr int PS = BT + 1;   // row stride of the p / dS tile
 
+// Operand tiles hold DC columns at a time (NCH chunks of D); accumulators all D.
 template <int D>
-struct Strides2 {
-  static constexpr int S = D + 1;   // operand tiles
+struct Dims {
+  static constexpr int DC = D <= 128 ? D : 64;
+  static constexpr int NCH = D / DC;
+  static constexpr int S = DC + 1;  // operand tiles
   static constexpr int AS = D + 2;  // accumulators: the 4 rows a warp touches (4 apart) land 8 banks apart
+  static_assert(D % DC == 0, "D is a multiple of the chunk");
 };
 
 struct Strides {
   long long b, l, h;
 };
 
-// Rows [r0, r0 + 64) of one (b, h) slice of a (B, L, H, D) tensor into shared
-// memory as fp32 (row stride S), each times mul; rows past L load as 0.
-template <typename T, int D>
+// Rows [r0, r0 + 64) and W columns of one (b, h) slice of a (B, L, H, D) tensor (src points at the
+// first column) into shared memory as fp32 (row stride W + 1), each times mul; rows past L load as 0.
+template <typename T, int W>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, long long row_stride, int r0, int L,
                                           float mul) {
-  constexpr int S = Strides2<D>::S;
-  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
-    const int r = i / D, d = i % D;
+  constexpr int S = W + 1;
+  for (int i = threadIdx.x; i < BT * W; i += THREADS) {
+    const int r = i / W, d = i % W;
     const int row = r0 + r;
     dst[r * S + d] = row < L ? port::to_f32(src[row * row_stride + d]) * mul : 0.f;
   }
@@ -54,23 +65,27 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ro
 
 template <int D>
 __device__ __forceinline__ void zero_acc(float* acc) {
-  constexpr int AS = Strides2<D>::AS;
+  constexpr int AS = Dims<D>::AS;
   for (int i = threadIdx.x; i < BT * D; i += THREADS) acc[(i / D) * AS + i % D] = 0.f;
 }
 
-// s[i][j] = sum_d A[row_i][d] * (B[col_j][d] * bmul) and dp[i][j] = sum_d A2[row_i][d] * B2[col_j][d]
-// for the thread's rows rg*4 + i and columns cg + 8 j, d ascending, one fmaf a term. With bmul the
-// scale and B the raw q (dK/dV), each term rounds as flash_fwd.cu's pre-scaled q does.
-template <int D, bool SCALE_B>
-__device__ __forceinline__ void scores(float (&s)[RG][CJ], float (&dp)[RG][CJ], const float* A, const float* A2,
-                                       const float* B, const float* B2, int rg, int cg, float bmul) {
-  constexpr int S = Strides2<D>::S;
+__device__ __forceinline__ void zero_scores(float (&s)[RG][CJ], float (&dp)[RG][CJ]) {
 #pragma unroll
   for (int i = 0; i < RG; ++i)
 #pragma unroll
     for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
+}
+
+// s[i][j] += sum_d A[row_i][d] * (B[col_j][d] * bmul) and dp[i][j] += sum_d A2[row_i][d] * B2[col_j][d]
+// over the W columns of the tiles, for the thread's rows rg*4 + i and columns cg + 8 j, d ascending,
+// one fmaf a term. With bmul the scale and B the raw q (dK/dV), each term rounds as flash_fwd.cu's
+// pre-scaled q does.
+template <int W, bool SCALE_B>
+__device__ __forceinline__ void scores(float (&s)[RG][CJ], float (&dp)[RG][CJ], const float* A, const float* A2,
+                                       const float* B, const float* B2, int rg, int cg, float bmul) {
+  constexpr int S = W + 1;
 #pragma unroll 2
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < W; ++d) {
     float av[RG], a2v[RG], bv[CJ], b2v[CJ];
 #pragma unroll
     for (int i = 0; i < RG; ++i) {
@@ -93,11 +108,12 @@ __device__ __forceinline__ void scores(float (&s)[RG][CJ], float (&dp)[RG][CJ], 
 }
 
 // acc[row][col] += sum_c P[row][c] * B[c][col] over the tile's 64 c, for the thread's rows rg*4 + i
-// and columns cg + 8 e. P is the p or dS tile (stride PS), B an operand tile (stride S).
-template <int D>
+// and columns cg + 8 e of the W columns of B (acc points at B's first column, row stride AS). P is the
+// p or dS tile (stride PS), B an operand tile (stride W + 1).
+template <int W, int AS>
 __device__ __forceinline__ void accumulate(float* acc, const float* P, const float* B, int rg, int cg) {
-  constexpr int S = Strides2<D>::S, AS = Strides2<D>::AS;
-  constexpr int EJ = D / CG;             // columns a thread owns
+  constexpr int S = W + 1;
+  constexpr int EJ = W / CG;             // columns a thread owns
   constexpr int EC = EJ < 8 ? EJ : 8;    // of them summed in registers at a time
 #pragma unroll
   for (int e0 = 0; e0 < EJ; e0 += EC) {
@@ -130,7 +146,7 @@ __device__ __forceinline__ void accumulate(float* acc, const float* P, const flo
 template <typename T, int D>
 __device__ __forceinline__ void store_tile(T* out, const float* acc, int b, int h, int r0, int L, int H,
                                            float mul) {
-  constexpr int AS = Strides2<D>::AS;
+  constexpr int AS = Dims<D>::AS;
   const long long row_stride = static_cast<long long>(H) * D;
   T* base = out + static_cast<long long>(b) * L * row_stride + static_cast<long long>(h) * D;
   for (int i = threadIdx.x; i < BT * D; i += THREADS) {

@@ -21,7 +21,10 @@
 // shared memory to the p^T dO product, then dS^T through the same buffer to
 // the dS^T q product. The dK and dV accumulators (64 x D fp32 each; 128
 // registers a thread at D = 128) live in shared memory: 210 KB of it at
-// D = 128, opted into with cudaFuncSetAttribute.
+// D = 128, opted into with cudaFuncSetAttribute. At D = 256 they alone take
+// 129 KB, so the operand tiles hold 64 columns at a time (flash_bwd.cuh;
+// 210 KB in all): K, V, q and dO are reloaded chunk by chunk per q tile, and
+// dO and q once more per chunk of the two products into the accumulators.
 //
 // Ragged tiles and masking: a key or q row past L loads as 0, and its p is
 // set to exactly 0, as is a key above the causal diagonal, so it adds 0 to
@@ -34,7 +37,7 @@ using namespace flash_bwd;
 
 template <int D>
 struct Layout {
-  static constexpr int S = Strides2<D>::S, AS = Strides2<D>::AS;
+  static constexpr int DC = Dims<D>::DC, NCH = Dims<D>::NCH, S = Dims<D>::S, AS = Dims<D>::AS;
   static constexpr int bytes = static_cast<int>(sizeof(float)) * (4 * BT * S + BT * PS + 2 * BT * AS);
 };
 
@@ -45,11 +48,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  T* __restrict__ dk, T* __restrict__ dv, int L, int H, Strides sq, Strides sk, Strides sv,
                  Strides sg, int causal, float scale) {
   using Lay = Layout<D>;
+  constexpr int DC = Lay::DC, NCH = Lay::NCH;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BT * Lay::S;
-  float* Qs = Vs + BT * Lay::S;  // q tile, unscaled
-  float* Gs = Qs + BT * Lay::S;  // dO tile
+  float* Qs = Vs + BT * Lay::S;  // q tile (chunk), unscaled
+  float* Gs = Qs + BT * Lay::S;  // dO tile (chunk)
   float* Ps = Gs + BT * Lay::S;  // p^T, then dS^T, of the current q tile
   float* AccK = Ps + BT * PS;    // dk / scale
   float* AccV = AccK + BT * Lay::AS;
@@ -65,16 +69,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float* lse_b = lse + (static_cast<long long>(b) * H + h) * L;
   const float* del_b = delta + (static_cast<long long>(b) * H + h) * L;
 
-  load_tile<T, D>(Ks, kb, sk.l, k0, L, 1.f);
-  load_tile<T, D>(Vs, vb, sv.l, k0, L, 1.f);
+  if (NCH == 1) {
+    load_tile<T, DC>(Ks, kb, sk.l, k0, L, 1.f);
+    load_tile<T, DC>(Vs, vb, sv.l, k0, L, 1.f);
+  }
   zero_acc<D>(AccK);
   zero_acc<D>(AccV);
 
   // The tiles are square, so the first q tile that sees a key of this tile is the diagonal one.
   for (int q0 = causal ? k0 : 0; q0 < L; q0 += BT) {
-    __syncthreads();  // the previous tile's readers are done with Qs, Gs and Ps
-    load_tile<T, D>(Qs, qb, sq.l, q0, L, 1.f);
-    load_tile<T, D>(Gs, gb, sg.l, q0, L, 1.f);
     float lse_c[CJ], del_c[CJ];
 #pragma unroll
     for (int j = 0; j < CJ; ++j) {
@@ -82,10 +85,19 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       lse_c[j] = row < L ? lse_b[row] : 0.f;
       del_c[j] = row < L ? del_b[row] : 0.f;
     }
-    __syncthreads();
-
     float s[RG][CJ], dp[RG][CJ];
-    scores<D, true>(s, dp, Ks, Vs, Qs, Gs, rg, cg, scale);  // s^T = k (q * scale)^T, dp^T = v dO^T
+    zero_scores(s, dp);
+    for (int c = 0; c < NCH; ++c) {
+      __syncthreads();  // the previous readers are done with the tiles and Ps
+      if (NCH > 1) {
+        load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
+        load_tile<T, DC>(Vs, vb + c * DC, sv.l, k0, L, 1.f);
+      }
+      load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, 1.f);
+      load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
+      __syncthreads();
+      scores<DC, true>(s, dp, Ks, Vs, Qs, Gs, rg, cg, scale);  // s^T = k (q * scale)^T, dp^T = v dO^T
+    }
 #pragma unroll
     for (int i = 0; i < RG; ++i) {
       const int key = k0 + rg * RG + i;
@@ -99,14 +111,28 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();  // p^T is in Ps
-    accumulate<D>(AccV, Ps, Gs, rg, cg);
+    // p^T dO, chunk by chunk of dO's columns: the last chunk is the one in Gs
+    accumulate<DC, Lay::AS>(AccV + (NCH - 1) * DC, Ps, Gs, rg, cg);
+    for (int c = NCH - 2; c >= 0; --c) {
+      __syncthreads();
+      load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
+      __syncthreads();
+      accumulate<DC, Lay::AS>(AccV + c * DC, Ps, Gs, rg, cg);
+    }
     __syncthreads();  // every reader of p^T is done
 #pragma unroll
     for (int i = 0; i < RG; ++i)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) Ps[(rg * RG + i) * PS + cg + CG * j] = s[i][j];
     __syncthreads();  // dS^T is in Ps
-    accumulate<D>(AccK, Ps, Qs, rg, cg);
+    // dS^T q, the same way: the last chunk of q is the one in Qs
+    accumulate<DC, Lay::AS>(AccK + (NCH - 1) * DC, Ps, Qs, rg, cg);
+    for (int c = NCH - 2; c >= 0; --c) {
+      __syncthreads();
+      load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, 1.f);
+      __syncthreads();
+      accumulate<DC, Lay::AS>(AccK + c * DC, Ps, Qs, rg, cg);
+    }
   }
   __syncthreads();
   store_tile<T, D>(dk, AccK, b, h, k0, L, H, scale);
@@ -142,6 +168,8 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
     case 64: return launch_d<T, 64>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
     case 128:
       return launch_d<T, 128>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
+    case 256:
+      return launch_d<T, 256>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

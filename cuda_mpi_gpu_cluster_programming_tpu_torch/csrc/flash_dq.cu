@@ -18,7 +18,9 @@
 // wholly above the diagonal are not visited. A thread's s and dp (4 rows x
 // 8 keys) stay in registers; dS goes through shared memory to the dS k
 // product, whose sums land in a shared-memory accumulator (64 x D fp32).
-// bf16 widens at the load and rounds once at the store.
+// bf16 widens at the load and rounds once at the store. D = 256 (150 KB of
+// shared memory): the tiles hold 64 columns at a time (flash_bwd.cuh), so q
+// and dO are reloaded per k tile and k once more per chunk of the dS k product.
 //
 // Ragged tiles and masking: a q row or key past L loads as 0, and its p is
 // set to exactly 0, as is a key above the causal diagonal, so it adds 0 to
@@ -31,7 +33,7 @@ using namespace flash_bwd;
 
 template <int D>
 struct Layout {
-  static constexpr int S = Strides2<D>::S, AS = Strides2<D>::AS;
+  static constexpr int DC = Dims<D>::DC, NCH = Dims<D>::NCH, S = Dims<D>::S, AS = Dims<D>::AS;
   static constexpr int bytes = static_cast<int>(sizeof(float)) * (4 * BT * S + BT * PS + BT * AS);
 };
 
@@ -42,9 +44,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 T* __restrict__ dq, int L, int H, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
                 float scale) {
   using Lay = Layout<D>;
+  constexpr int DC = Lay::DC, NCH = Lay::NCH;
   extern __shared__ float smem[];
-  float* Qs = smem;             // q tile, pre-scaled
-  float* Gs = Qs + BT * Lay::S;  // dO tile
+  float* Qs = smem;             // q tile (chunk), pre-scaled
+  float* Gs = Qs + BT * Lay::S;  // dO tile (chunk)
   float* Ks = Gs + BT * Lay::S;
   float* Vs = Ks + BT * Lay::S;
   float* Ps = Vs + BT * Lay::S;  // dS of the current k tile
@@ -60,8 +63,10 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const T* gb = g + b * sg.b + h * sg.h;
   const long long stat = (static_cast<long long>(b) * H + h) * L;
 
-  load_tile<T, D>(Qs, qb, sq.l, q0, L, scale);
-  load_tile<T, D>(Gs, gb, sg.l, q0, L, 1.f);
+  if (NCH == 1) {
+    load_tile<T, DC>(Qs, qb, sq.l, q0, L, scale);
+    load_tile<T, DC>(Gs, gb, sg.l, q0, L, 1.f);
+  }
   zero_acc<D>(Acc);
   float lse_r[RG], del_r[RG];
 #pragma unroll
@@ -73,13 +78,19 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int k_end = causal ? min(L, q0 + BT) : L;
   for (int k0 = 0; k0 < k_end; k0 += BT) {
-    __syncthreads();  // the previous tile's readers are done with Ks and Ps
-    load_tile<T, D>(Ks, kb, sk.l, k0, L, 1.f);
-    load_tile<T, D>(Vs, vb, sv.l, k0, L, 1.f);
-    __syncthreads();
-
     float s[RG][CJ], dp[RG][CJ];
-    scores<D, false>(s, dp, Qs, Gs, Ks, Vs, rg, cg, 1.f);
+    zero_scores(s, dp);
+    for (int c = 0; c < NCH; ++c) {
+      __syncthreads();  // the previous readers are done with the tiles and Ps
+      if (NCH > 1) {
+        load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, scale);
+        load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
+      }
+      load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
+      load_tile<T, DC>(Vs, vb + c * DC, sv.l, k0, L, 1.f);
+      __syncthreads();
+      scores<DC, false>(s, dp, Qs, Gs, Ks, Vs, rg, cg, 1.f);
+    }
 #pragma unroll
     for (int i = 0; i < RG; ++i) {
       const int row = q0 + rg * RG + i;
@@ -92,7 +103,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       }
     }
     __syncthreads();  // every row's dS is in Ps
-    accumulate<D>(Acc, Ps, Ks, rg, cg);
+    // dS k, chunk by chunk of k's columns: the last chunk is the one in Ks
+    accumulate<DC, Lay::AS>(Acc + (NCH - 1) * DC, Ps, Ks, rg, cg);
+    for (int c = NCH - 2; c >= 0; --c) {
+      __syncthreads();
+      load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
+      __syncthreads();
+      accumulate<DC, Lay::AS>(Acc + c * DC, Ps, Ks, rg, cg);
+    }
   }
   __syncthreads();
   store_tile<T, D>(dq, Acc, b, h, q0, L, H, scale);
@@ -126,6 +144,7 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
     case 32: return launch_d<T, 32>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
     case 64: return launch_d<T, 64>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
     case 128: return launch_d<T, 128>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
+    case 256: return launch_d<T, 256>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -389,11 +389,12 @@ def _moe_ffn_decode(layer: Params, h: torch.Tensor, cfg: TransformerConfig) -> t
 def _decode_block(layer: Params, x: torch.Tensor, cache, pos: int, cfg: TransformerConfig):
     """One pre-norm decoder block for ONE token (B, 1, D) at ``pos``: q
     against the cached K/V prefix (positions > pos masked), fp32 softmax
-    statistics. Returns the new x and a new cache (the input one is left
-    as it was)."""
+    statistics. Writes the token's K/V into position ``pos`` of ``cache``
+    in place (the caller owns the cache, as the JAX decode's scan carry:
+    no per-token copy) and returns the new x and that same cache."""
     b = x.shape[0]
     q, k, v = _qkv(rmsnorm(x, layer["attn_norm"]["g"]), layer["wqkv"], cfg)
-    ck, cv = cache["k"].clone(), cache["v"].clone()
+    ck, cv = cache["k"], cache["v"]
     ck[:, pos] = k[:, 0].to(ck.dtype)
     cv[:, pos] = v[:, 0].to(cv.dtype)
     scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -407,7 +408,7 @@ def _decode_block(layer: Params, x: torch.Tensor, cache, pos: int, cfg: Transfor
         x = x + _moe_ffn_decode(layer, h2, cfg)
     else:
         x = x + _gelu(h2 @ layer["w_up"]) @ layer["w_down"]
-    return x, {"k": ck, "v": cv}
+    return x, cache
 
 
 @torch.inference_mode()
@@ -429,11 +430,8 @@ def _decode_scan(params, prompt, cfg, steps, temperature, generator, collect_log
     for t in range(n_iter):
         cur = prompt[:, t] if t < plen else tok  # teacher-force the prompt
         x = embed[cur][:, None, :] + params["pos"][t][None, None, :]
-        new_caches = []
         for layer, cache in zip(params["layers"], caches):
-            x, c2 = _decode_block(layer, x, cache, t, cfg)
-            new_caches.append(c2)
-        caches = new_caches
+            x, _ = _decode_block(layer, x, cache, t, cfg)
         x = rmsnorm(x, params["final_norm"]["g"])
         logits = (x[:, 0] @ embed.T).float()
         if temperature > 0:

@@ -25,8 +25,10 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
   ``flash_dq.cu`` and ``flash_dkv.cu`` (over ``flash_bwd.cuh``), its
   backward.
 
-The five conv kernels share one implicit-GEMM engine
-(``csrc/conv_engine.cuh``). Each kernel has:
+The conv kernels are implicit GEMMs: ``conv2d`` and ``conv_block`` on the
+Hopper mainloop of ``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on
+the tensor cores), the taps, pairs, im2col and g8 bodies on the engine of
+``csrc/conv_engine.cuh``. Each kernel has:
 
 - a wrapper that checks device, dtype, shape and contiguity, packs the
   operands its variant reads (``ops/packing.py``), allocates its output
@@ -112,8 +114,8 @@ K_BLOCKS = (0, 64, 128)
 
 
 def effective_k_block(k_block: int, k: int) -> int:
-    """``variants.effective_k_block`` for a k_block the kernels take (0, or
-    a multiple of their 32-channel tile: 64, 128); raises for another."""
+    """``variants.effective_k_block`` for a k_block the kernels take (0, 64
+    or 128 output channels a block); raises for another."""
     if k_block not in K_BLOCKS:
         raise ValueError(f"k_block must be one of {K_BLOCKS}, got {k_block}")
     return variants.effective_k_block(k_block, k)
@@ -134,6 +136,17 @@ def _conv_geometry(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if max(x.numel(), n * ho * wo * k, f * f * c * k) >= 2**31:
         raise ValueError(f"{name}: tensors past 2^31 elements")
     return dev, (n, h, wd, c, f, k, ho, wo)
+
+
+# conv_sm90.cuh's MAX_DIM: the mainloop packs a window's origin into two 16-bit halves
+SM90_MAX_DIM = 1 << 14
+
+
+def _check_sm90_dims(name: str, h: int, wd: int, padding: int) -> None:
+    """Raise where the CUDA conv mainloop refuses the image (the CPU runs any)."""
+    if max(h, wd, padding) >= SM90_MAX_DIM:
+        raise ValueError(f"{name}: H, W and padding must stay below {SM90_MAX_DIM} on CUDA, "
+                         f"got {h}, {wd}, {padding}")
 
 
 def _hpool_dims(name: str, ho: int, hpool, k_block: int, n: int):
@@ -201,17 +214,20 @@ def conv2d_bias_relu(
 
     Replaces ``_conv_vcol_kernel`` with ``_conv_epilogue``
     (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
-    the H100: FFMA operations (conv1 27 GFLOP, conv2 115 GFLOP at batch
-    128; TF32 is out by the fp32 contract). Design (``csrc/conv2d.cu`` on
-    the engine of ``csrc/conv_engine.cuh``): an implicit GEMM over (pixels x
-    channels) tiles staged through shared memory in 16-term slices, an 8x4
-    register tile per thread, fp32 FMAs in the fixed (fy, fx, c) order, and
-    the bias/ReLU/cast (and hpool) epilogue fused."""
+    the H100: operations (conv1 27 GFLOP, conv2 115 GFLOP at batch 128):
+    FFMA in fp32 (TF32 is out by the fp32 contract), the tensor cores in
+    bf16. Design (``csrc/conv2d.cu`` on the Hopper mainloop of
+    ``csrc/conv_sm90.cuh``): an implicit GEMM over 128 x 128 (pixels x
+    channels) tiles, 32-term slices in a cp.async ring, the pixels gathered
+    channel-major in 16-byte runs; fp32 one fmaf chain per output in the
+    fixed (fy, fx, c) order, bf16 ``mma.sync`` steps in the same order; the
+    bias/ReLU/cast (and hpool) epilogue fused."""
     dev, (n, h, wd, c, f, k, ho, wo) = _conv_geometry("conv2d_bias_relu", x, w, b, stride, padding)
     kb = effective_k_block(k_block, k)
     pw, ps, hp = _hpool_dims("conv2d_bias_relu", ho, hpool, kb, n)
     if dev.type == "cpu":
         return conv2d_bias_relu_plain(x, w, b, stride=stride, padding=padding, relu=relu, hpool=hpool)
+    _check_sm90_dims("conv2d_bias_relu", h, wd, padding)
     y = torch.empty((n, hp if pw else ho, wo, k), dtype=x.dtype, device=dev)
     _launch(
         "conv2d", "conv2d_bias_relu", x, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -760,9 +776,11 @@ def conv_block(
     block 2 114.7 GFLOP at batch 128). Design (``csrc/conv_block.cu``): a
     block walks a band of pooled rows of one image, computes the conv rows
     each pooled row needs into a ring of 3 rows in shared memory (all
-    channels when LRN needs its neighbours), pools (and normalises) from the
-    ring and writes once. fp32 and bf16 results are bitwise the staged
-    kernel chain's: same FMA order, cast points, max and LRN arithmetic."""
+    channels when LRN needs its neighbours) on conv2d's mainloop
+    (``csrc/conv_sm90.cuh``), pools (and normalises) from the ring and
+    writes once. fp32 and bf16 results are bitwise the staged kernel
+    chain's: the same FMA chain or tensor-core steps, cast points, max and
+    LRN arithmetic."""
     quant = scale is not None
     if quant:
         dev = _check("conv_block", b, scale)
@@ -790,6 +808,7 @@ def conv_block(
     kw = dict(stride=stride, padding=padding, pool_window=pool_window, pool_stride=pool_stride)
     if dev.type == "cpu":
         return conv_block_plain(x, w, b, lrn=lrn, scale=scale, **kw)
+    _check_sm90_dims("conv_block", h, wd, padding)
     out_dtype = (torch.float32 if lrn is not None else torch.bfloat16) if quant else x.dtype
     y = torch.empty((n, hp, wp, k), dtype=out_dtype, device=dev)
     lrn_args = (0, 0, 0.0, 0.0, 0.0)  # has_lrn, size, a, beta, k
@@ -834,10 +853,11 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 
 # The head dims the flash kernels are instantiated for. A CUDA tensor with
-# another D up to 128 is zero-padded to the next of them (:func:`_flash_pad`);
-# above 128 the kernels raise (the dK/dV accumulators already take 210 KB of
-# shared memory at 128). The plain versions, and so the CPU, take any D.
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# another D up to 256 is zero-padded to the next of them (:func:`_flash_pad`);
+# above 256 the kernels raise (at 256 the dK/dV accumulators alone take 129 KB
+# of the 227 KB of shared memory a block has). The plain versions, and so the
+# CPU, take any D.
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def flash_blocks(l: int, block_q: int, block_k: int) -> tuple:
@@ -880,7 +900,7 @@ def _flash_pad(name: str, *tensors: torch.Tensor) -> tuple:
     delta = sum dO.o unchanged, and the padded columns of out, dq, dk and
     dv come out exactly 0; the caller passes the scale of the true D and
     slices them away. A padded operand is a copy, so the kernels lose their
-    strided read of a packed qkv at such a D. Raises above 128."""
+    strided read of a packed qkv at such a D. Raises above 256."""
     d = tensors[0].shape[-1]
     if d > FLASH_HEAD_DIMS[-1]:
         raise ValueError(f"{name}: head dim {d} is above the CUDA kernels' limit of {FLASH_HEAD_DIMS[-1]} "
@@ -932,7 +952,7 @@ def flash_fwd(
 ) -> tuple:
     """Flash-attention forward: ``(out, lse)`` for q, k, v of shape
     (B, L, H, D), fp32 or bf16; out in q's dtype, lse (B, H, L) fp32 =
-    m + log(max(den, 1e-30)). Any D on the CPU; on CUDA D <= 128, run at
+    m + log(max(den, 1e-30)). Any D on the CPU; on CUDA D <= 256, run at
     the next width of :data:`FLASH_HEAD_DIMS` (:func:`_flash_pad`).
 
     ``block_q``/``block_k`` are clamped to L and L must be a multiple of

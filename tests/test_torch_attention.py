@@ -114,10 +114,11 @@ def test_indivisible_rejected_in_the_jax_words():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [8, 24, 48, 256])
+@pytest.mark.parametrize("d", [8, 24, 48, 200, 256])
 def test_any_head_dim_matches_jax_flash_forward_and_vjp(d, causal):
-    """Head dims off the kernels' instantiations (and above 128, which only
-    the CPU takes): out and dq, dk, dv of ``flash_attention`` against the
+    """Head dims off the kernels' instantiations (200, which the CUDA
+    wrappers pad to 256, among them) and at the widest one, 256: out and
+    dq, dk, dv of ``flash_attention`` against the
     JAX package's, at the fp32 forward (2e-5) and gradient (5e-5) tolerances."""
     (jq, jk, jv), (tq, tk, tv) = _qkv(64, "fp32", d=d, seed=d)
     cot = np.random.default_rng(d + 1).standard_normal(tq.shape).astype(np.float32)
@@ -133,7 +134,7 @@ def test_any_head_dim_matches_jax_flash_forward_and_vjp(d, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [1, 8, 24, 48, 100])
+@pytest.mark.parametrize("d", [1, 8, 24, 48, 100, 200])
 def test_zero_padded_head_dim_with_the_true_scale_is_exact(d, causal):
     """What the CUDA wrappers do at such a D: the plain versions on the
     operands ``_flash_pad`` pads, with the true D's scale, sliced back,
@@ -158,7 +159,7 @@ def test_zero_padded_head_dim_with_the_true_scale_is_exact(d, causal):
         assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max()), name
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 def test_kernel_head_dims_are_not_padded(d):
     """At an instantiated D the operands go to the kernel as they are (no
     copy: a packed qkv is read through its strides)."""
@@ -177,9 +178,9 @@ def test_flash_check_takes_any_head_dim_on_the_cpu(d):
 @pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
 def test_head_dims_above_128_are_refused_for_the_kernels(name):
     """The CUDA branch of each wrapper pads through ``_flash_pad``, which
-    names the 128 limit above it."""
-    _, (tq, tk, tv) = _qkv(32, "fp32", d=256)
-    with pytest.raises(ValueError, match=f"{name}: head dim 256 is above the CUDA kernels' limit of 128"):
+    names the 256 limit above it (D = 512 here; 256 and below run)."""
+    _, (tq, tk, tv) = _qkv(32, "fp32", d=512)
+    with pytest.raises(ValueError, match=f"{name}: head dim 512 is above the CUDA kernels' limit of 256"):
         ck._flash_pad(name, tq, tk, tv)
 
 

@@ -17,8 +17,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "cuda_mpi_gpu_cluster_programming_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "cuda_mpi_gpu_cluster_programming_tpu")
 
-_PROBE = """
+# Every probe imports the port's modules, then runs one entry point at a tiny
+# size on the CPU, in a fresh interpreter of its own (its own timeout: a busy
+# machine slows one probe, not the others).
+_IMPORTS = """
 import sys
+import torch
 import cuda_mpi_gpu_cluster_programming_tpu_torch.run as run
 import cuda_mpi_gpu_cluster_programming_tpu_torch.configs
 import cuda_mpi_gpu_cluster_programming_tpu_torch.ops.kernel_model
@@ -30,17 +34,43 @@ import cuda_mpi_gpu_cluster_programming_tpu_torch.ops.flash_attention
 import cuda_mpi_gpu_cluster_programming_tpu_torch.models.transformer as tf
 from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context, lm
 from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
-import torch
+"""
+
+_ENTRY_POINTS = {
+    "run": """
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1"]) == 0
+""",
+    "long_context": """
 assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", "--seq-len", "64",
                           "--heads", "2", "--head-dim", "16", "--repeats", "1", "--warmup", "1"]) == 0
+""",
+    "generate": """
 cfg = tf.TransformerConfig(d_model=32, n_heads=2, n_layers=1, d_ff=64, max_len=32, attn_impl="flash")
 params = tf.init_transformer(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
 assert tf.generate(params, torch.zeros((1, 4), dtype=torch.int64), cfg, steps=2).shape == (1, 6)
+""",
+    "lm": """
 assert lm.main(["--device", "cpu", "--attn", "flash", "--steps", "1", "--seq-len", "16", "--batch", "2",
                 "--target-loss", "1000"]) == 0
+""",
+    # pool_ab.main in full (parse, six strategies, bitwise checks, rows) with its
+    # timer cut to one pass: the amortized chains grow without bound under load
+    "pool_ab": """
+import time
+import cuda_mpi_gpu_cluster_programming_tpu_torch.utils.timing as timing
+
+def one_pass(fn, *args, **_kw):
+    t0 = time.perf_counter()
+    fn(*args)
+    return (time.perf_counter() - t0) * 1e3
+
+timing.amortized_ms = one_pass
 assert pool_ab.main(["--device", "cpu", "--batch", "1", "--pool", "pool2"]) == 0
+""",
+}
+
+_REPORT = """
 bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
@@ -51,11 +81,10 @@ def _forbidden(module: str) -> bool:
     return module.split(".")[0] in FORBIDDEN
 
 
-def test_importing_and_running_the_port_loads_no_jax():
-    proc = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
-        capture_output=True, text=True, cwd=ROOT, timeout=120,
-    )
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_importing_and_running_the_port_loads_no_jax(entry):
+    probe = _IMPORTS + _ENTRY_POINTS[entry] + _REPORT.format(forbidden=set(FORBIDDEN))
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, cwd=ROOT, timeout=600)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "LOADED []" in proc.stdout
 

@@ -168,3 +168,30 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     header = tmp_path / "common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.source_hash() != before
+
+
+@pytest.mark.parametrize("header", ["common.cuh", "conv_engine.cuh", "conv_sm90.cuh", "flash_bwd.cuh"])
+def test_build_key_follows_each_header(header, monkeypatch, tmp_path):
+    """Every header the sources include (conv_sm90.cuh: the mainloop of
+    conv2d.cu and conv_block.cu) is part of the build key: editing one
+    builds the library anew."""
+    assert header in {p.name for p in _build.CSRC_DIR.glob("*.cuh")}
+    for p in _build.CSRC_DIR.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.source_hash()
+    (tmp_path / header).write_text((tmp_path / header).read_text() + "\n// edited\n")
+    assert _build.source_hash() != before
+
+
+@pytest.mark.parametrize("h,w,pad,ok", [(227, 227, 0, True), (16383, 8, 2, True), (16384, 8, 0, False),
+                                        (8, 16384, 0, False), (8, 8, 16384, False)])
+def test_the_cuda_conv_mainloop_dims_limit(h, w, pad, ok):
+    """conv_sm90.cuh packs a window origin into 16-bit halves: the CUDA
+    branches of conv2d_bias_relu and conv_block refuse H, W or padding from
+    2^14 on, before any launch (the CPU runs any size)."""
+    if ok:
+        ck._check_sm90_dims("conv2d_bias_relu", h, w, pad)
+    else:
+        with pytest.raises(ValueError, match="below 16384 on CUDA"):
+            ck._check_sm90_dims("conv2d_bias_relu", h, w, pad)

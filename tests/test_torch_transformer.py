@@ -161,11 +161,46 @@ def test_moe_decode_matches_jax(moe):
 
 
 def test_decode_leaves_the_input_cache_as_it_was(dense):
+    # as it was but for position pos, which the block writes in place: the
+    # returned cache is the input one, the same storage, no copy
     _, params, _ = dense
     cache = ttf.init_kv_cache(TCFG, 2, device="cpu")[0]
+    ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr())
     x = torch.randn(2, 1, 64, generator=torch.Generator().manual_seed(0))
     _, new = ttf._decode_block(params["layers"][0], x, cache, 5, TCFG)
-    assert float(cache["k"].abs().max()) == 0.0 and float(new["k"][:, 5].abs().max()) > 0.0
+    assert new is cache and (new["k"].data_ptr(), new["v"].data_ptr()) == ptrs
+    others = torch.cat([cache["k"][:, :5], cache["k"][:, 6:], cache["v"][:, :5], cache["v"][:, 6:]], dim=1)
+    assert float(others.abs().max()) == 0.0
+    assert float(cache["k"][:, 5].abs().max()) > 0.0 and float(cache["v"][:, 5].abs().max()) > 0.0
+
+
+def test_decode_writes_the_caches_in_place(dense, monkeypatch):
+    # every token step of decode_logits and generate writes into the caches
+    # init_kv_cache made, never into a copy, and the parity with forward_lm holds
+    _, params, toks = dense
+    made, seen = [], []
+    init, block = ttf.init_kv_cache, ttf._decode_block
+
+    def init_spy(*a, **k):
+        made.extend(init(*a, **k))
+        return made[-TCFG.n_layers:]
+
+    def block_spy(layer, x, cache, pos, cfg):
+        out, new = block(layer, x, cache, pos, cfg)
+        seen.append((pos, new["k"].data_ptr(), new["v"].data_ptr()))
+        return out, new
+
+    monkeypatch.setattr(ttf, "init_kv_cache", init_spy)
+    monkeypatch.setattr(ttf, "_decode_block", block_spy)
+    got = ttf.decode_logits(params, torch.from_numpy(toks), TCFG)
+    _close(got, ttf.forward_lm(params, torch.from_numpy(toks), TCFG))
+    ptrs = {(c["k"].data_ptr(), c["v"].data_ptr()) for c in made}
+    assert len(made) == TCFG.n_layers and len(seen) == TCFG.n_layers * toks.shape[1]
+    assert {(k, v) for _pos, k, v in seen} == ptrs
+    made.clear(), seen.clear()
+    seq = ttf.generate(params, torch.from_numpy(toks[:, :8]), TCFG, steps=4)
+    assert seq.shape == (2, 12) and {(k, v) for _pos, k, v in seen} == {
+        (c["k"].data_ptr(), c["v"].data_ptr()) for c in made}
 
 
 def test_greedy_generate_matches_jax(dense):
