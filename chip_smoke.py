@@ -2,15 +2,24 @@
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --record   # only the records below, from this checkout
 
 Run from the root of the repository, on a host with one CUDA GPU and the
-CUDA toolkit (``nvcc``). Phases, in order; a phase that fails ends the run
-with a non-zero exit code and nothing is caught:
+CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
+JSON line with what ``MAINLOOP_PTXAS`` and ``FLASH_SWEEP_SHA256`` hold a
+later tree to (run it in a checkout of the tree to be recorded, with this
+file copied in). With no arguments, phases in order; a phase that fails
+ends the run with a non-zero exit code and nothing is caught:
 
 1. build the kernel library from ``cuda_mpi_gpu_cluster_programming_tpu_torch/csrc``;
+   read ``ptxas -v``'s registers and spills of the kernels on the Hopper
+   mainloop (``conv_sm90.cuh``): conv2d.cu's and conv_block.cu's must be
+   ``MAINLOOP_PTXAS``, those before conv_pairs.cu and conv_im2col.cu
+   joined the mainloop;
    1b. read its SASS (``cuobjdump --dump-sass``): every bf16 and int8w
-   instance of the conv2d.cu and conv_block.cu kernels contains HMMA (the
-   tensor cores), every fp32 one FFMA and no HMMA (no TF32);
+   instance of the conv2d.cu, conv_block.cu, conv_pairs.cu and
+   conv_im2col.cu kernels contains HMMA (the tensor cores), every fp32 one
+   FFMA and no HMMA (no TF32);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
@@ -20,7 +29,10 @@ with a non-zero exit code and nothing is caught:
    the conv and pool variants the autotuner sweeps: the taps, pairs,
    im2col ("fused") and g8 (conv1) conv kernels, the phases pool, and the hpool epilogue
    and k_block modes of the vcol and taps convs with the pool's W stage,
-   each against its plain version and timed the same way, plus bitwise:
+   each against its plain version and timed the same way (pairs and
+   im2col with their packing, and the kernel alone on operands packed
+   once), plus bitwise: pairs and im2col against taps (fp32), pairs
+   against im2col and, at conv2, both against conv2d (bf16),
    hpool + W stage against conv + maxpool2d (vcol, taps; conv1, conv2),
    k_block 64 and 128 against 0 (vcol, taps; conv2), phases against
    maxpool2d (pool1, pool2); then the fused ``conv_block`` kernel at both
@@ -29,15 +41,17 @@ with a non-zero exit code and nothing is caught:
    beside that chain, its plain version, the cuDNN chain (a note: no one
    library call computes a block) and the bound; and every kernel again at
    edge shapes off the main path (an even-fq pairs case, a ragged output,
-   C=5 with K=40, g8 at strides 2, 3 and 4 among them); then the LM
+   C=5 with K=40, g8 at strides 2, 3 and 4 among them; pairs and im2col
+   held there to the bitwise pins above); then the LM
    slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
    and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
    TINY_LM's attention (8x1024x4x32), causal and full, and at D = 256
-   (1x4096x2x256, causal), timed beside SDPA,
+   and 512 (1x4096x2xD, causal), timed beside SDPA,
    and off those shapes (the JAX tests' ragged blocks, D = 16 and 128, the
    zero-padded D = 8, 24 and 48, D = 256 and the padded D = 200, every D
-   from 1 to 256 through the three flash kernels, D = 512 refused on the
-   card, strided q/k/v, relu on a
+   from 1 to 256 through the three flash kernels with the bits of
+   ``FLASH_SWEEP_SHA256``, D = 257, 320 and 512 (1024 in fp32) through
+   their windowed instance, strided q/k/v, relu on a
    NaN, -0.0 and an unaligned view); then the flash backward, ``flash_dq`` and
    ``flash_dkv``, in fp32 and bf16 at the same two shapes, causal and full,
    each against its plain version, a second launch bitwise the first and
@@ -58,7 +72,10 @@ with a non-zero exit code and nothing is caught:
    staged on both tiers, and ``v3_pallas`` with ``TPU_FRAMEWORK_CONV=taps``,
    ``pairs``, ``fused`` and ``g8``, ``POOL=phases``, ``FUSE=hpool`` and
    ``KBLOCK=128`` in fp32 and bf16 (taps also in int8w), batch 128; check
-   the golden first-10 on every fp32 kernel route, every route against
+   ``CONV=pairs`` and ``fused`` bitwise ``CONV=taps`` in fp32 and
+   ``CONV=fused`` bitwise ``CONV=pairs`` in bf16 (taps runs the older
+   engine, whose bf16 sums are FFMA's), the golden first-10 on every fp32
+   kernel route, every route against
    ``v1_jit`` fp32 on numpy-seeded random params within the precision
    budgets, fused int8w against staged int8w, and
    ``ToleranceGate().screen_blocks`` at 227x227 for fp32, bf16 and int8w;
@@ -132,6 +149,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -191,7 +209,14 @@ TRAIN_STEPS_TIMED = 10
 LONG_CONTEXT = (1, 4096, 8, 64)  # examples.long_context's defaults: B, L, H, D
 LM_BATCH = 8
 TINY_LM_ATTN = (LM_BATCH, 1024, 4, 32)  # TINY_LM's attention at batch 8 and L = max_len
-FLASH_D256 = (1, 4096, 2, 256)  # the widest head dim the kernels take, at long_context's length (causal, timed)
+FLASH_D256 = (1, 4096, 2, 256)  # the widest single-window head dim, at long_context's length (causal, timed)
+FLASH_D512 = (1, 4096, 2, 512)  # two windows of 256 output columns, at the same length (causal, timed)
+# the head dims above 256 held against their plain versions off the main path (1024 in fp32 only)
+FLASH_WIDE_DIMS = (257, 320, 512)
+# sha256 of the bits of out, lse, dq, dk and dv of every head dim 1..256 in head_dim_sweep, as the kernels
+# gave them before the windowed instance above 256 was added (NVIDIA H100 build, CUDA 12.8; ``python3
+# chip_smoke.py --record`` in a checkout of that tree prints it): at D <= 256 the kernels keep their bits
+FLASH_SWEEP_SHA256 = "0c54a79f6053858e053539389439963860e0b0c16fae952de21261812054a818"
 FLASH_REF_TOL = {"fp32": 2e-5, "bf16": 3e-2}  # tests/test_flash_attention.py, abs and rel against the oracle
 # flash_fwd against its plain version: out within 2e-6 x max |v| (the same fp32 recurrence, sums in
 # another order; out is a convex mix of v's rows, so its error scales with v, not with out, which
@@ -310,8 +335,8 @@ def kernel_phase(spec, peak_name) -> list:
             )
             if s == 1 and pol == "fp32":
                 # at stride 1 taps' term order (qh, qw, c) is vcol's (fy, fx, c): one fmaf chain each
-                st.update(same_as=lambda x=x, w=w, b=b, p=p: ck.conv_taps(x, w, b, stride=1, padding=p),
-                          same_as_name="conv_taps")
+                st.update(same_as=[("conv_taps", lambda x=x, w=w, b=b, p=p: ck.conv_taps(
+                    x, w, b, stride=1, padding=p))])
                 CUDNN_KERNELS[f"{stage} {pol}"] = library_kernels(st["library"])
                 log(f"library F.conv2d at {stage} {pol} runs: {CUDNN_KERNELS[f'{stage} {pol}']}")
             stages.append(st)
@@ -362,12 +387,16 @@ def library_kernels(fn) -> list:
     return [k for k, _t in sorted(names, key=lambda kv: -kv[1])]
 
 
+# the kernel files on the Hopper mainloop (conv_sm90.cuh): their names carry the file's anonymous namespace
+MAINLOOP_FILES = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
+
+
 def sass_phase(info) -> dict:
     """The instructions the conv entry points compiled to, from
     ``cuobjdump --dump-sass`` on the built library: every bf16 (and int8w)
-    instance of conv2d.cu's and conv_block.cu's kernels must contain HMMA
-    (mma.sync on the tensor cores), every fp32 one FFMA and no HMMA (no
-    TF32: the fp32 contract)."""
+    instance of the kernels on the Hopper mainloop (conv2d.cu, conv_block.cu,
+    conv_pairs.cu, conv_im2col.cu) must contain HMMA (mma.sync on the tensor
+    cores), every fp32 one FFMA and no HMMA (no TF32: the fp32 contract)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -376,13 +405,12 @@ def sass_phase(info) -> dict:
     found = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
-        # the kernels of conv2d.cu and conv_block.cu (their anonymous namespaces carry the file names)
-        if "conv2d_cu" not in name and "conv_block_cu" not in name:
+        if not any(f in name for f in MAINLOOP_FILES):
             continue
         bf16 = "bfloat16" in name
         found[name] = dict(dtype="bf16" if bf16 else "fp32", hmma=chunk.count("HMMA"), ffma=chunk.count("FFMA"))
-    kinds = {("conv_block" if "conv_block" in k else "conv2d", v["dtype"]) for k, v in found.items()}
-    require({("conv2d", "fp32"), ("conv2d", "bf16"), ("conv_block", "fp32"), ("conv_block", "bf16")} <= kinds,
+    kinds = {(next(f for f in MAINLOOP_FILES if f in k), v["dtype"]) for k, v in found.items()}
+    require({(f, dt) for f in MAINLOOP_FILES for dt in ("fp32", "bf16")} <= kinds,
             f"SASS: the conv entry points were not all found: {sorted(kinds)}")
     for name, v in found.items():
         ok = v["hmma"] > 0 if v["dtype"] == "bf16" else (v["ffma"] > 0 and v["hmma"] == 0)
@@ -391,15 +419,71 @@ def sass_phase(info) -> dict:
     return found
 
 
+# ``ptxas -v`` of conv2d.cu's and conv_block.cu's kernels as they were before conv_pairs.cu and
+# conv_im2col.cu joined their mainloop, per file and dtype (bf16: int8w's too): the sorted (registers,
+# spill-store bytes) of every entry (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in
+# a checkout of that tree prints it). The shared mainloop's callers must keep them.
+MAINLOOP_PTXAS = {
+    "conv2d_cu/bf16": [[95, 0], [96, 0], [117, 0], [128, 4], [128, 28]],
+    "conv2d_cu/fp32": [[123, 0], [123, 0], [157, 0], [168, 0], [168, 0]],
+    "conv_block_cu/bf16": [[223, 0], [226, 0], [228, 0], [246, 0]],
+    "conv_block_cu/fp32": [[213, 0], [255, 0]],
+}
+
+
+def ptxas_entries(build_log: str) -> list:
+    """``(entry name, registers, spill-store bytes)`` of every kernel in
+    ``ptxas -v``'s part of the build log."""
+    entries, name, spill = [], None, 0
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            entries.append((name, int(m.group(1)), spill))
+            name = None
+    return entries
+
+
+def ptxas_table(build_log: str) -> dict:
+    """Per mainloop file and dtype, the sorted ``[registers, spill stores]``
+    of its entries."""
+    table = {}
+    for name, regs, stores in ptxas_entries(build_log):
+        f = next((f for f in MAINLOOP_FILES if f in name), None)
+        if f is not None:
+            table.setdefault(f"{f}/{'bf16' if 'bfloat16' in name else 'fp32'}", []).append([regs, stores])
+    return {k: sorted(v) for k, v in sorted(table.items())}
+
+
+def ptxas_phase(info) -> dict:
+    """Phase 1: the mainloop kernels' registers and spills from the build
+    log; conv2d.cu's and conv_block.cu's must be ``MAINLOOP_PTXAS``."""
+    table = ptxas_table(info.log)
+    for key, entries in table.items():
+        log(f"ptxas {key}: [registers, spill-store bytes] {entries}")
+    held = {k: v for k, v in table.items() if k.split("/")[0] in ("conv2d_cu", "conv_block_cu")}
+    require(held == MAINLOOP_PTXAS, f"conv2d.cu/conv_block.cu registers or spills moved: {held} "
+            f"against {MAINLOOP_PTXAS}")
+    return table
+
+
 def measure(st, pol, spec, peak_name) -> dict:
     """One stage row: the kernel against its plain version by the stage's
-    rule (and, where ``st["same_as"]`` is given, bitwise against that
-    reference), then kernel, plain and library times beside the bound."""
+    rule (and bitwise against each ``(name, fn)`` of ``st["same_as"]``),
+    then kernel, plain and library times beside the bound; where
+    ``st["alone"]`` is given (a wrapper that packs its operands first), the
+    kernel alone on the packed operands is timed too (``kernel_ms``)."""
     got = st["run"]()
     res = compare(st["rule"], got, st["plain"]())
-    if "same_as" in st:
-        res["bitwise_ref"] = st["same_as_name"]
-        res["bitwise_ok"] = bool(torch.equal(got, st["same_as"]()))
+    if st.get("same_as"):
+        res["bitwise"] = {ref: bool(torch.equal(got, fn())) for ref, fn in st["same_as"]}
     torch.cuda.synchronize()
     bound, by = spec.bound_ms(st["flops"], st["nbytes"], st["peak"])
     lib = st.get("library")
@@ -410,14 +494,17 @@ def measure(st, pol, spec, peak_name) -> dict:
         bound_ms=bound, bound_by=by, flops=st["flops"], bytes=st["nbytes"],
         peak=f"{spec.name} {peak_name(st['peak'])}",
     )
+    if "alone" in st:
+        row["kernel_ms"] = gpu_time_ms(st["alone"])
     name = f"{row['kernel']}{'[' + row['mode'] + ']' if row['mode'] else ''}"
     lib_s = f"{row['library_ms']:.4f}" if lib is not None else "n/a"
     log(f"kernel {name:14s} {row['stage']:5s} {pol}: ok={row['ok']} tol={row['tol']} "
         f"max_abs={row['max_abs_err']:.3g} max_rel={row['max_rel_err']:.3g}"
-        + (f" bitwise_vs_{res['bitwise_ref']}={res['bitwise_ok']}" if "same_as" in st else "")
-        + f" | ms={row['ms']:.4f} plain={row['plain_ms']:.4f} library={lib_s} bound={row['bound_ms']:.4f} ({by})")
+        + "".join(f" bitwise_vs_{ref}={ok}" for ref, ok in res.get("bitwise", {}).items())
+        + f" | ms={row['ms']:.4f}" + (f" kernel_alone={row['kernel_ms']:.4f}" if "alone" in st else "")
+        + f" plain={row['plain_ms']:.4f} library={lib_s} bound={row['bound_ms']:.4f} ({by})")
     require(row["ok"], f"{name} at {row['stage']} {pol} disagrees with its plain version: {res}")
-    require(res.get("bitwise_ok", True), f"{name} at {row['stage']} {pol} differs from {res.get('bitwise_ref')}")
+    require(all(res.get("bitwise", {}).values()), f"{name} at {row['stage']} {pol} differs from {res.get('bitwise')}")
     return row
 
 
@@ -482,13 +569,16 @@ def variant_phase(spec, peak_name) -> list:
                         library=lambda y=y_h: F.max_pool2d(y.permute(0, 3, 1, 2), (1, 3), (1, 2)),
                         library_call="F.max_pool2d (1x3 / 1x2, channels-last)",
                         flops=n * hp * hp * k * 3, nbytes=(y_h.numel() + n * hp * hp * k) * es, peak="fp32",
-                        rule="bitwise", same_as=unfused, same_as_name=f"{kname}+maxpool2d",
+                        rule="bitwise", same_as=[(f"{kname}+maxpool2d", unfused)],
                     ))
                 else:
                     st.update(library=lib, library_call="F.conv2d (cuDNN, channels-last, bias, no ReLU)")
                     if mode:
-                        st.update(same_as=lambda fn=fn, x=x, w=w, b=b, s=s, p=p: fn(x, w, b, stride=s, padding=p),
-                                  same_as_name="k_block=0")
+                        st.update(same_as=[("k_block=0", lambda fn=fn, x=x, w=w, b=b, s=s, p=p: fn(
+                            x, w, b, stride=s, padding=p))])
+                    elif kname in ("conv_pairs", "conv_im2col"):
+                        refs, alone = mainloop_variant_extras(kname, pol, x, w, b, s, p)
+                        st.update(same_as=refs, alone=alone)
                     stages.append(st)
         for stage, x in (("pool1", t["y1"]), ("pool2", t["y2"])):
             y = ck.maxpool2d(x, window=3, stride=2)
@@ -499,12 +589,36 @@ def variant_phase(spec, peak_name) -> list:
                 library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
                 library_call="F.max_pool2d (channels-last)",
                 flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
-                same_as=lambda x=x: ck.maxpool2d(x, window=3, stride=2), same_as_name="maxpool2d",
+                same_as=[("maxpool2d", lambda x=x: ck.maxpool2d(x, window=3, stride=2))],
             ))
         rows += [measure(st, pol, spec, peak_name) for st in stages]
         del t, stages
         torch.cuda.empty_cache()
     return rows
+
+
+def mainloop_variant_extras(kname, pol, x, w, b, s, p):
+    """The bitwise references of a pairs or im2col row and its launch on
+    operands packed once (the kernel alone). Both run the terms in the taps
+    order on the Hopper mainloop: in fp32 one fmaf chain a term, the bits of
+    ``conv_taps``; in bf16 the mainloop's tensor-core k-steps, so pairs is
+    im2col's bits, and at stride 1 (where the s2d order is vcol's) both are
+    ``conv2d_bias_relu``'s."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    kw = dict(stride=s, padding=p)
+    if pol == "fp32":
+        refs = [("conv_taps", lambda: ck.conv_taps(x, w, b, **kw))]
+    else:
+        refs = [("conv_im2col", lambda: ck.conv_im2col(x, w, b, **kw))] if kname == "conv_pairs" else []
+        if s == 1:
+            refs.append(("conv2d", lambda: ck.conv2d_bias_relu(x, w, b, **kw)))
+    if kname == "conv_pairs":
+        xs, ws, fq, ho, wo = ck._s2d_operands(x, w, s, p)
+        ops = ck._pairs_operands(xs, ws, fq)
+        return refs, lambda: ck.conv_pairs_packed(*ops, b, ho=ho, wo=wo)
+    xcol, wmat, ho, wo = ck._im2col_operands(x, w, s, p)
+    return refs, lambda: ck.conv_im2col_packed(xcol, wmat, b, n=x.shape[0], ho=ho, wo=wo)
 
 
 def edge_phase() -> list:
@@ -543,6 +657,17 @@ def edge_phase() -> list:
                 pairs.append(("conv_g8", ck.conv_g8, ck.conv_g8_plain))
             for name, fn, plain in pairs:
                 results.append((f"{name} {tag}", compare(rule, fn(x, w, b, **kw), plain(x, w, b, **kw))))
+            # the Hopper mainloop's pins (mainloop_variant_extras) at odd shapes (cs = 27: the term-by-term gathers)
+            got_i = ck.conv_im2col(x, w, b, **kw)
+            refs = {"conv_taps": ck.conv_taps(x, w, b, **kw)} if pol == "fp32" else {"conv_im2col": got_i}
+            if s == 1:
+                refs["conv2d"] = ck.conv2d_bias_relu(x, w, b, **kw)
+            for ref, want in refs.items():
+                if -(-f // s) >= 2:
+                    got_p = ck.conv_pairs(x, w, b, **kw)
+                    results.append((f"conv_pairs bitwise {ref} {tag}", compare("bitwise", got_p, want)))
+                if ref != "conv_im2col":
+                    results.append((f"conv_im2col bitwise {ref} {tag}", compare("bitwise", got_i, want)))
             for name, fn in (("conv2d", ck.conv2d_bias_relu), ("conv_taps", ck.conv_taps)):
                 y = fn(x, w, b, **kw)
                 if y.shape[1] >= 3:
@@ -877,12 +1002,13 @@ def main_path_phase() -> dict:
             same = bool(torch.equal(outs[name], outs[f"v3_pallas/{pol}"]))
             log(f"{name} bitwise equal to staged v3_pallas/{pol}: {same}")
             require(same, f"{name} differs from the staged kernel chain")
-        # pairs and fused sum each output in the taps order: the same bits
-        for conv in ("pairs", "fused"):
+        # pairs and fused sum each output in the taps order: in fp32 one fmaf chain, taps' bits; in bf16 the
+        # Hopper mainloop's k-steps, which taps (on the older engine) does not run: fused gives pairs' bits
+        for conv, ref in (("pairs", "taps"), ("fused", "taps")) if pol == "fp32" else (("fused", "pairs"),):
             same = bool(torch.equal(outs[run_name("v3_pallas", pol, {"CONV": conv})],
-                                    outs[run_name("v3_pallas", pol, {"CONV": "taps"})]))
-            log(f"v3_pallas+CONV={conv}/{pol} bitwise equal to v3_pallas+CONV=taps/{pol}: {same}")
-            require(same, f"CONV={conv} differs from CONV=taps")
+                                    outs[run_name("v3_pallas", pol, {"CONV": ref})]))
+            log(f"v3_pallas+CONV={conv}/{pol} bitwise equal to v3_pallas+CONV={ref}/{pol}: {same}")
+            require(same, f"CONV={conv} differs from CONV={ref} in {pol}")
     staged, fused_out = outs["v3_pallas/int8w"], outs["v3_pallas+FUSE=block/int8w"]
     rel = float((fused_out - staged).abs().max() / staged.abs().max())
     log(f"budget fused int8w vs staged int8w: rel_of_max={rel:.3g} (budget {INT8W_REL})")
@@ -994,7 +1120,7 @@ def s2d_phase(spec, peak_name) -> list:
                 library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
                 library_call="F.max_pool2d (channels-last)",
                 flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
-                same_as=lambda x=x: ck.maxpool2d(x, window=3, stride=2), same_as_name="maxpool2d",
+                same_as=[("maxpool2d", lambda x=x: ck.maxpool2d(x, window=3, stride=2))],
             ), pol, spec, peak_name)
             xs = ck.s2d_pool_operand(x, window=3, stride=2).contiguous()
             packed = lambda xs=xs, c=c: ck.maxpool_s2d_packed(xs, c, window=3, stride=2)  # noqa: E731
@@ -1053,9 +1179,9 @@ def lm_kernel_phase(spec, peak_name) -> list:
     """Phase 2, the LM slice's kernels in fp32 and bf16: ``relu`` at conv1's
     output (bitwise against its plain version), and ``flash_fwd`` at
     ``long_context``'s defaults and at TINY_LM's attention, causal and full,
-    and at D = 256 (``FLASH_D256``, causal): out and lse against the plain
-    version, out against the O(L^2) oracle (``ops.attention``), timed beside
-    SDPA and the bound."""
+    and at D = 256 and 512 (``FLASH_D256``, ``FLASH_D512``, causal): out
+    and lse against the plain version, out against the O(L^2) oracle
+    (``ops.attention``), timed beside SDPA and the bound."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     rows = []
@@ -1069,7 +1195,8 @@ def lm_kernel_phase(spec, peak_name) -> list:
         ), pol, spec, peak_name))
         del x
         for stage, shape, causals in (("long_context", LONG_CONTEXT, (True, False)),
-                                      ("tiny_lm", TINY_LM_ATTN, (True, False)), ("d256", FLASH_D256, (True,))):
+                                      ("tiny_lm", TINY_LM_ATTN, (True, False)), ("d256", FLASH_D256, (True,)),
+                                      ("d512", FLASH_D512, (True,))):
             for causal in causals:
                 rows.append(flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name))
         torch.cuda.empty_cache()
@@ -1237,12 +1364,13 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
 def lm_bwd_kernel_phase(spec, peak_name) -> list:
     """Phase 2, the flash backward in fp32 and bf16: ``flash_dq`` and
     ``flash_dkv`` at ``long_context``'s defaults and at TINY_LM's
-    attention, causal and full, and at D = 256 causal (:func:`flash_bwd_rows`)."""
+    attention, causal and full, and at D = 256 and 512 causal (:func:`flash_bwd_rows`)."""
     rows = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device="cuda").manual_seed(2031)
         for stage, shape, causals in (("long_context", LONG_CONTEXT, (True, False)),
-                                      ("tiny_lm", TINY_LM_ATTN, (True, False)), ("d256", FLASH_D256, (True,))):
+                                      ("tiny_lm", TINY_LM_ATTN, (True, False)), ("d256", FLASH_D256, (True,)),
+                                      ("d512", FLASH_D512, (True,))):
             for causal in causals:
                 rows += flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name)
         torch.cuda.empty_cache()
@@ -1316,10 +1444,11 @@ def lm_edge_phase() -> list:
     packed qkv tensor) bitwise against contiguous copies; at D = 8, 24 and
     48, which the wrappers zero-pad to the next kernel width, at D = 256
     and the padded D = 200, and every D from 1 to 256 (fp32, through the
-    kernel: the launch counted), D = 512 refused by all three flash
-    wrappers; relu at an odd size, on a NaN
-    (kept, bits and all) and -0.0 (to +0.0), and on a view 4 bytes off
-    16-byte alignment."""
+    kernel: the launch counted; the bits as before, ``FLASH_SWEEP_SHA256``),
+    D = 257, 320 and 512 (and 1024 in fp32) through the windowed instance
+    of all three flash kernels (:func:`wide_head_dim_cases`); relu at an
+    odd size, on a NaN (kept, bits and all) and -0.0 (to +0.0), and on a
+    view 4 bytes off 16-byte alignment."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1348,17 +1477,9 @@ def lm_edge_phase() -> list:
                 res = flash_case((b, l, h, d), causal, dtype, gen, bq, bk)["res"]
                 results.append((f"flash_fwd {b}x{l}x{h}x{d} blocks ({bq}, {bk}) causal={causal} {pol}",
                                 dict(res, ok=res["ok_all"])))
-        x = torch.zeros((1, 64, 2, 512), device="cuda", dtype=dtype)
-        lse = torch.zeros((1, 2, 64), device="cuda")
-        for name, call in (("flash_fwd", lambda: ck.flash_fwd(x, x, x, causal=True)),
-                           ("flash_dq", lambda: ck.flash_dq(x, x, x, x, lse, lse, causal=True)),
-                           ("flash_dkv", lambda: ck.flash_dkv(x, x, x, x, lse, lse, causal=True))):
-            try:
-                call()
-                raised = False
-            except ValueError as e:
-                raised = "limit of 256" in str(e)
-            results.append((f"{name} refuses head dim 512 on the card {pol}", dict(ok=raised, max_abs_err=0.0)))
+        # above 256 the windowed instance of each kernel: every window sums the scores over all of D
+        for d in FLASH_WIDE_DIMS + ((1024,) if pol == "fp32" else ()):
+            results += wide_head_dim_cases(d, dtype, gen)
         x = torch.randn((7, 13, 5), generator=gen, device="cuda").to(dtype)
         x.view(-1)[:4] = torch.tensor([float("nan"), -0.0, float("-inf"), -float("nan")], dtype=dtype)
         for name, t in (("odd 7x13x5 with NaN, -0.0, -inf", x), ("view off alignment", x.view(-1)[1:])):
@@ -1368,7 +1489,7 @@ def lm_edge_phase() -> list:
         got = ck.relu(x)
         results.append((f"relu -0.0 to +0.0 {pol}", dict(ok=not bool(torch.signbit(got.view(-1)[1])), max_abs_err=0.0)))
     results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 256 (fp32, 1x64x2xD, causal) "
-                    "through the kernels", head_dim_sweep(gen)))
+                    "through the kernels, the bits of FLASH_SWEEP_SHA256", head_dim_sweep()))
     torch.cuda.synchronize()
     for what, res in results:
         log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
@@ -1378,22 +1499,51 @@ def lm_edge_phase() -> list:
     return results
 
 
-def head_dim_sweep(gen) -> dict:
-    """Every head dim from 1 to 256, fp32, (1, 64, 2, D) causal: flash_fwd,
-    flash_dq and flash_dkv each launch their kernel once (the count says
-    so) and agree with their plain versions (out: ``FLASH_PLAIN_V_REL`` of
-    max |v|; dq, dk, dv: ``BWD_PLAIN_REL`` of each one's max)."""
+def wide_head_dim_cases(d, dtype, gen) -> list:
+    """Head dim ``d`` above 256 at (1, 192, 2, d), blocks (48, 64), causal
+    and full: flash_fwd by :func:`flash_case` and flash_dq, flash_dkv by
+    :func:`flash_bwd_case`, each within the tolerances of the module
+    docstring, and each launched through its kernel (the counts say so)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
-    worst, bad = 0.0, []
+    pol = "fp32" if dtype == torch.float32 else "bf16"
+    dp, windows = ck.flash_width(d)
+    results = []
+    for causal in (True, False):
+        ck.reset_launches()
+        fwd = flash_case((1, 192, 2, d), causal, dtype, gen, 48, 64)["res"]
+        bwd = flash_bwd_case((1, 192, 2, d), causal, dtype, gen, 48, 64)["res"]
+        launched = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_dq"], ck.LAUNCHES["flash_dkv"]) == (2, 2, 2)
+        tag = f"1x192x2x{d} (run at {dp}, {windows} windows) causal={causal} {pol}"
+        results.append((f"flash_fwd {tag}", dict(fwd, ok=fwd["ok_all"] and launched)))
+        for name, res in bwd.items():
+            results.append((f"{name} {tag}", dict(res, ok=res["ok_all"] and launched)))
+    ck.reset_launches()
+    return results
+
+
+def head_dim_sweep() -> dict:
+    """Every head dim from 1 to 256, fp32, (1, 64, 2, D) causal, inputs
+    drawn with numpy from the seed D: flash_fwd, flash_dq and flash_dkv
+    each launch their kernel once (the count says so) and agree with their
+    plain versions (out: ``FLASH_PLAIN_V_REL`` of max |v|; dq, dk, dv:
+    ``BWD_PLAIN_REL`` of each one's max); and the bits of every out, lse,
+    dq, dk and dv hash to ``FLASH_SWEEP_SHA256``."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    worst, bad, digest = 0.0, [], hashlib.sha256()
     for d in range(1, 257):
-        q, k, v, g = (torch.randn((1, 64, 2, d), generator=gen, device="cuda") for _ in range(4))
+        rng = np.random.default_rng(d)
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 64, 2, d), dtype=np.float32)).cuda()
+                      for _ in range(4))
         ck.reset_launches()
         out, lse = ck.flash_fwd(q, k, v, causal=True)
         delta = (g * out).sum(-1).permute(0, 2, 1).contiguous()
         dq = ck.flash_dq(q, k, v, g, lse, delta, causal=True)
         dk, dv = ck.flash_dkv(q, k, v, g, lse, delta, causal=True)
         launched = ck.LAUNCHES["flash_fwd"] == ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+        for t in (out, lse, dq, dk, dv):
+            digest.update(t.contiguous().cpu().numpy().tobytes())
         p_out, _ = ck.flash_fwd_plain(q, k, v, causal=True)
         parts = [float((out - p_out).abs().max()) / float(v.abs().max()) / FLASH_PLAIN_V_REL]
         want = (ck.flash_dq_plain(q, k, v, g, lse, delta, causal=True),
@@ -1404,7 +1554,9 @@ def head_dim_sweep(gen) -> dict:
         if not (launched and shapes and max(parts) <= 1.0):
             bad.append(d)
     ck.reset_launches()
-    return dict(ok=not bad, failing_head_dims=bad, max_abs_err=0.0, worst_share_of_tolerance=worst)
+    sha = digest.hexdigest()
+    return dict(ok=not bad and sha == FLASH_SWEEP_SHA256, failing_head_dims=bad, max_abs_err=0.0,
+                worst_share_of_tolerance=worst, sha256=sha, sha256_held=FLASH_SWEEP_SHA256)
 
 
 def run_long_context(argv) -> dict:
@@ -1872,7 +2024,9 @@ def kernels_line(rows, runs) -> dict:
             name=name, dtype=pol, route="cuda", source=source, replaces=replaces, run=run_key,
             launches=run["launches"][name], launches_per_forward=run["launches"][name] / run["passes"],
             max_abs_err=max(r["max_abs_err"] for r in every), within_tolerance=all(r["ok"] for r in every),
-            ms=ms, kernel_ms=ms, plain_ms=sum(r["plain_ms"] for r in mine),
+            # the wrapper's time (packing included); kernel_ms: the kernel alone where a row timed it
+            ms=ms, kernel_ms=sum(r.get("kernel_ms", r["ms"]) for r in mine),
+            plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=sum(r["bound_ms"] for r in mine),
             # the stages' bounds add up; the label is the larger stage's
             bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
@@ -1880,7 +2034,8 @@ def kernels_line(rows, runs) -> dict:
             library_ms=None if block else sum(r["library_ms"] for r in mine),
             **(dict(staged_chain_ms=sum(r["staged_ms"] for r in mine),
                     cudnn_chain_ms_note=sum(r["cudnn_chain_ms"] for r in mine)) if block else {}),
-            stages={r["stage"]: {k: r[k] for k in keys + (("staged_ms", "cudnn_chain_ms") if block else ())}
+            stages={r["stage"]: {k: r[k] for k in keys + (("staged_ms", "cudnn_chain_ms") if block else ())
+                                 + (("kernel_ms",) if "kernel_ms" in r else ())}
                     for r in mine},
         )
         if modes:
@@ -1907,11 +2062,21 @@ def main() -> int:
 
     info = _build.build()
     log(f"phase 1: kernel library {info.path} {'built' if info.built else 'cached'} in {info.seconds:.1f} s")
+    if sys.argv[1:] == ["--record"]:
+        # the records MAINLOOP_PTXAS and FLASH_SWEEP_SHA256 hold a later tree to, from this checkout
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sweep = head_dim_sweep()
+        ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in ("conv2d_cu", "conv_block_cu")}
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, ptxas=ptxas, flash_sweep_sha256=sweep["sha256"],
+                              flash_sweep_within_tolerance=not sweep["failing_head_dims"])), flush=True)
+        return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    ptxas = ptxas_phase(info)
     sass = sass_phase(info)
-    log("phase 1b: the bf16 and int8w conv entry points contain HMMA, the fp32 ones FFMA and no HMMA")
+    log("phase 1b: the bf16 and int8w conv entry points contain HMMA, the fp32 ones FFMA and no HMMA; "
+        "conv2d.cu and conv_block.cu keep their registers and spills")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1941,7 +2106,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
-        dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, sass=sass,
+        dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
+             sass=sass,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
              pool_ab=ab, tune=tune,
              kernels=line["kernels"]), indent=1,

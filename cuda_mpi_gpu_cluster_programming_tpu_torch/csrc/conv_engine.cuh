@@ -1,5 +1,5 @@
-// The implicit-GEMM engine shared by the port's conv kernels: conv2d.cu
-// (vcol), conv_taps.cu, conv_pairs.cu, conv_im2col.cu and conv_g8.cu.
+// The implicit-GEMM engine of conv_taps.cu and conv_g8.cu (conv2d.cu,
+// conv_block.cu, conv_im2col.cu and conv_pairs.cu run conv_sm90.cuh).
 //
 // Every conv variant is one GEMM: rows are output pixels (n, oy, ox),
 // columns are output channels, and the reduction runs over KG terms in the

@@ -2,54 +2,34 @@
 //
 // Replaces the TPU kernel _conv_fused_kernel (cuda_mpi_gpu_cluster_programming_tpu/
 // ops/pallas_kernels.py) with _conv_epilogue. As in the JAX package, the
-// im2col is tensor code outside the kernel (the wrapper, ops/packing.py):
+// im2col is tensor code outside the kernel (the wrapper, ops/cuda_kernels.py
+// _im2col_operands over ops/packing.py):
 //   xcol (M, KD)   M = N*Ho*Wo output pixels, KD = fq*fq*cs: the s2d
 //                  windows of taps (qh, qw) concatenated in that order
 //                  (conv1 432, conv2 2400);
 //   w    (KD, K)   weights_to_depth(w) viewed as a matrix.
-// The kernel is one tiled GEMM (M, KD) x (KD, K) with fp32 accumulation, one
-// fmaf per term in kd order (the taps order, so the same bits as "taps"),
-// and the shared bias/ReLU/cast epilogue. Each pixel's KD terms are one
-// contiguous row of xcol: a thread's staged slice is 16 consecutive values.
+// The GEMM (M, KD) x (KD, K) is a 1 x 1 conv over an "image" of N x Ho x Wo
+// pixels with KD channels, which is what it hands the Hopper mainloop of
+// conv_sm90.cuh (make_conv with W = Wo, F = 1, stride 1, no padding): each
+// pixel's KD terms are one contiguous row of xcol, gathered in 16-byte
+// cp.async runs (KD is a multiple of the vector at both stages). The terms
+// run in kd order, the taps order: fp32 one fmaf chain a term (the bits of
+// conv_taps.cu), bf16 the mainloop's mma.sync k-steps (the bits of
+// conv_pairs.cu, and of conv2d.cu at stride 1).
 //
-// Bound on the H100: operations (FFMA). xcol adds traffic on top: at batch
-// 128 about 0.67 GB (conv1) and 0.90 GB (conv2) in fp32, written by the
-// packing and read once here, still far below the FFMA time. Design: the shared
-// implicit-GEMM engine (conv_engine.cuh) with a plain row-major A operand.
-#include "conv_engine.cuh"
+// Bound on the H100: operations, as conv2d.cu (FFMA in fp32, the tensor
+// cores in bf16). xcol adds bytes on top: at batch 128 about 0.67 GB (conv1)
+// and 0.90 GB (conv2) in fp32, written by the packing and read once here.
+#include "conv_sm90.cuh"
 
 namespace {
 
 template <typename T>
-struct Im2colOp {
-  using Elem = T;
-  const T* a;
-  const T* w;
-  int K, KG;
-  int Ho, Wo;
-
-  struct Loader {
-    const T* p;
-    bool ok;
-
-    __device__ __forceinline__ float next(bool valid) {
-      const float v = (ok && valid) ? port::to_f32(*p) : 0.f;
-      ++p;
-      return v;
-    }
-  };
-
-  __device__ __forceinline__ Loader loader(bool ok, int n, int oy, int ox) const {
-    return Loader{a + ((static_cast<size_t>(n) * Ho + oy) * Wo + ox) * KG, ok};
-  }
-  __device__ __forceinline__ const T* row(int kg) const { return w + static_cast<size_t>(kg) * K; }
-};
-
-template <typename T>
 int launch(const void* a, const void* w, const void* b, void* y, int N, int Ho, int Wo, int KD, int K,
            int relu, void* stream) {
-  const Im2colOp<T> op{static_cast<const T*>(a), static_cast<const T*>(w), K, KD, Ho, Wo};
-  return engine::launch_tiles(op, b, y, N, Ho, Wo, relu, 0, stream);
+  const auto g = sm90::make_conv<T>(a, w, Ho, Wo, KD, K, /*F=*/1, /*stride=*/1, /*pad=*/0);
+  return sm90::launch_tiles_cfg<sm90::Cfg<T, 128, 128>>(g, b, y, N, Ho, Wo, relu,
+                                                        static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

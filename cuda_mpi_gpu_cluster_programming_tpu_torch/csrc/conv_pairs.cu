@@ -3,7 +3,8 @@
 // Replaces the TPU kernels _conv_pairs_kernel (odd fq) and
 // _conv_pairs_even_kernel (even fq), both over _pairs_acc
 // (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py), with
-// _conv_epilogue. Operands, packed by the wrapper (ops/packing.py):
+// _conv_epilogue. Operands, packed by the wrapper (ops/cuda_kernels.py
+// _pairs_operands, over ops/packing.py):
 //   xpair (N, Hs, Ws-1, 2cs)  column j's and j+1's s2d channels side by side;
 //   wpair (fq, m, 2cs, K)     taps (qh, 2p) and (qh, 2p+1) stacked, m = fq/2;
 //   xs    (N, Hs, Ws, cs)     the plain s2d input  } odd fq only: the leftover
@@ -11,82 +12,29 @@
 // On the TPU a pair is one matmul with a 2cs-deep contraction. Here the
 // reduction of each output runs in the TPU kernel's fixed order: qh outer,
 // then the pairs left to right (2cs terms each, from xpair column ox + 2p),
-// then the leftover (cs terms from xs column ox + fq - 1), one fmaf per
-// term. That is the taps order term for term, so on this card "pairs" and
-// "taps" give the same bits; the variant stays because the tuner sweeps it
-// and its operands cost 2x the input bytes.
+// then the leftover (cs terms from xs column ox + fq - 1). That is the taps
+// order, and im2col's xcol order, term for term, with the same weight rows:
+// so pairs gives the bits of conv_im2col.cu in both dtypes (the same A row,
+// B column and k-steps), of conv2d.cu at stride 1 (where the s2d order is
+// vcol's) and, in fp32, of conv_taps.cu (one fmaf chain in kg order).
 //
-// Bound on the H100: operations (FFMA), as conv2d.cu. Design: the shared
-// implicit-GEMM engine (conv_engine.cuh) with this operand policy; each
-// weight row is found from kg by one division per staged slice.
-#include "conv_engine.cuh"
+// Bound on the H100: operations, as conv2d.cu (FFMA in fp32, the tensor
+// cores in bf16); the pair operands cost 2x the input bytes. Design: the
+// Hopper mainloop of conv_sm90.cuh with its Pairs operand (two pixel
+// origins, into xpair and xs; a (qh, segment, channel) map a 16-byte run;
+// wpair's and wlast's rows by kg), one 128 x 128 tile of 256 threads.
+#include "conv_sm90.cuh"
 
 namespace {
 
 template <typename T>
-struct PairsOp {
-  using Elem = T;
-  const T* xp;  // xpair
-  const T* xs;  // null for even fq
-  const T* wp;  // wpair
-  const T* wl;  // wlast, null for even fq
-  int K, KG;
-  int Hs, Ws, cs, fq, m;
-
-  struct Loader {
-    const T* xp0;  // xpair at (n, oy, ox)
-    const T* xs0;  // xs at (n, oy, ox + fq - 1), or null
-    size_t xp_row, xs_row;  // one s2d row of each
-    int cs, m, nseg;
-    bool ok;
-    int qh, seg, c;  // the next term: qh row, segment (pair, or m = leftover), channel
-
-    __device__ __forceinline__ float next(bool valid) {
-      float v = 0.f;
-      const bool pair = seg < m;
-      if (ok && valid) {
-        v = port::to_f32(pair ? xp0[qh * xp_row + static_cast<size_t>(seg) * 4 * cs + c]
-                              : xs0[qh * xs_row + c]);
-      }
-      if (++c == (pair ? 2 * cs : cs)) {
-        c = 0;
-        if (++seg == nseg) {
-          seg = 0;
-          ++qh;
-        }
-      }
-      return v;
-    }
-  };
-
-  __device__ __forceinline__ Loader loader(bool ok, int n, int oy, int ox) const {
-    const size_t pix = static_cast<size_t>(n) * Hs + oy;
-    return Loader{xp + (pix * (Ws - 1) + ox) * 2 * cs,
-                  xs != nullptr ? xs + (pix * Ws + ox + fq - 1) * cs : nullptr,
-                  static_cast<size_t>(Ws - 1) * 2 * cs, static_cast<size_t>(Ws) * cs,
-                  cs, m, m + (xs != nullptr ? 1 : 0), ok, 0, 0, 0};
-  }
-
-  __device__ __forceinline__ const T* row(int kg) const {
-    const int pairs = m * 2 * cs;
-    const int per_qh = pairs + (wl != nullptr ? cs : 0);
-    const int qh = kg / per_qh;
-    const int j = kg - qh * per_qh;
-    if (j < pairs) return wp + (static_cast<size_t>(qh) * pairs + j) * K;
-    return wl + (static_cast<size_t>(qh) * cs + (j - pairs)) * K;
-  }
-};
-
-template <typename T>
 int launch(const void* xp, const void* xs, const void* wp, const void* wl, const void* b, void* y,
            int N, int Hs, int Ws, int cs, int K, int fq, int Ho, int Wo, int relu, void* stream) {
-  const int m = fq / 2;
   const bool odd = fq % 2 != 0;
-  if (odd != (xs != nullptr) || odd != (wl != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  const PairsOp<T> op{static_cast<const T*>(xp), static_cast<const T*>(xs), static_cast<const T*>(wp),
-                      static_cast<const T*>(wl), K, fq * (m * 2 * cs + (odd ? cs : 0)),
-                      Hs, Ws, cs, fq, m};
-  return engine::launch_tiles(op, b, y, N, Ho, Wo, relu, 0, stream);
+  if (fq < 2 || odd != (xs != nullptr) || odd != (wl != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto g = sm90::make_pairs<T>(xp, xs, wp, wl, Hs, Ws, cs, fq, K);
+  return sm90::launch_tiles_cfg<sm90::Cfg<T, 128, 128>>(g, b, y, N, Ho, Wo, relu,
+                                                        static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -1,9 +1,14 @@
-// The Hopper conv mainloop of conv2d.cu (vcol: plain, k_block, hpool) and of
-// conv_block.cu's conv step.
+// The Hopper conv mainloop of conv2d.cu (vcol: plain, k_block, hpool), of
+// conv_block.cu's conv step, of conv_im2col.cu (a 1 x 1 conv over xcol) and
+// of conv_pairs.cu (its own operand, Pairs below).
 //
 // A conv is one implicit GEMM: rows are output pixels, columns output
 // channels, and the reduction runs over kg = (fy*F + fx)*C + c from 0, the
-// row-major order of the HWIO weights viewed as a (KG, K) matrix. A block of
+// row-major order of the HWIO weights viewed as a (KG, K) matrix. The
+// operand (Conv, or Pairs) says where term kg of a pixel and weight row kg
+// live: its pixel origin (pixel()), its A gather (Loop::load_a) and its B
+// rows (Loop::load_b) are overloads, so each operand compiles its own
+// kernels and a Conv caller's code is what it was before Pairs existed. A block of
 // 256 threads computes a BM x BN tile in BK = 32-term slices that a
 // STAGES-deep ring of shared-memory buffers brings in ahead of the math:
 //   * fp32 (T = float): FFMA, each output one fmaf chain in kg order from 0
@@ -111,17 +116,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], uint3
 
 // ------------------------------------------------------------------ operands
 
-// The conv's operands: x (N, H, W, C) and w (F, F, C, K) = (KG, K) row-major.
-// vec_a / vec_b: the 16-byte copies apply (C resp. K a multiple of the vector,
-// 16 for int8 weights, and the base 16-byte aligned).
-template <typename T, typename WT>
-struct Conv {
-  const T* x;
-  const WT* w;
-  int H, W, C, K, F, stride, pad, KG;
-  int vec_a, vec_b;
-};
-
 // Which output pixel row q of a tile is: q < q_end; image n0 + q / per_img,
 // conv row r0 + (q % per_img) / Wo, column (q % per_img) % Wo.
 struct PixMap {
@@ -142,6 +136,59 @@ static_assert(sizeof(Pix) == 8, "a tile keeps BM * 8 bytes of pixel origins");
 
 constexpr int MAX_DIM = 1 << 14;
 
+// The conv's operands: x (N, H, W, C) and w (F, F, C, K) = (KG, K) row-major.
+// vec_a / vec_b: the 16-byte copies apply (C resp. K a multiple of the vector,
+// 16 for int8 weights, and the base 16-byte aligned).
+template <typename T, typename WT>
+struct Conv {
+  using Elem = T;
+  using WElem = WT;
+  using Pixel = Pix;
+  const T* x;
+  const WT* w;
+  int H, W, C, K, F, stride, pad, KG;
+  int vec_a, vec_b;
+};
+
+// The pairs operand of conv_pairs.cu, packed by the wrapper from the
+// space-to-depth input xs (N, Hs, Ws, cs) and weights ws (fq, fq, cs, K):
+//   xp = xpair (N, Hs, Ws - 1, 2cs)  xs columns j and j + 1 side by side;
+//   wp = wpair (fq, m, 2cs, K)       taps (qh, 2p) and (qh, 2p + 1) stacked;
+//   xs, wl = wlast (fq, cs, K)       the leftover tap qw = fq - 1 (odd fq;
+//                                    both null for even fq), m = fq / 2.
+// Term kg of output pixel (n, oy, ox): row qh = kg / per_qh, then the m
+// pairs left to right (2cs terms each: xpair pixel (oy + qh, ox + 2p)),
+// then the leftover (cs terms: xs pixel (oy + qh, ox + fq - 1)). That is
+// taps' (and xcol's) term (qh*fq + qw)*cs + c term for term: pair p's first
+// cs terms are tap 2p's channels, its next cs tap 2p + 1's. Every window is
+// in bounds (the packing pads), so no term is tested against an image edge.
+struct PairPix {
+  int p, s;  // offsets of (n, oy, ox) in xpair and of (n, oy, ox + fq - 1) in xs; p = -1: past q_end
+};
+static_assert(sizeof(PairPix) == 8, "a tile keeps BM * 8 bytes of pixel origins");
+
+template <typename T>
+struct Pairs {
+  using Elem = T;
+  using WElem = T;
+  using Pixel = PairPix;
+  const T* xp;
+  const T* xs;
+  const T* wp;
+  const T* wl;
+  int Hs, Ws, cs, fq, K, KG;
+  int m, nseg, pair_terms, per_qh;  // pairs a row, segments a row (m + the leftover), m * 2cs, terms a row
+  int vec_a, vec_b;
+
+  // Weight row kg: wpair's row (qh, j) for the pairs' terms, wlast's (qh, j - pair_terms) after them.
+  __device__ __forceinline__ const T* row(int kg) const {
+    const int qh = kg / per_qh;
+    const int j = kg - qh * per_qh;
+    if (j < pair_terms) return wp + (static_cast<size_t>(qh) * pair_terms + j) * K;
+    return wl + (static_cast<size_t>(qh) * cs + (j - pair_terms)) * K;
+  }
+};
+
 template <typename T, typename WT>
 __device__ __forceinline__ Pix pixel(const Conv<T, WT>& g, const PixMap& pm, int q) {
   if (q >= pm.q_end) return Pix{0, static_cast<int>(0xC0000000u)};  // iy0 = -2^14
@@ -151,6 +198,16 @@ __device__ __forceinline__ Pix pixel(const Conv<T, WT>& g, const PixMap& pm, int
   const int ix0 = (r % pm.Wo) * g.stride - g.pad;
   return Pix{n * g.H * g.W * g.C + (iy0 * g.W + ix0) * g.C,
              static_cast<int>((static_cast<unsigned>(iy0) << 16) | (static_cast<unsigned>(ix0) & 0xffffu))};
+}
+
+template <typename T>
+__device__ __forceinline__ PairPix pixel(const Pairs<T>& g, const PixMap& pm, int q) {
+  if (q >= pm.q_end) return PairPix{-1, 0};
+  const int n = pm.n0 + q / pm.per_img;
+  const int r = q % pm.per_img;
+  const int row = n * g.Hs + pm.r0 + r / pm.Wo;  // s2d row (n, oy)
+  const int ox = r % pm.Wo;
+  return PairPix{(row * (g.Ws - 1) + ox) * 2 * g.cs, (row * g.Ws + ox + g.fq - 1) * g.cs};
 }
 
 template <typename T, typename WT>
@@ -313,6 +370,91 @@ struct Loop {
     }
   }
 
+  // The pairs operand's A slice: a 16-byte run never crosses a segment (2cs
+  // and cs are multiples of the vector where vec_a holds), so each run finds
+  // its (qh, segment, channel) once a stage; else term by term with a
+  // (qh, segment, channel) cursor.
+  template <int AM>
+  __device__ __forceinline__ static void load_a(const Pairs<T>& g, const PairPix* pix, uint32_t As, int k0) {
+    const int tid = threadIdx.x;
+    if (AM == A_VEC || (AM == A_ANY && g.vec_a)) {
+      const int kc = tid % C::CPR;
+      const int kg = k0 + kc * C::VEC;
+      const int qh = kg / g.per_qh;
+      const int j = kg - qh * g.per_qh;
+      const bool kin = kg < g.KG;
+      const bool left = j >= g.pair_terms;  // the leftover tap's run
+      // the run's offset from the pixel's origin in xs (leftover) or xpair (pair j / 2cs: column + 2p, so
+      // 4cs a pair, and the run's channel j % 2cs)
+      const int tap = left ? qh * g.Ws * g.cs + (j - g.pair_terms)
+                           : qh * (g.Ws - 1) * 2 * g.cs + j + (j / (2 * g.cs)) * 2 * g.cs;
+#pragma unroll
+      for (int e = 0; e < C::AV; ++e) {
+        const int m = tid / C::CPR + (THREADS / C::CPR) * e;
+        const PairPix pa = pix[m];
+        const bool ok = kin && pa.p >= 0;
+        const T* src = !ok ? g.xp : left ? g.xs + (pa.s + tap) : g.xp + (pa.p + tap);
+        cp_async16(As + E * (m * C::SA + kc * C::VEC), src, ok);
+      }
+      return;
+    }
+    const int m = tid % C::BM;
+    const int kr = (tid / C::BM) * C::AR;
+    int kg = k0 + kr;
+    int qh = kg / g.per_qh;
+    int j = kg - qh * g.per_qh;
+    int seg = j < g.pair_terms ? j / (2 * g.cs) : g.m;
+    int c = j - seg * 2 * g.cs;
+    const PairPix pa = pix[m];
+    const uint32_t row = As + E * (m * C::SA + kr);
+#pragma unroll 4
+    for (int t = 0; t < C::AR; ++t, ++kg) {
+      const bool pair = seg < g.m;
+      const bool ok = kg < g.KG && pa.p >= 0;
+      const T* src = !ok    ? g.xp
+                     : pair ? g.xp + (pa.p + qh * (g.Ws - 1) * 2 * g.cs + seg * 4 * g.cs + c)
+                            : g.xs + (pa.s + qh * g.Ws * g.cs + c);
+      if constexpr (C::MMA) {
+        st_shared(row + E * t, ok ? *src : port::from_f32<S>(0.f));
+      } else {
+        cp_async4(row + E * t, src, ok);
+      }
+      if (++c == (pair ? 2 * g.cs : g.cs)) {
+        c = 0;
+        if (++seg == g.nseg) {
+          seg = 0;
+          ++qh;
+        }
+      }
+    }
+  }
+
+  // The pairs operand's B slice: the rows of wpair and wlast in kg order (zeros past KG and K).
+  __device__ __forceinline__ static void load_b(const Pairs<T>& g, uint32_t Bs, int k0, int n0) {
+    const int tid = threadIdx.x;
+    if (g.vec_b) {
+      constexpr int RUNS = C::BN / C::VEC;
+#pragma unroll
+      for (int e = 0; e < C::BV; ++e) {
+        const int i = tid + THREADS * e;
+        const int row = i / RUNS, col = (i % RUNS) * C::VEC;
+        const int kg = k0 + row, n = n0 + col;
+        const bool ok = kg < g.KG && n < g.K;
+        cp_async16(Bs + E * (row * C::SB + col), ok ? g.row(kg) + n : g.wp, ok);
+      }
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < C::BS; ++e) {
+      const int i = tid + THREADS * e;
+      const int row = i / C::BN, col = i % C::BN;
+      const int kg = k0 + row, n = n0 + col;
+      S v = port::from_f32<S>(0.f);
+      if (kg < g.KG && n < g.K) v = g.row(kg)[n];
+      st_shared(Bs + E * (row * C::SB + col), v);
+    }
+  }
+
   // int8 weights, 16-byte rows: this thread's run of the stage at k0 (zeros past KG and K) ...
   __device__ __forceinline__ static int4 fetch_b8(const Conv<T, WT>& g, int k0, int n0) {
     const int i = threadIdx.x;
@@ -395,18 +537,19 @@ struct Loop {
 // acc = the tile of pixel rows [q0, q0 + BM) of `pm` times weight columns
 // [n0, n0 + BN), over all KG terms in order. `stages` is the block's
 // C::SMEM_BYTES of shared memory; it is free again when this returns.
-template <class C, int AM = A_ANY, typename T, typename WT>
-__device__ __forceinline__ void mainloop(const Conv<T, WT>& g, const PixMap& pm, int q0, int n0,
-                                         unsigned char* stages, float (&acc)[C::ACC]) {
-  using L = Loop<C, T, WT>;
+template <class C, int AM = A_ANY, class G>
+__device__ __forceinline__ void mainloop(const G& g, const PixMap& pm, int q0, int n0, unsigned char* stages,
+                                         float (&acc)[C::ACC]) {
+  using L = Loop<C, typename G::Elem, typename G::WElem>;
   using S = typename C::S;
+  using P = typename G::Pixel;
   constexpr int STAGE = C::A_ELEMS + C::B_ELEMS;  // elements
   const uint32_t ring = smem_addr(stages);
 #pragma unroll
   for (int e = 0; e < C::ACC; ++e) acc[e] = 0.f;
   // the tile's pixel origins, once, into shared memory after the stages: read
   // there at every stage rather than held in registers
-  Pix* pa = reinterpret_cast<Pix*>(stages + C::STAGES * C::STAGE_BYTES);
+  P* pa = reinterpret_cast<P*>(stages + C::STAGES * C::STAGE_BYTES);
   for (int m = threadIdx.x; m < C::BM; m += THREADS) pa[m] = pixel(g, pm, q0 + m);
   __syncthreads();
   const bool b8 = L::B8 && g.vec_b;  // int8 weights through registers, a stage ahead
@@ -417,7 +560,7 @@ __device__ __forceinline__ void mainloop(const Conv<T, WT>& g, const PixMap& pm,
       const uint32_t buf = ring + s * C::STAGE_BYTES;
       L::template load_a<AM>(g, pa, buf, s * BK);
       if (b8) {
-        L::put_b8(L::fetch_b8(g, s * BK, n0), buf + L::E * C::A_ELEMS);
+        if constexpr (L::B8) L::put_b8(L::fetch_b8(g, s * BK, n0), buf + L::E * C::A_ELEMS);
       } else {
         L::load_b(g, buf + L::E * C::A_ELEMS, s * BK, n0);
       }
@@ -425,7 +568,9 @@ __device__ __forceinline__ void mainloop(const Conv<T, WT>& g, const PixMap& pm,
     cp_async_commit();
   }
   int4 next_b8 = make_int4(0, 0, 0, 0);
-  if (b8 && C::STAGES - 1 < KT) next_b8 = L::fetch_b8(g, (C::STAGES - 1) * BK, n0);
+  if constexpr (L::B8) {  // int8 weights come only with a Conv
+    if (b8 && C::STAGES - 1 < KT) next_b8 = L::fetch_b8(g, (C::STAGES - 1) * BK, n0);
+  }
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<C::STAGES - 2>();
     __syncthreads();  // stage kt has landed; every thread is done with stage kt - 1's buffer
@@ -440,7 +585,9 @@ __device__ __forceinline__ void mainloop(const Conv<T, WT>& g, const PixMap& pm,
       }
     }
     cp_async_commit();
-    if (b8 && nk + 1 < KT) next_b8 = L::fetch_b8(g, (nk + 1) * BK, n0);
+    if constexpr (L::B8) {
+      if (b8 && nk + 1 < KT) next_b8 = L::fetch_b8(g, (nk + 1) * BK, n0);
+    }
     const int cur = kt % C::STAGES;
     L::compute(ring + cur * C::STAGE_BYTES, reinterpret_cast<const S*>(stages) + cur * STAGE, acc);
   }
@@ -458,10 +605,12 @@ __device__ __forceinline__ T epilogue(float acc, const B* bias, int n, int relu)
 
 // ------------------------------------------------------------------ conv2d kernels
 
-// (N, Ho, Wo, K) output; grid (pixel tiles, channel tiles).
-template <class C, int AM, typename T>
+// (N, Ho, Wo, K) output; grid (pixel tiles, channel tiles). G: Conv<T, T> or Pairs<T>.
+template <class C, int AM, class G>
 __global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS)
-conv_tiles(Conv<T, T> g, const T* __restrict__ bias, T* __restrict__ y, int M, int Ho, int Wo, int relu) {
+conv_tiles(G g, const typename G::Elem* __restrict__ bias, typename G::Elem* __restrict__ y, int M, int Ho, int Wo,
+           int relu) {
+  using T = typename G::Elem;
   extern __shared__ __align__(128) unsigned char smem[];
   const int q0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
   float acc[C::ACC];
@@ -556,11 +705,30 @@ bool fits(const Conv<T, WT>& g) {
   return g.H < MAX_DIM && g.W < MAX_DIM && g.pad < MAX_DIM;
 }
 
-template <class C, typename T>
-int launch_tiles_cfg(const Conv<T, T>& g, const void* b, void* y, int N, int Ho, int Wo, int relu,
-                     cudaStream_t stream) {
+// Pairs' origins are plain offsets (the wrapper keeps its operands below 2^31 elements).
+template <typename T>
+bool fits(const Pairs<T>&) {
+  return true;
+}
+
+template <typename T>
+Pairs<T> make_pairs(const void* xp, const void* xs, const void* wp, const void* wl, int Hs, int Ws, int cs, int fq,
+                    int K) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  const int m = fq / 2, odd = xs != nullptr;
+  const int per_qh = m * 2 * cs + (odd ? cs : 0);
+  return Pairs<T>{static_cast<const T*>(xp), static_cast<const T*>(xs), static_cast<const T*>(wp),
+                  static_cast<const T*>(wl), Hs, Ws, cs, fq, K, fq * per_qh, m, m + odd, m * 2 * cs, per_qh,
+                  cs % VEC == 0 && aligned16(xp) && (!odd || aligned16(xs)),
+                  K % VEC == 0 && aligned16(wp) && (!odd || aligned16(wl))};
+}
+
+// conv_tiles of tile config C over the operand g on the stream. Returns the launch's CUDA error.
+template <class C, class G>
+int launch_tiles_cfg(const G& g, const void* b, void* y, int N, int Ho, int Wo, int relu, cudaStream_t stream) {
+  using T = typename G::Elem;
   if (!fits(g)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = g.vec_a ? conv_tiles<C, A_VEC, T> : conv_tiles<C, A_SCALAR, T>;
+  auto kernel = g.vec_a ? conv_tiles<C, A_VEC, G> : conv_tiles<C, A_SCALAR, G>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);

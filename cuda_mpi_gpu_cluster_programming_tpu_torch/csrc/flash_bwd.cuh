@@ -23,6 +23,14 @@
 // each product into an accumulator runs chunk by chunk, reloading the
 // operand's chunks from global memory (L2). At D <= 128 there is one chunk
 // and the kernels run as before.
+//
+// Head dims above 256 (D = WIDE: the instance takes D at run time, a
+// multiple of DC): a block owns one window of at most WN = 256 output
+// columns (grid x: tile * windows + window), so its accumulators are those
+// of D = 256. It still sums the scores s and dp over all of D, chunk after
+// chunk with d ascending, so every window recomputes the same p and dS bit
+// for bit; then it accumulates and stores only its window's columns. At
+// D <= 256 there is one window and the instances are those of before.
 #pragma once
 
 #include "common.cuh"
@@ -36,14 +44,40 @@ constexpr int THREADS = (BT / RG) * CG;  // 128
 constexpr int CJ = BT / CG;  // tile columns per thread
 constexpr int PS = BT + 1;   // row stride of the p / dS tile
 
-// Operand tiles hold DC columns at a time (NCH chunks of D); accumulators all D.
+constexpr int WIDE = 0;  // the D template argument of the instance for D > 256
+constexpr int WN = 256;  // output columns a block of that instance owns
+
+// Operand tiles hold DC columns at a time (NCH chunks of D; 0: D / DC at run
+// time); accumulators AW columns: all D, or a window of the WIDE instance.
 template <int D>
 struct Dims {
-  static constexpr int DC = D <= 128 ? D : 64;
+  static constexpr int DC = D != WIDE && D <= 128 ? D : 64;
   static constexpr int NCH = D / DC;
-  static constexpr int S = DC + 1;  // operand tiles
-  static constexpr int AS = D + 2;  // accumulators: the 4 rows a warp touches (4 apart) land 8 banks apart
-  static_assert(D % DC == 0, "D is a multiple of the chunk");
+  static constexpr int AW = D == WIDE ? WN : D;
+  static constexpr int S = DC + 1;   // operand tiles
+  static constexpr int AS = AW + 2;  // accumulators: the 4 rows a warp touches (4 apart) land 8 banks apart
+  static_assert(D % DC == 0 && WN % DC == 0, "D and the window are multiples of the chunk");
+};
+
+// A block's tile, window and chunks: grid x is tile * windows + window; the
+// window's columns are chunks [c_lo, c_hi) of the nch chunks of D.
+template <int D>
+struct Window {
+  int tile, nch, c_lo, c_hi;
+  __device__ __forceinline__ Window(int d_run, int windows) {
+    using Di = Dims<D>;
+    if constexpr (D == WIDE) {
+      tile = blockIdx.x / windows;
+      nch = d_run / Di::DC;
+      c_lo = (blockIdx.x % windows) * (WN / Di::DC);
+      c_hi = min(nch, c_lo + WN / Di::DC);
+    } else {
+      tile = blockIdx.x;
+      nch = Di::NCH;
+      c_lo = 0;
+      c_hi = Di::NCH;
+    }
+  }
 };
 
 struct Strides {
@@ -65,8 +99,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ro
 
 template <int D>
 __device__ __forceinline__ void zero_acc(float* acc) {
-  constexpr int AS = Dims<D>::AS;
-  for (int i = threadIdx.x; i < BT * D; i += THREADS) acc[(i / D) * AS + i % D] = 0.f;
+  constexpr int AW = Dims<D>::AW, AS = Dims<D>::AS;
+  for (int i = threadIdx.x; i < BT * AW; i += THREADS) acc[(i / AW) * AS + i % AW] = 0.f;
 }
 
 __device__ __forceinline__ void zero_scores(float (&s)[RG][CJ], float (&dp)[RG][CJ]) {
@@ -141,18 +175,18 @@ __device__ __forceinline__ void accumulate(float* acc, const float* P, const flo
   }
 }
 
-// Rows [r0, r0 + 64) of the accumulator, times mul, into one (b, h) slice of a contiguous
-// (B, L, H, D) output; rows past L are not written.
+// Rows [r0, r0 + 64) of the accumulator, times mul, into columns [w0, w0 + AW) of one (b, h)
+// slice of a contiguous (B, L, H, dd) output; rows past L and columns past dd are not written.
 template <typename T, int D>
-__device__ __forceinline__ void store_tile(T* out, const float* acc, int b, int h, int r0, int L, int H,
-                                           float mul) {
-  constexpr int AS = Dims<D>::AS;
-  const long long row_stride = static_cast<long long>(H) * D;
-  T* base = out + static_cast<long long>(b) * L * row_stride + static_cast<long long>(h) * D;
-  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
-    const int r = i / D, d = i % D;
+__device__ __forceinline__ void store_tile(T* out, const float* acc, int b, int h, int r0, int L, int H, int dd,
+                                           int w0, float mul) {
+  constexpr int AW = Dims<D>::AW, AS = Dims<D>::AS;
+  const long long row_stride = static_cast<long long>(H) * dd;
+  T* base = out + static_cast<long long>(b) * L * row_stride + static_cast<long long>(h) * dd + w0;
+  for (int i = threadIdx.x; i < BT * AW; i += THREADS) {
+    const int r = i / AW, d = i % AW;
     const int row = r0 + r;
-    if (row < L) base[row * row_stride + d] = port::from_f32<T>(acc[r * AS + d] * mul);
+    if (row < L && w0 + d < dd) base[row * row_stride + d] = port::from_f32<T>(acc[r * AS + d] * mul);
   }
 }
 

@@ -25,6 +25,10 @@
 // 129 KB, so the operand tiles hold 64 columns at a time (flash_bwd.cuh;
 // 210 KB in all): K, V, q and dO are reloaded chunk by chunk per q tile, and
 // dO and q once more per chunk of the two products into the accumulators.
+// D > 256 (any multiple of 64; the WIDE instance, 210 KB): one block per
+// (b, h, k tile, window of 256 dk and dv columns); each window sums the
+// scores over all of D as at D = 256 and runs the two products over its
+// own columns.
 //
 // Ragged tiles and masking: a key or q row past L loads as 0, and its p is
 // set to exactly 0, as is a key above the causal diagonal, so it adds 0 to
@@ -37,18 +41,21 @@ using namespace flash_bwd;
 
 template <int D>
 struct Layout {
-  static constexpr int DC = Dims<D>::DC, NCH = Dims<D>::NCH, S = Dims<D>::S, AS = Dims<D>::AS;
+  static constexpr int DC = Dims<D>::DC, S = Dims<D>::S, AS = Dims<D>::AS;
   static constexpr int bytes = static_cast<int>(sizeof(float)) * (4 * BT * S + BT * PS + 2 * BT * AS);
 };
 
+// D: the instance's head dim, or WIDE (dd, a multiple of 64 above 256, and windows at run time).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dk, T* __restrict__ dv, int L, int H, Strides sq, Strides sk, Strides sv,
-                 Strides sg, int causal, float scale) {
+                 T* __restrict__ dk, T* __restrict__ dv, int L, int H, int dd, int windows, Strides sq,
+                 Strides sk, Strides sv, Strides sg, int causal, float scale) {
   using Lay = Layout<D>;
-  constexpr int DC = Lay::DC, NCH = Lay::NCH;
+  constexpr int DC = Lay::DC;
+  const Window<D> win(dd, windows);
+  const int nch = win.nch;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + BT * Lay::S;
@@ -60,7 +67,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
-  const int k0 = blockIdx.x * BT;
+  const int k0 = win.tile * BT;
   const int h = blockIdx.y, b = blockIdx.z;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
@@ -69,7 +76,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const float* lse_b = lse + (static_cast<long long>(b) * H + h) * L;
   const float* del_b = delta + (static_cast<long long>(b) * H + h) * L;
 
-  if (NCH == 1) {
+  if (nch == 1) {
     load_tile<T, DC>(Ks, kb, sk.l, k0, L, 1.f);
     load_tile<T, DC>(Vs, vb, sv.l, k0, L, 1.f);
   }
@@ -87,9 +94,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     float s[RG][CJ], dp[RG][CJ];
     zero_scores(s, dp);
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < nch; ++c) {
       __syncthreads();  // the previous readers are done with the tiles and Ps
-      if (NCH > 1) {
+      if (nch > 1) {
         load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
         load_tile<T, DC>(Vs, vb + c * DC, sv.l, k0, L, 1.f);
       }
@@ -111,13 +118,14 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
     }
     __syncthreads();  // p^T is in Ps
-    // p^T dO, chunk by chunk of dO's columns: the last chunk is the one in Gs
-    accumulate<DC, Lay::AS>(AccV + (NCH - 1) * DC, Ps, Gs, rg, cg);
-    for (int c = NCH - 2; c >= 0; --c) {
-      __syncthreads();
-      load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
-      __syncthreads();
-      accumulate<DC, Lay::AS>(AccV + c * DC, Ps, Gs, rg, cg);
+    // p^T dO, chunk by chunk of the window's columns of dO, last first: chunk nch - 1 is the one in Gs
+    for (int c = win.c_hi - 1; c >= win.c_lo; --c) {
+      if (c != nch - 1) {
+        __syncthreads();
+        load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
+        __syncthreads();
+      }
+      accumulate<DC, Lay::AS>(AccV + (c - win.c_lo) * DC, Ps, Gs, rg, cg);
     }
     __syncthreads();  // every reader of p^T is done
 #pragma unroll
@@ -125,33 +133,36 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < CJ; ++j) Ps[(rg * RG + i) * PS + cg + CG * j] = s[i][j];
     __syncthreads();  // dS^T is in Ps
-    // dS^T q, the same way: the last chunk of q is the one in Qs
-    accumulate<DC, Lay::AS>(AccK + (NCH - 1) * DC, Ps, Qs, rg, cg);
-    for (int c = NCH - 2; c >= 0; --c) {
-      __syncthreads();
-      load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, 1.f);
-      __syncthreads();
-      accumulate<DC, Lay::AS>(AccK + c * DC, Ps, Qs, rg, cg);
+    // dS^T q, the same way: chunk nch - 1 of q is the one in Qs
+    for (int c = win.c_hi - 1; c >= win.c_lo; --c) {
+      if (c != nch - 1) {
+        __syncthreads();
+        load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, 1.f);
+        __syncthreads();
+      }
+      accumulate<DC, Lay::AS>(AccK + (c - win.c_lo) * DC, Ps, Qs, rg, cg);
     }
   }
   __syncthreads();
-  store_tile<T, D>(dk, AccK, b, h, k0, L, H, scale);
-  store_tile<T, D>(dv, AccV, b, h, k0, L, H, 1.f);
+  const int d_out = D == WIDE ? dd : D;
+  store_tile<T, D>(dk, AccK, b, h, k0, L, H, d_out, win.c_lo * DC, scale);
+  store_tile<T, D>(dv, AccV, b, h, k0, L, H, d_out, win.c_lo * DC, 1.f);
 }
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* delta,
-             void* dk, void* dv, int B, int L, int H, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
-             float scale, cudaStream_t stream) {
+             void* dk, void* dv, int B, int L, int H, int dd, Strides sq, Strides sk, Strides sv, Strides sg,
+             int causal, float scale, cudaStream_t stream) {
   auto kernel = flash_dkv_kernel<T, D>;
   const int bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + BT - 1) / BT, H, B);
+  const int windows = D == WIDE ? (dd + WN - 1) / WN : 1;
+  const dim3 grid((L + BT - 1) / BT * windows, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      L, H, sq, sk, sv, sg, causal, scale);
+      L, H, dd, windows, sq, sk, sv, sg, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -162,16 +173,19 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
            long long gh, int causal, float scale, void* stream) {
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh}, sg{gb, gl, gh};
   const auto st = static_cast<cudaStream_t>(stream);
+#define FLASH_DKV_LAUNCH(I) \
+  launch_d<T, I>(q, k, v, g, lse, delta, dk, dv, B, L, H, D, sq, sk, sv, sg, causal, scale, st)
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 32: return launch_d<T, 32>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 64: return launch_d<T, 64>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 128:
-      return launch_d<T, 128>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 256:
-      return launch_d<T, 256>(q, k, v, g, lse, delta, dk, dv, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return FLASH_DKV_LAUNCH(16);
+    case 32: return FLASH_DKV_LAUNCH(32);
+    case 64: return FLASH_DKV_LAUNCH(64);
+    case 128: return FLASH_DKV_LAUNCH(128);
+    case 256: return FLASH_DKV_LAUNCH(256);
+    default:
+      if (D > 256 && D % Dims<WIDE>::DC == 0) return FLASH_DKV_LAUNCH(WIDE);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_DKV_LAUNCH
 }
 
 }  // namespace

@@ -21,6 +21,9 @@
 // bf16 widens at the load and rounds once at the store. D = 256 (150 KB of
 // shared memory): the tiles hold 64 columns at a time (flash_bwd.cuh), so q
 // and dO are reloaded per k tile and k once more per chunk of the dS k product.
+// D > 256 (any multiple of 64; the WIDE instance, 146 KB): one block per
+// (b, h, q tile, window of 256 dq columns); each window sums the scores over
+// all of D as at D = 256 and runs the dS k product over its own columns.
 //
 // Ragged tiles and masking: a q row or key past L loads as 0, and its p is
 // set to exactly 0, as is a key above the causal diagonal, so it adds 0 to
@@ -33,18 +36,21 @@ using namespace flash_bwd;
 
 template <int D>
 struct Layout {
-  static constexpr int DC = Dims<D>::DC, NCH = Dims<D>::NCH, S = Dims<D>::S, AS = Dims<D>::AS;
+  static constexpr int DC = Dims<D>::DC, S = Dims<D>::S, AS = Dims<D>::AS;
   static constexpr int bytes = static_cast<int>(sizeof(float)) * (4 * BT * S + BT * PS + BT * AS);
 };
 
+// D: the instance's head dim, or WIDE (dd, a multiple of 64 above 256, and windows at run time).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int L, int H, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
-                float scale) {
+                T* __restrict__ dq, int L, int H, int dd, int windows, Strides sq, Strides sk, Strides sv,
+                Strides sg, int causal, float scale) {
   using Lay = Layout<D>;
-  constexpr int DC = Lay::DC, NCH = Lay::NCH;
+  constexpr int DC = Lay::DC;
+  const Window<D> win(dd, windows);
+  const int nch = win.nch;
   extern __shared__ float smem[];
   float* Qs = smem;             // q tile (chunk), pre-scaled
   float* Gs = Qs + BT * Lay::S;  // dO tile (chunk)
@@ -55,7 +61,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
-  const int q0 = blockIdx.x * BT;
+  const int q0 = win.tile * BT;
   const int h = blockIdx.y, b = blockIdx.z;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
@@ -63,7 +69,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const T* gb = g + b * sg.b + h * sg.h;
   const long long stat = (static_cast<long long>(b) * H + h) * L;
 
-  if (NCH == 1) {
+  if (nch == 1) {
     load_tile<T, DC>(Qs, qb, sq.l, q0, L, scale);
     load_tile<T, DC>(Gs, gb, sg.l, q0, L, 1.f);
   }
@@ -80,9 +86,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int k0 = 0; k0 < k_end; k0 += BT) {
     float s[RG][CJ], dp[RG][CJ];
     zero_scores(s, dp);
-    for (int c = 0; c < NCH; ++c) {
+    for (int c = 0; c < nch; ++c) {
       __syncthreads();  // the previous readers are done with the tiles and Ps
-      if (NCH > 1) {
+      if (nch > 1) {
         load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, scale);
         load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
       }
@@ -103,32 +109,34 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       }
     }
     __syncthreads();  // every row's dS is in Ps
-    // dS k, chunk by chunk of k's columns: the last chunk is the one in Ks
-    accumulate<DC, Lay::AS>(Acc + (NCH - 1) * DC, Ps, Ks, rg, cg);
-    for (int c = NCH - 2; c >= 0; --c) {
-      __syncthreads();
-      load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
-      __syncthreads();
-      accumulate<DC, Lay::AS>(Acc + c * DC, Ps, Ks, rg, cg);
+    // dS k, chunk by chunk of the window's columns of k, last first: chunk nch - 1 is the one in Ks
+    for (int c = win.c_hi - 1; c >= win.c_lo; --c) {
+      if (c != nch - 1) {
+        __syncthreads();
+        load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
+        __syncthreads();
+      }
+      accumulate<DC, Lay::AS>(Acc + (c - win.c_lo) * DC, Ps, Ks, rg, cg);
     }
   }
   __syncthreads();
-  store_tile<T, D>(dq, Acc, b, h, q0, L, H, scale);
+  store_tile<T, D>(dq, Acc, b, h, q0, L, H, D == WIDE ? dd : D, win.c_lo * DC, scale);
 }
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* delta,
-             void* dq, int B, int L, int H, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
+             void* dq, int B, int L, int H, int dd, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
              float scale, cudaStream_t stream) {
   auto kernel = flash_dq_kernel<T, D>;
   const int bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((L + BT - 1) / BT, H, B);
+  const int windows = D == WIDE ? (dd + WN - 1) / WN : 1;
+  const dim3 grid((L + BT - 1) / BT * windows, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), L, H, sq, sk, sv,
-      sg, causal, scale);
+      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), L, H, dd, windows,
+      sq, sk, sv, sg, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -139,14 +147,18 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
            long long gh, int causal, float scale, void* stream) {
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh}, sg{gb, gl, gh};
   const auto st = static_cast<cudaStream_t>(stream);
+#define FLASH_DQ_LAUNCH(I) launch_d<T, I>(q, k, v, g, lse, delta, dq, B, L, H, D, sq, sk, sv, sg, causal, scale, st)
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 32: return launch_d<T, 32>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 64: return launch_d<T, 64>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 128: return launch_d<T, 128>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    case 256: return launch_d<T, 256>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return FLASH_DQ_LAUNCH(16);
+    case 32: return FLASH_DQ_LAUNCH(32);
+    case 64: return FLASH_DQ_LAUNCH(64);
+    case 128: return FLASH_DQ_LAUNCH(128);
+    case 256: return FLASH_DQ_LAUNCH(256);
+    default:
+      if (D > 256 && D % Dims<WIDE>::DC == 0) return FLASH_DQ_LAUNCH(WIDE);
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef FLASH_DQ_LAUNCH
 }
 
 }  // namespace

@@ -26,6 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libport_kernels.so"
+LOG_NAME = "build.log"  # nvcc's output of the build, beside the library
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH_FLAGS,
@@ -39,7 +40,7 @@ class BuildInfo:
     path: Path
     seconds: float  # wall time of this call's compile and link (0 when cached)
     built: bool     # False when the library for these sources already existed
-    log: str        # nvcc's output, with ptxas's per-kernel resource lines
+    log: str        # nvcc's output, with ptxas's per-kernel resource lines (that build's, when cached)
 
 
 def sources() -> List[Path]:
@@ -79,7 +80,8 @@ def build() -> BuildInfo:
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
-        return BuildInfo(lib, 0.0, False, "")
+        saved = out_dir / LOG_NAME
+        return BuildInfo(lib, 0.0, False, saved.read_text() if saved.is_file() else "")
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -95,6 +97,8 @@ def build() -> BuildInfo:
             [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)] for src, obj in zip(sources(), objs)]
         )
         logs += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / LIB_NAME), *map(str, objs)]])
+        (tmp / LOG_NAME).write_text("".join(logs))
+        os.replace(tmp / LOG_NAME, out_dir / LOG_NAME)  # before the library: a cached library has its log
         os.replace(tmp / LIB_NAME, lib)  # atomic: a reader never sees a half-written library
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

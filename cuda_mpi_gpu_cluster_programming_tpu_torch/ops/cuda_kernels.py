@@ -5,8 +5,10 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``conv2d``: :func:`conv2d_bias_relu`, ``conv2d.cu``, vcol (with the hpool
   epilogue and k_block);
 - ``conv_taps``: :func:`conv_taps`, ``conv_taps.cu``, taps (hpool, k_block);
-- ``conv_pairs``: :func:`conv_pairs`, ``conv_pairs.cu``, pairs;
-- ``conv_im2col``: :func:`conv_im2col`, ``conv_im2col.cu``, fused;
+- ``conv_pairs``: :func:`conv_pairs` (the launch on the packed operands:
+  :func:`conv_pairs_packed`), ``conv_pairs.cu``, pairs;
+- ``conv_im2col``: :func:`conv_im2col` (on the packed operands:
+  :func:`conv_im2col_packed`), ``conv_im2col.cu``, fused;
 - ``conv_g8``: :func:`conv_g8`, ``conv_g8.cu``, g8 (stride >= 2);
 - ``maxpool2d``: :func:`maxpool2d` and its W-only stage :func:`maxpool2d_w`,
   ``maxpool.cu``, the sep2 pool;
@@ -25,10 +27,10 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
   ``flash_dq.cu`` and ``flash_dkv.cu`` (over ``flash_bwd.cuh``), its
   backward.
 
-The conv kernels are implicit GEMMs: ``conv2d`` and ``conv_block`` on the
-Hopper mainloop of ``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on
-the tensor cores), the taps, pairs, im2col and g8 bodies on the engine of
-``csrc/conv_engine.cuh``. Each kernel has:
+The conv kernels are implicit GEMMs: ``conv2d``, ``conv_block``,
+``conv_pairs`` and ``conv_im2col`` on the Hopper mainloop of
+``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on the tensor cores),
+the taps and g8 bodies on the engine of ``csrc/conv_engine.cuh``. Each kernel has:
 
 - a wrapper that checks device, dtype, shape and contiguity, packs the
   operands its variant reads (``ops/packing.py``), allocates its output
@@ -305,24 +307,62 @@ def _pairs_operands(xs: torch.Tensor, ws: torch.Tensor, fq: int):
     return xpair, wpair, None, None
 
 
-def conv_pairs_plain(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+def conv_pairs_packed_plain(
+    xpair: torch.Tensor, wpair: torch.Tensor, xs, wlast, b: torch.Tensor, *, ho: int, wo: int, relu: bool = True,
 ) -> torch.Tensor:
-    """Plain version of the pairs kernel: per qh, one (pixels, 2*cs) x
+    """Plain version of the pairs kernel on its operands as
+    :func:`_pairs_operands` packs them: per qh, one (pixels, 2*cs) x
     (2*cs, K) matmul per pair of taps left to right, then the leftover tap
-    (odd fq), into an fp32 accumulator; then the epilogue."""
-    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
-    xpair, wpair, xl, wlast = _pairs_operands(xs, ws, fq)
-    n, k = x.shape[0], w.shape[3]
-    acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=x.device)
+    (odd fq: ``xs`` and ``wlast``; even fq: both None), into an fp32
+    accumulator; then the epilogue."""
+    n, fq, k = xpair.shape[0], wpair.shape[0], wpair.shape[-1]
+    acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=xpair.device)
     for qh in range(fq):
         for p in range(fq // 2):
             win = xpair[:, qh : qh + ho, 2 * p : 2 * p + wo, :]
             acc.addmm_(win.float().reshape(n * ho * wo, -1), wpair[qh, p].float())
-        if xl is not None:
-            win = xl[:, qh : qh + ho, fq - 1 : fq - 1 + wo, :]
+        if xs is not None:
+            win = xs[:, qh : qh + ho, fq - 1 : fq - 1 + wo, :]
             acc.addmm_(win.float().reshape(n * ho * wo, -1), wlast[qh].float())
-    return _epilogue_plain(acc.reshape(n, ho, wo, k), b, relu, x.dtype, None)
+    return _epilogue_plain(acc.reshape(n, ho, wo, k), b, relu, xpair.dtype, None)
+
+
+def conv_pairs_plain(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+) -> torch.Tensor:
+    """Plain version of the pairs kernel: the wrapper's operands, then
+    :func:`conv_pairs_packed_plain`."""
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    return conv_pairs_packed_plain(*_pairs_operands(xs, ws, fq), b, ho=ho, wo=wo, relu=relu)
+
+
+def conv_pairs_packed(
+    xpair: torch.Tensor, wpair: torch.Tensor, xs, wlast, b: torch.Tensor, *, ho: int, wo: int, relu: bool = True,
+) -> torch.Tensor:
+    """The pairs kernel alone, on operands :func:`_pairs_operands` packed
+    (``xs`` and ``wlast`` None for even fq): (N, ho, wo, K) in xpair's
+    dtype. A CPU tensor runs :func:`conv_pairs_packed_plain`."""
+    dev = _check("conv_pairs", *(t for t in (xpair, wpair, xs, wlast, b) if t is not None))
+    n, hs, ws1, cs2 = xpair.shape
+    fq, m, _, k = wpair.shape
+    cs = cs2 // 2
+    # odd fq: the leftover tap's xs (N, Hs, Ws, cs) and wlast (fq, cs, K); even fq: neither
+    leftover = ((n, hs, ws1 + 1, cs), (fq, cs, k)) if fq % 2 else (None, None)
+    shapes = [None if t is None else tuple(t.shape) for t in (xpair, wpair, xs, wlast)]
+    fits = fq >= 2 and m == fq // 2 and wpair.shape[2] == cs2 and b.shape == (k,) and min(ho, wo) > 0
+    if not fits or hs < ho + fq - 1 or ws1 + 1 < wo + fq - 1 or tuple(shapes[2:]) != leftover:
+        raise ValueError(f"conv_pairs: operands {shapes} do not make a pairs conv to {ho}x{wo}x{k}")
+    if dev.type == "cpu":
+        return conv_pairs_packed_plain(xpair, wpair, xs, wlast, b, ho=ho, wo=wo, relu=relu)
+    if max(xpair.numel(), 0 if xs is None else xs.numel(), n * ho * wo * k) >= 2**31:
+        raise ValueError(f"conv_pairs: operands past 2^31 elements ({tuple(xpair.shape)})")
+    y = torch.empty((n, ho, wo, k), dtype=xpair.dtype, device=dev)
+    _launch(
+        "conv_pairs", "conv_pairs", xpair, xpair.data_ptr(), None if xs is None else xs.data_ptr(),
+        wpair.data_ptr(), None if wlast is None else wlast.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, hs, ws1 + 1, cs, k, fq, ho, wo, int(relu),
+    )
+    return y
 
 
 def conv_pairs(
@@ -335,24 +375,20 @@ def conv_pairs(
 
     Replaces ``_conv_pairs_kernel`` and ``_conv_pairs_even_kernel``
     (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
-    the H100: FFMA operations, as taps. Design (``csrc/conv_pairs.cu``):
-    the pair operands packed here at 2x the input bytes (xpair, wpair; xs
-    and wlast for the odd leftover tap, absent for even fq), then the shared
-    implicit GEMM in the order qh, pairs left to right, leftover."""
+    the H100: operations, as :func:`conv2d_bias_relu`. Design
+    (``csrc/conv_pairs.cu`` on the Hopper mainloop of
+    ``csrc/conv_sm90.cuh``): the pair operands packed here at 2x the input
+    bytes (xpair, wpair; xs and wlast for the odd leftover tap, absent for
+    even fq), then :func:`conv_pairs_packed`: the mainloop's implicit GEMM
+    with a pairs gather, in the order qh, pairs left to right, leftover,
+    which is im2col's term order (the same bits as :func:`conv_im2col`)."""
     dev, (n, _h, _wd, _c, f, k, ho, wo) = _conv_geometry("conv_pairs", x, w, b, stride, padding)
     if -(-f // stride) < 2:
         raise ValueError(f"conv_pairs: nothing to pair at F={f}, stride={stride} (fq=1); run taps")
     if dev.type == "cpu":
         return conv_pairs_plain(x, w, b, stride=stride, padding=padding, relu=relu)
     xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
-    xpair, wpair, xl, wlast = _pairs_operands(xs, ws, fq)
-    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
-    _launch(
-        "conv_pairs", "conv_pairs", xpair, xpair.data_ptr(), None if xl is None else xl.data_ptr(),
-        wpair.data_ptr(), None if wlast is None else wlast.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, xs.shape[1], xs.shape[2], xs.shape[3], k, fq, ho, wo, int(relu),
-    )
-    return y
+    return conv_pairs_packed(*_pairs_operands(xs, ws, fq), b, ho=ho, wo=wo, relu=relu)
 
 
 def _im2col_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
@@ -365,15 +401,49 @@ def _im2col_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int
     return xcol, ws.reshape(-1, w.shape[3]), ho, wo
 
 
+def conv_im2col_packed_plain(
+    xcol: torch.Tensor, wmat: torch.Tensor, b: torch.Tensor, *, n: int, ho: int, wo: int, relu: bool = True,
+) -> torch.Tensor:
+    """Plain version of the im2col kernel on its operands: one (pixels, KD)
+    x (KD, K) matmul into an fp32 accumulator, then the epilogue."""
+    acc = torch.zeros((xcol.shape[0], wmat.shape[1]), dtype=torch.float32, device=xcol.device)
+    acc.addmm_(xcol.float(), wmat.float())
+    return _epilogue_plain(acc.reshape(n, ho, wo, -1), b, relu, xcol.dtype, None)
+
+
 def conv_im2col_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
 ) -> torch.Tensor:
-    """Plain version of the im2col kernel: one (pixels, KD) x (KD, K)
-    matmul into an fp32 accumulator, then the epilogue."""
+    """Plain version of the im2col kernel: the wrapper's operands, then
+    :func:`conv_im2col_packed_plain`."""
     xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding)
-    acc = torch.zeros((xcol.shape[0], w.shape[3]), dtype=torch.float32, device=x.device)
-    acc.addmm_(xcol.float(), wmat.float())
-    return _epilogue_plain(acc.reshape(x.shape[0], ho, wo, -1), b, relu, x.dtype, None)
+    return conv_im2col_packed_plain(xcol, wmat, b, n=x.shape[0], ho=ho, wo=wo, relu=relu)
+
+
+def conv_im2col_packed(
+    xcol: torch.Tensor, wmat: torch.Tensor, b: torch.Tensor, *, n: int, ho: int, wo: int, relu: bool = True,
+) -> torch.Tensor:
+    """The im2col kernel alone, on ``xcol`` (n*ho*wo, KD) and ``wmat``
+    (KD, K) as :func:`_im2col_operands` builds them: (n, ho, wo, K) in
+    xcol's dtype. A CPU tensor runs :func:`conv_im2col_packed_plain`."""
+    dev = _check("conv_im2col", xcol, wmat, b)
+    k = wmat.shape[1] if wmat.dim() == 2 else 0
+    if (xcol.dim() != 2 or wmat.dim() != 2 or xcol.shape != (n * ho * wo, wmat.shape[0]) or b.shape != (k,)
+            or min(n, ho, wo, k) <= 0):
+        raise ValueError(f"conv_im2col: xcol {tuple(xcol.shape)}, w {tuple(wmat.shape)} and bias "
+                         f"{tuple(b.shape)} do not make an im2col GEMM to {n}x{ho}x{wo}")
+    if dev.type == "cpu":
+        return conv_im2col_packed_plain(xcol, wmat, b, n=n, ho=ho, wo=wo, relu=relu)
+    if max(xcol.numel(), n * ho * wo * k) >= 2**31:
+        raise ValueError(f"conv_im2col: an im2col buffer of {tuple(xcol.shape)} is past 2^31 elements")
+    # the mainloop sees xcol as a 1 x 1 conv over an n x ho x wo image: its origins' 16-bit halves
+    _check_sm90_dims("conv_im2col", ho, wo, 0)
+    y = torch.empty((n, ho, wo, k), dtype=xcol.dtype, device=dev)
+    _launch(
+        "conv_im2col", "conv_im2col", xcol, xcol.data_ptr(), wmat.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, ho, wo, xcol.shape[1], k, int(relu),
+    )
+    return y
 
 
 def conv_im2col(
@@ -383,23 +453,18 @@ def conv_im2col(
     and result as :func:`conv2d_bias_relu` without ``k_block``/``hpool``.
 
     Replaces ``_conv_fused_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/
-    ops/pallas_kernels.py). Bound on the H100: FFMA operations (the xcol
-    buffer, 0.67 GB on conv1 and 0.90 GB on conv2 in fp32 at batch 128, adds
-    bytes but not the bound). Design (``csrc/conv_im2col.cu``): xcol built
-    here with tensor code, as the JAX package does, into ``torch.empty``
-    storage; then a tiled (M, KD) x (KD, K) GEMM with the shared epilogue."""
-    dev, (n, _h, _wd, _c, _f, k, ho, wo) = _conv_geometry("conv_im2col", x, w, b, stride, padding)
+    ops/pallas_kernels.py). Bound on the H100: operations, as
+    :func:`conv2d_bias_relu` (the xcol buffer, 0.67 GB on conv1 and 0.90 GB
+    on conv2 in fp32 at batch 128, adds bytes but not the bound). Design
+    (``csrc/conv_im2col.cu`` on the Hopper mainloop of
+    ``csrc/conv_sm90.cuh``): xcol built here with tensor code, as the JAX
+    package does, then :func:`conv_im2col_packed`: the (M, KD) x (KD, K)
+    GEMM as a 1 x 1 conv with the shared epilogue."""
+    dev, (n, _h, _wd, _c, _f, _k, ho, wo) = _conv_geometry("conv_im2col", x, w, b, stride, padding)
     if dev.type == "cpu":
         return conv_im2col_plain(x, w, b, stride=stride, padding=padding, relu=relu)
     xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding)
-    if xcol.numel() >= 2**31:
-        raise ValueError(f"conv_im2col: an im2col buffer of {tuple(xcol.shape)} is past 2^31 elements")
-    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
-    _launch(
-        "conv_im2col", "conv_im2col", xcol, xcol.data_ptr(), wmat.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, ho, wo, xcol.shape[1], k, int(relu),
-    )
-    return y
+    return conv_im2col_packed(xcol, wmat, b, n=n, ho=ho, wo=wo, relu=relu)
 
 
 def _g8_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
@@ -853,11 +918,25 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 
 # The head dims the flash kernels are instantiated for. A CUDA tensor with
-# another D up to 256 is zero-padded to the next of them (:func:`_flash_pad`);
-# above 256 the kernels raise (at 256 the dK/dV accumulators alone take 129 KB
-# of the 227 KB of shared memory a block has). The plain versions, and so the
-# CPU, take any D.
+# another D up to 256 is zero-padded to the next of them; above 256 to the
+# next multiple of FLASH_CHUNK, which one more instance of each kernel takes
+# at run time, a block owning FLASH_WINDOW output columns (:func:`flash_width`).
+# The plain versions, and so the CPU, take any D.
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+FLASH_CHUNK = 64
+FLASH_WINDOW = 256
+
+
+def flash_width(d: int) -> tuple:
+    """``(dp, windows)`` for head dim ``d`` on the card: the width the
+    kernels run at, and how many windows of ``FLASH_WINDOW`` output columns
+    each (b, h, 64-row tile) is split into (1 up to 256). Every window sums
+    the scores over all ``dp`` columns and writes its own columns of the
+    outputs."""
+    if d <= FLASH_HEAD_DIMS[-1]:
+        return next(w for w in FLASH_HEAD_DIMS if w >= d), 1
+    dp = -(-d // FLASH_CHUNK) * FLASH_CHUNK
+    return dp, -(-dp // FLASH_WINDOW)
 
 
 def flash_blocks(l: int, block_q: int, block_k: int) -> tuple:
@@ -893,19 +972,16 @@ def _flash_check(*tensors: torch.Tensor, name: str = "flash_fwd") -> torch.devic
     return first.device
 
 
-def _flash_pad(name: str, *tensors: torch.Tensor) -> tuple:
+def _flash_pad(*tensors: torch.Tensor) -> tuple:
     """The CUDA operands of a flash kernel at head dim D: unchanged when D is
-    one of :data:`FLASH_HEAD_DIMS`, else copies zero-padded on the last axis
-    to the next of them. Zero columns leave every score q.k, lse and
+    the width :func:`flash_width` runs it at, else copies zero-padded on the
+    last axis to that width. Zero columns leave every score q.k, lse and
     delta = sum dO.o unchanged, and the padded columns of out, dq, dk and
     dv come out exactly 0; the caller passes the scale of the true D and
     slices them away. A padded operand is a copy, so the kernels lose their
-    strided read of a packed qkv at such a D. Raises above 256."""
+    strided read of a packed qkv at such a D."""
     d = tensors[0].shape[-1]
-    if d > FLASH_HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {d} is above the CUDA kernels' limit of {FLASH_HEAD_DIMS[-1]} "
-                         f"(the CPU runs any head dim)")
-    dp = next(w for w in FLASH_HEAD_DIMS if w >= d)
+    dp, _windows = flash_width(d)
     if dp == d:
         return tensors
     return tuple(F.pad(t, (0, dp - d)) for t in tensors)
@@ -952,8 +1028,8 @@ def flash_fwd(
 ) -> tuple:
     """Flash-attention forward: ``(out, lse)`` for q, k, v of shape
     (B, L, H, D), fp32 or bf16; out in q's dtype, lse (B, H, L) fp32 =
-    m + log(max(den, 1e-30)). Any D on the CPU; on CUDA D <= 256, run at
-    the next width of :data:`FLASH_HEAD_DIMS` (:func:`_flash_pad`).
+    m + log(max(den, 1e-30)). Any D: on CUDA run at the width
+    :func:`flash_width` gives (zero-padded, :func:`_flash_pad`).
 
     ``block_q``/``block_k`` are clamped to L and L must be a multiple of
     both (:func:`flash_blocks`); the kernel tiles by its own 64 x 64. The
@@ -964,13 +1040,15 @@ def flash_fwd(
     flash_attention.py). Bound on the H100: operations (4 B H L^2 D FLOPs,
     half when causal). Design (``csrc/flash_fwd.cu``): one block per
     (b, h, 64-row q tile), K/V tiles streamed through shared memory, the
-    row statistics in registers, fp32 FFMA for both dtypes."""
+    row statistics in registers, fp32 FFMA for both dtypes; above D = 256
+    one block per window of 256 output columns, the q and k tiles held 64
+    columns at a time."""
     dev = _flash_check(q, k, v)
     b, l, h, d = q.shape
     flash_blocks(l, block_q, block_k)
     if dev.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
-    q, k, v = _flash_pad("flash_fwd", q, k, v)
+    q, k, v = _flash_pad(q, k, v)
     dp = q.shape[-1]
     out = torch.empty((b, l, h, dp), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=dev)
@@ -1079,7 +1157,7 @@ def flash_dq(
     if dev.type == "cpu":
         return flash_dq_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
     d = q.shape[-1]
-    q, k, v, g = _flash_pad("flash_dq", q, k, v, g)
+    q, k, v, g = _flash_pad(q, k, v, g)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _launch(
         "flash_dq", "flash_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
@@ -1107,7 +1185,7 @@ def flash_dkv(
     if dev.type == "cpu":
         return flash_dkv_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
     d = q.shape[-1]
-    q, k, v, g = _flash_pad("flash_dkv", q, k, v, g)
+    q, k, v, g = _flash_pad(q, k, v, g)
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
     _launch(

@@ -66,9 +66,9 @@ def flash_attention(
 
     ``L`` must be divisible by the blocks clamped to L (:func:`flash_block`);
     the kernel itself tiles by 64 x 64, so the blocks only validate. Any D
-    runs on the CPU, as in the JAX package; on CUDA D is at most 128 and
-    is zero-padded to the next of ``cuda_kernels.FLASH_HEAD_DIMS`` (a
-    copy of q, k, v), with the scale of the true D. Differentiable with O(L)
+    runs, as in the JAX package; on CUDA a D off the kernels' widths is
+    zero-padded to ``cuda_kernels.flash_width(D)`` (a copy of q, k, v),
+    with the scale of the true D. Differentiable with O(L)
     memory: the backward recomputes the probabilities blockwise from the
     saved lse (one ``flash_dq`` and one ``flash_dkv`` launch)."""
     return _Flash.apply(q, k, v, causal, block_q, block_k)[0]

@@ -114,12 +114,14 @@ def test_indivisible_rejected_in_the_jax_words():
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [8, 24, 48, 200, 256])
+@pytest.mark.parametrize("d", [8, 24, 48, 200, 256, 300, 384])
 def test_any_head_dim_matches_jax_flash_forward_and_vjp(d, causal):
     """Head dims off the kernels' instantiations (200, which the CUDA
-    wrappers pad to 256, among them) and at the widest one, 256: out and
-    dq, dk, dv of ``flash_attention`` against the
-    JAX package's, at the fp32 forward (2e-5) and gradient (5e-5) tolerances."""
+    wrappers pad to 256, among them), the widest single window, 256, and
+    the windowed widths above it (300, padded to 320, and 384: two windows
+    of output columns on the card): out and dq, dk, dv of
+    ``flash_attention`` against the JAX package's, at the fp32 forward
+    (2e-5) and gradient (5e-5) tolerances."""
     (jq, jk, jv), (tq, tk, tv) = _qkv(64, "fp32", d=d, seed=d)
     cot = np.random.default_rng(d + 1).standard_normal(tq.shape).astype(np.float32)
     kw = dict(causal=causal, block_q=32, block_k=32)
@@ -134,7 +136,7 @@ def test_any_head_dim_matches_jax_flash_forward_and_vjp(d, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [1, 8, 24, 48, 100, 200])
+@pytest.mark.parametrize("d", [1, 8, 24, 48, 100, 200, 300])
 def test_zero_padded_head_dim_with_the_true_scale_is_exact(d, causal):
     """What the CUDA wrappers do at such a D: the plain versions on the
     operands ``_flash_pad`` pads, with the true D's scale, sliced back,
@@ -142,9 +144,9 @@ def test_zero_padded_head_dim_with_the_true_scale_is_exact(d, causal):
     and dv within 1e-6 of each one's max (the padded columns add exact zeros)."""
     _, (tq, tk, tv) = _qkv(48, "fp32", b=2, d=d, seed=40 + d)
     tg = torch.from_numpy(np.random.default_rng(d).standard_normal(tq.shape).astype(np.float32))
-    pq, pk_, pv, pg = ck._flash_pad("flash_fwd", tq, tk, tv, tg)
+    pq, pk_, pv, pg = ck._flash_pad(tq, tk, tv, tg)
     dp = pq.shape[-1]
-    assert dp == next(w for w in ck.FLASH_HEAD_DIMS if w >= d) and dp > d
+    assert dp == ck.flash_width(d)[0] and dp > d
     assert torch.equal(pq[..., :d], tq) and not pq[..., d:].any()
     kw = dict(causal=causal, block_q=16, block_k=24)
     out, lse = ck.flash_fwd_plain(tq, tk, tv, **kw)
@@ -164,7 +166,7 @@ def test_kernel_head_dims_are_not_padded(d):
     """At an instantiated D the operands go to the kernel as they are (no
     copy: a packed qkv is read through its strides)."""
     _, (tq, tk, tv) = _qkv(32, "fp32", d=d)
-    assert all(a is b for a, b in zip(ck._flash_pad("flash_fwd", tq, tk, tv), (tq, tk, tv)))
+    assert all(a is b for a, b in zip(ck._flash_pad(tq, tk, tv), (tq, tk, tv)))
 
 
 @pytest.mark.parametrize("d", [1, 8, 48, 256, 512])
@@ -175,13 +177,28 @@ def test_flash_check_takes_any_head_dim_on_the_cpu(d):
     assert tuple(out.shape) == (1, 32, 2, d) and tuple(lse.shape) == (1, 2, 32)
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_dq", "flash_dkv"])
-def test_head_dims_above_128_are_refused_for_the_kernels(name):
-    """The CUDA branch of each wrapper pads through ``_flash_pad``, which
-    names the 256 limit above it (D = 512 here; 256 and below run)."""
-    _, (tq, tk, tv) = _qkv(32, "fp32", d=512)
-    with pytest.raises(ValueError, match=f"{name}: head dim 512 is above the CUDA kernels' limit of 256"):
-        ck._flash_pad(name, tq, tk, tv)
+@pytest.mark.parametrize("d, dp, windows", [(257, 320, 2), (300, 320, 2), (320, 320, 2), (384, 384, 2),
+                                             (512, 512, 2), (513, 576, 3), (1024, 1024, 4)])
+def test_head_dims_above_256_pad_to_whole_chunks_in_windows(d, dp, windows):
+    """Above 256 the CUDA branch of each wrapper pads D to the next multiple
+    of the 64-column chunk, which the kernels' windowed instance takes, a
+    block owning 256 output columns; nothing is refused. The padded columns
+    are zeros and the rest are the operand's."""
+    assert ck.flash_width(d) == (dp, windows)
+    _, (tq, tk, tv) = _qkv(16, "fp32", d=d)
+    padded = ck._flash_pad(tq, tk, tv)
+    for t, p in zip((tq, tk, tv), padded):
+        assert tuple(p.shape) == (1, 16, 2, dp) and p.is_contiguous()
+        assert torch.equal(p[..., :d], t) and not p[..., d:].any()
+    if dp == d:
+        assert all(a is b for a, b in zip(padded, (tq, tk, tv)))
+
+
+@pytest.mark.parametrize("d, dp", [(1, 16), (17, 32), (100, 128), (200, 256), (256, 256)])
+def test_head_dims_up_to_256_keep_their_widths(d, dp):
+    """Up to 256 the widths are those of before: the next instantiated head
+    dim, one window."""
+    assert ck.flash_width(d) == (dp, 1)
 
 
 def test_mismatched_operands_raise():

@@ -225,6 +225,57 @@ def test_pairs_at_fq1_runs_taps_as_in_jax():
         ck.conv_pairs(tx, tw, tb, stride=4, padding=0)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_pairs_terms_are_im2col_terms_in_kg_order(case, dtype):
+    """What the bitwise pin of conv_pairs.cu to conv_im2col.cu rests on: the
+    pairs operand's term kg, in the order ``csrc/conv_sm90.cuh``'s ``Pairs``
+    documents (row qh = kg // per_qh; the pairs' 2cs terms from xpair
+    column ox + 2p, then the leftover's cs terms from xs column
+    ox + fq - 1), and its weight row kg (``Pairs::row``: wpair's row
+    qh * pair_terms + j, then wlast's qh * cs + j - pair_terms) are xcol's
+    column kg and wmat's row kg, bit for bit: conv1-like (fq 3), conv2-like
+    (fq 5) and even fq (2, no leftover)."""
+    _, (x, w, _b), kw = _conv_case(case, dtype)
+    xs, ws, fq, ho, wo = ck._s2d_operands(x, w, kw["stride"], kw["padding"])
+    xpair, wpair, xl, wlast = ck._pairs_operands(xs, ws, fq)
+    n, cs, k = x.shape[0], xs.shape[3], w.shape[3]
+    pair_terms = (fq // 2) * 2 * cs
+    per_qh = pair_terms + (cs if xl is not None else 0)
+    assert (xl is None) == (fq % 2 == 0) and fq * per_qh == fq * fq * cs
+    cols, rows = [], []
+    for kg in range(fq * per_qh):
+        qh, j = divmod(kg, per_qh)
+        if j < pair_terms:
+            p, c = divmod(j, 2 * cs)
+            cols.append(xpair[:, qh : qh + ho, 2 * p : 2 * p + wo, c])
+            rows.append(wpair.reshape(-1, k)[qh * pair_terms + j])
+        else:
+            cols.append(xl[:, qh : qh + ho, fq - 1 : fq - 1 + wo, j - pair_terms])
+            rows.append(wlast.reshape(-1, k)[qh * cs + j - pair_terms])
+    xcol, wmat, _ho, _wo = ck._im2col_operands(x, w, kw["stride"], kw["padding"])
+    assert torch.equal(torch.stack(cols, -1).reshape(n * ho * wo, -1), xcol)
+    assert torch.equal(torch.stack(rows), wmat)
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_packed_launchers_take_the_wrappers_operands(case):
+    """``conv_pairs_packed`` and ``conv_im2col_packed`` (the kernels alone,
+    as ``chip_smoke.py`` times them) on the operands their wrappers pack
+    give the wrappers' results, and refuse operands that do not fit."""
+    _, (x, w, b), kw = _conv_case(case, "fp32")
+    xs, ws, fq, ho, wo = ck._s2d_operands(x, w, kw["stride"], kw["padding"])
+    ops = ck._pairs_operands(xs, ws, fq)
+    assert torch.equal(ck.conv_pairs_packed(*ops, b, ho=ho, wo=wo), ck.conv_pairs(x, w, b, **kw))
+    xcol, wmat, ho, wo = ck._im2col_operands(x, w, kw["stride"], kw["padding"])
+    got = ck.conv_im2col_packed(xcol, wmat, b, n=x.shape[0], ho=ho, wo=wo)
+    assert torch.equal(got, ck.conv_im2col(x, w, b, **kw))
+    with pytest.raises(ValueError, match="do not make a pairs conv"):
+        ck.conv_pairs_packed(*ops, b, ho=ho + fq, wo=wo)
+    with pytest.raises(ValueError, match="do not make an im2col GEMM"):
+        ck.conv_im2col_packed(xcol, wmat, b, n=x.shape[0], ho=ho + 1, wo=wo)
+
+
 # ------------------------------------------------------------------- pools ---
 
 
