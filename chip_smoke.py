@@ -6,20 +6,21 @@
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
-JSON line with what ``MAINLOOP_PTXAS`` and ``FLASH_SWEEP_SHA256`` hold a
-later tree to (run it in a checkout of the tree to be recorded, with this
-file copied in). With no arguments, phases in order; a phase that fails
-ends the run with a non-zero exit code and nothing is caught:
+JSON line with what ``MAINLOOP_PTXAS``, ``FLASH_SWEEP_SHA256`` and
+``ENGINE_FP32_SHA256`` hold a later tree to (run it in a checkout of the
+tree to be recorded, with this file copied in), and each digested
+output's own sha256. With no arguments, phases in order; a phase that
+fails ends the run with a non-zero exit code and nothing is caught:
 
 1. build the kernel library from ``cuda_mpi_gpu_cluster_programming_tpu_torch/csrc``;
    read ``ptxas -v``'s registers and spills of the kernels on the Hopper
-   mainloop (``conv_sm90.cuh``): conv2d.cu's and conv_block.cu's must be
-   ``MAINLOOP_PTXAS``, those before conv_pairs.cu and conv_im2col.cu
-   joined the mainloop;
+   mainloop (``conv_sm90.cuh``): conv2d.cu's, conv_block.cu's,
+   conv_pairs.cu's and conv_im2col.cu's must be ``MAINLOOP_PTXAS``, those
+   before conv_taps.cu and conv_g8.cu joined the mainloop;
    1b. read its SASS (``cuobjdump --dump-sass``): every bf16 and int8w
-   instance of the conv2d.cu, conv_block.cu, conv_pairs.cu and
-   conv_im2col.cu kernels contains HMMA (the tensor cores), every fp32 one
-   FFMA and no HMMA (no TF32);
+   instance of the six mainloop files' kernels (conv2d.cu, conv_block.cu,
+   conv_pairs.cu, conv_im2col.cu, conv_taps.cu, conv_g8.cu) contains HMMA
+   (the tensor cores), every fp32 one FFMA and no HMMA (no TF32);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
@@ -29,10 +30,11 @@ ends the run with a non-zero exit code and nothing is caught:
    the conv and pool variants the autotuner sweeps: the taps, pairs,
    im2col ("fused") and g8 (conv1) conv kernels, the phases pool, and the hpool epilogue
    and k_block modes of the vcol and taps convs with the pool's W stage,
-   each against its plain version and timed the same way (pairs and
-   im2col with their packing, and the kernel alone on operands packed
-   once), plus bitwise: pairs and im2col against taps (fp32), pairs
-   against im2col and, at conv2, both against conv2d (bf16),
+   each against its plain version and timed the same way (taps, pairs,
+   im2col and g8 with their packing, and the kernel alone on operands
+   packed once), plus bitwise: pairs and im2col against taps (fp32 and
+   bf16), and at conv2 all three against conv2d (bf16), g8 against a
+   second launch,
    hpool + W stage against conv + maxpool2d (vcol, taps; conv1, conv2),
    k_block 64 and 128 against 0 (vcol, taps; conv2), phases against
    maxpool2d (pool1, pool2); then the fused ``conv_block`` kernel at both
@@ -41,8 +43,10 @@ ends the run with a non-zero exit code and nothing is caught:
    beside that chain, its plain version, the cuDNN chain (a note: no one
    library call computes a block) and the bound; and every kernel again at
    edge shapes off the main path (an even-fq pairs case, a ragged output,
-   C=5 with K=40, g8 at strides 2, 3 and 4 among them; pairs and im2col
-   held there to the bitwise pins above); then the LM
+   C=5 with K=40, g8 at strides 2, 3 and 4 and at an odd K among them;
+   pairs, im2col and g8 held there to the bitwise pins above); the fp32
+   taps and g8 outputs of ``engine_fp32_digest`` must hash to
+   ``ENGINE_FP32_SHA256``, the bits of their older engine; then the LM
    slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
    and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
    TINY_LM's attention (8x1024x4x32), causal and full, and at D = 256
@@ -72,9 +76,8 @@ ends the run with a non-zero exit code and nothing is caught:
    staged on both tiers, and ``v3_pallas`` with ``TPU_FRAMEWORK_CONV=taps``,
    ``pairs``, ``fused`` and ``g8``, ``POOL=phases``, ``FUSE=hpool`` and
    ``KBLOCK=128`` in fp32 and bf16 (taps also in int8w), batch 128; check
-   ``CONV=pairs`` and ``fused`` bitwise ``CONV=taps`` in fp32 and
-   ``CONV=fused`` bitwise ``CONV=pairs`` in bf16 (taps runs the older
-   engine, whose bf16 sums are FFMA's), the golden first-10 on every fp32
+   ``CONV=pairs`` and ``fused`` bitwise ``CONV=taps`` in fp32 and in bf16
+   (one mainloop, one term order), the golden first-10 on every fp32
    kernel route, every route against
    ``v1_jit`` fp32 on numpy-seeded random params within the precision
    budgets, fused int8w against staged int8w, and
@@ -388,15 +391,17 @@ def library_kernels(fn) -> list:
 
 
 # the kernel files on the Hopper mainloop (conv_sm90.cuh): their names carry the file's anonymous namespace
-MAINLOOP_FILES = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
+MAINLOOP_FILES = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu", "conv_taps_cu", "conv_g8_cu")
+# those whose registers and spills MAINLOOP_PTXAS holds (taps and g8 joined the mainloop after the record)
+PTXAS_HELD = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
 
 
 def sass_phase(info) -> dict:
     """The instructions the conv entry points compiled to, from
     ``cuobjdump --dump-sass`` on the built library: every bf16 (and int8w)
-    instance of the kernels on the Hopper mainloop (conv2d.cu, conv_block.cu,
-    conv_pairs.cu, conv_im2col.cu) must contain HMMA (mma.sync on the tensor
-    cores), every fp32 one FFMA and no HMMA (no TF32: the fp32 contract)."""
+    instance of the kernels on the Hopper mainloop (the six files of
+    ``MAINLOOP_FILES``) must contain HMMA (mma.sync on the tensor cores),
+    every fp32 one FFMA and no HMMA (no TF32: the fp32 contract)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -419,16 +424,25 @@ def sass_phase(info) -> dict:
     return found
 
 
-# ``ptxas -v`` of conv2d.cu's and conv_block.cu's kernels as they were before conv_pairs.cu and
-# conv_im2col.cu joined their mainloop, per file and dtype (bf16: int8w's too): the sorted (registers,
-# spill-store bytes) of every entry (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in
-# a checkout of that tree prints it). The shared mainloop's callers must keep them.
+# ``ptxas -v`` of the ``PTXAS_HELD`` files' kernels as they were before conv_taps.cu and conv_g8.cu joined
+# their mainloop, per file and dtype (bf16: int8w's too): the sorted (registers, spill-store bytes) of every
+# entry (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in a checkout of that tree prints
+# it). The shared mainloop's callers must keep them.
 MAINLOOP_PTXAS = {
     "conv2d_cu/bf16": [[95, 0], [96, 0], [117, 0], [128, 4], [128, 28]],
     "conv2d_cu/fp32": [[123, 0], [123, 0], [157, 0], [168, 0], [168, 0]],
     "conv_block_cu/bf16": [[223, 0], [226, 0], [228, 0], [246, 0]],
     "conv_block_cu/fp32": [[213, 0], [255, 0]],
+    "conv_im2col_cu/bf16": [[128, 4], [128, 28]],
+    "conv_im2col_cu/fp32": [[168, 0], [168, 0]],
+    "conv_pairs_cu/bf16": [[126, 0], [126, 0]],
+    "conv_pairs_cu/fp32": [[168, 0], [227, 0]],
 }
+# sha256 of the bits of the fp32 conv_taps and conv_g8 outputs of engine_fp32_digest, as the kernels gave
+# them on their implicit-GEMM engine before they joined the Hopper mainloop (NVIDIA H100 build, CUDA 12.8;
+# ``python3 chip_smoke.py --record`` in a checkout of that tree prints it): one fmaf chain a term in kg
+# order from 0 on both, so the mainloop keeps their bits
+ENGINE_FP32_SHA256 = "eb3368a76a1b9d438c5a3db71aea90f6791810111b5beed7af0b7dc1abb63a30"
 
 
 def ptxas_entries(build_log: str) -> list:
@@ -464,12 +478,12 @@ def ptxas_table(build_log: str) -> dict:
 
 def ptxas_phase(info) -> dict:
     """Phase 1: the mainloop kernels' registers and spills from the build
-    log; conv2d.cu's and conv_block.cu's must be ``MAINLOOP_PTXAS``."""
+    log; those of the ``PTXAS_HELD`` files must be ``MAINLOOP_PTXAS``."""
     table = ptxas_table(info.log)
     for key, entries in table.items():
         log(f"ptxas {key}: [registers, spill-store bytes] {entries}")
-    held = {k: v for k, v in table.items() if k.split("/")[0] in ("conv2d_cu", "conv_block_cu")}
-    require(held == MAINLOOP_PTXAS, f"conv2d.cu/conv_block.cu registers or spills moved: {held} "
+    held = {k: v for k, v in table.items() if k.split("/")[0] in PTXAS_HELD}
+    require(held == MAINLOOP_PTXAS, f"{', '.join(PTXAS_HELD)}: registers or spills moved: {held} "
             f"against {MAINLOOP_PTXAS}")
     return table
 
@@ -576,7 +590,7 @@ def variant_phase(spec, peak_name) -> list:
                     if mode:
                         st.update(same_as=[("k_block=0", lambda fn=fn, x=x, w=w, b=b, s=s, p=p: fn(
                             x, w, b, stride=s, padding=p))])
-                    elif kname in ("conv_pairs", "conv_im2col"):
+                    else:
                         refs, alone = mainloop_variant_extras(kname, pol, x, w, b, s, p)
                         st.update(same_as=refs, alone=alone)
                     stages.append(st)
@@ -598,35 +612,82 @@ def variant_phase(spec, peak_name) -> list:
 
 
 def mainloop_variant_extras(kname, pol, x, w, b, s, p):
-    """The bitwise references of a pairs or im2col row and its launch on
-    operands packed once (the kernel alone). Both run the terms in the taps
-    order on the Hopper mainloop: in fp32 one fmaf chain a term, the bits of
-    ``conv_taps``; in bf16 the mainloop's tensor-core k-steps, so pairs is
-    im2col's bits, and at stride 1 (where the s2d order is vcol's) both are
-    ``conv2d_bias_relu``'s."""
+    """The bitwise references of a taps, pairs, im2col or g8 row and its
+    launch on operands packed once (the kernel alone). Taps, pairs and
+    im2col run the same terms in the same order on the Hopper mainloop (in
+    fp32 one fmaf chain a term, in bf16 the mainloop's tensor-core k-steps):
+    pairs and im2col give taps' bits, and at stride 1 (where the s2d order is
+    vcol's) all three give ``conv2d_bias_relu``'s in bf16 (fp32: the conv2d
+    row's own pin). g8's terms are its own: a second launch gives its bits."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     kw = dict(stride=s, padding=p)
-    if pol == "fp32":
-        refs = [("conv_taps", lambda: ck.conv_taps(x, w, b, **kw))]
-    else:
-        refs = [("conv_im2col", lambda: ck.conv_im2col(x, w, b, **kw))] if kname == "conv_pairs" else []
+    if kname == "conv_g8":
+        xs8, wcols, ho, wo = ck._g8_operands(x, w, s, p)
+        return ([("second launch", lambda: ck.conv_g8(x, w, b, **kw))],
+                lambda: ck.conv_g8_packed(xs8, wcols, b, ho=ho, wo=wo))
+    refs = [] if kname == "conv_taps" else [("conv_taps", lambda: ck.conv_taps(x, w, b, **kw))]
+    if s == 1 and pol != "fp32":
+        refs.append(("conv2d", lambda: ck.conv2d_bias_relu(x, w, b, **kw)))
+    if kname == "conv_im2col":
+        xcol, wmat, ho, wo = ck._im2col_operands(x, w, s, p)
+        return refs, lambda: ck.conv_im2col_packed(xcol, wmat, b, n=x.shape[0], ho=ho, wo=wo)
+    xs, ws, fq, ho, wo = ck._s2d_operands(x, w, s, p)
+    if kname == "conv_taps":
+        return refs, lambda: ck.conv_taps_packed(xs, ws, b, ho=ho, wo=wo)
+    ops = ck._pairs_operands(xs, ws, fq)
+    return refs, lambda: ck.conv_pairs_packed(*ops, b, ho=ho, wo=wo)
+
+
+# the conv variants off the main path, (n, h, c, f, k, stride, pad): an even-fq pairs case (F8 s4: fq 2), a
+# ragged output (23 rows), C=5 with K=40, K=256 for both k_blocks, g8 at strides 4 (an odd output), 2 and 3,
+# and g8 at an odd K (37: its store a column at a time) and an odd output (15 rows)
+EDGE_VARIANT_CASES = ((2, 35, 5, 8, 40, 4, 1), (3, 45, 5, 3, 40, 2, 1), (2, 31, 96, 5, 72, 1, 2),
+                      (1, 13, 16, 3, 256, 1, 1), (2, 37, 3, 11, 16, 4, 0), (2, 37, 3, 7, 16, 3, 2),
+                      (2, 31, 3, 5, 37, 2, 1))
+
+
+def engine_fp32_digest() -> dict:
+    """The sha256 of the bits of fp32 ``conv_taps`` and ``conv_g8`` outputs
+    on seeded inputs, in order: taps at conv1 and conv2 (batch 128), in
+    hpool at both and in k_block 64 and 128 at conv2; g8 at conv1; then
+    taps, and g8 where the stride is >= 2, at every ``EDGE_VARIANT_CASES``
+    shape. ``sha256`` must be ``ENGINE_FP32_SHA256``; ``items`` has each
+    output's own digest, to name the one that moved."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(2033)
+    t = stage_inputs(torch.float32, gen)
+    runs = []
+    for stage, x, w, b, s, p in (("conv1", t["x"], t["w1"], t["b1"], 4, 0), ("conv2", t["q1"], t["w2"], t["b2"], 1, 2)):
+        args, kw = (x, w, b), dict(stride=s, padding=p)
+        runs += [(f"taps {stage}", ck.conv_taps, args, kw),
+                 (f"taps hpool {stage}", ck.conv_taps, args, dict(kw, hpool=(3, 2)))]
         if s == 1:
-            refs.append(("conv2d", lambda: ck.conv2d_bias_relu(x, w, b, **kw)))
-    if kname == "conv_pairs":
-        xs, ws, fq, ho, wo = ck._s2d_operands(x, w, s, p)
-        ops = ck._pairs_operands(xs, ws, fq)
-        return refs, lambda: ck.conv_pairs_packed(*ops, b, ho=ho, wo=wo)
-    xcol, wmat, ho, wo = ck._im2col_operands(x, w, s, p)
-    return refs, lambda: ck.conv_im2col_packed(xcol, wmat, b, n=x.shape[0], ho=ho, wo=wo)
+            runs += [(f"taps k_block={kb} {stage}", ck.conv_taps, args, dict(kw, k_block=kb)) for kb in (64, 128)]
+        else:
+            runs.append((f"g8 {stage}", ck.conv_g8, args, kw))
+    for n, h, c, f, k, s, p in EDGE_VARIANT_CASES:
+        x = torch.rand((n, h, h, c), generator=gen, device="cuda")
+        w = (torch.rand((f, f, c, k), generator=gen, device="cuda") - 0.5) * (2 / (f * f * c) ** 0.5)
+        b = (torch.rand((k,), generator=gen, device="cuda") - 0.5) * 0.2
+        args, kw = (x, w, b), dict(stride=s, padding=p)
+        tag = f"{n}x{h}x{h}x{c} F{f} K{k} s{s} p{p}"
+        runs += [(f"taps {tag}", ck.conv_taps, args, kw)] + ([(f"g8 {tag}", ck.conv_g8, args, kw)] if s >= 2 else [])
+    total, items = hashlib.sha256(), {}
+    for name, fn, args, kw in runs:
+        raw = fn(*args, **kw).contiguous().cpu().numpy().tobytes()
+        items[name] = hashlib.sha256(raw).hexdigest()
+        total.update(raw)
+    return dict(sha256=total.hexdigest(), items=items)
 
 
 def edge_phase() -> list:
     """Kernel against plain version at shapes off the main path: channel
     and pixel counts that are not tile multiples, stride 2, an odd channel
     count, other pool windows and LRN sizes, both alpha forms; the conv
-    variants at an even fq, a ragged output and C=5/K=40, with the hpool,
-    k_block and phases bitwise checks."""
+    variants at ``EDGE_VARIANT_CASES``, with the hpool, k_block, phases and
+    Hopper-mainloop bitwise checks."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -641,11 +702,7 @@ def edge_phase() -> list:
             res = compare(rule, ck.conv2d_bias_relu(x, w, b, stride=s, padding=p),
                           ck.conv2d_bias_relu_plain(x, w, b, stride=s, padding=p))
             results.append((f"conv {n}x{h}x{h}x{c} F{f} K{k} s{s} p{p} {pol}", res))
-        # the variants: an even-fq pairs case (F8 s4: fq 2), a ragged output (23 rows), C=5 with K=40,
-        # K=256 for both k_blocks, and g8 at strides 4 (an odd output), 2 and 3
-        for n, h, c, f, k, s, p in ((2, 35, 5, 8, 40, 4, 1), (3, 45, 5, 3, 40, 2, 1),
-                                    (2, 31, 96, 5, 72, 1, 2), (1, 13, 16, 3, 256, 1, 1),
-                                    (2, 37, 3, 11, 16, 4, 0), (2, 37, 3, 7, 16, 3, 2)):
+        for n, h, c, f, k, s, p in EDGE_VARIANT_CASES:
             x, w, b = r(n, h, h, c), r(f, f, c, k, scale=2 / (f * f * c) ** 0.5, shift=0.5), r(k, scale=0.2, shift=0.5)
             kw = dict(stride=s, padding=p)
             rule = FP32_REL if pol == "fp32" else ("ulp", FP32_REL)
@@ -657,17 +714,23 @@ def edge_phase() -> list:
                 pairs.append(("conv_g8", ck.conv_g8, ck.conv_g8_plain))
             for name, fn, plain in pairs:
                 results.append((f"{name} {tag}", compare(rule, fn(x, w, b, **kw), plain(x, w, b, **kw))))
-            # the Hopper mainloop's pins (mainloop_variant_extras) at odd shapes (cs = 27: the term-by-term gathers)
-            got_i = ck.conv_im2col(x, w, b, **kw)
-            refs = {"conv_taps": ck.conv_taps(x, w, b, **kw)} if pol == "fp32" else {"conv_im2col": got_i}
+            # the Hopper mainloop's pins (mainloop_variant_extras) at odd shapes (cs = 27, 20: the term-by-term
+            # gathers): pairs and im2col bitwise taps (and, at stride 1, vcol) in both dtypes; g8 bitwise itself
+            got_t = ck.conv_taps(x, w, b, **kw)
+            got = {"conv_im2col": ck.conv_im2col(x, w, b, **kw)}
+            if -(-f // s) >= 2:
+                got["conv_pairs"] = ck.conv_pairs(x, w, b, **kw)
+            refs = {"conv_taps": got_t}
             if s == 1:
                 refs["conv2d"] = ck.conv2d_bias_relu(x, w, b, **kw)
+                got["conv_taps"] = got_t
             for ref, want in refs.items():
-                if -(-f // s) >= 2:
-                    got_p = ck.conv_pairs(x, w, b, **kw)
-                    results.append((f"conv_pairs bitwise {ref} {tag}", compare("bitwise", got_p, want)))
-                if ref != "conv_im2col":
-                    results.append((f"conv_im2col bitwise {ref} {tag}", compare("bitwise", got_i, want)))
+                for name, y in got.items():
+                    if name != ref:
+                        results.append((f"{name} bitwise {ref} {tag}", compare("bitwise", y, want)))
+            if s >= 2:
+                results.append((f"conv_g8 second launch bitwise the first {tag}",
+                                compare("bitwise", ck.conv_g8(x, w, b, **kw), ck.conv_g8(x, w, b, **kw))))
             for name, fn in (("conv2d", ck.conv2d_bias_relu), ("conv_taps", ck.conv_taps)):
                 y = fn(x, w, b, **kw)
                 if y.shape[1] >= 3:
@@ -1002,9 +1065,9 @@ def main_path_phase() -> dict:
             same = bool(torch.equal(outs[name], outs[f"v3_pallas/{pol}"]))
             log(f"{name} bitwise equal to staged v3_pallas/{pol}: {same}")
             require(same, f"{name} differs from the staged kernel chain")
-        # pairs and fused sum each output in the taps order: in fp32 one fmaf chain, taps' bits; in bf16 the
-        # Hopper mainloop's k-steps, which taps (on the older engine) does not run: fused gives pairs' bits
-        for conv, ref in (("pairs", "taps"), ("fused", "taps")) if pol == "fp32" else (("fused", "pairs"),):
+        # taps, pairs and fused sum each output in the same order on the Hopper mainloop: in fp32 one fmaf
+        # chain, in bf16 the same tensor-core k-steps, so the three routes give one output's bits
+        for conv, ref in (("pairs", "taps"), ("fused", "taps")):
             same = bool(torch.equal(outs[run_name("v3_pallas", pol, {"CONV": conv})],
                                     outs[run_name("v3_pallas", pol, {"CONV": ref})]))
             log(f"v3_pallas+CONV={conv}/{pol} bitwise equal to v3_pallas+CONV={ref}/{pol}: {same}")
@@ -2063,12 +2126,15 @@ def main() -> int:
     info = _build.build()
     log(f"phase 1: kernel library {info.path} {'built' if info.built else 'cached'} in {info.seconds:.1f} s")
     if sys.argv[1:] == ["--record"]:
-        # the records MAINLOOP_PTXAS and FLASH_SWEEP_SHA256 hold a later tree to, from this checkout
+        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256 and ENGINE_FP32_SHA256 hold a later tree to, from this
+        # checkout
         torch.backends.cuda.matmul.allow_tf32 = False
         sweep = head_dim_sweep()
-        ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in ("conv2d_cu", "conv_block_cu")}
+        engine = engine_fp32_digest()
+        ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in PTXAS_HELD}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, ptxas=ptxas, flash_sweep_sha256=sweep["sha256"],
-                              flash_sweep_within_tolerance=not sweep["failing_head_dims"])), flush=True)
+                              flash_sweep_within_tolerance=not sweep["failing_head_dims"],
+                              engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"])), flush=True)
         return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2076,7 +2142,7 @@ def main() -> int:
     ptxas = ptxas_phase(info)
     sass = sass_phase(info)
     log("phase 1b: the bf16 and int8w conv entry points contain HMMA, the fp32 ones FFMA and no HMMA; "
-        "conv2d.cu and conv_block.cu keep their registers and spills")
+        f"{', '.join(PTXAS_HELD)} keep their registers and spills")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -2087,7 +2153,11 @@ def main() -> int:
     lm_rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
     s2d_rows = s2d_phase(spec, peak_name)
     edges = edge_phase() + block_edge_phase() + s2d_edge_phase() + lm_edge_phase() + lm_bwd_edge_phase()
-    log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it")
+    engine = engine_fp32_digest()
+    log(f"engine fp32 bits: taps and g8 hash to {engine['sha256']} (ENGINE_FP32_SHA256 {ENGINE_FP32_SHA256})")
+    require(engine["sha256"] == ENGINE_FP32_SHA256, f"fp32 taps or g8 bits moved: {engine['items']}")
+    log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it; "
+        "fp32 taps and g8 keep the bits of ENGINE_FP32_SHA256")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
     lm = lm_path_phase()
@@ -2107,7 +2177,7 @@ def main() -> int:
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
-             sass=sass,
+             sass=sass, engine_fp32=engine,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
              pool_ab=ab, tune=tune,
              kernels=line["kernels"]), indent=1,

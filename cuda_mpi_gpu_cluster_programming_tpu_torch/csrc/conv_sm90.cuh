@@ -1,6 +1,9 @@
-// The Hopper conv mainloop of conv2d.cu (vcol: plain, k_block, hpool), of
-// conv_block.cu's conv step, of conv_im2col.cu (a 1 x 1 conv over xcol) and
-// of conv_pairs.cu (its own operand, Pairs below).
+// The Hopper conv mainloop of all six conv kernels: conv2d.cu (vcol: plain,
+// k_block, hpool), conv_block.cu's conv step, conv_im2col.cu (a 1 x 1 conv
+// over xcol), conv_taps.cu (a stride-1 conv over the space-to-depth input:
+// plain, k_block, hpool), conv_g8.cu (the same over the g8 packing, its four
+// output phases as columns: conv_phase_tiles) and conv_pairs.cu (its own
+// operand, Pairs below).
 //
 // A conv is one implicit GEMM: rows are output pixels, columns output
 // channels, and the reduction runs over kg = (fy*F + fx)*C + c from 0, the
@@ -13,7 +16,7 @@
 // STAGES-deep ring of shared-memory buffers brings in ahead of the math:
 //   * fp32 (T = float): FFMA, each output one fmaf chain in kg order from 0
 //     (TF32 is out by the port's fp32 contract), so any two tile shapes, and
-//     conv_engine.cuh's kernels, give the same bits. A thread owns TM pixels
+//     any two callers whose terms agree, give the same bits. A thread owns TM pixels
 //     (TY apart) x 8 channels (two runs of 4, BN/2 apart) and reads them as
 //     8- and 16-byte shared loads: 2 terms of a pixel, 4 channels of a term.
 //   * bf16 (T = bf16; int8w, whose int8 weights widen to bf16 exactly): the
@@ -643,6 +646,62 @@ conv_tiles(G g, const typename G::Elem* __restrict__ bias, typename G::Elem* __r
   }
 }
 
+// (N, Ho, Wo, K) output of a conv whose g.K = 4K columns are the four output
+// phases (conv_g8.cu): column j = (2ph + pw)K + ch of phase pixel (n, a, b),
+// one of N x Ho2 x Wo2, is output pixel (n, 2a + ph, 2b + pw), channel ch; a
+// phase pixel past Ho or Wo (odd Ho or Wo) is not written. The mainloop is
+// conv_tiles', so an element's sum is what a grid with a dimension for each
+// phase would give. grid (pixel tiles, column tiles).
+template <class C, int AM, typename T>
+__global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS)
+conv_phase_tiles(Conv<T, T> g, const T* __restrict__ bias, T* __restrict__ y, int M, int Ho2, int Wo2, int K,
+                 int Ho, int Wo, int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = blockIdx.x * C::BM, n0 = blockIdx.y * C::BN;
+  float acc[C::ACC];
+  mainloop<C, AM>(g, PixMap{M, Ho2 * Wo2, 0, 0, Wo2}, q0, n0, smem, acc);
+  // column col of phase pixel q: its place in y (null past Ho or Wo) and its channel
+  auto place = [&](int q, int col, int& ch) -> T* {
+    const int ph = col / K;
+    ch = col - ph * K;
+    const int img = q / (Ho2 * Wo2), r = q - img * (Ho2 * Wo2);
+    const int oy = 2 * (r / Wo2) + (ph >> 1), ox = 2 * (r % Wo2) + (ph & 1);
+    return oy < Ho && ox < Wo ? y + ((static_cast<size_t>(img) * Ho + oy) * Wo + ox) * K + ch : nullptr;
+  };
+  // Runs of RUN neighbouring columns as in conv_tiles: one vector store where
+  // K is a multiple of the run (a run then never straddles two phases), else
+  // one store a column.
+  constexpr int RUN = C::MMA ? 2 : 4;
+  const bool whole = K % RUN == 0;
+#pragma unroll
+  for (int e = 0; e < C::ACC; e += RUN) {
+    int m, n;
+    C::coord(e, m, n);
+    const int q = q0 + m, col = n0 + n;
+    if (q >= M) continue;
+    if (whole) {
+      int ch = 0;
+      T* dst = col < g.K ? place(q, col, ch) : nullptr;
+      if (dst == nullptr) continue;
+      if constexpr (C::MMA) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) =
+            __halves2bfloat162(epilogue<T>(acc[e], bias, ch, relu), epilogue<T>(acc[e + 1], bias, ch + 1, relu));
+      } else {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(epilogue<T>(acc[e], bias, ch, relu), epilogue<T>(acc[e + 1], bias, ch + 1, relu),
+                        epilogue<T>(acc[e + 2], bias, ch + 2, relu), epilogue<T>(acc[e + 3], bias, ch + 3, relu));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) {
+        int ch = 0;
+        T* dst = col + j < g.K ? place(q, col + j, ch) : nullptr;
+        if (dst != nullptr) *dst = epilogue<T>(acc[e + j], bias, ch, relu);
+      }
+    }
+  }
+}
+
 // (N, Hp, Wo, K) output: conv, then the H-axis max of a pw / ps pool. A block
 // owns a band of pooled rows of one image and BN channels, computes the conv
 // rows the band's windows need into shared memory after the stages (cast:
@@ -770,6 +829,26 @@ int launch_hpool(const Conv<T, T>& g, const void* b, void* y, int N, int Wo, int
   dim3 grid(port::blocks_for(g.K, C::BN), port::blocks_for(Hp, band), N);
   kernel<<<grid, THREADS, bytes(band), static_cast<cudaStream_t>(stream)>>>(
       g, static_cast<const T*>(b), static_cast<T*>(y), Wo, pw, ps, Hp, band, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// conv_phase_tiles on the stream, on the 128 x 128 tile: g's 4K columns are
+// the phases of the (N, Ho, Wo, K) output, its pixels the N x ceil(Ho/2) x
+// ceil(Wo/2) phase pixels. Returns the launch's CUDA error.
+template <typename T>
+int launch_phases(const Conv<T, T>& g, const void* b, void* y, int N, int Ho, int Wo, int K, int relu,
+                  void* stream) {
+  using C = Cfg<T, 128, 128>;
+  if (!fits(g) || g.K != 4 * K) return static_cast<int>(cudaErrorInvalidValue);
+  const int Ho2 = (Ho + 1) / 2, Wo2 = (Wo + 1) / 2;
+  auto kernel = g.vec_a ? conv_phase_tiles<C, A_VEC, T> : conv_phase_tiles<C, A_SCALAR, T>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int M = N * Ho2 * Wo2;
+  dim3 grid(port::blocks_for(M, C::BM), port::blocks_for(g.K, C::BN));
+  kernel<<<grid, THREADS, C::SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<const T*>(b), static_cast<T*>(y), M, Ho2, Wo2, K, Ho, Wo, relu);
   return static_cast<int>(cudaGetLastError());
 }
 

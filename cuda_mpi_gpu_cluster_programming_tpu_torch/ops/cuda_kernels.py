@@ -4,12 +4,14 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 
 - ``conv2d``: :func:`conv2d_bias_relu`, ``conv2d.cu``, vcol (with the hpool
   epilogue and k_block);
-- ``conv_taps``: :func:`conv_taps`, ``conv_taps.cu``, taps (hpool, k_block);
+- ``conv_taps``: :func:`conv_taps` (on the packed operands:
+  :func:`conv_taps_packed`), ``conv_taps.cu``, taps (hpool, k_block);
 - ``conv_pairs``: :func:`conv_pairs` (the launch on the packed operands:
   :func:`conv_pairs_packed`), ``conv_pairs.cu``, pairs;
 - ``conv_im2col``: :func:`conv_im2col` (on the packed operands:
   :func:`conv_im2col_packed`), ``conv_im2col.cu``, fused;
-- ``conv_g8``: :func:`conv_g8`, ``conv_g8.cu``, g8 (stride >= 2);
+- ``conv_g8``: :func:`conv_g8` (on the packed operands:
+  :func:`conv_g8_packed`), ``conv_g8.cu``, g8 (stride >= 2);
 - ``maxpool2d``: :func:`maxpool2d` and its W-only stage :func:`maxpool2d_w`,
   ``maxpool.cu``, the sep2 pool;
 - ``maxpool_phases``: :func:`maxpool_phases`, ``maxpool_phases.cu``, the
@@ -27,10 +29,9 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
   ``flash_dq.cu`` and ``flash_dkv.cu`` (over ``flash_bwd.cuh``), its
   backward.
 
-The conv kernels are implicit GEMMs: ``conv2d``, ``conv_block``,
-``conv_pairs`` and ``conv_im2col`` on the Hopper mainloop of
-``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on the tensor cores),
-the taps and g8 bodies on the engine of ``csrc/conv_engine.cuh``. Each kernel has:
+The six conv kernels are implicit GEMMs on one Hopper mainloop,
+``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on the tensor cores).
+Each kernel has:
 
 - a wrapper that checks device, dtype, shape and contiguity, packs the
   operands its variant reads (``ops/packing.py``), allocates its output
@@ -251,20 +252,74 @@ def _s2d_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
     return xs, packing.weights_to_depth(w, stride, fq).contiguous(), fq, ho, wo
 
 
+def conv_taps_packed_plain(
+    xs: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, *, ho: int, wo: int, relu: bool = True, hpool=None,
+) -> torch.Tensor:
+    """Plain version of the taps kernel on its operands as
+    :func:`_s2d_operands` packs them: one (pixels, s*s*C) x (s*s*C, K)
+    matmul per tap (qh, qw) in that order into an fp32 accumulator, then the
+    epilogue."""
+    n, cs, fq, k = xs.shape[0], xs.shape[3], ws.shape[0], ws.shape[3]
+    acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=xs.device)
+    for qh in range(fq):
+        for qw in range(fq):
+            acc.addmm_(xs[:, qh : qh + ho, qw : qw + wo, :].float().reshape(-1, cs), ws[qh, qw].float())
+    return _epilogue_plain(acc.reshape(n, ho, wo, k), b, relu, xs.dtype, hpool)
+
+
 def conv_taps_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
     k_block: int = 0, hpool=None,
 ) -> torch.Tensor:
-    """Plain version of the taps kernel: on the s2d operands, one
-    (pixels, s*s*C) x (s*s*C, K) matmul per tap (qh, qw) in that order into
-    an fp32 accumulator, then the epilogue."""
-    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
-    n, cs, k = x.shape[0], xs.shape[3], w.shape[3]
-    acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=x.device)
-    for qh in range(fq):
-        for qw in range(fq):
-            acc.addmm_(xs[:, qh : qh + ho, qw : qw + wo, :].float().reshape(-1, cs), ws[qh, qw].float())
-    return _epilogue_plain(acc.reshape(n, ho, wo, k), b, relu, x.dtype, hpool)
+    """Plain version of the taps kernel: the wrapper's operands, then
+    :func:`conv_taps_packed_plain`. ``k_block`` changes no value."""
+    xs, ws, _fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    return conv_taps_packed_plain(xs, ws, b, ho=ho, wo=wo, relu=relu, hpool=hpool)
+
+
+def _packed_conv_dims(name: str, xs: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, k: int, ho: int, wo: int):
+    """Check that ``xs`` (N, Hs, Ws, cs) and ``ws`` (fq, fq, cs, cols) make
+    a stride-1 unpadded conv to ``ho`` x ``wo`` pixels with a ``k``-channel
+    bias; return ``(n, fq)``."""
+    fits = xs.dim() == 4 and ws.dim() == 4 and b.shape == (k,) and min(ho, wo, k) > 0
+    fq = ws.shape[0] if fits else 0
+    if (not fits or tuple(ws.shape[:3]) != (fq, fq, xs.shape[3])
+            or xs.shape[1] < ho + fq - 1 or xs.shape[2] < wo + fq - 1):
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, w {tuple(ws.shape)} and bias {tuple(b.shape)} "
+                         f"do not make a conv to {ho}x{wo}x{k}")
+    return xs.shape[0], fq
+
+
+def _check_packed_cuda(name: str, xs: torch.Tensor, out_elems: int) -> None:
+    """Raise where the CUDA mainloop refuses a packed input: past 2^31
+    elements, or an Hs x Ws image past its 16-bit origins."""
+    if max(xs.numel(), out_elems) >= 2**31:
+        raise ValueError(f"{name}: a packed input of {tuple(xs.shape)} is past 2^31 elements")
+    _check_sm90_dims(name, xs.shape[1], xs.shape[2], 0)
+
+
+def conv_taps_packed(
+    xs: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, *, ho: int, wo: int, relu: bool = True,
+    k_block: int = 0, hpool=None,
+) -> torch.Tensor:
+    """The taps kernel alone, on ``xs`` (N, Hs, Ws, s*s*C) and ``ws`` (fq,
+    fq, s*s*C, K) as :func:`_s2d_operands` packs them: (N, ho, wo, K) in
+    xs's dtype; ``k_block`` and ``hpool`` as :func:`conv2d_bias_relu`. A CPU
+    tensor runs :func:`conv_taps_packed_plain`."""
+    dev = _check("conv_taps", xs, ws, b)
+    k = ws.shape[-1]
+    n, fq = _packed_conv_dims("conv_taps", xs, ws, b, k, ho, wo)
+    kb = effective_k_block(k_block, k)
+    pw, ps, hp = _hpool_dims("conv_taps", ho, hpool, kb, n)
+    if dev.type == "cpu":
+        return conv_taps_packed_plain(xs, ws, b, ho=ho, wo=wo, relu=relu, hpool=hpool)
+    _check_packed_cuda("conv_taps", xs, n * ho * wo * k)
+    y = torch.empty((n, hp if pw else ho, wo, k), dtype=xs.dtype, device=dev)
+    _launch(
+        "conv_taps", "conv_taps", xs, xs.data_ptr(), ws.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, xs.shape[1], xs.shape[2], xs.shape[3], k, fq, ho, wo, int(relu), kb, pw, ps, hp,
+    )
+    return y
 
 
 def conv_taps(
@@ -276,23 +331,17 @@ def conv_taps(
 
     Replaces ``_conv_kernel`` with ``_conv_epilogue``
     (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
-    the H100: FFMA operations (conv1 32 GFLOP with the zero taps past F,
-    conv2 115 GFLOP at batch 128). Design (``csrc/conv_taps.cu``): the
-    operands packed here (``ops/packing.py``), then the shared implicit
-    GEMM reading each qh row's fq*s*s*C terms as one contiguous run, in the
-    fixed (qh, qw, channel) order."""
-    dev, (n, _h, _wd, _c, _f, k, ho, wo) = _conv_geometry("conv_taps", x, w, b, stride, padding)
-    kb = effective_k_block(k_block, k)
-    pw, ps, hp = _hpool_dims("conv_taps", ho, hpool, kb, n)
-    if dev.type == "cpu":
-        return conv_taps_plain(x, w, b, stride=stride, padding=padding, relu=relu, hpool=hpool)
-    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
-    y = torch.empty((n, hp if pw else ho, wo, k), dtype=x.dtype, device=dev)
-    _launch(
-        "conv_taps", "conv_taps", xs, xs.data_ptr(), ws.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, xs.shape[1], xs.shape[2], xs.shape[3], k, fq, ho, wo, int(relu), kb, pw, ps, hp,
-    )
-    return y
+    the H100: operations (conv1 32 GFLOP with the zero taps past F, conv2
+    115 GFLOP at batch 128): FFMA in fp32, the tensor cores in bf16. Design
+    (``csrc/conv_taps.cu`` on the Hopper mainloop of ``csrc/conv_sm90.cuh``):
+    the s2d operands packed here (``ops/packing.py``), then
+    :func:`conv_taps_packed`: a stride-1 unpadded conv of xs with the
+    weights ws, in the fixed (qh, qw, channel) order, which is im2col's term
+    order (in both dtypes the bits of :func:`conv_pairs` and
+    :func:`conv_im2col`, and at stride 1 of :func:`conv2d_bias_relu`)."""
+    _conv_geometry("conv_taps", x, w, b, stride, padding)
+    xs, ws, _fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    return conv_taps_packed(xs, ws, b, ho=ho, wo=wo, relu=relu, k_block=k_block, hpool=hpool)
 
 
 def _pairs_operands(xs: torch.Tensor, ws: torch.Tensor, fq: int):
@@ -467,10 +516,20 @@ def conv_im2col(
     return conv_im2col_packed(xcol, wmat, b, n=n, ho=ho, wo=wo, relu=relu)
 
 
+def _g8_phase_columns(w8: torch.Tensor) -> torch.Tensor:
+    """The four phase weight frames of ``w8`` (2, 2, fq8, fq8, G, K) side
+    by side, (fq8, fq8, G, 4K): column (2*ph + pw)*K + ch is phase (ph,
+    pw)'s channel ch, the weights of one conv whose 4K columns are the
+    output phases."""
+    _, _, fq8, _, gch, k = w8.shape
+    return w8.permute(2, 3, 4, 0, 1, 5).reshape(fq8, fq8, gch, 4 * k).contiguous()
+
+
 def _g8_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
-    """The g8 operands: ``(xs8, w8, fq8, ho, wo)`` with xs8 (N, ho2+fq8-1,
-    wo2+fq8-1, g*g*C) packed at g = 2*stride, ho2 = ceil(ho/2), and w8 the
-    (2, 2, fq8, fq8, g*g*C, K) phase weight frames, contiguous."""
+    """The g8 operands: ``(xs8, wcols, ho, wo)`` with xs8 (N, ho2+fq8-1,
+    wo2+fq8-1, g*g*C) packed at g = 2*stride, ho2 = ceil(ho/2), and wcols
+    the phase columns (:func:`_g8_phase_columns`) of the phase weight
+    frames, fq8 = ceil((F+stride)/g), contiguous."""
     f, s = w.shape[0], stride
     g = 2 * s
     fq8 = -(-(f + s) // g)
@@ -479,29 +538,56 @@ def _g8_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
     if padding:
         x = F.pad(x, (0, 0, padding, padding, padding, padding))
     xs8 = packing.space_to_depth(x, g, -(-ho // 2) + fq8 - 1, -(-wo // 2) + fq8 - 1).contiguous()
-    return xs8, packing.weights_to_phase_depth(w, s, g, fq8).contiguous(), fq8, ho, wo
+    return xs8, _g8_phase_columns(packing.weights_to_phase_depth(w, s, g, fq8)), ho, wo
+
+
+def conv_g8_packed_plain(
+    xs8: torch.Tensor, wcols: torch.Tensor, b: torch.Tensor, *, ho: int, wo: int, relu: bool = True,
+) -> torch.Tensor:
+    """Plain version of the g8 kernel on its operands as
+    :func:`_g8_operands` packs them: one (phase pixels, g*g*C) x (g*g*C,
+    4K) matmul per tap (qh, qw) into an fp32 accumulator, column
+    (2*ph + pw)*K + ch of phase pixel (n, a, b) to output pixel
+    (n, 2a + ph, 2b + pw), channel ch, cropped to ho x wo; then the
+    epilogue."""
+    n, gch, fq8, k = xs8.shape[0], xs8.shape[3], wcols.shape[0], wcols.shape[3] // 4
+    ho2, wo2 = -(-ho // 2), -(-wo // 2)
+    acc = torch.zeros((n * ho2 * wo2, 4 * k), dtype=torch.float32, device=xs8.device)
+    for qh in range(fq8):
+        for qw in range(fq8):
+            acc.addmm_(xs8[:, qh : qh + ho2, qw : qw + wo2, :].float().reshape(-1, gch), wcols[qh, qw].float())
+    acc = acc.reshape(n, ho2, wo2, 2, 2, k).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * ho2, 2 * wo2, k)
+    return _epilogue_plain(acc[:, :ho, :wo, :], b, relu, xs8.dtype, None)
 
 
 def conv_g8_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
 ) -> torch.Tensor:
-    """Plain version of the g8 kernel: per output phase (ph, pw), one
-    (pixels, g*g*C) x (g*g*C, K) matmul per tap (qh, qw) of the phase's
-    weight frame into an fp32 accumulator, the phases interleaved into the
-    (N, Ho, Wo, K) accumulator, then the epilogue."""
-    xs8, w8, fq8, ho, wo = _g8_operands(x, w, stride, padding)
-    n, gch, k = x.shape[0], xs8.shape[3], w.shape[3]
-    ho2, wo2 = -(-ho // 2), -(-wo // 2)
-    acc = torch.zeros((n, ho2 * 2, wo2 * 2, k), dtype=torch.float32, device=x.device)
-    for ph in range(2):
-        for pw in range(2):
-            part = torch.zeros((n * ho2 * wo2, k), dtype=torch.float32, device=x.device)
-            for qh in range(fq8):
-                for qw in range(fq8):
-                    win = xs8[:, qh : qh + ho2, qw : qw + wo2, :].float().reshape(-1, gch)
-                    part.addmm_(win, w8[ph, pw, qh, qw].float())
-            acc[:, ph::2, pw::2, :] = part.reshape(n, ho2, wo2, k)
-    return _epilogue_plain(acc[:, :ho, :wo, :], b, relu, x.dtype, None)
+    """Plain version of the g8 kernel: the wrapper's operands, then
+    :func:`conv_g8_packed_plain`."""
+    xs8, wcols, ho, wo = _g8_operands(x, w, stride, padding)
+    return conv_g8_packed_plain(xs8, wcols, b, ho=ho, wo=wo, relu=relu)
+
+
+def conv_g8_packed(
+    xs8: torch.Tensor, wcols: torch.Tensor, b: torch.Tensor, *, ho: int, wo: int, relu: bool = True,
+) -> torch.Tensor:
+    """The g8 kernel alone, on ``xs8`` (N, Hs8, Ws8, G) and ``wcols`` (fq8,
+    fq8, G, 4K) as :func:`_g8_operands` packs them: (N, ho, wo, K) in xs8's
+    dtype. A CPU tensor runs :func:`conv_g8_packed_plain`."""
+    dev = _check("conv_g8", xs8, wcols, b)
+    k4 = wcols.shape[-1]
+    # the conv's pixels are the ceil(ho/2) x ceil(wo/2) phase pixels
+    n, fq8 = _packed_conv_dims("conv_g8", xs8, wcols, b, k4 // 4 if k4 % 4 == 0 else 0, -(-ho // 2), -(-wo // 2))
+    if dev.type == "cpu":
+        return conv_g8_packed_plain(xs8, wcols, b, ho=ho, wo=wo, relu=relu)
+    _check_packed_cuda("conv_g8", xs8, n * ho * wo * (k4 // 4))
+    y = torch.empty((n, ho, wo, k4 // 4), dtype=xs8.dtype, device=dev)
+    _launch(
+        "conv_g8", "conv_g8", xs8, xs8.data_ptr(), wcols.data_ptr(), b.data_ptr(), y.data_ptr(),
+        n, xs8.shape[1], xs8.shape[2], xs8.shape[3], k4 // 4, fq8, ho, wo, int(relu),
+    )
+    return y
 
 
 def conv_g8(
@@ -514,27 +600,20 @@ def conv_g8(
     and refuses.
 
     Replaces ``_conv_g8_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
-    pallas_kernels.py). Bound on the H100: FFMA operations (conv1 59 GFLOP
-    at batch 128 with the weight frames' zeros, against vcol's 27). Design
-    (``csrc/conv_g8.cu``): the input packed at g = 2*stride (g*g*C
-    channels) and the four phase weight frames packed here
-    (``ops/packing.py``); then the shared implicit GEMM on a grid with the
-    output phase as its third dimension, each block writing its pixels
-    straight into the interleaved (N, Ho, Wo, K) output."""
-    dev, (n, _h, _wd, _c, _f, k, ho, wo) = _conv_geometry("conv_g8", x, w, b, stride, padding)
+    pallas_kernels.py). Bound on the H100: operations (conv1 59 GFLOP at
+    batch 128 with the weight frames' zeros, against vcol's 27): FFMA in
+    fp32, the tensor cores in bf16. Design (``csrc/conv_g8.cu`` on the
+    Hopper mainloop of ``csrc/conv_sm90.cuh``): the input packed at g =
+    2*stride (g*g*C channels) and the four phase weight frames packed here
+    (``ops/packing.py``) side by side as 4K columns; then
+    :func:`conv_g8_packed`: one GEMM over the phase pixels, each one's
+    window gathered once for the four phases, its store writing each
+    column straight into the interleaved (N, Ho, Wo, K) output."""
+    _conv_geometry("conv_g8", x, w, b, stride, padding)
     if stride < 2:
         raise ValueError(f"conv_g8: no phases to pack at stride {stride}; run vcol")
-    if dev.type == "cpu":
-        return conv_g8_plain(x, w, b, stride=stride, padding=padding, relu=relu)
-    xs8, w8, fq8, ho, wo = _g8_operands(x, w, stride, padding)
-    if xs8.numel() >= 2**31:
-        raise ValueError(f"conv_g8: a packed input of {tuple(xs8.shape)} is past 2^31 elements")
-    y = torch.empty((n, ho, wo, k), dtype=x.dtype, device=dev)
-    _launch(
-        "conv_g8", "conv_g8", xs8, xs8.data_ptr(), w8.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, xs8.shape[1], xs8.shape[2], xs8.shape[3], k, fq8, ho, wo, int(relu),
-    )
-    return y
+    xs8, wcols, ho, wo = _g8_operands(x, w, stride, padding)
+    return conv_g8_packed(xs8, wcols, b, ho=ho, wo=wo, relu=relu)
 
 
 # --------------------------------------------------------------------- pool

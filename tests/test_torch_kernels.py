@@ -170,12 +170,12 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     assert _build.source_hash() != before
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "conv_engine.cuh", "conv_sm90.cuh", "flash_bwd.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "conv_sm90.cuh", "flash_bwd.cuh"])
 def test_build_key_follows_each_header(header, monkeypatch, tmp_path):
     """Every header the sources include (conv_sm90.cuh: the mainloop of
-    conv2d.cu and conv_block.cu) is part of the build key: editing one
-    builds the library anew."""
-    assert header in {p.name for p in _build.CSRC_DIR.glob("*.cuh")}
+    the six conv kernels) is part of the build key: editing one builds the
+    library anew."""
+    assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == {"common.cuh", "conv_sm90.cuh", "flash_bwd.cuh"}
     for p in _build.CSRC_DIR.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)

@@ -276,6 +276,103 @@ def test_packed_launchers_take_the_wrappers_operands(case):
         ck.conv_im2col_packed(xcol, wmat, b, n=x.shape[0], ho=ho + 1, wo=wo)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_taps_terms_are_the_mainloop_conv_terms(case, dtype):
+    """What the bitwise pin of conv_taps.cu to conv_pairs.cu and
+    conv_im2col.cu rests on: the taps kernel hands ``csrc/conv_sm90.cuh``'s
+    ``Conv`` xs as an image and ws as HWIO weights of a stride-1 unpadded
+    conv with F = fq. Its term kg of pixel (n, oy, ox), as ``Conv`` reads it
+    (fy = kg // (F*C), fx, c), is xs[n, oy + fy, ox + fx, c], every window in
+    bounds, and its weight row kg is ws.reshape(-1, K)[kg]: xcol's column kg
+    and wmat's row kg, bit for bit."""
+    _, (x, w, _b), kw = _conv_case(case, dtype)
+    xs, ws, fq, ho, wo = ck._s2d_operands(x, w, kw["stride"], kw["padding"])
+    n, cs, k = x.shape[0], xs.shape[3], w.shape[3]
+    assert xs.shape[1] >= ho + fq - 1 and xs.shape[2] >= wo + fq - 1
+    cols, rows = [], []
+    for kg in range(fq * fq * cs):
+        fy, rem = divmod(kg, fq * cs)
+        fx, c = divmod(rem, cs)
+        cols.append(xs[:, fy : fy + ho, fx : fx + wo, c])
+        rows.append(ws.reshape(-1, k)[kg])
+    xcol, wmat, _ho, _wo = ck._im2col_operands(x, w, kw["stride"], kw["padding"])
+    assert torch.equal(torch.stack(cols, -1).reshape(n * ho * wo, -1), xcol)
+    assert torch.equal(torch.stack(rows), wmat)
+
+
+@pytest.mark.parametrize("f, s, pad", [(11, 4, 0), (5, 2, 1), (7, 3, 2)])
+def test_g8_phase_columns_rebuild_g8(f, s, pad):
+    """conv_g8.cu's one GEMM over the g8 geometries above: the (KG, 4K)
+    matrix the CUDA branch builds has column (2ph + pw)K + ch equal to
+    w8[ph, pw, ..., ch], bitwise; and a float64 GEMM of xs8's windows
+    against it, column (2ph + pw)K + ch of phase pixel (n, a, b) scattered
+    to (2a + ph, 2b + pw) and cropped to Ho x Wo (odd at F11/s4), then bias
+    and ReLU, is conv_g8_plain within the fp32 tolerance."""
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((2, 37, 37, 3)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((f, f, 3, 16))).astype(np.float32)
+    b = (0.2 * rng.standard_normal(16)).astype(np.float32)
+    tx, tw, tb = (torch.from_numpy(a) for a in (x, w, b))
+    xs8, wcols, ho, wo = ck._g8_operands(tx, tw, s, pad)
+    n, gch, fq8, k = tx.shape[0], xs8.shape[3], wcols.shape[0], 16
+    mat = wcols.reshape(fq8 * fq8 * gch, 4 * k)
+    w8 = packing.weights_to_phase_depth(tw, s, 2 * s, fq8)
+    for ph in range(2):
+        for pw in range(2):
+            assert torch.equal(mat[:, (2 * ph + pw) * k : (2 * ph + pw + 1) * k], w8[ph, pw].reshape(-1, k))
+    ho2, wo2 = -(-ho // 2), -(-wo // 2)
+    wins = [xs8[:, qh : qh + ho2, qw : qw + wo2, :] for qh in range(fq8) for qw in range(fq8)]
+    acc = torch.cat(wins, -1).double().reshape(n * ho2 * wo2, -1) @ mat.double()
+    y = torch.zeros((n, 2 * ho2, 2 * wo2, k), dtype=torch.float64)
+    for ph in range(2):
+        for pw in range(2):
+            y[:, ph::2, pw::2, :] = acc[:, (2 * ph + pw) * k : (2 * ph + pw + 1) * k].reshape(n, ho2, wo2, k)
+    want = torch.relu(y[:, :ho, :wo, :] + tb.double())
+    _assert_close(ck.conv_g8_plain(tx, tw, tb, stride=s, padding=pad).numpy(), want.numpy(), "fp32")
+
+
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_taps_and_g8_packed_launchers_take_the_wrappers_operands(case):
+    """``conv_taps_packed`` and ``conv_g8_packed`` (the kernels alone, as
+    ``chip_smoke.py`` times them) on the operands their wrappers pack give
+    the wrappers' results (taps with its hpool epilogue too; g8 where the
+    stride is >= 2), and refuse operands that do not fit."""
+    _, (x, w, b), kw = _conv_case(case, "fp32")
+    xs, ws, fq, ho, wo = ck._s2d_operands(x, w, kw["stride"], kw["padding"])
+    assert torch.equal(ck.conv_taps_packed(xs, ws, b, ho=ho, wo=wo), ck.conv_taps(x, w, b, **kw))
+    assert torch.equal(ck.conv_taps_packed(xs, ws, b, ho=ho, wo=wo, hpool=(3, 2)),
+                       ck.conv_taps(x, w, b, hpool=(3, 2), **kw))
+    with pytest.raises(ValueError, match="do not make a conv"):
+        ck.conv_taps_packed(xs, ws, b, ho=ho + 1, wo=wo)
+    if kw["stride"] < 2:
+        return
+    xs8, wcols, ho, wo = ck._g8_operands(x, w, kw["stride"], kw["padding"])
+    assert torch.equal(ck.conv_g8_packed(xs8, wcols, b, ho=ho, wo=wo), ck.conv_g8(x, w, b, **kw))
+    with pytest.raises(ValueError, match="do not make a conv"):
+        ck.conv_g8_packed(xs8, wcols, b, ho=ho + 2, wo=wo)
+    with pytest.raises(ValueError, match="do not make a conv"):
+        ck.conv_g8_packed(xs8, wcols, b[:-1], ho=ho, wo=wo)
+
+
+@pytest.mark.parametrize("kernel", ["taps", "g8"])
+def test_cuda_taps_and_g8_refuse_packed_dims_from_2_14(kernel, monkeypatch):
+    """conv_taps.cu and conv_g8.cu hand the mainloop their packed input as
+    its image, whose origins ``csrc/conv_sm90.cuh`` packs into 16-bit
+    halves: the CUDA branches of conv_taps and conv_g8 refuse a packed
+    height of 2^14 before any launch. The device check answers CUDA here,
+    so the CPU tensors take the CUDA branch."""
+    monkeypatch.setattr(ck, "_check", lambda name, *tensors: torch.device("cuda"))
+    monkeypatch.setattr(ck, "_launch", lambda *a, **kw: pytest.fail("launched past the dims check"))
+    w, b = torch.zeros(1, 1, 1, 4), torch.zeros(4)
+    if kernel == "taps":  # stride 1, F 1: Hs = H
+        got = lambda: ck.conv_taps(torch.zeros(1, 2**14, 2, 1), w, b, stride=1, padding=0)  # noqa: E731
+    else:  # stride 2, F 1: Ho = 2^15, so Hs8 = ceil(Ho / 2) = 2^14
+        got = lambda: ck.conv_g8(torch.zeros(1, 2**16, 4, 1), w, b, stride=2, padding=0)  # noqa: E731
+    with pytest.raises(ValueError, match="below 16384 on CUDA"):
+        got()
+
+
 # ------------------------------------------------------------------- pools ---
 
 
