@@ -6,8 +6,9 @@
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
-JSON line with what ``MAINLOOP_PTXAS``, ``FLASH_SWEEP_SHA256`` and
-``ENGINE_FP32_SHA256`` hold a later tree to (run it in a checkout of the
+JSON line with what ``MAINLOOP_PTXAS``, ``FLASH_SWEEP_SHA256``,
+``FLASH_BWD_TILES_SHA256`` and ``ENGINE_FP32_SHA256`` hold a later tree
+to (run it in a checkout of the
 tree to be recorded, with this file copied in), and each digested
 output's own sha256. With no arguments, phases in order; a phase that
 fails ends the run with a non-zero exit code and nothing is caught:
@@ -17,10 +18,13 @@ fails ends the run with a non-zero exit code and nothing is caught:
    mainloop (``conv_sm90.cuh``): conv2d.cu's, conv_block.cu's,
    conv_pairs.cu's and conv_im2col.cu's must be ``MAINLOOP_PTXAS``, those
    before conv_taps.cu and conv_g8.cu joined the mainloop;
+   read the flash backward instances' registers and spills (logged);
    1b. read its SASS (``cuobjdump --dump-sass``): every bf16 and int8w
    instance of the six mainloop files' kernels (conv2d.cu, conv_block.cu,
-   conv_pairs.cu, conv_im2col.cu, conv_taps.cu, conv_g8.cu) contains HMMA
-   (the tensor cores), every fp32 one FFMA and no HMMA (no TF32);
+   conv_pairs.cu, conv_im2col.cu, conv_taps.cu, conv_g8.cu) and every bf16
+   instance of flash_dq.cu and flash_dkv.cu at D = 16, 32, 64 and 128
+   contains HMMA (the tensor cores), every fp32 one FFMA and no HMMA (no
+   TF32);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
@@ -62,7 +66,10 @@ fails ends the run with a non-zero exit code and nothing is caught:
    (fp32) autograd through ``ops.attention``, timed beside SDPA's backward,
    and off those shapes (the ragged blocks, D = 16, 128 and 256, the padded
    D = 8, 24, 48 and 200, an lse cotangent, strided q/k/v with a zero-stride dO,
-   the joint (out, lse) gradient against the oracle); then the pool A/B's
+   the joint (out, lse) gradient against the oracle, q/k/v/dO views off
+   16-byte alignment bitwise contiguous copies, every D from 1 to 128 in
+   bf16 against the plain versions, and the fp32 bits of several tiles,
+   ``FLASH_BWD_TILES_SHA256``); then the pool A/B's
    space-to-depth pool ``maxpool_s2d`` at pool1 and pool2 (batch 128,
    standard normal) in fp32 and bf16, bitwise against its plain version and
    maxpool2d, the wrapper (C pad and repack included) and the kernel alone
@@ -135,10 +142,14 @@ Tolerances, kernel against plain version on the same inputs:
   that term; lse 1e-6 x its max; out against the
   O(L^2) oracle 2e-5 (fp32) or 3e-2 (bf16) abs + rel, the JAX flash tests';
 - flash_dq, flash_dkv: fp32 max |diff| <= 1e-5 x max |plain| for each
-  output (the same fp32 recompute, sums in another order), bf16 1 ulp plus
-  that term; a second launch bitwise the first (no atomics); fp32 against
-  autograd through the oracle 5e-5 abs + rel (the JAX tests' gradient
-  tolerance), the joint (out, lse) gradient 1e-4.
+  output (the same fp32 recompute, sums in another order; the fp32 bits
+  are also held by ``FLASH_SWEEP_SHA256``), bf16 1 ulp plus that term: at
+  D <= 128 the kernels run the second products on the tensor cores with p
+  and dS split into two bf16 terms (16 significant bits against the plain
+  versions' fp32; one term misses the rule by 24-62x,
+  ``tests/test_torch_attention.py``); a second launch bitwise the first (no
+  atomics); fp32 against autograd through the oracle 5e-5 abs + rel (the
+  JAX tests' gradient tolerance), the joint (out, lse) gradient 1e-4.
 Main path: ``precision/gate.py`` budgets of the JAX package: fp32 1e-4 abs
 and 1e-5 of the max; bf16 2e-2 and int8w 6e-2 of the max against the fp32
 oracle. LM: flash against reference and decode against forward, rtol 1e-4
@@ -261,6 +272,28 @@ def gpu_time_ms(fn, reps: int = TIMED_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_time_ms(fn, marker: str = "", reps: int = 10):
+    """Device time from ``torch.profiler`` over ``reps`` calls after a warm
+    one, without the host's time before a launch that a pair of CUDA events
+    around one call also counts: with ``marker``, the mean of the kernels
+    whose name holds it (one a call); without, the sum of a call's kernels
+    and copies. None when the trace shows no device time (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and marker in e.key]
+    total, count = sum(e.self_device_time_total for e in events), sum(e.count for e in events)
+    if total <= 0:
+        return None
+    return total / 1e3 / (count if marker else reps)
+
+
 def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at each |value| (8 significant bits)."""
     _m, e = torch.frexp(t.float().abs().clamp_min(2.0**-126))
@@ -284,7 +317,7 @@ def compare(rule, got: torch.Tensor, want: torch.Tensor) -> dict:
         ulp = bf16_ulp(torch.maximum(g.abs(), w.abs()))
         slack = n_ulp * ulp + rule[1] * wmax
         res.update(tol=f"{n_ulp} bf16 ulp + {rule[1]:g} x max|plain|", ok=bool((diff <= slack).all()),
-                   max_ulps=float((diff / ulp).max()))
+                   max_ulps=float((diff / ulp).max()), max_share=float((diff / slack).max()))
     else:
         res.update(tol=f"{rule:g} x max|plain|", ok=res["max_rel_err"] <= rule)
     return res
@@ -396,32 +429,74 @@ MAINLOOP_FILES = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu
 PTXAS_HELD = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
 
 
+# the flash backward's files, and the head dims whose instances run the Hopper design (flash_bwd_sm90.cuh):
+# bf16 on mma.sync, fp32 on FFMA (D = 256 and the windowed instance keep FFMA in both dtypes)
+FLASH_BWD_FILES = ("flash_dq_cu", "flash_dkv_cu")
+FLASH_BWD_SM90_DIMS = (16, 32, 64, 128)
+
+
+def flash_instance(name: str):
+    """``(file, dtype, D)`` of a flash backward kernel's mangled name (D 0:
+    the windowed instance), or None for any other kernel."""
+    f = next((f for f in FLASH_BWD_FILES if f in name), None)
+    m = re.search(r"Li(\d+)E", name)
+    if f is None or m is None:
+        return None
+    return f, "bf16" if "bfloat16" in name else "fp32", int(m.group(1))
+
+
 def sass_phase(info) -> dict:
-    """The instructions the conv entry points compiled to, from
-    ``cuobjdump --dump-sass`` on the built library: every bf16 (and int8w)
-    instance of the kernels on the Hopper mainloop (the six files of
-    ``MAINLOOP_FILES``) must contain HMMA (mma.sync on the tensor cores),
-    every fp32 one FFMA and no HMMA (no TF32: the fp32 contract)."""
+    """The instructions the conv and flash backward entry points compiled
+    to, from ``cuobjdump --dump-sass`` on the built library: every bf16 (and
+    int8w) instance of the kernels on the Hopper mainloop (the six files of
+    ``MAINLOOP_FILES``) and every bf16 instance of ``flash_dq.cu`` and
+    ``flash_dkv.cu`` at D <= 128 must contain HMMA (mma.sync on the tensor
+    cores), every fp32 one FFMA and no HMMA (no TF32: the fp32 contract)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "--dump-sass", str(info.path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    found = {}
+    found, flash = {}, {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
-        if not any(f in name for f in MAINLOOP_FILES):
-            continue
-        bf16 = "bfloat16" in name
-        found[name] = dict(dtype="bf16" if bf16 else "fp32", hmma=chunk.count("HMMA"), ffma=chunk.count("FFMA"))
+        counts = dict(hmma=chunk.count("HMMA"), ffma=chunk.count("FFMA"))
+        inst = flash_instance(name)
+        if inst is not None:
+            flash[name] = dict(file=inst[0], dtype=inst[1], d=inst[2], **counts)
+        elif any(f in name for f in MAINLOOP_FILES):
+            found[name] = dict(dtype="bf16" if "bfloat16" in name else "fp32", **counts)
     kinds = {(next(f for f in MAINLOOP_FILES if f in k), v["dtype"]) for k, v in found.items()}
     require({(f, dt) for f in MAINLOOP_FILES for dt in ("fp32", "bf16")} <= kinds,
             f"SASS: the conv entry points were not all found: {sorted(kinds)}")
+    flash_kinds = {(v["file"], v["dtype"], v["d"]) for v in flash.values()}
+    want = {(f, dt, d) for f in FLASH_BWD_FILES for dt in ("fp32", "bf16") for d in FLASH_BWD_SM90_DIMS}
+    require(want <= flash_kinds, f"SASS: the flash backward instances were not all found: {sorted(flash_kinds)}")
     for name, v in found.items():
         ok = v["hmma"] > 0 if v["dtype"] == "bf16" else (v["ffma"] > 0 and v["hmma"] == 0)
         log(f"sass {v['dtype']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
         require(ok, f"SASS of {name}: {v}")
-    return found
+    for name, v in flash.items():
+        if v["dtype"] == "fp32":
+            ok = v["ffma"] > 0 and v["hmma"] == 0
+        else:  # bf16 above 128 keeps the FFMA kernel of flash_bwd.cuh: not held
+            ok = v["hmma"] > 0 if v["d"] in FLASH_BWD_SM90_DIMS else None
+        log(f"sass {v['file']} {v['dtype']} D={v['d']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
+        require(ok is not False, f"SASS of {name}: {v}")
+    return dict(conv=found, flash=flash)
+
+
+def flash_ptxas(build_log: str) -> dict:
+    """Registers and spill-store bytes of every flash backward instance,
+    keyed ``file/dtype/D`` (kernel name beside them)."""
+    table = {}
+    for name, regs, stores in ptxas_entries(build_log):
+        inst = flash_instance(name)
+        if inst is not None:
+            kname = re.search(r"(flash_d\w*kernel\w*?)I", name)
+            table[f"{inst[0]}/{inst[1]}/D={inst[2]}"] = dict(registers=regs, spill_stores=stores,
+                                                            kernel=kname.group(1) if kname else name[:60])
+    return dict(sorted(table.items()))
 
 
 # ``ptxas -v`` of the ``PTXAS_HELD`` files' kernels as they were before conv_taps.cu and conv_g8.cu joined
@@ -1380,8 +1455,9 @@ def flash_bwd_case(shape, causal, dtype, gen, block_q=128, block_k=128, lse_grad
 
 def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> list:
     """Phase 2 rows of flash_dq and flash_dkv at one shape: checked by
-    :func:`flash_bwd_case`, timed beside their plain versions, SDPA's
-    backward (one ``torch.autograd.grad`` on a retained
+    :func:`flash_bwd_case`, timed (CUDA events around a call, and the
+    kernel's own device time, :func:`device_time_ms`) beside their plain versions, SDPA's
+    backward (the same two ways: one ``torch.autograd.grad`` on a retained
     ``scaled_dot_product_attention`` graph: dq, dk and dv together, so the
     same time stands in both rows) and the bound."""
     import torch.nn.functional as F
@@ -1396,6 +1472,7 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
     o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     g_t = g.transpose(1, 2).contiguous()
     library_ms = gpu_time_ms(lambda: torch.autograd.grad(o, leaves, g_t, retain_graph=True))
+    library_device_ms = device_time_ms(lambda: torch.autograd.grad(o, leaves, g_t, retain_graph=True))
     del o, leaves
     b, l, h, d = shape
     rows = []
@@ -1410,14 +1487,16 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
         bound, by = spec.bound_ms(flops, nbytes, pol)
         row = dict(
             kernel=name, stage=stage, mode="" if causal else "full", dtype=pol, shape=list(shape), **res,
-            ms=gpu_time_ms(run), plain_ms=gpu_time_ms(plain), library_ms=library_ms,
+            ms=gpu_time_ms(run), device_ms=device_time_ms(run, f"{name}_kernel"), plain_ms=gpu_time_ms(plain),
+            library_ms=library_ms, library_device_ms=library_device_ms,
             library_call="torch.autograd.grad of F.scaled_dot_product_attention (is_causal; dq, dk, dv together)",
             bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}",
         )
         log(f"kernel {name}{'' if causal else '[full]'} {stage} {'x'.join(map(str, shape))} {pol}: "
             f"ok={res['ok']} tol={res['tol']} max_abs={res['max_abs_err']:.3g} bitwise_rerun={res['bitwise_rerun']} "
             + (f"vs_oracle={res['ref_max_abs_err']:.3g} ({res['ref_ok']}) " if "ref_ok" in res else "")
-            + f"| ms={row['ms']:.4f} plain={row['plain_ms']:.4f} sdpa_bwd={library_ms:.4f} bound={bound:.4f} ({by})")
+            + f"| ms={row['ms']:.4f} device_ms={row['device_ms'] or float('nan'):.4f} plain={row['plain_ms']:.4f} "
+            f"sdpa_bwd={library_ms:.4f} (device {library_device_ms or float('nan'):.4f}) bound={bound:.4f} ({by})")
         require(res["ok_all"], f"{name} {stage} {pol} causal={causal}: {res}")
         rows.append(row)
     del case
@@ -1447,8 +1526,11 @@ def lm_bwd_edge_phase() -> list:
     cotangent;
     the gradient of ``out.sum()`` (a zero-stride dO) with q, k, v slices of
     one packed qkv tensor, bitwise the gradient through contiguous copies;
-    and the joint (out, lse) gradient of ``flash_attention_with_lse``
-    against the oracle (``JOINT_TOL``)."""
+    the joint (out, lse) gradient of ``flash_attention_with_lse`` against
+    the oracle (``JOINT_TOL``); operands off 16-byte alignment
+    (:func:`unaligned_bwd_cases`); every D from 1 to 128 in bf16
+    (:func:`bf16_head_dim_sweep`); and the fp32 bits across several tiles
+    (:func:`flash_bwd_tiles_digest`)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1487,12 +1569,87 @@ def lm_bwd_edge_phase() -> list:
         ok = all(bool(((a - w).abs() <= JOINT_TOL + JOINT_TOL * w.abs()).all()) for a, w in zip(got, want))
         results.append((f"flash_attention_with_lse joint (out, lse) gradient vs the oracle causal={causal} fp32",
                         dict(ok=ok, max_abs_err=err)))
+    results += unaligned_bwd_cases(gen)
+    results.append(("flash_dq, flash_dkv at every D from 1 to 128 (bf16, 1x64x2xD, causal) through the kernels, "
+                    "each within 1 ulp + 1e-5 x max of its plain version", bf16_head_dim_sweep()))
+    results.append(("flash_dq, flash_dkv in fp32 across several tiles (FLASH_BWD_TILE_SHAPES, causal and full): "
+                    "the bits of FLASH_BWD_TILES_SHA256", flash_bwd_tiles_digest()))
     torch.cuda.synchronize()
     for what, res in results:
         log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
             + (f" bitwise_rerun={res['bitwise_rerun']}" if "bitwise_rerun" in res else "")
-            + (f" vs_oracle={res['ref_max_abs_err']:.3g}" if "ref_max_abs_err" in res else ""))
+            + (f" vs_oracle={res['ref_max_abs_err']:.3g}" if "ref_max_abs_err" in res else "")
+            + (f" worst_share_of_tolerance={res['worst_share_of_tolerance']:.3g} failing={res['failing_head_dims']}"
+               if "worst_share_of_tolerance" in res else ""))
         require(res["ok"], f"edge case {what}: {res}")
+    return results
+
+
+def bf16_head_dim_sweep() -> dict:
+    """Every head dim from 1 to 128 in bf16: :func:`head_dim_sweep`'s
+    inputs (numpy, seed D, (1, 64, 2, D), causal) cast to bf16, through
+    flash_fwd, then flash_dq and flash_dkv, each launched once (the counts
+    say so): dq, dk and dv each within 1 bf16 ulp + ``BWD_PLAIN_REL`` x max
+    of its plain version, a second launch bitwise the first, every output
+    finite."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    worst, bad = 0.0, []
+    for d in range(1, 129):
+        rng = np.random.default_rng(d)
+        q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 64, 2, d), dtype=np.float32)).cuda().to(torch.bfloat16)
+                      for _ in range(4))
+        out, lse = ck.flash_fwd(q, k, v, causal=True)
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, g, lse, delta)
+        ck.reset_launches()
+        got = (ck.flash_dq(*args, causal=True), *ck.flash_dkv(*args, causal=True))
+        launched = ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+        again = (ck.flash_dq(*args, causal=True), *ck.flash_dkv(*args, causal=True))
+        want = (ck.flash_dq_plain(*args, causal=True), *ck.flash_dkv_plain(*args, causal=True))
+        parts = [compare(("ulp", BWD_PLAIN_REL), a, b) for a, b in zip(got, want)]
+        worst = max(worst, *(x["max_share"] for x in parts))
+        ok = (launched and all(x["ok"] for x in parts) and all(torch.equal(a, b) for a, b in zip(got, again))
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        if not ok:
+            bad.append(d)
+    ck.reset_launches()
+    return dict(ok=not bad, failing_head_dims=bad, max_abs_err=0.0, worst_share_of_tolerance=worst)
+
+
+def unaligned_bwd_cases(gen) -> list:
+    """flash_dq and flash_dkv on q, k, v and dO that are views one element
+    off 16-byte alignment (one packed (B, L, H, 4D + 1) tensor, its columns
+    from 1 on), at D = 32 and 64 with a ragged L = 100, causal and full, in
+    fp32 and bf16: the kernels' element-by-element copy path, bitwise their
+    results on contiguous copies (the same shared-memory tiles) and within
+    the plain rule."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    results = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        rule = BWD_PLAIN_REL if pol == "fp32" else ("ulp", BWD_PLAIN_REL)
+        for d in (32, 64):
+            for causal in (True, False):
+                packed = torch.randn((2, 100, 3, 4 * d + 1), generator=gen, device="cuda").to(dtype)
+                views = tuple(packed[..., 1 + i * d: 1 + (i + 1) * d] for i in range(4))
+                copies = tuple(t.contiguous() for t in views)
+                out, lse = ck.flash_fwd(*copies[:3], causal=causal)
+                delta = (copies[3].float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+                ck.reset_launches()
+                got = (ck.flash_dq(*views, lse, delta, causal=causal), *ck.flash_dkv(*views, lse, delta, causal=causal))
+                launched = ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+                want = (ck.flash_dq(*copies, lse, delta, causal=causal),
+                        *ck.flash_dkv(*copies, lse, delta, causal=causal))
+                plain = (ck.flash_dq_plain(*copies, lse, delta, causal=causal),
+                         *ck.flash_dkv_plain(*copies, lse, delta, causal=causal))
+                parts = [compare(rule, a, b) for a, b in zip(got, plain)]
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                results.append((f"flash_dq, flash_dkv on views off 16-byte alignment, 2x100x3x{d} causal={causal} "
+                                f"{pol}: bitwise contiguous={same}",
+                                dict(ok=launched and same and all(x["ok"] for x in parts),
+                                     max_abs_err=max(x["max_abs_err"] for x in parts))))
+    ck.reset_launches()
     return results
 
 
@@ -1620,6 +1777,41 @@ def head_dim_sweep() -> dict:
     sha = digest.hexdigest()
     return dict(ok=not bad and sha == FLASH_SWEEP_SHA256, failing_head_dims=bad, max_abs_err=0.0,
                 worst_share_of_tolerance=worst, sha256=sha, sha256_held=FLASH_SWEEP_SHA256)
+
+
+# the fp32 flash backward across several tiles (the sweep above runs one 64-row tile): (B, L, H, D), causal
+# and full, L ragged against the 64-row tiles at each kernel width up to 128
+FLASH_BWD_TILE_SHAPES = ((2, 192, 3, 64), (2, 256, 4, 32), (1, 300, 2, 128), (2, 100, 3, 16), (1, 1024, 2, 64))
+# sha256 of the bits of dq, dk and dv of flash_bwd_tiles_digest, as the FFMA kernels of flash_bwd.cuh gave them
+# before the Hopper redesign (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in a checkout
+# of that tree with this file copied in prints it): the fp32 redesign keeps the operations and their order
+FLASH_BWD_TILES_SHA256 = "907569fe7f50545e9a4846a8df7ec66c0f417cca2395b08a7aebfd06ed5e19e6"
+
+
+def flash_bwd_tiles_digest() -> dict:
+    """fp32 flash_dq and flash_dkv at ``FLASH_BWD_TILE_SHAPES``, causal and
+    full, inputs drawn with numpy (seed 1000 + L + D), lse and delta from
+    flash_fwd: the sha256 of the bits of every dq, dk and dv, and each
+    one's launch counted."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    digest, launched = hashlib.sha256(), True
+    for shape in FLASH_BWD_TILE_SHAPES:
+        for causal in (True, False):
+            rng = np.random.default_rng(1000 + shape[1] + shape[3])
+            q, k, v, g = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
+            kw = dict(causal=causal, block_q=shape[1], block_k=shape[1])
+            out, lse = ck.flash_fwd(q, k, v, **kw)
+            delta = (g * out).sum(-1).permute(0, 2, 1).contiguous()
+            ck.reset_launches()
+            outs = (ck.flash_dq(q, k, v, g, lse, delta, **kw), *ck.flash_dkv(q, k, v, g, lse, delta, **kw))
+            launched &= ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+            for t in outs:
+                digest.update(t.contiguous().cpu().numpy().tobytes())
+    ck.reset_launches()
+    sha = digest.hexdigest()
+    return dict(ok=launched and sha == FLASH_BWD_TILES_SHA256, max_abs_err=0.0, sha256=sha,
+                sha256_held=FLASH_BWD_TILES_SHA256)
 
 
 def run_long_context(argv) -> dict:
@@ -2126,20 +2318,25 @@ def main() -> int:
     info = _build.build()
     log(f"phase 1: kernel library {info.path} {'built' if info.built else 'cached'} in {info.seconds:.1f} s")
     if sys.argv[1:] == ["--record"]:
-        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256 and ENGINE_FP32_SHA256 hold a later tree to, from this
-        # checkout
+        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256 and ENGINE_FP32_SHA256 hold a
+        # later tree to, from this checkout
         torch.backends.cuda.matmul.allow_tf32 = False
         sweep = head_dim_sweep()
+        tiles = flash_bwd_tiles_digest()
         engine = engine_fp32_digest()
         ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in PTXAS_HELD}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, ptxas=ptxas, flash_sweep_sha256=sweep["sha256"],
                               flash_sweep_within_tolerance=not sweep["failing_head_dims"],
+                              flash_bwd_tiles_sha256=tiles["sha256"],
                               engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"])), flush=True)
         return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
     ptxas = ptxas_phase(info)
+    flash_regs = flash_ptxas(info.log)
+    for key, v in flash_regs.items():
+        log(f"ptxas {key}: {v['registers']} registers, {v['spill_stores']} bytes spill stores ({v['kernel']})")
     sass = sass_phase(info)
     log("phase 1b: the bf16 and int8w conv entry points contain HMMA, the fp32 ones FFMA and no HMMA; "
         f"{', '.join(PTXAS_HELD)} keep their registers and spills")
@@ -2177,7 +2374,7 @@ def main() -> int:
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
-             sass=sass, engine_fp32=engine,
+             flash_ptxas=flash_regs, sass=sass, engine_fp32=engine,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
              pool_ab=ab, tune=tune,
              kernels=line["kernels"]), indent=1,

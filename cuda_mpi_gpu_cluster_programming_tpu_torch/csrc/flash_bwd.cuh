@@ -1,4 +1,8 @@
-// Shared pieces of the flash-attention backward kernels (flash_dq.cu, flash_dkv.cu).
+// Shared pieces of the flash-attention backward kernels (flash_dq.cu, flash_dkv.cu)
+// at D = 256 and D > 256 (WIDE), in both dtypes: FFMA, bf16 widened to fp32 at
+// the load. D <= 128 runs the Hopper design of flash_bwd_sm90.cuh, whose fp32
+// kernels keep the operations and order below, and so the bits of the
+// instances this file served at D <= 128 before it.
 //
 // Both kernels recompute the probabilities of one 64 x 64 tile from the saved
 // per-row LSE, p = exp(s - lse) with s = (q * scale) k^T, and the products
@@ -21,8 +25,7 @@
 // each, so the operand tiles are held DC = 64 columns at a time (Dims<D>):
 // the scores sum chunk after chunk (d still ascending, one fmaf a term), and
 // each product into an accumulator runs chunk by chunk, reloading the
-// operand's chunks from global memory (L2). At D <= 128 there is one chunk
-// and the kernels run as before.
+// operand's chunks from global memory (L2).
 //
 // Head dims above 256 (D = WIDE: the instance takes D at run time, a
 // multiple of DC): a block owns one window of at most WN = 256 output

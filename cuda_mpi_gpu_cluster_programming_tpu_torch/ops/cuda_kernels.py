@@ -1227,10 +1227,16 @@ def flash_dq(
 
     Replaces ``_dq_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
     flash_attention.py). Bound on the H100: operations (3 products, 6 B H
-    L^2 D FLOPs, half when causal). Design (``csrc/flash_dq.cu``): one block
-    per (b, h, 64-row q tile), K/V tiles streamed through shared memory,
-    dS through shared memory to the dS k product, the dq sums in a
-    shared-memory accumulator; fp32 FFMA for both dtypes; no atomics."""
+    L^2 D FLOPs, half when causal). Design (``csrc/flash_dq.cu`` over
+    ``csrc/flash_bwd_sm90.cuh``): one block per (b, h, 64-row q tile),
+    heaviest causal tiles first, K/V tiles streamed through shared memory
+    by cp.async; no atomics, so a second launch gives the same bits. At
+    D <= 128, bf16 runs on the tensor cores (mma.sync; dS split into two
+    bf16 terms for the dS k product) and fp32 on register-tiled FFMA in the
+    operations and order of the earlier FFMA kernel (its bits). D = 256 and
+    above keep that FFMA kernel (``csrc/flash_bwd.cuh``) for both dtypes.
+    Operands off 16-byte alignment (a strided view) are copied element by
+    element inside the kernel into the same tiles."""
     dev = _flash_bwd_check("flash_dq", q, k, v, g, lse, delta)
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":
@@ -1254,11 +1260,14 @@ def flash_dkv(
 
     Replaces ``_dkv_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
     flash_attention.py). Bound on the H100: operations (4 products, 8 B H
-    L^2 D FLOPs, half when causal). Design (``csrc/flash_dkv.cu``): one
-    block per (b, h, 64-key tile), q/dO tiles streamed through shared
-    memory from the diagonal on (causal), p^T and then dS^T through shared
-    memory, the dK and dV sums in shared-memory accumulators; fp32 FFMA
-    for both dtypes; no atomics."""
+    L^2 D FLOPs, half when causal). Design (``csrc/flash_dkv.cu`` over
+    ``csrc/flash_bwd_sm90.cuh``): one block per (b, h, 64-key tile), q/dO
+    tiles streamed through shared memory by cp.async from the diagonal on
+    (causal); no atomics. At D <= 128, bf16 runs on the tensor cores
+    (mma.sync; p and dS split into two bf16 terms for the p^T dO and dS^T q
+    products) and fp32 on register-tiled FFMA with the earlier FFMA
+    kernel's bits; D = 256 and above keep that kernel (``csrc/flash_bwd.cuh``)
+    for both dtypes."""
     dev = _flash_bwd_check("flash_dkv", q, k, v, g, lse, delta)
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":

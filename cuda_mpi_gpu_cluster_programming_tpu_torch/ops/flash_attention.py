@@ -13,7 +13,9 @@ forward kernel and saves ``(q, k, v, out, lse)``; its backward computes the
 rowwise ``delta = sum_d dO o`` (fp32, shifted by ``-g_lse`` when the lse
 has a gradient) with plain torch ops, as the JAX package does outside its
 kernels, then launches one ``flash_dq`` and one ``flash_dkv``. No (L, L)
-tensor is kept between the two passes.
+tensor is kept between the two passes. On the card the two backward
+kernels run on the tensor cores in bf16 (head dims up to 128) and on FFMA
+in fp32; the forward runs on FFMA in both dtypes.
 """
 
 from __future__ import annotations

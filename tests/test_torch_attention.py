@@ -20,6 +20,10 @@ Tolerances and why:
 - gradients: 5e-5 abs/rel in fp32 (``test_grad_matches_reference_blocked``'s),
   1e-4 for the joint (out, lse) VJP against the oracle
   (``test_with_lse_joint_vjp_matches_oracle``'s), 3e-2 in bf16.
+- the bf16 backward's arithmetic on the card (p and dS split into two bf16
+  terms for the tensor cores), emulated in torch: 1 bf16 ulp + 1e-5 of the
+  max against the plain versions, the rule ``chip_smoke.py`` holds the
+  kernels to; one term breaks it.
 - relu: bitwise outside NaN (signed zeros and infinities included), NaN
   where the JAX package has NaN. A NaN keeps its bits here; XLA on the CPU
   gives a bf16 NaN the canonical payload (sign kept), so payloads are not
@@ -362,6 +366,83 @@ def test_flash_plain_is_the_recurrence_of_the_oracle():
     s = s.masked_fill(~torch.ones(24, 24, dtype=torch.bool).tril(), float("-inf"))
     np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(), rtol=2e-6, atol=2e-6)
     np.testing.assert_allclose(out.numpy(), tattn.attention(tq, tk, tv, causal=True).numpy(), rtol=2e-6, atol=2e-6)
+
+
+# The bf16 rule the card's flash_dq and flash_dkv are held to against their plain versions (chip_smoke.py's
+# BWD_PLAIN_REL): per element, 1 bf16 ulp plus 1e-5 x max |plain|.
+BWD_PLAIN_REL = 1e-5
+
+
+def _share_of_bf16_rule(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (1 bf16 ulp of the larger + BWD_PLAIN_REL x max |want|): at most 1 within the rule."""
+    g, w = got.float(), want.float()
+    _m, e = torch.frexp(torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    return float(((g - w).abs() / (ulp + BWD_PLAIN_REL * float(w.abs().max()))).max())
+
+
+def _split_terms(x: torch.Tensor, terms: int) -> list:
+    """x (fp32) as a sum of ``terms`` bf16 values: hi = bf16(x), lo = bf16(x - hi)."""
+    out = []
+    for _ in range(terms):
+        hi = x.to(torch.bfloat16).float()
+        out.append(hi)
+        x = x - hi
+    return out
+
+
+def _bf16_backward_emulation(q, k, v, g, lse, delta, causal, terms):
+    """The bf16 tensor-core arithmetic of the card's flash_dq and flash_dkv at D <= 128, in torch: the score
+    products on the bf16 operands in fp32 (exact products), s scaled after; p and dS in fp32, each split
+    into ``terms`` bf16 terms that feed the second products separately, in fp32; the outputs rounded once
+    to bf16."""
+    d = q.shape[-1]
+    qf, kf, vf, gf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, g))  # (B, H, L, D)
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / d**0.5)
+    if causal:
+        l = q.shape[1]
+        s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (gf @ vf.transpose(-1, -2) - delta[..., None])
+    dq = sum(t @ kf for t in _split_terms(ds, terms)) * (1.0 / d**0.5)
+    dk = sum(t.transpose(-1, -2) @ qf for t in _split_terms(ds, terms)) * (1.0 / d**0.5)
+    dv = sum(t.transpose(-1, -2) @ gf for t in _split_terms(p, terms))
+    return tuple(t.permute(0, 2, 1, 3).to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _bf16_backward_case(shape, causal, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16) for _ in range(4))
+    out, lse = ck.flash_fwd_plain(q, k, v, causal=causal)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    args = (q, k, v, g, lse, delta)
+    plain = (ck.flash_dq_plain(*args, causal=causal), *ck.flash_dkv_plain(*args, causal=causal))
+    return args, plain
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64)])
+def test_bf16_two_term_split_meets_the_plain_rule(shape, causal):
+    """Why the card's bf16 backward splits p and dS into two bf16 terms:
+    with hi + lo (16 significant bits) feeding the tensor-core products,
+    dq, dk and dv stay within the rule chip_smoke.py holds the kernels to
+    against flash_dq_plain/flash_dkv_plain (fp32 p and dS), 1 bf16 ulp +
+    1e-5 x max |plain|."""
+    args, plain = _bf16_backward_case(shape, causal, seed=shape[1] + causal)
+    got = _bf16_backward_emulation(*args, causal=causal, terms=2)
+    for name, a, b in zip(("dq", "dk", "dv"), got, plain):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _share_of_bf16_rule(a, b) <= 1.0, name
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_bf16_term_breaks_the_plain_rule(causal):
+    """A single bf16 rounding of p and dS (what SDPA feeds its second
+    products) takes dq, dk or dv well past that rule: the split is what keeps
+    the kernels on the JAX package's fp32 arithmetic."""
+    args, plain = _bf16_backward_case((1, 512, 2, 64), causal, seed=512 + causal)
+    got = _bf16_backward_emulation(*args, causal=causal, terms=1)
+    assert max(_share_of_bf16_rule(a, b) for a, b in zip(got, plain)) > 4.0
 
 
 def _bits(x) -> np.ndarray:
