@@ -3,28 +3,32 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --record   # only the records below, from this checkout
+    python3 chip_smoke.py --flash-rows   # only the flash_fwd rows and phases 3b, 3c, from this checkout
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
 JSON line with what ``MAINLOOP_PTXAS``, ``FLASH_SWEEP_SHA256``,
-``FLASH_BWD_TILES_SHA256`` and ``ENGINE_FP32_SHA256`` hold a later tree
-to (run it in a checkout of the
+``FLASH_BWD_TILES_SHA256``, ``FLASH_FWD_TILES_SHA256`` and
+``ENGINE_FP32_SHA256`` hold a later tree to (run it in a checkout of the
 tree to be recorded, with this file copied in), and each digested
-output's own sha256. With no arguments, phases in order; a phase that
-fails ends the run with a non-zero exit code and nothing is caught:
+output's own sha256. ``--flash-rows`` prints one JSON line with phase
+2's flash_fwd rows at long_context's and TINY_LM's shapes and phases 3b
+and 3c (two trees compared in one call, this file copied into each). With no
+arguments, phases in order; a phase that fails ends the run with a
+non-zero exit code and nothing is caught:
 
 1. build the kernel library from ``cuda_mpi_gpu_cluster_programming_tpu_torch/csrc``;
    read ``ptxas -v``'s registers and spills of the kernels on the Hopper
    mainloop (``conv_sm90.cuh``): conv2d.cu's, conv_block.cu's,
    conv_pairs.cu's and conv_im2col.cu's must be ``MAINLOOP_PTXAS``, those
    before conv_taps.cu and conv_g8.cu joined the mainloop;
-   read the flash backward instances' registers and spills (logged);
+   read the flash instances' registers and spills (logged);
    1b. read its SASS (``cuobjdump --dump-sass``): every bf16 and int8w
    instance of the six mainloop files' kernels (conv2d.cu, conv_block.cu,
    conv_pairs.cu, conv_im2col.cu, conv_taps.cu, conv_g8.cu) and every bf16
-   instance of flash_dq.cu and flash_dkv.cu at D = 16, 32, 64 and 128
-   contains HMMA (the tensor cores), every fp32 one FFMA and no HMMA (no
-   TF32);
+   instance of flash_fwd.cu, flash_dq.cu and flash_dkv.cu at D = 16, 32, 64
+   and 128 contains HMMA (the tensor cores), every fp32 one FFMA and no
+   HMMA (no TF32);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
@@ -54,7 +58,8 @@ fails ends the run with a non-zero exit code and nothing is caught:
    slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
    and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
    TINY_LM's attention (8x1024x4x32), causal and full, and at D = 256
-   and 512 (1x4096x2xD, causal), timed beside SDPA,
+   and 512 (1x4096x2xD, causal), a second launch bitwise the first, timed
+   (CUDA events around a call and the kernel's own device time) beside SDPA,
    and off those shapes (the JAX tests' ragged blocks, D = 16 and 128, the
    zero-padded D = 8, 24 and 48, D = 256 and the padded D = 200, every D
    from 1 to 256 through the three flash kernels with the bits of
@@ -67,9 +72,13 @@ fails ends the run with a non-zero exit code and nothing is caught:
    and off those shapes (the ragged blocks, D = 16, 128 and 256, the padded
    D = 8, 24, 48 and 200, an lse cotangent, strided q/k/v with a zero-stride dO,
    the joint (out, lse) gradient against the oracle, q/k/v/dO views off
-   16-byte alignment bitwise contiguous copies, every D from 1 to 128 in
-   bf16 against the plain versions, and the fp32 bits of several tiles,
-   ``FLASH_BWD_TILES_SHA256``); then the pool A/B's
+   16-byte alignment through the three kernels bitwise contiguous copies,
+   q/k/v mixing fp32 and bf16, a head axis of stride H and B or H of 65537
+   through the three kernels against the plain versions (the operands the
+   JAX kernel takes), every D from 1 to 128 in bf16 through the three
+   kernels against the plain versions, and the fp32 bits of several tiles,
+   ``FLASH_BWD_TILES_SHA256`` and the forward's ``FLASH_FWD_TILES_SHA256``);
+   then the pool A/B's
    space-to-depth pool ``maxpool_s2d`` at pool1 and pool2 (batch 128,
    standard normal) in fp32 and bf16, bitwise against its plain version and
    maxpool2d, the wrapper (C pad and repack included) and the kernel alone
@@ -139,8 +148,12 @@ Tolerances, kernel against plain version on the same inputs:
 - relu: bitwise (NaN bits included);
 - flash_fwd out: fp32 2e-6 x max |v| (one fp32 recurrence, other sum
   orders; out mixes v's rows, so its error scales with v), bf16 1 ulp +
-  that term; lse 1e-6 x its max; out against the
+  that term: at D <= 128 the p v product runs on the tensor cores with p
+  split into two bf16 terms (one misses the rule 38-79x,
+  ``tests/test_torch_attention.py``); lse 1e-6 x its max; out against the
   O(L^2) oracle 2e-5 (fp32) or 3e-2 (bf16) abs + rel, the JAX flash tests';
+  a second launch bitwise the first; the fp32 bits are held by
+  ``FLASH_SWEEP_SHA256`` and ``FLASH_FWD_TILES_SHA256``;
 - flash_dq, flash_dkv: fp32 max |diff| <= 1e-5 x max |plain| for each
   output (the same fp32 recompute, sums in another order; the fp32 bits
   are also held by ``FLASH_SWEEP_SHA256``), bf16 1 ulp plus that term: at
@@ -429,29 +442,31 @@ MAINLOOP_FILES = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu
 PTXAS_HELD = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
 
 
-# the flash backward's files, and the head dims whose instances run the Hopper design (flash_bwd_sm90.cuh):
+# the flash kernels' files, and the head dims whose instances run the Hopper design (over flash_bwd_sm90.cuh):
 # bf16 on mma.sync, fp32 on FFMA (D = 256 and the windowed instance keep FFMA in both dtypes)
-FLASH_BWD_FILES = ("flash_dq_cu", "flash_dkv_cu")
-FLASH_BWD_SM90_DIMS = (16, 32, 64, 128)
+FLASH_FILES = ("flash_fwd_cu", "flash_dq_cu", "flash_dkv_cu")
+FLASH_SM90_DIMS = (16, 32, 64, 128)
 
 
 def flash_instance(name: str):
-    """``(file, dtype, D)`` of a flash backward kernel's mangled name (D 0:
-    the windowed instance), or None for any other kernel."""
-    f = next((f for f in FLASH_BWD_FILES if f in name), None)
-    m = re.search(r"Li(\d+)E", name)
-    if f is None or m is None:
+    """``(file, dtype, D)`` of a flash kernel's mangled name (D 0: the
+    backward's windowed instance; the forward's, ``flash_fwd_wide_kernel``,
+    has no D and counts as 0 too), or None for any other kernel."""
+    f = next((f for f in FLASH_FILES if f in name), None)
+    if f is None or "kernel" not in name:
         return None
-    return f, "bf16" if "bfloat16" in name else "fp32", int(m.group(1))
+    m = re.search(r"Li(\d+)E", name)
+    return f, "bf16" if "bfloat16" in name else "fp32", int(m.group(1)) if m else 0
 
 
 def sass_phase(info) -> dict:
-    """The instructions the conv and flash backward entry points compiled
-    to, from ``cuobjdump --dump-sass`` on the built library: every bf16 (and
-    int8w) instance of the kernels on the Hopper mainloop (the six files of
-    ``MAINLOOP_FILES``) and every bf16 instance of ``flash_dq.cu`` and
-    ``flash_dkv.cu`` at D <= 128 must contain HMMA (mma.sync on the tensor
-    cores), every fp32 one FFMA and no HMMA (no TF32: the fp32 contract)."""
+    """The instructions the conv and flash entry points compiled to, from
+    ``cuobjdump --dump-sass`` on the built library: every bf16 (and int8w)
+    instance of the kernels on the Hopper mainloop (the six files of
+    ``MAINLOOP_FILES``) and every bf16 instance of ``flash_fwd.cu``,
+    ``flash_dq.cu`` and ``flash_dkv.cu`` at D <= 128 must contain HMMA
+    (mma.sync on the tensor cores), every fp32 one FFMA and no HMMA (no
+    TF32: the fp32 contract)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -470,8 +485,8 @@ def sass_phase(info) -> dict:
     require({(f, dt) for f in MAINLOOP_FILES for dt in ("fp32", "bf16")} <= kinds,
             f"SASS: the conv entry points were not all found: {sorted(kinds)}")
     flash_kinds = {(v["file"], v["dtype"], v["d"]) for v in flash.values()}
-    want = {(f, dt, d) for f in FLASH_BWD_FILES for dt in ("fp32", "bf16") for d in FLASH_BWD_SM90_DIMS}
-    require(want <= flash_kinds, f"SASS: the flash backward instances were not all found: {sorted(flash_kinds)}")
+    want = {(f, dt, d) for f in FLASH_FILES for dt in ("fp32", "bf16") for d in FLASH_SM90_DIMS}
+    require(want <= flash_kinds, f"SASS: the flash instances were not all found: {sorted(flash_kinds)}")
     for name, v in found.items():
         ok = v["hmma"] > 0 if v["dtype"] == "bf16" else (v["ffma"] > 0 and v["hmma"] == 0)
         log(f"sass {v['dtype']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
@@ -479,21 +494,21 @@ def sass_phase(info) -> dict:
     for name, v in flash.items():
         if v["dtype"] == "fp32":
             ok = v["ffma"] > 0 and v["hmma"] == 0
-        else:  # bf16 above 128 keeps the FFMA kernel of flash_bwd.cuh: not held
-            ok = v["hmma"] > 0 if v["d"] in FLASH_BWD_SM90_DIMS else None
+        else:  # bf16 above 128 keeps the FFMA kernels of flash_fwd.cu and flash_bwd.cuh: not held
+            ok = v["hmma"] > 0 if v["d"] in FLASH_SM90_DIMS else None
         log(f"sass {v['file']} {v['dtype']} D={v['d']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
         require(ok is not False, f"SASS of {name}: {v}")
     return dict(conv=found, flash=flash)
 
 
 def flash_ptxas(build_log: str) -> dict:
-    """Registers and spill-store bytes of every flash backward instance,
-    keyed ``file/dtype/D`` (kernel name beside them)."""
+    """Registers and spill-store bytes of every flash instance, keyed
+    ``file/dtype/D`` (kernel name beside them)."""
     table = {}
     for name, regs, stores in ptxas_entries(build_log):
         inst = flash_instance(name)
         if inst is not None:
-            kname = re.search(r"(flash_d\w*kernel\w*?)I", name)
+            kname = re.search(r"(flash_\w*kernel\w*?)I", name)
             table[f"{inst[0]}/{inst[1]}/D={inst[2]}"] = dict(registers=regs, spill_stores=stores,
                                                             kernel=kname.group(1) if kname else name[:60])
     return dict(sorted(table.items()))
@@ -1341,11 +1356,32 @@ def lm_kernel_phase(spec, peak_name) -> list:
     return rows
 
 
+def flash_fwd_against_plain(out, lse, q, k, v, **kw) -> dict:
+    """flash_fwd's ``(out, lse)`` against its plain version on the same
+    q, k, v: out within ``FLASH_PLAIN_V_REL`` of max |v|, plus 1 ulp where
+    out is bf16; lse within ``LSE_REL`` of its max."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    p_out, p_lse = ck.flash_fwd_plain(q, k, v, **kw)
+    slack = FLASH_PLAIN_V_REL * float(v.float().abs().max())
+    diff = (out.float() - p_out.float()).abs()
+    if out.dtype == torch.bfloat16:
+        ulps = bf16_ulp(torch.maximum(out.float().abs(), p_out.float().abs()))
+        ok = bool((diff <= ulps + slack).all())
+        tol = f"1 bf16 ulp + {FLASH_PLAIN_V_REL:g} x max|v|"
+    else:
+        ok = float(diff.max()) <= slack
+        tol = f"{FLASH_PLAIN_V_REL:g} x max|v|"
+    res_lse = compare(LSE_REL, lse, p_lse)
+    return dict(max_abs_err=float(diff.max()), max_rel_err=float(diff.max()) / float(p_out.float().abs().max()),
+                tol=tol, ok=ok and out.dtype == p_out.dtype and out.shape == p_out.shape,
+                lse_max_abs_err=res_lse["max_abs_err"], lse_ok=res_lse["ok"], lse_tol=res_lse["tol"])
+
+
 def flash_case(shape, causal, dtype, gen, block_q=128, block_k=128) -> dict:
-    """flash_fwd on standard-normal q, k, v against its plain version (out:
-    ``FLASH_PLAIN_V_REL`` of max |v|, plus 1 ulp in bf16; lse: ``LSE_REL``
-    of its max) and against the oracle (``FLASH_REF_TOL``, abs and rel,
-    elementwise)."""
+    """flash_fwd on standard-normal q, k, v against its plain version
+    (:func:`flash_fwd_against_plain`), against the oracle (``FLASH_REF_TOL``,
+    abs and rel, elementwise), and a second launch bitwise the first."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.attention import attention
 
@@ -1353,30 +1389,24 @@ def flash_case(shape, causal, dtype, gen, block_q=128, block_k=128) -> dict:
     pol = "fp32" if dtype == torch.float32 else "bf16"
     kw = dict(causal=causal, block_q=block_q, block_k=block_k)
     out, lse = ck.flash_fwd(q, k, v, **kw)
-    p_out, p_lse = ck.flash_fwd_plain(q, k, v, **kw)
-    slack = FLASH_PLAIN_V_REL * float(v.float().abs().max())
-    diff = (out.float() - p_out.float()).abs()
-    if pol == "bf16":
-        ulps = bf16_ulp(torch.maximum(out.float().abs(), p_out.float().abs()))
-        ok = bool((diff <= ulps + slack).all())
-        tol = f"1 bf16 ulp + {FLASH_PLAIN_V_REL:g} x max|v|"
-    else:
-        ok = float(diff.max()) <= slack
-        tol = f"{FLASH_PLAIN_V_REL:g} x max|v|"
-    res = dict(max_abs_err=float(diff.max()), max_rel_err=float(diff.max()) / float(p_out.float().abs().max()),
-               tol=tol, ok=ok)
-    res_lse = compare(LSE_REL, lse, p_lse)
+    again = ck.flash_fwd(q, k, v, **kw)
+    res = flash_fwd_against_plain(out, lse, q, k, v, **kw)
     ref = attention(q, k, v, causal=causal).float()
     diff = (out.float() - ref).abs()
     tol = FLASH_REF_TOL[pol]
-    res.update(lse_max_abs_err=res_lse["max_abs_err"], lse_ok=res_lse["ok"], lse_tol=res_lse["tol"],
-               ref_max_abs_err=float(diff.max()), ref_ok=bool((diff <= tol + tol * ref.abs()).all()),
-               ref_tol=f"{tol:g} abs + {tol:g} rel vs ops.attention")
-    res["ok_all"] = res["ok"] and res["lse_ok"] and res["ref_ok"]
+    res.update(ref_max_abs_err=float(diff.max()), ref_ok=bool((diff <= tol + tol * ref.abs()).all()),
+               ref_tol=f"{tol:g} abs + {tol:g} rel vs ops.attention",
+               bitwise_rerun=torch.equal(out, again[0]) and torch.equal(lse, again[1]))
+    res["ok_all"] = res["ok"] and res["lse_ok"] and res["ref_ok"] and res["bitwise_rerun"]
     return dict(q=q, k=k, v=v, res=res)
 
 
 def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> dict:
+    """Phase 2 row of flash_fwd at one shape: checked by :func:`flash_case`
+    (plain version, oracle, a second launch bitwise), timed by CUDA events
+    around a call (``ms``) and the kernel's own device time
+    (``device_ms``, :func:`device_time_ms`) beside the plain version, SDPA
+    (the same two ways) and the bound."""
     import torch.nn.functional as F
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
@@ -1394,14 +1424,17 @@ def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> dict:
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal)
     row = dict(
         kernel="flash_fwd", stage=stage, mode="" if causal else "full", dtype=pol, shape=list(shape), **res,
-        ms=gpu_time_ms(run), plain_ms=gpu_time_ms(plain), library_ms=gpu_time_ms(sdpa),
+        ms=gpu_time_ms(run), device_ms=device_time_ms(run, "flash_fwd_"), plain_ms=gpu_time_ms(plain),
+        library_ms=gpu_time_ms(sdpa), library_device_ms=device_time_ms(sdpa),
         library_call="F.scaled_dot_product_attention (is_causal; (B, H, L, D) views)",
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}",
     )
     log(f"kernel flash_fwd{'' if causal else '[full]'} {stage} {'x'.join(map(str, shape))} {pol}: "
         f"ok={res['ok']} tol={res['tol']} max_abs={res['max_abs_err']:.3g} lse_max_abs={res['lse_max_abs_err']:.3g} "
-        f"vs_oracle={res['ref_max_abs_err']:.3g} ({res['ref_ok']}) | ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
-        f"sdpa={row['library_ms']:.4f} bound={bound:.4f} ({by})")
+        f"vs_oracle={res['ref_max_abs_err']:.3g} ({res['ref_ok']}) bitwise_rerun={res['bitwise_rerun']} "
+        f"| ms={row['ms']:.4f} device_ms={row['device_ms'] or float('nan'):.4f} plain={row['plain_ms']:.4f} "
+        f"sdpa={row['library_ms']:.4f} (device {row['library_device_ms'] or float('nan'):.4f}) "
+        f"bound={bound:.4f} ({by})")
     require(res["ok_all"], f"flash_fwd {stage} {pol} causal={causal}: {res}")
     del case
     return row
@@ -1527,10 +1560,13 @@ def lm_bwd_edge_phase() -> list:
     the gradient of ``out.sum()`` (a zero-stride dO) with q, k, v slices of
     one packed qkv tensor, bitwise the gradient through contiguous copies;
     the joint (out, lse) gradient of ``flash_attention_with_lse`` against
-    the oracle (``JOINT_TOL``); operands off 16-byte alignment
-    (:func:`unaligned_bwd_cases`); every D from 1 to 128 in bf16
-    (:func:`bf16_head_dim_sweep`); and the fp32 bits across several tiles
-    (:func:`flash_bwd_tiles_digest`)."""
+    the oracle (``JOINT_TOL``); operands off 16-byte alignment, forward
+    too (:func:`unaligned_bwd_cases`); mixed fp32/bf16 operands, a head
+    axis of stride H and B or H past 65535, forward and backward
+    (:func:`repair_cases`); every D from 1 to 128 in bf16, forward and
+    backward (:func:`bf16_head_dim_sweep`); and the fp32 bits across
+    several tiles of the backward (:func:`flash_bwd_tiles_digest`) and the
+    forward (:func:`flash_fwd_tiles_digest`)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1570,10 +1606,14 @@ def lm_bwd_edge_phase() -> list:
         results.append((f"flash_attention_with_lse joint (out, lse) gradient vs the oracle causal={causal} fp32",
                         dict(ok=ok, max_abs_err=err)))
     results += unaligned_bwd_cases(gen)
-    results.append(("flash_dq, flash_dkv at every D from 1 to 128 (bf16, 1x64x2xD, causal) through the kernels, "
-                    "each within 1 ulp + 1e-5 x max of its plain version", bf16_head_dim_sweep()))
+    results += repair_cases(gen)
+    results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 128 (bf16, 1x64x2xD, causal) through "
+                    "the kernels, each within 1 ulp + its rule's share of the max of its plain version",
+                    bf16_head_dim_sweep()))
     results.append(("flash_dq, flash_dkv in fp32 across several tiles (FLASH_BWD_TILE_SHAPES, causal and full): "
                     "the bits of FLASH_BWD_TILES_SHA256", flash_bwd_tiles_digest()))
+    results.append(("flash_fwd in fp32 across several tiles (FLASH_BWD_TILE_SHAPES, causal and full): "
+                    "the bits of FLASH_FWD_TILES_SHA256", flash_fwd_tiles_digest()))
     torch.cuda.synchronize()
     for what, res in results:
         log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
@@ -1589,9 +1629,10 @@ def bf16_head_dim_sweep() -> dict:
     """Every head dim from 1 to 128 in bf16: :func:`head_dim_sweep`'s
     inputs (numpy, seed D, (1, 64, 2, D), causal) cast to bf16, through
     flash_fwd, then flash_dq and flash_dkv, each launched once (the counts
-    say so): dq, dk and dv each within 1 bf16 ulp + ``BWD_PLAIN_REL`` x max
-    of its plain version, a second launch bitwise the first, every output
-    finite."""
+    say so): out within 1 bf16 ulp + ``FLASH_PLAIN_V_REL`` x max |v| and lse
+    within ``LSE_REL`` of flash_fwd_plain's, dq, dk and dv each within 1
+    bf16 ulp + ``BWD_PLAIN_REL`` x max of its plain version, a second launch
+    of each kernel bitwise the first, every output finite."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     worst, bad = 0.0, []
@@ -1599,18 +1640,22 @@ def bf16_head_dim_sweep() -> dict:
         rng = np.random.default_rng(d)
         q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 64, 2, d), dtype=np.float32)).cuda().to(torch.bfloat16)
                       for _ in range(4))
+        ck.reset_launches()
         out, lse = ck.flash_fwd(q, k, v, causal=True)
         delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
         args = (q, k, v, g, lse, delta)
-        ck.reset_launches()
         got = (ck.flash_dq(*args, causal=True), *ck.flash_dkv(*args, causal=True))
-        launched = ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+        launched = ck.LAUNCHES["flash_fwd"] == ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+        fwd_again = ck.flash_fwd(q, k, v, causal=True)
         again = (ck.flash_dq(*args, causal=True), *ck.flash_dkv(*args, causal=True))
         want = (ck.flash_dq_plain(*args, causal=True), *ck.flash_dkv_plain(*args, causal=True))
+        fwd = flash_fwd_against_plain(out, lse, q, k, v, causal=True)
         parts = [compare(("ulp", BWD_PLAIN_REL), a, b) for a, b in zip(got, want)]
         worst = max(worst, *(x["max_share"] for x in parts))
-        ok = (launched and all(x["ok"] for x in parts) and all(torch.equal(a, b) for a, b in zip(got, again))
-              and all(bool(torch.isfinite(a).all()) for a in got))
+        ok = (launched and fwd["ok"] and fwd["lse_ok"] and all(x["ok"] for x in parts)
+              and torch.equal(out, fwd_again[0]) and torch.equal(lse, fwd_again[1])
+              and all(torch.equal(a, b) for a, b in zip(got, again))
+              and all(bool(torch.isfinite(a).all()) for a in (out, lse, *got)))
         if not ok:
             bad.append(d)
     ck.reset_launches()
@@ -1618,12 +1663,12 @@ def bf16_head_dim_sweep() -> dict:
 
 
 def unaligned_bwd_cases(gen) -> list:
-    """flash_dq and flash_dkv on q, k, v and dO that are views one element
-    off 16-byte alignment (one packed (B, L, H, 4D + 1) tensor, its columns
-    from 1 on), at D = 32 and 64 with a ragged L = 100, causal and full, in
-    fp32 and bf16: the kernels' element-by-element copy path, bitwise their
-    results on contiguous copies (the same shared-memory tiles) and within
-    the plain rule."""
+    """flash_fwd, flash_dq and flash_dkv on q, k, v and dO that are views
+    one element off 16-byte alignment (one packed (B, L, H, 4D + 1) tensor,
+    its columns from 1 on), at D = 32 and 64 with a ragged L = 100, causal
+    and full, in fp32 and bf16: the kernels' element-by-element copy path,
+    bitwise their results on contiguous copies (the same shared-memory
+    tiles) and within the plain rules."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     results = []
@@ -1634,22 +1679,106 @@ def unaligned_bwd_cases(gen) -> list:
                 packed = torch.randn((2, 100, 3, 4 * d + 1), generator=gen, device="cuda").to(dtype)
                 views = tuple(packed[..., 1 + i * d: 1 + (i + 1) * d] for i in range(4))
                 copies = tuple(t.contiguous() for t in views)
+                ck.reset_launches()
+                fwd = ck.flash_fwd(*views[:3], causal=causal)
                 out, lse = ck.flash_fwd(*copies[:3], causal=causal)
                 delta = (copies[3].float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-                ck.reset_launches()
                 got = (ck.flash_dq(*views, lse, delta, causal=causal), *ck.flash_dkv(*views, lse, delta, causal=causal))
-                launched = ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+                launched = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_dq"], ck.LAUNCHES["flash_dkv"]) == (2, 1, 1)
                 want = (ck.flash_dq(*copies, lse, delta, causal=causal),
                         *ck.flash_dkv(*copies, lse, delta, causal=causal))
                 plain = (ck.flash_dq_plain(*copies, lse, delta, causal=causal),
                          *ck.flash_dkv_plain(*copies, lse, delta, causal=causal))
                 parts = [compare(rule, a, b) for a, b in zip(got, plain)]
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                results.append((f"flash_dq, flash_dkv on views off 16-byte alignment, 2x100x3x{d} causal={causal} "
-                                f"{pol}: bitwise contiguous={same}",
-                                dict(ok=launched and same and all(x["ok"] for x in parts),
-                                     max_abs_err=max(x["max_abs_err"] for x in parts))))
+                fwd_plain = flash_fwd_against_plain(out, lse, *copies[:3], causal=causal)
+                same = (torch.equal(fwd[0], out) and torch.equal(fwd[1], lse)
+                        and all(torch.equal(a, b) for a, b in zip(got, want)))
+                results.append((f"flash_fwd, flash_dq, flash_dkv on views off 16-byte alignment, 2x100x3x{d} "
+                                f"causal={causal} {pol}: bitwise contiguous={same}",
+                                dict(ok=launched and same and all(x["ok"] for x in parts) and fwd_plain["ok"]
+                                     and fwd_plain["lse_ok"],
+                                     max_abs_err=max(fwd_plain["max_abs_err"], *(x["max_abs_err"] for x in parts)))))
     ck.reset_launches()
+    return results
+
+
+def repair_cases(gen) -> list:
+    """What the JAX kernel takes and the port's flash wrappers once refused,
+    through the kernels on the card, forward and backward, each kernel's
+    launch counted (one per call) and each output in the dtype JAX gives it:
+    q, k, v mixing fp32 and bf16 (the kernels then run in fp32 on fp32
+    copies: out, dq, dk, dv within the fp32 rules, plus 1 ulp where the
+    output is bf16); a head axis with stride H (a (B, L, D, H).transpose(2,
+    3) view), bitwise the results on contiguous copies; and B or H of 65537,
+    past the card's grid y/z limit, at L = 2 and 64 (D = 16, 64 and 256)
+    against the plain versions and at L = 1 (D = 64 and 256), where out is
+    v and dv is dO bitwise."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    f32, b16 = torch.float32, torch.bfloat16
+
+    def run(q, k, v, g, causal):
+        ck.reset_launches()
+        out, lse = ck.flash_fwd(q, k, v, causal=causal)
+        # g contiguous first: a strided view's sum may take another order, and delta another bit
+        delta = (g.contiguous().float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        grads = (ck.flash_dq(q, k, v, g, lse, delta, causal=causal),
+                 *ck.flash_dkv(q, k, v, g, lse, delta, causal=causal))
+        launched = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_dq"], ck.LAUNCHES["flash_dkv"]) == (1, 1, 1)
+        return out, lse, delta, grads, launched
+
+    def held(q, k, v, g, causal, what):
+        out, lse, delta, grads, launched = run(q, k, v, g, causal)
+        fwd = flash_fwd_against_plain(out, lse, q, k, v, causal=causal)
+        args = (q, k, v, g, lse, delta)
+        plain = (ck.flash_dq_plain(*args, causal=causal), *ck.flash_dkv_plain(*args, causal=causal))
+        parts = [compare(BWD_PLAIN_REL if a.dtype == f32 else ("ulp", BWD_PLAIN_REL), a, b)
+                 for a, b in zip(grads, plain)]
+        dtypes = [t.dtype for t in (out, *grads)] == [q.dtype, q.dtype, k.dtype, v.dtype]
+        ok = launched and dtypes and fwd["ok"] and fwd["lse_ok"] and all(x["ok"] for x in parts)
+        return (what, dict(ok=ok, max_abs_err=max(fwd["max_abs_err"], *(x["max_abs_err"] for x in parts)),
+                           launched=launched, dtypes_as_jax=dtypes))
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    results = []
+    for causal in (True, False):
+        for dts in ((f32, b16, f32), (b16, f32, b16)):
+            shape = (2, 256, 3, 64)
+            q, k, v = (randn(shape, dt) for dt in dts)
+            g = randn(shape, dts[0])
+            names = "/".join("fp32" if dt == f32 else "bf16" for dt in dts)
+            results.append(held(q, k, v, g, causal, f"flash kernels on mixed q/k/v {names} 2x256x3x64 "
+                                                    f"causal={causal} (fp32 arithmetic, JAX's output dtypes)"))
+        for pol, dt in (("fp32", f32), ("bf16", b16)):
+            q, k, v, g = (randn((2, 256, 64, 3), dt).transpose(2, 3) for _ in range(4))
+            res = held(q, k, v, g, causal, "")[1]
+            got = run(q, k, v, g, causal)
+            want = run(*(t.contiguous() for t in (q, k, v, g)), causal)
+            same = all(torch.equal(a, b) for a, b in zip((got[0], got[1], *got[3]), (want[0], want[1], *want[3])))
+            results.append((f"flash kernels on a head axis of stride 3 (2x256x3x64 transposed views) causal={causal} "
+                            f"{pol}: bitwise contiguous copies={same}", dict(res, ok=res["ok"] and same)))
+    for shape, dt, causal in (((65537, 2, 1, 64), f32, False), ((1, 2, 65537, 64), b16, True),
+                              ((65537, 2, 1, 256), f32, True), ((1, 2, 65537, 256), b16, False),
+                              ((65537, 64, 1, 16), b16, True), ((1, 64, 65537, 16), f32, False)):
+        q, k, v, g = (randn(shape, dt) for _ in range(4))
+        results.append(held(q, k, v, g, causal, f"flash kernels at B or H past 65535, {'x'.join(map(str, shape))} "
+                                                f"causal={causal} {'fp32' if dt == f32 else 'bf16'}"))
+        del q, k, v, g
+    # L = 1: p = 1, so out is v and dv is dO, bitwise (dq and dk are 0 but for the rounding of dp - delta, which
+    # no relative rule can hold)
+    for shape, dt in (((65537, 1, 1, 64), f32), ((1, 1, 65537, 256), b16)):
+        q, k, v, g = (randn(shape, dt) for _ in range(4))
+        out, _lse, _delta, grads, launched = run(q, k, v, g, True)
+        ok = (launched and torch.equal(out, v) and torch.equal(grads[2], g)
+              and all(bool(torch.isfinite(t).all()) for t in grads))
+        results.append((f"flash kernels at B or H past 65535, {'x'.join(map(str, shape))} causal "
+                        f"{'fp32' if dt == f32 else 'bf16'}: out is v and dv is dO, bitwise",
+                        dict(ok=ok, max_abs_err=float((out.float() - v.float()).abs().max()), launched=launched)))
+        del q, k, v, g, out, grads
+    ck.reset_launches()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1714,7 +1843,7 @@ def lm_edge_phase() -> list:
     for what, res in results:
         log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}"
             + (f" lse_max_abs={res['lse_max_abs_err']:.3g} vs_oracle={res['ref_max_abs_err']:.3g}"
-               if "lse_max_abs_err" in res else ""))
+               f" bitwise_rerun={res['bitwise_rerun']}" if "lse_max_abs_err" in res else ""))
         require(res["ok"], f"edge case {what}: {res}")
     return results
 
@@ -1733,7 +1862,8 @@ def wide_head_dim_cases(d, dtype, gen) -> list:
         ck.reset_launches()
         fwd = flash_case((1, 192, 2, d), causal, dtype, gen, 48, 64)["res"]
         bwd = flash_bwd_case((1, 192, 2, d), causal, dtype, gen, 48, 64)["res"]
-        launched = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_dq"], ck.LAUNCHES["flash_dkv"]) == (2, 2, 2)
+        # flash_case launches flash_fwd twice (the rerun), flash_bwd_case once more and each backward kernel twice
+        launched = (ck.LAUNCHES["flash_fwd"], ck.LAUNCHES["flash_dq"], ck.LAUNCHES["flash_dkv"]) == (3, 2, 2)
         tag = f"1x192x2x{d} (run at {dp}, {windows} windows) causal={causal} {pol}"
         results.append((f"flash_fwd {tag}", dict(fwd, ok=fwd["ok_all"] and launched)))
         for name, res in bwd.items():
@@ -1812,6 +1942,34 @@ def flash_bwd_tiles_digest() -> dict:
     sha = digest.hexdigest()
     return dict(ok=launched and sha == FLASH_BWD_TILES_SHA256, max_abs_err=0.0, sha256=sha,
                 sha256_held=FLASH_BWD_TILES_SHA256)
+
+
+# sha256 of the bits of out and lse of flash_fwd_tiles_digest, as the fp32 FFMA forward gave them before its
+# Hopper redesign (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in a checkout of that tree
+# with this file copied in prints it): the fp32 redesign keeps the operations and their order
+FLASH_FWD_TILES_SHA256 = "4a8c34a01fb48dd806868d1c9d786c26e898c9bd898602f7fc536c592afed1d5"
+
+
+def flash_fwd_tiles_digest() -> dict:
+    """fp32 flash_fwd at ``FLASH_BWD_TILE_SHAPES`` (several 64-row tiles,
+    ragged L), causal and full, inputs drawn with numpy (seed 2000 + L + D):
+    the sha256 of the bits of every out and lse, and each launch counted."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    digest, launched = hashlib.sha256(), True
+    for shape in FLASH_BWD_TILE_SHAPES:
+        for causal in (True, False):
+            rng = np.random.default_rng(2000 + shape[1] + shape[3])
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3))
+            ck.reset_launches()
+            outs = ck.flash_fwd(q, k, v, causal=causal, block_q=shape[1], block_k=shape[1])
+            launched &= ck.LAUNCHES["flash_fwd"] == 1
+            for t in outs:
+                digest.update(t.contiguous().cpu().numpy().tobytes())
+    ck.reset_launches()
+    sha = digest.hexdigest()
+    return dict(ok=launched and sha == FLASH_FWD_TILES_SHA256, max_abs_err=0.0, sha256=sha,
+                sha256_held=FLASH_FWD_TILES_SHA256)
 
 
 def run_long_context(argv) -> dict:
@@ -2204,7 +2362,7 @@ def lm_kernels_entries(rows, runs) -> list:
     plan += [("flash_fwd", pol, "tiny_lm", f"forward_lm flash/{pol}") for pol in ("fp32", "bf16")]
     plan += [(name, pol, "tiny_lm", f"make_lm_train_step flash/{pol}")
              for name in ("flash_dq", "flash_dkv") for pol in ("fp32", "bf16")]
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
     entries = []
     for name, pol, stage, run_key in plan:
         mine = [r for r in rows if r["kernel"] == name and r["dtype"] == pol and r["stage"] == stage]
@@ -2215,14 +2373,15 @@ def lm_kernels_entries(rows, runs) -> list:
             name=name, dtype=pol, route="cuda", source=source, replaces=replaces, run=run_key, stage=stage,
             launches=run["launches"][name], launches_per_forward=run["launches"][name] / run["passes"],
             max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
-            ms=row["ms"], kernel_ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            ms=row["ms"], kernel_ms=row["ms"], device_ms=row.get("device_ms"), plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"], library_call=row["library_call"],
         )
         if "shape" in row:
             entry["shape"] = row["shape"]
         modes = [r for r in mine if r.get("mode")]
         if modes:
-            entry["modes"] = {r["mode"]: {k: r[k] for k in keys} for r in modes}
+            entry["modes"] = {r["mode"]: {k: r.get(k) for k in keys} for r in modes}
         entries.append(entry)
     return entries
 
@@ -2317,17 +2476,35 @@ def main() -> int:
 
     info = _build.build()
     log(f"phase 1: kernel library {info.path} {'built' if info.built else 'cached'} in {info.seconds:.1f} s")
+
+    def peak_name(p):
+        return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (tensor cores)"
+
+    if sys.argv[1:] == ["--flash-rows"]:
+        # phase 2's flash_fwd rows at long_context's and TINY_LM's shapes, then phases 3b and 3c, from this
+        # checkout: two trees compared in one call
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rows = []
+        for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            gen = torch.Generator(device="cuda").manual_seed(2028)
+            for stage, shape in (("long_context", LONG_CONTEXT), ("tiny_lm", TINY_LM_ATTN)):
+                for causal in (True, False):
+                    rows.append(flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name))
+        lm, train = lm_path_phase(), train_path_phase()
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, lm=lm, train=train), default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--record"]:
         # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256 and ENGINE_FP32_SHA256 hold a
         # later tree to, from this checkout
         torch.backends.cuda.matmul.allow_tf32 = False
         sweep = head_dim_sweep()
         tiles = flash_bwd_tiles_digest()
+        fwd_tiles = flash_fwd_tiles_digest()
         engine = engine_fp32_digest()
         ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in PTXAS_HELD}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, ptxas=ptxas, flash_sweep_sha256=sweep["sha256"],
                               flash_sweep_within_tolerance=not sweep["failing_head_dims"],
-                              flash_bwd_tiles_sha256=tiles["sha256"],
+                              flash_bwd_tiles_sha256=tiles["sha256"], flash_fwd_tiles_sha256=fwd_tiles["sha256"],
                               engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"])), flush=True)
         return 0
     for line in info.log.splitlines():
@@ -2338,14 +2515,10 @@ def main() -> int:
     for key, v in flash_regs.items():
         log(f"ptxas {key}: {v['registers']} registers, {v['spill_stores']} bytes spill stores ({v['kernel']})")
     sass = sass_phase(info)
-    log("phase 1b: the bf16 and int8w conv entry points contain HMMA, the fp32 ones FFMA and no HMMA; "
-        f"{', '.join(PTXAS_HELD)} keep their registers and spills")
+    log("phase 1b: the bf16 and int8w conv entry points and the bf16 flash instances at D <= 128 contain HMMA, "
+        f"the fp32 ones FFMA and no HMMA; {', '.join(PTXAS_HELD)} keep their registers and spills")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-
-    def peak_name(p):
-        return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (tensor cores)"
-
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
     lm_rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
     s2d_rows = s2d_phase(spec, peak_name)

@@ -11,9 +11,10 @@
 // streams through shared memory.
 //
 // Layout of a block: 128 threads; a thread owns 4 rows (rg) and every 8th
-// column (cg + 8 j) of the 64 x 64 tile, as flash_fwd.cu lays out its scores.
-// Operand tiles live in shared memory as fp32 with odd row strides (W + 1 for
-// W columns), so the 4 rows and 8 columns a warp reads hit distinct banks. The
+// column (cg + 8 j) of the 64 x 64 tile, as flash_fwd.cu's D >= 256 kernels
+// lay out their scores. Operand tiles live in shared memory as fp32 with odd
+// row strides (W + 1 for W columns), so the 4 rows and 8 columns a warp
+// reads hit distinct banks. The
 // output accumulators (64 x D each) live in shared memory too: at D = 128 a
 // thread's share of two of them would be 128 registers on top of the 64 that
 // hold s and dp. Each tile's contribution to them is summed in registers, at
@@ -29,7 +30,7 @@
 //
 // Head dims above 256 (D = WIDE: the instance takes D at run time, a
 // multiple of DC): a block owns one window of at most WN = 256 output
-// columns (grid x: tile * windows + window), so its accumulators are those
+// columns (Window: its rank is tile * windows + window), so its accumulators are those
 // of D = 256. It still sums the scores s and dp over all of D, chunk after
 // chunk with d ascending, so every window recomputes the same p and dS bit
 // for bit; then it accumulates and stores only its window's columns. At
@@ -62,26 +63,39 @@ struct Dims {
   static_assert(D % DC == 0 && WN % DC == 0, "D and the window are multiples of the chunk");
 };
 
-// A block's tile, window and chunks: grid x is tile * windows + window; the
-// window's columns are chunks [c_lo, c_hi) of the nch chunks of D.
+// A block's (b, h), tile, window and chunks. The grid is one dimension over q or k tiles x windows x B x
+// H with (b, h) fastest (the card's y and z dimensions would cap B and H at 65535): rank r = blockIdx.x /
+// (B H) covers tile r / windows (nt - 1 - that when `reverse`: dq's heaviest causal tile, the last, first)
+// and window r % windows; the window's columns are chunks [c_lo, c_hi) of the nch chunks of D.
 template <int D>
 struct Window {
-  int tile, nch, c_lo, c_hi;
-  __device__ __forceinline__ Window(int d_run, int windows) {
+  int b, h, tile, nch, c_lo, c_hi;
+  __device__ __forceinline__ Window(int d_run, int windows, int L, int H, bool reverse) {
     using Di = Dims<D>;
+    const int nt = (L + BT - 1) / BT;
+    const int heads = gridDim.x / (nt * windows);
+    const int bh = blockIdx.x % heads, rank = blockIdx.x / heads;
+    b = bh / H;
+    h = bh % H;
+    tile = reverse ? nt - 1 - rank / windows : rank / windows;
     if constexpr (D == WIDE) {
-      tile = blockIdx.x / windows;
       nch = d_run / Di::DC;
-      c_lo = (blockIdx.x % windows) * (WN / Di::DC);
+      c_lo = (rank % windows) * (WN / Di::DC);
       c_hi = min(nch, c_lo + WN / Di::DC);
     } else {
-      tile = blockIdx.x;
       nch = Di::NCH;
       c_lo = 0;
       c_hi = Di::NCH;
     }
   }
 };
+
+// The grid of B x H x the tiles of L x windows blocks; false past the grid's 2^31 - 1.
+inline bool grid_for(int B, int L, int H, int windows, dim3& grid) {
+  const long long blocks = static_cast<long long>((L + BT - 1) / BT) * windows * B * H;
+  grid = dim3(static_cast<unsigned>(blocks));
+  return blocks <= 0x7fffffff;
+}
 
 struct Strides {
   long long b, l, h;

@@ -1,6 +1,9 @@
 // The Hopper flash-attention backward at the head dims 16, 32, 64 and 128:
 // the pieces flash_dq.cu and flash_dkv.cu build their kernels from. (D = 256
-// and the windowed instance above it keep flash_bwd.cuh.)
+// and the windowed instance above it keep flash_bwd.cuh.) The forward,
+// flash_fwd.cu, builds its kernels at those head dims from the same pieces:
+// Operand, place, load_tile, f32::RS and, in mma, the fragment addresses,
+// split, as_a and product_pair.
 //
 // Both kernels recompute one 64 x 64 tile of s = q k^T and dp = dO v^T, then
 // p = exp(s * scale - lse) (exactly 0 where masked) and dS = p * (dp - delta),

@@ -65,7 +65,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  Strides sk, Strides sv, Strides sg, int causal, float scale) {
   using Lay = Layout<D>;
   constexpr int DC = Lay::DC;
-  const Window<D> win(dd, windows);
+  const Window<D> win(dd, windows, L, H, false);
   const int nch = win.nch;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -79,7 +79,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x;
   const int rg = tid / CG, cg = tid % CG;
   const int k0 = win.tile * BT;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = win.h, b = win.b;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
@@ -166,10 +166,11 @@ int launch_d(const void* q, const void* k, const void* v, const void* g, const v
              int causal, float scale, cudaStream_t stream) {
   auto kernel = flash_dkv_kernel<T, D>;
   const int bytes = Layout<D>::bytes;
+  const int windows = D == WIDE ? (dd + WN - 1) / WN : 1;
+  dim3 grid;
+  if (!grid_for(B, L, H, windows, grid)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int windows = D == WIDE ? (dd + WN - 1) / WN : 1;
-  const dim3 grid((L + BT - 1) / BT * windows, H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),

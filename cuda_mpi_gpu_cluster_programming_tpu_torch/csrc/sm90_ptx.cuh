@@ -1,6 +1,6 @@
 // PTX wrappers of the Hopper kernels: cp.async, shared stores, ldmatrix and
 // mma.sync.m16n8k16 in bf16 with fp32 accumulators. The conv mainloop
-// (conv_sm90.cuh) and the flash backward (flash_bwd_sm90.cuh) share them.
+// (conv_sm90.cuh) and the flash kernels (flash_bwd_sm90.cuh, flash_fwd.cu) share them.
 #pragma once
 
 #include <cstdint>

@@ -26,8 +26,9 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``flash_fwd``: :func:`flash_fwd`, ``flash_fwd.cu``, the flash-attention
   forward behind ``ops/flash_attention.py``;
 - ``flash_dq``, ``flash_dkv``: :func:`flash_dq`, :func:`flash_dkv`,
-  ``flash_dq.cu`` and ``flash_dkv.cu`` (over ``flash_bwd.cuh``), its
-  backward.
+  ``flash_dq.cu`` and ``flash_dkv.cu``, its backward. The three run their
+  head dims up to 128 over ``flash_bwd_sm90.cuh``; the backward's D >= 256
+  over ``flash_bwd.cuh``.
 
 The six conv kernels are implicit GEMMs on one Hopper mainloop,
 ``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on the tensor cores).
@@ -1029,26 +1030,38 @@ def flash_blocks(l: int, block_q: int, block_k: int) -> tuple:
 
 def _flash_check(*tensors: torch.Tensor, name: str = "flash_fwd") -> torch.device:
     """Check the (B, L, H, D) operands of a flash kernel (q, k, v, and the
-    output gradient for the backward): one device, one dtype, one shape,
-    the last axis contiguous (the others are read through their strides).
-    Any D passes here; the CUDA branch pads it (:func:`_flash_pad`)."""
+    output gradient for the backward): one device, one shape with no empty
+    axis, each fp32 or bf16. What the JAX kernel takes passes: the dtypes
+    may mix (it widens every operand to fp32), any strides, any B, H and D;
+    the CUDA branch prepares what the kernels cannot read
+    (:func:`_flash_operands`)."""
     first = tensors[0]
     for t in tensors:
         if t.device != first.device:
             raise ValueError(f"{name}: tensors on {first.device} and {t.device}")
-        if t.dtype not in _SUFFIX or t.dtype != first.dtype:
-            raise TypeError(f"{name}: needs q, k, v all fp32 or all bf16, got {[u.dtype for u in tensors]}")
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"{name}: needs fp32 or bf16 operands, got {[u.dtype for u in tensors]}")
         if t.dim() != 4 or t.shape != first.shape:
             raise ValueError(f"{name}: needs q, k, v of one (B, L, H, D) shape, got "
                              f"{[tuple(u.shape) for u in tensors]}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}: the head axis (last) must be contiguous")
     if first.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: unsupported device {first.device}")
-    b, l, h, d = first.shape
-    if min(b, l, h, d) <= 0 or b > 65535 or h > 65535:
-        raise ValueError(f"{name}: shape {tuple(first.shape)} (B and H at most 65535, none empty)")
+    if min(first.shape) <= 0:
+        raise ValueError(f"{name}: shape {tuple(first.shape)} has an empty axis")
     return first.device
+
+
+def _flash_operands(*tensors: torch.Tensor) -> tuple:
+    """The CUDA operands of a flash kernel as it reads them: one dtype, the
+    head axis contiguous, the kernels' width. Mixed fp32/bf16 operands
+    become fp32 copies, which is the JAX kernel's arithmetic (it widens
+    every operand to fp32); the caller casts each output to the dtype JAX
+    gives it. An operand whose last stride is not 1 becomes a contiguous
+    copy; the other axes are read through their strides. Then
+    :func:`_flash_pad`."""
+    if len({t.dtype for t in tensors}) > 1:
+        tensors = tuple(t.float() for t in tensors)
+    return _flash_pad(*(t if t.stride(-1) == 1 else t.contiguous() for t in tensors))
 
 
 def _flash_pad(*tensors: torch.Tensor) -> tuple:
@@ -1106,28 +1119,36 @@ def flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, block_q: int = 128, block_k: int = 128,
 ) -> tuple:
     """Flash-attention forward: ``(out, lse)`` for q, k, v of shape
-    (B, L, H, D), fp32 or bf16; out in q's dtype, lse (B, H, L) fp32 =
+    (B, L, H, D), each fp32 or bf16; out in q's dtype, lse (B, H, L) fp32 =
     m + log(max(den, 1e-30)). Any D: on CUDA run at the width
-    :func:`flash_width` gives (zero-padded, :func:`_flash_pad`).
+    :func:`flash_width` gives (zero-padded, :func:`_flash_pad`). Mixed
+    dtypes compute in fp32, as the JAX kernel does; any strides.
 
     ``block_q``/``block_k`` are clamped to L and L must be a multiple of
     both (:func:`flash_blocks`); the kernel tiles by its own 64 x 64. The
-    last axis must be contiguous; the others are read through their
-    strides (a slice of a packed qkv tensor needs no copy).
+    (B, L, H) axes are read through their strides (a slice of a packed qkv
+    tensor needs no copy); a last axis with another stride than 1 is
+    copied first (:func:`_flash_operands`).
 
     Replaces ``_fwd_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
     flash_attention.py). Bound on the H100: operations (4 B H L^2 D FLOPs,
-    half when causal). Design (``csrc/flash_fwd.cu``): one block per
-    (b, h, 64-row q tile), K/V tiles streamed through shared memory, the
-    row statistics in registers, fp32 FFMA for both dtypes; above D = 256
-    one block per window of 256 output columns, the q and k tiles held 64
-    columns at a time."""
+    half when causal). Design (``csrc/flash_fwd.cu`` over
+    ``csrc/flash_bwd_sm90.cuh``): one block per (b, h, 64-row q tile), the
+    heaviest causal tiles first, K/V tiles streamed through shared memory
+    by cp.async, the row statistics in registers; no atomics, so a second
+    launch gives the same bits. At D <= 128, bf16 runs on the tensor cores
+    (mma.sync; p split into two bf16 terms for the p v product) and fp32 on
+    register-tiled FFMA in the operations and order of the earlier FFMA
+    kernel (its bits). D = 256 keeps that FFMA kernel for both dtypes;
+    above D = 256 one block per window of 256 output columns, the q and k
+    tiles held 64 columns at a time."""
     dev = _flash_check(q, k, v)
     b, l, h, d = q.shape
     flash_blocks(l, block_q, block_k)
     if dev.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
-    q, k, v = _flash_pad(q, k, v)
+    out_dtype = q.dtype
+    q, k, v = _flash_operands(q, k, v)
     dp = q.shape[-1]
     out = torch.empty((b, l, h, dp), dtype=q.dtype, device=dev)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=dev)
@@ -1135,7 +1156,15 @@ def flash_fwd(
         "flash_fwd", "flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, l, h, dp, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], int(causal), 1.0 / d**0.5,
     )
-    return (out if dp == d else out[..., :d].contiguous()), lse
+    return _flash_out(out, d, out_dtype), lse
+
+
+def _flash_out(t: torch.Tensor, d: int, dtype: torch.dtype) -> torch.Tensor:
+    """A kernel's output at the caller's D and dtype: the padded columns
+    sliced away, an fp32 result of mixed operands cast to ``dtype``."""
+    if t.shape[-1] != d:
+        t = t[..., :d].contiguous()
+    return t.to(dtype)
 
 
 # --------------------------------------------------- flash attention backward
@@ -1220,10 +1249,10 @@ def flash_dq(
     causal: bool, block_q: int = 128, block_k: int = 128,
 ) -> torch.Tensor:
     """Flash-attention backward, dQ: dq (B, L, H, D) in q's dtype from q, k,
-    v and the output gradient g (all (B, L, H, D), one dtype, last axis
-    contiguous, the others read through their strides) and the fp32
-    (B, H, L) ``lse`` (the forward's) and ``delta`` (sum_d g o, less the
-    lse gradient). Blocks and head dims as :func:`flash_fwd`.
+    v and the output gradient g (all (B, L, H, D), each fp32 or bf16, any
+    strides: as :func:`flash_fwd` takes them) and the fp32 (B, H, L)
+    ``lse`` (the forward's) and ``delta`` (sum_d g o, less the lse
+    gradient). Blocks and head dims as :func:`flash_fwd`.
 
     Replaces ``_dq_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
     flash_attention.py). Bound on the H100: operations (3 products, 6 B H
@@ -1241,14 +1270,14 @@ def flash_dq(
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":
         return flash_dq_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
-    d = q.shape[-1]
-    q, k, v, g = _flash_pad(q, k, v, g)
+    d, dq_dtype = q.shape[-1], q.dtype
+    q, k, v, g = _flash_operands(q, k, v, g)
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
     _launch(
         "flash_dq", "flash_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), *_bwd_args(q, k, v, g), int(causal), 1.0 / d**0.5,
     )
-    return dq if dq.shape[-1] == d else dq[..., :d].contiguous()
+    return _flash_out(dq, d, dq_dtype)
 
 
 def flash_dkv(
@@ -1272,14 +1301,12 @@ def flash_dkv(
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":
         return flash_dkv_plain(q, k, v, g, lse, delta, causal=causal, block_q=block_q, block_k=block_k)
-    d = q.shape[-1]
-    q, k, v, g = _flash_pad(q, k, v, g)
+    d, dk_dtype, dv_dtype = q.shape[-1], k.dtype, v.dtype
+    q, k, v, g = _flash_operands(q, k, v, g)
     dk = torch.empty(k.shape, dtype=k.dtype, device=dev)
     dv = torch.empty(v.shape, dtype=v.dtype, device=dev)
     _launch(
         "flash_dkv", "flash_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_bwd_args(q, k, v, g), int(causal), 1.0 / d**0.5,
     )
-    if dk.shape[-1] == d:
-        return dk, dv
-    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+    return _flash_out(dk, d, dk_dtype), _flash_out(dv, d, dv_dtype)

@@ -14,8 +14,10 @@ rowwise ``delta = sum_d dO o`` (fp32, shifted by ``-g_lse`` when the lse
 has a gradient) with plain torch ops, as the JAX package does outside its
 kernels, then launches one ``flash_dq`` and one ``flash_dkv``. No (L, L)
 tensor is kept between the two passes. On the card the two backward
-kernels run on the tensor cores in bf16 (head dims up to 128) and on FFMA
-in fp32; the forward runs on FFMA in both dtypes.
+kernels, like the forward, run on the tensor cores in bf16 (head dims up
+to 128) and on FFMA in fp32. q, k and v may mix fp32 and bf16, as in the
+JAX package: the kernels then compute in fp32, and out takes q's dtype,
+dq, dk and dv their operand's.
 """
 
 from __future__ import annotations
@@ -43,12 +45,9 @@ class _Flash(torch.autograd.Function):
         """dq, dk, dv for the output gradient ``g_out`` (None: zeros) and the
         lse gradient ``g_lse`` (None: no shift). ``g_out`` may be an expanded
         zero-stride tensor (the gradient of ``out.sum()``) or any other
-        layout: it is made contiguous when its last stride is not 1, as the
-        kernels read the head axis contiguously."""
+        layout: the kernels' wrappers take any strides."""
         q, k, v, out, lse = ctx.saved_tensors
         g = torch.zeros_like(out) if g_out is None else g_out.to(q.dtype)
-        if g.stride(-1) != 1:
-            g = g.contiguous()
         # delta_i = sum_d dO_i o_i (FA-2 eq. 4), (B, H, L) like the lse
         delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
         if g_lse is not None:

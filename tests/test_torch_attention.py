@@ -23,7 +23,12 @@ Tolerances and why:
 - the bf16 backward's arithmetic on the card (p and dS split into two bf16
   terms for the tensor cores), emulated in torch: 1 bf16 ulp + 1e-5 of the
   max against the plain versions, the rule ``chip_smoke.py`` holds the
-  kernels to; one term breaks it.
+  kernels to; one term breaks it. The bf16 forward's (p split the same
+  way for p v): out within 1 bf16 ulp + 2e-6 x max |v| of
+  ``flash_fwd_plain``, lse within 1e-6 of its max; one term breaks it.
+- operands the JAX kernel takes and the wrappers once refused (mixed
+  fp32/bf16, a head axis of stride H, B or H past 65535): out and the VJP
+  at the fp32 tolerances (bf16 3e-2 for a bf16 output), JAX's dtypes.
 - relu: bitwise outside NaN (signed zeros and infinities included), NaN
   where the JAX package has NaN. A NaN keeps its bits here; XLA on the CPU
   gives a bf16 NaN the canonical payload (sign kept), so payloads are not
@@ -206,13 +211,109 @@ def test_head_dims_up_to_256_keep_their_widths(d, dp):
 
 
 def test_mismatched_operands_raise():
+    """What the JAX kernel refuses or cannot run still raises: operands of
+    two shapes, a dtype other than fp32 and bf16, an empty axis. (Mixed
+    fp32/bf16 dtypes and a non-unit head stride compute, as in JAX: the
+    tests below.)"""
     _, (tq, tk, tv) = _qkv(32, "fp32")
-    with pytest.raises(TypeError):
-        ck.flash_fwd(tq, tk.to(torch.bfloat16), tv, causal=True)
     with pytest.raises(ValueError, match="shape"):
         ck.flash_fwd(tq, tk[:, :16], tv, causal=True)
-    with pytest.raises(ValueError, match="contiguous"):
-        ck.flash_fwd(tq.transpose(2, 3), tk.transpose(2, 3), tv.transpose(2, 3), causal=True)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ck.flash_fwd(tq, tk.double(), tv, causal=True)
+    with pytest.raises(ValueError, match="empty axis"):
+        ck.flash_fwd(tq[:0], tk[:0], tv[:0], causal=True)
+
+
+def _flash_grads(q, k, v, cot, kw):
+    """out and (dq, dk, dv) of both packages' ``flash_attention`` on the
+    same values: q, k, v and cot as torch tensors, JAX's inputs made from
+    their values in their dtypes."""
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    jarrs = [jnp.asarray(t.float().numpy()).astype(jdt[t.dtype]) for t in (q, k, v)]
+    want_out, want = _vjp_jax(lambda a, b, c: jflash.flash_attention(a, b, c, **kw), jarrs,
+                              jnp.asarray(cot.float().numpy()).astype(jdt[cot.dtype]))
+    out, got = _grads_torch(lambda a, b, c: tflash.flash_attention(a, b, c, **kw), (q, k, v), cot)
+    return (out.detach(), got), (want_out, want)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtypes", [("fp32", "bf16", "fp32"), ("bf16", "fp32", "bf16")])
+def test_mixed_dtypes_match_jax_forward_and_vjp(dtypes, causal):
+    """q, k, v of mixed fp32/bf16, as the JAX kernel takes them (it widens
+    every operand to fp32): out in q's dtype and dq, dk, dv in q's, k's and
+    v's, each against the JAX package's at its dtype's tolerance (fp32 2e-5
+    for out and 5e-5 for the gradients, bf16 3e-2: one fp32 result rounded
+    once on each side)."""
+    rng = np.random.default_rng(60 + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 2, 16)).astype(np.float32)).to(DTYPES[dt][1])
+               for dt in dtypes)
+    cot = torch.from_numpy(rng.standard_normal((2, 64, 2, 16)).astype(np.float32)).to(q.dtype)
+    (out, got), (want_out, want) = _flash_grads(q, k, v, cot, dict(causal=causal, block_q=32, block_k=32))
+    assert out.dtype == q.dtype and [g.dtype for g in got] == [q.dtype, k.dtype, v.dtype]
+    assert [np.asarray(w).dtype.itemsize for w in (want_out, *want)] == [t.element_size() for t in (q, q, k, v)]
+    _close(out, want_out, dtypes[0])
+    for g, w, dt in zip(got, want, dtypes):
+        tol = 5e-5 if dt == "fp32" else TOL["bf16"]
+        np.testing.assert_allclose(_np(g), _np(w), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_transposed_head_axis_matches_jax(causal):
+    """q, k, v as (B, L, D, H).transpose(2, 3) views, whose head axis has
+    stride H: out and dq, dk, dv against the JAX package's on the same
+    values (fp32 2e-5 and 5e-5), and bitwise the port's on contiguous copies."""
+    rng = np.random.default_rng(70 + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 64, 16, 3)).astype(np.float32)).transpose(2, 3)
+               for _ in range(3))
+    assert q.shape == (2, 64, 3, 16) and q.stride(-1) == 3
+    cot = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    kw = dict(causal=causal, block_q=32, block_k=32)
+    (out, got), (want_out, want) = _flash_grads(q, k, v, cot, kw)
+    _close(out, want_out, "fp32")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5)
+    out_c, got_c = _grads_torch(lambda a, b, c: tflash.flash_attention(a, b, c, **kw),
+                                tuple(t.contiguous() for t in (q, k, v)), cot)
+    assert torch.equal(out, out_c.detach()) and all(torch.equal(a, b) for a, b in zip(got, got_c))
+
+
+@pytest.mark.parametrize("shape", [(65536, 1, 1, 1), (1, 1, 65536, 1)])
+def test_batch_or_heads_above_65535_match_jax_attention(shape):
+    """B or H of 65536, past the card's grid y/z limit, which the kernels no
+    longer use: out and the VJP against the JAX package's ``ops.attention``
+    (plain XLA). With L = 1, p = 1: out is v bitwise on both sides, dq and
+    dk are 0 and dv is the cotangent."""
+    rng = np.random.default_rng(80)
+    q, k, v, cot = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    want_out, want = _vjp_jax(lambda a, b, c: jattn.attention(a, b, c, causal=True),
+                              [jnp.asarray(a) for a in (q, k, v)], jnp.asarray(cot))
+    out, got = _grads_torch(lambda a, b, c: tflash.flash_attention(a, b, c, causal=True),
+                            tuple(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(cot))
+    assert np.array_equal(out.detach().numpy(), v) and np.array_equal(np.asarray(want_out), v)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=5e-5)
+    assert np.array_equal(got[2].numpy(), cot) and not got[0].any() and not got[1].any()
+
+
+def test_flash_operands_are_what_the_kernels_read():
+    """The CUDA branch's preparation, on the CPU: mixed dtypes become fp32
+    copies, a head axis with stride != 1 a contiguous copy, anything else
+    passes as it is (a packed qkv slice keeps its strides), then the pad;
+    ``_flash_out`` slices the pad away and casts to the caller's dtype."""
+    _, (tq, tk, tv) = _qkv(32, "fp32", d=32)
+    same = ck._flash_operands(tq, tk, tv)
+    assert all(a is b for a, b in zip(same, (tq, tk, tv)))
+    mixed = ck._flash_operands(tq, tk.to(torch.bfloat16), tv)
+    assert all(t.dtype == torch.float32 for t in mixed) and torch.equal(mixed[1], tk.to(torch.bfloat16).float())
+    packed = torch.zeros((1, 32, 3, 2 * 32))
+    view = packed[:, :, 0].view(1, 32, 2, 32)
+    wide = torch.zeros((1, 32, 32, 2)).transpose(2, 3)
+    kept, copied = ck._flash_operands(view, wide)
+    assert kept is view and copied.is_contiguous() and torch.equal(copied, wide)
+    padded = ck._flash_operands(tq[..., :24], tk[..., :24].to(torch.bfloat16))
+    assert all(t.shape[-1] == 32 and t.dtype == torch.float32 for t in padded)
+    assert ck._flash_out(padded[0], 24, torch.bfloat16).shape == (1, 32, 2, 24)
+    assert ck._flash_out(padded[0], 24, torch.bfloat16).dtype == torch.bfloat16
 
 
 def test_strided_views_read_in_place():
@@ -352,10 +453,10 @@ def test_backward_operands_are_checked():
         ck.flash_dq(tq, tk, tv, tq, lse[:, :, :16], lse, causal=True)
     with pytest.raises(ValueError, match="delta must be a contiguous fp32"):
         ck.flash_dkv(tq, tk, tv, tq, lse, lse.double(), causal=True)
-    with pytest.raises(TypeError):
-        ck.flash_dkv(tq, tk, tv, tq.to(torch.bfloat16), lse, lse, causal=True)
-    with pytest.raises(ValueError, match="contiguous"):
-        ck.flash_dq(tq, tk, tv, torch.zeros((1, 32, 2, 32))[..., ::2], lse, lse, causal=True)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        ck.flash_dkv(tq, tk, tv, tq.half(), lse, lse, causal=True)
+    with pytest.raises(ValueError, match="shape"):
+        ck.flash_dq(tq, tk, tv, torch.zeros((1, 32, 2, 32))[..., ::3], lse, lse, causal=True)
 
 
 def test_flash_plain_is_the_recurrence_of_the_oracle():
@@ -443,6 +544,72 @@ def test_one_bf16_term_breaks_the_plain_rule(causal):
     args, plain = _bf16_backward_case((1, 512, 2, 64), causal, seed=512 + causal)
     got = _bf16_backward_emulation(*args, causal=causal, terms=1)
     assert max(_share_of_bf16_rule(a, b) for a, b in zip(got, plain)) > 4.0
+
+
+# The bf16 rule the card's flash_fwd is held to against its plain version (chip_smoke.py's FLASH_PLAIN_V_REL):
+# per element of out, 1 bf16 ulp plus 2e-6 x max |v| (out is a convex mix of v's rows)
+FLASH_PLAIN_V_REL = 2e-6
+
+
+def _bf16_forward_emulation(q, k, v, causal, terms):
+    """The bf16 tensor-core arithmetic of the card's flash_fwd at D <= 128, in torch: per 64-key tile, the
+    score products on the bf16 operands in fp32 (exact products), s scaled after, masked to -inf; the
+    online recurrence in fp32 (m, corr = exp(m - m_new), the exponent taken against 0 while a row has seen
+    no key, den = den corr + sum p); p split into ``terms`` bf16 terms that feed the p v product separately,
+    in fp32; out = acc / max(den, 1e-30) rounded once to bf16, lse = m + log max(den, 1e-30)."""
+    b, l, h, d = q.shape
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, L, D)
+    m = torch.full((b, h, l), float("-inf"))
+    den, acc = torch.zeros((b, h, l)), torch.zeros((b, h, l, d))
+    rows = torch.arange(l)[:, None]
+    for k0 in range(0, l, 64):
+        kt, vt = kf[:, :, k0 : k0 + 64], vf[:, :, k0 : k0 + 64]
+        s = (qf @ kt.transpose(-1, -2)) * (1.0 / d**0.5)
+        if causal:
+            s = s.masked_fill(rows < torch.arange(k0, k0 + kt.shape[2])[None, :], float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_use = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+        corr, p = torch.exp(m - m_use), torch.exp(s - m_use[..., None])
+        den = den * corr + p.sum(-1)
+        acc = acc * corr[..., None] + sum(t @ vt for t in _split_terms(p, terms))
+        m = m_new
+    den = den.clamp_min(1e-30)
+    return (acc / den[..., None]).permute(0, 2, 1, 3).to(torch.bfloat16), m + torch.log(den)
+
+
+def _bf16_forward_case(shape, causal, terms):
+    """The emulation at ``terms`` against flash_fwd_plain on seeded bf16 q, k, v: out's worst share of the
+    rule (at most 1 within it), and lse's largest error over its max."""
+    rng = np.random.default_rng(shape[1] + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16) for _ in range(3))
+    out, lse = _bf16_forward_emulation(q, k, v, causal, terms)
+    p_out, p_lse = ck.flash_fwd_plain(q, k, v, causal=causal)
+    g, w = out.float(), p_out.float()
+    _m, e = torch.frexp(torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126))
+    slack = torch.ldexp(torch.ones_like(g), e - 8) + FLASH_PLAIN_V_REL * float(v.float().abs().max())
+    assert out.dtype == p_out.dtype == torch.bfloat16 and out.shape == p_out.shape
+    return float(((g - w).abs() / slack).max()), float((lse - p_lse).abs().max() / p_lse.abs().max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64)])
+def test_bf16_forward_two_term_split_meets_the_plain_rule(shape, causal):
+    """Why the card's bf16 flash_fwd splits p into two bf16 terms: with
+    hi + lo (16 significant bits) feeding the tensor-core p v product, out
+    stays within the rule chip_smoke.py holds the kernel to against
+    flash_fwd_plain (fp32 p), 1 bf16 ulp + 2e-6 x max |v|, and lse within
+    1e-6 of its max (chip_smoke.py's LSE_REL)."""
+    share, lse_rel = _bf16_forward_case(shape, causal, terms=2)
+    assert share <= 1.0 and lse_rel <= 1e-6
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64)])
+def test_one_bf16_term_breaks_the_forward_plain_rule(shape, causal):
+    """A single bf16 rounding of p takes out far past that rule (38-79x
+    here): one term is not enough."""
+    share, _lse_rel = _bf16_forward_case(shape, causal, terms=1)
+    assert share > 4.0
 
 
 def _bits(x) -> np.ndarray:
