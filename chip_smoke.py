@@ -4,18 +4,21 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --record   # only the records below, from this checkout
     python3 chip_smoke.py --flash-rows   # only the flash_fwd rows and phases 3b, 3c, from this checkout
+    python3 chip_smoke.py --pool-rows    # only the maxpool2d and lrn rows and the staged passes, from this checkout
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
 JSON line with what ``MAINLOOP_PTXAS``, ``FLASH_SWEEP_SHA256``,
-``FLASH_BWD_TILES_SHA256``, ``FLASH_FWD_TILES_SHA256`` and
-``ENGINE_FP32_SHA256`` hold a later tree to (run it in a checkout of the
-tree to be recorded, with this file copied in), and each digested
-output's own sha256. ``--flash-rows`` prints one JSON line with phase
-2's flash_fwd rows at long_context's and TINY_LM's shapes and phases 3b
-and 3c (two trees compared in one call, this file copied into each). With no
-arguments, phases in order; a phase that fails ends the run with a
-non-zero exit code and nothing is caught:
+``FLASH_BWD_TILES_SHA256``, ``FLASH_FWD_TILES_SHA256``,
+``ENGINE_FP32_SHA256`` and ``POOL_LRN_SHA256`` hold a later tree to (run
+it in a checkout of the tree to be recorded, with this file copied in), and
+each digested output's own sha256. ``--flash-rows`` prints one JSON line
+with phase 2's flash_fwd rows at long_context's and TINY_LM's shapes and
+phases 3b and 3c; ``--pool-rows`` one with phase 2's maxpool2d (pool1,
+pool2, the W stages) and lrn rows and the staged ``v3_pallas`` and
+``v1_jit`` passes in fp32 and bf16 (two trees compared in one call, this
+file copied into each). With no arguments, phases in order; a phase that
+fails ends the run with a non-zero exit code and nothing is caught:
 
 1. build the kernel library from ``cuda_mpi_gpu_cluster_programming_tpu_torch/csrc``;
    read ``ptxas -v``'s registers and spills of the kernels on the Hopper
@@ -28,11 +31,14 @@ non-zero exit code and nothing is caught:
    conv_pairs.cu, conv_im2col.cu, conv_taps.cu, conv_g8.cu) and every bf16
    instance of flash_fwd.cu, flash_dq.cu and flash_dkv.cu at D = 16, 32, 64
    and 128 contains HMMA (the tensor cores), every fp32 one FFMA and no
-   HMMA (no TF32);
+   HMMA (no TF32); every vector instance of maxpool.cu and lrn.cu (4 fp32,
+   8 bf16 lanes) issues 128-bit global loads (LDG.E.128);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
-   one PyTorch library call with CUDA events, beside the card's bound (conv2
+   one PyTorch library call with CUDA events, beside the card's bound (the
+   pool and LRN rows, the W stages among them, also the kernel's and the
+   library call's device time by ``torch.profiler``, ``device_ms``; conv2
    fp32 also bitwise ``conv_taps``, whose stride-1 term order is vcol's, and
    the cuDNN kernels behind its library call named by ``torch.profiler``); then
    the conv and pool variants the autotuner sweeps: the taps, pairs,
@@ -52,9 +58,17 @@ non-zero exit code and nothing is caught:
    library call computes a block) and the bound; and every kernel again at
    edge shapes off the main path (an even-fq pairs case, a ragged output,
    C=5 with K=40, g8 at strides 2, 3 and 4 and at an odd K among them;
-   pairs, im2col and g8 held there to the bitwise pins above); the fp32
-   taps and g8 outputs of ``engine_fp32_digest`` must hash to
-   ``ENGINE_FP32_SHA256``, the bits of their older engine; then the LM
+   pairs, im2col and g8 held there to the bitwise pins above); the pools
+   and LRN off the main path and on signed zeros (``pool_lrn_edge_phase``:
+   +0.0 wins over -0.0 in every pool kernel, the reference pool, the hpool
+   conv + W stage and conv_block, NaN windows, C = 3, 7, 40 and 96 through
+   the scalar and vector instances, views off 16-byte alignment, 2/2 and
+   3/1 windows, LRN sizes 3 and 5 in both alpha forms, past one channel
+   chunk); the fp32 taps and g8 outputs of ``engine_fp32_digest`` must
+   hash to ``ENGINE_FP32_SHA256``, the bits of their older engine, and
+   ``maxpool2d``, its W stage and ``lrn`` (``pool_lrn_digest``, inputs
+   without -0.0) to ``POOL_LRN_SHA256``, the bits of the kernels before
+   their Hopper redesign; then the LM
    slice's kernels in fp32 and bf16: ``relu`` at conv1's output (bitwise)
    and ``flash_fwd`` at ``long_context``'s defaults (1x4096x8x64) and at
    TINY_LM's attention (8x1024x4x32), causal and full, and at D = 256
@@ -138,8 +152,10 @@ Tolerances, kernel against plain version on the same inputs:
 - conv and LRN bf16: per element, 1 bf16 ulp (where that order flips the
   one rounding to bf16) plus the fp32 term above (1e-5, LRN 1e-6, of the
   max), which dominates where a sum cancels to near zero;
-- pool, phases pool, W stage and s2d pool: bitwise (max is exact);
-- LRN fp32: max |diff| <= 1e-6 x max |plain| (same sums, same powf);
+- pool, phases pool, W stage and s2d pool: bitwise (max is exact), NaN
+  bits and the sign of a zero included (+0.0 over -0.0, ``jnp.maximum``'s);
+- LRN fp32: max |diff| <= 1e-6 x max |plain| (same sums, same powf; the
+  kernel also keeps the bits of its first design, ``POOL_LRN_SHA256``);
 - conv_block fp32: 1e-5 x max |plain|, as conv; bf16 and int8w: 1 bf16 ulp
   + 1e-5 of the max, and 2 ulps for a block that ends in LRN: a one-ulp
   flip of the bf16 interior (the conv's other summation order) moves the
@@ -307,6 +323,11 @@ def device_time_ms(fn, marker: str = "", reps: int = 10):
     return total / 1e3 / (count if marker else reps)
 
 
+def _fmt(ms) -> str:
+    """A time for the log: 4 decimals, or "not measured" (None)."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at each |value| (8 significant bits)."""
     _m, e = torch.frexp(t.float().abs().clamp_min(2.0**-126))
@@ -354,13 +375,72 @@ def stage_inputs(dtype, gen):
     return dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2, y1=y1, q1=q1, y2=y2, q2=q2)
 
 
+LRN2_KW = dict(size=5, alpha=1e-4, beta=0.75, k=2.0)  # BLOCKS12.lrn2, the CUDA alpha form
+
+
+def pool_stage(stage, x) -> dict:
+    """The maxpool2d row of a 3x3/2 pool stage on ``x``, its device time
+    (``device_ms``) read from the kernels named ``*pool*``."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    n, h, w, c = x.shape
+    out = n * ((h - 3) // 2 + 1) * ((w - 3) // 2 + 1) * c
+    return dict(
+        kernel="maxpool2d", stage=stage, marker="pool",
+        run=lambda x=x: ck.maxpool2d(x, window=3, stride=2),
+        plain=lambda x=x: ck.maxpool2d_plain(x, window=3, stride=2),
+        library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
+        library_call="F.max_pool2d (channels-last)",
+        flops=out * 9, nbytes=(x.numel() + out) * x.element_size(), peak="fp32", rule="bitwise",
+    )
+
+
+def w_stage(stage, y_h, unfused, after) -> dict:
+    """The maxpool2d row of the 1x3/(1,2) W stage on an hpool conv's output
+    ``y_h``, bitwise ``unfused`` (conv + maxpool2d)."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    n, hp, w, k = y_h.shape
+    out = n * hp * ((w - 3) // 2 + 1) * k
+    return dict(
+        kernel="maxpool2d", stage=stage, mode=f"W stage after {after}", marker="pool",
+        run=lambda y=y_h: ck.maxpool2d_w(y, window=3, stride=2),
+        plain=lambda y=y_h: ck.maxpool_rect_plain(y, window=(1, 3), stride=(1, 2)),
+        library=lambda y=y_h: F.max_pool2d(y.permute(0, 3, 1, 2), (1, 3), (1, 2)),
+        library_call="F.max_pool2d (1x3 / 1x2, channels-last)",
+        flops=out * 3, nbytes=(y_h.numel() + out) * y_h.element_size(), peak="fp32",
+        rule="bitwise", same_as=[(f"{after}+maxpool2d", unfused)],
+    )
+
+
+def lrn_stage(x, pol) -> dict:
+    """The lrn row at lrn2 (``LRN2_KW``) on ``x``."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    return dict(
+        kernel="lrn", stage="lrn2", marker="lrn",
+        run=lambda x=x: ck.lrn(x, **LRN2_KW),
+        plain=lambda x=x: ck.lrn_plain(x, **LRN2_KW),
+        # torch's LRN divides alpha by size: pass alpha*size for the same function
+        library=lambda x=x: F.local_response_norm(x.permute(0, 3, 1, 2), 5, alpha=5e-4, beta=0.75, k=2.0),
+        library_call="F.local_response_norm (alpha*size)",
+        flops=x.numel() * 12, nbytes=2 * x.numel() * x.element_size(), peak="fp32",
+        rule=1e-6 if pol == "fp32" else ("ulp", 1e-6),
+    )
+
+
 def kernel_phase(spec, peak_name) -> list:
     """Phase 2: every kernel at every main-path stage, fp32 and bf16."""
     import torch.nn.functional as F
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
-    lrn_kw = dict(size=5, alpha=1e-4, beta=0.75, k=2.0)
     rows = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device="cuda").manual_seed(2026)
@@ -389,27 +469,7 @@ def kernel_phase(spec, peak_name) -> list:
                 CUDNN_KERNELS[f"{stage} {pol}"] = library_kernels(st["library"])
                 log(f"library F.conv2d at {stage} {pol} runs: {CUDNN_KERNELS[f'{stage} {pol}']}")
             stages.append(st)
-        for stage, x in (("pool1", t["y1"]), ("pool2", t["y2"])):
-            y = ck.maxpool2d(x, window=3, stride=2)
-            stages.append(dict(
-                kernel="maxpool2d", stage=stage,
-                run=lambda x=x: ck.maxpool2d(x, window=3, stride=2),
-                plain=lambda x=x: ck.maxpool2d_plain(x, window=3, stride=2),
-                library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
-                library_call="F.max_pool2d (channels-last)",
-                flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
-            ))
-        x = t["q2"]
-        stages.append(dict(
-            kernel="lrn", stage="lrn2",
-            run=lambda x=x: ck.lrn(x, **lrn_kw),
-            plain=lambda x=x: ck.lrn_plain(x, **lrn_kw),
-            # torch's LRN divides alpha by size: pass alpha*size for the same function
-            library=lambda x=x: F.local_response_norm(x.permute(0, 3, 1, 2), 5, alpha=5e-4, beta=0.75, k=2.0),
-            library_call="F.local_response_norm (alpha*size)",
-            flops=x.numel() * 12, nbytes=2 * x.numel() * es, peak="fp32",
-            rule=1e-6 if pol == "fp32" else ("ulp", 1e-6),
-        ))
+        stages += [pool_stage("pool1", t["y1"]), pool_stage("pool2", t["y2"]), lrn_stage(t["q2"], pol)]
         rows += [measure(st, pol, spec, peak_name) for st in stages]
         del t, stages
         torch.cuda.empty_cache()
@@ -442,6 +502,8 @@ MAINLOOP_FILES = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu
 PTXAS_HELD = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
 
 
+# the files whose instances load 16-byte channel vectors (VEC 4 fp32, 8 bf16; VEC 1 the scalar instance)
+VECTOR_FILES = ("maxpool_cu", "lrn_cu")
 # the flash kernels' files, and the head dims whose instances run the Hopper design (over flash_bwd_sm90.cuh):
 # bf16 on mma.sync, fp32 on FFMA (D = 256 and the windowed instance keep FFMA in both dtypes)
 FLASH_FILES = ("flash_fwd_cu", "flash_dq_cu", "flash_dkv_cu")
@@ -472,7 +534,7 @@ def sass_phase(info) -> dict:
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "--dump-sass", str(info.path)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    found, flash = {}, {}
+    found, flash, vector = {}, {}, {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
         counts = dict(hmma=chunk.count("HMMA"), ffma=chunk.count("FFMA"))
@@ -481,6 +543,17 @@ def sass_phase(info) -> dict:
             flash[name] = dict(file=inst[0], dtype=inst[1], d=inst[2], **counts)
         elif any(f in name for f in MAINLOOP_FILES):
             found[name] = dict(dtype="bf16" if "bfloat16" in name else "fp32", **counts)
+        elif any(f in name for f in VECTOR_FILES):
+            vec = re.search(r"Li(\d+)E", name)
+            vector[name] = dict(file=next(f for f in VECTOR_FILES if f in name), vec=int(vec.group(1)) if vec else 0,
+                                dtype="bf16" if "bfloat16" in name else "fp32", ldg128=chunk.count("LDG.E.128"))
+    kinds = {(v["file"], v["dtype"], v["vec"]) for v in vector.values()}
+    require({(f, "fp32", 4) for f in VECTOR_FILES} | {(f, "bf16", 8) for f in VECTOR_FILES} <= kinds,
+            f"SASS: the vector instances of {VECTOR_FILES} were not all found: {sorted(kinds)}")
+    for name, v in vector.items():
+        ok = v["ldg128"] > 0 if v["vec"] > 1 else None
+        log(f"sass {v['file']} {v['dtype']} VEC={v['vec']} LDG.E.128={v['ldg128']} ok={ok}: {name[:110]}")
+        require(ok is not False, f"SASS of {name}: a vector instance without 128-bit loads: {v}")
     kinds = {(next(f for f in MAINLOOP_FILES if f in k), v["dtype"]) for k, v in found.items()}
     require({(f, dt) for f in MAINLOOP_FILES for dt in ("fp32", "bf16")} <= kinds,
             f"SASS: the conv entry points were not all found: {sorted(kinds)}")
@@ -498,7 +571,7 @@ def sass_phase(info) -> dict:
             ok = v["hmma"] > 0 if v["d"] in FLASH_SM90_DIMS else None
         log(f"sass {v['file']} {v['dtype']} D={v['d']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
         require(ok is not False, f"SASS of {name}: {v}")
-    return dict(conv=found, flash=flash)
+    return dict(conv=found, flash=flash, vector=vector)
 
 
 def flash_ptxas(build_log: str) -> dict:
@@ -600,13 +673,19 @@ def measure(st, pol, spec, peak_name) -> dict:
     )
     if "alone" in st:
         row["kernel_ms"] = gpu_time_ms(st["alone"])
+    if "marker" in st:
+        row["device_ms"] = device_time_ms(st["run"], st["marker"])
+        row["library_device_ms"] = device_time_ms(lib) if lib is not None else None
     name = f"{row['kernel']}{'[' + row['mode'] + ']' if row['mode'] else ''}"
     lib_s = f"{row['library_ms']:.4f}" if lib is not None else "n/a"
     log(f"kernel {name:14s} {row['stage']:5s} {pol}: ok={row['ok']} tol={row['tol']} "
         f"max_abs={row['max_abs_err']:.3g} max_rel={row['max_rel_err']:.3g}"
         + "".join(f" bitwise_vs_{ref}={ok}" for ref, ok in res.get("bitwise", {}).items())
         + f" | ms={row['ms']:.4f}" + (f" kernel_alone={row['kernel_ms']:.4f}" if "alone" in st else "")
-        + f" plain={row['plain_ms']:.4f} library={lib_s} bound={row['bound_ms']:.4f} ({by})")
+        + (f" device_ms={_fmt(row['device_ms'])}" if "marker" in st else "")
+        + f" plain={row['plain_ms']:.4f} library={lib_s}"
+        + (f" (device {_fmt(row['library_device_ms'])})" if "marker" in st else "")
+        + f" bound={row['bound_ms']:.4f} ({by})")
     require(row["ok"], f"{name} at {row['stage']} {pol} disagrees with its plain version: {res}")
     require(all(res.get("bitwise", {}).values()), f"{name} at {row['stage']} {pol} differs from {res.get('bitwise')}")
     return row
@@ -664,17 +743,8 @@ def variant_phase(spec, peak_name) -> list:
                     st.update(library=None, library_call=None)
                     unfused = lambda fn=fn, x=x, w=w, b=b, s=s, p=p: ck.maxpool2d(  # noqa: E731
                         fn(x, w, b, stride=s, padding=p), window=3, stride=2)
-                    y_h = run()
                     stages.append(st)
-                    stages.append(dict(
-                        kernel="maxpool2d", stage="pool1" if stage == "conv1" else "pool2", mode=f"W stage after {kname}",
-                        run=lambda y=y_h: ck.maxpool2d_w(y, window=3, stride=2),
-                        plain=lambda y=y_h: ck.maxpool_rect_plain(y, window=(1, 3), stride=(1, 2)),
-                        library=lambda y=y_h: F.max_pool2d(y.permute(0, 3, 1, 2), (1, 3), (1, 2)),
-                        library_call="F.max_pool2d (1x3 / 1x2, channels-last)",
-                        flops=n * hp * hp * k * 3, nbytes=(y_h.numel() + n * hp * hp * k) * es, peak="fp32",
-                        rule="bitwise", same_as=[(f"{kname}+maxpool2d", unfused)],
-                    ))
+                    stages.append(w_stage("pool1" if stage == "conv1" else "pool2", run(), unfused, kname))
                 else:
                     st.update(library=lib, library_call="F.conv2d (cuDNN, channels-last, bias, no ReLU)")
                     if mode:
@@ -772,6 +842,72 @@ def engine_fp32_digest() -> dict:
     return dict(sha256=total.hexdigest(), items=items)
 
 
+# sha256 of the bits of pool_lrn_digest's outputs, as the one thread an element maxpool.cu and lrn.cu gave them
+# before their Hopper redesign (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in a checkout of that tree
+# with this file copied in prints it): on inputs without -0.0 the redesign keeps every bit
+POOL_LRN_SHA256 = "d576555dff753835bf06e33bf47b19657aa75c1d012c45740ff39c7efcca8497"
+# (name, shape, what runs): the main path's pools and LRN at batch 128, the W stages that follow an hpool
+# conv, and edge_phase's LRN cases; each input standard normal (the LRN's scaled so the scale term matters)
+POOL_LRN_DIGEST = (
+    ("pool1", (BATCH, 55, 55, 96), "pool"), ("pool2", (BATCH, 27, 27, 256), "pool"),
+    ("pool1 W stage", (BATCH, 27, 55, 96), "w"), ("pool2 W stage", (BATCH, 13, 27, 256), "w"),
+    ("lrn2", (BATCH, 13, 13, 256), dict(LRN2_KW, scale=8.0)),
+    *[(f"lrn C40 size{size} alpha_over_size={aos}", (2, 5, 5, 40),
+       dict(size=size, alpha=1e-4, beta=0.75, k=2.0, alpha_over_size=aos, scale=60.0))
+      for size, aos in ((5, False), (5, True), (3, False), (3, True))],
+)
+
+
+def pool_lrn_digest() -> dict:
+    """The sha256 of the bits of ``maxpool2d`` (pool1, pool2), its W stage
+    (``maxpool2d_w``) and ``lrn`` (lrn2 and the C = 40 edge cases, sizes 3
+    and 5, both alpha forms) in fp32 and bf16, in ``POOL_LRN_DIGEST``'s
+    order, on seeded inputs that hold no -0.0. ``sha256`` must be
+    ``POOL_LRN_SHA256``; ``items`` has each output's own digest."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    total, items = hashlib.sha256(), {}
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2034)
+        for name, shape, what in POOL_LRN_DIGEST:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            if isinstance(what, dict):
+                kw = dict(what)
+                x = (x * kw.pop("scale")).to(dtype)
+                fn = lambda x=x, kw=kw: ck.lrn(x, **kw)  # noqa: E731
+            else:
+                x = x.to(dtype)
+                fn = (lambda x=x: ck.maxpool2d(x, window=3, stride=2)) if what == "pool" else (  # noqa: E731
+                    lambda x=x: ck.maxpool2d_w(x, window=3, stride=2))
+            require(not bool(((x == 0) & torch.signbit(x)).any()), f"digest input {name} holds -0.0")
+            raw = fn().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            items[f"{name} {pol}"] = hashlib.sha256(raw).hexdigest()
+            total.update(raw)
+    return dict(sha256=total.hexdigest(), items=items)
+
+
+def pool_rows(spec, peak_name) -> list:
+    """Phase 2's maxpool2d and lrn rows alone (``--pool-rows``): pool1,
+    pool2 and lrn2 on the staged chain's tensors, and the W stages after
+    the vcol hpool conv, in fp32 and bf16."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    rows = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2026)
+        t = stage_inputs(dtype, gen)
+        stages = [pool_stage("pool1", t["y1"]), pool_stage("pool2", t["y2"]), lrn_stage(t["q2"], pol)]
+        for stage, x, w, b, s, p in (("pool1", t["x"], t["w1"], t["b1"], 4, 0), ("pool2", t["q1"], t["w2"], t["b2"], 1, 2)):
+            unfused = lambda x=x, w=w, b=b, s=s, p=p: ck.maxpool2d(  # noqa: E731
+                ck.conv2d_bias_relu(x, w, b, stride=s, padding=p), window=3, stride=2)
+            y_h = ck.conv2d_bias_relu(x, w, b, stride=s, padding=p, hpool=(3, 2))
+            stages.append(w_stage(stage, y_h, unfused, "conv2d"))
+        rows += [measure(st, pol, spec, peak_name) for st in stages]
+        del t, stages
+        torch.cuda.empty_cache()
+    return rows
+
+
 def edge_phase() -> list:
     """Kernel against plain version at shapes off the main path: channel
     and pixel counts that are not tile multiples, stride 2, an odd channel
@@ -848,6 +984,131 @@ def edge_phase() -> list:
     for what, res in results:
         log(f"edge {what}: ok={res['ok']} max_abs={res['max_abs_err']:.3g}")
         require(res["ok"], f"edge case {what}: kernel disagrees with its plain version: {res}")
+    return results
+
+
+def signed_zero_rule(x, got, window, stride) -> bool:
+    """Where a pool of ``x`` gave a zero, its sign is JAX's: +0.0 where the
+    window holds a +0.0, -0.0 where its zeros are all -0.0 (``window`` and
+    ``stride``: ints or (rows, cols); the windows found by pooling the
+    "+0.0 here" mask)."""
+    import torch.nn.functional as F
+
+    plus0 = F.max_pool2d((_bits(x) == 0).float().permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1) > 0
+    zero = got == 0
+    return bool((~torch.signbit(got[zero & plus0])).all()) and bool(torch.signbit(got[zero & ~plus0]).all())
+
+
+def pool_lrn_edge_phase() -> list:
+    """maxpool.cu and lrn.cu off the main path, and the pools' signed-zero
+    rule everywhere: windows of +-0.0 (+0.0 wins in maxpool2d, its W stage,
+    maxpool_phases, maxpool_s2d and the reference tier's pool, each bitwise
+    its plain version where it has one; the reference tier's relu_maxpool,
+    all +0.0, bitwise maxpool2d of ReLU's output); a zero input with negative weights
+    and a -0.0 bias through the hpool conv + W stage and conv_block (int8w
+    with a negative scale too), every output +0.0; NaN windows (bitwise, NaN
+    where the plain version has it); C = 3, 7, 40 and 96 through the scalar
+    and vector instances (``vector_width`` says which); views 2 or 4 bytes
+    off 16-byte alignment (scalar) bitwise their aligned copies; 3x3/2,
+    1x3/(1,2), 2/2 and 3/1 windows; LRN at sizes 3 and 5, both alpha forms,
+    C = 3, 7, 40, 256 (off alignment too) and past one channel chunk
+    (1100, 2056), and at sizes 1, 7 and 9 (the squares read one by one)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import reference
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = []
+
+    def bitwise(name, got, want, extra=True):
+        results.append((name, dict(ok=bool(torch.equal(_bits(got), _bits(want))) and bool(extra), max_abs_err=0.0)))
+
+    pools = (("maxpool2d 3x3/2", lambda x: ck.maxpool2d(x, window=3, stride=2),
+              lambda x: ck.maxpool2d_plain(x, window=3, stride=2), 3, 2),
+             ("maxpool2d_w 1x3/(1,2)", lambda x: ck.maxpool2d_w(x, window=3, stride=2),
+              lambda x: ck.maxpool_rect_plain(x, window=(1, 3), stride=(1, 2)), (1, 3), (1, 2)),
+             ("maxpool2d 2/2", lambda x: ck.maxpool2d(x, window=2, stride=2),
+              lambda x: ck.maxpool2d_plain(x, window=2, stride=2), 2, 2),
+             ("maxpool2d 3/1", lambda x: ck.maxpool2d(x, window=3, stride=1),
+              lambda x: ck.maxpool2d_plain(x, window=3, stride=1), 3, 1),
+             ("maxpool_phases 3x3/2", lambda x: ck.maxpool_phases(x, window=3, stride=2),
+              lambda x: ck.maxpool_phases_plain(x, window=3, stride=2), 3, 2),
+             ("maxpool_s2d 3x3/2", lambda x: ck.maxpool_s2d(x, window=3, stride=2),
+              lambda x: ck.maxpool_s2d_plain(x, window=3, stride=2), 3, 2))
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        vec = 16 // dtype.itemsize
+        zeros = torch.tensor([-0.0, 0.0, -1.0, -2.0], device="cuda").to(dtype)
+        for c in (3, 7, 40, 96):
+            shape = (2, 15, 17, c)
+            signed = zeros[torch.randint(0, 4, shape, generator=gen, device="cuda")]
+            nan = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            flat = nan.view(-1)
+            payload = torch.tensor([0x7FC00123 if dtype == torch.float32 else 0x7FC1],
+                                   dtype=torch.int32 if dtype == torch.float32 else torch.int16, device="cuda")
+            flat[5::37] = payload.view(dtype)
+            flat[11::53] = float("nan")
+            normal = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            buf = torch.randn(normal.numel() + 1, generator=gen, device="cuda").to(dtype)
+            off = buf[1:].view(shape)  # 4 (fp32) or 2 (bf16) bytes past a 16-byte boundary
+            inst = ck.vector_width(c, dtype, normal.data_ptr())
+            results.append((f"vector_width C={c} {pol}: {inst}",
+                            dict(ok=inst == (vec if c % vec == 0 else 1) and ck.vector_width(c, dtype, off.data_ptr()) == 1,
+                                 max_abs_err=0.0)))
+            for name, fn, plain, win, st in pools:
+                if name.startswith("maxpool_s2d") and c not in (40, 96):
+                    continue
+                tag = f"{name} C={c} {pol}"
+                got = fn(signed)
+                bitwise(f"{tag} +-0.0 (bitwise, +0.0 wins)", got, plain(signed), signed_zero_rule(signed, got, win, st))
+                got = fn(nan)
+                bitwise(f"{tag} NaN (bitwise)", got, plain(nan), torch.isnan(got).any())
+                bitwise(f"{tag} standard normal (bitwise)", fn(normal), plain(normal))
+                bitwise(f"{tag} view off 16-byte alignment (bitwise the aligned copy)", fn(off), fn(off.clone()))
+            got = reference.maxpool(signed, window=3, stride=2)
+            results.append((f"reference.maxpool +-0.0 C={c} {pol}", dict(
+                ok=signed_zero_rule(signed, got, 3, 2) and bool(torch.equal(got, ck.maxpool2d(signed, window=3, stride=2))),
+                max_abs_err=0.0)))
+            got = reference.relu_maxpool(signed, window=3, stride=2)
+            results.append((f"reference.relu_maxpool +-0.0 C={c} {pol}", dict(
+                ok=bool(torch.equal(_bits(got), _bits(ck.maxpool2d(reference.relu(signed), window=3, stride=2))))
+                and not bool(torch.signbit(got).any()), max_abs_err=0.0)))
+
+        # ReLU's sign in the conv epilogues: a zero input, negative weights and a -0.0 bias give +0.0 everywhere
+        x = torch.zeros((2, 23, 23, 8), device="cuda", dtype=dtype)
+        w = -torch.rand((3, 3, 8, 16), generator=gen, device="cuda").to(dtype) - 0.25
+        b = torch.full((16,), -0.0, device="cuda", dtype=dtype)
+        for name, got, want in (
+            ("conv2d hpool + W stage", ck.maxpool2d_w(ck.conv2d_bias_relu(x, w, b, stride=1, padding=1, hpool=(3, 2)),
+                                                      window=3, stride=2),
+             ck.maxpool2d_plain(ck.conv2d_bias_relu_plain(x, w, b, stride=1, padding=1), window=3, stride=2)),
+            ("conv_block", ck.conv_block(x, w, b, stride=1, padding=1, pool_window=3, pool_stride=2),
+             ck.conv_block_plain(x, w, b, stride=1, padding=1, pool_window=3, pool_stride=2)),
+        ):
+            bitwise(f"{name} zero input, -0.0 bias {pol}: all +0.0", got, want, (_bits(got) == 0).all())
+    x = torch.zeros((2, 23, 23, 8), device="cuda", dtype=torch.bfloat16)
+    q = -torch.randint(1, 127, (3, 3, 8, 16), generator=gen, device="cuda").to(torch.int8)
+    b = torch.full((16,), -0.0, device="cuda")
+    scale = -torch.rand((16,), generator=gen, device="cuda") - 0.01
+    got = ck.conv_block(x, q, b, stride=1, padding=1, pool_window=3, pool_stride=2, scale=scale)
+    want = ck.conv_block_plain(x, q, b, stride=1, padding=1, pool_window=3, pool_stride=2, scale=scale)
+    bitwise("conv_block int8w zero input, negative scale, -0.0 bias: all +0.0", got, want, (_bits(got) == 0).all())
+
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for shape, size, aos in (((2, 5, 5, 40), 3, True), ((2, 5, 5, 3), 5, False), ((3, 4, 5, 7), 5, True),
+                                 ((3, 4, 5, 7), 3, False), ((2, 5, 5, 256), 5, False), ((1, 3, 3, 1100), 5, False),
+                                 ((1, 2, 2, 2056), 3, True), ((1, 2, 2, 2056), 5, False), ((2, 5, 5, 40), 7, False),
+                                 ((3, 4, 5, 7), 9, True), ((2, 3, 3, 256), 1, False)):
+            kw = dict(size=size, alpha=1e-4, beta=0.75, k=2.0, alpha_over_size=aos)
+            x = (torch.randn(shape, generator=gen, device="cuda") * 60).to(dtype)
+            res = compare(1e-6 if pol == "fp32" else ("ulp", 1e-6), ck.lrn(x, **kw), ck.lrn_plain(x, **kw))
+            results.append((f"lrn {shape} size{size} alpha_over_size={aos} {pol}", res))
+            buf = (torch.randn(x.numel() + 1, generator=gen, device="cuda") * 60).to(dtype)
+            off = buf[1:].view(shape)
+            bitwise(f"lrn {shape} size{size} view off 16-byte alignment {pol} (bitwise the aligned copy)",
+                    ck.lrn(off, **kw), ck.lrn(off.clone(), **kw))
+    torch.cuda.synchronize()
+    for what, res in results:
+        log(f"edge {what}: ok={res['ok']}")
+        require(res["ok"], f"edge case {what}: {res}")
     return results
 
 
@@ -2434,12 +2695,15 @@ def kernels_line(rows, runs) -> dict:
         run = runs[run_key]
         ms = sum(r["ms"] for r in mine)
         block = name == "conv_block"
+        device = [r.get("device_ms") for r in mine]
         entry = dict(
             name=name, dtype=pol, route="cuda", source=source, replaces=replaces, run=run_key,
             launches=run["launches"][name], launches_per_forward=run["launches"][name] / run["passes"],
             max_abs_err=max(r["max_abs_err"] for r in every), within_tolerance=all(r["ok"] for r in every),
             # the wrapper's time (packing included); kernel_ms: the kernel alone where a row timed it
             ms=ms, kernel_ms=sum(r.get("kernel_ms", r["ms"]) for r in mine),
+            # the kernel alone by torch.profiler, where the rows read it (None: not measured)
+            **(dict(device_ms=None if None in device else sum(device)) if "device_ms" in mine[0] else {}),
             plain_ms=sum(r["plain_ms"] for r in mine),
             bound_ms=sum(r["bound_ms"] for r in mine),
             # the stages' bounds add up; the label is the larger stage's
@@ -2449,11 +2713,14 @@ def kernels_line(rows, runs) -> dict:
             **(dict(staged_chain_ms=sum(r["staged_ms"] for r in mine),
                     cudnn_chain_ms_note=sum(r["cudnn_chain_ms"] for r in mine)) if block else {}),
             stages={r["stage"]: {k: r[k] for k in keys + (("staged_ms", "cudnn_chain_ms") if block else ())
-                                 + (("kernel_ms",) if "kernel_ms" in r else ())}
+                                 + (("kernel_ms",) if "kernel_ms" in r else ())
+                                 + (("device_ms", "library_device_ms") if "device_ms" in r else ())}
                     for r in mine},
         )
         if modes:
-            entry["modes"] = {f"{r['mode']} @ {r['stage']}": {k: r[k] for k in keys} for r in modes}
+            entry["modes"] = {f"{r['mode']} @ {r['stage']}": {
+                k: r[k] for k in keys + (("device_ms", "library_device_ms") if "device_ms" in r else ())}
+                for r in modes}
         entries.append(entry)
     return {"kernels": entries}
 
@@ -2493,19 +2760,33 @@ def main() -> int:
         lm, train = lm_path_phase(), train_path_phase()
         print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, lm=lm, train=train), default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--pool-rows"]:
+        # phase 2's maxpool2d (pool1, pool2, the W stages) and lrn rows, then the staged v3_pallas and v1_jit
+        # passes, from this checkout: two trees compared in one call
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rows, runs = pool_rows(spec, peak_name), {}
+        for key, pol, knobs, per_forward in MAIN_RUNS:
+            if not knobs and pol in ("fp32", "bf16"):
+                runs[run_name(key, pol, knobs)] = {k: v for k, v in drive(key, pol, knobs, per_forward).items()
+                                                   if k != "stdout"}
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, runs=runs), default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--record"]:
-        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256 and ENGINE_FP32_SHA256 hold a
-        # later tree to, from this checkout
+        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_FWD_TILES_SHA256,
+        # ENGINE_FP32_SHA256 and POOL_LRN_SHA256 hold a later tree to, from this checkout
         torch.backends.cuda.matmul.allow_tf32 = False
         sweep = head_dim_sweep()
         tiles = flash_bwd_tiles_digest()
         fwd_tiles = flash_fwd_tiles_digest()
         engine = engine_fp32_digest()
+        pool_lrn = pool_lrn_digest()
         ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in PTXAS_HELD}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, ptxas=ptxas, flash_sweep_sha256=sweep["sha256"],
                               flash_sweep_within_tolerance=not sweep["failing_head_dims"],
                               flash_bwd_tiles_sha256=tiles["sha256"], flash_fwd_tiles_sha256=fwd_tiles["sha256"],
-                              engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"])), flush=True)
+                              engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"],
+                              pool_lrn_sha256=pool_lrn["sha256"], pool_lrn_items=pool_lrn["items"])), flush=True)
         return 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2522,12 +2803,17 @@ def main() -> int:
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
     lm_rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
     s2d_rows = s2d_phase(spec, peak_name)
-    edges = edge_phase() + block_edge_phase() + s2d_edge_phase() + lm_edge_phase() + lm_bwd_edge_phase()
+    edges = (edge_phase() + pool_lrn_edge_phase() + block_edge_phase() + s2d_edge_phase() + lm_edge_phase()
+             + lm_bwd_edge_phase())
     engine = engine_fp32_digest()
     log(f"engine fp32 bits: taps and g8 hash to {engine['sha256']} (ENGINE_FP32_SHA256 {ENGINE_FP32_SHA256})")
     require(engine["sha256"] == ENGINE_FP32_SHA256, f"fp32 taps or g8 bits moved: {engine['items']}")
+    pool_lrn = pool_lrn_digest()
+    log(f"pool and LRN bits: maxpool2d, its W stage and lrn hash to {pool_lrn['sha256']} "
+        f"(POOL_LRN_SHA256 {POOL_LRN_SHA256})")
+    require(pool_lrn["sha256"] == POOL_LRN_SHA256, f"pool or LRN bits moved: {pool_lrn['items']}")
     log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it; "
-        "fp32 taps and g8 keep the bits of ENGINE_FP32_SHA256")
+        "fp32 taps and g8 keep the bits of ENGINE_FP32_SHA256, the pools and LRN those of POOL_LRN_SHA256")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
     lm = lm_path_phase()
@@ -2547,7 +2833,7 @@ def main() -> int:
     # a diagnostic dump for the reader, never read back: a torn file costs nothing
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
-             flash_ptxas=flash_regs, sass=sass, engine_fp32=engine,
+             flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
              pool_ab=ab, tune=tune,
              kernels=line["kernels"]), indent=1,

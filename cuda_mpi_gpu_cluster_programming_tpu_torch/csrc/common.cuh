@@ -1,5 +1,5 @@
 // Shared helpers for the port's kernels: fp32/bf16/int8 load, fp32/bf16 store,
-// the pools' max step.
+// the pools' max rule and step.
 //
 // Every kernel computes in fp32 and touches its element type only at the
 // load (to_f32, exact for all three types) and at the single store
@@ -33,19 +33,28 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
+// The pools' max rule, jnp.maximum's: v takes over from the running best
+// when it is greater, or a NaN (so a NaN propagates; fmaxf would drop it),
+// or +0.0 over a best of -0.0 (JAX's max orders -0.0 below +0.0). So a
+// window's value does not depend on its tap order, bar which of two NaNs'
+// payloads is kept: the later tap's.
+__device__ __forceinline__ bool takes_max(float v, float best) {
+  return v > best || v != v || (__float_as_uint(v) == 0u && __float_as_uint(best) == 0x80000000u);
+}
+
 // One step of the pools' window max, taps taken in (fy, fx) order from tap
-// (0, 0): v replaces the running best when it is greater or a NaN. So a NaN
-// propagates, as jnp.maximum does (fmaxf would drop it), equal values keep
-// the earlier element, and the winning element itself is kept and stored, so
+// (0, 0), by takes_max. The winning element itself is kept and stored, so
 // bf16 needs no conversion back.
 template <typename T>
 __device__ __forceinline__ void max_step(T& best, float& best_f, T v) {
   const float vf = to_f32(v);
-  if (vf > best_f || vf != vf) {
+  if (takes_max(vf, best_f)) {
     best = v;
     best_f = vf;
   }
 }
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 inline int blocks_for(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);

@@ -9,7 +9,7 @@
 //      the chain of conv2d.cu;
 //   2. int8w only: acc * scale[k] (rounded, never fused into an FMA) on the
 //      uncast fp32 accumulator;
-//   3. + bias in fp32, ReLU (a NaN stays NaN), one cast to the interior type
+//   3. + bias in fp32, ReLU (-0.0 to +0.0, a NaN stays NaN), one cast to the interior type
 //      MID (x's type; bf16 for int8w): what the staged chain writes to HBM;
 //   4. the VALID pw x pw / ps max-pool on MID values, NaN-propagating, in
 //      maxpool.cu's tap order;
@@ -64,8 +64,11 @@ struct Geometry {
 };
 
 // The pooled value at (pooled row whose window starts at conv row `top`,
-// column px, ring channel cl), as maxpool.cu takes it: start from tap (0,0),
-// keep the first of equal values, let a NaN win.
+// column px, ring channel cl): start from tap (0,0), then take a tap that is
+// greater or a NaN. The ring holds only the kernel's own ReLU output, which
+// sends -0.0 to +0.0, so no window holds -0.0 and this is common.cuh's
+// max_step (jnp.maximum's rule) without its signed-zero test, which would
+// lengthen the chain a tap and cost FUSE=block time for no bit.
 // The ring holds `rows` conv rows, conv row r in slot r % rows.
 template <typename MID>
 __device__ __forceinline__ MID pool_at(const MID* ring, const Geometry& g, int rows, int cr, int top,
@@ -128,7 +131,7 @@ conv_block_kernel(sm90::Conv<X, WT> cv, const BT* __restrict__ bias, const float
           float v = acc[e];
           if (scale != nullptr) v = __fmul_rn(v, scale[ch]);
           v = v + port::to_f32(bias[ch]);
-          if (v < 0.f) v = 0.f;
+          if (v <= 0.f) v = 0.f;  // -0.0 too, as jnp.maximum(v, 0); a NaN stays
           ring[(static_cast<size_t>((r_lo + dr) % rows) * g.Wo + (p - dr * g.Wo)) * cr + ch - c_lo] =
               port::from_f32<MID>(v);
         }
@@ -177,8 +180,8 @@ int launch(const void* x, const void* w, const void* b, const void* scale, void*
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int VEC = C::VEC;
   const sm90::Conv<X, WT> cv{static_cast<const X*>(x), static_cast<const WT*>(w), g.H, g.W, g.C, g.K, g.F,
-                             g.stride, g.pad, g.F * g.F * g.C, g.C % VEC == 0 && sm90::aligned16(x),
-                             g.K % (std::is_same<X, WT>::value ? VEC : 16) == 0 && sm90::aligned16(w)};
+                             g.stride, g.pad, g.F * g.F * g.C, g.C % VEC == 0 && port::aligned16(x),
+                             g.K % (std::is_same<X, WT>::value ? VEC : 16) == 0 && port::aligned16(w)};
   if (!sm90::fits(cv)) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(LRN ? 1 : port::blocks_for(g.K, C::BN), port::blocks_for(g.Hp, g.band), g.N);
   kernel<<<grid, sm90::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(

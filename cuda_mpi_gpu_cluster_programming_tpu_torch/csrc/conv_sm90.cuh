@@ -536,11 +536,12 @@ __device__ __forceinline__ void mainloop(const G& g, const PixMap& pm, int q0, i
   __syncthreads();
 }
 
-// The epilogue of every caller: fp32 bias, ReLU (a NaN stays NaN), one cast.
+// The epilogue of every caller: fp32 bias, ReLU (jnp.maximum(v, 0): -0.0 to
+// +0.0, a NaN stays NaN), one cast.
 template <typename T, typename B>
 __device__ __forceinline__ T epilogue(float acc, const B* bias, int n, int relu) {
   float v = acc + port::to_f32(bias[n]);
-  if (relu && v < 0.f) v = 0.f;
+  if (relu && v <= 0.f) v = 0.f;
   return port::from_f32<T>(v);
 }
 
@@ -644,8 +645,7 @@ conv_phase_tiles(Conv<T, T> g, const T* __restrict__ bias, T* __restrict__ y, in
 // owns a band of pooled rows of one image and BN channels, computes the conv
 // rows the band's windows need into shared memory after the stages (cast:
 // exactly the values conv_tiles writes), then takes the H max in the pool's
-// tap order (the first of equal values, a NaN wins). grid (channel tiles,
-// bands, images).
+// tap order (common.cuh's max_step). grid (channel tiles, bands, images).
 template <class C, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 conv_hpool(Conv<T, T> g, const T* __restrict__ bias, T* __restrict__ y, int Wo, int pw, int ps, int Hp, int band,
@@ -687,13 +687,11 @@ conv_hpool(Conv<T, T> g, const T* __restrict__ bias, T* __restrict__ y, int Wo, 
 // the stages would pass the 227 KB a block may have).
 constexpr int HPOOL_BAND = 4;
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
 template <typename T>
 Conv<T, T> make_conv(const void* x, const void* w, int H, int W, int C, int K, int F, int stride, int pad) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   return Conv<T, T>{static_cast<const T*>(x), static_cast<const T*>(w), H, W, C, K, F, stride, pad, F * F * C,
-                    C % VEC == 0 && aligned16(x), K % VEC == 0 && aligned16(w)};
+                    C % VEC == 0 && port::aligned16(x), K % VEC == 0 && port::aligned16(w)};
 }
 
 // The gather packs window origins into 16 bits (Pix): larger images are refused.
@@ -716,8 +714,8 @@ Pairs<T> make_pairs(const void* xp, const void* xs, const void* wp, const void* 
   const int per_qh = m * 2 * cs + (odd ? cs : 0);
   return Pairs<T>{static_cast<const T*>(xp), static_cast<const T*>(xs), static_cast<const T*>(wp),
                   static_cast<const T*>(wl), Hs, Ws, cs, fq, K, fq * per_qh, m, m + odd, m * 2 * cs, per_qh,
-                  cs % VEC == 0 && aligned16(xp) && (!odd || aligned16(xs)),
-                  K % VEC == 0 && aligned16(wp) && (!odd || aligned16(wl))};
+                  cs % VEC == 0 && port::aligned16(xp) && (!odd || port::aligned16(xs)),
+                  K % VEC == 0 && port::aligned16(wp) && (!odd || port::aligned16(wl))};
 }
 
 // conv_tiles of tile config C over the operand g on the stream. Returns the launch's CUDA error.

@@ -13,10 +13,10 @@
 // card the stack only costs an extra pass over the input; the variant stays
 // because the tuner sweeps it.
 //
-// Bound on the H100: bytes. Design: maxpool.cu's: one thread per output,
+// Bound on the H100: bytes. Design: one thread per output,
 // channels fastest (coalesced taps), the taps in (fy, fx) order starting from
-// tap (0, 0), the first of equal values kept and a NaN winning, the winning
-// element stored as is. So the result is bitwise maxpool2d's.
+// tap (0, 0) through common.cuh's max_step (+0.0 over -0.0, a NaN winning),
+// the winning element stored as is. So the result is bitwise maxpool2d's.
 #include "common.cuh"
 
 namespace {

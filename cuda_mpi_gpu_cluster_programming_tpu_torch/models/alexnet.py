@@ -130,11 +130,9 @@ def forward_blocks12(params: Params, x: torch.Tensor, cfg: Blocks12Config = BLOC
     with HWIO weights."""
     c1, p1, c2, p2, n2 = cfg.conv1, cfg.pool1, cfg.conv2, cfg.pool2, cfg.lrn2
     x = ops.conv2d(x, params["conv1"]["w"], params["conv1"]["b"], stride=c1.stride, padding=c1.padding)
-    x = ops.relu(x)
-    x = ops.maxpool(x, window=p1.window, stride=p1.stride)
+    x = ops.relu_maxpool(x, window=p1.window, stride=p1.stride)
     x = ops.conv2d(x, params["conv2"]["w"], params["conv2"]["b"], stride=c2.stride, padding=c2.padding)
-    x = ops.relu(x)
-    x = ops.maxpool(x, window=p2.window, stride=p2.stride)
+    x = ops.relu_maxpool(x, window=p2.window, stride=p2.stride)
     return ops.lrn(
         x, size=n2.size, alpha=n2.alpha, beta=n2.beta, k=n2.k, alpha_over_size=n2.alpha_over_size
     )

@@ -121,14 +121,14 @@ _SIGNATURES = {
     "conv_g8": ([_P] * 4 + [_I] * 9 + [_P], ("f32", "bf16")),
     # xcol, w, b, y, N, Ho, Wo, KD, K, relu, stream
     "conv_im2col": ([_P] * 4 + [_I] * 6 + [_P], ("f32", "bf16")),
-    # x, y, N, H, W, C, window rows, window cols, stride rows, stride cols, Ho, Wo, stream
-    "maxpool2d": ([_P, _P] + [_I] * 10 + [_P], ("f32", "bf16")),
+    # x, y, N, H, W, C, window rows, window cols, stride rows, stride cols, Ho, Wo, vector width, stream
+    "maxpool2d": ([_P, _P] + [_I] * 11 + [_P], ("f32", "bf16")),
     # xph, y, N, hp, wp, C, window, stride, Ho, Wo, stream
     "maxpool_phases": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
     # xs, y, N, hs, ws, cp, C, window, stride, Ho, Wo, stream
     "maxpool_s2d": ([_P, _P] + [_I] * 9 + [_P], ("f32", "bf16")),
-    # x, y, total, C, size, a, beta, k, stream
-    "lrn": ([_P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _P], ("f32", "bf16")),
+    # x, y, total, C, size, a, beta, k, vector width, stream
+    "lrn": ([_P, _P, ctypes.c_longlong, _I, _I, _F, _F, _F, _I, _P], ("f32", "bf16")),
     # x, w, b, scale, y, N, H, W, C, K, F, stride, pad, Ho, Wo, pool window, pool stride,
     # Hp, Wp, band, lrn, lrn size, lrn a, beta, k, stream
     "conv_block": ([_P] * 5 + [_I] * 17 + [_F, _F, _F, _P], ("f32", "bf16", "int8w")),

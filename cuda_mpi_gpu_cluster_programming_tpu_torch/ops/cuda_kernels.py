@@ -173,7 +173,7 @@ def _epilogue_plain(acc: torch.Tensor, b: torch.Tensor, relu: bool, dtype: torch
     then (``hpool``) the H-axis max of the pool in tap order."""
     out = acc + b.float()
     if relu:
-        out = torch.relu(out)
+        out = relu_plain(out)
     out = out.to(dtype)
     return out if hpool is None else maxpool_rect_plain(out, window=(hpool[0], 1), stride=(hpool[1], 1))
 
@@ -624,10 +624,18 @@ def _pair(v) -> tuple:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+def max_step_plain(best: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The pools' max step on whole tensors (``common.cuh`` ``takes_max``,
+    ``jnp.maximum``'s rule): ``v`` takes over where it is greater, a NaN
+    (the later NaN's bits are kept) or +0.0 over a best of -0.0."""
+    return torch.where((v > best) | torch.isnan(v) | ((v == best) & torch.signbit(best) & ~torch.signbit(v)), v, best)
+
+
 def maxpool_rect_plain(x: torch.Tensor, *, window, stride) -> torch.Tensor:
-    """Plain version of the pool kernel: NaN-propagating max over the
-    window's taps (``window``/``stride``: an int, or (rows, cols)) in (fy,
-    fx) order from tap (0, 0), in the input dtype (max is exact)."""
+    """Plain version of the pool kernel: the max over the window's taps
+    (``window``/``stride``: an int, or (rows, cols)) in (fy, fx) order from
+    tap (0, 0) by :func:`max_step_plain`, in the input dtype (max is
+    exact)."""
     (wh, ww), (sh, sw) = _pair(window), _pair(stride)
     _n, h, wd, _c = x.shape
     ho, wo = pool_out_dim(h, wh, sh), pool_out_dim(wd, ww, sw)
@@ -638,12 +646,22 @@ def maxpool_rect_plain(x: torch.Tensor, *, window, stride) -> torch.Tensor:
     out = tap(0, 0)
     for fy in range(wh):
         for fx in range(ww):
-            out = torch.maximum(out, tap(fy, fx))
+            out = max_step_plain(out, tap(fy, fx))
     return out.contiguous()
 
 
 def maxpool2d_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
     return maxpool_rect_plain(x, window=window, stride=stride)
+
+
+def vector_width(c: int, dtype: torch.dtype, *ptrs: int) -> int:
+    """The channel-vector width of the ``maxpool.cu`` and ``lrn.cu``
+    instance that takes ``c`` channels of ``dtype`` at the addresses
+    ``ptrs``: 16 bytes' worth (4 fp32, 8 bf16) where a pixel's channels fill
+    whole vectors and every pointer is 16-byte aligned, else 1 (the scalar
+    instance)."""
+    vec = 16 // dtype.itemsize
+    return vec if c % vec == 0 and all(ptr % 16 == 0 for ptr in ptrs) else 1
 
 
 def _pool(x: torch.Tensor, wh: int, ww: int, sh: int, sw: int, name: str) -> torch.Tensor:
@@ -656,8 +674,11 @@ def _pool(x: torch.Tensor, wh: int, ww: int, sh: int, sw: int, name: str) -> tor
         raise ValueError(f"{name}: empty output for x {tuple(x.shape)}, window {wh}x{ww}")
     if dev.type == "cpu":
         return maxpool_rect_plain(x, window=(wh, ww), stride=(sh, sw))
+    if x.numel() >= 2**31:
+        raise ValueError(f"{name}: x past 2^31 elements (the kernel's 32-bit index)")
     y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=dev)
-    _launch("maxpool2d", "maxpool2d", x, x.data_ptr(), y.data_ptr(), n, h, wd, c, wh, ww, sh, sw, ho, wo)
+    vec = vector_width(c, x.dtype, x.data_ptr(), y.data_ptr())
+    _launch("maxpool2d", "maxpool2d", x, x.data_ptr(), y.data_ptr(), n, h, wd, c, wh, ww, sh, sw, ho, wo, vec)
     return y
 
 
@@ -667,8 +688,12 @@ def maxpool2d(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
     Replaces ``_axis_pool_kernel`` behind ``_maxpool_sep2``
     (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py), which the
     TPU launches twice per pool. Bound on the H100: bytes. Design
-    (``csrc/maxpool.cu``): one 2-D pass, one thread per output, channels
-    fastest so each tap's reads coalesce; bitwise equal to the two passes."""
+    (``csrc/maxpool.cu``): one 2-D pass; a thread owns a 16-byte channel
+    vector (:func:`vector_width`) of one output column and walks a band of
+    output rows, the 3x3/2 window in registers so each new row loads only
+    its new input rows, the max an integer max of order keys (-0.0 below
+    +0.0; a NaN in the window takes the rule of :func:`max_step_plain`);
+    bitwise equal to the two passes."""
     return _pool(x, window, window, stride, stride, "maxpool2d")
 
 
@@ -697,7 +722,7 @@ def maxpool_phases_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.
     out = tap(0, 0)
     for fy in range(window):
         for fx in range(window):
-            out = torch.maximum(out, tap(fy, fx))
+            out = max_step_plain(out, tap(fy, fx))
     return out.contiguous()
 
 
@@ -755,9 +780,8 @@ def _s2d_dims(xs: torch.Tensor, c: int, window: int, stride: int) -> tuple:
 def maxpool_s2d_packed_plain(xs: torch.Tensor, c: int, *, window: int, stride: int) -> torch.Tensor:
     """Plain version of the s2d kernel on its operand ``xs``: over the taps
     (fy, fx) in order from tap (0, 0), each a unit-stride slice of channel
-    block (fy%s)*s + fx%s, the kernel's max step (``common.cuh``
-    ``max_step``: greater or NaN wins, so a NaN keeps its bits and equal
-    values the first), cropped to ``c`` channels."""
+    block (fy%s)*s + fx%s, the kernel's max step (:func:`max_step_plain`),
+    cropped to ``c`` channels."""
     s = stride
     _n, _hs, _ws, cp, ho, wo = _s2d_dims(xs, c, window, s)
 
@@ -768,8 +792,7 @@ def maxpool_s2d_packed_plain(xs: torch.Tensor, c: int, *, window: int, stride: i
     out = tap(0, 0)
     for fy in range(window):
         for fx in range(window):
-            v = tap(fy, fx)
-            out = torch.where((v > out) | torch.isnan(v), v, out)
+            out = max_step_plain(out, tap(fy, fx))
     return out.contiguous()
 
 
@@ -860,7 +883,9 @@ def lrn(
 
     Replaces ``_lrn_kernel`` (cuda_mpi_gpu_cluster_programming_tpu/ops/
     pallas_kernels.py). Bound on the H100: bytes. Design (``csrc/lrn.cu``):
-    one thread per element reading its channel neighbours (the TPU's banded
+    a block takes a tile of pixels x up to 1024 channels in 16-byte vectors
+    (:func:`vector_width`), each square computed once into shared memory;
+    a thread then sums its vector's windows from there (the TPU's banded
     matmul was a lane-slicing workaround), powf and a divide."""
     dev = _check("lrn", x)
     if x.dim() < 1 or x.numel() == 0 or size < 1:
@@ -868,9 +893,10 @@ def lrn(
     if dev.type == "cpu":
         return lrn_plain(x, size=size, alpha=alpha, beta=beta, k=k, alpha_over_size=alpha_over_size)
     y = torch.empty_like(x)
+    c = x.shape[-1]
     _launch(
-        "lrn", "lrn", x, x.data_ptr(), y.data_ptr(), x.numel(), x.shape[-1], size,
-        _lrn_a(alpha, size, alpha_over_size), beta, k,
+        "lrn", "lrn", x, x.data_ptr(), y.data_ptr(), x.numel(), c, size,
+        _lrn_a(alpha, size, alpha_over_size), beta, k, vector_width(c, x.dtype, x.data_ptr(), y.data_ptr()),
     )
     return y
 
@@ -894,7 +920,7 @@ def conv_block_plain(
         out = conv2d_bias_relu_plain(x, w, b, stride=stride, padding=padding, relu=True)
     else:
         acc = _conv_acc_plain(x, w, stride=stride, padding=padding)
-        out = torch.relu(acc * scale + b).to(torch.bfloat16)
+        out = relu_plain(acc * scale + b).to(torch.bfloat16)
     out = maxpool2d_plain(out, window=pool_window, stride=pool_stride)
     if lrn is not None:
         out = lrn_plain(

@@ -54,13 +54,39 @@ def conv2d(
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise max(0, x); NaN stays NaN."""
-    return torch.relu(x)
+    """Elementwise max(0, x) as ``jnp.maximum(x, 0)``: NaN stays NaN, -0.0
+    becomes +0.0 (``torch.relu`` keeps -0.0; ``F.threshold`` replaces every
+    value not above 0)."""
+    return F.threshold(x, 0.0, 0.0)
 
 
 def maxpool(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
-    """VALID ``window`` x ``window`` max-pool with the given stride."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
+    """VALID ``window`` x ``window`` max-pool with the given stride, with
+    ``lax.reduce_window``'s max: +0.0 over -0.0.
+
+    ``F.max_pool2d`` may return either zero of a window whose max is zero.
+    Such a window holds no positive value and no NaN, so it holds a +0.0
+    exactly when one of its sign bits is clear: the window sums of
+    ``copysign(1, x)`` (exact: at most 256 terms of +-1 in bf16, any number
+    in fp32) say which, and their zero results become +0.0 (a window of
+    -0.0s keeps -0.0). A pool of ReLU's output takes :func:`relu_maxpool`,
+    which needs none of this."""
+    xc = x.permute(0, 3, 1, 2)
+    y = F.max_pool2d(xc, window, stride)
+    signs = xc if window * window <= 256 else xc.float()
+    signs = torch.copysign(torch.ones((), dtype=signs.dtype, device=x.device), signs)
+    plus0 = F.avg_pool2d(signs, window, stride, divisor_override=1) > -window * window
+    y = torch.where((y == 0) & plus0, torch.zeros((), dtype=y.dtype, device=y.device), y)
+    return y.permute(0, 2, 3, 1)
+
+
+def relu_maxpool(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """``maxpool(relu(x))``, bitwise, at the cost of ``F.max_pool2d`` alone.
+
+    Both are monotone, so the pool goes first and :func:`relu` takes the
+    pooled tensor: every max that is not above 0, of either sign, becomes
+    +0.0, as every zero of ``relu(x)`` is; a NaN stays NaN."""
+    return relu(F.max_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1))
 
 
 def lrn(

@@ -100,7 +100,7 @@ def int8w_conv(
         )
     y = y * scale + b.float()
     if relu:
-        y = torch.relu(y)
+        y = ops.relu(y)
     return y.to(torch.bfloat16)
 
 
@@ -112,9 +112,12 @@ def _lrn_fp32(x: torch.Tensor, lrn) -> torch.Tensor:
 
 
 def _pool(x: torch.Tensor, pspec, tier: str, v: KernelVariants | None) -> torch.Tensor:
+    """The pool of :func:`int8w_conv`'s ReLU output; on the reference tier
+    ``relu_maxpool``, whose ReLU leaves that output as it is and takes the
+    place of ``maxpool``'s zero-sign fix."""
     if tier == "kernels":
         return km.pool(x, window=pspec.window, stride=pspec.stride, variant=v.pool if v is not None else "sep2")
-    return ops.maxpool(x, window=pspec.window, stride=pspec.stride)
+    return ops.relu_maxpool(x, window=pspec.window, stride=pspec.stride)
 
 
 def int8w_conv_then_pool(x, q, scale, b, cspec, pspec, v=None, *, tier="kernels", lrn=None):

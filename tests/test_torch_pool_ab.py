@@ -101,9 +101,9 @@ def test_s2d_operand_is_the_pad_and_repack_of_the_jax_script(case):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_maxpool_s2d_specials_follow_the_kernels_max_step(dtype):
-    """NaN wins and keeps its bits, -inf loses to everything, and of equal
-    values the first tap's is kept (-0.0 before +0.0 stays -0.0), as
-    ``common.cuh``'s ``max_step``; the same as the select written out here."""
+    """NaN wins and keeps its bits, -inf loses to everything, and +0.0 wins
+    over -0.0 in either tap order, as ``common.cuh``'s ``max_step`` (and
+    ``jnp.maximum``) take them; the same as the select written out here."""
     tdt = DTYPES[dtype][1]
     x = torch.full((1, 5, 5, 20), float("-inf"), dtype=tdt)
     x[0, 0, 0, 0], x[0, 0, 1, 0] = -0.0, 0.0  # output (0, 0), channel 0: -0.0 first
@@ -113,15 +113,16 @@ def test_maxpool_s2d_specials_follow_the_kernels_max_step(dtype):
     x[0, 3, 3, 2] = torch.tensor([nan_bits], dtype=int_t).view(tdt)[0]  # a NaN with its own payload
     x[0, 4, 4, 2] = 5.0
     got = ck.maxpool_s2d(x, window=3, stride=2)
-    assert bool(torch.signbit(got[0, 0, 0, 0])) and not bool(torch.signbit(got[0, 1, 1, 1]))
+    assert not bool(torch.signbit(got[0, 0, 0, 0])) and not bool(torch.signbit(got[0, 1, 1, 1]))
     assert bool(torch.isneginf(got[0, 0, 0, 3]))
     assert _bits(got[0, 1, 1, 2]) == _bits(x[0, 3, 3, 2])  # the NaN's own payload, over the later 5.0
 
-    want = None
+    want = x[:, 0:3:2, 0:3:2, :]
     for fy in range(3):
         for fx in range(3):
             v = x[:, fy : fy + 3 : 2, fx : fx + 3 : 2, :]
-            want = v if want is None else torch.where((v > want) | torch.isnan(v), v, want)
+            takes = (v > want) | torch.isnan(v) | ((v == want) & torch.signbit(want) & ~torch.signbit(v))
+            want = torch.where(takes, v, want)
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
