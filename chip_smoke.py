@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --record   # only the records below, from this checkout
     python3 chip_smoke.py --flash-rows   # only the flash_fwd rows and phases 3b, 3c, from this checkout
-    python3 chip_smoke.py --pool-rows    # only the maxpool2d and lrn rows and the staged passes, from this checkout
+    python3 chip_smoke.py --pool-rows    # only the pool and lrn rows and the staged and phases passes, from this checkout
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
@@ -15,9 +15,11 @@ it in a checkout of the tree to be recorded, with this file copied in), and
 each digested output's own sha256. ``--flash-rows`` prints one JSON line
 with phase 2's flash_fwd rows at long_context's and TINY_LM's shapes and
 phases 3b and 3c; ``--pool-rows`` one with phase 2's maxpool2d (pool1,
-pool2, the W stages) and lrn rows and the staged ``v3_pallas`` and
-``v1_jit`` passes in fp32 and bf16 (two trees compared in one call, this
-file copied into each). With no arguments, phases in order; a phase that
+pool2, the W stages), maxpool_phases (pool1, pool2), maxpool_s2d (the pool
+A/B's pool1, pool2) and lrn rows and the staged ``v3_pallas``,
+``v3_pallas`` with ``TPU_FRAMEWORK_POOL=phases`` and ``v1_jit`` passes in
+fp32 and bf16 (two trees compared in one call, this file copied into
+each). With no arguments, phases in order; a phase that
 fails ends the run with a non-zero exit code and nothing is caught:
 
 1. build the kernel library from ``cuda_mpi_gpu_cluster_programming_tpu_torch/csrc``;
@@ -31,8 +33,9 @@ fails ends the run with a non-zero exit code and nothing is caught:
    conv_pairs.cu, conv_im2col.cu, conv_taps.cu, conv_g8.cu) and every bf16
    instance of flash_fwd.cu, flash_dq.cu and flash_dkv.cu at D = 16, 32, 64
    and 128 contains HMMA (the tensor cores), every fp32 one FFMA and no
-   HMMA (no TF32); every vector instance of maxpool.cu and lrn.cu (4 fp32,
-   8 bf16 lanes) issues 128-bit global loads (LDG.E.128);
+   HMMA (no TF32); every vector instance of maxpool.cu, lrn.cu,
+   maxpool_phases.cu and maxpool_s2d.cu (4 fp32, 8 bf16 lanes; the packs
+   among them) issues 128-bit global loads (LDG.E.128);
 2. at the main path's shapes (batch 128, 227x227x3), in fp32 and bf16, hold
    each staged kernel (conv1, conv2, pool1, pool2, lrn2) against its plain
    PyTorch version on the card, and time the kernel, the plain version and
@@ -42,7 +45,9 @@ fails ends the run with a non-zero exit code and nothing is caught:
    fp32 also bitwise ``conv_taps``, whose stride-1 term order is vcol's, and
    the cuDNN kernels behind its library call named by ``torch.profiler``); then
    the conv and pool variants the autotuner sweeps: the taps, pairs,
-   im2col ("fused") and g8 (conv1) conv kernels, the phases pool, and the hpool epilogue
+   im2col ("fused") and g8 (conv1) conv kernels, the phases pool (its pack
+   ``pool_phases_pack`` bitwise its plain pack, its kernel alone on the
+   stack beside the bound of its own bytes), and the hpool epilogue
    and k_block modes of the vcol and taps convs with the pool's W stage,
    each against its plain version and timed the same way (taps, pairs,
    im2col and g8 with their packing, and the kernel alone on operands
@@ -95,10 +100,12 @@ fails ends the run with a non-zero exit code and nothing is caught:
    then the pool A/B's
    space-to-depth pool ``maxpool_s2d`` at pool1 and pool2 (batch 128,
    standard normal) in fp32 and bf16, bitwise against its plain version and
-   maxpool2d, the wrapper (C pad and repack included) and the kernel alone
-   on its packed operand timed beside the plain version, ``F.max_pool2d``
-   and the bound, and off those shapes (C = 20, 128 and 130, window/stride
-   2/2, 3/1 and 5/3, H != W, NaN, -inf and -0.0 in the input);
+   maxpool2d, its pack ``s2d_pool_pack`` bitwise its plain pad and repack,
+   the pack, the wrapper (pack included) and the kernel alone on its packed
+   operand timed beside the plain version, ``F.max_pool2d`` and the bounds,
+   and off those shapes (C = 20, 128 and 130, window/stride 2/2, 3/1 and
+   5/3, H != W, NaN, -inf and -0.0 in the input, the pack from a view off
+   16-byte alignment);
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
@@ -132,8 +139,8 @@ fails ends the run with a non-zero exit code and nothing is caught:
    3d. the pool A/B, ``pool_ab.main`` at batch 128 for pool1 and pool2 in
    fp32 and bf16, launch counts set to 0 before each run and read after:
    six rows in the JAX script's order, every compared strategy bitwise
-   ``F.max_pool2d`` (no ``mismatch``, no ``error``), maxpool_s2d,
-   maxpool_phases and maxpool2d launched;
+   ``F.max_pool2d`` (no ``mismatch``, no ``error``), s2d_pool_pack,
+   maxpool_s2d, pool_phases_pack, maxpool_phases and maxpool2d launched;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -154,6 +161,7 @@ Tolerances, kernel against plain version on the same inputs:
   max), which dominates where a sum cancels to near zero;
 - pool, phases pool, W stage and s2d pool: bitwise (max is exact), NaN
   bits and the sign of a zero included (+0.0 over -0.0, ``jnp.maximum``'s);
+  the two packs: bitwise (they only move and zero-fill);
 - LRN fp32: max |diff| <= 1e-6 x max |plain| (same sums, same powf; the
   kernel also keeps the bits of its first design, ``POOL_LRN_SHA256``);
 - conv_block fp32: 1e-5 x max |plain|, as conv; bf16 and int8w: 1 bf16 ulp
@@ -221,6 +229,8 @@ KERNELS = {
     "conv_im2col": (f"{PORT}/csrc/conv_im2col.cu", f"{TPU_FILE}:328", ("conv1", "conv2"), "+CONV=fused"),
     # g8 packs phases of a strided conv: conv1 (stride 4); conv2 (stride 1) runs vcol on that route
     "conv_g8": (f"{PORT}/csrc/conv_g8.cu", f"{TPU_FILE}:476", ("conv1",), "+CONV=g8"),
+    # the phases pool's one-pass pack of its stack replaces the JAX lowering's _pool_phases (XLA ops, no Pallas)
+    "pool_phases_pack": (f"{PORT}/csrc/maxpool_phases.cu", f"{TPU_FILE}:910", ("pool1", "pool2"), "+POOL=phases"),
     "maxpool_phases": (f"{PORT}/csrc/maxpool_phases.cu", f"{TPU_FILE}:889", ("pool1", "pool2"), "+POOL=phases"),
 }
 BLOCK_KERNEL = ("conv_block", f"{PORT}/csrc/conv_block.cu",
@@ -234,8 +244,10 @@ LM_KERNELS = {
     "flash_dq": (f"{PORT}/csrc/flash_dq.cu", f"{FLASH_FILE}:184"),
     "flash_dkv": (f"{PORT}/csrc/flash_dkv.cu", f"{FLASH_FILE}:217"),
 }
-# the pool A/B's space-to-depth pool: (source, TPU kernel it replaces); its run is pool_ab
-S2D_KERNEL = (f"{PORT}/csrc/maxpool_s2d.cu", "scripts/pool_ab.py:63")
+# the pool A/B's space-to-depth pool and its one-pass pad and repack (pool_s2d128's jnp.pad and _space_to_depth,
+# XLA ops there): name: (source, what it replaces); their run is pool_ab
+S2D_KERNELS = {"s2d_pool_pack": (f"{PORT}/csrc/maxpool_s2d.cu", "scripts/pool_ab.py:76"),
+               "maxpool_s2d": (f"{PORT}/csrc/maxpool_s2d.cu", "scripts/pool_ab.py:63")}
 POOL_AB_SHAPES = {"pool1": (55, 55, 96), "pool2": (27, 27, 256)}  # pool_ab.POOL_SHAPES, window 3, stride 2
 # the flash backward kernels: FLOPs per B H L^2 D (2 per multiply-add of each product: dQ 3 products,
 # dK/dV 4, as the TPU kernels count them; half when causal) and (B, L, H, D) tensors moved once
@@ -435,6 +447,53 @@ def lrn_stage(x, pol) -> dict:
     )
 
 
+def packed_pool_stage(kernel, stage, x) -> dict:
+    """The ``maxpool_phases`` or ``maxpool_s2d`` row of a 3x3/2 pool stage on
+    ``x``: the wrapper (its pack, then its pool kernel), bitwise its plain
+    version and maxpool2d; ``device_ms`` the pool kernel alone (the kernels
+    named ``<kernel>*``), ``wrapper_device_ms`` every kernel of a call (the
+    pack's device time is the difference)."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    n, h, w, c = x.shape
+    out = n * ((h - 3) // 2 + 1) * ((w - 3) // 2 + 1) * c
+    return dict(
+        kernel=kernel, stage=stage, marker=kernel, packs=True,
+        run=lambda x=x: getattr(ck, kernel)(x, window=3, stride=2),
+        plain=lambda x=x: getattr(ck, f"{kernel}_plain")(x, window=3, stride=2),
+        library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
+        library_call="F.max_pool2d (channels-last)",
+        flops=out * 9, nbytes=(x.numel() + out) * x.element_size(), peak="fp32", rule="bitwise",
+        same_as=[("maxpool2d", lambda x=x: ck.maxpool2d(x, window=3, stride=2))],
+    )
+
+
+def pack_stage(kernel, stage, x, run, plain) -> dict:
+    """A pack's row (``pool_phases_pack``, ``s2d_pool_pack``): bitwise its
+    plain pack, beside the bound of x read once and its operand written once
+    (no one PyTorch call computes a pack); ``device_ms`` the pack kernel."""
+    return dict(kernel=kernel, stage=stage, run=run, plain=plain, library=None, library_call=None, flops=0,
+                nbytes=(x.numel() + run().numel()) * x.element_size(), peak="fp32", rule="bitwise", marker=kernel)
+
+
+def packed_pool_rows(pack_st, pool_st, operand, pol, spec, peak_name) -> list:
+    """The pack's row and the pool's, the pool kernel alone (``alone``) on
+    the packed ``operand`` timed beside the bound of its own bytes (operand
+    read once, output written once) and bitwise the wrapper; the pool row
+    carries the pack's ``pack_ms`` and ``pack_bound_ms``."""
+    pack = measure(pack_st, pol, spec, peak_name)
+    got = pool_st["run"]()
+    pool_st.update(alone_bytes=(operand.numel() + got.numel()) * got.element_size())
+    pool = measure(pool_st, pol, spec, peak_name)
+    require(torch.equal(pool_st["alone"](), got), f"{pool['kernel']} {pool['stage']} {pol}: the kernel alone "
+            "differs from the wrapper")
+    pool.update(pack_ms=pack["ms"], pack_bound_ms=pack["bound_ms"], operand_shape=list(operand.shape),
+                operand_bytes=operand.numel() * operand.element_size())
+    return [pack, pool]
+
+
 def kernel_phase(spec, peak_name) -> list:
     """Phase 2: every kernel at every main-path stage, fp32 and bf16."""
     import torch.nn.functional as F
@@ -503,7 +562,7 @@ PTXAS_HELD = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
 
 
 # the files whose instances load 16-byte channel vectors (VEC 4 fp32, 8 bf16; VEC 1 the scalar instance)
-VECTOR_FILES = ("maxpool_cu", "lrn_cu")
+VECTOR_FILES = ("maxpool_cu", "lrn_cu", "maxpool_phases_cu", "maxpool_s2d_cu")
 # the flash kernels' files, and the head dims whose instances run the Hopper design (over flash_bwd_sm90.cuh):
 # bf16 on mma.sync, fp32 on FFMA (D = 256 and the windowed instance keep FFMA in both dtypes)
 FLASH_FILES = ("flash_fwd_cu", "flash_dq_cu", "flash_dkv_cu")
@@ -673,16 +732,24 @@ def measure(st, pol, spec, peak_name) -> dict:
     )
     if "alone" in st:
         row["kernel_ms"] = gpu_time_ms(st["alone"])
+    if "alone_bytes" in st:
+        row["kernel_bound_ms"], row["kernel_bound_by"] = spec.bound_ms(0, st["alone_bytes"], "fp32",
+                                                                       fp32_flops=st["flops"])
     if "marker" in st:
         row["device_ms"] = device_time_ms(st["run"], st["marker"])
         row["library_device_ms"] = device_time_ms(lib) if lib is not None else None
+    if st.get("packs"):
+        # the wrapper's every kernel and copy: its packing's device time is this less device_ms
+        row["wrapper_device_ms"] = device_time_ms(st["run"])
     name = f"{row['kernel']}{'[' + row['mode'] + ']' if row['mode'] else ''}"
     lib_s = f"{row['library_ms']:.4f}" if lib is not None else "n/a"
     log(f"kernel {name:14s} {row['stage']:5s} {pol}: ok={row['ok']} tol={row['tol']} "
         f"max_abs={row['max_abs_err']:.3g} max_rel={row['max_rel_err']:.3g}"
         + "".join(f" bitwise_vs_{ref}={ok}" for ref, ok in res.get("bitwise", {}).items())
         + f" | ms={row['ms']:.4f}" + (f" kernel_alone={row['kernel_ms']:.4f}" if "alone" in st else "")
+        + (f" (its own bytes' bound {row['kernel_bound_ms']:.4f})" if "alone_bytes" in st else "")
         + (f" device_ms={_fmt(row['device_ms'])}" if "marker" in st else "")
+        + (f" wrapper_device_ms={_fmt(row['wrapper_device_ms'])}" if st.get("packs") else "")
         + f" plain={row['plain_ms']:.4f} library={lib_s}"
         + (f" (device {_fmt(row['library_device_ms'])})" if "marker" in st else "")
         + f" bound={row['bound_ms']:.4f} ({by})")
@@ -695,11 +762,13 @@ def variant_phase(spec, peak_name) -> list:
     """Phase 2, the variants the tuner sweeps, at the main path's stages in
     fp32 and bf16: the taps, pairs and im2col convs, the hpool and k_block
     modes of the vcol and taps convs, the W stage after hpool, and the
-    phases pool; each against its plain version, with the bitwise checks
-    of the module docstring, timed beside its bound and a library call."""
+    phases pool with its pack (``packed_pool_rows``); each against its plain
+    version, with the bitwise checks of the module docstring, timed beside
+    its bound and a library call."""
     import torch.nn.functional as F
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import packing
 
     conv_fns = {
         "conv2d": (ck.conv2d_bias_relu, ck.conv2d_bias_relu_plain),
@@ -754,18 +823,16 @@ def variant_phase(spec, peak_name) -> list:
                         refs, alone = mainloop_variant_extras(kname, pol, x, w, b, s, p)
                         st.update(same_as=refs, alone=alone)
                     stages.append(st)
-        for stage, x in (("pool1", t["y1"]), ("pool2", t["y2"])):
-            y = ck.maxpool2d(x, window=3, stride=2)
-            stages.append(dict(
-                kernel="maxpool_phases", stage=stage,
-                run=lambda x=x: ck.maxpool_phases(x, window=3, stride=2),
-                plain=lambda x=x: ck.maxpool_phases_plain(x, window=3, stride=2),
-                library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
-                library_call="F.max_pool2d (channels-last)",
-                flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
-                same_as=[("maxpool2d", lambda x=x: ck.maxpool2d(x, window=3, stride=2))],
-            ))
         rows += [measure(st, pol, spec, peak_name) for st in stages]
+        for stage, x in (("pool1", t["y1"]), ("pool2", t["y2"])):
+            hp, wp = (x.shape[1] - 3) // 2 + 2, (x.shape[2] - 3) // 2 + 2
+            xph = ck.pool_phases_pack(x, window=3, stride=2)
+            pool = packed_pool_stage("maxpool_phases", stage, x)
+            pool.update(alone=lambda xph=xph: ck.maxpool_phases_packed(xph, window=3, stride=2))
+            rows += packed_pool_rows(pack_stage(
+                "pool_phases_pack", stage, x, run=lambda x=x: ck.pool_phases_pack(x, window=3, stride=2),
+                plain=lambda x=x, hp=hp, wp=wp: packing.pool_phases(x, 2, hp, wp)), pool, xph, pol, spec, peak_name)
+            del xph
         del t, stages
         torch.cuda.empty_cache()
     return rows
@@ -887,9 +954,13 @@ def pool_lrn_digest() -> dict:
 
 
 def pool_rows(spec, peak_name) -> list:
-    """Phase 2's maxpool2d and lrn rows alone (``--pool-rows``): pool1,
-    pool2 and lrn2 on the staged chain's tensors, and the W stages after
-    the vcol hpool conv, in fp32 and bf16."""
+    """Phase 2's pool and lrn rows alone (``--pool-rows``): maxpool2d at
+    pool1 and pool2 and lrn2 on the staged chain's tensors, the W stages
+    after the vcol hpool conv, the phases pool at pool1 and pool2 (the same
+    tensors) and the s2d pool at the pool A/B's (``s2d_inputs``), in fp32
+    and bf16. The phases and s2d rows read their pool kernel alone and
+    their whole wrapper by ``torch.profiler`` (``packed_pool_stage``), so
+    that a parent without the packs' entry points runs them too."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     rows = []
@@ -902,6 +973,8 @@ def pool_rows(spec, peak_name) -> list:
                 ck.conv2d_bias_relu(x, w, b, stride=s, padding=p), window=3, stride=2)
             y_h = ck.conv2d_bias_relu(x, w, b, stride=s, padding=p, hpool=(3, 2))
             stages.append(w_stage(stage, y_h, unfused, "conv2d"))
+        stages += [packed_pool_stage("maxpool_phases", stage, t[y]) for stage, y in (("pool1", "y1"), ("pool2", "y2"))]
+        stages += [packed_pool_stage("maxpool_s2d", stage, x) for stage, x in s2d_inputs(dtype)]
         rows += [measure(st, pol, spec, peak_name) for st in stages]
         del t, stages
         torch.cuda.empty_cache()
@@ -913,8 +986,12 @@ def edge_phase() -> list:
     and pixel counts that are not tile multiples, stride 2, an odd channel
     count, other pool windows and LRN sizes, both alpha forms; the conv
     variants at ``EDGE_VARIANT_CASES``, with the hpool, k_block, phases and
-    Hopper-mainloop bitwise checks."""
+    Hopper-mainloop bitwise checks; the phases pack bitwise its plain pack
+    (C = 3, 7, 20, 40, 96, 128, 256, odd H/W, 2/2 and 3/1 windows, a view off
+    16-byte alignment) and the phases kernel alone on it bitwise its plain
+    version."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import packing
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     results = []
@@ -975,6 +1052,26 @@ def edge_phase() -> list:
             results.append((f"pool {shape} {win}/{st} {pol}", res))
             res = compare("bitwise", ck.maxpool_phases(x, window=win, stride=st), ck.maxpool_phases_plain(x, window=win, stride=st))
             results.append((f"maxpool_phases {shape} {win}/{st} {pol}", res))
+            xph = ck.pool_phases_pack(x, window=win, stride=st)
+            q = (win - 1) // st
+            hp, wp = (shape[1] - win) // st + 1 + q, (shape[2] - win) // st + 1 + q
+            results.append((f"pool_phases_pack {shape} {win}/{st} {pol} (bitwise)", compare(
+                "bitwise", xph, packing.pool_phases(x, st, hp, wp))))
+            results.append((f"maxpool_phases_packed {shape} {win}/{st} {pol} (bitwise)", compare(
+                "bitwise", ck.maxpool_phases_packed(xph, window=win, stride=st),
+                ck.maxpool_phases_packed_plain(xph, window=win, stride=st))))
+        # the pack at pool1's and pool2's widths, odd H/W and C = 20, 128 (the vector instance), and off 16-byte
+        # alignment (the scalar instance)
+        for shape in ((2, 55, 55, 96), (2, 27, 27, 256), (3, 15, 17, 20), (2, 13, 21, 128)):
+            x = r(*shape, shift=0.5)
+            hp, wp = (shape[1] - 3) // 2 + 2, (shape[2] - 3) // 2 + 2
+            want = packing.pool_phases(x, 2, hp, wp)
+            results.append((f"pool_phases_pack {shape} 3/2 {pol} (bitwise)", compare(
+                "bitwise", ck.pool_phases_pack(x, window=3, stride=2), want)))
+            off = r(x.numel() + 1, shift=0.5)[1:].view(shape)
+            off.copy_(x)
+            results.append((f"pool_phases_pack {shape} 3/2 {pol} view off 16-byte alignment (bitwise)", compare(
+                "bitwise", ck.pool_phases_pack(off, window=3, stride=2), want)))
         for size, aos in ((5, False), (5, True), (3, False)):
             x = r(2, 5, 5, 40, scale=60, shift=0.5)
             kw = dict(size=size, alpha=1e-4, beta=0.75, k=2.0, alpha_over_size=aos)
@@ -1298,7 +1395,8 @@ MAIN_RUNS = (
         ({"CONV": "fused"}, dict(conv_im2col=2, maxpool2d=2, lrn=1)),
         # g8 runs conv1 (stride 4); conv2 (stride 1) falls back to vcol, as in the JAX package
         ({"CONV": "g8"}, dict(conv_g8=1, conv2d=1, maxpool2d=2, lrn=1)),
-        ({"POOL": "phases"}, dict(conv2d=2, maxpool_phases=2, lrn=1)),
+        # the phases pool packs its stack with a kernel of its own
+        ({"POOL": "phases"}, dict(conv2d=2, pool_phases_pack=2, maxpool_phases=2, lrn=1)),
         # the conv kernel takes the pool's H max; maxpool2d runs the W stage
         ({"FUSE": "hpool"}, dict(conv2d=2, maxpool2d=2, lrn=1)),
         # k_block 128 applies to conv2 (K=256); conv1 (K=96) runs unblocked
@@ -1507,45 +1605,41 @@ def tune_phase() -> dict:
                 gate_records=recs, stdout_sweep=first, stdout_cache=second)
 
 
+def s2d_inputs(dtype) -> list:
+    """``(stage, x)`` at the pool A/B's pool1 and pool2, batch 128, standard
+    normal (as ``pool_ab`` makes its input), from a seeded generator."""
+    gen = torch.Generator(device="cuda").manual_seed(2032)
+    return [(stage, torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype))
+            for stage, (h, w, c) in POOL_AB_SHAPES.items()]
+
+
 def s2d_phase(spec, peak_name) -> list:
-    """Phase 2, the pool A/B's s2d pool at pool1 and pool2 (batch 128,
-    standard normal, as ``pool_ab`` makes its input) in fp32 and bf16:
-    bitwise against its plain version and against maxpool2d; the wrapper
-    timed with its C pad and repack (as the phases and taps rows include
+    """Phase 2, the pool A/B's s2d pool at pool1 and pool2 (``s2d_inputs``)
+    in fp32 and bf16: the pack (``s2d_pool_pack``) bitwise its plain pad and
+    repack, timed beside the bound of x read once and the operand written
+    once; the pool bitwise against its plain version and against maxpool2d,
+    the wrapper timed with its pack (as the phases and taps rows include
     their packing), the kernel alone on the packed operand (``kernel_ms``,
     beside the bound of its own bytes), the plain version and
     ``F.max_pool2d``, beside the function's bytes bound (x read once, y
     written once)."""
-    import torch.nn.functional as F
-
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     rows = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        gen = torch.Generator(device="cuda").manual_seed(2032)
-        for stage, (h, w, c) in POOL_AB_SHAPES.items():
-            x = torch.randn((BATCH, h, w, c), generator=gen, device="cuda").to(dtype)
-            es = x.element_size()
-            y = ck.maxpool_s2d(x, window=3, stride=2)
-            row = measure(dict(
-                kernel="maxpool_s2d", stage=stage,
-                run=lambda x=x: ck.maxpool_s2d(x, window=3, stride=2),
-                plain=lambda x=x: ck.maxpool_s2d_plain(x, window=3, stride=2),
-                library=lambda x=x: F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2),
-                library_call="F.max_pool2d (channels-last)",
-                flops=y.numel() * 9, nbytes=(x.numel() + y.numel()) * es, peak="fp32", rule="bitwise",
-                same_as=[("maxpool2d", lambda x=x: ck.maxpool2d(x, window=3, stride=2))],
-            ), pol, spec, peak_name)
-            xs = ck.s2d_pool_operand(x, window=3, stride=2).contiguous()
-            packed = lambda xs=xs, c=c: ck.maxpool_s2d_packed(xs, c, window=3, stride=2)  # noqa: E731
-            require(torch.equal(packed(), y), f"maxpool_s2d_packed {stage} {pol} differs from the wrapper")
-            k_bound, k_by = spec.bound_ms(0, (xs.numel() + y.numel()) * es, "fp32", fp32_flops=y.numel() * 9)
-            row.update(kernel_ms=gpu_time_ms(packed), kernel_bound_ms=k_bound, kernel_bound_by=k_by,
-                       operand_shape=list(xs.shape), operand_bytes=xs.numel() * es)
-            log(f"kernel maxpool_s2d {stage} {pol}: kernel alone on the packed {tuple(xs.shape)} operand "
-                f"{row['kernel_ms']:.4f} ms (bound of its own bytes {k_bound:.4f}, {k_by})")
-            rows.append(row)
-            del x, xs, y
+        for stage, x in s2d_inputs(dtype):
+            c = x.shape[3]
+            xs = ck.s2d_pool_pack(x, window=3, stride=2)
+            pool = packed_pool_stage("maxpool_s2d", stage, x)
+            pool.update(alone=lambda xs=xs, c=c: ck.maxpool_s2d_packed(xs, c, window=3, stride=2))
+            rows += packed_pool_rows(pack_stage(
+                "s2d_pool_pack", stage, x, run=lambda x=x: ck.s2d_pool_pack(x, window=3, stride=2),
+                plain=lambda x=x: ck.s2d_pool_operand(x, window=3, stride=2).contiguous()), pool, xs, pol, spec,
+                peak_name)
+            log(f"kernel maxpool_s2d {stage} {pol}: pack {rows[-2]['ms']:.4f} ms (bound {rows[-2]['bound_ms']:.4f}), "
+                f"kernel alone on the packed {tuple(xs.shape)} operand {rows[-1]['kernel_ms']:.4f} ms (bound of its "
+                f"own bytes {rows[-1]['kernel_bound_ms']:.4f})")
+            del x, xs
         torch.cuda.empty_cache()
     return rows
 
@@ -1555,7 +1649,8 @@ def s2d_edge_phase() -> list:
     and (where the input holds no NaN) against maxpool2d: C = 20, 128 and
     130 (20 in bf16 takes the store's scalar tail), window/stride 2/2, 3/1
     and 5/3, an H != W input, and NaN (its payload kept), -inf and -0.0 in
-    the input."""
+    the input; its pack at each shape bitwise the plain pad and repack, and
+    from a view off 16-byte alignment (the scalar instance)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -1570,6 +1665,13 @@ def s2d_edge_phase() -> list:
             res["bitwise_maxpool2d"] = bool(torch.equal(got, ck.maxpool2d(x, window=win, stride=st)))
             res["ok"] = res["ok"] and res["bitwise_maxpool2d"]
             results.append((f"maxpool_s2d {shape} {win}/{st} {pol} (bitwise, and vs maxpool2d)", res))
+            want = ck.s2d_pool_operand(x, window=win, stride=st)
+            results.append((f"s2d_pool_pack {shape} {win}/{st} {pol} (bitwise)", compare(
+                "bitwise", ck.s2d_pool_pack(x, window=win, stride=st), want)))
+            off = torch.randn(x.numel() + 1, generator=gen, device="cuda").to(dtype)[1:].view(shape)
+            off.copy_(x)
+            results.append((f"s2d_pool_pack {shape} {win}/{st} {pol} view off 16-byte alignment (bitwise)", compare(
+                "bitwise", ck.s2d_pool_pack(off, window=win, stride=st), want)))
         x = torch.randn((2, 11, 11, 20), generator=gen, device="cuda").to(dtype)
         flat = x.view(-1)
         flat[::7] = float("-inf")
@@ -2415,13 +2517,18 @@ def run_lm_cli(argv) -> dict:
                 loss_last=float(verdict.group(2)), steps=steps, launches=launches, passes=steps, stdout=out)
 
 
+# the kernels a pool_ab run launches: s2d128's pack and pool, the phases strategies' pack and pool, sep2's pool
+AB_KERNELS = ("s2d_pool_pack", "maxpool_s2d", "pool_phases_pack", "maxpool_phases", "maxpool2d")
+
+
 def pool_ab_phase() -> dict:
     """Phase 3d: the pool A/B, ``pool_ab.main`` at batch 128 for pool1 and
     pool2 in fp32 and bf16, the launch counts set to 0 just before each run
     and read just after: exit 0, six rows in the JAX script's order, no
     ``mismatch`` and no ``error`` (every compared strategy bitwise
-    ``F.max_pool2d``), and maxpool_s2d, maxpool_phases and maxpool2d
-    launched. Then one ``s2d128`` call launches maxpool_s2d once."""
+    ``F.max_pool2d``), and s2d_pool_pack, maxpool_s2d, pool_phases_pack,
+    maxpool_phases and maxpool2d launched. Then one ``s2d128`` call launches
+    s2d_pool_pack and maxpool_s2d once each."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
@@ -2439,19 +2546,17 @@ def pool_ab_phase() -> dict:
             name = f"pool_ab --pool {pool}/{pol}"
             log(f"path {name}: rc={rc} " + " ".join(
                 f"{r['strategy']}={r.get('ms_per_pass', r.get('error'))}{' MISMATCH' if r.get('mismatch') else ''}"
-                for r in rows) + f"; launches maxpool_s2d={launches['maxpool_s2d']} "
-                f"maxpool_phases={launches['maxpool_phases']} maxpool2d={launches['maxpool2d']}")
+                for r in rows) + "; launches " + " ".join(f"{k}={launches[k]}" for k in AB_KERNELS))
             require(rc == 0, f"{name} returned {rc}: {rows}")
             require([r["strategy"] for r in rows] == order, f"{name}: strategies {rows}")
             require(not any("mismatch" in r or "error" in r for r in rows), f"{name}: {rows}")
-            require(all(launches[k] > 0 for k in ("maxpool_s2d", "maxpool_phases", "maxpool2d")),
-                    f"{name}: launches {launches}")
+            require(all(launches[k] > 0 for k in AB_KERNELS), f"{name}: launches {launches}")
             result["runs"][name] = dict(rc=rc, rows=rows, launches=launches)
     (h, w, c) = POOL_AB_SHAPES["pool2"]
     x = torch.randn((2, h, w, c), device="cuda")
     ck.reset_launches()
     pool_ab.strategies(x, 3, 2)["s2d128"]()
-    require(ck.LAUNCHES == _launches(maxpool_s2d=1), f"one s2d128 call: launches {ck.LAUNCHES}")
+    require(ck.LAUNCHES == _launches(s2d_pool_pack=1, maxpool_s2d=1), f"one s2d128 call: launches {ck.LAUNCHES}")
     ck.reset_launches()
     return result
 
@@ -2648,31 +2753,38 @@ def lm_kernels_entries(rows, runs) -> list:
 
 
 def s2d_kernels_entries(rows, runs) -> list:
-    """The ``kernels`` line's maxpool_s2d entries, one per dtype: its run is
-    ``pool_ab`` (``--pool pool1`` and ``--pool pool2``; launches summed over
-    the two), its stages pool1 and pool2. ``ms`` is the wrapper's (C pad
-    and repack included), ``kernel_ms`` the kernel alone on the packed
-    operand; times and bounds summed over the stages."""
-    source, replaces = S2D_KERNEL
-    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_bound_ms", "max_abs_err",
-            "tol", "operand_shape")
+    """The ``kernels`` line's s2d_pool_pack and maxpool_s2d entries, one per
+    dtype: their run is ``pool_ab`` (``--pool pool1`` and ``--pool pool2``;
+    launches summed over the two), their stages pool1 and pool2. The pool's
+    ``ms`` is the wrapper's (its pack included), ``kernel_ms`` the kernel
+    alone on the packed operand; times and bounds summed over the stages."""
+    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_bound_ms", "pack_ms",
+            "device_ms", "library_device_ms", "wrapper_device_ms", "max_abs_err", "tol", "operand_shape")
     entries = []
-    for pol in ("fp32", "bf16"):
-        mine = [r for r in rows if r["kernel"] == "maxpool_s2d" and r["dtype"] == pol]
-        require([r["stage"] for r in mine] == list(POOL_AB_SHAPES), f"maxpool_s2d {pol}: stages {mine}")
-        launches = {pool: runs[f"pool_ab --pool {pool}/{pol}"]["launches"]["maxpool_s2d"] for pool in POOL_AB_SHAPES}
-        entries.append(dict(
-            name="maxpool_s2d", dtype=pol, route="cuda", source=source, replaces=replaces,
-            run=f"pool_ab --pool pool1/pool2 --dtype {pol}", launches=sum(launches.values()),
-            launches_by_run=launches, launches_per_s2d128_call=1,
-            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
-            ms=sum(r["ms"] for r in mine), kernel_ms=sum(r["kernel_ms"] for r in mine),
-            plain_ms=sum(r["plain_ms"] for r in mine), bound_ms=sum(r["bound_ms"] for r in mine),
-            bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
-            library_ms=sum(r["library_ms"] for r in mine), library_call=mine[0]["library_call"],
-            stages={r["stage"]: {k: r[k] for k in keys} for r in mine},
-        ))
+    for name, (source, replaces) in S2D_KERNELS.items():
+        for pol in ("fp32", "bf16"):
+            mine = [r for r in rows if r["kernel"] == name and r["dtype"] == pol]
+            require([r["stage"] for r in mine] == list(POOL_AB_SHAPES), f"{name} {pol}: stages {mine}")
+            launches = {pool: runs[f"pool_ab --pool {pool}/{pol}"]["launches"][name] for pool in POOL_AB_SHAPES}
+            lib, dev = [r["library_ms"] for r in mine], [r.get("device_ms") for r in mine]
+            entries.append(dict(
+                name=name, dtype=pol, route="cuda", source=source, replaces=replaces,
+                run=f"pool_ab --pool pool1/pool2 --dtype {pol}", launches=sum(launches.values()),
+                launches_by_run=launches, launches_per_s2d128_call=1,
+                max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+                ms=sum(r["ms"] for r in mine), kernel_ms=sum(r.get("kernel_ms", r["ms"]) for r in mine),
+                device_ms=None if None in dev else sum(dev),  # the kernel alone by torch.profiler
+                plain_ms=sum(r["plain_ms"] for r in mine), bound_ms=sum(r["bound_ms"] for r in mine),
+                bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=None if None in lib else sum(lib), library_call=mine[0]["library_call"],
+                stages={r["stage"]: {k: r[k] for k in keys if k in r} for r in mine},
+            ))
     return entries
+
+
+# what a stage of the kernels line carries beside ``keys`` where its row has it
+STAGE_EXTRAS = ("staged_ms", "cudnn_chain_ms", "kernel_ms", "kernel_bound_ms", "pack_ms", "pack_bound_ms",
+                "device_ms", "library_device_ms", "wrapper_device_ms")
 
 
 def kernels_line(rows, runs) -> dict:
@@ -2708,14 +2820,11 @@ def kernels_line(rows, runs) -> dict:
             bound_ms=sum(r["bound_ms"] for r in mine),
             # the stages' bounds add up; the label is the larger stage's
             bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
-            # no one library call computes a fused block: the cuDNN chain's time is a note beside it
-            library_ms=None if block else sum(r["library_ms"] for r in mine),
+            # no one library call computes a fused block or a pack: the cuDNN chain's time is a note beside a block
+            library_ms=None if block or mine[0]["library_ms"] is None else sum(r["library_ms"] for r in mine),
             **(dict(staged_chain_ms=sum(r["staged_ms"] for r in mine),
                     cudnn_chain_ms_note=sum(r["cudnn_chain_ms"] for r in mine)) if block else {}),
-            stages={r["stage"]: {k: r[k] for k in keys + (("staged_ms", "cudnn_chain_ms") if block else ())
-                                 + (("kernel_ms",) if "kernel_ms" in r else ())
-                                 + (("device_ms", "library_device_ms") if "device_ms" in r else ())}
-                    for r in mine},
+            stages={r["stage"]: {k: r[k] for k in keys + STAGE_EXTRAS if k in r} for r in mine},
         )
         if modes:
             entry["modes"] = {f"{r['mode']} @ {r['stage']}": {
@@ -2761,13 +2870,14 @@ def main() -> int:
         print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, lm=lm, train=train), default=str), flush=True)
         return 0
     if sys.argv[1:] == ["--pool-rows"]:
-        # phase 2's maxpool2d (pool1, pool2, the W stages) and lrn rows, then the staged v3_pallas and v1_jit
-        # passes, from this checkout: two trees compared in one call
+        # phase 2's pool rows (maxpool2d at pool1, pool2 and the W stages, maxpool_phases, maxpool_s2d) and lrn
+        # rows, then the staged v3_pallas, v3_pallas+POOL=phases and v1_jit passes, from this checkout: two
+        # trees compared in one call
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         rows, runs = pool_rows(spec, peak_name), {}
         for key, pol, knobs, per_forward in MAIN_RUNS:
-            if not knobs and pol in ("fp32", "bf16"):
+            if knobs in ({}, {"POOL": "phases"}) and pol in ("fp32", "bf16"):
                 runs[run_name(key, pol, knobs)] = {k: v for k, v in drive(key, pol, knobs, per_forward).items()
                                                    if k != "stdout"}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, runs=runs), default=str), flush=True)

@@ -22,143 +22,26 @@
 // L1. Every other window runs a runtime-window instance, one output a thread.
 // Index arithmetic is 32-bit, once per thread; loads and stores are 16 bytes.
 //
-// The max itself: the rule (common.cuh takes_max, taps in (fy, fx) order from
-// tap (0, 0)) costs several instructions a lane, which at 8 bf16 lanes to 16
-// bytes would bound the kernel by issue rather than bytes. So each loaded
-// word is turned once into order keys: a float's bits with the magnitude
-// flipped where the sign is set, which as a signed integer orders every
-// non-NaN value as the rule does, -0.0 below +0.0, and is its own inverse.
-// Then a tap costs one integer max a fp32 lane, or one for two bf16 lanes
-// (__vmaxs2 on 16-bit halves), and one min: the window's largest key is the
-// rule's value bit for bit, unless the window holds a NaN (a positive NaN's
-// key lies above +inf's, a negative NaN's below -inf's, so the min and max
-// keys show it). Such a vector takes the rule itself on its taps read again,
-// which keeps the later NaN's payload as the plain version does. So the
-// result is bitwise the plain version's for every input.
-#include "common.cuh"
+// The max itself: order keys, one integer max a fp32 lane or one __vmaxs2
+// for two bf16 lanes, and a window that holds a NaN takes the rule on its
+// taps read again (pool_keys.cuh, shared with maxpool_s2d.cu and
+// maxpool_phases.cu). So the result is bitwise the plain version's for every
+// input.
+#include "pool_keys.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int BAND = 3;  // output rows a thread walks in the template instances
 
-// Order keys of fp32 bits (one lane a word): the magnitude flipped where the sign is set.
-__device__ __forceinline__ unsigned key32(unsigned b) {
-  return b ^ (static_cast<unsigned>(static_cast<int>(b) >> 31) & 0x7fffffffu);
-}
-
-// Order keys of two bf16 a word, each half as key32 does on 16 bits (its own inverse too).
-__device__ __forceinline__ unsigned key16x2(unsigned w) { return w ^ (((w >> 15) & 0x00010001u) * 0x7fffu); }
-
-// A channel vector as 32-bit words: one fp32 value a word for fp32 (VEC 4 or
-// 1) and for the scalar bf16 instance (the bf16 bits shifted up 16: its
-// exact fp32 value), two bf16 a word for the 8-lane bf16 vector. key, kmax,
-// kmin and has_nan work on the words' order keys; lane reads a value back.
-template <typename T, int VEC>
-struct Raw {
-  static constexpr int N = VEC;  // words
-  static_assert(VEC == 4 || VEC == 1, "fp32 lanes");
-  static __device__ __forceinline__ void load(const T* p, unsigned (&w)[N]) {
-    if constexpr (VEC == 4) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = v.x;
-      w[1] = v.y;
-      w[2] = v.z;
-      w[3] = v.w;
-    } else if constexpr (sizeof(T) == 4) {
-      w[0] = __ldg(reinterpret_cast<const unsigned*>(p));
-    } else {
-      w[0] = static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16;
-    }
-  }
-  static __device__ __forceinline__ void store(T* p, const unsigned (&w)[N]) {
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<unsigned*>(p) = w[0];
-    } else {
-      *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(w[0] >> 16);
-    }
-  }
-  static __device__ __forceinline__ unsigned key(unsigned w) { return key32(w); }
-  static __device__ __forceinline__ unsigned kmax(unsigned a, unsigned b) {
-    return static_cast<unsigned>(max(static_cast<int>(a), static_cast<int>(b)));
-  }
-  static __device__ __forceinline__ unsigned kmin(unsigned a, unsigned b) {
-    return static_cast<unsigned>(min(static_cast<int>(a), static_cast<int>(b)));
-  }
-  // the largest key above +inf's or the smallest below -inf's: a NaN among the taps
-  static __device__ __forceinline__ bool has_nan(unsigned hi, unsigned lo) {
-    return static_cast<int>(hi) > 0x7f800000 || static_cast<int>(lo) < static_cast<int>(0x807fffffu);
-  }
-  static __device__ __forceinline__ float lane(const unsigned (&w)[N], int l) { return __uint_as_float(w[l]); }
-  static __device__ __forceinline__ void set_lanes(unsigned (&w)[N], const float (&f)[VEC]) {
-#pragma unroll
-    for (int l = 0; l < VEC; ++l) w[l] = __float_as_uint(f[l]);
-  }
+// The taps of a window of a NHWC input whose tap (0, 0) is at p, for rule_window.
+template <typename T>
+struct GridTaps {
+  const T* p;
+  size_t row;
+  int C;
+  __device__ __forceinline__ const T* operator()(int fy, int fx) const { return p + fy * row + fx * C; }
 };
-
-template <>
-struct Raw<port::bf16, 8> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void load(const port::bf16* p, unsigned (&w)[N]) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(port::bf16* p, const unsigned (&w)[N]) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  static __device__ __forceinline__ unsigned key(unsigned w) { return key16x2(w); }
-  static __device__ __forceinline__ unsigned kmax(unsigned a, unsigned b) { return __vmaxs2(a, b); }
-  static __device__ __forceinline__ unsigned kmin(unsigned a, unsigned b) { return __vmins2(a, b); }
-  static __device__ __forceinline__ bool has_nan(unsigned hi, unsigned lo) {
-    return static_cast<short>(hi) > 0x7f80 || static_cast<short>(hi >> 16) > 0x7f80 ||
-           static_cast<short>(lo) < static_cast<short>(0x807f) || static_cast<short>(lo >> 16) < static_cast<short>(0x807f);
-  }
-  static __device__ __forceinline__ float lane(const unsigned (&w)[N], int l) {
-    return __uint_as_float(l % 2 ? w[l / 2] & 0xffff0000u : w[l / 2] << 16);
-  }
-  static __device__ __forceinline__ void set_lanes(unsigned (&w)[N], const float (&f)[8]) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      w[k] = (__float_as_uint(f[2 * k]) >> 16) | (__float_as_uint(f[2 * k + 1]) & 0xffff0000u);
-    }
-  }
-};
-
-// The keys of a loaded vector, and back (the key is its own inverse).
-template <class R, int N>
-__device__ __forceinline__ void to_keys(unsigned (&w)[N]) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) w[k] = R::key(w[k]);
-}
-
-// The rule itself over a window whose top-left tap is at p (a NaN among its
-// taps, so rare), stored at dst: the taps read again in (fy, fx) order from
-// tap (0, 0). Out of line, so that its registers do not weigh on the rest.
-template <class R, int VEC, typename T>
-__device__ __noinline__ void rule_window(const T* p, size_t in_row, int C, int wh, int ww, T* dst) {
-  unsigned cur[R::N];
-  float best[VEC];
-  R::load(p, cur);
-#pragma unroll
-  for (int l = 0; l < VEC; ++l) best[l] = R::lane(cur, l);
-  for (int fy = 0; fy < wh; ++fy) {
-    for (int fx = 0; fx < ww; ++fx) {
-      R::load(p + fy * in_row + fx * C, cur);
-#pragma unroll
-      for (int l = 0; l < VEC; ++l) {
-        const float v = R::lane(cur, l);
-        if (port::takes_max(v, best[l])) best[l] = v;
-      }
-    }
-  }
-  R::set_lanes(cur, best);
-  R::store(dst, cur);
-}
 
 // grid: one thread per (image, band of output rows, output column, channel vector), vector fastest
 template <typename T, int VEC, int WH, int WW, int SH, int SW>
@@ -225,8 +108,8 @@ maxpool_band_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, in
         any_nan |= R::has_nan(hi, lo);
       }
       if (any_nan) {
-        rule_window<R, VEC>(src + static_cast<size_t>(i * SH) * in_row, in_row, C, WH, WW,
-                            dst + static_cast<size_t>(i) * Wo * C);
+        rule_window<R, VEC>(GridTaps<T>{src + static_cast<size_t>(i * SH) * in_row, in_row, C}, WH, WW,
+                            dst + static_cast<size_t>(i) * Wo * C, VEC);
       } else {
         R::store(dst + static_cast<size_t>(i) * Wo * C, out);
       }
@@ -274,7 +157,7 @@ maxpool_any_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int
     hi[k] = R::key(hi[k]);
   }
   if (any_nan) {
-    rule_window<R, VEC>(src, static_cast<size_t>(W) * C, C, wh, ww, y + static_cast<size_t>(t) * VEC);
+    rule_window<R, VEC>(GridTaps<T>{src, static_cast<size_t>(W) * C, C}, wh, ww, y + static_cast<size_t>(t) * VEC, VEC);
   } else {
     R::store(y + static_cast<size_t>(t) * VEC, hi);
   }

@@ -123,8 +123,12 @@ _SIGNATURES = {
     "conv_im2col": ([_P] * 4 + [_I] * 6 + [_P], ("f32", "bf16")),
     # x, y, N, H, W, C, window rows, window cols, stride rows, stride cols, Ho, Wo, vector width, stream
     "maxpool2d": ([_P, _P] + [_I] * 11 + [_P], ("f32", "bf16")),
-    # xph, y, N, hp, wp, C, window, stride, Ho, Wo, stream
-    "maxpool_phases": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
+    # x, xph, N, H, W, C, hp, wp, stride, vector width, stream
+    "pool_phases_pack": ([_P, _P] + [_I] * 8 + [_P], ("f32", "bf16")),
+    # xph, y, N, hp, wp, C, window, stride, Ho, Wo, vector width, stream
+    "maxpool_phases": ([_P, _P] + [_I] * 9 + [_P], ("f32", "bf16")),
+    # x, xs, N, H, W, C, hs, ws, stride, cp, vector width, stream
+    "s2d_pool_pack": ([_P, _P] + [_I] * 9 + [_P], ("f32", "bf16")),
     # xs, y, N, hs, ws, cp, C, window, stride, Ho, Wo, stream
     "maxpool_s2d": ([_P, _P] + [_I] * 9 + [_P], ("f32", "bf16")),
     # x, y, total, C, size, a, beta, k, vector width, stream

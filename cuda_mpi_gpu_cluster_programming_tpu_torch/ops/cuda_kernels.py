@@ -14,11 +14,15 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
   :func:`conv_g8_packed`), ``conv_g8.cu``, g8 (stride >= 2);
 - ``maxpool2d``: :func:`maxpool2d` and its W-only stage :func:`maxpool2d_w`,
   ``maxpool.cu``, the sep2 pool;
-- ``maxpool_phases``: :func:`maxpool_phases`, ``maxpool_phases.cu``, the
-  phases pool;
+- ``maxpool_phases``: :func:`maxpool_phases` (the launch on the packed
+  stack: :func:`maxpool_phases_packed`), ``maxpool_phases.cu``, the phases
+  pool, after ``pool_phases_pack``: :func:`pool_phases_pack`, the same
+  file's one-pass pack of its stack;
 - ``maxpool_s2d``: :func:`maxpool_s2d` (the launch on the packed operand:
   :func:`maxpool_s2d_packed`), ``maxpool_s2d.cu``, the space-to-depth pool
-  of the pool A/B (``pool_ab.py``'s ``s2d128``; no model path calls it);
+  of the pool A/B (``pool_ab.py``'s ``s2d128``; no model path calls it),
+  after ``s2d_pool_pack``: :func:`s2d_pool_pack`, the same file's one-pass
+  pad and repack;
 - ``lrn``: :func:`lrn`, ``lrn.cu``;
 - ``conv_block``: :func:`conv_block`, ``conv_block.cu``, fuse="block";
 - ``relu``: :func:`relu`, ``relu.cu``, the standalone ReLU (no path calls
@@ -64,8 +68,8 @@ from .shapes import conv_out_dim, pool_out_dim
 # Kernel launches since the last reset: a plain integer per kernel.
 LAUNCHES = {
     "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
-    "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "maxpool_phases": 0,
-    "maxpool_s2d": 0, "relu": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+    "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "pool_phases_pack": 0, "maxpool_phases": 0,
+    "s2d_pool_pack": 0, "maxpool_s2d": 0, "relu": 0, "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -655,11 +659,11 @@ def maxpool2d_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tenso
 
 
 def vector_width(c: int, dtype: torch.dtype, *ptrs: int) -> int:
-    """The channel-vector width of the ``maxpool.cu`` and ``lrn.cu``
-    instance that takes ``c`` channels of ``dtype`` at the addresses
-    ``ptrs``: 16 bytes' worth (4 fp32, 8 bf16) where a pixel's channels fill
-    whole vectors and every pointer is 16-byte aligned, else 1 (the scalar
-    instance)."""
+    """The channel-vector width of the instance of ``maxpool.cu``,
+    ``lrn.cu``, the phases pool or a pack that takes ``c`` channels of
+    ``dtype`` at the addresses ``ptrs``: 16 bytes' worth (4 fp32, 8 bf16)
+    where a pixel's channels fill whole vectors and every pointer is
+    16-byte aligned, else 1 (the scalar instance)."""
     vec = 16 // dtype.itemsize
     return vec if c % vec == 0 and all(ptr % 16 == 0 for ptr in ptrs) else 1
 
@@ -707,14 +711,47 @@ def maxpool2d_w(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
     return _pool(x, 1, window, 1, stride, "maxpool2d_w")
 
 
-def maxpool_phases_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
-    """Plain version of the phases kernel: on the phase stack, the max over
-    the taps (fy, fx) in order, each tap a unit-stride slice of phase
-    (fy%s)*s + fx%s."""
-    s = stride
-    _n, h, wd, _c = x.shape
-    ho, wo = pool_out_dim(h, window, s), pool_out_dim(wd, window, s)
-    xph = packing.pool_phases(x, s, ho + (window - 1) // s, wo + (window - 1) // s)
+def _phase_dims(name: str, x: torch.Tensor, window: int, stride: int) -> tuple:
+    """Check a pool's NHWC input; ``(n, h, wd, c, ho, wo, q)``, q = (window-1)//stride."""
+    _check(name, x)
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not NHWC")
+    n, h, wd, c = x.shape
+    ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
+    if min(n, ho, wo, c) <= 0:
+        raise ValueError(f"{name}: empty output for x {tuple(x.shape)}, window {window}")
+    return n, h, wd, c, ho, wo, (window - 1) // stride
+
+
+def _index_fits(name: str, *tensors: torch.Tensor) -> None:
+    if any(t.numel() >= 2**31 for t in tensors):
+        raise ValueError(f"{name}: an operand past 2^31 elements (the kernel's 32-bit index)")
+
+
+def pool_phases_pack(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """The phase stack of a ``window``/``stride`` pool of NHWC ``x``,
+    (s*s, N, hp, wp, C) (:func:`packing.pool_phases`, hp = ho + (window-1)//s),
+    bitwise, in one pass (``csrc/maxpool_phases.cu`` ``pool_phases_pack``:
+    x read once, the stack written once, 16-byte vectors where
+    :func:`vector_width` says so). A CPU tensor runs the plain pack."""
+    dev = x.device
+    n, h, wd, c, ho, wo, q = _phase_dims("pool_phases_pack", x, window, stride)
+    if dev.type == "cpu":
+        return packing.pool_phases(x, stride, ho + q, wo + q)
+    xph = torch.empty((stride * stride, n, ho + q, wo + q, c), dtype=x.dtype, device=dev)
+    _index_fits("pool_phases_pack", x, xph)
+    vec = vector_width(c, x.dtype, x.data_ptr(), xph.data_ptr())
+    _launch("pool_phases_pack", "pool_phases_pack", x, x.data_ptr(), xph.data_ptr(),
+            n, h, wd, c, ho + q, wo + q, stride, vec)
+    return xph
+
+
+def maxpool_phases_packed_plain(xph: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """Plain version of the phases kernel on its stack ``xph`` (s*s, N, hp,
+    wp, C): the max over the taps (fy, fx) in order from tap (0, 0), each a
+    unit-stride slice of phase (fy%s)*s + fx%s."""
+    s, q = stride, (window - 1) // stride
+    ho, wo = xph.shape[2] - q, xph.shape[3] - q
 
     def tap(fy, fx):
         return xph[(fy % s) * s + fx % s, :, fy // s : fy // s + ho, fx // s : fx // s + wo, :]
@@ -726,32 +763,52 @@ def maxpool_phases_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.
     return out.contiguous()
 
 
+def maxpool_phases_plain(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """Plain version of :func:`maxpool_phases`: the plain stack, then
+    :func:`maxpool_phases_packed_plain`."""
+    _n, h, wd, _c = x.shape
+    q = (window - 1) // stride
+    hp, wp = pool_out_dim(h, window, stride) + q, pool_out_dim(wd, window, stride) + q
+    return maxpool_phases_packed_plain(packing.pool_phases(x, stride, hp, wp), window=window, stride=stride)
+
+
+def maxpool_phases_packed(xph: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """The phases pool kernel on its stack ``xph`` (:func:`pool_phases_pack`,
+    contiguous (s*s, N, hp, wp, C)): (N, hp - q, wp - q, C), q =
+    (window-1)//stride, in ``xph``'s dtype. A CPU tensor runs
+    :func:`maxpool_phases_packed_plain`."""
+    dev = _check("maxpool_phases", xph)
+    if xph.dim() != 5 or xph.shape[0] != stride * stride:
+        raise ValueError(f"maxpool_phases: stack {tuple(xph.shape)} is not (s*s, N, hp, wp, C), s = {stride}")
+    _ss, n, hp, wp, c = xph.shape
+    q = (window - 1) // stride
+    ho, wo = hp - q, wp - q
+    if min(n, ho, wo, c, window, stride) <= 0:
+        raise ValueError(f"maxpool_phases: empty output for stack {tuple(xph.shape)}, window {window}")
+    if dev.type == "cpu":
+        return maxpool_phases_packed_plain(xph, window=window, stride=stride)
+    _index_fits("maxpool_phases", xph)
+    y = torch.empty((n, ho, wo, c), dtype=xph.dtype, device=dev)
+    vec = vector_width(c, xph.dtype, xph.data_ptr(), y.data_ptr())
+    _launch("maxpool_phases", "maxpool_phases", xph, xph.data_ptr(), y.data_ptr(),
+            n, hp, wp, c, window, stride, ho, wo, vec)
+    return y
+
+
 def maxpool_phases(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
     """VALID ``window`` x ``window`` / ``stride`` max-pool over a stride-phase
     stack: the phases pool body. Bitwise :func:`maxpool2d`.
 
     Replaces ``_pool_kernel`` behind ``_maxpool_phases``
-    (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
-    the H100: bytes. Design (``csrc/maxpool_phases.cu``): the (s*s, N, hp,
-    wp, C) stack packed here (``ops/packing.py``), then one thread per
-    output, channels fastest, tap (fy, fx) read from its phase."""
-    dev = _check("maxpool_phases", x)
-    if x.dim() != 4:
-        raise ValueError(f"maxpool_phases: x {tuple(x.shape)} is not NHWC")
-    n, h, wd, c = x.shape
-    ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
-    if min(n, ho, wo, c) <= 0:
-        raise ValueError(f"maxpool_phases: empty output for x {tuple(x.shape)}, window {window}")
-    if dev.type == "cpu":
-        return maxpool_phases_plain(x, window=window, stride=stride)
-    hp, wp = ho + (window - 1) // stride, wo + (window - 1) // stride
-    xph = packing.pool_phases(x, stride, hp, wp).contiguous()
-    y = torch.empty((n, ho, wo, c), dtype=x.dtype, device=dev)
-    _launch(
-        "maxpool_phases", "maxpool_phases", xph, xph.data_ptr(), y.data_ptr(),
-        n, hp, wp, c, window, stride, ho, wo,
-    )
-    return y
+    (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py) and its
+    ``_pool_phases``. Bound on the H100: bytes. Design
+    (``csrc/maxpool_phases.cu``): :func:`pool_phases_pack` writes the (s*s,
+    N, hp, wp, C) stack in one pass, then :func:`maxpool_phases_packed`
+    pools it as :func:`maxpool2d` pools x: a thread owns a 16-byte channel
+    vector of one output column and walks a band of output rows, the 3x3/2
+    window's order keys in registers. A CPU tensor runs the plain pack and
+    pool (:func:`maxpool_phases_plain`)."""
+    return maxpool_phases_packed(pool_phases_pack(x, window=window, stride=stride), window=window, stride=stride)
 
 
 # The s2d pool pads C to a multiple of this, so that every phase's channel
@@ -760,14 +817,32 @@ S2D_LANES = 128
 
 
 def s2d_pool_operand(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
-    """The operand of the s2d pool kernel for NHWC ``x``: C zero-padded to a
-    multiple of :data:`S2D_LANES`, then the space-to-depth repack
-    (N, ho + q, wo + q, s*s*cp), q = (window-1)//s, as ``pool_s2d128``
+    """The operand of the s2d pool kernel for NHWC ``x``, plain: C
+    zero-padded to a multiple of :data:`S2D_LANES`, then the space-to-depth
+    repack (N, ho + q, wo + q, s*s*cp), q = (window-1)//s, as ``pool_s2d128``
     builds it. The zero rows and columns of the repack are never read."""
     _n, h, wd, _c = x.shape
     q = (window - 1) // stride
     ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
     return packing.space_to_depth(packing.pad_channels(x, S2D_LANES), stride, ho + q, wo + q)
+
+
+def s2d_pool_pack(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
+    """:func:`s2d_pool_operand` of ``x``, bitwise and contiguous, in one pass
+    (``csrc/maxpool_s2d.cu`` ``s2d_pool_pack``: x read once, the operand
+    written once, 16-byte vectors where :func:`vector_width` says so). A CPU
+    tensor runs the plain pack."""
+    dev = x.device
+    n, h, wd, c, ho, wo, q = _phase_dims("s2d_pool_pack", x, window, stride)
+    if dev.type == "cpu":
+        return s2d_pool_operand(x, window=window, stride=stride).contiguous()
+    cp = -(-c // S2D_LANES) * S2D_LANES
+    xs = torch.empty((n, ho + q, wo + q, stride * stride * cp), dtype=x.dtype, device=dev)
+    _index_fits("s2d_pool_pack", x, xs)
+    vec = vector_width(c, x.dtype, x.data_ptr(), xs.data_ptr())
+    _launch("s2d_pool_pack", "s2d_pool_pack", x, x.data_ptr(), xs.data_ptr(),
+            n, h, wd, c, ho + q, wo + q, stride, cp, vec)
+    return xs
 
 
 def _s2d_dims(xs: torch.Tensor, c: int, window: int, stride: int) -> tuple:
@@ -816,6 +891,7 @@ def maxpool_s2d_packed(xs: torch.Tensor, c: int, *, window: int, stride: int) ->
         raise ValueError(f"maxpool_s2d: empty output or {c} channels for operand {tuple(xs.shape)}")
     if dev.type == "cpu":
         return maxpool_s2d_packed_plain(xs, c, window=window, stride=stride)
+    _index_fits("maxpool_s2d", xs)
     if xs.data_ptr() % 16:
         xs = xs.clone()  # the kernel's vector loads need a 16-byte aligned operand
     y = torch.empty((n, ho, wo, c), dtype=xs.dtype, device=dev)
@@ -828,26 +904,17 @@ def maxpool_s2d(x: torch.Tensor, *, window: int, stride: int) -> torch.Tensor:
     space-to-depth repack, NHWC in, (N, ho, wo, C) out, fp32 or bf16:
     ``pool_s2d128``, the A/B's ``s2d128``. Bitwise :func:`maxpool2d`.
 
-    Replaces ``_s2d_pool_kernel`` (scripts/pool_ab.py). Bound on the H100:
-    bytes; the function's own are x read once and y written once, but the
-    C pad and the repack (``packing.pad_channels``,
-    ``packing.space_to_depth``) come first and the kernel reads the padded
-    repack: at pool1 the wrapper moves about 6.7 times x's bytes. Design
-    (``csrc/maxpool_s2d.cu``): one thread per output pixel and 16-byte
-    channel vector, each tap one vector load from its channel block (C
-    padded to 128 keeps the blocks aligned), the cropped C channels stored
-    directly."""
-    dev = _check("maxpool_s2d", x)
-    if x.dim() != 4:
-        raise ValueError(f"maxpool_s2d: x {tuple(x.shape)} is not NHWC")
-    n, h, wd, c = x.shape
-    ho, wo = pool_out_dim(h, window, stride), pool_out_dim(wd, window, stride)
-    if min(n, ho, wo, c) <= 0:
-        raise ValueError(f"maxpool_s2d: empty output for x {tuple(x.shape)}, window {window}")
-    if dev.type == "cpu":
-        return maxpool_s2d_plain(x, window=window, stride=stride)
-    xs = s2d_pool_operand(x, window=window, stride=stride).contiguous()
-    return maxpool_s2d_packed(xs, c, window=window, stride=stride)
+    Replaces ``_s2d_pool_kernel`` (scripts/pool_ab.py) and its pad and
+    repack. Bound on the H100: bytes. Design (``csrc/maxpool_s2d.cu``):
+    :func:`s2d_pool_pack` writes the C-padded repack in one pass, then
+    :func:`maxpool_s2d_packed` pools it: a thread owns a 16-byte channel
+    vector of one output column and walks a band of output rows, the 3x3/2
+    window's order keys in registers, each tap one vector load from its
+    channel block (C padded to 128 keeps the blocks aligned), the cropped C
+    channels stored directly. A CPU tensor runs the plain pack and pool
+    (:func:`maxpool_s2d_plain`)."""
+    return maxpool_s2d_packed(s2d_pool_pack(x, window=window, stride=stride), x.shape[3], window=window,
+                              stride=stride)
 
 
 # ---------------------------------------------------------------------- LRN

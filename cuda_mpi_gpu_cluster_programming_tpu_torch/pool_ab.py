@@ -11,7 +11,8 @@ main path's pool lowering (sep2). Strategies, in the JAX order:
           (the JAX script's ``lax.reduce_window``)
   current the phases pool kernel (``csrc/maxpool_phases.cu``), the JAX
           package's ``_maxpool_phases``
-  phases  only the phase-stack repack (``packing.pool_phases``), not compared
+  phases  only the phase-stack repack of ``current`` (``pool_phases_pack``,
+          the same file's pack kernel), not compared
   s2d128  the space-to-depth pool kernel (``csrc/maxpool_s2d.cu``): C padded
           to a multiple of 128, repacked, pooled from aligned channel blocks
   sep2    the main path's pool kernel (``csrc/maxpool.cu``): the TPU's
@@ -51,11 +52,8 @@ def strategies(x: torch.Tensor, window: int, stride: int) -> dict:
     """name -> a call of that strategy on ``x`` (NHWC), in the JAX order."""
     from .ops import cuda_kernels as ck
     from .ops import packing
-    from .ops.shapes import pool_out_dim
 
-    _n, h, w, c = x.shape
-    q = (window - 1) // stride
-    hp, wp = pool_out_dim(h, window, stride) + q, pool_out_dim(w, window, stride) + q
+    c = x.shape[3]
 
     def sep2p():
         return ck.maxpool2d(packing.pad_channels(x, ck.S2D_LANES), window=window, stride=stride)[..., :c]
@@ -63,7 +61,7 @@ def strategies(x: torch.Tensor, window: int, stride: int) -> dict:
     return {
         "xla": lambda: F.max_pool2d(x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1),
         "current": lambda: ck.maxpool_phases(x, window=window, stride=stride),
-        "phases": lambda: packing.pool_phases(x, stride, hp, wp),
+        "phases": lambda: ck.pool_phases_pack(x, window=window, stride=stride),
         "s2d128": lambda: ck.maxpool_s2d(x, window=window, stride=stride),
         "sep2": lambda: ck.maxpool2d(x, window=window, stride=stride),
         "sep2p": sep2p,
