@@ -564,9 +564,11 @@ PTXAS_HELD = ("conv2d_cu", "conv_block_cu", "conv_pairs_cu", "conv_im2col_cu")
 # the files whose instances load 16-byte channel vectors (VEC 4 fp32, 8 bf16; VEC 1 the scalar instance)
 VECTOR_FILES = ("maxpool_cu", "lrn_cu", "maxpool_phases_cu", "maxpool_s2d_cu")
 # the flash kernels' files, and the head dims whose instances run the Hopper design (over flash_bwd_sm90.cuh):
-# bf16 on mma.sync, fp32 on FFMA (D = 256 and the windowed instance keep FFMA in both dtypes)
+# bf16 on mma.sync, fp32 on FFMA; the backward's D = 256 and windowed (D 0) instances too, which run the
+# tensor cores with no FFMA main loop (fewer FFMA than HMMA); the forward's keep FFMA in both dtypes
 FLASH_FILES = ("flash_fwd_cu", "flash_dq_cu", "flash_dkv_cu")
 FLASH_SM90_DIMS = (16, 32, 64, 128)
+FLASH_BWD_WIDE_DIMS = (256, 0)
 
 
 def flash_instance(name: str):
@@ -586,8 +588,11 @@ def sass_phase(info) -> dict:
     instance of the kernels on the Hopper mainloop (the six files of
     ``MAINLOOP_FILES``) and every bf16 instance of ``flash_fwd.cu``,
     ``flash_dq.cu`` and ``flash_dkv.cu`` at D <= 128 must contain HMMA
-    (mma.sync on the tensor cores), every fp32 one FFMA and no HMMA (no
-    TF32: the fp32 contract)."""
+    (mma.sync on the tensor cores), and so must the bf16 D = 256 and
+    windowed instances of ``flash_dq.cu`` and ``flash_dkv.cu``, with fewer
+    FFMA than HMMA (no FFMA main loop); the forward's bf16 instances there
+    keep FFMA and no HMMA; every fp32 one FFMA and no HMMA (no TF32: the
+    fp32 contract)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
 
     tool = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -617,7 +622,7 @@ def sass_phase(info) -> dict:
     require({(f, dt) for f in MAINLOOP_FILES for dt in ("fp32", "bf16")} <= kinds,
             f"SASS: the conv entry points were not all found: {sorted(kinds)}")
     flash_kinds = {(v["file"], v["dtype"], v["d"]) for v in flash.values()}
-    want = {(f, dt, d) for f in FLASH_FILES for dt in ("fp32", "bf16") for d in FLASH_SM90_DIMS}
+    want = {(f, dt, d) for f in FLASH_FILES for dt in ("fp32", "bf16") for d in FLASH_SM90_DIMS + FLASH_BWD_WIDE_DIMS}
     require(want <= flash_kinds, f"SASS: the flash instances were not all found: {sorted(flash_kinds)}")
     for name, v in found.items():
         ok = v["hmma"] > 0 if v["dtype"] == "bf16" else (v["ffma"] > 0 and v["hmma"] == 0)
@@ -626,8 +631,12 @@ def sass_phase(info) -> dict:
     for name, v in flash.items():
         if v["dtype"] == "fp32":
             ok = v["ffma"] > 0 and v["hmma"] == 0
-        else:  # bf16 above 128 keeps the FFMA kernels of flash_fwd.cu and flash_bwd.cuh: not held
-            ok = v["hmma"] > 0 if v["d"] in FLASH_SM90_DIMS else None
+        elif v["d"] in FLASH_SM90_DIMS:
+            ok = v["hmma"] > 0
+        elif v["file"] == "flash_fwd_cu":  # the forward's D = 256 and windowed kernels: FFMA in both dtypes
+            ok = v["ffma"] > 0 and v["hmma"] == 0
+        else:  # the backward's D = 256 and windowed instances: the tensor cores, no FFMA main loop
+            ok = v["ffma"] < v["hmma"]
         log(f"sass {v['file']} {v['dtype']} D={v['d']} HMMA={v['hmma']} FFMA={v['ffma']} ok={ok}: {name[:110]}")
         require(ok is not False, f"SASS of {name}: {v}")
     return dict(conv=found, flash=flash, vector=vector)
@@ -1926,10 +1935,11 @@ def lm_bwd_edge_phase() -> list:
     the oracle (``JOINT_TOL``); operands off 16-byte alignment, forward
     too (:func:`unaligned_bwd_cases`); mixed fp32/bf16 operands, a head
     axis of stride H and B or H past 65535, forward and backward
-    (:func:`repair_cases`); every D from 1 to 128 in bf16, forward and
+    (:func:`repair_cases`); every D from 1 to 256 in bf16, forward and
     backward (:func:`bf16_head_dim_sweep`); and the fp32 bits across
-    several tiles of the backward (:func:`flash_bwd_tiles_digest`) and the
-    forward (:func:`flash_fwd_tiles_digest`)."""
+    several tiles of the backward (:func:`flash_bwd_tiles_digest`; at
+    D >= 256, :func:`flash_bwd_wide_digest`) and the forward
+    (:func:`flash_fwd_tiles_digest`)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1970,11 +1980,14 @@ def lm_bwd_edge_phase() -> list:
                         dict(ok=ok, max_abs_err=err)))
     results += unaligned_bwd_cases(gen)
     results += repair_cases(gen)
-    results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 128 (bf16, 1x64x2xD, causal) through "
+    results.append(("flash_fwd, flash_dq, flash_dkv at every D from 1 to 256 (bf16, 1x64x2xD, causal) through "
                     "the kernels, each within 1 ulp + its rule's share of the max of its plain version",
                     bf16_head_dim_sweep()))
     results.append(("flash_dq, flash_dkv in fp32 across several tiles (FLASH_BWD_TILE_SHAPES, causal and full): "
                     "the bits of FLASH_BWD_TILES_SHA256", flash_bwd_tiles_digest()))
+    results.append(("flash_dq, flash_dkv in fp32 at D = 256, 320, 512 and 1024 across several tiles "
+                    "(FLASH_BWD_WIDE_SHAPES, causal and full): the bits of FLASH_BWD_WIDE_SHA256",
+                    flash_bwd_wide_digest()))
     results.append(("flash_fwd in fp32 across several tiles (FLASH_BWD_TILE_SHAPES, causal and full): "
                     "the bits of FLASH_FWD_TILES_SHA256", flash_fwd_tiles_digest()))
     torch.cuda.synchronize()
@@ -1989,7 +2002,7 @@ def lm_bwd_edge_phase() -> list:
 
 
 def bf16_head_dim_sweep() -> dict:
-    """Every head dim from 1 to 128 in bf16: :func:`head_dim_sweep`'s
+    """Every head dim from 1 to 256 in bf16: :func:`head_dim_sweep`'s
     inputs (numpy, seed D, (1, 64, 2, D), causal) cast to bf16, through
     flash_fwd, then flash_dq and flash_dkv, each launched once (the counts
     say so): out within 1 bf16 ulp + ``FLASH_PLAIN_V_REL`` x max |v| and lse
@@ -1999,7 +2012,7 @@ def bf16_head_dim_sweep() -> dict:
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     worst, bad = 0.0, []
-    for d in range(1, 129):
+    for d in range(1, 257):
         rng = np.random.default_rng(d)
         q, k, v, g = (torch.from_numpy(rng.standard_normal((1, 64, 2, d), dtype=np.float32)).cuda().to(torch.bfloat16)
                       for _ in range(4))
@@ -2305,6 +2318,42 @@ def flash_bwd_tiles_digest() -> dict:
     sha = digest.hexdigest()
     return dict(ok=launched and sha == FLASH_BWD_TILES_SHA256, max_abs_err=0.0, sha256=sha,
                 sha256_held=FLASH_BWD_TILES_SHA256)
+
+
+# the fp32 flash backward at D >= 256 across several tiles (B, L, H, D), causal and full: L ragged against the
+# 64-row tiles, D = 256 (one window), 320 (windows of 256 and 64 columns), 512 (two) and 1024 (four)
+FLASH_BWD_WIDE_SHAPES = ((2, 200, 3, 256), (1, 300, 2, 320), (2, 130, 2, 512), (1, 260, 1, 1024))
+# sha256 of the bits of dq, dk and dv of flash_bwd_wide_digest, as the FFMA kernels of the retired
+# flash_bwd.cuh gave them before the Hopper redesign of D >= 256 (NVIDIA H100 build, CUDA 12.8; ``python3
+# chip_smoke.py --record`` in a checkout of that tree with this file copied in prints it): the fp32 redesign
+# keeps the operations and their order
+FLASH_BWD_WIDE_SHA256 = "148705ace0e21e2169f5af7d14c37ea77df00e9fa17109f5474f58663e8809a5"
+
+
+def flash_bwd_wide_digest() -> dict:
+    """fp32 flash_dq and flash_dkv at ``FLASH_BWD_WIDE_SHAPES``, causal and
+    full, inputs drawn with numpy (seed 3000 + L + D), lse and delta from
+    flash_fwd: the sha256 of the bits of every dq, dk and dv, and each
+    one's launch counted."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    digest, launched = hashlib.sha256(), True
+    for shape in FLASH_BWD_WIDE_SHAPES:
+        for causal in (True, False):
+            rng = np.random.default_rng(3000 + shape[1] + shape[3])
+            q, k, v, g = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(4))
+            kw = dict(causal=causal, block_q=shape[1], block_k=shape[1])
+            out, lse = ck.flash_fwd(q, k, v, **kw)
+            delta = (g * out).sum(-1).permute(0, 2, 1).contiguous()
+            ck.reset_launches()
+            outs = (ck.flash_dq(q, k, v, g, lse, delta, **kw), *ck.flash_dkv(q, k, v, g, lse, delta, **kw))
+            launched &= ck.LAUNCHES["flash_dq"] == ck.LAUNCHES["flash_dkv"] == 1
+            for t in outs:
+                digest.update(t.contiguous().cpu().numpy().tobytes())
+    ck.reset_launches()
+    sha = digest.hexdigest()
+    return dict(ok=launched and sha == FLASH_BWD_WIDE_SHA256, max_abs_err=0.0, sha256=sha,
+                sha256_held=FLASH_BWD_WIDE_SHA256)
 
 
 # sha256 of the bits of out and lse of flash_fwd_tiles_digest, as the fp32 FFMA forward gave them before its
@@ -2857,17 +2906,19 @@ def main() -> int:
         return f"fp32 {spec.fp32_tflops} TFLOP/s" if p == "fp32" else f"bf16 {spec.bf16_tflops} TFLOP/s (tensor cores)"
 
     if sys.argv[1:] == ["--flash-rows"]:
-        # phase 2's flash_fwd rows at long_context's and TINY_LM's shapes, then phases 3b and 3c, from this
-        # checkout: two trees compared in one call
+        # phase 2's flash rows (flash_fwd, flash_dq, flash_dkv at long_context's and TINY_LM's shapes, causal
+        # and full, and at D = 256 and 512 causal), phases 3b and 3c, and the staged v3_pallas passes in fp32
+        # and bf16, from this checkout: two trees compared in one call
+        torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        rows = []
-        for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            gen = torch.Generator(device="cuda").manual_seed(2028)
-            for stage, shape in (("long_context", LONG_CONTEXT), ("tiny_lm", TINY_LM_ATTN)):
-                for causal in (True, False):
-                    rows.append(flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name))
+        rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
+        rows = [r for r in rows if r["kernel"].startswith("flash")]
         lm, train = lm_path_phase(), train_path_phase()
-        print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, lm=lm, train=train), default=str), flush=True)
+        runs = {run_name(key, pol, knobs): {k: v for k, v in drive(key, pol, knobs, per_forward).items()
+                                            if k != "stdout"}
+                for key, pol, knobs, per_forward in MAIN_RUNS[:2]}
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, lm=lm, train=train, runs=runs), default=str),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--pool-rows"]:
         # phase 2's pool rows (maxpool2d at pool1, pool2 and the W stages, maxpool_phases, maxpool_s2d) and lrn
@@ -2883,18 +2934,20 @@ def main() -> int:
         print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, runs=runs), default=str), flush=True)
         return 0
     if sys.argv[1:] == ["--record"]:
-        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_FWD_TILES_SHA256,
-        # ENGINE_FP32_SHA256 and POOL_LRN_SHA256 hold a later tree to, from this checkout
+        # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_BWD_WIDE_SHA256,
+        # FLASH_FWD_TILES_SHA256, ENGINE_FP32_SHA256 and POOL_LRN_SHA256 hold a later tree to, from this checkout
         torch.backends.cuda.matmul.allow_tf32 = False
         sweep = head_dim_sweep()
         tiles = flash_bwd_tiles_digest()
+        wide = flash_bwd_wide_digest()
         fwd_tiles = flash_fwd_tiles_digest()
         engine = engine_fp32_digest()
         pool_lrn = pool_lrn_digest()
         ptxas = {k: v for k, v in ptxas_table(info.log).items() if k.split("/")[0] in PTXAS_HELD}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, ptxas=ptxas, flash_sweep_sha256=sweep["sha256"],
                               flash_sweep_within_tolerance=not sweep["failing_head_dims"],
-                              flash_bwd_tiles_sha256=tiles["sha256"], flash_fwd_tiles_sha256=fwd_tiles["sha256"],
+                              flash_bwd_tiles_sha256=tiles["sha256"], flash_bwd_wide_sha256=wide["sha256"],
+                              flash_fwd_tiles_sha256=fwd_tiles["sha256"],
                               engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"],
                               pool_lrn_sha256=pool_lrn["sha256"], pool_lrn_items=pool_lrn["items"])), flush=True)
         return 0
@@ -2906,8 +2959,9 @@ def main() -> int:
     for key, v in flash_regs.items():
         log(f"ptxas {key}: {v['registers']} registers, {v['spill_stores']} bytes spill stores ({v['kernel']})")
     sass = sass_phase(info)
-    log("phase 1b: the bf16 and int8w conv entry points and the bf16 flash instances at D <= 128 contain HMMA, "
-        f"the fp32 ones FFMA and no HMMA; {', '.join(PTXAS_HELD)} keep their registers and spills")
+    log("phase 1b: the bf16 and int8w conv entry points, the bf16 flash instances at D <= 128 and the bf16 "
+        "backward at D >= 256 contain HMMA, the fp32 ones FFMA and no HMMA; "
+        f"{', '.join(PTXAS_HELD)} keep their registers and spills")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)

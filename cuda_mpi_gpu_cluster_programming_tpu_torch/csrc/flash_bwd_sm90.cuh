@@ -1,21 +1,21 @@
-// The Hopper flash-attention backward at the head dims 16, 32, 64 and 128:
-// the pieces flash_dq.cu and flash_dkv.cu build their kernels from. (D = 256
-// and the windowed instance above it keep flash_bwd.cuh.) The forward,
-// flash_fwd.cu, builds its kernels at those head dims from the same pieces:
-// Operand, place, load_tile, f32::RS and, in mma, the fragment addresses,
-// split, as_a and product_pair.
+// The Hopper flash-attention backward: the pieces flash_dq.cu and flash_dkv.cu
+// build their kernels from, at the head dims 16, 32, 64 and 128 (namespaces
+// f32 and mma) and at D = 256 and the windowed instance above it (namespace
+// wide). The forward, flash_fwd.cu, builds its kernels at D <= 128 from the
+// same pieces: Operand, place, load_tile, f32::RS and, in mma, the fragment
+// addresses, split, as_a and product_pair.
 //
 // Both kernels recompute one 64 x 64 tile of s = q k^T and dp = dO v^T, then
 // p = exp(s * scale - lse) (exactly 0 where masked) and dS = p * (dp - delta),
 // and run two products over the tile (dq: dS k; dk/dv: p^T dO and dS^T q).
-// A block is 128 threads (4 warps) and owns one 64-row tile of its outputs;
-// the other side's tiles stream through shared memory by cp.async (16-byte
-// copies where the operand's base and strides are 16-byte aligned, else one
-// element at a time into the same layout, so both routes give the same bits).
-// Rows past L load as zeros and their p is set to 0.
+// At D <= 128 a block is 128 threads (4 warps) and owns one 64-row tile of
+// its outputs; the other side's tiles stream through shared memory by
+// cp.async (16-byte copies where the operand's base and strides are 16-byte
+// aligned, else one element at a time into the same layout, so both routes
+// give the same bits). Rows past L load as zeros and their p is set to 0.
 //
 // fp32 (namespace f32): FFMA, one output element one thread, in the exact
-// operations and order of the parent kernels (flash_bwd.cuh), so the fp32
+// operations and order of the first FFMA kernels (PRs 5-8), so the fp32
 // bits do not move: s and dp are one fmaf chain over d ascending from 0 (q
 // rounded to q * scale first), and each visited 64-row tile of the second
 // product adds one 64-term fmaf chain, started at 0, to an accumulator that
@@ -39,6 +39,34 @@
 // on both terms (16 significant bits, with the fp32 accumulators). Rows are
 // padded to D + 8 elements (16 bytes), so ldmatrix's 8 row addresses hit
 // distinct bank groups.
+//
+// D = 256 and above (namespace wide): a block is 256 threads (8 warps) and
+// owns one 64-row tile and one window of 256 output columns, or of 128
+// where 256 would leave SMs without a block (grid_for; the WIDE instance
+// takes D, a multiple of 64, at run time). The operands move as 64 x 64
+// chunks: a block's schedule is, for each visited tile of the other side,
+// the D / 64 score steps (the chunk c of each operand the scores read,
+// summed into s and dp chunk after chunk) and then one product step per
+// window chunk of each product operand (dq: k; dk/dv: dO, then q), each
+// step one stage of a cp.async ring that runs ahead across the visited
+// tiles. Every window recomputes the same s and dp over all of D. A thread's
+// or warp's share of the window (64 x 256 of each output) stays in
+// registers; no atomics.
+//  * bf16 (wide::mma): the 8 warps split the 64 x 64 score tile as 4 row
+//    groups x 2 key halves (a warp: 16 x 32, mma.sync on ldmatrix
+//    fragments); p and dS are split into hi and lo and written once to
+//    shared memory as bf16 tiles, from which each warp loads its 16 rows'
+//    A fragments once a tile; the second products split the output by
+//    columns (a warp: 16 rows x 32 columns of each window chunk, 64 fp32
+//    accumulators a thread an output). At D = 256 the own side's operands
+//    (dq: q and dO; dk/dv: k and v) stay in shared memory for the whole
+//    block, a score step loads only the other side's two chunks (the
+//    window's chunks first), and the product steps find theirs in the ring.
+//  * fp32 (wide::f32): FFMA with the bits of the first FFMA kernels, as
+//    above: a thread owns 4 q rows x 4 keys of the score tile (rows rg + 16 i,
+//    keys cg + 16 j) and 4 rows x 4 columns of each window chunk, float4
+//    reads along d and c, chunk rows padded to 68 floats. All four operands
+//    stream (a 64 x 256 fp32 tile is 64 KB).
 #pragma once
 
 #include "common.cuh"
@@ -50,6 +78,11 @@ using port::bf16;
 
 constexpr int BT = 64;        // rows of a tile, both sides
 constexpr int THREADS = 128;  // 4 warps
+
+// The b, l and h strides in elements of a (B, L, H, D) operand, as the entry points take them.
+struct Strides {
+  long long b, l, h;
+};
 
 // One (B, L, H, D) operand: element (0, 0, 0, 0), the b, l and h strides in elements (the last axis is
 // contiguous), and whether 16-byte copies apply (base and strides 16-byte aligned).
@@ -84,19 +117,19 @@ inline Operand<T> operand(const void* p, long long b, long long l, long long h) 
 // Rows [r0, r0 + 64) and the D columns of one (b, h) slice (src: its row 0) into the shared tile at the
 // shared address dst (row stride RS elements); rows past L as zeros. cp.async, 16 bytes a copy where vec;
 // else fp32 by 4-byte cp.async and bf16 by plain loads and shared stores (cp.async has no 2-byte copy).
-template <typename T, int D, int RS>
+template <typename T, int D, int RS, int NT = THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const T* src, long long ls, int r0, int L, bool vec) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   constexpr int CH = D / V;  // 16-byte chunks a row
   if (vec) {
-    for (int i = threadIdx.x; i < BT * CH; i += THREADS) {
+    for (int i = threadIdx.x; i < BT * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * V;
       const bool ok = r0 + r < L;
       sm90::cp_async16(dst + (r * RS + c) * sizeof(T), src + (ok ? r0 + r : 0) * ls + c, ok);
     }
     return;
   }
-  for (int i = threadIdx.x; i < BT * D; i += THREADS) {
+  for (int i = threadIdx.x; i < BT * D; i += NT) {
     const int r = i / D, c = i % D;
     const bool ok = r0 + r < L;
     const uint32_t a = dst + (r * RS + c) * sizeof(T);
@@ -379,5 +412,245 @@ __device__ __forceinline__ void store(bf16* out, const float (&acc)[D / 8][4], i
 }
 
 }  // namespace mma
+
+// ------------------------------------------------------------------ D >= 256: 8 warps, 64-column chunks
+
+namespace wide {
+
+constexpr int THREADS = 256;   // 8 warps
+constexpr int CW = 64;         // columns of a chunk
+constexpr int WN = 256;        // output columns of a window
+constexpr int NWC = WN / CW;   // chunks of a window
+constexpr int WIDE = 0;        // the D template argument of the instance for D > 256
+
+// A block's (b, h), 64-row tile and window of wn chunks. The grid is one dimension over tiles x windows x B x H
+// with (b, h) fastest (the card's y and z dimensions would cap B and H at 65535): rank r = blockIdx.x / (B H)
+// covers tile r / windows (nt - 1 - that when `reverse`: dq's heaviest causal tile, the last, first) and
+// window r % windows, whose output columns are chunks [c_lo, c_lo + nwin) of the nch chunks of D.
+struct Place {
+  int b, h, tile, nch, c_lo, nwin;
+};
+
+__device__ __forceinline__ Place place(int dd, int wn, int L, int H, bool reverse) {
+  const int nt = (L + BT - 1) / BT;
+  const int nch = dd / CW, windows = (nch + wn - 1) / wn;
+  const int heads = gridDim.x / (nt * windows);
+  const int bh = blockIdx.x % heads, rank = blockIdx.x / heads;
+  const int c_lo = (rank % windows) * wn;
+  return Place{bh / H, bh % H, reverse ? nt - 1 - rank / windows : rank / windows, nch, c_lo, min(wn, nch - c_lo)};
+}
+
+// The grid of B x H x the tiles of L x the windows of D, and wn, the chunks of a window: NWC (256 columns), or
+// NWC / 2 when that grid would leave an SM without a block. A block keeps an SM to itself and visits up to
+// L / 64 tiles of the other side, so on a small causal grid the heaviest blocks set the time; halving the
+// windows doubles the blocks and halves each one's second products (the scores are recomputed by both
+// halves). Each output element's arithmetic is the same either way. False past the grid's 2^31 - 1.
+inline bool grid_for(int B, int L, int H, int dd, dim3& grid, int& wn) {
+  const int nch = dd / CW;
+  const long long tiles = static_cast<long long>((L + BT - 1) / BT) * B * H;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  wn = tiles * ((nch + NWC - 1) / NWC) < sms ? NWC / 2 : NWC;
+  const long long blocks = tiles * ((nch + wn - 1) / wn);
+  grid = dim3(static_cast<unsigned>(blocks));
+  return blocks <= 0x7fffffff;
+}
+
+// Rows [r0, r0 + 64) of chunk c (columns 64 c ..) of one (b, h) slice (src: its row 0) into a chunk tile at
+// the shared address dst (row stride RS elements); rows past L as zeros.
+template <typename T, int RS>
+__device__ __forceinline__ void load_chunk(uint32_t dst, const T* src, long long ls, int c, int r0, int L,
+                                           bool vec) {
+  load_tile<T, CW, RS, THREADS>(dst, src + c * CW, ls, r0, L, vec);
+}
+
+// ---------------------------------------------------------- bf16: the tensor cores
+
+namespace mma {
+
+constexpr int CS = CW + 8;           // row stride of a chunk tile, elements
+constexpr int TILE = BT * CS * 2;    // bytes of a chunk tile (and of a split p or dS half)
+
+// c (16 x 32: 4 n-tiles) += rows m0.. of the chunk tile A times rows n0.. of the chunk tile B^T (B stored
+// [n][k]) over the chunk's 64 columns: a warp's share of a score product.
+__device__ __forceinline__ void scores(float (&c)[4][4], uint32_t A, int m0, uint32_t B, int n0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk) {
+    uint32_t af[4];
+    sm90::ldmatrix_x4(af, flash_sm90::mma::frag_a<CS>(A, m0, kk * 16, lane));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bf[4];
+      sm90::ldmatrix_x4(bf, flash_sm90::mma::frag_b_nk<CS>(B, n0 + np * 16, kk * 16, lane));
+      sm90::mma_bf16(c[2 * np], af, bf[0], bf[1]);
+      sm90::mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// A warp's 16 x 32 C fragments (rows m0.., columns n0..), split into hi = bf16(x) and lo = bf16(x - hi),
+// into the bf16 tiles at the shared addresses hi and lo (row stride CS).
+__device__ __forceinline__ void store_split(const float (&c)[4][4], uint32_t hi, uint32_t lo, int m0, int n0,
+                                            int lane) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t h, l;
+      flash_sm90::mma::split(c[n][2 * half], c[n][2 * half + 1], h, l);
+      const uint32_t off = ((m0 + (lane >> 2) + 8 * half) * CS + n0 + n * 8 + 2 * (lane & 3)) * 2;
+      sm90::st_shared_b32(hi + off, h);
+      sm90::st_shared_b32(lo + off, l);
+    }
+}
+
+// The A fragments of rows m0.. x the 64 columns of the split tiles: a[0] from hi, a[1] from lo, per k16 step.
+__device__ __forceinline__ void frags(uint32_t (&a)[2][4][4], uint32_t hi, uint32_t lo, int m0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    sm90::ldmatrix_x4(a[0][kk], flash_sm90::mma::frag_a<CS>(hi, m0, kk * 16, lane));
+    sm90::ldmatrix_x4(a[1][kk], flash_sm90::mma::frag_a<CS>(lo, m0, kk * 16, lane));
+  }
+}
+
+// acc (16 x 32: 4 n-tiles) += (hi + lo) (16 x 64) times columns n0.. of the chunk tile B stored [k][n]: a
+// warp's share of a second product over one 64-row tile.
+__device__ __forceinline__ void product(float (&acc)[4][4], const uint32_t (&a)[2][4][4], uint32_t B, int n0,
+                                        int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bf[4];
+      sm90::ldmatrix_x4_trans(bf, flash_sm90::mma::frag_a<CS>(B, kk * 16, n0 + np * 16, lane));
+      sm90::mma_bf16(acc[2 * np], a[0][kk], bf[0], bf[1]);
+      sm90::mma_bf16(acc[2 * np], a[1][kk], bf[0], bf[1]);
+      sm90::mma_bf16(acc[2 * np + 1], a[0][kk], bf[2], bf[3]);
+      sm90::mma_bf16(acc[2 * np + 1], a[1][kk], bf[2], bf[3]);
+    }
+}
+
+// A warp's accumulators (window chunk j: rows m0.., columns n0.. of the chunk), times mul, into rows
+// [r0, r0 + 64) of one (b, h) slice of a contiguous (B, L, H, dd) bf16 output; rows past L are not written.
+__device__ __forceinline__ void store(bf16* out, const float (&acc)[NWC][4][4], const Place& at, int r0, int m0,
+                                      int n0, int L, int H, int dd, float mul, int lane) {
+  const long long rs = static_cast<long long>(H) * dd;
+  bf16* base = out + static_cast<long long>(at.b) * L * rs + static_cast<long long>(at.h) * dd +
+               at.c_lo * CW + n0 + (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < NWC; ++j) {
+    if (j >= at.nwin) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + m0 + (lane >> 2) + half * 8;
+      if (row >= L) continue;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(base + row * rs + j * CW + n * 8) =
+            __floats2bfloat162_rn(acc[j][n][2 * half] * mul, acc[j][n][2 * half + 1] * mul);
+    }
+  }
+}
+
+}  // namespace mma
+
+// ---------------------------------------------------------- fp32: FFMA, the bits of the first FFMA kernels
+
+namespace f32 {
+
+constexpr int CS = CW + 4;          // row stride of a chunk tile, floats
+constexpr int TILE = BT * CS * 4;   // bytes of a chunk tile (and of the p / dS tile)
+
+// s[i][j] (q row rg + 16 i, key cg + 16 j) continues its fmaf chain over the chunk's 64 columns, d ascending,
+// of (q * scale) k, and dp[i][j] that of dO v; Q and G are the q and dO chunk tiles, K and V the key ones.
+__device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4], const float* Q, const float* G,
+                                       const float* K, const float* V, int rg, int cg, float scale) {
+#pragma unroll 2
+  for (int d = 0; d < CW; d += 4) {
+    float a[4][4], b[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(a[i]) = *reinterpret_cast<const float4*>(Q + (rg + 16 * i) * CS + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[i][e] *= scale;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(b[j]) = *reinterpret_cast<const float4*>(K + (cg + 16 * j) * CS + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i][e], b[j][e], s[i][j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(a[i]) = *reinterpret_cast<const float4*>(G + (rg + 16 * i) * CS + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(b[j]) = *reinterpret_cast<const float4*>(V + (cg + 16 * j) * CS + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i][e], b[j][e], dp[i][j]);
+  }
+}
+
+// acc[i][e] (row pr * 4 + i, column pc * 4 + e of a window chunk) += the tile's partial: an fmaf chain over
+// the tile's 64 c ascending from 0 of P[row][c] * B[c][col]. P: the dS, p^T or dS^T tile, B: a chunk tile.
+__device__ __forceinline__ void product(float (&acc)[4][4], const float* P, const float* B, int pr, int pc) {
+  float part[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < BT; c += 4) {
+    float pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(pv[i]) = *reinterpret_cast<const float4*>(P + (pr * 4 + i) * CS + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float bv[4];
+      *reinterpret_cast<float4*>(bv) = *reinterpret_cast<const float4*>(B + (c + cc) * CS + pc * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][e] = fmaf(pv[i][cc], bv[e], part[i][e]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += part[i][e];
+}
+
+// The thread's accumulators (window chunk j: rows pr * 4 + i, columns pc * 4 + e), times mul, into rows
+// [r0, r0 + 64) of one (b, h) slice of a contiguous (B, L, H, dd) fp32 output; rows past L are not written.
+__device__ __forceinline__ void store(float* out, const float (&acc)[NWC][4][4], const Place& at, int r0, int pr,
+                                      int pc, int L, int H, int dd, float mul) {
+  const long long rs = static_cast<long long>(H) * dd;
+  float* base = out + static_cast<long long>(at.b) * L * rs + static_cast<long long>(at.h) * dd + at.c_lo * CW +
+                pc * 4;
+#pragma unroll
+  for (int j = 0; j < NWC; ++j) {
+    if (j >= at.nwin) break;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + pr * 4 + i;
+      if (row < L)
+        *reinterpret_cast<float4*>(base + row * rs + j * CW) =
+            make_float4(acc[j][i][0] * mul, acc[j][i][1] * mul, acc[j][i][2] * mul, acc[j][i][3] * mul);
+    }
+  }
+}
+
+}  // namespace f32
+
+}  // namespace wide
 
 }  // namespace flash_sm90

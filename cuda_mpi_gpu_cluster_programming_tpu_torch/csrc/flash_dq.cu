@@ -12,146 +12,45 @@
 // Bound on the H100: operations (3 products of 2 B H L^2 D FLOPs, half of
 // that causal, against 5 reads/writes of B L H D elements): FFMA's 67
 // TFLOP/s in fp32, the tensor cores' 989 in bf16. One block per (b, h,
-// 64-row q tile), 128 threads, heaviest causal tiles first; 64-key K/V tiles
-// stream through shared memory by cp.async, and k tiles wholly above the
-// diagonal are not visited. At D <= 128 (flash_bwd_sm90.cuh):
-//   * fp32, flash_dq_kernel_ffma: FFMA in the parent's operations and order
-//     (its bits): a thread's 4 x 8 s and dp in registers, dS through shared
-//     memory, the dq sums in registers; K double-buffered, V refilled while
-//     dS k runs (103 KB of shared memory at D = 64: two blocks an SM).
+// 64-row q tile), heaviest causal tiles first; 64-key K/V tiles stream
+// through shared memory by cp.async, and k tiles wholly above the diagonal
+// are not visited. All of it over flash_bwd_sm90.cuh. At D <= 128, 128
+// threads:
+//   * fp32, flash_dq_kernel_ffma: FFMA in the first FFMA kernel's operations
+//     and order (its bits): a thread's 4 x 8 s and dp in registers, dS
+//     through shared memory, the dq sums in registers; K double-buffered, V
+//     refilled while dS k runs (103 KB of shared memory at D = 64: two
+//     blocks an SM).
 //   * bf16, flash_dq_kernel_mma: mma.sync on the tensor cores, a warp's 16
 //     q rows; dS k from the C fragments re-packed as A fragments, dS split
 //     into two bf16 terms; a 3-stage K/V ring (2 at D = 128).
 // D = 256 and D > 256 (the WIDE instance, any multiple of 64; one block per
-// (b, h, q tile, window of 256 dq columns)) keep the FFMA kernel of
-// flash_bwd.cuh for both dtypes: the tiles held 64 columns at a time, the
-// dq sums in a shared-memory accumulator.
+// (b, h, q tile, window of 256 dq columns, or 128 on a grid smaller than
+// the card)), 256 threads, the operands in 64-column chunks through a
+// cp.async ring (the wide namespace):
+//   * fp32, flash_dq_kernel_ffma_wide: the same bits; a thread's 4 x 4 s and
+//     dp, then 4 x 4 of each window chunk of dq in registers (64 a thread);
+//     every chunk of q, dO, k and v streams (a 3-stage ring of 4 chunk tiles,
+//     221 KB with the dS tile).
+//   * bf16, flash_dq_kernel_mma_wide: mma.sync, the score tile split 4 row
+//     groups x 2 key halves over the warps, dS split into hi and lo in shared
+//     memory, each warp 16 rows x 32 columns of each window chunk of dq. At
+//     D = 256 q and dO stay in shared memory (72 KB) and a 4-stage ring
+//     carries the k and v chunks; above it every operand streams.
 //
 // Ragged tiles and masking: a q row or key past L loads as 0, and its p is
 // set to exactly 0, as is a key above the causal diagonal, so it adds 0 to
 // every sum; lse and delta are not read past L.
 #include <type_traits>
 
-#include "flash_bwd.cuh"
 #include "flash_bwd_sm90.cuh"
 
 namespace {
 
-// ------------------------------------------------------------------ D = 256 and WIDE (flash_bwd.cuh)
-
-using namespace flash_bwd;
-
-template <int D>
-struct Layout {
-  static constexpr int DC = Dims<D>::DC, S = Dims<D>::S, AS = Dims<D>::AS;
-  static constexpr int bytes = static_cast<int>(sizeof(float)) * (4 * BT * S + BT * PS + BT * AS);
-};
-
-// D: the instance's head dim, or WIDE (dd, a multiple of 64 above 256, and windows at run time).
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, int L, int H, int dd, int windows, Strides sq, Strides sk, Strides sv,
-                Strides sg, int causal, float scale) {
-  using Lay = Layout<D>;
-  constexpr int DC = Lay::DC;
-  const Window<D> win(dd, windows, L, H, causal);
-  const int nch = win.nch;
-  extern __shared__ float smem[];
-  float* Qs = smem;             // q tile (chunk), pre-scaled
-  float* Gs = Qs + BT * Lay::S;  // dO tile (chunk)
-  float* Ks = Gs + BT * Lay::S;
-  float* Vs = Ks + BT * Lay::S;
-  float* Ps = Vs + BT * Lay::S;  // dS of the current k tile
-  float* Acc = Ps + BT * PS;     // dq / scale
-
-  const int tid = threadIdx.x;
-  const int rg = tid / CG, cg = tid % CG;
-  const int q0 = win.tile * BT;
-  const int h = win.h, b = win.b;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const T* gb = g + b * sg.b + h * sg.h;
-  const long long stat = (static_cast<long long>(b) * H + h) * L;
-
-  if (nch == 1) {
-    load_tile<T, DC>(Qs, qb, sq.l, q0, L, scale);
-    load_tile<T, DC>(Gs, gb, sg.l, q0, L, 1.f);
-  }
-  zero_acc<D>(Acc);
-  float lse_r[RG], del_r[RG];
-#pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    const int row = q0 + rg * RG + i;
-    lse_r[i] = row < L ? lse[stat + row] : 0.f;
-    del_r[i] = row < L ? delta[stat + row] : 0.f;
-  }
-
-  const int k_end = causal ? min(L, q0 + BT) : L;
-  for (int k0 = 0; k0 < k_end; k0 += BT) {
-    float s[RG][CJ], dp[RG][CJ];
-    zero_scores(s, dp);
-    for (int c = 0; c < nch; ++c) {
-      __syncthreads();  // the previous readers are done with the tiles and Ps
-      if (nch > 1) {
-        load_tile<T, DC>(Qs, qb + c * DC, sq.l, q0, L, scale);
-        load_tile<T, DC>(Gs, gb + c * DC, sg.l, q0, L, 1.f);
-      }
-      load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
-      load_tile<T, DC>(Vs, vb + c * DC, sv.l, k0, L, 1.f);
-      __syncthreads();
-      scores<DC, false>(s, dp, Qs, Gs, Ks, Vs, rg, cg, 1.f);
-    }
-#pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      const int row = q0 + rg * RG + i;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int key = k0 + cg + CG * j;
-        const bool masked = row >= L || key >= L || (causal && key > row);
-        const float p = masked ? 0.f : expf(s[i][j] - lse_r[i]);
-        Ps[(rg * RG + i) * PS + cg + CG * j] = p * (dp[i][j] - del_r[i]);
-      }
-    }
-    __syncthreads();  // every row's dS is in Ps
-    // dS k, chunk by chunk of the window's columns of k, last first: chunk nch - 1 is the one in Ks
-    for (int c = win.c_hi - 1; c >= win.c_lo; --c) {
-      if (c != nch - 1) {
-        __syncthreads();
-        load_tile<T, DC>(Ks, kb + c * DC, sk.l, k0, L, 1.f);
-        __syncthreads();
-      }
-      accumulate<DC, Lay::AS>(Acc + (c - win.c_lo) * DC, Ps, Ks, rg, cg);
-    }
-  }
-  __syncthreads();
-  store_tile<T, D>(dq, Acc, b, h, q0, L, H, D == WIDE ? dd : D, win.c_lo * DC, scale);
-}
-
-template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* delta,
-             void* dq, int B, int L, int H, int dd, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
-             float scale, cudaStream_t stream) {
-  auto kernel = flash_dq_kernel<T, D>;
-  const int bytes = Layout<D>::bytes;
-  const int windows = D == WIDE ? (dd + WN - 1) / WN : 1;
-  dim3 grid;
-  if (!grid_for(B, L, H, windows, grid)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), L, H, dd, windows,
-      sq, sk, sv, sg, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
 // ------------------------------------------------------------------ D <= 128 (flash_bwd_sm90.cuh)
 
 namespace fs = flash_sm90;
+using fs::Strides;
 
 template <int D>
 struct FfmaLayout {
@@ -334,6 +233,263 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* g, cons
   else return run(flash_dq_kernel_mma<D>, MmaLayout<D>::bytes);
 }
 
+// ------------------------------------------------------------------ D = 256 and WIDE (the wide namespace)
+
+namespace fw = flash_sm90::wide;
+
+template <int D>
+struct FfmaWideLayout {
+  static constexpr int TILE = fw::f32::TILE;
+  static constexpr int ST = 3;                               // ring stages
+  static constexpr int STAGE = 4 * TILE;                     // k, v, q, dO chunks (a product step: k)
+  static constexpr int bytes = TILE + ST * STAGE;            // dS, the ring
+};
+
+// D: 256, or WIDE (dd, a multiple of 64 above 256, and the windows at run time).
+template <int D>
+__global__ void __launch_bounds__(fw::THREADS, 1)
+flash_dq_kernel_ffma_wide(fs::Operand<float> q, fs::Operand<float> k, fs::Operand<float> v, fs::Operand<float> g,
+                          const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+                          int L, int H, int dd, int wn, int causal, float scale) {
+  using Lay = FfmaWideLayout<D>;
+  constexpr int BT = fs::BT, CS = fw::f32::CS, TL = Lay::TILE / 4, ST = Lay::ST;
+  extern __shared__ float4 smem_ffma_wide[];
+  float* Ps = reinterpret_cast<float*>(smem_ffma_wide);  // dS of the current k tile
+  float* ring = Ps + TL;
+  const uint32_t s_ring = sm90::smem_addr(ring);
+
+  const int tid = threadIdx.x;
+  const int rg = tid / 16, cg = tid % 16;  // scores: q rows rg + 16 i, keys cg + 16 j; dq: rows rg * 4 + i
+  const fw::Place at = fw::place(dd, wn, L, H, causal);
+  const int nch = D == fw::WIDE ? at.nch : D / fw::CW;
+  const int q0 = at.tile * BT;
+  const float *qb = q.slice(at.b, at.h), *kb = k.slice(at.b, at.h);
+  const float *vb = v.slice(at.b, at.h), *gb = g.slice(at.b, at.h);
+  const int nkt = causal ? (min(L, q0 + BT) + BT - 1) / BT : (L + BT - 1) / BT;
+  const int per = nch + at.nwin, steps = nkt * per;
+  // step u of the schedule into stage u % ST: score step r < nch of k tile t loads chunk r of k, v, q, dO;
+  // product step r >= nch window chunk c_lo + r - nch of k
+  auto issue = [&](int u) {
+    if (u < steps) {
+      const int t = u / per, r = u % per;
+      const uint32_t st = s_ring + (u % ST) * Lay::STAGE;
+      if (r < nch) {
+        fw::load_chunk<float, CS>(st, kb, k.l, r, t * BT, L, k.vec);
+        fw::load_chunk<float, CS>(st + Lay::TILE, vb, v.l, r, t * BT, L, v.vec);
+        fw::load_chunk<float, CS>(st + 2 * Lay::TILE, qb, q.l, r, q0, L, q.vec);
+        fw::load_chunk<float, CS>(st + 3 * Lay::TILE, gb, g.l, r, q0, L, g.vec);
+      } else {
+        fw::load_chunk<float, CS>(st, kb, k.l, at.c_lo + r - nch, t * BT, L, k.vec);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  for (int u = 0; u < ST - 1; ++u) issue(u);
+  const long long stat = (static_cast<long long>(at.b) * H + at.h) * L;
+  float lse_r[4], del_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rg + 16 * i;
+    lse_r[i] = row < L ? lse[stat + row] : 0.f;
+    del_r[i] = row < L ? delta[stat + row] : 0.f;
+  }
+  float acc[fw::NWC][4][4];
+#pragma unroll
+  for (int j = 0; j < fw::NWC; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][i][e] = 0.f;
+
+  for (int t = 0; t < nkt; ++t) {
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < nch; ++r) {
+      const int u = t * per + r;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // step u landed; every thread is done with the stage the next issue refills
+      issue(u + ST - 1);
+      const float* st = ring + (u % ST) * (Lay::STAGE / 4);
+      fw::f32::scores(s, dp, st + 2 * TL, st + 3 * TL, st, st + TL, rg, cg, scale);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + rg + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = t * BT + cg + 16 * j;
+        const bool masked = row >= L || key >= L || (causal && key > row);
+        const float p = masked ? 0.f : expf(s[i][j] - lse_r[i]);
+        Ps[(rg + 16 * i) * CS + cg + 16 * j] = p * (dp[i][j] - del_r[i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j) {
+      if (j >= at.nwin) break;
+      const int u = t * per + nch + j;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // the k chunk landed; every row's dS is in Ps
+      issue(u + ST - 1);
+      fw::f32::product(acc[j], Ps, ring + (u % ST) * (Lay::STAGE / 4), rg, cg);
+    }
+  }
+  fw::f32::store(dq, acc, at, q0, rg, cg, L, H, dd, scale);
+}
+
+template <int D>
+struct MmaWideLayout {
+  static constexpr bool RES = D != fw::WIDE;          // q and dO held for the whole block (D = 256)
+  static constexpr int TILE = fw::mma::TILE;
+  static constexpr int ST = 4;                         // ring stages
+  static constexpr int STAGE = (RES ? 2 : 4) * TILE;  // k, v (and q, dO) chunks; a product step: k
+  static constexpr int OWN = RES ? 2 * (D / fw::CW) * TILE : 0;
+  static constexpr int bytes = OWN + 2 * TILE + ST * STAGE;  // q and dO, dS hi and lo, the ring
+  // D = 256: a tile's four score steps fill the four stages, the window's chunks first (chunk c_lo + r at step
+  // r), and product step j finds chunk c_lo + j of k where score step j left it and loads nothing
+  static_assert(!RES || ST == D / fw::CW, "the D = 256 ring holds one tile's chunks");
+};
+
+template <int D>
+__global__ void __launch_bounds__(fw::THREADS, 1)
+flash_dq_kernel_mma_wide(fs::Operand<port::bf16> q, fs::Operand<port::bf16> k, fs::Operand<port::bf16> v,
+                         fs::Operand<port::bf16> g, const float* __restrict__ lse, const float* __restrict__ delta,
+                         port::bf16* __restrict__ dq, int L, int H, int dd, int wn, int causal, float scale) {
+  using Lay = MmaWideLayout<D>;
+  using port::bf16;
+  constexpr int BT = fs::BT, CS = fw::mma::CS, TILE = Lay::TILE, ST = Lay::ST;
+  extern __shared__ float4 smem_mma_wide[];
+  const uint32_t s_own = sm90::smem_addr(smem_mma_wide);  // chunk c of q, then of dO (D = 256)
+  const uint32_t s_hi = s_own + Lay::OWN, s_lo = s_hi + TILE, s_ring = s_lo + TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = (warp & 3) * 16, n0 = (warp >> 2) * 32;  // the warp's q rows; its keys and its columns of a chunk
+  const fw::Place at = fw::place(dd, wn, L, H, causal);
+  const int nch = D == fw::WIDE ? at.nch : D / fw::CW;
+  const int q0 = at.tile * BT;
+  const bf16 *qb = q.slice(at.b, at.h), *kb = k.slice(at.b, at.h);
+  const bf16 *vb = v.slice(at.b, at.h), *gb = g.slice(at.b, at.h);
+  const int nkt = causal ? (min(L, q0 + BT) + BT - 1) / BT : (L + BT - 1) / BT;
+  const int per = nch + at.nwin, steps = nkt * per;
+  // Step u (score step or product step r of k tile t): score step r < nch loads chunk r of k and v (at
+  // D = 256 chunk c_lo + r, mod 4) and, above 256, of q and dO; product step r >= nch window chunk
+  // c_lo + r - nch of k (at D = 256 already there). Its stage: u % ST, or at D = 256 (t nwin + r) % ST, the
+  // product steps' that of the score step that left their chunk: a tile's stages of score steps past the
+  // window are refilled first, those of the window only once its products are done.
+  auto stage = [&](int u, int t, int r) {
+    return s_ring + ((Lay::RES ? t * at.nwin + r : u) % ST) * Lay::STAGE;
+  };
+  auto issue = [&](int u) {
+    if (u < steps) {
+      const int t = u / per, r = u % per;
+      const uint32_t st = stage(u, t, r);
+      if (r < nch) {
+        const int c = Lay::RES ? (at.c_lo + r) % nch : r;
+        fw::load_chunk<bf16, CS>(st, kb, k.l, c, t * BT, L, k.vec);
+        fw::load_chunk<bf16, CS>(st + TILE, vb, v.l, c, t * BT, L, v.vec);
+        if constexpr (!Lay::RES) {
+          fw::load_chunk<bf16, CS>(st + 2 * TILE, qb, q.l, r, q0, L, q.vec);
+          fw::load_chunk<bf16, CS>(st + 3 * TILE, gb, g.l, r, q0, L, g.vec);
+        }
+      } else if constexpr (!Lay::RES) {
+        fw::load_chunk<bf16, CS>(st, kb, k.l, at.c_lo + r - nch, t * BT, L, k.vec);
+      }
+    }
+    sm90::cp_async_commit();
+  };
+  if constexpr (Lay::RES) {
+    for (int c = 0; c < nch; ++c) {
+      fw::load_chunk<bf16, CS>(s_own + c * TILE, qb, q.l, c, q0, L, q.vec);
+      fw::load_chunk<bf16, CS>(s_own + (nch + c) * TILE, gb, g.l, c, q0, L, g.vec);
+    }
+  }
+  for (int u = 0; u < ST - 1; ++u) issue(u);  // the first group carries q and dO too
+
+  const int row_lo = q0 + m0 + (lane >> 2);  // the thread's rows: row_lo (C regs 0, 1) and row_lo + 8 (2, 3)
+  const long long stat = (static_cast<long long>(at.b) * H + at.h) * L;
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row_lo + 8 * hf;
+    lse_r[hf] = row < L ? lse[stat + row] : 0.f;
+    del_r[hf] = row < L ? delta[stat + row] : 0.f;
+  }
+  float acc[fw::NWC][4][4];
+#pragma unroll
+  for (int j = 0; j < fw::NWC; ++j)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+
+  for (int t = 0; t < nkt; ++t) {
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int r = 0; r < nch; ++r) {
+      const int u = t * per + r;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // step u landed; every warp is done with the stage the next issue refills
+      issue(u + ST - 1);
+      const uint32_t st = stage(u, t, r);
+      const int c = (at.c_lo + r) % nch;
+      const uint32_t sq = Lay::RES ? s_own + c * TILE : st + 2 * TILE;
+      const uint32_t sg = Lay::RES ? s_own + (nch + c) * TILE : st + 3 * TILE;
+      fw::mma::scores(s, sq, m0, st, n0, lane);
+      fw::mma::scores(dp, sg, m0, st + TILE, n0, lane);
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row_lo + 8 * (e >> 1);
+        const int key = t * BT + n0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        const bool masked = row >= L || key >= L || (causal && key > row);
+        const float p = masked ? 0.f : expf(s[n][e] * scale - lse_r[e >> 1]);
+        s[n][e] = p * (dp[n][e] - del_r[e >> 1]);  // dS
+      }
+    fw::mma::store_split(s, s_hi, s_lo, m0, n0, lane);
+    uint32_t a[2][4][4];
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j) {
+      if (j >= at.nwin) break;
+      const int u = t * per + nch + j;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // the k chunk landed; every warp's dS is in shared memory
+      issue(u + ST - 1);
+      if (j == 0) fw::mma::frags(a, s_hi, s_lo, m0, lane);
+      fw::mma::product(acc[j], a, stage(u, t, j), n0, lane);
+    }
+  }
+  fw::mma::store(dq, acc, at, q0, m0, n0, L, H, dd, scale, lane);
+}
+
+template <typename T, int D>
+int launch_wide(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* delta,
+                void* dq, int B, int L, int H, int dd, Strides sq, Strides sk, Strides sv, Strides sg, int causal,
+                float scale, cudaStream_t stream) {
+  const auto oq = fs::operand<T>(q, sq.b, sq.l, sq.h), ok = fs::operand<T>(k, sk.b, sk.l, sk.h);
+  const auto ov = fs::operand<T>(v, sv.b, sv.l, sv.h), og = fs::operand<T>(g, sg.b, sg.l, sg.h);
+  dim3 grid;
+  int wn;
+  if (!fw::grid_for(B, L, H, dd, grid, wn)) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto kernel, int bytes) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, fw::THREADS, bytes, stream>>>(oq, ok, ov, og, static_cast<const float*>(lse),
+                                                 static_cast<const float*>(delta), static_cast<T*>(dq), L, H,
+                                                 dd, wn, causal, scale);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (std::is_same<T, float>::value) return run(flash_dq_kernel_ffma_wide<D>, FfmaWideLayout<D>::bytes);
+  else return run(flash_dq_kernel_mma_wide<D>, MmaWideLayout<D>::bytes);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* g, const void* lse, const void* delta,
            void* dq, int B, int L, int H, int D, long long qb, long long ql, long long qh, long long kb,
@@ -341,19 +497,19 @@ int launch(const void* q, const void* k, const void* v, const void* g, const voi
            long long gh, int causal, float scale, void* stream) {
   const Strides sq{qb, ql, qh}, sk{kb, kl, kh}, sv{vb, vl, vh}, sg{gb, gl, gh};
   const auto st = static_cast<cudaStream_t>(stream);
-#define FLASH_DQ_LAUNCH(I) launch_d<T, I>(q, k, v, g, lse, delta, dq, B, L, H, D, sq, sk, sv, sg, causal, scale, st)
+#define FLASH_DQ_WIDE(I) launch_wide<T, I>(q, k, v, g, lse, delta, dq, B, L, H, D, sq, sk, sv, sg, causal, scale, st)
 #define FLASH_DQ_SM90(I) launch_sm90<T, I>(q, k, v, g, lse, delta, dq, B, L, H, sq, sk, sv, sg, causal, scale, st)
   switch (D) {
     case 16: return FLASH_DQ_SM90(16);
     case 32: return FLASH_DQ_SM90(32);
     case 64: return FLASH_DQ_SM90(64);
     case 128: return FLASH_DQ_SM90(128);
-    case 256: return FLASH_DQ_LAUNCH(256);
+    case 256: return FLASH_DQ_WIDE(256);
     default:
-      if (D > 256 && D % Dims<WIDE>::DC == 0) return FLASH_DQ_LAUNCH(WIDE);
+      if (D > 256 && D % fw::CW == 0) return FLASH_DQ_WIDE(fw::WIDE);
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef FLASH_DQ_LAUNCH
+#undef FLASH_DQ_WIDE
 #undef FLASH_DQ_SM90
 }
 

@@ -36,6 +36,10 @@ __device__ __forceinline__ void st_shared(uint32_t a, port::bf16 v) {
   asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(a), "h"(__bfloat16_as_ushort(v)) : "memory");
 }
 
+__device__ __forceinline__ void st_shared_b32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v) : "memory");
+}
+
 __device__ __forceinline__ void st_shared_v4(uint32_t a, uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(x), "r"(y), "r"(z), "r"(w) : "memory");
 }

@@ -31,8 +31,8 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
   forward behind ``ops/flash_attention.py``;
 - ``flash_dq``, ``flash_dkv``: :func:`flash_dq`, :func:`flash_dkv`,
   ``flash_dq.cu`` and ``flash_dkv.cu``, its backward. The three run their
-  head dims up to 128 over ``flash_bwd_sm90.cuh``; the backward's D >= 256
-  over ``flash_bwd.cuh``.
+  head dims up to 128 over ``flash_bwd_sm90.cuh``, and so does the
+  backward at D >= 256 (its ``wide`` pieces).
 
 The six conv kernels are implicit GEMMs on one Hopper mainloop,
 ``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on the tensor cores).
@@ -1352,13 +1352,16 @@ def flash_dq(
     L^2 D FLOPs, half when causal). Design (``csrc/flash_dq.cu`` over
     ``csrc/flash_bwd_sm90.cuh``): one block per (b, h, 64-row q tile),
     heaviest causal tiles first, K/V tiles streamed through shared memory
-    by cp.async; no atomics, so a second launch gives the same bits. At
-    D <= 128, bf16 runs on the tensor cores (mma.sync; dS split into two
-    bf16 terms for the dS k product) and fp32 on register-tiled FFMA in the
-    operations and order of the earlier FFMA kernel (its bits). D = 256 and
-    above keep that FFMA kernel (``csrc/flash_bwd.cuh``) for both dtypes.
-    Operands off 16-byte alignment (a strided view) are copied element by
-    element inside the kernel into the same tiles."""
+    by cp.async; no atomics, so a second launch gives the same bits. bf16
+    runs on the tensor cores (mma.sync; dS split into two bf16 terms for
+    the dS k product) and fp32 on register-tiled FFMA in the operations
+    and order of the earlier FFMA kernel (its bits). At D = 256 and above a
+    block is 8 warps and owns a window of 256 dq columns (128 where 256
+    would leave SMs idle); the operands move as 64-column chunks through a
+    cp.async ring, and the scores are summed over all of D chunk after
+    chunk. Operands off 16-byte alignment
+    (a strided view) are copied element by element inside the kernel into
+    the same tiles."""
     dev = _flash_bwd_check("flash_dq", q, k, v, g, lse, delta)
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":
@@ -1385,11 +1388,12 @@ def flash_dkv(
     L^2 D FLOPs, half when causal). Design (``csrc/flash_dkv.cu`` over
     ``csrc/flash_bwd_sm90.cuh``): one block per (b, h, 64-key tile), q/dO
     tiles streamed through shared memory by cp.async from the diagonal on
-    (causal); no atomics. At D <= 128, bf16 runs on the tensor cores
-    (mma.sync; p and dS split into two bf16 terms for the p^T dO and dS^T q
-    products) and fp32 on register-tiled FFMA with the earlier FFMA
-    kernel's bits; D = 256 and above keep that kernel (``csrc/flash_bwd.cuh``)
-    for both dtypes."""
+    (causal); no atomics. bf16 runs on the tensor cores (mma.sync; p and dS
+    split into two bf16 terms for the p^T dO and dS^T q products) and fp32
+    on register-tiled FFMA with the earlier FFMA kernel's bits. At D = 256
+    and above a block is 8 warps and owns a window of 256 dk and dv
+    columns (128 where 256 would leave SMs idle), the operands in 64-column
+    chunks through a cp.async ring."""
     dev = _flash_bwd_check("flash_dkv", q, k, v, g, lse, delta)
     flash_blocks(q.shape[1], block_q, block_k)
     if dev.type == "cpu":

@@ -511,6 +511,35 @@ def _bf16_backward_emulation(q, k, v, g, lse, delta, causal, terms):
     return tuple(t.permute(0, 2, 1, 3).to(torch.bfloat16) for t in (dq, dk, dv))
 
 
+def _bf16_backward_emulation_wide(q, k, v, g, lse, delta, causal, terms):
+    """The bf16 tensor-core arithmetic of the card's flash_dq and flash_dkv at D >= 256 (the D = 256 instance
+    and the windowed one above it), in torch: the score products summed over D in 64-column chunks, each
+    chunk's product of the bf16 operands in fp32 added to the running fp32 scores, s scaled after; p and dS
+    in fp32, each split into ``terms`` bf16 terms; each window of 256 output columns takes its columns of
+    k, q and dO through the second products on every term, in fp32; the outputs rounded once to bf16."""
+    d = q.shape[-1]
+    qf, kf, vf, gf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, g))  # (B, H, L, D)
+    s = torch.zeros(qf.shape[:3] + (kf.shape[2],))
+    dp = torch.zeros_like(s)
+    for c in range(0, d, 64):
+        s = s + qf[..., c : c + 64] @ kf[..., c : c + 64].transpose(-1, -2)
+        dp = dp + gf[..., c : c + 64] @ vf[..., c : c + 64].transpose(-1, -2)
+    s = s * (1.0 / d**0.5)
+    if causal:
+        l = q.shape[1]
+        s = s.masked_fill(~torch.ones(l, l, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dp - delta[..., None])
+    p_terms, ds_terms = _split_terms(p, terms), _split_terms(ds, terms)
+    dq, dk, dv = (torch.zeros_like(qf) for _ in range(3))
+    for w in range(0, d, 256):
+        cols = slice(w, w + 256)
+        dq[..., cols] = sum(t @ kf[..., cols] for t in ds_terms) * (1.0 / d**0.5)
+        dk[..., cols] = sum(t.transpose(-1, -2) @ qf[..., cols] for t in ds_terms) * (1.0 / d**0.5)
+        dv[..., cols] = sum(t.transpose(-1, -2) @ gf[..., cols] for t in p_terms)
+    return tuple(t.permute(0, 2, 1, 3).to(torch.bfloat16) for t in (dq, dk, dv))
+
+
 def _bf16_backward_case(shape, causal, seed):
     rng = np.random.default_rng(seed)
     q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16) for _ in range(4))
@@ -521,28 +550,38 @@ def _bf16_backward_case(shape, causal, seed):
     return args, plain
 
 
+# the emulation of the kernels at a shape: D <= 128's, or that of D = 256 and the windowed instance above it
+def _emulation(d):
+    return _bf16_backward_emulation if d <= 128 else _bf16_backward_emulation_wide
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64), (1, 256, 2, 256), (1, 256, 2, 384)])
 def test_bf16_two_term_split_meets_the_plain_rule(shape, causal):
     """Why the card's bf16 backward splits p and dS into two bf16 terms:
     with hi + lo (16 significant bits) feeding the tensor-core products,
     dq, dk and dv stay within the rule chip_smoke.py holds the kernels to
     against flash_dq_plain/flash_dkv_plain (fp32 p and dS), 1 bf16 ulp +
-    1e-5 x max |plain|."""
+    1e-5 x max |plain|; at D = 256 and the windowed D = 384 too, the scores
+    summed in 64-column chunks and each window's columns on both terms."""
     args, plain = _bf16_backward_case(shape, causal, seed=shape[1] + causal)
-    got = _bf16_backward_emulation(*args, causal=causal, terms=2)
+    got = _emulation(shape[3])(*args, causal=causal, terms=2)
     for name, a, b in zip(("dq", "dk", "dv"), got, plain):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape
         assert _share_of_bf16_rule(a, b) <= 1.0, name
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_one_bf16_term_breaks_the_plain_rule(causal):
+@pytest.mark.parametrize("shape, causal", [
+    pytest.param((1, 512, 2, 64), False, id="False"), pytest.param((1, 512, 2, 64), True, id="True"),
+    pytest.param((1, 256, 2, 256), False, id="d256-False"), pytest.param((1, 256, 2, 256), True, id="d256-True"),
+    pytest.param((1, 256, 2, 384), False, id="d384-False"), pytest.param((1, 256, 2, 384), True, id="d384-True"),
+])
+def test_one_bf16_term_breaks_the_plain_rule(shape, causal):
     """A single bf16 rounding of p and dS (what SDPA feeds its second
     products) takes dq, dk or dv well past that rule: the split is what keeps
-    the kernels on the JAX package's fp32 arithmetic."""
-    args, plain = _bf16_backward_case((1, 512, 2, 64), causal, seed=512 + causal)
-    got = _bf16_backward_emulation(*args, causal=causal, terms=1)
+    the kernels on the JAX package's fp32 arithmetic, at D >= 256 too."""
+    args, plain = _bf16_backward_case(shape, causal, seed=shape[1] + causal)
+    got = _emulation(shape[3])(*args, causal=causal, terms=1)
     assert max(_share_of_bf16_rule(a, b) for a, b in zip(got, plain)) > 4.0
 
 

@@ -170,14 +170,14 @@ def test_build_key_follows_the_sources(monkeypatch, tmp_path):
     assert _build.source_hash() != before
 
 
-HEADERS = ["common.cuh", "conv_sm90.cuh", "flash_bwd.cuh", "flash_bwd_sm90.cuh", "pool_keys.cuh", "sm90_ptx.cuh"]
+HEADERS = ["common.cuh", "conv_sm90.cuh", "flash_bwd_sm90.cuh", "pool_keys.cuh", "sm90_ptx.cuh"]
 
 
 @pytest.mark.parametrize("header", HEADERS)
 def test_build_key_follows_each_header(header, monkeypatch, tmp_path):
     """Every header the sources include (conv_sm90.cuh: the mainloop of
-    the six conv kernels; flash_bwd_sm90.cuh: the flash backward at D <=
-    128; sm90_ptx.cuh: the PTX wrappers both share; pool_keys.cuh: the
+    the six conv kernels; flash_bwd_sm90.cuh: the flash backward at every
+    D and the forward at D <= 128; sm90_ptx.cuh: the PTX wrappers both share; pool_keys.cuh: the
     three max-pools' order keys) is part of the build key: editing one
     builds the library anew."""
     assert {p.name for p in _build.CSRC_DIR.glob("*.cuh")} == set(HEADERS)

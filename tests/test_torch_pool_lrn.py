@@ -141,6 +141,62 @@ def test_reference_relu_maxpool_bitwise_jax(dtype):
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
 
 
+# ------------------------------------------------------------- subnormals
+
+
+def _subnormal_windows(shape, dtype, seed) -> np.ndarray:
+    """Subnormals of both signs (bf16's, for bf16: the fp32 values whose low 16 bits are 0) mixed with +0.0
+    and -0.0, so that windows hold only subnormals, subnormals and zeros of either sign, or only zeros."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(1, 1 << 23, size=shape, dtype=np.uint32)
+    if dtype == "bf16":
+        bits = ((bits >> 16) | 1) << 16  # a nonzero 7-bit mantissa in the high half
+    bits |= rng.integers(0, 2, size=shape, dtype=np.uint32) << 31
+    kind = rng.integers(0, 5, size=shape)
+    bits = np.where(kind == 3, np.uint32(0), np.where(kind == 4, np.uint32(1 << 31), bits))
+    return bits.view(np.float32)
+
+
+def _assert_bitwise_or_flushed(got, want):
+    """Every bit of ``got`` (the port) is ``want``'s (JAX's), except where the port's value is a subnormal
+    and JAX's is that subnormal flushed to the zero of its sign; the two then differ by less than 2^-126."""
+    wide = got.element_size() == 4
+    ut = np.uint32 if wide else np.uint16
+    gb, wb = _bits(got).view(ut), _bits(want).view(ut)
+    sign, expo = (ut(1 << 31), ut(0xFF << 23)) if wide else (ut(1 << 15), ut(0xFF << 7))
+    sub = ((gb & expo) == 0) & ((gb & ~sign) != 0)
+    flushed = sub & (wb != gb)
+    np.testing.assert_array_equal(np.where(flushed, gb & sign, gb), wb)
+    diff = np.abs(got.double().numpy() - np.asarray(want.astype(jnp.float32)).astype(np.float64))
+    assert (diff < 2.0**-126).all()
+    assert sub.any()  # the windows made subnormal maxima
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("pool", ["maxpool2d", "maxpool2d_w", "maxpool_phases", "reference"])
+def test_subnormal_windows_match_jax_up_to_its_flush(pool, dtype):
+    """The ruling on subnormal pool inputs: XLA's CPU backend reads a
+    subnormal operand as a zero of its sign, the port (and the card, and XLA
+    on a GPU, whose flush-to-zero is off by default) keeps it. So the port
+    agrees with JAX bit for bit but where JAX flushed, and there its value
+    is the port's subnormal flushed: a difference under 2^-126, far inside
+    every stage budget (fp32 1e-4 abs / 1e-5 rel)."""
+    x = _subnormal_windows((2, 11, 13, 24), dtype, seed=12)
+    jx, tx = _both(x, dtype)
+    fns = {
+        "maxpool2d": (lambda: ck.maxpool2d(tx, window=3, stride=2),
+                      lambda: pk.maxpool_pallas(jx, window=3, stride=2, variant="sep2")),
+        "maxpool2d_w": (lambda: ck.maxpool2d_w(tx, window=3, stride=2),
+                        lambda: pk.maxpool_pallas_w(jx, window=3, stride=2)),
+        "maxpool_phases": (lambda: ck.maxpool_phases(tx, window=3, stride=2),
+                           lambda: pk.maxpool_pallas(jx, window=3, stride=2, variant="phases")),
+        "reference": (lambda: tref.maxpool(tx, window=3, stride=2).contiguous(),
+                      lambda: jref.maxpool(jx, window=3, stride=2)),
+    }
+    got, want = (f() for f in fns[pool])
+    _assert_bitwise_or_flushed(got, want)
+
+
 def test_minus_zero_first_or_last_in_a_window_gives_plus_zero():
     """The two windows the max rule was repaired on: -0.0 at tap (0, 0) and
     +0.0 elsewhere, and -0.0 everywhere but one +0.0 (at the last tap)."""
