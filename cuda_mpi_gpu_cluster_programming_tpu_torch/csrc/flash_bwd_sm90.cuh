@@ -1,9 +1,11 @@
 // The Hopper flash-attention backward: the pieces flash_dq.cu and flash_dkv.cu
 // build their kernels from, at the head dims 16, 32, 64 and 128 (namespaces
 // f32 and mma) and at D = 256 and the windowed instance above it (namespace
-// wide). The forward, flash_fwd.cu, builds its kernels at D <= 128 from the
-// same pieces: Operand, place, load_tile, f32::RS and, in mma, the fragment
-// addresses, split, as_a and product_pair.
+// wide). The forward, flash_fwd.cu, builds its kernels from the same
+// pieces: at D <= 128 Operand, place, load_tile, f32::RS and, in mma, the
+// fragment addresses, split, as_a and product_pair; at D = 256 and above
+// wide's place, grid_for, load_chunk and, in wide::mma, scores, store_split,
+// frags and product.
 //
 // Both kernels recompute one 64 x 64 tile of s = q k^T and dp = dO v^T, then
 // p = exp(s * scale - lse) (exactly 0 where masked) and dS = p * (dp - delta),

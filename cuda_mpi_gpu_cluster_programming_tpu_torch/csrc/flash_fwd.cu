@@ -12,12 +12,12 @@
 //
 // Bound on the H100: operations (2 products of 2 B H L^2 D FLOPs, half of
 // that causal, against 4 reads/writes of B L H D elements): FFMA's 67
-// TFLOP/s in fp32, the tensor cores' 989 in bf16. One block per (b, h,
-// 64-row q tile), 128 threads, one grid dimension with (b, h) fastest (any
-// B and H) and the heaviest causal tiles first; 64-key K/V tiles stream
-// through shared memory and k tiles wholly above the diagonal are not
-// visited. No atomics: a second launch gives the same bits. At D <= 128
-// (over flash_bwd_sm90.cuh, the pieces of the Hopper backward):
+// TFLOP/s in fp32, the tensor cores' 989 in bf16. One grid dimension with
+// (b, h) fastest (any B and H) and the heaviest causal tiles first; 64-key
+// k/v tiles stream through shared memory and k tiles wholly above the
+// diagonal are not visited. No atomics: a second launch gives the same
+// bits. At D <= 128 one block per (b, h, 64-row q tile), 128 threads (over
+// flash_bwd_sm90.cuh, the pieces of the Hopper backward):
 //   * fp32, flash_fwd_kernel_ffma: FFMA in the operations and order of the
 //     parent kernel (its bits, which FLASH_SWEEP_SHA256 and the backward's
 //     FLASH_BWD_TILES_SHA256 hold through out and lse): q rounded to
@@ -39,24 +39,47 @@
 //     lo = bf16(p - hi), as one bf16 rounding takes out 38-79x past the
 //     plain version's rule (tests/test_torch_attention.py). A 3-stage K/V
 //     ring (2 at D = 128).
-// D = 256 (flash_fwd_kernel) keeps the FFMA kernel of before for both
-// dtypes: the q tile, pre-scaled, and each 64-key K/V tile in shared memory
-// as fp32 (bf16 widened at the load), a thread owns 4 rows and every 8th
-// column of the scores and of the output, p through shared memory (209 KB).
-// D > 256 (any multiple of DC = 64; flash_fwd_wide_kernel): one block per
-// (b, h, q tile, window of WN = 256 output columns); the q and k tiles are
-// held DC columns at a time and the scores summed chunk after chunk (d
-// ascending, one fmaf a term, as above), so every window recomputes the
-// same scores and statistics bit for bit; window 0 writes lse.
+// D = 256 and D > 256 (the WIDE instance, any multiple of 64; over the
+// header's wide pieces): 256 threads (8 warps), one block per (b, h, 64-row
+// q tile, window of 256 output columns, or 128 where wide::grid_for halves
+// the windows on a grid smaller than the card). The operands move as 64 x 64
+// chunks through a cp.async ring that runs ahead across the visited k
+// tiles: per k tile, score steps over the D / 64 chunks of k (and above 256
+// of q; at D = 256 the q tile stays in shared memory for the whole block)
+// summed into s chunk after chunk, then product steps over the window's
+// chunks of v; a ring step carries G chunks behind one __syncthreads. Every
+// window recomputes the same scores and statistics; window 0 writes lse.
+// Each output element's arithmetic does not depend on the split.
+//   * bf16, flash_fwd_kernel_mma_wide: mma.sync on ldmatrix fragments, the
+//     8 warps split the 64 x 64 score tile as 4 row groups x 2 key halves
+//     (s on the raw bf16 operands, scaled after). The row max and sum(p) of
+//     the two warps that share rows meet in a small shared array (one
+//     __syncthreads a tile for the max; the sums ride the first product
+//     step's), so both compute the same m and den and keep corr in
+//     registers. p is split into hi + lo and written once as bf16 tiles;
+//     each warp loads its A fragments once a tile and owns 16 rows x 32
+//     columns of each window chunk (64 fp32 accumulators a thread), v read
+//     by ldmatrix.trans. G = 4 at D = 256 (a step is the whole k tile, or
+//     the window's v: 3 __syncthreads a tile), 2 above; a 4-stage ring.
+//   * fp32, flash_fwd_kernel_ffma_wide: FFMA with the bits of the parent
+//     FFMA kernels (FLASH_SWEEP_SHA256 at D = 256, FLASH_FWD_WIDE_SHA256 and
+//     the backward's FLASH_BWD_WIDE_SHA256 above): q * scale rounded, s one
+//     fmaf chain over d ascending chunk after chunk, a thread's 2 rows
+//     (rg + 32 i) x the 8 keys cg + 8 j of the score tile (the key set of
+//     the parent's sum(p) tree: partial sums, then the 8-lane butterfly),
+//     and the same 2 rows x 8 columns of each window chunk in float4 runs,
+//     so corr stays in registers; acc * corr, then one fmaf chain over the
+//     tile's keys ascending. Chunk rows padded to 68 floats, p rows to 72;
+//     G = 1, an 8-stage ring at D = 256 (k or v a stage), 6 above (q and k).
 //
 // Masking: a key past the end of the sequence or above the causal diagonal
 // adds exactly 0. Its score is -inf and its p is exp(-inf) = 0; while a
 // row has seen no key at all (m = -inf), the exponent is taken against 0,
 // so no exp(-inf - -inf) appears. K/V rows past the end load as 0, so
 // 0 * v never meets garbage. q, k and v are read through their (B, L, H)
-// strides, the last axis contiguous; at D <= 128 by 16-byte cp.async where
-// the operand's base and strides are 16-byte aligned, else element by
-// element into the same tiles (the same bits).
+// strides, the last axis contiguous, by 16-byte cp.async where the
+// operand's base and strides are 16-byte aligned, else element by element
+// into the same tiles (the same bits).
 #include <type_traits>
 
 #include "flash_bwd_sm90.cuh"
@@ -64,256 +87,7 @@
 namespace {
 
 namespace fs = flash_sm90;
-
-// ------------------------------------------------------------------ D = 256 and D > 256: FFMA in both dtypes
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per shared-memory tile
-constexpr int CG = 8;         // column groups: a thread's columns are cg + 8 j
-constexpr int RG = 4;         // rows per thread
-constexpr int THREADS = (BQ / RG) * CG;  // 128
-constexpr int KJ = BK / CG;   // score columns per thread
-constexpr int PS = BK + 1;    // row stride of the p tile
-
-template <int D>
-struct Layout {
-  static constexpr int QS = D + 1;   // odd row strides: the 16 rows a warp reads hit distinct banks
-  static constexpr int KS = D + 1;
-  static constexpr int VS = D;       // a warp reads 8 neighbouring columns of one row
-  static constexpr int bytes = static_cast<int>(sizeof(float)) * (BQ * QS + BK * KS + BK * VS + BQ * PS);
-};
-
-struct Strides {
-  long long b, l, h;
-};
-
-// The steps both FFMA kernels of D >= 256 take, for the thread's rows rg * RG + i and score
-// columns cg + CG * j of a BQ x BK tile.
-
-// s[i][j] += sum over the tiles' W columns of q[row][d] * k[key][d], d ascending, one fmaf a term
-// (Qs, Ks: row stride S).
-template <int W, int S>
-__device__ __forceinline__ void score_chunk(float (&s)[RG][KJ], const float* Qs, const float* Ks, int rg, int cg) {
-#pragma unroll 4
-  for (int d = 0; d < W; ++d) {
-    float qv[RG], kv[KJ];
-#pragma unroll
-    for (int i = 0; i < RG; ++i) qv[i] = Qs[(rg * RG + i) * S + d];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) kv[j] = Ks[(cg + CG * j) * S + d];
-#pragma unroll
-    for (int i = 0; i < RG; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-  }
-}
-
-// The online softmax of the k tile at k0: mask, the row max over the 8 lanes of a row, p into Ps
-// (row stride PS), den, and acc scaled by the correction.
-template <int DJ>
-__device__ __forceinline__ void softmax_step(float (&s)[RG][KJ], float (&m)[RG], float (&den)[RG],
-                                             float (&acc)[RG][DJ], float* Ps, int q0, int k0, int L, int causal,
-                                             int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    const int r = rg * RG + i;
-    const int row = q0 + r;
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      const int key = k0 + cg + CG * j;
-      if (key >= L || (causal && key > row)) s[i][j] = -INFINITY;
-      mt = fmaxf(mt, s[i][j]);
-    }
-#pragma unroll
-    for (int off = 1; off < CG; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-    const float m_new = fmaxf(m[i], mt);
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    const float corr = expf(m[i] - m_use);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      const float p = expf(s[i][j] - m_use);
-      Ps[r * PS + cg + CG * j] = p;
-      psum += p;
-    }
-#pragma unroll
-    for (int off = 1; off < CG; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    den[i] = den[i] * corr + psum;
-    m[i] = m_new;
-#pragma unroll
-    for (int e = 0; e < DJ; ++e) acc[i][e] *= corr;
-  }
-}
-
-// acc[i][e] += sum over the tile's BK keys of p[row][c] * v[c][cg + CG * e] (Vs: row stride VS).
-template <int DJ, int VS>
-__device__ __forceinline__ void pv_step(float (&acc)[RG][DJ], const float* Ps, const float* Vs, int rg, int cg) {
-#pragma unroll 4
-  for (int c = 0; c < BK; ++c) {
-    float pv[RG], vv[DJ];
-#pragma unroll
-    for (int i = 0; i < RG; ++i) pv[i] = Ps[(rg * RG + i) * PS + c];
-#pragma unroll
-    for (int e = 0; e < DJ; ++e) vv[e] = Vs[c * VS + cg + CG * e];
-#pragma unroll
-    for (int i = 0; i < RG; ++i)
-#pragma unroll
-      for (int e = 0; e < DJ; ++e) acc[i][e] = fmaf(pv[i], vv[e], acc[i][e]);
-  }
-}
-
-// out columns [w0, w0 + CG * DJ) below D of the thread's rows (row stride H * D), and, where write_lse, lse.
-template <typename T, int DJ>
-__device__ __forceinline__ void store_rows(T* out, float* lse, const float (&m)[RG], const float (&den)[RG],
-                                           const float (&acc)[RG][DJ], int b, int h, int q0, int L, int H, int D,
-                                           int w0, bool write_lse, int rg, int cg) {
-  const long long row_stride = static_cast<long long>(H) * D;
-#pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    const int row = q0 + rg * RG + i;
-    if (row >= L) continue;
-    const float dd = fmaxf(den[i], 1e-30f);
-    T* o = out + (static_cast<long long>(b) * L + row) * row_stride + static_cast<long long>(h) * D + w0;
-#pragma unroll
-    for (int e = 0; e < DJ; ++e)
-      if (w0 + cg + CG * e < D) o[cg + CG * e] = port::from_f32<T>(acc[i][e] / dd);
-    if (write_lse && cg == 0) lse[(static_cast<long long>(b) * H + h) * L + row] = m[i] + logf(dd);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int L, int H,
-                 Strides sq, Strides sk, Strides sv, int causal, float scale) {
-  using Lay = Layout<D>;
-  constexpr int DJ = D / CG;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * Lay::QS;
-  float* Vs = Ks + BK * Lay::KS;
-  float* Ps = Vs + BK * Lay::VS;
-
-  const int tid = threadIdx.x;
-  const int rg = tid / CG, cg = tid % CG;
-  const fs::Place at = fs::place((L + BQ - 1) / BQ, H, causal);
-  const int q0 = at.tile * BQ, h = at.h, b = at.b;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int row = q0 + r;
-    Qs[r * Lay::QS + d] = row < L ? port::to_f32(qb[row * sq.l + d]) * scale : 0.f;
-  }
-
-  float m[RG], den[RG], acc[RG][DJ];
-#pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    m[i] = -INFINITY;
-    den[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DJ; ++e) acc[i][e] = 0.f;
-  }
-
-  const int k_end = causal ? min(L, q0 + BQ) : L;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done with Ks, Vs and Ps
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const int key = k0 + r;
-      const bool in = key < L;
-      Ks[r * Lay::KS + d] = in ? port::to_f32(kb[key * sk.l + d]) : 0.f;
-      Vs[r * Lay::VS + d] = in ? port::to_f32(vb[key * sv.l + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RG][KJ];
-#pragma unroll
-    for (int i = 0; i < RG; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
-    score_chunk<D, Lay::QS>(s, Qs, Ks, rg, cg);
-    softmax_step(s, m, den, acc, Ps, q0, k0, L, causal, rg, cg);
-    __syncthreads();  // every row's p is in Ps
-    pv_step<DJ, Lay::VS>(acc, Ps, Vs, rg, cg);
-  }
-  store_rows(out, lse, m, den, acc, b, h, q0, L, H, D, 0, true, rg, cg);
-}
-
-constexpr int DC = 64;   // columns of q and k a D > 256 block holds at a time
-constexpr int WN = 256;  // output columns a D > 256 block owns
-
-struct WideLayout {
-  static constexpr int S = DC + 1;  // q and k chunks
-  static constexpr int bytes = static_cast<int>(sizeof(float)) * (BQ * S + BK * S + BK * WN + BQ * PS);
-};
-
-// D > 256, a multiple of DC; a block's rank is its q tile times windows plus its window.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ out, float* __restrict__ lse, int L, int H, int D, int windows,
-                      Strides sq, Strides sk, Strides sv, int causal, float scale) {
-  using Lay = WideLayout;
-  constexpr int DJ = WN / CG;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * Lay::S;
-  float* Vs = Ks + BK * Lay::S;
-  float* Ps = Vs + BK * WN;
-
-  const int tid = threadIdx.x;
-  const int rg = tid / CG, cg = tid % CG;
-  const fs::Place at = fs::place((L + BQ - 1) / BQ * windows, H, causal);  // rank: q tile, then window
-  const int win = at.tile % windows;
-  const int q0 = (at.tile / windows) * BQ, w0 = win * WN, h = at.h, b = at.b;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  float m[RG], den[RG], acc[RG][DJ];
-#pragma unroll
-  for (int i = 0; i < RG; ++i) {
-    m[i] = -INFINITY;
-    den[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DJ; ++e) acc[i][e] = 0.f;
-  }
-
-  const int k_end = causal ? min(L, q0 + BQ) : L;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    float s[RG][KJ];
-#pragma unroll
-    for (int i = 0; i < RG; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
-    for (int c = 0; c < D / DC; ++c) {
-      __syncthreads();  // the readers of the previous chunks (and of the last tile's Vs and Ps) are done
-      for (int i = tid; i < BQ * DC; i += THREADS) {
-        const int r = i / DC, d = c * DC + i % DC;
-        const int row = q0 + r, key = k0 + r;
-        Qs[r * Lay::S + i % DC] = row < L ? port::to_f32(qb[row * sq.l + d]) * scale : 0.f;
-        Ks[r * Lay::S + i % DC] = key < L ? port::to_f32(kb[key * sk.l + d]) : 0.f;
-      }
-      if (c == 0) {
-        for (int i = tid; i < BK * WN; i += THREADS) {
-          const int r = i / WN, d = i % WN;
-          const int key = k0 + r;
-          Vs[r * WN + d] = key < L && w0 + d < D ? port::to_f32(vb[key * sv.l + w0 + d]) : 0.f;
-        }
-      }
-      __syncthreads();
-      score_chunk<DC, Lay::S>(s, Qs, Ks, rg, cg);
-    }
-    softmax_step(s, m, den, acc, Ps, q0, k0, L, causal, rg, cg);
-    __syncthreads();  // every row's p is in Ps
-    pv_step<DJ, WN>(acc, Ps, Vs, rg, cg);
-  }
-  store_rows(out, lse, m, den, acc, b, h, q0, L, H, D, w0, win == 0, rg, cg);
-}
+using fs::Strides;
 
 // ------------------------------------------------------------------ D <= 128, fp32: FFMA
 
@@ -635,45 +409,434 @@ flash_fwd_kernel_mma(fs::Operand<port::bf16> q, fs::Operand<port::bf16> k, fs::O
   }
 }
 
+// ------------------------------------------------------------------ D = 256 and WIDE (the wide pieces)
+
+namespace fw = flash_sm90::wide;
+
+// The schedule of both kernels: a ring step carries G chunks. Step u (k tile t = u / per, r = u % per,
+// per = ns + the window's product steps) is score step r < ns = ceil(nch / G), which reads chunks rG.. of k
+// (and, above 256, of q: chunk i of the step at stage + i 2 tile, k then q), or product step r - ns, which reads
+// the window's chunks c_lo + (r - ns) G.. of v (chunk i at stage + i tile); it lands in ring stage u % ST,
+// issued ST - 1 steps ahead of its use, so the ring runs on across the visited tiles. At D = 256 (RES) the q
+// tile is loaded once, with the first step.
+template <typename T, int CS, bool RES, int G>
+__device__ __forceinline__ void issue_step(int u, int steps, int per, int ns, int nch, uint32_t st, uint32_t tile,
+                                           const fs::Operand<T>& q, const fs::Operand<T>& k,
+                                           const fs::Operand<T>& v, const fw::Place& at, int q0, int L) {
+  if (u < steps) {
+    const int t = u / per, r = u % per;
+    if (r < ns) {
+      for (int i = 0; i < G && r * G + i < nch; ++i) {
+        const uint32_t dst = st + i * (RES ? 1 : 2) * tile;
+        fw::load_chunk<T, CS>(dst, k.slice(at.b, at.h), k.l, r * G + i, t * fs::BT, L, k.vec);
+        if constexpr (!RES) fw::load_chunk<T, CS>(dst + tile, q.slice(at.b, at.h), q.l, r * G + i, q0, L, q.vec);
+      }
+    } else {
+      for (int i = 0; i < G && (r - ns) * G + i < at.nwin; ++i)
+        fw::load_chunk<T, CS>(st + i * tile, v.slice(at.b, at.h), v.l, at.c_lo + (r - ns) * G + i, t * fs::BT, L,
+                              v.vec);
+    }
+  }
+  sm90::cp_async_commit();
+}
+
+// ---------------------------------------------------------- fp32: FFMA, the parent kernels' bits
+
+namespace ffma_wide {
+
+constexpr int SR = 2;            // q rows of the score tile a thread owns: rg + 32 i (rg = tid / 8)
+constexpr int SC = 8;            // keys: cg + 8 j (cg = tid % 8), the parent's sum(p) key set
+constexpr int CS = fw::f32::CS;  // row stride of a chunk tile, floats
+constexpr int PS = 72;           // p rows: a warp's stores (4 rows x 8 keys) land in 32 distinct banks
+
+// s[i][j] (row rg + 32 i, key cg + 8 j) continues its fmaf chain over the chunk's 64 columns, d ascending, of
+// Q (q * scale, or raw q rounded to q * scale here when SCALE) times K.
+template <bool SCALE>
+__device__ __forceinline__ void scores(float (&s)[SR][SC], const float* Q, const float* K, int rg, int cg,
+                                       float scale) {
+#pragma unroll 2
+  for (int d = 0; d < fw::CW; d += 4) {
+    float a[SR][4], b[SC][4];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      *reinterpret_cast<float4*>(a[i]) = *reinterpret_cast<const float4*>(Q + (rg + 32 * i) * CS + d);
+      if constexpr (SCALE) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[i][e] *= scale;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < SC; ++j)
+      *reinterpret_cast<float4*>(b[j]) = *reinterpret_cast<const float4*>(K + (cg + 8 * j) * CS + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) s[i][j] = fmaf(a[i][e], b[j][e], s[i][j]);
+  }
+}
+
+// acc[i][r * 4 + e] (row rg + 32 i, column cg * 4 + 32 r + e of a window chunk) continues its fmaf chain over the
+// tile's 64 keys c ascending of P[row][c] V[c][column] (V: the chunk tile of v).
+__device__ __forceinline__ void pv(float (&acc)[SR][8], const float* P, const float* V, int rg, int cg) {
+#pragma unroll 2
+  for (int c = 0; c < fs::BT; c += 4) {
+    float pr[SR][4];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+      *reinterpret_cast<float4*>(pr[i]) = *reinterpret_cast<const float4*>(P + (rg + 32 * i) * PS + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float vr[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float4*>(vr[r]) = *reinterpret_cast<const float4*>(V + (c + cc) * CS + cg * 4 + 32 * r);
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][r * 4 + e] = fmaf(pr[i][cc], vr[r][e], acc[i][r * 4 + e]);
+    }
+  }
+}
+
+}  // namespace ffma_wide
+
+template <int D>
+struct FfmaWideLayout {
+  static constexpr bool RES = D != fw::WIDE;            // q held for the whole block (D = 256)
+  static constexpr int TILE = fw::f32::TILE;            // bytes of a chunk tile
+  static constexpr int ST = RES ? 8 : 6;                // ring stages
+  static constexpr int STAGE = (RES ? 1 : 2) * TILE;    // a score step: k (and q); a product step: v
+  static constexpr int OWN = RES ? (D / fw::CW) * TILE : 0;
+  static constexpr int bytes = OWN + fs::BT * ffma_wide::PS * 4 + ST * STAGE;  // q, p, the ring (227,328 B)
+};
+
+// D: 256, or WIDE (dd, a multiple of 64 above 256, and the windows at run time).
+template <int D>
+__global__ void __launch_bounds__(fw::THREADS, 1)
+flash_fwd_kernel_ffma_wide(fs::Operand<float> q, fs::Operand<float> k, fs::Operand<float> v, float* __restrict__ out,
+                           float* __restrict__ lse, int L, int H, int dd, int wn, int causal, float scale) {
+  using Lay = FfmaWideLayout<D>;
+  using ffma_wide::SR;
+  using ffma_wide::SC;
+  constexpr int BT = fs::BT, CS = ffma_wide::CS, PS = ffma_wide::PS, TL = Lay::TILE / 4, ST = Lay::ST;
+  extern __shared__ float4 smem_ffma_wide[];
+  float* Qs = reinterpret_cast<float*>(smem_ffma_wide);  // D = 256: chunk c of q * scale at Qs + c TL
+  float* Ps = Qs + Lay::OWN / 4;                         // p of the current k tile
+  float* ring = Ps + BT * PS;
+  const uint32_t s_ring = sm90::smem_addr(ring);
+
+  const int tid = threadIdx.x;
+  const int rg = tid / SC, cg = tid % SC;
+  const fw::Place at = fw::place(dd, wn, L, H, causal);
+  const int nch = Lay::RES ? D / fw::CW : at.nch;
+  const int q0 = at.tile * BT;
+  const int nkt = causal ? (min(L, q0 + BT) + BT - 1) / BT : (L + BT - 1) / BT;
+  const int per = nch + at.nwin, steps = nkt * per;
+  auto issue = [&](int u) {
+    issue_step<float, CS, Lay::RES, 1>(u, steps, per, nch, nch, s_ring + (u % ST) * Lay::STAGE, Lay::TILE, q, k, v,
+                                       at, q0, L);
+  };
+  if constexpr (Lay::RES) {
+    for (int c = 0; c < nch; ++c)
+      fw::load_chunk<float, CS>(sm90::smem_addr(Qs + c * TL), q.slice(at.b, at.h), q.l, c, q0, L, q.vec);
+  }
+  for (int u = 0; u < ST - 1; ++u) issue(u);  // the first group carries q too
+  if constexpr (Lay::RES) {
+    sm90::cp_async_wait<ST - 2>();
+    __syncthreads();
+    for (int i = tid; i < nch * BT * fw::CW; i += fw::THREADS)  // rows past L: 0
+      Qs[(i / (BT * fw::CW)) * TL + (i / fw::CW % BT) * CS + i % fw::CW] *= scale;
+  }
+
+  float m[SR], den[SR], acc[fw::NWC][SR][8];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    m[i] = -INFINITY;
+    den[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[j][i][e] = 0.f;
+  }
+
+  for (int t = 0; t < nkt; ++t) {
+    float s[SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < nch; ++r) {
+      const int u = t * per + r;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // step u landed (and q is scaled); every thread is done with the stage the next issue refills
+      issue(u + ST - 1);
+      const float* K = ring + (u % ST) * (Lay::STAGE / 4);
+      if constexpr (Lay::RES) {
+        ffma_wide::scores<false>(s, Qs + r * TL, K, rg, cg, scale);
+      } else {
+        ffma_wide::scores<true>(s, K + TL, K, rg, cg, scale);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int r = rg + 32 * i;
+      const int row = q0 + r;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int key = t * BT + cg + 8 * j;
+        if (key >= L || (causal && key > row)) s[i][j] = -INFINITY;
+        mt = fmaxf(mt, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < SC; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_new = fmaxf(m[i], mt);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m[i] - m_use);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const float p = expf(s[i][j] - m_use);
+        Ps[r * PS + cg + 8 * j] = p;
+        psum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < SC; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      den[i] = den[i] * corr + psum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < fw::NWC; ++j) {
+        if (j >= at.nwin) break;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[j][i][e] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j) {
+      if (j >= at.nwin) break;
+      const int u = t * per + nch + j;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // the v chunk landed; every row's p is in Ps
+      issue(u + ST - 1);
+      ffma_wide::pv(acc[j], Ps, ring + (u % ST) * (Lay::STAGE / 4), rg, cg);
+    }
+  }
+
+  const long long rs = static_cast<long long>(H) * dd;
+  float* base = out + static_cast<long long>(at.b) * L * rs + static_cast<long long>(at.h) * dd + at.c_lo * fw::CW +
+                cg * 4;
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int row = q0 + rg + 32 * i;
+    if (row >= L) continue;
+    const float dn = fmaxf(den[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j) {
+      if (j >= at.nwin) break;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float4*>(base + row * rs + j * fw::CW + 32 * r) =
+            make_float4(acc[j][i][r * 4] / dn, acc[j][i][r * 4 + 1] / dn, acc[j][i][r * 4 + 2] / dn,
+                        acc[j][i][r * 4 + 3] / dn);
+    }
+    if (at.c_lo == 0 && cg == 0) lse[(static_cast<long long>(at.b) * H + at.h) * L + row] = m[i] + logf(dn);
+  }
+}
+
+// ---------------------------------------------------------- bf16: the tensor cores
+
+template <int D>
+struct MmaWideLayout {
+  static constexpr bool RES = D != fw::WIDE;            // q held for the whole block (D = 256)
+  static constexpr int TILE = fw::mma::TILE;            // bytes of a chunk tile (and of a split p half)
+  static constexpr int G = RES ? D / fw::CW : 2;        // chunks a ring step carries: at D = 256 a whole k tile
+  static constexpr int ST = 4;                          // ring stages
+  static constexpr int STAGE = G * (RES ? 1 : 2) * TILE;  // a score step: k (and q); a product step: v
+  static constexpr int OWN = RES ? (D / fw::CW) * TILE : 0;
+  static constexpr int STATS = 4 * fs::BT * 4;          // each key half's row max, then its sum(p)
+  static constexpr int bytes = OWN + 2 * TILE + STATS + ST * STAGE;  // q, p hi and lo, the stats, the ring
+};
+
+template <int D>
+__global__ void __launch_bounds__(fw::THREADS, 1)
+flash_fwd_kernel_mma_wide(fs::Operand<port::bf16> q, fs::Operand<port::bf16> k, fs::Operand<port::bf16> v,
+                          port::bf16* __restrict__ out, float* __restrict__ lse, int L, int H, int dd, int wn,
+                          int causal, float scale) {
+  using Lay = MmaWideLayout<D>;
+  using port::bf16;
+  constexpr int BT = fs::BT, CS = fw::mma::CS, TILE = Lay::TILE, ST = Lay::ST, G = Lay::G;
+  extern __shared__ float4 smem_mma_wide[];
+  const uint32_t s_q = sm90::smem_addr(smem_mma_wide);  // chunk c of q at s_q + c TILE (D = 256)
+  const uint32_t s_hi = s_q + Lay::OWN, s_lo = s_hi + TILE, s_ring = s_lo + TILE + Lay::STATS;
+  // [0, BT): key half 0's row max, [BT, 2 BT): half 1's; then their sums of p
+  float* stats = reinterpret_cast<float*>(reinterpret_cast<char*>(smem_mma_wide) + Lay::OWN + 2 * TILE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int half = warp >> 2, m0 = (warp & 3) * 16, n0 = half * 32;  // the warp's q rows; its keys and columns
+  const fw::Place at = fw::place(dd, wn, L, H, causal);
+  const int nch = Lay::RES ? D / fw::CW : at.nch;
+  const int q0 = at.tile * BT;
+  const int nkt = causal ? (min(L, q0 + BT) + BT - 1) / BT : (L + BT - 1) / BT;
+  const int ns = (nch + G - 1) / G, per = ns + (at.nwin + G - 1) / G, steps = nkt * per;
+  auto issue = [&](int u) {
+    issue_step<bf16, CS, Lay::RES, G>(u, steps, per, ns, nch, s_ring + (u % ST) * Lay::STAGE, TILE, q, k, v, at, q0,
+                                      L);
+  };
+  if constexpr (Lay::RES) {
+    for (int c = 0; c < nch; ++c) fw::load_chunk<bf16, CS>(s_q + c * TILE, q.slice(at.b, at.h), q.l, c, q0, L, q.vec);
+  }
+  for (int u = 0; u < ST - 1; ++u) issue(u);  // the first group carries q too
+
+  const int g = lane >> 2;  // the thread's rows of the tile: m0 + g (C regs 0, 1) and m0 + g + 8 (2, 3)
+  float m[2] = {-INFINITY, -INFINITY}, den[2] = {0.f, 0.f};
+  float acc[fw::NWC][4][4];
+#pragma unroll
+  for (int j = 0; j < fw::NWC; ++j)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+
+  for (int t = 0; t < nkt; ++t) {
+    float s[4][4];  // the warp's 16 rows x 32 keys
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int r = 0; r < ns; ++r) {
+      const int u = t * per + r;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // step u landed; every warp is done with the stage the next issue refills
+      issue(u + ST - 1);
+      const uint32_t st = s_ring + (u % ST) * Lay::STAGE;
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int c = r * G + i;
+        if (c >= nch) break;
+        const uint32_t sk = st + i * (Lay::RES ? 1 : 2) * TILE;
+        fw::mma::scores(s, Lay::RES ? s_q + c * TILE : sk + TILE, m0, sk, n0, lane);
+      }
+    }
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = q0 + m0 + g + 8 * (e >> 1);
+        const int key = t * BT + n0 + n * 8 + 2 * (lane & 3) + (e & 1);
+        const bool masked = key >= L || (causal && key > row);
+        s[n][e] = masked ? -INFINITY : s[n][e] * scale;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mt[hf] = fmaxf(mt[hf], __shfl_xor_sync(0xffffffffu, mt[hf], 1));
+      mt[hf] = fmaxf(mt[hf], __shfl_xor_sync(0xffffffffu, mt[hf], 2));
+      if ((lane & 3) == 0) stats[half * BT + m0 + g + 8 * hf] = mt[hf];
+    }
+    __syncthreads();  // both key halves' row maxima are in stats
+    float m_use[2], corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = m0 + g + 8 * hf;
+      const float m_new = fmaxf(m[hf], fmaxf(stats[r], stats[BT + r]));  // one order in both warps: one m
+      m_use[hf] = m_new == -INFINITY ? 0.f : m_new;
+      corr[hf] = expf(m[hf] - m_use[hf]);
+      m[hf] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - m_use[e >> 1]);  // p
+        psum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      psum[hf] += __shfl_xor_sync(0xffffffffu, psum[hf], 1);
+      psum[hf] += __shfl_xor_sync(0xffffffffu, psum[hf], 2);
+      if ((lane & 3) == 0) stats[(2 + half) * BT + m0 + g + 8 * hf] = psum[hf];
+    }
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j) {
+      if (j >= at.nwin) break;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][n][e] *= corr[e >> 1];
+    }
+    fw::mma::store_split(s, s_hi, s_lo, m0, n0, lane);
+    uint32_t a[2][4][4];
+#pragma unroll
+    for (int ps = 0; ps < fw::NWC / G; ++ps) {
+      if (ps * G >= at.nwin) break;
+      const int u = t * per + ns + ps;
+      sm90::cp_async_wait<ST - 2>();
+      __syncthreads();  // the v chunks landed; every warp's p and sum(p) are in shared memory
+      issue(u + ST - 1);
+      if (ps == 0) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = m0 + g + 8 * hf;
+          den[hf] = den[hf] * corr[hf] + (stats[2 * BT + r] + stats[3 * BT + r]);
+        }
+        fw::mma::frags(a, s_hi, s_lo, m0, lane);
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const int j = ps * G + i;
+        if (j >= at.nwin) break;
+        fw::mma::product(acc[j], a, s_ring + (u % ST) * Lay::STAGE + i * TILE, n0, lane);
+      }
+    }
+  }
+
+  const long long rs = static_cast<long long>(H) * dd;
+  bf16* base = out + static_cast<long long>(at.b) * L * rs + static_cast<long long>(at.h) * dd + at.c_lo * fw::CW +
+               n0 + (lane & 3) * 2;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + m0 + g + 8 * hf;
+    if (row >= L) continue;
+    const float dn = fmaxf(den[hf], 1e-30f);
+    const float inv = 1.f / dn;  // one division a row, not 64 (each an FFMA sequence); below the bf16 rounding
+#pragma unroll
+    for (int j = 0; j < fw::NWC; ++j) {
+      if (j >= at.nwin) break;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(base + row * rs + j * fw::CW + n * 8) =
+            __floats2bfloat162_rn(acc[j][n][2 * hf] * inv, acc[j][n][2 * hf + 1] * inv);
+    }
+    if (half == 0 && at.c_lo == 0 && (lane & 3) == 0)
+      lse[(static_cast<long long>(at.b) * H + at.h) * L + row] = m[hf] + logf(dn);
+  }
+}
+
 // ------------------------------------------------------------------ launch
 
-// the grid: one dimension over q tiles (x windows) x B x H
-inline int grid_for(int L, int windows, int B, int H, dim3& grid) {
-  const long long blocks = static_cast<long long>((L + BQ - 1) / BQ) * windows * B * H;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  grid = dim3(static_cast<unsigned>(blocks));
-  return 0;
-}
-
-template <typename T>
-int launch_wide(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L, int H, int D,
-                Strides sq, Strides sk, Strides sv, int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_wide_kernel<T>;
-  const int bytes = WideLayout::bytes;
-  const int windows = (D + WN - 1) / WN;
-  dim3 grid;
-  if (const int err = grid_for(L, windows, B, H, grid)) return err;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), L, H, D, windows, sq, sk, sv, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L, int H,
-             Strides sq, Strides sk, Strides sv, int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  const int bytes = Layout<D>::bytes;
+int launch_wide(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L, int H, int dd,
+                Strides sq, Strides sk, Strides sv, int causal, float scale, cudaStream_t stream) {
+  const auto oq = fs::operand<T>(q, sq.b, sq.l, sq.h), ok = fs::operand<T>(k, sk.b, sk.l, sk.h);
+  const auto ov = fs::operand<T>(v, sv.b, sv.l, sv.h);
   dim3 grid;
-  if (const int err = grid_for(L, 1, B, H, grid)) return err;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), L, H, sq, sk, sv, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  int wn;
+  if (!fw::grid_for(B, L, H, dd, grid, wn)) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto kernel, int bytes) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, fw::THREADS, bytes, stream>>>(oq, ok, ov, static_cast<T*>(out), static_cast<float*>(lse), L, H,
+                                                 dd, wn, causal, scale);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (std::is_same<T, float>::value) return run(flash_fwd_kernel_ffma_wide<D>, FfmaWideLayout<D>::bytes);
+  else return run(flash_fwd_kernel_mma_wide<D>, MmaWideLayout<D>::bytes);
 }
 
 template <typename T, int D>
@@ -681,8 +844,9 @@ int launch_sm90(const void* q, const void* k, const void* v, void* out, void* ls
                 Strides sq, Strides sk, Strides sv, int causal, float scale, cudaStream_t stream) {
   const auto oq = fs::operand<T>(q, sq.b, sq.l, sq.h), ok = fs::operand<T>(k, sk.b, sk.l, sk.h);
   const auto ov = fs::operand<T>(v, sv.b, sv.l, sv.h);
-  dim3 grid;
-  if (const int err = grid_for(L, 1, B, H, grid)) return err;
+  const long long blocks = static_cast<long long>((L + fs::BT - 1) / fs::BT) * B * H;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
   auto run = [&](auto kernel, int bytes) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -705,9 +869,10 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
     case 32: return launch_sm90<T, 32>(q, k, v, out, lse, B, L, H, sq, sk, sv, causal, scale, st);
     case 64: return launch_sm90<T, 64>(q, k, v, out, lse, B, L, H, sq, sk, sv, causal, scale, st);
     case 128: return launch_sm90<T, 128>(q, k, v, out, lse, B, L, H, sq, sk, sv, causal, scale, st);
-    case 256: return launch_d<T, 256>(q, k, v, out, lse, B, L, H, sq, sk, sv, causal, scale, st);
+    case 256: return launch_wide<T, 256>(q, k, v, out, lse, B, L, H, D, sq, sk, sv, causal, scale, st);
     default:
-      if (D > 256 && D % DC == 0) return launch_wide<T>(q, k, v, out, lse, B, L, H, D, sq, sk, sv, causal, scale, st);
+      if (D > 256 && D % fw::CW == 0)
+        return launch_wide<T, fw::WIDE>(q, k, v, out, lse, B, L, H, D, sq, sk, sv, causal, scale, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -30,9 +30,8 @@ The kernels (``LAUNCHES`` key: wrapper, source in ``csrc/``, conv variant):
 - ``flash_fwd``: :func:`flash_fwd`, ``flash_fwd.cu``, the flash-attention
   forward behind ``ops/flash_attention.py``;
 - ``flash_dq``, ``flash_dkv``: :func:`flash_dq`, :func:`flash_dkv`,
-  ``flash_dq.cu`` and ``flash_dkv.cu``, its backward. The three run their
-  head dims up to 128 over ``flash_bwd_sm90.cuh``, and so does the
-  backward at D >= 256 (its ``wide`` pieces).
+  ``flash_dq.cu`` and ``flash_dkv.cu``, its backward. The three run every
+  head dim over ``flash_bwd_sm90.cuh`` (at D >= 256 its ``wide`` pieces).
 
 The six conv kernels are implicit GEMMs on one Hopper mainloop,
 ``csrc/conv_sm90.cuh`` (fp32 on FFMA, bf16 and int8w on the tensor cores).
@@ -1077,7 +1076,10 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     programming_tpu/ops/pallas_kernels.py). No path calls it: the conv
     kernels fuse their ReLU, and this is the unfused launch. Bound on the
     H100: bytes. Design (``csrc/relu.cu``): one launch, a grid-stride loop
-    over 16-byte chunks, then the tail element by element."""
+    over 16-byte chunks, then the tail element by element; on the H100 it
+    runs at 1.04-1.07x ``torch.relu``'s device time (``PERF.md``), so what
+    its CUDA-event time adds is the host's launch through ctypes, the path
+    every single-launch wrapper takes (``_launch``)."""
     dev = _check("relu", x)
     if dev.type == "cpu":
         return relu_plain(x)
@@ -1229,12 +1231,13 @@ def flash_fwd(
     ``csrc/flash_bwd_sm90.cuh``): one block per (b, h, 64-row q tile), the
     heaviest causal tiles first, K/V tiles streamed through shared memory
     by cp.async, the row statistics in registers; no atomics, so a second
-    launch gives the same bits. At D <= 128, bf16 runs on the tensor cores
+    launch gives the same bits. At every D, bf16 runs on the tensor cores
     (mma.sync; p split into two bf16 terms for the p v product) and fp32 on
     register-tiled FFMA in the operations and order of the earlier FFMA
-    kernel (its bits). D = 256 keeps that FFMA kernel for both dtypes;
-    above D = 256 one block per window of 256 output columns, the q and k
-    tiles held 64 columns at a time."""
+    kernels (their bits). At D = 256 and above a block is 8 warps and owns
+    a window of 256 output columns (128 on a grid smaller than the card),
+    the operands moving as 64-column chunks through a cp.async ring; every
+    window sums the scores over all of D."""
     dev = _flash_check(q, k, v)
     b, l, h, d = q.shape
     flash_blocks(l, block_q, block_k)

@@ -590,12 +590,12 @@ def test_one_bf16_term_breaks_the_plain_rule(shape, causal):
 FLASH_PLAIN_V_REL = 2e-6
 
 
-def _bf16_forward_emulation(q, k, v, causal, terms):
-    """The bf16 tensor-core arithmetic of the card's flash_fwd at D <= 128, in torch: per 64-key tile, the
-    score products on the bf16 operands in fp32 (exact products), s scaled after, masked to -inf; the
-    online recurrence in fp32 (m, corr = exp(m - m_new), the exponent taken against 0 while a row has seen
-    no key, den = den corr + sum p); p split into ``terms`` bf16 terms that feed the p v product separately,
-    in fp32; out = acc / max(den, 1e-30) rounded once to bf16, lse = m + log max(den, 1e-30)."""
+def _bf16_forward_recurrence(q, k, v, causal, terms, scores, product):
+    """The online recurrence of the card's bf16 flash_fwd, in torch: per 64-key tile, s = scores(q, k tile)
+    (fp32 sums of the bf16 operands' exact products), scaled after, masked to -inf; m, corr = exp(m - m_new)
+    (the exponent taken against 0 while a row has seen no key), den = den corr + sum p in fp32; p split into
+    ``terms`` bf16 terms, acc = acc corr + product(terms, v tile); out = acc / max(den, 1e-30) rounded once to
+    bf16, lse = m + log max(den, 1e-30)."""
     b, l, h, d = q.shape
     qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, L, D)
     m = torch.full((b, h, l), float("-inf"))
@@ -603,17 +603,43 @@ def _bf16_forward_emulation(q, k, v, causal, terms):
     rows = torch.arange(l)[:, None]
     for k0 in range(0, l, 64):
         kt, vt = kf[:, :, k0 : k0 + 64], vf[:, :, k0 : k0 + 64]
-        s = (qf @ kt.transpose(-1, -2)) * (1.0 / d**0.5)
+        s = scores(qf, kt) * (1.0 / d**0.5)
         if causal:
             s = s.masked_fill(rows < torch.arange(k0, k0 + kt.shape[2])[None, :], float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
         m_use = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
         corr, p = torch.exp(m - m_use), torch.exp(s - m_use[..., None])
         den = den * corr + p.sum(-1)
-        acc = acc * corr[..., None] + sum(t @ vt for t in _split_terms(p, terms))
+        acc = acc * corr[..., None] + product(_split_terms(p, terms), vt)
         m = m_new
     den = den.clamp_min(1e-30)
     return (acc / den[..., None]).permute(0, 2, 1, 3).to(torch.bfloat16), m + torch.log(den)
+
+
+def _bf16_forward_emulation(q, k, v, causal, terms):
+    """The bf16 tensor-core arithmetic of the card's flash_fwd at D <= 128 (:func:`_bf16_forward_recurrence`):
+    s one product over all of D, each p term times the v tile."""
+    return _bf16_forward_recurrence(q, k, v, causal, terms, lambda qf, kt: qf @ kt.transpose(-1, -2),
+                                    lambda p_terms, vt: sum(t @ vt for t in p_terms))
+
+
+def _bf16_forward_emulation_wide(q, k, v, causal, terms):
+    """The bf16 tensor-core arithmetic of the card's flash_fwd at D >= 256 (the D = 256 instance and the
+    windowed one above it; :func:`_bf16_forward_recurrence`): the scores summed over D in 64-column chunks, each
+    chunk's product of the bf16 operands in fp32 added to the running fp32 scores; each window of 256 output
+    columns takes its columns of v through every p term, in fp32."""
+    d = q.shape[-1]
+
+    def scores(qf, kt):
+        s = torch.zeros(qf.shape[:3] + (kt.shape[2],))
+        for c in range(0, d, 64):
+            s = s + qf[..., c : c + 64] @ kt[..., c : c + 64].transpose(-1, -2)
+        return s
+
+    def product(p_terms, vt):
+        return torch.cat([sum(t @ vt[..., w : w + 256] for t in p_terms) for w in range(0, d, 256)], dim=-1)
+
+    return _bf16_forward_recurrence(q, k, v, causal, terms, scores, product)
 
 
 def _bf16_forward_case(shape, causal, terms):
@@ -621,7 +647,8 @@ def _bf16_forward_case(shape, causal, terms):
     rule (at most 1 within it), and lse's largest error over its max."""
     rng = np.random.default_rng(shape[1] + causal)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16) for _ in range(3))
-    out, lse = _bf16_forward_emulation(q, k, v, causal, terms)
+    emulation = _bf16_forward_emulation if shape[3] <= 128 else _bf16_forward_emulation_wide
+    out, lse = emulation(q, k, v, causal, terms)
     p_out, p_lse = ck.flash_fwd_plain(q, k, v, causal=causal)
     g, w = out.float(), p_out.float()
     _m, e = torch.frexp(torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126))
@@ -631,22 +658,24 @@ def _bf16_forward_case(shape, causal, terms):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64), (1, 256, 2, 256), (1, 256, 2, 384)])
 def test_bf16_forward_two_term_split_meets_the_plain_rule(shape, causal):
     """Why the card's bf16 flash_fwd splits p into two bf16 terms: with
     hi + lo (16 significant bits) feeding the tensor-core p v product, out
     stays within the rule chip_smoke.py holds the kernel to against
     flash_fwd_plain (fp32 p), 1 bf16 ulp + 2e-6 x max |v|, and lse within
-    1e-6 of its max (chip_smoke.py's LSE_REL)."""
+    1e-6 of its max (chip_smoke.py's LSE_REL); at D = 256 and the windowed
+    D = 384 too, the scores summed in 64-column chunks and each window's
+    columns of v on both terms."""
     share, lse_rel = _bf16_forward_case(shape, causal, terms=2)
     assert share <= 1.0 and lse_rel <= 1e-6
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 32), (1, 512, 2, 64), (1, 256, 2, 256), (1, 256, 2, 384)])
 def test_one_bf16_term_breaks_the_forward_plain_rule(shape, causal):
     """A single bf16 rounding of p takes out far past that rule (38-79x
-    here): one term is not enough."""
+    at D <= 64, 33-108x at D = 256 and 384 here): one term is not enough."""
     share, _lse_rel = _bf16_forward_case(shape, causal, terms=1)
     assert share > 4.0
 
