@@ -145,6 +145,21 @@ fails ends the run with a non-zero exit code and nothing is caught:
    six rows in the JAX script's order, every compared strategy bitwise
    ``F.max_pool2d`` (no ``mismatch``, no ``error``), s2d_pool_pack,
    maxpool_s2d, pool_phases_pack, maxpool_phases and maxpool2d launched;
+   3e. the bench, ``python -m <port>.bench`` in a subprocess (the library
+   warm from phase 1), three calls at batch 128: ``BENCH_CONFIGS=v1_jit,
+   v3_pallas BENCH_DTYPE=fp32`` (each row with its ``bf16`` sub-object),
+   ``v3_pallas`` int8w, and ``v3_pallas`` bf16 with
+   ``TPU_FRAMEWORK_FUSE=block``: every row has no ``error``, ``value`` > 0,
+   ``platform`` gpu, ``mfu`` in (0, 1], ``fp32_ceiling_fraction`` in (0, 1]
+   on fp32 rows and null on the others, a ``breakdown`` whose stages
+   (conv1..lrn2, or block1 and block2 when fused) sum to its ``total_ms``
+   and a ``roofline`` beside it (int8w: both skipped, with the reason);
+   each row is printed beside phase 3's ``run.main`` reading of its route.
+   The breakdown's full prefix launches what the pass launches (conv2d 2,
+   maxpool2d 2, lrn 1; fused conv_block 2), counted in this process; then
+   ``run.main --breakdown --profile DIR`` on ``v3_pallas`` and
+   ``v1_jit --breakdown`` exit 0, one ``Layer`` line per layer, and the
+   Chrome trace exists;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -1557,6 +1572,133 @@ def main_path_phase() -> dict:
             + " ".join(f"{c.stage}: abs={c.max_abs:.3g} rel={c.max_rel:.3g}" for c in res.stages))
         require(res.passed and res.margin > 0, f"screen_blocks {pol}: {res.reason()}")
         result[f"screen_blocks/{pol}"] = res.to_obj()
+    return result
+
+
+BENCH_CALLS = (
+    # the environment of one ``python -m <port>.bench`` call, and the rows it prints as (config, dtype, granularity)
+    (dict(BENCH_CONFIGS="v1_jit,v3_pallas", BENCH_DTYPE="fp32"), (("v1_jit", "fp32", "stage"),
+                                                                   ("v3_pallas", "fp32", "stage"))),
+    (dict(BENCH_CONFIG="v3_pallas", BENCH_DTYPE="int8w"), (("v3_pallas", "int8w", "skipped"),)),
+    (dict(BENCH_CONFIG="v3_pallas", BENCH_DTYPE="bf16", TPU_FRAMEWORK_FUSE="block"),
+     (("v3_pallas", "bf16", "block"),)),
+)
+
+
+def share_ok(v) -> bool:
+    return isinstance(v, (int, float)) and 0 < v <= 1
+
+
+def check_bench_row(row, config, dtype, granularity, runs, fused) -> dict:
+    """One bench row against the contract, logged beside phase 3's reading
+    of its route. ``granularity``: the breakdown's (stage or block),
+    "skipped" where it has none, None for a ``bf16`` sub-object (which
+    carries no breakdown)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.stages import BLOCK_STAGES, SENTINEL_STAGES
+
+    name = f"{config}{'+FUSE=block' if fused else ''}/{dtype}"
+    require("error" not in row and isinstance(row.get("value"), (int, float)) and row["value"] > 0,
+            f"bench {name}: {row}")
+    require(share_ok(row["mfu"]), f"bench {name}: mfu {row['mfu']}")
+    frac = row["fp32_ceiling_fraction"]
+    require(share_ok(frac) if dtype == "fp32" else frac is None, f"bench {name}: fp32_ceiling_fraction {frac}")
+    run_ms = runs[name]["per_pass_ms"]
+    log(f"bench {name}: per_pass_ms={row['per_pass_ms']} ({row['value']} img/s, mfu={row['mfu']}, "
+        f"fp32_ceiling_fraction={frac}, n={row['timing_n']} ci95={row['timing_ci95_ms']}) "
+        f"beside run.main {run_ms:.3f} ms (phase 3)")
+    out = dict(per_pass_ms=row["per_pass_ms"], value=row["value"], mfu=row["mfu"], fp32_ceiling_fraction=frac,
+               run_main_per_pass_ms=run_ms)
+    if granularity is None:
+        return out
+    require(row["platform"] == "gpu", f"bench {name}: platform {row['platform']}")
+    bd, rf = row["breakdown"], row["roofline"]
+    if granularity == "skipped":
+        require("skipped" in bd and "skipped" in rf, f"bench {name}: breakdown {bd} roofline {rf}")
+        log(f"bench {name}: breakdown {bd['skipped']}")
+        return out
+    names = BLOCK_STAGES if granularity == "block" else SENTINEL_STAGES
+    require(list(bd.get("stages", {})) == list(names) and bd["granularity"] == granularity,
+            f"bench {name}: breakdown {bd}")
+    require(abs(bd["stage_sum_ms"] - bd["total_ms"]) <= 1e-4, f"bench {name}: stages do not sum to total {bd}")
+    require("stages" in rf and sorted(s["name"] for s in rf["stages"]) == sorted(names), f"bench {name}: {rf}")
+    log(f"bench {name} breakdown ({bd['tier']}, total {bd['total_ms']} ms): "
+        + " ".join(f"{k}={v}" for k, v in bd["stages"].items()))
+    log(f"bench {name} roofline (peak {rf['peak_tflops']} TF/s, pass_mfu {rf['pass_mfu']}): " + "; ".join(
+        f"{s['name']} {s['ms']} ms {s['bound']} mfu={s['mfu']} floor={s['floor_ms']}"
+        + (" NOTE above its roof" if s.get("note") else "") for s in rf["stages"]))
+    return dict(out, breakdown=bd, roofline=rf)
+
+
+def bench_phase(runs) -> dict:
+    """Phase 3e: the bench's measure mode through ``python -m``, its rows
+    held to the row contract beside phase 3's ``run.main`` readings; the
+    breakdown's launches; ``run.main --breakdown --profile``."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import stages
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.variants import KernelVariants
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.profiling import TRACE_FILE, cast_for_compute
+
+    t0 = time.perf_counter()
+    result = {"rows": {}}
+    for env_extra, expected in BENCH_CALLS:
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "TPU_FRAMEWORK_"))}
+        env.update(env_extra, BENCH_MAX_RETRIES="0")
+        t_call = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
+                              timeout=900)
+        require(proc.returncode == 0, f"bench {env_extra}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        log(f"bench call {env_extra}: {time.perf_counter() - t_call:.1f} s, {len(rows)} rows; "
+            + " | ".join(line for line in proc.stderr.splitlines() if line.startswith("bench:")))
+        require(len(rows) == len(expected), f"bench {env_extra}: rows {proc.stdout[-3000:]}")
+        fused = env_extra.get("TPU_FRAMEWORK_FUSE") == "block"
+        for row, (config, dtype, granularity) in zip(rows, expected):
+            require(row.get("config") == config and row.get("dtype") == dtype, f"bench {env_extra}: {row}")
+            key = f"{config}{'+FUSE=block' if fused else ''}/{dtype}"
+            result["rows"][key] = check_bench_row(row, config, dtype, granularity, runs, fused)
+            if dtype == "fp32":
+                sub = row.get("bf16")
+                require(isinstance(sub, dict), f"bench {key}: no bf16 sub-object")
+                result["rows"][f"{config}/bf16 (sub-object)"] = check_bench_row(sub, config, "bf16", None, runs, False)
+
+    # the breakdown's full prefix launches what the pass launches
+    gen = torch.Generator().manual_seed(7)
+    params = init.init_params_random(gen, device="cuda")
+    x = init.random_input(gen, BATCH, device="cuda")
+    for knobs, want in (({}, STAGED), ({"FUSE": "block"}, dict(conv_block=2))):
+        with knob_env(knobs):
+            fns = (stages.block_stage_fns(variants=KernelVariants.resolve()) if knobs
+                   else stages.sentinel_stage_fns(tier="kernels"))
+        for pol in ("fp32", "bf16"):
+            p, xc = cast_for_compute(params, x, pol)
+            ck.reset_launches()
+            out = stages.stage_prefix(fns, len(fns))(p, xc)
+            torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+            require(launches == _launches(**want) and tuple(out.shape) == (BATCH, 13, 13, 256),
+                    f"breakdown prefix {knobs} {pol}: launches {launches}")
+            log(f"breakdown full prefix {run_name('v3_pallas', pol, knobs)}: launches "
+                + " ".join(f"{k}={v}" for k, v in launches.items() if v))
+            result[f"prefix_launches/{run_name('v3_pallas', pol, knobs)}"] = launches
+
+    prof_dir = Path("chip_smoke_out") / "profile"
+    trace = prof_dir / TRACE_FILE
+    for key, extra, layers in (("v3_pallas", ["--profile", str(prof_dir)], 5), ("v1_jit", [], 7)):
+        text = run_cli(["--config", key, "--batch", str(BATCH), "--init", "random", "--repeats", "3",
+                        "--warmup", "1", "--breakdown", *extra])
+        lines = re.findall(r"^Layer (\S+) completed in ([0-9.]+) ms -> (\S+)$", text, re.M)
+        require(len(lines) == layers and lines[-1][2] == "13x13x256", f"run --breakdown {key}:\n{text}")
+        require(not extra or f"Profiler trace written to {trace}" in text, f"run --profile:\n{text}")
+        log(f"run.main --config {key} --breakdown: " + " ".join(f"{n}={ms}" for n, ms, _s in lines))
+        result[f"run_breakdown/{key}"] = {n: float(ms) for n, ms, _s in lines}
+    require(trace.exists() and trace.stat().st_size > 0, f"run --profile wrote no {trace}")
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"run.main --profile: {trace} {trace.stat().st_size} bytes, {len(events)} events, {kernels} device kernels")
+    result["profile"] = dict(path=str(trace), bytes=trace.stat().st_size, events=len(events), kernels=kernels)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3e wall time: {result['seconds']:.1f} s")
     return result
 
 
@@ -3003,6 +3145,8 @@ def main() -> int:
     log("phase 3c: the LM's training step and examples.lm ran through flash_fwd, flash_dq and flash_dkv")
     ab = pool_ab_phase()
     log("phase 3d: pool_ab ran every strategy through its kernel, each bitwise F.max_pool2d")
+    bench = bench_phase(main["runs"])
+    log("phase 3e: the bench printed every row to its contract; run --breakdown and --profile ran")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
@@ -3016,7 +3160,7 @@ def main() -> int:
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
-             pool_ab=ab, tune=tune,
+             pool_ab=ab, bench=bench, tune=tune,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

@@ -1,15 +1,54 @@
-"""Deadlines: a wall-clock budget handed down to the callee.
+"""Retry with bounded backoff, deadlines and fault logs.
 
-The ``Deadline`` of the JAX package's ``resilience/policy.py``, copied. The
-port's autotuner runs its sweep under one (``run --deadline-s``): when it
-expires, the candidates not yet timed are skipped and the plan says so.
-Standard library only.
+The JAX package's ``resilience/policy.py`` up to ``retry_call``, copied:
+
+- ``Deadline``: a wall-clock budget handed down to the callee. The port's
+  autotuner runs its sweep under one (``run --deadline-s``), the bench its
+  retries (``BENCH_DEADLINE_S``).
+- ``RetryPolicy``: exponential backoff with deterministic jitter, seeded
+  per (seed, attempt), so one policy always gives one schedule, number for
+  number the JAX package's. The bench's ``BENCH_MAX_RETRIES`` and
+  ``BENCH_RETRY_BACKOFF`` set one.
+- ``Attempt``/``FaultLog``: the per-site trail of attempts; ``summary()``
+  is the string a bench row carries under ``resilience``.
+- ``retry_call``: call until it returns, within the policy and deadline.
+
+The JAX module's ``Degrader`` and ``tier_fallback_chain`` wait for
+``run --fallback-chain`` (ROADMAP Queue 1 item 12). Standard library only.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import random
 import time
-from typing import Optional
+from typing import Callable, List, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Exponential backoff with bounded, deterministic jitter.
+
+    ``max_retries`` counts ADDITIONAL attempts after the first (0 = run
+    once). ``delay_s(k)`` is the pause before retry k (k >= 1):
+    ``base * backoff**(k-1)`` capped at ``max_delay_s``, then jittered by
+    ±``jitter`` fraction using a RNG seeded from (seed, k)."""
+
+    max_retries: int = 0
+    base_delay_s: float = 0.5
+    backoff: float = 2.0
+    max_delay_s: float = 30.0
+    jitter: float = 0.1
+    seed: int = 0
+
+    def delay_s(self, attempt: int) -> float:
+        if attempt < 1:
+            return 0.0
+        d = min(self.max_delay_s, self.base_delay_s * self.backoff ** (attempt - 1))
+        if self.jitter:
+            r = random.Random(f"{self.seed}:{attempt}")
+            d *= 1.0 + self.jitter * (2.0 * r.random() - 1.0)
+        return max(0.0, d)
 
 
 class Deadline:
@@ -42,3 +81,79 @@ class Deadline:
     @property
     def expired(self) -> bool:
         return self._expires_at is not None and time.monotonic() >= self._expires_at
+
+
+@dataclasses.dataclass
+class Attempt:
+    """One try at a site: what happened and how long it took."""
+
+    attempt: int  # 0-based
+    outcome: str  # "ok" | "retry" | "fail"
+    cause: str = ""
+    duration_s: float = 0.0
+    backoff_s: float = 0.0  # pause taken AFTER this attempt (0 on the last)
+
+
+@dataclasses.dataclass
+class FaultLog:
+    """Per-site attempt trail. ``summary()`` is the compact string a bench
+    row carries (empty when nothing was retried)."""
+
+    site: str = ""
+    attempts: List[Attempt] = dataclasses.field(default_factory=list)
+
+    def record(self, outcome: str, cause: str = "", duration_s: float = 0.0,
+               backoff_s: float = 0.0) -> Attempt:
+        a = Attempt(len(self.attempts), outcome, cause, duration_s, backoff_s)
+        self.attempts.append(a)
+        return a
+
+    @property
+    def n_attempts(self) -> int:
+        return len(self.attempts)
+
+    @property
+    def retried(self) -> bool:
+        return len(self.attempts) > 1
+
+    def summary(self) -> str:
+        if not self.retried:
+            return ""
+        causes = [a.cause for a in self.attempts[:-1] if a.cause]
+        last = self.attempts[-1]
+        tail = last.cause if last.outcome != "ok" else "ok"
+        return f"retried x{len(self.attempts) - 1} ({'; '.join(causes)[:120]}) -> {tail}"
+
+
+def retry_call(
+    fn: Callable[[], object],
+    *,
+    policy: RetryPolicy,
+    deadline: Optional[Deadline] = None,
+    retry_on: Callable[[BaseException], bool] = lambda e: True,
+    fault_log: Optional[FaultLog] = None,
+    sleep: Callable[[float], None] = time.sleep,
+):
+    """Call ``fn`` until it returns, retrying per ``policy`` on exceptions
+    ``retry_on`` accepts, never outliving ``deadline``. The last exception
+    propagates when the budget is exhausted; ``fault_log`` carries the
+    per-attempt trail either way."""
+    deadline = deadline or Deadline.after(None)
+    log = fault_log if fault_log is not None else FaultLog()
+    for attempt in range(policy.max_retries + 1):
+        t0 = time.monotonic()
+        try:
+            out = fn()
+        except Exception as e:  # re-raised below once the budget is spent
+            cause = f"{type(e).__name__}: {e}"[:160]
+            if attempt >= policy.max_retries or deadline.expired or not retry_on(e):
+                log.record("fail", cause, time.monotonic() - t0)
+                raise
+            pause = min(policy.delay_s(attempt + 1), deadline.remaining())
+            log.record("retry", cause, time.monotonic() - t0, backoff_s=pause)
+            if pause > 0:
+                sleep(pause)
+            continue
+        log.record("ok", duration_s=time.monotonic() - t0)
+        return out
+    raise AssertionError("unreachable: the last attempt returns or raises")

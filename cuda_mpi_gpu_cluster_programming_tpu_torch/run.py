@@ -4,11 +4,15 @@
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --tune
 
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --batch 128 --breakdown --profile prof
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. Prints the JAX package's stdout contract
 (``Tune plan:``, ``Precision:``, ``Compile time:``, ``Final Output Shape:``,
 ``Final Output (first 10 values):``, ``... completed in X ms``, ``Timing
-stats:``), which the harness regexes read.
+stats:``; with ``--profile``, ``Profiler trace written to ...``; with
+``--breakdown``, one ``Layer <name> completed in X ms -> HxWxC`` line per
+layer of the config's op tier), which the harness regexes read.
 
 ``--tune`` sweeps {fp32, bf16, int8w} x the kernel variants of each conv
 layer (``tuning.autotune.autotune_precision``: every dtype screened by the
@@ -24,9 +28,11 @@ saved winning dtype. Precedence of the run's dtype: ``--dtype`` or a preset
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -70,6 +76,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--lrn-form", choices=["cuda", "cpu"], default="cuda",
                    help="LRN alpha convention: cuda = alpha*sum (golden), cpu = alpha*sum/size")
     p.add_argument("--list-configs", action="store_true")
+    p.add_argument("--breakdown", action="store_true",
+                   help="also print a fenced per-layer timing breakdown on the config's op tier")
+    p.add_argument("--profile", metavar="DIR",
+                   help="capture a torch.profiler trace of the timed passes into DIR/trace.json")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -78,8 +88,6 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
     """The JAX package's ``--tune``/``--plan``/``--policy tuned`` handling:
     returns ``(run_dtype, source, gate_info, plan)`` and prints the
     ``Policy:``/``Gate pruned:``/``Tune plan:`` lines."""
-    from pathlib import Path
-
     from .observability.trace import span as obs_span
     from .resilience.policy import Deadline
     from .tuning.autotune import DTYPES, AllDtypesPruned, autotune_precision
@@ -221,7 +229,15 @@ def main(argv=None) -> int:
     compile_ms = (time.perf_counter() - t0) * 1e3  # first call: kernel build/load included
 
     n_small = max(1, args.warmup)
-    st = amortized_stats(counted, params, x, n_small=n_small, n_large=n_small + max(1, args.repeats))
+    if args.profile:
+        from .utils.profiling import TRACE_FILE
+        from .utils.profiling import trace as profile_ctx
+    else:
+        profile_ctx = lambda _dir: contextlib.nullcontext()  # noqa: E731
+    with profile_ctx(args.profile):
+        st = amortized_stats(counted, params, x, n_small=n_small, n_large=n_small + max(1, args.repeats))
+    if args.profile:
+        print(f"Profiler trace written to {Path(args.profile) / TRACE_FILE}")
     out = counted(params, x).cpu().numpy()
     per_pass_ms = st.per_call_ms
 
@@ -242,6 +258,17 @@ def main(argv=None) -> int:
     )
     launches = " ".join(f"{k}={v - before[k]}" for k, v in cuda_kernels.LAUNCHES.items())
     print(f"Kernel launches: {launches} passes={passes}")
+    if args.breakdown and run_dtype == "int8w":
+        print("--breakdown does not support the int8w policy "
+              "(the quantized lowering has no per-layer staged analogue); skipped")
+    elif args.breakdown:
+        from .utils.profiling import layer_breakdown
+
+        # Per-layer costs on the selected config's op tier, after the
+        # headline's launch count: a v3_pallas breakdown times the kernels.
+        for name, ms, shape in layer_breakdown(params, x, model_cfg, repeats=max(1, args.repeats),
+                                               warmup=n_small, compute=run_dtype, tier=exec_cfg.tier):
+            print(f"Layer {name} completed in {ms:.3f} ms -> {'x'.join(str(d) for d in shape[1:])}")
     return 0
 
 

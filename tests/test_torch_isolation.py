@@ -34,12 +34,33 @@ import cuda_mpi_gpu_cluster_programming_tpu_torch.ops.flash_attention
 import cuda_mpi_gpu_cluster_programming_tpu_torch.models.transformer as tf
 from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context, lm
 from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
+from cuda_mpi_gpu_cluster_programming_tpu_torch import bench
+from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import metrics, roofline, stages
+from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import env_info, probe, profiling
 """
 
 _ENTRY_POINTS = {
     "run": """
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1"]) == 0
+""",
+    # the bench's measuring child on the CPU (its parent only adds a subprocess), then run --breakdown,
+    # the estimator cut to one pass as for pool_ab
+    "bench": """
+import time
+import cuda_mpi_gpu_cluster_programming_tpu_torch.utils.timing as timing
+
+def one_pass(fn, *args, **_kw):
+    t0 = time.perf_counter()
+    fn(*args)
+    ms = (time.perf_counter() - t0) * 1e3
+    return timing.AmortizedStats(samples_ms=[ms], n_chain=1, shadowed=False, total_measured_s=ms / 1e3)
+
+timing.amortized_stats = profiling.amortized_stats = one_pass
+bench.CONFIGS, bench.DEVICE, bench.BATCH, bench.REPEATS = ["v1_jit"], "cpu", 1, 1
+assert bench._child() == 0
+assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
+                 "--repeats", "1", "--warmup", "1", "--breakdown"]) == 0
 """,
     "long_context": """
 assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", "--seq-len", "64",
