@@ -109,7 +109,15 @@ fails ends the run with a non-zero exit code and nothing is caught:
    operand timed beside the plain version, ``F.max_pool2d`` and the bounds,
    and off those shapes (C = 20, 128 and 130, window/stride 2/2, 3/1 and
    5/3, H != W, NaN, -inf and -0.0 in the input, the pack from a view off
-   16-byte alignment);
+   16-byte alignment); then full AlexNet's new shapes in fp32 and bf16
+   (``v6_kernel_phase``): conv2d at conv3, conv4 and conv5 (3x3, stride 1,
+   pad 1 on 13x13; bitwise ``conv_taps``) and maxpool2d at pool5 against
+   their plain versions and timed beside cuDNN / ``F.max_pool2d`` and the
+   bound, the hpool conv5 with its W stage (bitwise conv5 + maxpool2d) and
+   ``conv_block`` at block 5 (bitwise its staged chain), and untimed: taps
+   against its plain version, pairs and im2col bitwise taps (conv3..conv5),
+   k_block 64 and 128 bitwise 0 at conv4 (conv2d, taps), the taps hpool and
+   the phases pool bitwise at pool5;
 3. drive the main path through ``run.main``, each run with the kernels'
    launch counts set to 0 just before it and read just after: ``v3_pallas``
    and ``v1_jit`` in fp32 and bf16 (staged), ``v3_pallas`` with
@@ -123,6 +131,18 @@ fails ends the run with a non-zero exit code and nothing is caught:
    ``v1_jit`` fp32 on numpy-seeded random params within the precision
    budgets, fused int8w against staged int8w, and
    ``ToleranceGate().screen_blocks`` at 227x227 for fp32, bf16 and int8w;
+   then full AlexNet (``v6_path_phase``): ``v6_full_pallas`` staged,
+   ``FUSE=block`` and ``FUSE=hpool`` and ``v6_full_jit``, each in fp32 and
+   bf16 at batch 128, shape 1000, launches (staged conv2d 5, maxpool2d 3,
+   lrn 1; block conv_block 3, conv2d 2; ``v6_full_jit`` none), every route
+   against ``v6_full_jit`` fp32 on He-scaled params (fp32 rtol 2e-5, atol
+   2e-4; bf16 2e-2 of the max), the fused routes bitwise staged in fp32;
+   the flags ``--save-params``/``--params`` (the same first-10),
+   ``--input native`` on both tiers, ``--trace`` (one ``run.measure``
+   span), the one chaos drill (``CHAOS_SPEC=kernel_compile=1 --fallback-chain
+   auto``: ``DEGRADED(v6_full_pallas -> v6_full_jit)``, no kernel launched;
+   no other run may print ``DEGRADED``) and ``--breakdown`` on both tiers
+   in fp32 and bf16 (12 layers);
    3b. the transformer LM's forward family, launch counts set to 0 before
    each run and read after: ``examples.long_context.main`` at its defaults
    (``--strategy flash --verify`` fp32 and bf16, one flash_fwd launch per
@@ -166,10 +186,15 @@ fails ends the run with a non-zero exit code and nothing is caught:
    show no failed candidate and no degraded layer, the gate journal must
    hold a ``gate_pass`` for fp32, and a second identical call must print
    ``Tune plan: cache``. Each layer's winner is printed with its
-   ``best_ms`` and ``default_ms``.
+   ``best_ms`` and ``default_ms``; then ``--config v6_full_pallas --tune
+   --dtype fp32`` at batch 32 (the single-dtype sweep over five conv
+   layers): ``swept`` with no failed candidate, then ``cache``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and power
-limit, and last the ``{"ok": true, "device": ...}`` line. Details of every
+limit, and last the ``{"ok": true, "device": ...}`` line. The kernels
+line carries, beside each kernel's Blocks 1-2 entries, full AlexNet's
+(``model`` ``alexnet_full``): conv2d, maxpool2d, lrn and conv_block summed
+over their stages in one ``v6_full_pallas`` forward. Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -209,7 +234,9 @@ Tolerances, kernel against plain version on the same inputs:
   JAX tests' gradient tolerance), the joint (out, lse) gradient 1e-4.
 Main path: ``precision/gate.py`` budgets of the JAX package: fp32 1e-4 abs
 and 1e-5 of the max; bf16 2e-2 and int8w 6e-2 of the max against the fp32
-oracle. LM: flash against reference and decode against forward, rtol 1e-4
+oracle. Full AlexNet: fp32 rtol 2e-5 and atol 2e-4 against ``v6_full_jit``
+fp32 (the JAX package's own cross-tier tolerance of the full model), bf16
+2e-2 of the max. LM: flash against reference and decode against forward, rtol 1e-4
 / atol 2e-4 (``tests/test_decode.py``), bf16 rtol 0.1 / atol 0.3 (the same
 file's bf16 parity). Training, flash against reference: the loss within
 1e-5 rel (fp32; bf16 1e-2: bf16 logits round in other places), every
@@ -1310,41 +1337,152 @@ def block_case(name, pol, x, w, b, stride, padding, pool_window, pool_stride, lr
     )
 
 
-def block_phase(spec, peak_name) -> list:
-    """Phase 2, fused: conv_block at both blocks in fp32, bf16 and int8w."""
+def block_row(case, pol, spec, peak_name) -> dict:
+    """One conv_block row: against its plain version, bitwise against the
+    staged kernel chain (fp32, bf16), timed beside that chain, its plain
+    version, the cuDNN chain and the bound."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
+    args, kw = case["args"], case["kw"]
+    run = lambda a=args, k=kw: ck.conv_block(*a, **k)  # noqa: E731
+    plain = lambda a=args, k=kw: ck.conv_block_plain(*a, **k)  # noqa: E731
+    got = run()
+    res = compare(case["rule"], got, plain())
+    if pol != "int8w":
+        res["bitwise_staged"] = bool(torch.equal(got, case["staged"]()))
+    torch.cuda.synchronize()
+    bound, by = spec.bound_ms(case["flops"], case["nbytes"], pol, fp32_flops=case["fp32_flops"])
+    row = dict(
+        kernel="conv_block", stage=case["name"], dtype=pol, **res, out_dtype=str(got.dtype),
+        ms=gpu_time_ms(run), plain_ms=gpu_time_ms(plain), staged_ms=gpu_time_ms(case["staged"]),
+        library_ms=None, cudnn_chain_ms=gpu_time_ms(case["cudnn"]),
+        cudnn_chain="F.conv2d -> F.relu -> F.max_pool2d (-> F.local_response_norm), channels-last"
+        + ("; int8 values as bf16, no rescale" if pol == "int8w" else ""),
+        bound_ms=bound, bound_by=by, flops=case["flops"], fp32_flops=case["fp32_flops"],
+        bytes=case["nbytes"], peak=f"{spec.name} {peak_name(pol)}",
+    )
+    log(f"kernel conv_block {row['stage']} {pol}: ok={row['ok']} tol={row['tol']} "
+        f"max_abs={row['max_abs_err']:.3g} max_ulps={row.get('max_ulps', 0):.2f} "
+        f"bitwise_staged={res.get('bitwise_staged', 'n/a')} out={row['out_dtype']} | ms={row['ms']:.4f} "
+        f"plain={row['plain_ms']:.4f} staged={row['staged_ms']:.4f} cudnn_chain={row['cudnn_chain_ms']:.4f} "
+        f"bound={bound:.4f} ({by})")
+    require(row["ok"], f"conv_block {row['stage']} {pol} disagrees with its plain version: {res}")
+    require(res.get("bitwise_staged", True), f"conv_block {row['stage']} {pol} differs from the staged chain")
+    return row
+
+
+def block_phase(spec, peak_name) -> list:
+    """Phase 2, fused: conv_block at both blocks in fp32, bf16 and int8w."""
     rows = []
     for pol in ("fp32", "bf16", "int8w"):
         gen = torch.Generator(device="cuda").manual_seed(2027)
-        for case in block_cases(pol, gen):
-            args, kw = case["args"], case["kw"]
-            run = lambda a=args, k=kw: ck.conv_block(*a, **k)  # noqa: E731
-            plain = lambda a=args, k=kw: ck.conv_block_plain(*a, **k)  # noqa: E731
-            got = run()
-            res = compare(case["rule"], got, plain())
-            if pol != "int8w":
-                res["bitwise_staged"] = bool(torch.equal(got, case["staged"]()))
-            torch.cuda.synchronize()
-            bound, by = spec.bound_ms(case["flops"], case["nbytes"], pol, fp32_flops=case["fp32_flops"])
-            row = dict(
-                kernel="conv_block", stage=case["name"], dtype=pol, **res, out_dtype=str(got.dtype),
-                ms=gpu_time_ms(run), plain_ms=gpu_time_ms(plain), staged_ms=gpu_time_ms(case["staged"]),
-                library_ms=None, cudnn_chain_ms=gpu_time_ms(case["cudnn"]),
-                cudnn_chain="F.conv2d -> F.relu -> F.max_pool2d (-> F.local_response_norm), channels-last"
-                + ("; int8 values as bf16, no rescale" if pol == "int8w" else ""),
-                bound_ms=bound, bound_by=by, flops=case["flops"], fp32_flops=case["fp32_flops"],
-                bytes=case["nbytes"], peak=f"{spec.name} {peak_name(pol)}",
-            )
-            log(f"kernel conv_block {row['stage']} {pol}: ok={row['ok']} tol={row['tol']} "
-                f"max_abs={row['max_abs_err']:.3g} max_ulps={row.get('max_ulps', 0):.2f} "
-                f"bitwise_staged={res.get('bitwise_staged', 'n/a')} out={row['out_dtype']} | ms={row['ms']:.4f} "
-                f"plain={row['plain_ms']:.4f} staged={row['staged_ms']:.4f} cudnn_chain={row['cudnn_chain_ms']:.4f} "
-                f"bound={bound:.4f} ({by})")
-            require(row["ok"], f"conv_block {row['stage']} {pol} disagrees with its plain version: {res}")
-            require(res.get("bitwise_staged", True), f"conv_block {row['stage']} {pol} differs from the staged chain")
-            rows.append(row)
+        rows += [block_row(case, pol, spec, peak_name) for case in block_cases(pol, gen)]
         torch.cuda.empty_cache()
+    return rows
+
+
+# full AlexNet's layers after Blocks 1-2 (conv3, conv4, conv5: 3x3, stride 1, pad 1 on 13x13; pool5 3x3/2)
+V6_CONVS = (("conv3", 256, 384), ("conv4", 384, 384), ("conv5", 384, 256))
+
+
+def v6_stage_inputs(dtype, gen):
+    """conv3..pool5 at batch 128: a positive 13x13x256 input (as LRN2 gives),
+    He-scaled zero-mean uniform weights and biases around 0, and each
+    stage's input as the kernel chain produces it."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return ((torch.rand(shape, generator=gen, device="cuda") - shift) * scale).to(dtype)
+
+    t = dict(x3=r(BATCH, 13, 13, 256))
+    x = t["x3"]
+    for name, c, k in V6_CONVS:
+        w, b = r(3, 3, c, k, scale=2 * (6 / (9 * c)) ** 0.5, shift=0.5), r(k, scale=0.2, shift=0.5)
+        t[name] = (x, w, b)
+        x = ck.conv2d_bias_relu(x, w, b, stride=1, padding=1)
+    t["y5"] = x
+    return t
+
+
+def v6_kernel_phase(spec, peak_name) -> list:
+    """Phase 2, full AlexNet's new shapes in fp32 and bf16: conv2d at conv3,
+    conv4 and conv5 (fp32 also bitwise ``conv_taps``) and maxpool2d at pool5
+    against their plain versions, timed beside cuDNN / ``F.max_pool2d`` and
+    the bound; the hpool conv5 with its W stage (bitwise conv5 + maxpool2d)
+    and ``conv_block`` at block 5 (conv5 + pool5, no LRN; bitwise its staged
+    chain), timed too; untimed, taps against its plain version and pairs and
+    im2col bitwise taps at conv3..conv5, k_block 64 and 128 bitwise 0 at
+    conv4 (conv2d, taps), and the phases pool bitwise maxpool2d at pool5."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    rows, checks = [], []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2028)
+        t = v6_stage_inputs(dtype, gen)
+        rule = FP32_REL if pol == "fp32" else ("ulp", FP32_REL)
+        stages = []
+        for name, _c, _k in V6_CONVS:
+            x, w, b = t[name]
+            kw = dict(stride=1, padding=1)
+            y = ck.conv2d_bias_relu(x, w, b, **kw)
+            n, ho, wo, k = y.shape
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            st = dict(
+                kernel="conv2d", stage=name, peak=pol, rule=rule,
+                run=lambda x=x, w=w, b=b: ck.conv2d_bias_relu(x, w, b, stride=1, padding=1),
+                plain=lambda x=x, w=w, b=b: ck.conv2d_bias_relu_plain(x, w, b, stride=1, padding=1),
+                library=lambda x=x, wl=wl, b=b: F.conv2d(x.permute(0, 3, 1, 2), wl, b, stride=1, padding=1),
+                library_call="F.conv2d (cuDNN, channels-last, bias, no ReLU)",
+                flops=2 * n * ho * wo * k * 9 * w.shape[2],
+                nbytes=(x.numel() + w.numel() + b.numel() + y.numel()) * y.element_size(),
+                # at stride 1 taps' term order is vcol's: one fmaf chain each (bf16: the same k-steps)
+                same_as=[("conv_taps", lambda x=x, w=w, b=b: ck.conv_taps(x, w, b, stride=1, padding=1))],
+            )
+            stages.append(st)
+            taps = ck.conv_taps(x, w, b, **kw)
+            checks.append((f"conv_taps {name} {pol} vs its plain version",
+                           compare(rule, taps, ck.conv_taps_plain(x, w, b, **kw))))
+            for kname in ("conv_pairs", "conv_im2col"):
+                checks.append((f"{kname} {name} {pol} vs conv_taps", compare("bitwise", getattr(ck, kname)(x, w, b, **kw),
+                                                                             taps)))
+            if name == "conv4":
+                for kname in ("conv2d_bias_relu", "conv_taps"):
+                    fn = getattr(ck, kname)
+                    for kb in (64, 128):
+                        checks.append((f"{kname} conv4 k_block={kb} {pol} vs k_block=0", compare(
+                            "bitwise", fn(x, w, b, k_block=kb, **kw), fn(x, w, b, **kw))))
+            if name == "conv5":
+                hp = (ho - 3) // 2 + 1
+                run = lambda x=x, w=w, b=b: ck.conv2d_bias_relu(x, w, b, stride=1, padding=1, hpool=(3, 2))  # noqa: E731
+                stages.append(dict(
+                    kernel="conv2d", stage=name, mode="hpool", peak=pol, rule=rule, run=run, library=None,
+                    library_call=None, flops=st["flops"],
+                    plain=lambda x=x, w=w, b=b: ck.conv2d_bias_relu_plain(x, w, b, stride=1, padding=1, hpool=(3, 2)),
+                    nbytes=(x.numel() + w.numel() + b.numel() + n * hp * wo * k) * y.element_size(),
+                ))
+                unfused = lambda x=x, w=w, b=b: ck.maxpool2d(  # noqa: E731
+                    ck.conv2d_bias_relu(x, w, b, stride=1, padding=1), window=3, stride=2)
+                stages.append(w_stage("pool5", run(), unfused, "conv2d"))
+                taps_h = ck.conv_taps(x, w, b, hpool=(3, 2), **kw)
+                checks.append((f"conv_taps hpool + W stage conv5 {pol} vs conv_taps + maxpool2d", compare(
+                    "bitwise", ck.maxpool2d_w(taps_h, window=3, stride=2), ck.maxpool2d(taps, window=3, stride=2))))
+        stages.append(pool_stage("pool5", t["y5"]))
+        rows += [measure(st, pol, spec, peak_name) for st in stages]
+        y5 = t["y5"]
+        checks.append((f"maxpool_phases pool5 {pol} vs maxpool2d", compare(
+            "bitwise", ck.maxpool_phases(y5, window=3, stride=2), ck.maxpool2d(y5, window=3, stride=2))))
+        checks.append((f"maxpool_phases pool5 {pol} vs its plain version", compare(
+            "bitwise", ck.maxpool_phases(y5, window=3, stride=2), ck.maxpool_phases_plain(y5, window=3, stride=2))))
+        x4, w5, b5 = t["conv5"]
+        rows.append(block_row(block_case("block5", pol, x4, w5, b5, 1, 1, 3, 2, None), pol, spec, peak_name))
+        del t, stages
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for what, res in checks:
+        log(f"v6 {what}: ok={res['ok']} tol={res['tol']} max_abs={res['max_abs_err']:.3g}")
+        require(res["ok"], f"v6 check {what}: {res}")
     return rows
 
 
@@ -1440,7 +1578,7 @@ def run_variants(key, knobs):
     """The KernelVariants a route's knobs set (None for the reference tier)."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.variants import KernelVariants
 
-    if key != "v3_pallas":
+    if not key.endswith("_pallas"):
         return None
     return KernelVariants(**{_KNOB_FIELD[k]: int(v) if k in ("KBLOCK", "ROWBLOCK") else v for k, v in knobs.items()})
 
@@ -1465,25 +1603,26 @@ def knob_env(knobs):
                 os.environ[n] = v
 
 
-def drive(key, pol, knobs, per_forward) -> dict:
+def drive(key, pol, knobs, per_forward, shape="13x13x256", extra=()) -> dict:
     """One main-path run through ``run.main`` with the route's knobs set in
     the environment for the call; the launch counts are set to 0 just
-    before it and read just after."""
+    before it and read just after. No route may degrade."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     with knob_env(knobs):
         ck.reset_launches()
         out = run_cli(["--config", key, "--dtype", pol, "--batch", str(BATCH), "--init", "random",
-                       "--repeats", "10", "--warmup", "3"])
+                       "--repeats", "10", "--warmup", "3", *extra])
         launches = dict(ck.LAUNCHES)
     name = run_name(key, pol, knobs)
     passes = int(re.search(r"^Kernel launches: .* passes=(\d+)$", out, re.M).group(1))
-    shape = re.search(r"^Final Output Shape: (\S+)$", out, re.M).group(1)
+    got_shape = re.search(r"^Final Output Shape: (\S+)$", out, re.M).group(1)
     first10 = [float(v) for v in re.search(r"^Final Output \(first 10 values\): (.+)$", out, re.M).group(1).split()]
     ms = float(re.search(r"completed in ([0-9.]+) ms", out).group(1))
     log(f"main path {name}: {ms:.3f} ms/pass at batch {BATCH} ({BATCH / ms * 1e3:.1f} img/s) "
         f"launches={launches} passes={passes}")
-    require(shape == "13x13x256", f"{name}: output shape {shape}")
+    require(got_shape == shape, f"{name}: output shape {got_shape}")
+    require("DEGRADED" not in out, f"{name} degraded:\n{out}")
     require(all(np.isfinite(first10)), f"{name}: non-finite output {first10}")
     want = {k: n * passes for k, n in _launches(**per_forward).items()}
     require(passes > 0 and launches == want, f"{name}: launches {launches}, want {want}")
@@ -1572,6 +1711,139 @@ def main_path_phase() -> dict:
             + " ".join(f"{c.stage}: abs={c.max_abs:.3g} rel={c.max_rel:.3g}" for c in res.stages))
         require(res.passed and res.margin > 0, f"screen_blocks {pol}: {res.reason()}")
         result[f"screen_blocks/{pol}"] = res.to_obj()
+    return result
+
+
+V6_STAGED = dict(conv2d=5, maxpool2d=3, lrn=1)
+V6_RUNS = (
+    # (config, policy, TPU_FRAMEWORK_* knobs, kernel launches per forward); the FC head is cuBLAS on every route
+    ("v6_full_pallas", "fp32", {}, V6_STAGED), ("v6_full_pallas", "bf16", {}, V6_STAGED),
+    # conv1, conv2 (with LRN2) and conv5 each one block; conv3 and conv4 have no pool to fuse
+    ("v6_full_pallas", "fp32", {"FUSE": "block"}, dict(conv_block=3, conv2d=2)),
+    ("v6_full_pallas", "bf16", {"FUSE": "block"}, dict(conv_block=3, conv2d=2)),
+    # the three pools' H max in their convs' epilogues; maxpool2d runs their W stages
+    ("v6_full_pallas", "fp32", {"FUSE": "hpool"}, V6_STAGED), ("v6_full_pallas", "bf16", {"FUSE": "hpool"}, V6_STAGED),
+    ("v6_full_jit", "fp32", {}, {}), ("v6_full_jit", "bf16", {}, {}),
+)
+# every v6 route against v6_full_jit fp32 on He-scaled params: fp32 the JAX package's cross-tier tolerance of full
+# AlexNet (tests/test_alexnet_full.py: rtol 2e-5, atol 2e-4); bf16 the bf16 budget, 2e-2 of the oracle's max
+V6_RTOL, V6_ATOL = 2e-5, 2e-4
+V6_LAYERS = ("conv1", "pool1", "conv2", "pool2", "lrn2", "conv3", "conv4", "conv5", "pool5", "fc6", "fc7", "fc8")
+
+
+def v6_he_params(rng):
+    """Full AlexNet's params drawn with numpy: He-normal weights, bias 0.1
+    (``init_full_random``'s distribution; the constant init makes every
+    logit equal)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet_full import ALEXNET, _param_shapes
+
+    tree = {name: {"w": (rng.standard_normal(ws, dtype=np.float32) * np.float32((2.0 / np.prod(ws[:-1])) ** 0.5)),
+                   "b": np.full(bs, 0.1, np.float32)} for name, (ws, bs) in _param_shapes(ALEXNET).items()}
+    return init.params_from_jax(tree)
+
+
+def v6_path_phase() -> dict:
+    """Phase 3, full AlexNet through ``run.main`` (``V6_RUNS``), launch counts
+    set to 0 before each run and read after; every route against
+    ``v6_full_jit`` fp32 on He-scaled params, the fused routes bitwise the
+    staged one in fp32; then the flags: ``--save-params`` / ``--params``,
+    ``--input native``, ``--trace`` and the one chaos drill
+    (``kernel_compile`` with ``--fallback-chain auto``: v6_full_pallas
+    degrades to v6_full_jit and launches no kernel)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+
+    result = {"runs": {}}
+    for key, pol, knobs, per_forward in V6_RUNS:
+        result["runs"][run_name(key, pol, knobs)] = drive(key, pol, knobs, per_forward, shape="1000")
+
+    rng = np.random.default_rng(2029)
+    params = v6_he_params(rng)
+    x = torch.from_numpy(rng.random((BATCH, 227, 227, 3), dtype=np.float32)).cuda()
+    outs = {}
+    for key, pol, knobs, _n in V6_RUNS:
+        with knob_env({}):
+            fwd = configs.build_forward(configs.REGISTRY[key], policy=pol, variants=run_variants(key, knobs))
+        outs[run_name(key, pol, knobs)] = fwd(params, x)
+    oracle = outs["v6_full_jit/fp32"]
+    omax = float(oracle.abs().max())
+    for name, out in outs.items():
+        pol = name.split("/")[-1]
+        require(tuple(out.shape) == (BATCH, 1000) and bool(torch.isfinite(out).all()), f"{name} output")
+        err = float((out - oracle).abs().max())
+        ok = (bool(((out - oracle).abs() <= V6_ATOL + V6_RTOL * oracle.abs()).all()) if pol == "fp32"
+              else err / omax <= BF16_REL)
+        log(f"budget {name} vs v6_full_jit fp32: max_abs={err:.3g} rel_of_max={err / omax:.3g} ok={ok}")
+        require(ok, f"{name} outside its budget against v6_full_jit fp32")
+        result[f"budget/{name}"] = dict(max_abs=err, rel_of_max=err / omax)
+    for pol in ("fp32", "bf16"):
+        for knobs in ({"FUSE": "block"}, {"FUSE": "hpool"}):
+            name = run_name("v6_full_pallas", pol, knobs)
+            same = bool(torch.equal(outs[name], outs[f"v6_full_pallas/{pol}"]))
+            log(f"{name} bitwise equal to staged v6_full_pallas/{pol}: {same}")
+            require(same or pol != "fp32", f"{name} differs from the staged route in fp32")
+            result[f"bitwise/{name}"] = same
+    del outs, oracle
+
+    out_dir = Path("chip_smoke_out")
+    out_dir.mkdir(exist_ok=True)
+    npz, trace = out_dir / "v6_params.npz", out_dir / "v6_trace.jsonl"
+    npz.unlink(missing_ok=True)
+    trace.unlink(missing_ok=True)
+    small = ["--batch", "8", "--repeats", "3", "--warmup", "2", "--init", "random", "--seed", "5"]
+
+    def first10(out):
+        return re.search(r"^Final Output \(first 10 values\): (.+)$", out, re.M).group(1)
+
+    with knob_env({}):
+        saved = run_cli(["--config", "v6_full_pallas", *small, "--save-params", str(npz)])
+        loaded = run_cli(["--config", "v6_full_pallas", *small, "--params", str(npz)])
+        native = {key: run_cli(["--config", key, *small, "--params", str(npz), "--input", "native"])
+                  for key in ("v6_full_pallas", "v6_full_jit")}
+        traced = run_cli(["--config", "v6_full_pallas", *small, "--trace", str(trace)])
+        os.environ["CHAOS_SPEC"] = "kernel_compile=1"
+        chaos.reset()
+        try:
+            ck.reset_launches()
+            drill = run_cli(["--config", "v6_full_pallas", *small, "--fallback-chain", "auto"])
+            drill_launches = dict(ck.LAUNCHES)
+        finally:
+            os.environ.pop("CHAOS_SPEC")
+            chaos.reset()
+    log(f"--save-params then --params: {first10(saved)} | {first10(loaded)}")
+    require(f"Saved params to {npz}" in saved and f"Loaded params from {npz}" in loaded
+            and first10(saved) == first10(loaded), "the --save-params / --params round trip")
+    got = {k: np.array(first10(v).split(), dtype=np.float64) for k, v in native.items()}
+    log(f"--input native: v6_full_pallas {first10(native['v6_full_pallas'])} | v6_full_jit "
+        f"{first10(native['v6_full_jit'])}")
+    require(all("Final Output Shape: 1000" in v and "DEGRADED" not in v for v in native.values())
+            and np.allclose(got["v6_full_pallas"], got["v6_full_jit"], rtol=V6_RTOL, atol=V6_ATOL),
+            "--input native on the two v6 tiers")
+    spans = [r for r in Journal.load(trace) if r["kind"] == "span" and r["name"] == "run.measure"]
+    log(f"--trace: {re.search(r'^Trace: .*$', traced, re.M).group(0)}; run.measure spans {len(spans)}")
+    require(len(spans) == 1 and spans[0]["attrs"]["per_pass_ms"] > 0 and "DEGRADED" not in traced, "--trace")
+    degraded = re.search(r"^DEGRADED\(.*$", drill, re.M)
+    log(f"chaos drill: {degraded.group(0) if degraded else 'no DEGRADED line'}; launches after it {drill_launches}")
+    require(degraded is not None and degraded.group(0).startswith("DEGRADED(v6_full_pallas -> v6_full_jit)")
+            and "Final Output Shape: 1000" in drill and drill_launches == _launches(), "the chaos drill")
+    result["flags"] = dict(save_params=first10(saved), params=first10(loaded),
+                           native={k: first10(v) for k, v in native.items()}, trace_spans=spans,
+                           drill=degraded.group(0), drill_launches=drill_launches)
+
+    # the per-layer split of both tiers (run --breakdown): conv1..pool5, then the FC head's three matmuls
+    for key in ("v6_full_pallas", "v6_full_jit"):
+        for pol in ("fp32", "bf16"):
+            with knob_env({}):
+                text = run_cli(["--config", key, "--dtype", pol, "--batch", str(BATCH), "--init", "random",
+                                "--repeats", "3", "--warmup", "1", "--breakdown"])
+            lines = re.findall(r"^Layer (\S+) completed in ([0-9.]+) ms -> (\S+)$", text, re.M)
+            require([n for n, _ms, _s in lines] == [*V6_LAYERS] and lines[-1][2] == "1000",
+                    f"run --breakdown {key}/{pol}:\n{text}")
+            log(f"run.main --config {key} --dtype {pol} --breakdown: " + " ".join(f"{n}={ms}" for n, ms, _s in lines))
+            result[f"breakdown/{key}/{pol}"] = {n: float(ms) for n, ms, _s in lines}
     return result
 
 
@@ -1755,6 +2027,45 @@ def tune_phase() -> dict:
         f"{len(recs)} gate records)")
     return dict(winners=winners, dtype_winner=policy["dtype"], sweep_s=t1 - t0, cached_s=t2 - t1,
                 gate_records=recs, stdout_sweep=first, stdout_cache=second)
+
+
+def v6_tune_phase() -> dict:
+    """Phase 4, full AlexNet: ``run.main --config v6_full_pallas --tune`` at
+    227x227, batch 32, fp32 (the single-dtype sweep: the gate screens
+    Blocks 1-2 only) over its five conv layers, no failed candidate and no
+    degraded layer; then a second identical call must hit the cache."""
+    out_dir = Path("chip_smoke_out")
+    out_dir.mkdir(exist_ok=True)
+    plan_path = out_dir / "v6_tune_plan.json"
+    plan_path.unlink(missing_ok=True)
+    argv = ["--config", "v6_full_pallas", "--tune", "--dtype", "fp32", "--plan", str(plan_path), "--batch",
+            str(TUNE_BATCH), "--tune-repeats", "2", "--tune-warmup", "1", "--repeats", "3", "--warmup", "2"]
+    with knob_env({}):
+        t0 = time.perf_counter()
+        first = run_cli(argv)
+        t1 = time.perf_counter()
+        second = run_cli(argv)
+        t2 = time.perf_counter()
+    for what, out, word in (("first", first, "swept"), ("second", second, "cache")):
+        line = re.search(r"^Tune plan: .*$", out, re.M)
+        log(f"v6 tune {what} call: {line.group(0) if line else 'no Tune plan line'}")
+        require(line is not None and line.group(0).startswith(f"Tune plan: {word} hash=")
+                and "Final Output Shape: 1000" in out, f"the {what} v6 --tune call:\n{out[-3000:]}")
+    (entry,) = json.loads(plan_path.read_text())["plans"].values()
+    require(entry["dtype"] == "fp32" and entry["degraded"] == "" and list(entry["layers"]) == [
+        "conv1", "conv2", "conv3", "conv4", "conv5"], f"v6 plan {entry['layers']} degraded={entry['degraded']}")
+    winners = {}
+    for layer, v in entry["layers"].items():
+        st = entry["stats"][layer]
+        label = f"conv={v['conv']} pool={v['pool']} rb={v['row_block']} kb={v['k_block']} fuse={v['fuse']}"
+        log(f"v6 tune winner fp32 {layer}: {label} best_ms={st.get('best_ms')} default_ms={st.get('default_ms')} "
+            f"timed={st.get('timed')} failed={st.get('failed')} pruned={st.get('pruned')}")
+        require(st.get("failed") == 0 and st.get("degraded", "") == "",
+                f"v6 {layer}: failed={st.get('failed')} degraded={st.get('degraded')} {st.get('failures')}")
+        winners[layer] = dict(variants=label, best_ms=st.get("best_ms"), default_ms=st.get("default_ms"),
+                              timed=st.get("timed"), pruned=st.get("pruned"))
+    log(f"v6 tune: sweep {t1 - t0:.1f} s, cached call {t2 - t1:.1f} s")
+    return dict(winners=winners, sweep_s=t1 - t0, cached_s=t2 - t1, stdout_sweep=first, stdout_cache=second)
 
 
 def s2d_inputs(dtype) -> list:
@@ -3041,6 +3352,48 @@ def kernels_line(rows, runs) -> dict:
     return {"kernels": entries}
 
 
+# full AlexNet's kernels: name -> (the stages of one v6_full_pallas forward it runs, the route's knobs)
+V6_KERNELS = {"conv2d": (("conv1", "conv2", "conv3", "conv4", "conv5"), ""),
+              "maxpool2d": (("pool1", "pool2", "pool5"), ""), "lrn": (("lrn2",), ""),
+              "conv_block": (("block1", "block2", "block5"), "+FUSE=block")}
+
+
+def v6_kernels_entries(rows, runs) -> list:
+    """The ``kernels`` line's entries of full AlexNet, one per (kernel,
+    dtype): times summed over the kernel's stages in one ``v6_full_pallas``
+    forward (Blocks 1-2's rows at the same shapes, then conv3..pool5's and
+    block 5's), launches from that dtype's v6 run; conv5's hpool mode and
+    pool5's W stage go under ``modes``."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    entries = []
+    for name, (stages, route) in V6_KERNELS.items():
+        source, replaces = (BLOCK_KERNEL[1], BLOCK_KERNEL[2]) if name == "conv_block" else KERNELS[name][:2]
+        for pol in ("fp32", "bf16"):
+            every = [r for r in rows if r["kernel"] == name and r["dtype"] == pol and r["stage"] in stages]
+            mine = [r for r in every if not r.get("mode")]
+            modes = [r for r in every if r.get("mode") and r["stage"] in ("conv5", "pool5")]
+            require([r["stage"] for r in mine] == list(stages), f"v6 {name} {pol}: stages {[r['stage'] for r in mine]}")
+            run_key = f"v6_full_pallas{route}/{pol}"
+            run = runs[run_key]
+            block = name == "conv_block"
+            entry = dict(
+                name=name, dtype=pol, route="cuda", source=source, replaces=replaces, model="alexnet_full",
+                run=run_key, launches=run["launches"][name],
+                launches_per_forward=run["launches"][name] / run["passes"],
+                max_abs_err=max(r["max_abs_err"] for r in every), within_tolerance=all(r["ok"] for r in every),
+                ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+                bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=None if block else sum(r["library_ms"] for r in mine),
+                **(dict(staged_chain_ms=sum(r["staged_ms"] for r in mine),
+                        cudnn_chain_ms_note=sum(r["cudnn_chain_ms"] for r in mine)) if block else {}),
+                stages={r["stage"]: {k: r[k] for k in keys + STAGE_EXTRAS if k in r} for r in mine},
+            )
+            if modes:
+                entry["modes"] = {f"{r['mode']} @ {r['stage']}": {k: r[k] for k in keys if k in r} for r in modes}
+            entries.append(entry)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -3124,6 +3477,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_phase(spec, peak_name) + variant_phase(spec, peak_name) + block_phase(spec, peak_name)
+    v6_rows = v6_kernel_phase(spec, peak_name)
     lm_rows = lm_kernel_phase(spec, peak_name) + lm_bwd_kernel_phase(spec, peak_name)
     s2d_rows = s2d_phase(spec, peak_name)
     edges = (edge_phase() + pool_lrn_edge_phase() + block_edge_phase() + s2d_edge_phase() + lm_edge_phase()
@@ -3139,6 +3493,9 @@ def main() -> int:
         "fp32 taps and g8 keep the bits of ENGINE_FP32_SHA256, the pools and LRN those of POOL_LRN_SHA256")
     main = main_path_phase()
     log("phase 3: main path ran through the kernels, golden and budgets hold")
+    v6 = v6_path_phase()
+    log("phase 3: full AlexNet ran through the kernels on every route, within budget of v6_full_jit; "
+        "--save-params/--params, --input native, --trace and the chaos drill held")
     lm = lm_path_phase()
     log("phase 3b: long_context and the LM's forward, loss, decode and generation ran through flash_fwd")
     train = train_path_phase()
@@ -3149,7 +3506,10 @@ def main() -> int:
     log("phase 3e: the bench printed every row to its contract; run --breakdown and --profile ran")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
+    v6_tune = v6_tune_phase()
+    log("phase 4: the v6 tuner swept five conv layers with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
+    line["kernels"] += v6_kernels_entries(rows + v6_rows, v6["runs"])
     line["kernels"] += lm_kernels_entries(lm_rows, {**lm["runs"], **train["runs"]})
     line["kernels"] += s2d_kernels_entries(s2d_rows, ab["runs"])
 
@@ -3159,8 +3519,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(  # noqa: atomic-write
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
-             cudnn_kernels=CUDNN_KERNELS, stages=rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main, lm_path=lm, train_path=train,
-             pool_ab=ab, bench=bench, tune=tune,
+             cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
+             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, tune=tune, v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

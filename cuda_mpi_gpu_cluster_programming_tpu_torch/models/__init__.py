@@ -7,6 +7,16 @@ from .alexnet import (  # noqa: F401
     forward_blocks12,
     output_shape,
 )
+from .alexnet_full import (  # noqa: F401
+    AlexNetConfig,
+    ALEXNET,
+    forward_alexnet,
+    fc_head,
+    predict,
+    init_full_deterministic,
+    init_full_random,
+    spatial_output_shape,
+)
 from .init import (  # noqa: F401
     init_params_deterministic,
     init_params_random,

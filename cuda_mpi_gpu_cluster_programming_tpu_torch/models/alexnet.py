@@ -59,6 +59,12 @@ class Blocks12Config:
     pool2: PoolSpec = PoolSpec(3, 2)
     lrn2: LrnSpec = LrnSpec(5, 1e-4, 0.75, 2.0)
 
+    @property
+    def family(self) -> str:
+        """The model family, as ``ExecConfig.model`` and the tuning plan's
+        shape key name it."""
+        return "blocks12"
+
     def layer_chain(self) -> Tuple[Tuple[str, Any], ...]:
         return (
             ("conv1", self.conv1),
@@ -74,8 +80,10 @@ BLOCKS12 = Blocks12Config()
 
 def layer_dims(cfg):
     """Walk the layer chain once, yielding ``(name, spec, in_dims, out_dims)``
-    with dims as (H, W, C): the one shape traversal that ``output_shape``
-    and the FLOP counters share."""
+    with dims as (H, W, C): the one shape traversal that ``output_shape``,
+    the FLOP counters and the autotuner share. ``cfg`` is any config with a
+    ``layer_chain()`` and input dims: ``Blocks12Config`` or the full
+    ``AlexNetConfig`` (its spatial chain, conv1..pool5)."""
     h, w, c = cfg.in_height, cfg.in_width, cfg.in_channels
     for name, spec in cfg.layer_chain():
         hin, win, cin = h, w, c
@@ -98,7 +106,9 @@ def output_shape(cfg: Blocks12Config = BLOCKS12) -> Tuple[int, int, int]:
 
 
 def stage_flops(cfg: Blocks12Config = BLOCKS12):
-    """Per-stage ``(name, flops, matmul_flops)`` for ONE image.
+    """Per-stage ``(name, flops, matmul_flops)`` for ONE image, over
+    ``cfg``'s spatial chain (an ``AlexNetConfig``'s FC head is not a stage
+    here, as in the JAX package).
 
     ``flops`` counts everything (conv MACs x2 + bias + ReLU, pool window
     compares, LRN window sums and scale); ``matmul_flops`` only the conv
@@ -114,7 +124,8 @@ def stage_flops(cfg: Blocks12Config = BLOCKS12):
 
 
 def flops_per_image(cfg: Blocks12Config = BLOCKS12) -> int:
-    """All FLOPs for one image through Blocks 1-2 (MAC = 2 FLOPs)."""
+    """All FLOPs for one image through ``cfg``'s spatial chain (MAC = 2
+    FLOPs): Blocks 1-2, or full AlexNet's conv1..pool5."""
     return sum(f for _name, f, _mm in stage_flops(cfg))
 
 
@@ -123,16 +134,28 @@ def matmul_flops_per_image(cfg: Blocks12Config = BLOCKS12) -> int:
     return sum(mm for _name, _f, mm in stage_flops(cfg))
 
 
+def forward_spatial(params: Params, x: torch.Tensor, cfg=BLOCKS12) -> torch.Tensor:
+    """``cfg``'s layer chain on the reference-op tier, ReLU after every
+    conv: Blocks 1-2, or full AlexNet's conv1..pool5. A conv followed by a
+    pool leaves its ReLU to ``ops.relu_maxpool``, bitwise
+    ``maxpool(relu(x))`` at ``F.max_pool2d``'s cost."""
+    chain = cfg.layer_chain()
+    for i, (name, spec) in enumerate(chain):
+        if isinstance(spec, ConvSpec):
+            x = ops.conv2d(x, params[name]["w"], params[name]["b"], stride=spec.stride, padding=spec.padding)
+            if not (i + 1 < len(chain) and isinstance(chain[i + 1][1], PoolSpec)):
+                x = ops.relu(x)
+        elif isinstance(spec, PoolSpec):
+            x = ops.relu_maxpool(x, window=spec.window, stride=spec.stride)
+        elif isinstance(spec, LrnSpec):
+            x = ops.lrn(x, size=spec.size, alpha=spec.alpha, beta=spec.beta, k=spec.k,
+                        alpha_over_size=spec.alpha_over_size)
+    return x
+
+
 def forward_blocks12(params: Params, x: torch.Tensor, cfg: Blocks12Config = BLOCKS12) -> torch.Tensor:
     """Conv1→ReLU→Pool1→Conv2→ReLU→Pool2→LRN2 on the reference-op tier.
 
     ``x`` is NHWC; params is ``{"conv1": {"w","b"}, "conv2": {"w","b"}}``
     with HWIO weights."""
-    c1, p1, c2, p2, n2 = cfg.conv1, cfg.pool1, cfg.conv2, cfg.pool2, cfg.lrn2
-    x = ops.conv2d(x, params["conv1"]["w"], params["conv1"]["b"], stride=c1.stride, padding=c1.padding)
-    x = ops.relu_maxpool(x, window=p1.window, stride=p1.stride)
-    x = ops.conv2d(x, params["conv2"]["w"], params["conv2"]["b"], stride=c2.stride, padding=c2.padding)
-    x = ops.relu_maxpool(x, window=p2.window, stride=p2.stride)
-    return ops.lrn(
-        x, size=n2.size, alpha=n2.alpha, beta=n2.beta, k=n2.k, alpha_over_size=n2.alpha_over_size
-    )
+    return forward_spatial(params, x, cfg)

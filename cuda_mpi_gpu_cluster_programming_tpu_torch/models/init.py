@@ -94,7 +94,9 @@ def _tensor_from_array(a: Any, device) -> torch.Tensor:
 
 def params_from_jax(tree: Mapping[str, Mapping[str, Any]], device="cuda") -> Params:
     """The JAX package's params (arrays, or anything ``np.asarray`` takes)
-    as the port's params: same layouts, same values, same dtypes."""
+    as the port's params: same layouts, same values, same dtypes. Full
+    AlexNet's come over as they are: conv3-5 in HWIO, fc6-8 as ``(in, out)``
+    matrices, fc6's rows in the (h, w, c) order of the NHWC flatten."""
     return {
         layer: {name: _tensor_from_array(a, device) for name, a in leaves.items()}
         for layer, leaves in tree.items()

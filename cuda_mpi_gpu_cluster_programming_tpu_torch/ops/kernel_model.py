@@ -1,4 +1,5 @@
-"""Blocks 1-2 forward pass on the CUDA kernel tier (``v3_pallas``).
+"""Forward passes on the CUDA kernel tier: Blocks 1-2 (``v3_pallas``) and
+full AlexNet (``v6_full_pallas``, :func:`forward_alexnet_kernels`).
 
 The counterpart of the JAX package's ``forward_blocks12_pallas``. Each
 block (conv -> pool, plus block 2's LRN) goes through
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..models.alexnet import BLOCKS12, Blocks12Config, ConvSpec, LrnSpec, PoolSpec
+from ..models.alexnet_full import ALEXNET, fc_head
 from . import cuda_kernels as ck
 from . import megakernel as mk
 from .shapes import conv_out_dim
@@ -105,20 +107,57 @@ def _conv_then_pool(
     return out
 
 
+def forward_spatial_kernels(
+    params, x: torch.Tensor, cfg=BLOCKS12, variants: KernelVariants | LayerVariants | None = None,
+) -> torch.Tensor:
+    """``cfg``'s layer chain on the kernel tier (Blocks 1-2, or full
+    AlexNet's conv1..pool5): the JAX package's ``forward_alexnet_pallas``
+    chain walker. A conv followed by a pool (conv1, conv2, conv5) goes
+    through :func:`_conv_then_pool` with the pool, and an LRN after it,
+    folded into its block, so the ``fuse`` gates stay one implementation;
+    any other conv (conv3, conv4) through :func:`conv` with the layer's own
+    knobs, bias and ReLU in its epilogue. ``variants``: one
+    ``KernelVariants`` for every layer or a per-layer ``LayerVariants``;
+    None reads the environment now (``KernelVariants.resolve()``)."""
+    v = variants if variants is not None else KernelVariants.resolve()
+    chain = list(cfg.layer_chain())
+    consumed: set = set()  # the pools and LRNs a block took
+    for idx, (name, spec) in enumerate(chain):
+        if idx in consumed:
+            continue
+        lv = _layer_variants(v, name)
+        nxt = chain[idx + 1][1] if idx + 1 < len(chain) else None
+        if isinstance(spec, ConvSpec) and isinstance(nxt, PoolSpec):
+            nxt2 = chain[idx + 2][1] if idx + 2 < len(chain) else None
+            lrn = nxt2 if isinstance(nxt2, LrnSpec) else None
+            x = _conv_then_pool(x, params[name]["w"], params[name]["b"], spec, nxt, lv, lrn=lrn)
+            consumed.update((idx + 1, idx + 2) if lrn is not None else (idx + 1,))
+        elif isinstance(spec, ConvSpec):
+            x = conv(x, params[name]["w"], params[name]["b"], stride=spec.stride, padding=spec.padding, relu=True,
+                     variant=lv.conv, k_block=lv.k_block)
+        elif isinstance(spec, PoolSpec):
+            x = pool(x, window=spec.window, stride=spec.stride, variant=lv.pool)
+        elif isinstance(spec, LrnSpec):
+            x = ck.lrn(x, size=spec.size, alpha=spec.alpha, beta=spec.beta, k=spec.k,
+                       alpha_over_size=spec.alpha_over_size)
+    return x
+
+
 def forward_blocks12_kernels(
     params, x: torch.Tensor, cfg: Blocks12Config = BLOCKS12,
     variants: KernelVariants | LayerVariants | None = None,
 ) -> torch.Tensor:
     """``x`` NHWC (contiguous), params ``{"conv1": {"w","b"}, "conv2": ...}``
-    with HWIO weights, all in one dtype (fp32 or bf16). ``variants``: one
-    ``KernelVariants`` for both layers or a per-layer ``LayerVariants``;
-    None reads the environment now (``KernelVariants.resolve()``)."""
-    v = variants if variants is not None else KernelVariants.resolve()
-    x = _conv_then_pool(
-        x, params["conv1"]["w"], params["conv1"]["b"], cfg.conv1, cfg.pool1, _layer_variants(v, "conv1")
-    )
-    # Block 2's trailing LRN rides the handoff so fuse="block" folds it in.
-    return _conv_then_pool(
-        x, params["conv2"]["w"], params["conv2"]["b"], cfg.conv2, cfg.pool2, _layer_variants(v, "conv2"),
-        lrn=cfg.lrn2,
-    )
+    with HWIO weights, all in one dtype (fp32 or bf16): two blocks, block
+    2's trailing LRN riding its handoff so ``fuse="block"`` folds it in.
+    ``variants`` as in :func:`forward_spatial_kernels`."""
+    return forward_spatial_kernels(params, x, cfg, variants)
+
+
+def forward_alexnet_kernels(
+    params, x: torch.Tensor, cfg=ALEXNET, variants: KernelVariants | LayerVariants | None = None,
+) -> torch.Tensor:
+    """Full AlexNet on the kernel tier (``v6_full_pallas``): conv1..pool5
+    through :func:`forward_spatial_kernels`, then the FC head
+    (``torch.matmul``)."""
+    return fc_head(params, forward_spatial_kernels(params, x, cfg, variants), cfg)

@@ -28,6 +28,26 @@ def true_fp32(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b`` for ``(N, in) x (in, out)``: the product and the bias
+    add are two operations, each rounded to the operands' dtype, as JAX
+    computes ``x @ w + b`` (``addmm`` would round once, an ulp away in
+    bf16). On the GPU, cuBLAS reduces a bf16 product in fp32 (its split-K
+    partials may otherwise be summed in bf16), as the TPU's MXU does: the
+    switch is turned off for this product alone and set back after it, so
+    no other matmul of the process sees it changed."""
+    if not x.is_cuda:
+        return torch.matmul(x, w) + b
+    flags = torch.backends.cuda.matmul
+    was = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        y = torch.matmul(x, w)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = was
+    return y + b
+
+
 def conv2d(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int,
     preferred_element_type: torch.dtype | None = None,

@@ -1,6 +1,7 @@
-"""Resilience pieces the port's autotuner and tolerance gate need, copied
+"""Resilience pieces the port's autotuner, tolerance gate and run.py need, copied
 from the JAX package's ``resilience/`` (the port imports nothing of it):
 ``journal`` (fsync'd jsonl journal, atomic writes), ``chaos`` (seeded fault
-injection from ``CHAOS_SPEC``), ``policy`` (``Deadline``, and the bench's
-``RetryPolicy``, ``FaultLog`` and ``retry_call``) and ``sentinel``
-(``oracle_spot_check``, the gate's preflight)."""
+injection from ``CHAOS_SPEC``), ``policy`` (``Deadline``, the bench's and
+``run --max-retries``'s ``RetryPolicy``, ``FaultLog`` and ``retry_call``,
+``run --fallback-chain``'s ``Degrader`` and ``tier_fallback_chain``) and
+``sentinel`` (``oracle_spot_check``, the gate's preflight)."""

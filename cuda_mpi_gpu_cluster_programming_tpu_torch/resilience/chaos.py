@@ -12,12 +12,14 @@ the same to both packages. The spec is a comma-separated list:
                  per-site stream seeded by (seed, site).
 
 An unknown site is a ``ValueError`` naming the valid kinds, so a typo'd
-drill fails loudly instead of never firing. The port draws at one site:
-``kernel_compile``, once per timed candidate of the autotuner
+drill fails loudly instead of never firing. The port draws at one site,
+``kernel_compile``: once per timed candidate of the autotuner
 (``tuning.autotune.tune_layer``), which records the candidate as failed and
-sweeps on; a layer whose candidates all fail degrades to the default
-variants. The other sites are listed so a spec written for the JAX package
-parses here too.
+sweeps on (a layer whose candidates all fail degrades to the default
+variants), and once per build of a kernel-tier config in ``run.py``, which
+fails that build (``--max-retries`` retries it, ``--fallback-chain``
+degrades to the next tier). The other sites are listed so a spec written
+for the JAX package parses here too.
 
 Counters are per process.
 """

@@ -1,6 +1,7 @@
-"""Retry with bounded backoff, deadlines and fault logs.
+"""Retry with bounded backoff, deadlines, fault logs and the degradation
+chain walker.
 
-The JAX package's ``resilience/policy.py`` up to ``retry_call``, copied:
+The JAX package's ``resilience/policy.py``, copied:
 
 - ``Deadline``: a wall-clock budget handed down to the callee. The port's
   autotuner runs its sweep under one (``run --deadline-s``), the bench its
@@ -11,10 +12,15 @@ The JAX package's ``resilience/policy.py`` up to ``retry_call``, copied:
   ``BENCH_RETRY_BACKOFF`` set one.
 - ``Attempt``/``FaultLog``: the per-site trail of attempts; ``summary()``
   is the string a bench row carries under ``resilience``.
-- ``retry_call``: call until it returns, within the policy and deadline.
+- ``retry_call``: call until it returns, within the policy and deadline;
+  ``run --max-retries`` wraps each tier's build and first pass in it.
+- ``Degrader``, ``DegradedEvent``, ``DegradationExhausted``: walk an
+  ordered fallback chain, printing each step as ``DEGRADED(a -> b): cause``;
+  ``tier_fallback_chain`` is ``run --fallback-chain auto``'s chain, from the
+  JAX package's whole fallback table (keys the port has no config for yet
+  are data only).
 
-The JAX module's ``Degrader`` and ``tier_fallback_chain`` wait for
-``run --fallback-chain`` (ROADMAP Queue 1 item 12). Standard library only.
+Standard library only.
 """
 
 from __future__ import annotations
@@ -22,7 +28,11 @@ from __future__ import annotations
 import dataclasses
 import random
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
+
+# Triage status of a run that succeeded only on a lower tier: a warning,
+# not a failure, but never mistaken for the tier that was asked for.
+DEGRADED = "DEGRADED"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,3 +167,97 @@ def retry_call(
         log.record("ok", duration_s=time.monotonic() - t0)
         return out
     raise AssertionError("unreachable: the last attempt returns or raises")
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradedEvent:
+    """One fallback step: emitted and logged, never silently swallowed."""
+
+    from_tier: str
+    to_tier: str
+    cause: str
+
+    def __str__(self) -> str:
+        return f"DEGRADED({self.from_tier} -> {self.to_tier}): {self.cause}"
+
+
+class DegradationExhausted(RuntimeError):
+    """Every tier in the chain failed; carries the events and the last cause."""
+
+    def __init__(self, chain: Sequence[str], events: Sequence[DegradedEvent], last: BaseException):
+        super().__init__(
+            f"all {len(chain)} tiers failed ({' -> '.join(chain)}); last: {type(last).__name__}: {last}"
+        )
+        self.chain = list(chain)
+        self.events = list(events)
+        self.last = last
+
+
+class Degrader:
+    """Walk an ordered fallback chain, emitting ``DEGRADED`` events.
+
+    ``run(build)`` calls ``build(tier)`` for each tier in order and returns
+    ``(tier, result)`` from the first that succeeds. A failure that
+    ``should_degrade`` rejects re-raises at once (a genuine bug must not be
+    papered over by a cheaper tier); an accepted one emits a
+    ``DegradedEvent`` and falls through. Per-tier retries compose by passing
+    a ``build`` wrapped in ``retry_call``."""
+
+    def __init__(
+        self,
+        chain: Sequence[str],
+        should_degrade: Optional[Callable[[BaseException], bool]] = None,
+        on_event: Optional[Callable[[DegradedEvent], None]] = None,
+    ):
+        if not chain:
+            raise ValueError("Degrader needs a non-empty fallback chain")
+        self.chain = list(chain)
+        self.should_degrade = should_degrade
+        self.on_event = on_event
+        self.events: List[DegradedEvent] = []
+
+    @property
+    def degraded(self) -> bool:
+        return bool(self.events)
+
+    def run(self, build: Callable[[str], object]) -> Tuple[str, object]:
+        last: Optional[BaseException] = None
+        for i, tier in enumerate(self.chain):
+            try:
+                return tier, build(tier)
+            except Exception as e:  # re-raised per policy below
+                if self.should_degrade is not None and not self.should_degrade(e):
+                    raise
+                last = e
+                if i + 1 == len(self.chain):
+                    break
+                ev = DegradedEvent(tier, self.chain[i + 1], f"{type(e).__name__}: {e}"[:200])
+                self.events.append(ev)
+                if self.on_event is not None:
+                    self.on_event(ev)
+        raise DegradationExhausted(self.chain, self.events, last) from last
+
+
+# Each config's next-cheaper sibling, ending at a single-device library-op
+# tier: the JAX package's table, kept as data. The sharded tiers drop their
+# kernels and staging first, then the mesh; the kernel tiers drop to the
+# library ops (a kernel build or launch fault).
+_FALLBACK_NEXT = {
+    "v5_collective": "v4_hybrid",
+    "v4_hybrid": "v2.2_sharded",
+    "v2.2_sharded": "v1_jit",
+    "v2.1_replicated": "v1_jit",
+    "v7_tp": "v2.2_sharded",
+    "v3_pallas": "v1_jit",
+    "v6_full_pallas": "v6_full_jit",
+    "v6_full_sharded": "v6_full_jit",
+}
+
+
+def tier_fallback_chain(config_key: str) -> List[str]:
+    """``--fallback-chain auto`` for a config: the config itself, then every
+    next-cheaper tier down to the single-device library-op floor."""
+    chain = [config_key]
+    while chain[-1] in _FALLBACK_NEXT:
+        chain.append(_FALLBACK_NEXT[chain[-1]])
+    return chain

@@ -1,10 +1,16 @@
-"""CLI runner for the port: one single-device Blocks 1-2 configuration.
+"""CLI runner for the port: one single-device configuration, Blocks 1-2
+(``v1_jit``, ``v3_pallas``) or full AlexNet (``v6_full_jit``, ``v6_full_pallas``).
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --batch 128
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --tune
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --batch 128 --breakdown --profile prof
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v6_full_pallas --init random --save-params w.npz
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v6_full_pallas --params w.npz --input native \
+        --fallback-chain auto --trace run.jsonl
 
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. Prints the JAX package's stdout contract
@@ -16,13 +22,32 @@ layer of the config's op tier), which the harness regexes read.
 
 ``--tune`` sweeps {fp32, bf16, int8w} x the kernel variants of each conv
 layer (``tuning.autotune.autotune_precision``: every dtype screened by the
-journaled, preflighted tolerance gate first), saves the plan and the
+journaled, preflighted tolerance gate first; full AlexNet: the run's dtype
+alone, ``autotune``, over its five conv layers), saves the plan and the
 winning dtype in ``--plan`` (default ``<package>/_build/tune_plan.json``,
 git-ignored) and runs with them; a fresh matching plan is loaded instead
 of swept. ``--plan`` alone loads a plan; ``--policy tuned`` runs the
 saved winning dtype. Precedence of the run's dtype: ``--dtype`` or a preset
 ``--policy`` pins it (and pins the sweep to it); else ``--policy tuned`` or
 ``--tune`` adopt the sweep's winner; else ``--compute``.
+
+Weights: ``--init`` draws them (a ``torch.Generator`` seeded by ``--seed``;
+the input has its own, seeded by ``--seed`` + 1), ``--params`` loads an npz checkpoint in the
+JAX package's key layout (``conv1/w``, ...), so a file either package saved
+runs in the other, and ``--save-params`` writes the weights used. Input:
+``--input torch`` (the port's generator; the JAX package calls its own
+``jax``) or ``native`` (``native.fill_batch``: ones, or the seeded LCG
+stream, bit for bit the JAX package's). ``--trace PATH`` journals spans
+(``run.tune``, ``run.measure``) to a jsonl file and prints ``Trace:``.
+
+Faults: ``--max-retries N`` retries a failed build and first pass with
+backoff; ``--fallback-chain k1,k2`` (or ``auto``: the JAX package's tier
+ladder, ``v6_full_pallas`` -> ``v6_full_jit``, ``v3_pallas`` -> ``v1_jit``)
+degrades to the next config, printing ``DEGRADED(a -> b): cause`` on
+stdout; the tier that ran is the one reported. ``--deadline-s`` bounds the
+retries as well as the tuner. Without ``--fallback-chain`` a failed build
+exits non-zero: the port never falls back on its own. A kernel-tier build
+is the ``kernel_compile`` site of ``CHAOS_SPEC`` (``resilience/chaos.py``).
 """
 
 from __future__ import annotations
@@ -69,8 +94,8 @@ def make_parser() -> argparse.ArgumentParser:
                    help="with --tune: journal every tolerance-gate verdict to this jsonl path "
                         "(default: <plan>_gate.jsonl next to the plan file)")
     p.add_argument("--deadline-s", type=float, default=0.0,
-                   help="wall-clock budget of the --tune sweep (0 = unbounded); when it runs out the "
-                        "remaining candidates are skipped and the plan says so")
+                   help="wall-clock budget (0 = unbounded) of the build's retries and, with --tune, of the "
+                        "sweep: when it runs out the remaining candidates are skipped and the plan says so")
     p.add_argument("--height", type=int, default=227)
     p.add_argument("--width", type=int, default=227)
     p.add_argument("--lrn-form", choices=["cuda", "cpu"], default="cuda",
@@ -81,7 +106,48 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR",
                    help="capture a torch.profiler trace of the timed passes into DIR/trace.json")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--input", choices=["torch", "native"], default="torch",
+                   help="input source: torch = the port's generator (the JAX package's 'jax'), "
+                        "native = the C++ data pipeline (native/), the JAX package's stream bit for bit")
+    p.add_argument("--params", help="load weights from this .npz checkpoint instead of --init")
+    p.add_argument("--save-params", help="save the weights used to this .npz checkpoint")
+    p.add_argument("--trace", default="",
+                   help="journal spans (observability.trace: run.tune, run.measure, the tuner's) to this jsonl path")
+    p.add_argument("--max-retries", type=int, default=0,
+                   help="retry the build and first pass on a fault, with exponential backoff (0 = fail at once)")
+    p.add_argument("--fallback-chain", default="",
+                   help="comma-separated config keys to degrade to when the requested config cannot build or run "
+                        "its first pass, or 'auto' for the tier ladder; each step prints DEGRADED(from -> to)")
+    # The JAX run.py's flags whose subsystems the port has not yet: accepted,
+    # and refused with the ROADMAP Queue 1 item they wait for (_waiting).
+    p.add_argument("--shards", type=int, default=1, help="row-shard count: waits for the distribution tiers (item 3)")
+    p.add_argument("--supervise", action="store_true", help="the elastic supervisor: waits for item 8")
+    p.add_argument("--serve", action="store_true", help="the inference service: waits for item 1")
+    p.add_argument("--route", type=int, default=0, help="the serving fleet: waits for item 1")
+    p.add_argument("--serve-replay", default="", help="journal replay of a serve run: waits for item 1")
     return p
+
+
+def _waiting(args) -> str:
+    """Why a flag given cannot run yet ('' = none given)."""
+    if args.shards != 1:
+        return "--shards waits for the distribution tiers (ROADMAP Queue 1 item 3)"
+    if args.supervise:
+        return "--supervise waits for the elastic supervisor (ROADMAP Queue 1 item 8)"
+    if args.serve or args.route or args.serve_replay:
+        return "--serve, --route and --serve-replay wait for serving (ROADMAP Queue 1 item 1)"
+    return ""
+
+
+def _chaos_build_faults(exec_cfg) -> None:
+    """The ``kernel_compile`` chaos site of a kernel-tier build (a no-op
+    with chaos off): the JAX package's ``_chaos_build_faults`` for the
+    single-device tiers, where a Mosaic lowering is a CUDA kernel build."""
+    from .resilience import chaos
+
+    ch = chaos.active()
+    if ch is not None and exec_cfg.tier == "kernels":
+        ch.maybe_raise("kernel_compile", f"{exec_cfg.key} CUDA kernel build")
 
 
 def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
@@ -90,7 +156,7 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
     ``Policy:``/``Gate pruned:``/``Tune plan:`` lines."""
     from .observability.trace import span as obs_span
     from .resilience.policy import Deadline
-    from .tuning.autotune import DTYPES, AllDtypesPruned, autotune_precision
+    from .tuning.autotune import DTYPES, AllDtypesPruned, autotune, autotune_precision
     from .tuning.plan import device_kind, load_plan, load_policy
 
     plan_path = args.plan or str(Path(__file__).resolve().parent / "_build" / "tune_plan.json")
@@ -104,7 +170,17 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
         else:
             run_dtype, source = rec["dtype"], "tuned"
             gate_info = rec.get("gates", {}).get(run_dtype)
-    if args.tune:
+    if args.tune and model_cfg.family == "alexnet_full":
+        # Full AlexNet: the run's dtype alone (the gate screens Blocks 1-2).
+        with obs_span("run.tune", config=args.config, batch=args.batch):
+            plan, cached = autotune(
+                plan_path, model_cfg, dtype=run_dtype, batch=args.batch, force=args.tune_force,
+                deadline=Deadline.after(args.deadline_s or None), repeats=args.tune_repeats,
+                warmup=args.tune_warmup, device=device, device_kind=kind,
+            )
+        print(f"Tune plan: {'cache' if cached else 'swept'} hash={plan.plan_hash()} key={plan.key} "
+              f"path={plan_path}" + (f" DEGRADED({plan.degraded})" if plan.degraded else ""))
+    elif args.tune:
         res = None
         try:
             with obs_span("run.tune", config=args.config, batch=args.batch):
@@ -146,34 +222,85 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    if not args.trace:
+        return _run(args)
+    from .observability.trace import Tracer, set_tracer
+    from .resilience.journal import Journal
 
+    tracer = Tracer(journal=Journal(args.trace))
+    previous = set_tracer(tracer)
+    print(f"Trace: id={tracer.trace_id} journal={args.trace}")
+    try:
+        return _run(args)
+    finally:
+        set_tracer(previous)
+        tracer.journal.close()
+
+
+def _fallback_chain(args, exec_cfg, registry):
+    """The configs to try in order, or an error message (exit 2): unknown
+    keys, or a chain that crosses model families (it would run another
+    network on this run's params and input)."""
+    from .resilience.policy import tier_fallback_chain
+
+    chain = [args.config]
+    if args.fallback_chain.strip() == "auto":
+        chain = tier_fallback_chain(args.config)
+    elif args.fallback_chain:
+        chain += [k.strip() for k in args.fallback_chain.split(",") if k.strip()]
+    chain = list(dict.fromkeys(chain))
+    unknown = [k for k in chain if k not in registry]
+    if unknown:
+        return None, f"unknown configs in --fallback-chain: {unknown}"
+    mixed = [k for k in chain if registry[k].model != exec_cfg.model]
+    if mixed:
+        return None, f"--fallback-chain crosses model families: {mixed} (primary is {exec_cfg.model})"
+    return chain, ""
+
+
+def _run(args) -> int:
     from .configs import REGISTRY, build_forward, resolve_device
     from .models.alexnet import BLOCKS12
+    from .models.alexnet_full import AlexNetConfig, init_full_deterministic, init_full_random
     from .models.init import (
         deterministic_input,
         init_params_deterministic,
         init_params_random,
+        params_to,
         random_input,
     )
+    from .observability.trace import span as obs_span
     from .ops import cuda_kernels
+    from .resilience import chaos
+    from .resilience.policy import Deadline, DegradationExhausted, Degrader, RetryPolicy, retry_call
     from .utils.timing import amortized_stats, fence
 
     if args.list_configs:
         for c in REGISTRY.values():
             print(f"{c.key:18s} {c.version_name:22s} {c.description}")
         return 0
+    waiting = _waiting(args)
+    if waiting:
+        print(waiting, file=sys.stderr)
+        return 2
     if args.config not in REGISTRY:
         print(f"unknown config {args.config!r}; try --list-configs", file=sys.stderr)
         return 2
     exec_cfg = REGISTRY[args.config]
+    chain, why = _fallback_chain(args, exec_cfg, REGISTRY)
+    if why:
+        print(why, file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
 
-    model_cfg = dataclasses.replace(
+    blocks_cfg = dataclasses.replace(
         BLOCKS12,
         in_height=args.height,
         in_width=args.width,
         lrn2=dataclasses.replace(BLOCKS12.lrn2, alpha_over_size=(args.lrn_form == "cpu")),
     )
+    full = exec_cfg.model == "alexnet_full"
+    model_cfg = AlexNetConfig(blocks12=blocks_cfg) if full else blocks_cfg
     label = "GPU" if device.type == "cuda" else "CPU"
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"--- AlexNet {label} {exec_cfg.version_name} [{exec_cfg.key}] (batch={args.batch}) ---")
@@ -200,33 +327,77 @@ def main(argv=None) -> int:
         gate_str = "none"
     print(f"Precision: dtype={run_dtype} source={source} gate={gate_str}")
 
-    # One generator, params first and input second: --seed S reproduces both.
-    gen = torch.Generator().manual_seed(args.seed)
-    if args.init == "deterministic":
-        params = init_params_deterministic(model_cfg, device=device)
-        x = deterministic_input(args.batch, model_cfg, device=device)
-    else:
-        params = init_params_random(gen, model_cfg, device=device)
-        x = random_input(gen, args.batch, model_cfg, device=device)
+    # Params and input each from a generator of their own, so --params w.npz --seed S
+    # gives the saving run's input without drawing params it will not use.
+    init_det, init_rnd = (
+        (init_full_deterministic, init_full_random) if full else (init_params_deterministic, init_params_random)
+    )
+    if args.params:
+        from .utils.checkpoint import load_params_npz
 
-    try:
-        fwd = build_forward(exec_cfg, model_cfg, policy=run_dtype, device=device, plan=plan)
-    except ValueError as e:
-        print(f"cannot build config {exec_cfg.key!r}: {e}", file=sys.stderr)
-        return 2
+        params = params_to(load_params_npz(args.params), device=device)
+        print(f"Loaded params from {args.params}")
+    elif args.init == "deterministic":
+        params = init_det(model_cfg, device=device)
+    else:
+        params = init_rnd(torch.Generator().manual_seed(args.seed), model_cfg, device=device)
+    if args.input == "native":
+        try:
+            from . import native
+
+            shape = (args.batch, blocks_cfg.in_height, blocks_cfg.in_width, blocks_cfg.in_channels)
+            mode = "ones" if args.init == "deterministic" else "uniform"
+            x = torch.from_numpy(native.fill_batch(shape, mode=mode, seed=args.seed)).to(device)
+        except RuntimeError as e:  # no toolchain, or the native build broke
+            print(f"cannot build native input tier: {e}", file=sys.stderr)
+            return 2
+    elif args.init == "deterministic":
+        x = deterministic_input(args.batch, blocks_cfg, device=device)
+    else:
+        x = random_input(torch.Generator().manual_seed(args.seed + 1), args.batch, blocks_cfg, device=device)
+    if args.save_params:
+        from .utils.checkpoint import save_params_npz
+
+        save_params_npz(args.save_params, params)
+        print(f"Saved params to {args.save_params}")
 
     passes = 0
 
-    def counted(p, xx):
-        nonlocal passes
-        passes += 1
-        return fwd(p, xx)
+    def counted(f):
+        def call(p, xx):
+            nonlocal passes
+            passes += 1
+            return f(p, xx)
+
+        return call
+
+    def build_and_first_pass(key):
+        cfg = REGISTRY[key]
+        _chaos_build_faults(cfg)
+        f = counted(build_forward(cfg, model_cfg, policy=run_dtype, device=device, plan=plan))
+        t0 = time.perf_counter()
+        f(params, x)
+        fence(device)
+        return f, (time.perf_counter() - t0) * 1e3  # first call: kernel build/load included
 
     before = dict(cuda_kernels.LAUNCHES)
-    t0 = time.perf_counter()
-    counted(params, x)
-    fence(device)
-    compile_ms = (time.perf_counter() - t0) * 1e3  # first call: kernel build/load included
+    retry = RetryPolicy(max_retries=max(0, args.max_retries), base_delay_s=1.0)
+    deadline = Deadline.after(args.deadline_s or None)
+    # With no chain to walk, a refused config or a chaos drill exits 2 and any
+    # other fault keeps its traceback. DEGRADED events go to stdout, where the
+    # harness reads them.
+    degrader = Degrader(
+        chain, should_degrade=(lambda e: isinstance(e, (ValueError, chaos.InjectedFault))) if len(chain) == 1 else None,
+        on_event=lambda ev: print(ev, flush=True),
+    )
+    try:
+        ran_key, (fwd, compile_ms) = degrader.run(
+            lambda key: retry_call(lambda: build_and_first_pass(key), policy=retry, deadline=deadline)
+        )
+    except DegradationExhausted as e:
+        print(f"cannot build config {chain[-1]!r}: {e.last}", file=sys.stderr)
+        return 2
+    exec_cfg = REGISTRY[ran_key]  # what follows reports the tier that ran
 
     n_small = max(1, args.warmup)
     if args.profile:
@@ -235,10 +406,13 @@ def main(argv=None) -> int:
     else:
         profile_ctx = lambda _dir: contextlib.nullcontext()  # noqa: E731
     with profile_ctx(args.profile):
-        st = amortized_stats(counted, params, x, n_small=n_small, n_large=n_small + max(1, args.repeats))
+        with obs_span("run.measure", config=exec_cfg.key, batch=args.batch, dtype=run_dtype) as sp:
+            st = amortized_stats(fwd, params, x, n_small=n_small, n_large=n_small + max(1, args.repeats))
+            if sp is not None:
+                sp.set(per_pass_ms=round(st.per_call_ms, 4))
     if args.profile:
         print(f"Profiler trace written to {Path(args.profile) / TRACE_FILE}")
-    out = counted(params, x).cpu().numpy()
+    out = fwd(params, x).cpu().numpy()
     per_pass_ms = st.per_call_ms
 
     shape_str = "x".join(str(d) for d in out.shape[1:])
@@ -264,8 +438,8 @@ def main(argv=None) -> int:
     elif args.breakdown:
         from .utils.profiling import layer_breakdown
 
-        # Per-layer costs on the selected config's op tier, after the
-        # headline's launch count: a v3_pallas breakdown times the kernels.
+        # Per-layer costs on the config's op tier (the one that ran), after
+        # the headline's launch count: a kernels-tier breakdown times the kernels.
         for name, ms, shape in layer_breakdown(params, x, model_cfg, repeats=max(1, args.repeats),
                                                warmup=n_small, compute=run_dtype, tier=exec_cfg.tier):
             print(f"Layer {name} completed in {ms:.3f} ms -> {'x'.join(str(d) for d in shape[1:])}")

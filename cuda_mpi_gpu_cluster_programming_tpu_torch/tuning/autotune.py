@@ -340,7 +340,16 @@ def autotune_precision(
     fused blocks fail it. Surviving dtypes get the full per-layer sweep
     (:func:`autotune`, each dtype's plan under its own key). The winner is
     the dtype with the lowest summed best-candidate time; its policy record
-    is saved beside the plans (``plan.save_policy``)."""
+    is saved beside the plans (``plan.save_policy``).
+
+    Blocks 1-2 geometries only (the gate's staged oracle is the Blocks 1-2
+    chain); full-AlexNet callers use the single-dtype :func:`autotune`."""
+    if model_cfg.family != "blocks12":
+        raise ValueError(
+            "dtype-swept autotune supports Blocks 1-2 configs only "
+            "(the tolerance gate screens the Blocks 1-2 staged oracle); "
+            "use autotune(dtype=...) for alexnet_full"
+        )
     unknown = [dt for dt in dtypes if dt not in DTYPES]
     if unknown:
         raise ValueError(f"unknown sweep dtypes {unknown} (valid: {DTYPES})")

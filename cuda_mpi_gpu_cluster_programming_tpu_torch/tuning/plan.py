@@ -102,10 +102,10 @@ def _input_dims(model_cfg) -> Tuple[int, int, int]:
 
 def shape_key(model_cfg) -> str:
     """Geometry identity of a model config: family + input dims (the layer
-    chain is derived from these by the shared traversal). The port runs
-    Blocks 1-2 only, the JAX package's "blocks12" family."""
+    chain is derived from these by the shared traversal). The families are
+    the JAX package's: "blocks12" and "alexnet_full"."""
     h, w, c = _input_dims(model_cfg)
-    return f"blocks12_{h}x{w}x{c}"
+    return f"{model_cfg.family}_{h}x{w}x{c}"
 
 
 def plan_key(device_kind: str, shape_k: str, batch: int, dtype: str, rev: str) -> str:

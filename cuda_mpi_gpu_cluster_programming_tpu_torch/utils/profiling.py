@@ -2,7 +2,7 @@
 
 The JAX package's ``utils/profiling.py`` for PyTorch on the GPU:
 
-- :func:`stage_fns` — the Blocks 1-2 layer chain as ``(name, fn)`` stages
+- :func:`stage_fns` — a model's layer chain as ``(name, fn)`` stages
   on either op tier: ``reference`` (the library ops of ``v1_jit``) or
   ``kernels`` (the hand-written CUDA kernels of ``v3_pallas``, launched as
   the staged pass launches them).
@@ -14,8 +14,8 @@ The JAX package's ``utils/profiling.py`` for PyTorch on the GPU:
 - :func:`trace` — ``torch.profiler`` over the enclosed region, written as
   a Chrome trace into a directory (``run --profile DIR``).
 
-The JAX module also walks full AlexNet (``AlexNetConfig``); the port has no
-full AlexNet yet (ROADMAP Queue 1 item 10), so its chain is Blocks 1-2 only.
+Both walk Blocks 1-2 (``Blocks12Config``) and full AlexNet
+(``AlexNetConfig``: conv1..pool5, then fc6, fc7 and fc8).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from ..models.alexnet import BLOCKS12, Params
+from ..models.alexnet import BLOCKS12, ConvSpec, LrnSpec, Params, PoolSpec
 from ..models.init import params_to
 from ..ops import reference as ops
 from ..ops.reference import true_fp32
@@ -95,30 +95,39 @@ def _tier_ops(tier: str):
     raise ValueError(f"tier must be reference|kernels, got {tier!r}")
 
 
+def _fc_stage(name: str, relu: bool):
+    def fn(p, x):
+        out = ops.linear(x.reshape(x.shape[0], -1), p[name]["w"], p[name]["b"])
+        return ops.relu(out) if relu else out
+
+    return fn
+
+
 def stage_fns(cfg=BLOCKS12, tier: str = "reference") -> List[Tuple[str, Callable[[Params, torch.Tensor], torch.Tensor]]]:
     """``(name, fn)`` per layer; each fn maps that layer's input to its
-    output. The reference tier has ReLU as a stage of its own (the course
-    code's 7-layer chain); the kernels tier fuses it into each conv (the
-    kernel's epilogue), 5 stages, as ``forward_blocks12_kernels``."""
+    output. One walk of ``cfg``'s layer chain, named as the JAX package
+    names it. For a ``Blocks12Config`` the reference tier has ReLU as a
+    stage of its own (the course code's 7-layer chain); the kernels tier
+    fuses it into each conv (the kernel's epilogue), 5 stages, as
+    ``forward_blocks12_kernels``. For an ``AlexNetConfig`` both tiers fuse
+    ReLU into each conv stage (as ``forward_spatial``): conv1 .. pool5, then
+    fc6, fc7 and fc8 (the FC head's matmuls on both tiers)."""
     conv, pool, lrn, fused_relu = _tier_ops(tier)
-    c1, p1, c2, p2, n2 = cfg.conv1, cfg.pool1, cfg.conv2, cfg.pool2, cfg.lrn2
-    if fused_relu:
-        return [
-            ("conv1+relu", functools.partial(conv, name="conv1", spec=c1, relu=True)),
-            ("pool1", functools.partial(pool, spec=p1)),
-            ("conv2+relu", functools.partial(conv, name="conv2", spec=c2, relu=True)),
-            ("pool2", functools.partial(pool, spec=p2)),
-            ("lrn2", functools.partial(lrn, spec=n2)),
-        ]
-    return [
-        ("conv1", functools.partial(conv, name="conv1", spec=c1, relu=False)),
-        ("relu1", lambda p, x: ops.relu(x)),
-        ("pool1", functools.partial(pool, spec=p1)),
-        ("conv2", functools.partial(conv, name="conv2", spec=c2, relu=False)),
-        ("relu2", lambda p, x: ops.relu(x)),
-        ("pool2", functools.partial(pool, spec=p2)),
-        ("lrn2", functools.partial(lrn, spec=n2)),
-    ]
+    full = cfg.family == "alexnet_full"
+    stages = []
+    for name, spec in cfg.layer_chain():
+        if isinstance(spec, ConvSpec) and (full or fused_relu):
+            stages.append((name if full else f"{name}+relu", functools.partial(conv, name=name, spec=spec, relu=True)))
+        elif isinstance(spec, ConvSpec):
+            stages.append((name, functools.partial(conv, name=name, spec=spec, relu=False)))
+            stages.append((name.replace("conv", "relu"), lambda p, x: ops.relu(x)))
+        elif isinstance(spec, PoolSpec):
+            stages.append((name, functools.partial(pool, spec=spec)))
+        elif isinstance(spec, LrnSpec):
+            stages.append((name, functools.partial(lrn, spec=spec)))
+    if full:
+        stages += [("fc6", _fc_stage("fc6", True)), ("fc7", _fc_stage("fc7", True)), ("fc8", _fc_stage("fc8", False))]
+    return stages
 
 
 @torch.inference_mode()
