@@ -180,6 +180,27 @@ fails ends the run with a non-zero exit code and nothing is caught:
    ``run.main --breakdown --profile DIR`` on ``v3_pallas`` and
    ``v1_jit --breakdown`` exit 0, one ``Layer`` line per layer, and the
    Chrome trace exists;
+   3f. the inference service (``serving/``) at 227x227, ``max_batch`` 8, for
+   ``v1_jit`` fp32 and ``v3_pallas`` fp32 and bf16: each server warms (one
+   CUDA graph captured per bucket) and drains the request sizes
+   ``SERVE_SIZES``, the launch counts set to 0 just before the drain and
+   read after (a replay adds the launches its capture recorded); every
+   result bitwise the eager forward on its padded bucket, sliced, the
+   ``v3_pallas`` results within the fp32/bf16 budgets of the ``v1_jit``
+   fp32 server's, no cache miss; per ``v3_pallas`` bucket (1, 2, 4, 8) the
+   graph's kernel nodes as CUDA prints them (``CUDAGraph.debug_dump``):
+   conv2d 2, maxpool2d 2, lrn 1, equal to what its capture counted, no
+   cuDNN or cuBLAS conv; the drained run's counts equal to the sum of its
+   dispatches' graphs' nodes; and the dispatch's host ms, graph against
+   the eager forward on the same static input; a threaded ``run_load`` at
+   50 req/s for 3 s with no failure (``v3_pallas`` fp32); the kernels at
+   bucket 8's shapes against their plain versions, timed (the kernels
+   line's serve entries); ``python -m <port>.bench`` with
+   ``BENCH_MODE=serve`` and ``saturate`` (``v3_pallas`` fp32): no
+   ``error``, ``platform`` gpu, ``value`` > 0, no cache miss, and
+   ``percentiles_agree`` on every saturate row; and ``run.main --serve
+   --serve-frontend 0 --traffic-shape diurnal+burst`` on ``v3_pallas``
+   (exit 0, the ``Serve frontend:`` line, no failure, no cache miss);
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -194,7 +215,10 @@ Then it prints the ``{"kernels": [...]}`` line, the card's name and power
 limit, and last the ``{"ok": true, "device": ...}`` line. The kernels
 line carries, beside each kernel's Blocks 1-2 entries, full AlexNet's
 (``model`` ``alexnet_full``): conv2d, maxpool2d, lrn and conv_block summed
-over their stages in one ``v6_full_pallas`` forward. Details of every
+over their stages in one ``v6_full_pallas`` forward, and the serve path's
+(``path`` ``serve``): conv2d, maxpool2d and lrn at bucket 8's shapes, with
+the launches of the drained run (counted at its replays) and of one dispatch (bucket 8's graph's kernel
+nodes). Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -416,15 +440,16 @@ def compare(rule, got: torch.Tensor, want: torch.Tensor) -> dict:
     return res
 
 
-def stage_inputs(dtype, gen):
-    """The main path's tensors at batch 128: input, zero-mean weights (so
-    ReLU clamps), and each stage's input as the kernel chain produces it."""
+def stage_inputs(dtype, gen, batch: int = BATCH):
+    """The main path's tensors at ``batch`` (128; the serve path's largest
+    bucket, 8): input, zero-mean weights (so ReLU clamps), and each stage's
+    input as the kernel chain produces it."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
     def r(*shape, scale=1.0, shift=0.0):
         return ((torch.rand(shape, generator=gen, device="cuda") - shift) * scale).to(dtype)
 
-    x = r(BATCH, 227, 227, 3)
+    x = r(batch, 227, 227, 3)
     w1, b1 = r(11, 11, 3, 96, scale=2 / 363**0.5, shift=0.5), r(96, scale=0.2, shift=0.5)
     w2, b2 = r(5, 5, 96, 256, scale=2 / 2400**0.5, shift=0.5), r(256, scale=0.2, shift=0.5)
     y1 = ck.conv2d_bias_relu(x, w1, b1, stride=4, padding=0)
@@ -541,8 +566,9 @@ def packed_pool_rows(pack_st, pool_st, operand, pol, spec, peak_name) -> list:
     return [pack, pool]
 
 
-def kernel_phase(spec, peak_name) -> list:
-    """Phase 2: every kernel at every main-path stage, fp32 and bf16."""
+def kernel_phase(spec, peak_name, batch: int = BATCH) -> list:
+    """Phase 2: every kernel at every main-path stage, fp32 and bf16 (at
+    ``batch``: 128, or the serve path's bucket 8 in phase 3f)."""
     import torch.nn.functional as F
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
@@ -550,7 +576,7 @@ def kernel_phase(spec, peak_name) -> list:
     rows = []
     for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device="cuda").manual_seed(2026)
-        t = stage_inputs(dtype, gen)
+        t = stage_inputs(dtype, gen, batch)
         es = t["x"].element_size()
         stages = []
         convs = (("conv1", t["x"], t["w1"], t["b1"], 4, 0), ("conv2", t["q1"], t["w2"], t["b2"], 1, 2))
@@ -568,7 +594,7 @@ def kernel_phase(spec, peak_name) -> list:
                 nbytes=(x.numel() + w.numel() + b.numel() + y.numel()) * es,
                 peak=pol, rule=FP32_REL if pol == "fp32" else ("ulp", FP32_REL),
             )
-            if s == 1 and pol == "fp32":
+            if s == 1 and pol == "fp32" and batch == BATCH:
                 # at stride 1 taps' term order (qh, qw, c) is vcol's (fy, fx, c): one fmaf chain each
                 st.update(same_as=[("conv_taps", lambda x=x, w=w, b=b, p=p: ck.conv_taps(
                     x, w, b, stride=1, padding=p))])
@@ -1972,6 +1998,275 @@ def bench_phase(runs) -> dict:
     result["seconds"] = time.perf_counter() - t0
     log(f"phase 3e wall time: {result['seconds']:.1f} s")
     return result
+
+
+# phase 3f, the inference service: request sizes of the drained stream, its largest bucket, the servers
+# (config, policy) and the kernels a v3_pallas dispatch launches, by a name in their torch.profiler key
+SERVE_SIZES = [1, 3, 2, 1, 4, 8, 5]
+SERVE_MAX_BATCH = 8
+SERVE_SERVERS = (("v1_jit", "fp32"), ("v3_pallas", "fp32"), ("v3_pallas", "bf16"))
+SERVE_MARKERS = {"conv2d": "conv_tiles", "maxpool2d": "maxpool_band_kernel", "lrn": "lrn_kernel"}
+# names of the kernels a cuDNN or cuBLAS convolution runs (none may run in a v3_pallas dispatch)
+LIBRARY_CONV_MARKS = ("cudnn", "fprop", "xmma", "implicit_gemm", "winograd", "fft", "cutlass", "nvjet", "gemm")
+SERVE_TIMED = 30  # dispatches timed per bucket, graph and eager each
+
+
+def replay_kernels(fn, reps: int = 1, attempts: int = 3) -> dict:
+    """The device kernels of ``reps`` calls of ``fn`` by ``torch.profiler``:
+    {kernel key: launches}, and their device ms a call. A trace that shows
+    no device kernel at all is taken again, up to ``attempts`` traces in
+    all (the profiler lost one trace of many in a row on the card); empty
+    after that (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counts, device_us = {}, 0.0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                counts[e.key] = counts.get(e.key, 0) + e.count
+                device_us += e.self_device_time_total
+        if counts:
+            break
+    return dict(counts=counts, device_ms=device_us / 1e3 / reps if counts else None)
+
+
+def graph_kernel_nodes(dot: str) -> list:
+    """The kernel nodes of a graph that ``CUDAGraph.debug_dump`` printed:
+    the function name of each, in node order."""
+    names = []
+    for chunk in re.split(r'^\s*"graph_\d+_node_\d+"\s*\[', dot, flags=re.M)[1:]:
+        if "KERNEL" not in chunk.split("|", 1)[0]:
+            continue
+        m = re.search(r"\{\s*ID\s*\|[^|]*\|\s*([^}]*)\}", chunk)  # {ID | 0 (topoId: 4) | name\<\<\<grid\>\>\>}
+        require(m is not None, f"a kernel node with no function name: {chunk[:1000]}")
+        names.append(m.group(1).strip())
+    return names
+
+
+def by_marker(counts: dict) -> dict:
+    """Launches of the serve path's kernels in a profile's counts."""
+    return {name: sum(n for k, n in counts.items() if mark in k) for name, mark in SERVE_MARKERS.items()}
+
+
+def dispatch_times(srv, bucket: int, xb: np.ndarray) -> dict:
+    """One dispatch's host wall ms at ``bucket`` (median of ``SERVE_TIMED``),
+    from the padded batch in pinned host memory: the graph (copy into the
+    static input, replay, fence: ``_dispatch``'s timed region) against the
+    same forward called eagerly on the same static input after the same
+    copy, and each one's device ms by ``torch.profiler``."""
+    graphs, fwd, params = srv._graphs, srv._fwd, srv._params
+    static_in = graphs.static_input(bucket)
+    np.copyto(graphs.host_buffer(bucket), xb)
+    host = torch.from_numpy(xb).pin_memory()
+
+    def graph_call():
+        graphs.run(bucket, graphs.host_buffer(bucket))
+        graphs.fence()
+
+    def eager_call():
+        static_in.copy_(host, non_blocking=True)
+        fwd(params, static_in)
+        graphs.fence()
+
+    out = {}
+    for name, call in (("graph", graph_call), ("eager", eager_call), ("graph", graph_call), ("eager", eager_call)):
+        for _ in range(3):
+            call()
+        times = []
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            call()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.setdefault(f"{name}_ms", []).append(statistics.median(times))
+    res = {k: min(v) for k, v in out.items()}  # two interleaved rounds each; the lower median
+    for name, call in (("graph", graph_call), ("eager", eager_call)):
+        # a trace that lost any of the five calls' kernels would understate the mean: not measured
+        prof = replay_kernels(call, reps=5)
+        whole = by_marker(prof["counts"]) == {k: 5 * v for k, v in STAGED.items()}
+        res[f"{name}_device_ms"] = prof["device_ms"] if whole else None
+    res["speedup"] = res["eager_ms"] / res["graph_ms"]
+    return res
+
+
+def serve_phase(spec, peak_name) -> dict:
+    """Phase 3f: the inference service on the card at 227x227, max_batch 8."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.loadgen import run_load
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.server import InferenceServer, ServeConfig
+
+    t0 = time.perf_counter()
+    out_dir = Path("chip_smoke_out")
+    out_dir.mkdir(exist_ok=True)
+    rng = np.random.default_rng(2026)
+    params = init.params_from_jax({
+        "conv1": {"w": rng.random((11, 11, 3, 96), dtype=np.float32), "b": np.full(96, 0.1, np.float32)},
+        "conv2": {"w": rng.random((5, 5, 96, 256), dtype=np.float32), "b": np.full(256, 0.1, np.float32)},
+    })
+    xs = [rng.random((n, 227, 227, 3), dtype=np.float32) for n in SERVE_SIZES]
+    result = {"servers": {}}
+    served = {}
+    for key, pol in SERVE_SERVERS:
+        name = f"{key}/{pol}"
+        journal = out_dir / f"serve_{key}_{pol}.jsonl"
+        journal.unlink(missing_ok=True)
+        srv = InferenceServer(ServeConfig(config=key, compute=pol, max_batch=SERVE_MAX_BATCH, journal_path=str(journal)),
+                              params=params)
+        with knob_env({}):
+            srv.run_until_drained()  # builds (the staged route), then captures every bucket
+        handles = [srv.submit(x) for x in xs]
+        ck.reset_launches()
+        srv.run_until_drained()
+        counter_launches = dict(ck.LAUNCHES)  # the drained run's: its replays' (every bucket was captured)
+        require([h.status for h in handles] == ["OK"] * len(xs), f"serve {name}: {[h.error for h in handles]}")
+        require(srv.stats.cache_misses == 0 and srv.stats.warmup_compiles == len(srv.buckets) == 4,
+                f"serve {name}: {srv.summary()}")
+        batches = [r for r in Journal.load(journal) if r["kind"] == "serve_batch"]
+        # each result bitwise the eager forward on its padded bucket, sliced
+        pending = list(zip(xs, handles))
+        for rec in batches:
+            mine = [pending.pop(0) for _ in range(rec["n_requests"])]
+            padded = np.concatenate([x for x, _h in mine] + [np.zeros((rec["pad"], 227, 227, 3), np.float32)])
+            eager = srv._fwd(params, torch.from_numpy(padded).cuda()).cpu().numpy()
+            off = 0
+            for x, h in mine:
+                require(np.array_equal(h.result, eager[off : off + len(x)]),
+                        f"serve {name}: bucket {rec['bucket']} differs from the eager forward")
+                off += len(x)
+        require(not pending, f"serve {name}: {len(pending)} requests in no serve_batch record")
+        served[name] = [h.result for h in handles]
+        entry = dict(
+            buckets=list(srv.buckets), batches=[(r["bucket"], r["n_requests"], r["n_images"], r["pad"]) for r in batches],
+            warmup_ms={r["bucket"]: r["ms"] for r in Journal.load(journal) if r["kind"] == "serve_warm"},
+            counter_launches=counter_launches, dispatch={},
+        )
+        if key == "v3_pallas":
+            # the drained run's launches, counted where they happen: a wrapper at a call, a graph at a replay (the
+            # launches its capture recorded); each dispatch replays its bucket's graph once, and each graph holds
+            # the kernel nodes CUDA prints of it
+            run_launches = {k: counter_launches[k] for k in STAGED}
+            nodes = {}
+            for bucket in srv.buckets:
+                dot = srv._graphs.dump(bucket, out_dir / f"serve_graph_{pol}_{bucket}.dot")
+                names = graph_kernel_nodes(dot)
+                nodes[bucket] = {k: sum(mark in n for n in names) for k, mark in SERVE_MARKERS.items()}
+                foreign = [n for n in names if not any(mark in n for mark in SERVE_MARKERS.values())
+                           and any(m in n.lower() for m in LIBRARY_CONV_MARKS)]
+                log(f"serve {name} bucket {bucket}: graph kernel nodes {nodes[bucket]} of {len(names)}; "
+                    f"capture counted {srv._graphs.kernels(bucket)}")
+                require(nodes[bucket] == STAGED == srv._graphs.kernels(bucket),
+                        f"serve {name} bucket {bucket}: nodes {nodes[bucket]} counted {srv._graphs.kernels(bucket)} "
+                        f"want {STAGED}; kernel nodes {names}")
+                require(not foreign, f"serve {name} bucket {bucket}: a library conv in the graph: {foreign}")
+            want = {k: sum(nodes[b][k] for b, *_ in entry["batches"]) for k in STAGED}
+            require(run_launches == want and all(v > 0 for v in want.values()),
+                    f"serve {name}: the drained run launched {run_launches}, its dispatches' graphs hold {want}")
+            entry.update(run_launches=run_launches, graph_nodes=nodes)
+            xb = xs[SERVE_SIZES.index(SERVE_MAX_BATCH)]
+            for bucket in srv.buckets:
+                entry["dispatch"][bucket] = d = dispatch_times(srv, bucket, xb[:bucket])
+                log(f"serve {name} dispatch bucket {bucket}: graph {d['graph_ms']:.4f} ms, eager {d['eager_ms']:.4f} ms "
+                    f"(x{d['speedup']:.2f}); device graph {_fmt(d['graph_device_ms'])}, eager "
+                    f"{_fmt(d['eager_device_ms'])}")
+        log(f"serve {name}: {srv.summary()} batches {entry['batches']} warmup ms {entry['warmup_ms']} counters "
+            + " ".join(f"{k}={v}" for k, v in counter_launches.items() if v))
+        if name == "v3_pallas/fp32":
+            # the threaded path: the dispatch thread replays what start() captured on this one
+            srv.start()
+            try:
+                rep = run_load(srv, rate_rps=50.0, duration_s=3.0, seed=0)
+            finally:
+                srv.stop()
+            log(f"serve {name} run_load 50 req/s 3 s: {rep.summary()}")
+            require(rep.n_failed == 0 and rep.n_ok + rep.n_shed + rep.n_rejected == rep.n_requests > 0
+                    and srv.stats.cache_misses == 0, f"serve {name} run_load: {rep.summary()}")
+            entry["load"] = dict(summary=rep.summary(), p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
+                                 img_s=rep.sustained_img_s, n_requests=rep.n_requests, n_ok=rep.n_ok)
+        srv.close()
+        result["servers"][name] = entry
+    oracle = np.concatenate(served["v1_jit/fp32"])
+    omax = float(np.abs(oracle).max())
+    for name in ("v3_pallas/fp32", "v3_pallas/bf16"):
+        err = float(np.abs(np.concatenate(served[name]) - oracle).max())
+        pol = name.split("/")[1]
+        ok = (err <= FP32_ABS and err / omax <= FP32_REL) if pol == "fp32" else err / omax <= BF16_REL
+        log(f"serve budget {name} vs v1_jit/fp32 served: max_abs={err:.3g} rel_of_max={err / omax:.3g} ok={ok}")
+        require(ok, f"serve {name} outside its budget against the served fp32 oracle")
+        result[f"budget/{name}"] = dict(max_abs=err, rel_of_max=err / omax)
+    result["rows8"] = kernel_phase(spec, peak_name, batch=SERVE_MAX_BATCH)
+    result["bench"] = serve_bench_calls()
+    text = run_cli(["--config", "v3_pallas", "--serve", "--serve-frontend", "0", "--traffic-shape", "diurnal+burst"])
+    require(re.search(r"^Serve frontend: url=http://127\.0\.0\.1:\d+$", text, re.M) is not None, f"run --serve:\n{text}")
+    require(re.search(r"^Serve: .* failed=0 cache_misses=0 ", text, re.M) is not None, f"run --serve:\n{text}")
+    log("run.main --serve --serve-frontend 0 --traffic-shape diurnal+burst: "
+        + " | ".join(line for line in text.splitlines() if line.startswith("Serve")))
+    result["run_serve"] = text
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3f wall time: {result['seconds']:.1f} s")
+    return result
+
+
+def serve_bench_calls() -> dict:
+    """The bench's serve and saturate modes through ``python -m`` on
+    ``v3_pallas`` fp32, held to their row contracts."""
+    res = {}
+    for mode in ("serve", "saturate"):
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "TPU_FRAMEWORK_"))}
+        env.update(BENCH_MODE=mode, BENCH_CONFIG="v3_pallas")
+        t_call = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
+                              timeout=600)
+        require(proc.returncode == 0, f"bench {mode}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        require(len(rows) == (1 if mode == "serve" else 4), f"bench {mode}: rows {proc.stdout[-3000:]}")
+        for row in rows:
+            require("error" not in row and row.get("platform") == "gpu" and row.get("value", 0) > 0
+                    and row.get("cache_misses_post_warmup") == 0, f"bench {mode} row: {row}")
+            if mode == "saturate":
+                require(row.get("percentiles_agree") is True and row.get("accounting_closed") is True,
+                        f"bench saturate row: {row}")
+        keep = ("value", "p50_ms", "p99_ms", "n_requests", "n_ok", "n_shed", "n_failed", "n_rejected", "buckets",
+                "rate_rps", "offered_img_s", "knee_rate_img_s", "percentiles_agree", "warmup_compiles")
+        res[mode] = [{k: r[k] for k in keep if k in r} for r in rows]
+        log(f"bench {mode} ({time.perf_counter() - t_call:.1f} s): " + " | ".join(
+            " ".join(f"{k}={v}" for k, v in r.items()) for r in res[mode]))
+        res[f"{mode}_rows"] = rows
+    return res
+
+
+def serve_kernels_entries(serve) -> list:
+    """The ``kernels`` line's entries of the serve path, one per (kernel,
+    dtype): times summed over the kernel's stages at bucket 8 (phase 3f's
+    rows), the counters over the drained run of the request stream (each
+    replay adds what its capture recorded, held to the graphs' kernel
+    nodes), and launches per dispatch of bucket 8 (its graph's nodes)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    entries = []
+    for name in SERVE_MARKERS:
+        source, replaces, stages, _route = KERNELS[name]
+        for pol in ("fp32", "bf16"):
+            mine = [r for r in serve["rows8"] if r["kernel"] == name and r["dtype"] == pol and not r.get("mode")]
+            require([r["stage"] for r in mine] == list(stages), f"serve {name} {pol}: stages {mine}")
+            srv = serve["servers"][f"v3_pallas/{pol}"]
+            entries.append(dict(
+                name=name, dtype=pol, route="cuda", source=source, replaces=replaces, path="serve",
+                run=f"serve v3_pallas/{pol} (max_batch {SERVE_MAX_BATCH}, request sizes {SERVE_SIZES})",
+                launches=srv["run_launches"][name], launches_per_dispatch=srv["graph_nodes"][SERVE_MAX_BATCH][name],
+                dispatches=len(srv["batches"]),
+                max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+                ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+                bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=sum(r["library_ms"] for r in mine), batch=SERVE_MAX_BATCH,
+                stages={r["stage"]: {k: r[k] for k in keys + STAGE_EXTRAS if k in r} for r in mine},
+            ))
+    return entries
 
 
 TUNE_BATCH = 32
@@ -3504,6 +3799,9 @@ def main() -> int:
     log("phase 3d: pool_ab ran every strategy through its kernel, each bitwise F.max_pool2d")
     bench = bench_phase(main["runs"])
     log("phase 3e: the bench printed every row to its contract; run --breakdown and --profile ran")
+    serve = serve_phase(spec, peak_name)
+    log("phase 3f: the service replayed a CUDA graph per bucket (conv2d 2, maxpool2d 2, lrn 1 a dispatch), each "
+        "result bitwise its eager forward and within budget; no cache miss; bench serve/saturate and run --serve ran")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
@@ -3512,6 +3810,7 @@ def main() -> int:
     line["kernels"] += v6_kernels_entries(rows + v6_rows, v6["runs"])
     line["kernels"] += lm_kernels_entries(lm_rows, {**lm["runs"], **train["runs"]})
     line["kernels"] += s2d_kernels_entries(s2d_rows, ab["runs"])
+    line["kernels"] += serve_kernels_entries(serve)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -3520,7 +3819,7 @@ def main() -> int:
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
-             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, tune=tune, v6_tune=v6_tune,
+             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, tune=tune, v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

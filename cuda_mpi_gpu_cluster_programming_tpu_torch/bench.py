@@ -54,8 +54,15 @@ build included), ``BENCH_BREAKDOWN`` (0 turns the breakdown off),
 ``BENCH_BREAKDOWN_REPEATS`` (3), ``BENCH_BF16`` (0 drops the bf16
 sub-object), ``BENCH_CONTINUITY_BATCH`` (one more measurement at that
 batch, single-config runs). ``BENCH_DEVICE`` (cuda|cpu) is the port's
-``--device``. The JAX bench's other modes (serve, saturate, replay, gate,
-route, control, fleetcontrol) wait for ROADMAP Queue 1 item 1.
+``--device``.
+
+``BENCH_MODE=serve`` and ``saturate`` run the inference service
+(``serving/``) in this process, after the probe, with the JAX bench's knobs
+and row keys (:func:`_serve_main`, :func:`_saturate_main`). The JAX serve
+row's ``drill``, ``health``, ``trips`` and ``entry`` wait for the
+supervisor and the journal folds (ROADMAP Queue 1 items 3 and 8): the row
+names each in its ``skipped`` sub-object. The JAX bench's replay, gate,
+route, control and fleetcontrol modes wait for item 1's second step.
 
 The JAX bench attaches the last committed row (``perf/bench_latest.json``,
 taken on a TPU) to an error row as ``last_good``, and asks for a
@@ -71,10 +78,12 @@ import time
 
 BASELINE_IMG_PER_SEC = 1.0 / 0.183  # the course code's V4 best, RTX 3090 (BASELINE.md)
 METRIC = "alexnet_blocks12_images_per_sec"
+SERVE_METRIC = "alexnet_blocks12_serve_images_per_sec"
+SATURATE_METRIC = "alexnet_blocks12_serve_saturation"
 PACKAGE = __package__  # the child runs ``python -m <PACKAGE>.bench``
 
 MODE = os.environ.get("BENCH_MODE", "measure")
-LATER_MODES = ("serve", "saturate", "replay", "gate", "route", "control", "fleetcontrol")
+LATER_MODES = ("replay", "gate", "route", "control", "fleetcontrol")
 CONFIG = os.environ.get("BENCH_CONFIG", "v1_jit")
 CONFIGS = [c.strip() for c in os.environ.get("BENCH_CONFIGS", "").split(",") if c.strip()] or [CONFIG]
 PLAN_PATH = os.environ.get("BENCH_PLAN", "")
@@ -280,6 +289,275 @@ def _child() -> int:
     return 0
 
 
+SUPERVISE_REFUSED = "BENCH_SERVE_SUPERVISE=1: the elastic supervisor waits for ROADMAP Queue 1 item 8"
+# The JAX serve row's keys that wait for later ROADMAP items, each named in the port row's ``skipped``.
+SERVE_SKIPPED = {
+    "drill": "the in-load device_loss and mesh drills wait for the supervisor and the sharded tiers "
+             "(ROADMAP Queue 1 items 3 and 8)",
+    "health": "the journal's health fold waits for ROADMAP Queue 1 item 8",
+    "trips": "the supervisor's trips wait for ROADMAP Queue 1 item 8",
+    "entry": "the supervisor's ladder entry waits for ROADMAP Queue 1 item 8",
+}
+
+
+def _plan_policy_for(model_cfg, device) -> str:
+    """The saved dtype-sweep winner at this geometry and batch in
+    ``BENCH_PLAN``, or "" when no plan file is named or no record matches
+    (never fatal)."""
+    if not PLAN_PATH:
+        return ""
+    try:
+        from .tuning.plan import device_kind, load_policy
+
+        rec = load_policy(PLAN_PATH, device_kind=device_kind(device), model_cfg=model_cfg, batch=BATCH)
+        return rec.get("dtype", "") if rec else ""
+    except Exception:
+        return ""
+
+
+def _serve_error(metric: str, msg: str, platform: str = "unknown") -> int:
+    """Print a serve mode's row that measured nothing (``value`` 0.0 and
+    why); the mode still exits 0."""
+    row = _error_obj(msg, platform)
+    row["metric"] = metric
+    print(json.dumps(row))
+    return 0
+
+
+def _serve_platform() -> tuple:
+    """``(platform, "")`` for the serve modes, or ``(None, why)`` when the
+    GPU does not answer the bounded probe (the CPU only when asked for)."""
+    if DEVICE == "cpu":
+        return "cpu", ""
+    from .utils.probe import probe
+
+    ok, info = probe(PROBE_TIMEOUT)
+    return (info, "") if ok else (None, f"device {info}")
+
+
+def _serve_model_cfg():
+    import dataclasses
+
+    from .models.alexnet import BLOCKS12
+
+    return dataclasses.replace(
+        BLOCKS12,
+        in_height=int(os.environ.get("BENCH_SERVE_HEIGHT", "227")),
+        in_width=int(os.environ.get("BENCH_SERVE_WIDTH", "227")),
+    )
+
+
+def _build_library(config: str) -> None:
+    """The kernels' first build, before the warmup's timed captures (on the
+    card, for the kernels tier)."""
+    from .configs import REGISTRY
+
+    if DEVICE != "cpu" and config in REGISTRY and REGISTRY[config].tier == "kernels":
+        from .ops import _build
+
+        info = _build.build()
+        print(f"bench: kernel library {info.path} {'built' if info.built else 'cached'} in {info.seconds:.1f} s",
+              file=sys.stderr, flush=True)
+
+
+def _serve_main() -> int:
+    """BENCH_MODE=serve: one JSON row for a journaled Poisson serve run.
+
+    Knobs (environment), the JAX bench's but BENCH_SERVE_SHARDS (one shard;
+    more wait for item 3): BENCH_SERVE_CONFIG (BENCH_CONFIG), BENCH_SERVE_RATE (50
+    req/s), BENCH_SERVE_DURATION (3 s), BENCH_SERVE_MAX_BATCH (8),
+    BENCH_SERVE_DEADLINE_S (30), BENCH_SERVE_SUPERVISE (0 here; 1 gives an
+    error row naming item 8), BENCH_SERVE_JOURNAL (a temp file),
+    BENCH_SERVE_HEIGHT/WIDTH (227), BENCH_SERVE_SEED (0). Always exactly one
+    JSON line, exit 0.
+    """
+    import tempfile
+
+    platform, why = _serve_platform()
+    if platform is None:
+        return _serve_error(SERVE_METRIC, why)
+    try:
+        from .configs import REGISTRY
+        from .models.init import deterministic_input, init_params_deterministic
+        from .observability.metrics import registry as metrics_registry
+        from .observability.trace import Tracer, set_tracer
+        from .serving.loadgen import percentile, run_load
+        from .serving.server import InferenceServer, ServeConfig, request_latencies_from_journal
+        from .tuning.plan import device_kind
+
+        if os.environ.get("BENCH_SERVE_SUPERVISE", "0") != "0":
+            return _serve_error(SERVE_METRIC, SUPERVISE_REFUSED, platform)
+        model_cfg = _serve_model_cfg()
+        journal_path = os.environ.get("BENCH_SERVE_JOURNAL") or os.path.join(
+            tempfile.gettempdir(), f"serve_journal_{os.getpid()}.jsonl")
+        rate = float(os.environ.get("BENCH_SERVE_RATE", "50"))
+        scfg = ServeConfig(
+            config=os.environ.get("BENCH_SERVE_CONFIG", CONFIG),
+            compute=DTYPE,
+            max_batch=int(os.environ.get("BENCH_SERVE_MAX_BATCH", "8")),
+            plan_path=PLAN_PATH,
+            journal_path=journal_path,
+            default_deadline_s=float(os.environ.get("BENCH_SERVE_DEADLINE_S", "30")) or None,
+            model_cfg=model_cfg,
+            device=DEVICE,
+        )
+        server = InferenceServer(scfg)
+        _build_library(scfg.config)
+        # spans over the serve journal: the row's journal holds the queue-wait and dispatch spans
+        tracer = Tracer(journal=server.journal)
+        set_tracer(tracer)
+        try:
+            server.start()
+            try:
+                report = run_load(server, rate_rps=rate,
+                                  duration_s=float(os.environ.get("BENCH_SERVE_DURATION", "3")),
+                                  seed=int(os.environ.get("BENCH_SERVE_SEED", "0")))
+            finally:
+                server.stop()
+        finally:
+            set_tracer(None)
+        dev = server.device
+        server.close()
+        # p50/p99 from the journal, the crash-consistent trail
+        jlat = request_latencies_from_journal(journal_path)
+        row = {
+            "metric": SERVE_METRIC,
+            "value": round(report.sustained_img_s, 1),
+            "unit": "img/s",
+            "p50_ms": percentile(jlat, 50),
+            "p99_ms": percentile(jlat, 99),
+            "n_requests": report.n_requests,
+            "n_ok": report.n_ok,
+            "n_shed": report.n_shed,
+            "n_failed": report.n_failed,
+            "n_rejected": report.n_rejected,
+            "cache_misses_post_warmup": server.stats.cache_misses,
+            "warmup_compiles": server.stats.warmup_compiles,
+            "buckets": list(server.buckets),
+            "rate_rps": rate,
+            "duration_s": round(report.duration_s, 3),
+            "config": scfg.config,
+            "shards": scfg.n_shards,
+            "compute": scfg.compute,
+            "dtype": scfg.compute,
+            "plan_policy": _plan_policy_for(model_cfg, dev),
+            "supervise": scfg.supervise,
+            "platform": platform,
+            "journal": journal_path,
+            "trace_id": tracer.trace_id,
+        }
+        if os.environ.get("BENCH_BREAKDOWN", "1") != "0":
+            # per-stage attribution at the largest bucket the service dispatches
+            bucket = server.buckets[-1]
+            row["breakdown"] = _stage_breakdown(
+                REGISTRY[scfg.config].tier, scfg.compute,
+                init_params_deterministic(model_cfg, device=dev),
+                deterministic_input(bucket, model_cfg, device=dev),
+                platform, model_cfg=model_cfg,
+            )
+            row["roofline"] = _roofline_obj(row["breakdown"], scfg.compute, device_kind(dev), model_cfg=model_cfg)
+        row["metrics"] = metrics_registry().summary()
+        if os.environ.get("BENCH_METRICS"):
+            metrics_registry().export(os.environ["BENCH_METRICS"])
+        row["skipped"] = dict(SERVE_SKIPPED)
+        print(json.dumps(row))
+        return 0
+    except Exception as e:
+        return _serve_error(SERVE_METRIC, f"{type(e).__name__}: {e}"[:200], platform)
+
+
+def _saturate_main() -> int:
+    """BENCH_MODE=saturate: sweep offered load past capacity on one server
+    and print one JSON row per rate, each with the located p99 knee
+    (``knee_rate_img_s``, null when the sweep never crossed it).
+
+    Per rate the metrics registry is reset, and the row reports the journal
+    slice's p99 and the registry's ``serve.request_ms`` p99: one
+    nearest-rank estimator over one population, so ``percentiles_agree``
+    must hold. Arrivals and classes are seeded (BENCH_SERVE_SEED).
+
+    Knobs (environment), the JAX bench's: BENCH_SAT_RATES ("10,20,40,80"
+    req/s), BENCH_SAT_DURATION (2 s a rate), BENCH_SAT_SHAPE ("steady"),
+    BENCH_SAT_KNEE (3.0: the p99 multiple over the lowest rate's p99 that
+    marks the knee), and the BENCH_SERVE_* service knobs. Always one JSON
+    line per rate, exit 0. The default rates offer at most about 250 img/s;
+    an H100 dispatches thousands a second, so under them the sweep never
+    reaches capacity and a knee it reports is a p99 outlier, not a limit:
+    set BENCH_SAT_RATES past the card's dispatch rate to find one.
+    """
+    import dataclasses
+    import tempfile
+
+    platform, why = _serve_platform()
+    if platform is None:
+        return _serve_error(SATURATE_METRIC, why)
+    try:
+        from .observability.trace import Tracer, set_tracer
+        from .serving.loadgen import saturation_sweep
+        from .serving.server import InferenceServer, ServeConfig
+        from .serving.traffic import default_class_mix, slo_policy
+
+        if os.environ.get("BENCH_SERVE_SUPERVISE", "0") != "0":
+            return _serve_error(SATURATE_METRIC, SUPERVISE_REFUSED, platform)
+        model_cfg = _serve_model_cfg()
+        journal_path = os.environ.get("BENCH_SERVE_JOURNAL") or os.path.join(
+            tempfile.gettempdir(), f"saturate_journal_{os.getpid()}.jsonl")
+        rates = [float(r) for r in os.environ.get("BENCH_SAT_RATES", "10,20,40,80").split(",") if r.strip()]
+        seed = int(os.environ.get("BENCH_SERVE_SEED", "0"))
+        scfg = ServeConfig(
+            config=os.environ.get("BENCH_SERVE_CONFIG", CONFIG),
+            compute=DTYPE,
+            max_batch=int(os.environ.get("BENCH_SERVE_MAX_BATCH", "8")),
+            plan_path=PLAN_PATH,
+            journal_path=journal_path,
+            model_cfg=model_cfg,
+            device=DEVICE,
+        )
+        # the class mix's SLO policy is the sweep's admission policy: past
+        # capacity the service sheds by class, attributably
+        classes = list(default_class_mix(InferenceServer(scfg).buckets))
+        scfg = dataclasses.replace(scfg, slo=slo_policy(classes))
+        server = InferenceServer(scfg)
+        _build_library(scfg.config)
+        tracer = Tracer(journal=server.journal)
+        set_tracer(tracer)
+        try:
+            server.start()
+            try:
+                rows = saturation_sweep(
+                    server, rates,
+                    duration_s=float(os.environ.get("BENCH_SAT_DURATION", "2")),
+                    classes=classes,
+                    shape=os.environ.get("BENCH_SAT_SHAPE", "steady"),
+                    seed=seed,
+                    knee_factor=float(os.environ.get("BENCH_SAT_KNEE", "3.0")),
+                    journal_path=journal_path,
+                )
+            finally:
+                server.stop()
+        finally:
+            set_tracer(None)
+        server.close()
+        for row in rows:
+            print(json.dumps({
+                "metric": SATURATE_METRIC,
+                "unit": "img/s",
+                **row,
+                "cache_misses_post_warmup": server.stats.cache_misses,
+                "config": scfg.config,
+                "shards": scfg.n_shards,
+                "dtype": scfg.compute,
+                "supervise": scfg.supervise,
+                "buckets": list(server.buckets),
+                "platform": platform,
+                "journal": journal_path,
+                "trace_id": tracer.trace_id,
+            }), flush=True)
+        return 0
+    except Exception as e:
+        return _serve_error(SATURATE_METRIC, f"{type(e).__name__}: {e}"[:200], platform)
+
+
 def _measure_once(configs=None) -> list:
     """One probe and measurement pass: the row list to print, one per
     ``configs`` entry (default all of ``CONFIGS``; a journal resume passes
@@ -354,12 +632,16 @@ def main() -> int:
     pass was retried, ``resilience``. Prints exactly one JSON row per config
     and exits 0. With ``BENCH_JOURNAL``, each good row is journaled as it is
     measured and journaled rows are replayed, not measured again."""
+    if MODE == "serve":
+        return _serve_main()
+    if MODE == "saturate":
+        return _saturate_main()
     if MODE in LATER_MODES:
-        print(f"bench: BENCH_MODE={MODE} waits for ROADMAP Queue 1 item 1 (serving); only 'measure' runs",
-              file=sys.stderr)
+        print(f"bench: BENCH_MODE={MODE} waits for ROADMAP Queue 1 item 1's second step; "
+              "measure, serve and saturate run", file=sys.stderr)
         return 2
     if MODE != "measure":
-        print(f"bench: unknown BENCH_MODE {MODE!r} (measure)", file=sys.stderr)
+        print(f"bench: unknown BENCH_MODE {MODE!r} (measure, serve, saturate)", file=sys.stderr)
         return 2
     from .resilience.journal import Journal
     from .resilience.policy import Deadline, FaultLog, RetryPolicy

@@ -64,7 +64,8 @@ from . import _build, packing, variants
 from .attention import NEG_INF
 from .shapes import conv_out_dim, pool_out_dim
 
-# Kernel launches since the last reset: a plain integer per kernel.
+# Kernel launches since the last reset: a plain integer per kernel. A CUDA
+# graph's replay adds the launches its capture recorded (utils.cuda_graphs).
 LAUNCHES = {
     "conv2d": 0, "maxpool2d": 0, "lrn": 0, "conv_block": 0,
     "conv_taps": 0, "conv_pairs": 0, "conv_im2col": 0, "conv_g8": 0, "pool_phases_pack": 0, "maxpool_phases": 0,

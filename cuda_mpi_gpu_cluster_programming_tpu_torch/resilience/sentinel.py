@@ -33,12 +33,14 @@ def conv2d_np(x: np.ndarray, w: np.ndarray, b: np.ndarray, stride: int, padding:
     return out
 
 
-def oracle_spot_check(tol: float = 1e-3, _corrupt: bool = False, device="cpu") -> float:
+def oracle_spot_check(tol: float = 1e-3, _corrupt: bool = False, device="cuda") -> float:
     """Max abs deviation of the port's reference conv on ``device`` from
     :func:`conv2d_np` on the JAX package's fixed case (9x9x3 input, 3x3x3x4
     weights, stride 2, padding 1, numpy seed 0). ``tol`` is the caller's
     threshold (the gate trips above 1e-3); ``_corrupt`` perturbs the
-    result, so tests reach the trip path without a real fault."""
+    result, so tests reach the trip path without a real fault. Runs on
+    CUDA unless the caller asks for the CPU; without a GPU it raises."""
+    from ..configs import resolve_device
     from ..ops import reference
 
     rng = np.random.default_rng(0)
@@ -46,7 +48,7 @@ def oracle_spot_check(tol: float = 1e-3, _corrupt: bool = False, device="cpu") -
     w = rng.standard_normal((3, 3, 3, 4)).astype(np.float32)
     b = rng.standard_normal((4,)).astype(np.float32)
     want = conv2d_np(x, w, b, stride=2, padding=1)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     reference.true_fp32(dev)
     got = reference.conv2d(
         torch.from_numpy(x)[None].to(dev), torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev),

@@ -12,6 +12,9 @@
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v6_full_pallas --params w.npz --input native \
         --fallback-chain auto --trace run.jsonl
 
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --serve --serve-frontend 0 \
+        --traffic-shape diurnal+burst
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. Prints the JAX package's stdout contract
 (``Tune plan:``, ``Precision:``, ``Compile time:``, ``Final Output Shape:``,
@@ -48,6 +51,18 @@ stdout; the tier that ran is the one reported. ``--deadline-s`` bounds the
 retries as well as the tuner. Without ``--fallback-chain`` a failed build
 exits non-zero: the port never falls back on its own. A kernel-tier build
 is the ``kernel_compile`` site of ``CHAOS_SPEC`` (``resilience/chaos.py``).
+
+Serving: ``--serve`` runs the continuous-batching service (``serving/``)
+under a seeded Poisson load instead of the one-shot forward: each bucket's
+forward captured once as a CUDA graph at warmup, journaled dispatch
+(``--serve-journal``, which also takes the spans unless ``--trace`` is
+given), ``--traffic-shape`` for a shaped load with its class mix and
+shed-by-class, ``--serve-frontend PORT`` (0: an ephemeral port) for the
+HTTP front end driven by a threaded client fleet. Prints ``Serve buckets:``,
+``Serve load:``, ``Serve class:`` (shaped), ``Serve:``, ``Serve frontend:``
+and ``Serve transport:`` lines. ``--serve --supervise`` exits 2 (the
+supervisor, ROADMAP Queue 1 item 8); ``--serve-controller``, ``--route``
+and ``--serve-replay`` exit 2 (item 1's second step).
 """
 
 from __future__ import annotations
@@ -122,9 +137,32 @@ def make_parser() -> argparse.ArgumentParser:
     # and refused with the ROADMAP Queue 1 item they wait for (_waiting).
     p.add_argument("--shards", type=int, default=1, help="row-shard count: waits for the distribution tiers (item 3)")
     p.add_argument("--supervise", action="store_true", help="the elastic supervisor: waits for item 8")
-    p.add_argument("--serve", action="store_true", help="the inference service: waits for item 1")
-    p.add_argument("--route", type=int, default=0, help="the serving fleet: waits for item 1")
-    p.add_argument("--serve-replay", default="", help="journal replay of a serve run: waits for item 1")
+    p.add_argument("--serve", action="store_true",
+                   help="run the continuous-batching inference service under a seeded Poisson load instead of "
+                        "the one-shot forward: admission queue with per-request deadlines, bucketed batches, a "
+                        "CUDA graph per bucket, journaled dispatch. Blocks 1-2 configs only; prints "
+                        "machine-parsed 'Serve load:' and 'Serve:' lines")
+    p.add_argument("--serve-rate", type=float, default=20.0, help="with --serve: Poisson arrival rate (requests/s)")
+    p.add_argument("--serve-duration", type=float, default=2.0, help="with --serve: load-generation window (s)")
+    p.add_argument("--serve-max-batch", type=int, default=8,
+                   help="with --serve: largest dispatch bucket (powers of two below it form the default set)")
+    p.add_argument("--serve-deadline-s", type=float, default=0.0,
+                   help="with --serve: per-request deadline (0 = none); expired requests are shed, journaled")
+    p.add_argument("--serve-journal", default="",
+                   help="with --serve: journal every warm/batch/shed record to this jsonl path")
+    p.add_argument("--serve-buckets", default="",
+                   help="with --serve: comma-separated bucket sizes (overrides the powers of two or the plan's)")
+    p.add_argument("--serve-frontend", type=int, default=None, metavar="PORT",
+                   help="with --serve: expose the service over HTTP on 127.0.0.1:PORT (0 = ephemeral) and drive "
+                        "the load through a threaded HTTP client fleet; prints a 'Serve frontend:' line")
+    p.add_argument("--traffic-shape", default="",
+                   help="with --serve: a shaped load instead of plain Poisson: steady | diurnal | burst | flash, "
+                        "composable with '+' ('diurnal+burst'), params as key=value; requests draw a seeded "
+                        "interactive/batch/bulk class mix with per-class deadlines and shed-by-class")
+    p.add_argument("--serve-controller", action="store_true",
+                   help="the serving controller: waits for item 1's second step")
+    p.add_argument("--route", type=int, default=0, help="the serving fleet: waits for item 1's second step")
+    p.add_argument("--serve-replay", default="", help="journal replay of a serve run: waits for item 1's second step")
     return p
 
 
@@ -134,8 +172,11 @@ def _waiting(args) -> str:
         return "--shards waits for the distribution tiers (ROADMAP Queue 1 item 3)"
     if args.supervise:
         return "--supervise waits for the elastic supervisor (ROADMAP Queue 1 item 8)"
-    if args.serve or args.route or args.serve_replay:
-        return "--serve, --route and --serve-replay wait for serving (ROADMAP Queue 1 item 1)"
+    if args.serve_controller or args.route or args.serve_replay:
+        return ("--serve-controller, --route and --serve-replay wait for the second step of serving "
+                "(ROADMAP Queue 1 item 1)")
+    if args.serve and args.fallback_chain:
+        return "--serve degrades through the elastic supervisor, not --fallback-chain (ROADMAP Queue 1 item 8)"
     return ""
 
 
@@ -341,6 +382,11 @@ def _run(args) -> int:
         params = init_det(model_cfg, device=device)
     else:
         params = init_rnd(torch.Generator().manual_seed(args.seed), model_cfg, device=device)
+    if args.serve:
+        if exec_cfg.model != "blocks12":
+            print("--serve supports the Blocks 1-2 configs only", file=sys.stderr)
+            return 2
+        return _serve(args, blocks_cfg, params, plan, run_dtype)
     if args.input == "native":
         try:
             from . import native
@@ -443,6 +489,89 @@ def _run(args) -> int:
         for name, ms, shape in layer_breakdown(params, x, model_cfg, repeats=max(1, args.repeats),
                                                warmup=n_small, compute=run_dtype, tier=exec_cfg.tier):
             print(f"Layer {name} completed in {ms:.3f} ms -> {'x'.join(str(d) for d in shape[1:])}")
+    return 0
+
+
+def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
+    """``--serve``: the service owns the build (a CUDA graph per bucket at
+    warmup), so the one-shot build and timing are bypassed."""
+    from .observability.trace import Tracer, get_tracer, set_tracer
+    from .observability.trace import span as obs_span
+    from .serving.loadgen import run_load, run_shaped_load
+    from .serving.server import InferenceServer, ServeConfig
+    from .serving.traffic import default_class_mix, parse_shape, slo_policy
+
+    buckets = tuple(int(b) for b in args.serve_buckets.split(",") if b.strip())
+    if args.traffic_shape:
+        try:
+            parse_shape(args.traffic_shape)  # fail loudly before building
+        except ValueError as e:
+            print(f"--traffic-shape: {e}", file=sys.stderr)
+            return 2
+    scfg = ServeConfig(
+        config=args.config,
+        compute=run_dtype,
+        max_batch=args.serve_max_batch,
+        buckets=buckets or None,
+        plan_path=args.plan,
+        journal_path=args.serve_journal,
+        default_deadline_s=args.serve_deadline_s or None,
+        model_cfg=blocks_cfg,
+        device=args.device,
+    )
+    # a shaped load carries a class mix whose SLO policy is the admission policy (shed-by-class)
+    mix = None
+    if args.traffic_shape:
+        mix = list(default_class_mix(InferenceServer(scfg, params=params, plan=plan).buckets))
+        scfg = dataclasses.replace(scfg, slo=slo_policy(mix))
+    server = InferenceServer(scfg, params=params, plan=plan)
+    # without --trace the serve journal takes the spans too: one file, one timeline
+    serve_tracer = None
+    if get_tracer() is None and server.journal is not None:
+        serve_tracer = Tracer(journal=server.journal)
+        set_tracer(serve_tracer)
+        print(f"Trace: id={serve_tracer.trace_id} journal={scfg.journal_path}")
+    frontend = None
+    try:
+        server.start()
+        try:
+            if args.serve_frontend is not None:
+                from .serving.frontend import ServingFrontend, http_fleet_load
+
+                frontend = ServingFrontend(server, port=args.serve_frontend).start()
+                print(f"Serve frontend: url={frontend.url}", flush=True)
+                with obs_span("serve.load", rate_rps=args.serve_rate, duration_s=args.serve_duration,
+                              transport="http"):
+                    report = http_fleet_load(
+                        frontend.url, (blocks_cfg.in_height, blocks_cfg.in_width, blocks_cfg.in_channels),
+                        shape=args.traffic_shape or "steady", rate_rps=args.serve_rate,
+                        duration_s=args.serve_duration, classes=mix or list(default_class_mix(server.buckets)),
+                        seed=args.seed,
+                    )
+            elif args.traffic_shape:
+                with obs_span("serve.load", rate_rps=args.serve_rate, duration_s=args.serve_duration,
+                              shape=args.traffic_shape):
+                    report = run_shaped_load(server, shape=args.traffic_shape, rate_rps=args.serve_rate,
+                                             duration_s=args.serve_duration, classes=mix, seed=args.seed)
+            else:
+                with obs_span("serve.load", rate_rps=args.serve_rate, duration_s=args.serve_duration):
+                    report = run_load(server, rate_rps=args.serve_rate, duration_s=args.serve_duration,
+                                      seed=args.seed)
+        finally:
+            if frontend is not None:
+                frontend.stop()
+            server.close()
+    finally:
+        if serve_tracer is not None:
+            set_tracer(None)  # in-process callers must not inherit a tracer
+    print(f"Serve buckets: {','.join(str(b) for b in server.buckets)}")
+    print(f"Serve load: {report.summary()}")
+    if hasattr(report, "class_lines"):
+        for line in report.class_lines():
+            print(line)
+    print(f"Serve: {server.summary()}")
+    if frontend is not None:
+        print(f"Serve transport: {' '.join(f'http_{c}={n}' for c, n in sorted(frontend.http_codes.items()))}")
     return 0
 
 

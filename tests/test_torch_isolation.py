@@ -62,6 +62,14 @@ assert bench._child() == 0
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1", "--breakdown"]) == 0
 """,
+    # the inference service through run --serve, its HTTP front end and client fleet included
+    "serve": """
+from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import health
+from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import frontend, loadgen, server, traffic
+from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import cuda_graphs
+assert run.main(["--config", "v3_pallas", "--serve", "--device", "cpu", "--height", "45", "--width", "45",
+                 "--serve-duration", "0.2", "--serve-max-batch", "2", "--serve-frontend", "0"]) == 0
+""",
     "long_context": """
 assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", "--seq-len", "64",
                           "--heads", "2", "--head-dim", "16", "--repeats", "1", "--warmup", "1"]) == 0

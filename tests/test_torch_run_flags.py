@@ -116,7 +116,7 @@ def test_a_kernel_build_fault_degrades_only_with_the_flag(key, fallback, monkeyp
     (["--config", "v3_pallas", "--fallback-chain", "v2.2_sharded"], "unknown configs"),
     (["--config", "v6_full_jit", "--shards", "2"], "item 3"),
     (["--config", "v3_pallas", "--supervise"], "item 8"),
-    (["--config", "v3_pallas", "--serve"], "item 1"),
+    (["--config", "v3_pallas", "--serve", "--supervise"], "item 8"),
 ])
 def test_refused_flags_exit_2(argv, why, capsys):
     rc, _out, err = _port(capsys, *argv, "--device", "cpu")

@@ -319,9 +319,10 @@ def test_gate_journals_verdicts(tmp_path):
 def test_oracle_spot_check_and_a_corrupted_one_trips(tmp_path, monkeypatch):
     from cuda_mpi_gpu_cluster_programming_tpu.resilience import sentinel as jsentinel
 
-    assert sentinel.oracle_spot_check() <= 1e-5
-    assert sentinel.oracle_spot_check(_corrupt=True) > 1e-3
-    assert abs(sentinel.oracle_spot_check(_corrupt=True) - jsentinel.oracle_spot_check(_corrupt=True)) <= 1e-5
+    assert sentinel.oracle_spot_check(device="cpu") <= 1e-5
+    assert sentinel.oracle_spot_check(_corrupt=True, device="cpu") > 1e-3
+    assert abs(sentinel.oracle_spot_check(_corrupt=True, device="cpu")
+               - jsentinel.oracle_spot_check(_corrupt=True)) <= 1e-5
     monkeypatch.setattr(sentinel, "oracle_spot_check", lambda **kw: sentinel.__dict__["conv2d_np"] and 0.5)
     params, x = _gate_inputs()
     gate = tgate.ToleranceGate(journal=Journal(tmp_path / "g.jsonl"))
