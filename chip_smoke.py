@@ -201,6 +201,39 @@ fails ends the run with a non-zero exit code and nothing is caught:
    ``percentiles_agree`` on every saturate row; and ``run.main --serve
    --serve-frontend 0 --traffic-shape diurnal+burst`` on ``v3_pallas``
    (exit 0, the ``Serve frontend:`` line, no failure, no cache miss);
+   3g. the control loop (``serving/controller.py``, ``observability/replay.py``
+   and ``gate.py``) at 227x227, ``max_batch`` 8, on a ``v3_pallas`` bf16
+   server with the controller on: built first, it drains ``SERVE_SIZES``
+   (bitwise phase 3f's bf16 results, the same batches), then the controller,
+   fed 128 late protected-class outcomes before each evaluation on an
+   injected clock past its cooldown and dwell, walks ``tighten_admission``
+   bulk, then batch, ``narrow_buckets`` (bucket 8 dropped, its graph
+   released), ``downshift_dtype`` (a ``gate_pass`` and an int8w
+   ``serve_rewarm`` journaled, every bucket captured again: conv2d 2,
+   maxpool2d 2 kernel nodes, its LRN the fp32 reference op), and on on-time
+   outcomes back up in reverse (``upshift_dtype`` recaptures bf16,
+   ``widen_buckets`` captures bucket 8 again). After every rung the stream
+   is drained (a request wider than the largest bucket rejected at the
+   door), the launch counts set to 0 just before and read just after: each
+   result bitwise the live policy's eager forward on its padded batch, the
+   int8w ones within 6e-2 of the max of the ``v1_jit`` fp32 forward's, the
+   counts the live graphs' kernel nodes summed over the dispatches, no cache
+   miss; after the upshift the batches assembled as phase 3f's are bitwise
+   its results, and at the bottom of the ladder the whole stream is. Then
+   ``evaluate``'s cost (2000 calm calls), int8w under the graph at every
+   bucket (graph against eager, as 3f times bf16), the int8w kernels at
+   bucket 8 against their plain versions (the kernels line's int8w serve
+   entries); 3f's Poisson 50 req/s ``v3_pallas`` fp32 run recorded into a
+   journal of its own and replayed neutrally (accounting identical, no
+   divergence; p50/p99 pairs with their resolutions) and at
+   ``traffic_mult`` 2 (twice the offered requests); and ``python -m
+   <port>.bench`` with ``BENCH_MODE=replay`` on that journal (exit 0),
+   ``gate`` over 3e's fp32 rows (``v1_jit``, then ``v3_pallas``) as two
+   rounds in ``chip_smoke_out/gate/`` (the in-process verdict, exit by it)
+   and ``control`` on ``v3_pallas`` (both sides' books closed, no
+   divergence, actions on the ON side, none on the calm trace; the
+   protected class's burn off and on is printed: its clause is read, not
+   required). ``python3 chip_smoke.py --control`` runs this phase alone;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -218,7 +251,8 @@ line carries, beside each kernel's Blocks 1-2 entries, full AlexNet's
 over their stages in one ``v6_full_pallas`` forward, and the serve path's
 (``path`` ``serve``): conv2d, maxpool2d and lrn at bucket 8's shapes, with
 the launches of the drained run (counted at its replays) and of one dispatch (bucket 8's graph's kernel
-nodes). Details of every
+nodes), in fp32 and bf16 (phase 3f) and in int8w (phase 3g: conv2d and maxpool2d,
+the launches of the ladder's int8w drain). Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -1947,6 +1981,7 @@ def bench_phase(runs) -> dict:
                               timeout=900)
         require(proc.returncode == 0, f"bench {env_extra}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
         rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        result.setdefault("raw_rows", []).extend(rows)  # phase 3g's regression gate reads them as rounds
         log(f"bench call {env_extra}: {time.perf_counter() - t_call:.1f} s, {len(rows)} rows; "
             + " | ".join(line for line in proc.stderr.splitlines() if line.startswith("bench:")))
         require(len(rows) == len(expected), f"bench {env_extra}: rows {proc.stdout[-3000:]}")
@@ -2054,12 +2089,13 @@ def by_marker(counts: dict) -> dict:
     return {name: sum(n for k, n in counts.items() if mark in k) for name, mark in SERVE_MARKERS.items()}
 
 
-def dispatch_times(srv, bucket: int, xb: np.ndarray) -> dict:
+def dispatch_times(srv, bucket: int, xb: np.ndarray, per_dispatch=None) -> dict:
     """One dispatch's host wall ms at ``bucket`` (median of ``SERVE_TIMED``),
     from the padded batch in pinned host memory: the graph (copy into the
     static input, replay, fence: ``_dispatch``'s timed region) against the
     same forward called eagerly on the same static input after the same
-    copy, and each one's device ms by ``torch.profiler``."""
+    copy, and each one's device ms by ``torch.profiler`` (a trace that lost
+    any of ``per_dispatch``'s launches, default ``STAGED``: not measured)."""
     graphs, fwd, params = srv._graphs, srv._fwd, srv._params
     static_in = graphs.static_input(bucket)
     np.copyto(graphs.host_buffer(bucket), xb)
@@ -2088,15 +2124,32 @@ def dispatch_times(srv, bucket: int, xb: np.ndarray) -> dict:
     for name, call in (("graph", graph_call), ("eager", eager_call)):
         # a trace that lost any of the five calls' kernels would understate the mean: not measured
         prof = replay_kernels(call, reps=5)
-        whole = by_marker(prof["counts"]) == {k: 5 * v for k, v in STAGED.items()}
+        whole = by_marker(prof["counts"]) == {k: 5 * (per_dispatch or STAGED).get(k, 0) for k in SERVE_MARKERS}
         res[f"{name}_device_ms"] = prof["device_ms"] if whole else None
     res["speedup"] = res["eager_ms"] / res["graph_ms"]
     return res
 
 
+def serve_inputs() -> tuple:
+    """The serve phases' params (uniform [0, 1) weights, bias 0.1) and the
+    request stream of ``SERVE_SIZES`` 227x227 images, from one seed."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+
+    rng = np.random.default_rng(2026)
+    params = init.params_from_jax({
+        "conv1": {"w": rng.random((11, 11, 3, 96), dtype=np.float32), "b": np.full(96, 0.1, np.float32)},
+        "conv2": {"w": rng.random((5, 5, 96, 256), dtype=np.float32), "b": np.full(256, 0.1, np.float32)},
+    })
+    return params, [rng.random((n, 227, 227, 3), dtype=np.float32) for n in SERVE_SIZES]
+
+
+def entry_batches(records) -> list:
+    """(bucket, n_requests, n_images, pad) of each ``serve_batch`` record."""
+    return [(r["bucket"], r["n_requests"], r["n_images"], r["pad"]) for r in records if r["kind"] == "serve_batch"]
+
+
 def serve_phase(spec, peak_name) -> dict:
     """Phase 3f: the inference service on the card at 227x227, max_batch 8."""
-    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
     from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
     from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.loadgen import run_load
@@ -2105,12 +2158,7 @@ def serve_phase(spec, peak_name) -> dict:
     t0 = time.perf_counter()
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
-    rng = np.random.default_rng(2026)
-    params = init.params_from_jax({
-        "conv1": {"w": rng.random((11, 11, 3, 96), dtype=np.float32), "b": np.full(96, 0.1, np.float32)},
-        "conv2": {"w": rng.random((5, 5, 96, 256), dtype=np.float32), "b": np.full(256, 0.1, np.float32)},
-    })
-    xs = [rng.random((n, 227, 227, 3), dtype=np.float32) for n in SERVE_SIZES]
+    params, xs = serve_inputs()
     result = {"servers": {}}
     served = {}
     for key, pol in SERVE_SERVERS:
@@ -2142,8 +2190,10 @@ def serve_phase(spec, peak_name) -> dict:
                 off += len(x)
         require(not pending, f"serve {name}: {len(pending)} requests in no serve_batch record")
         served[name] = [h.result for h in handles]
+        if name == "v3_pallas/bf16":  # what phase 3g's server is held to (main() takes it out of the dump)
+            result["bf16_served"] = dict(results=served[name], batches=entry_batches(batches))
         entry = dict(
-            buckets=list(srv.buckets), batches=[(r["bucket"], r["n_requests"], r["n_images"], r["pad"]) for r in batches],
+            buckets=list(srv.buckets), batches=entry_batches(batches),
             warmup_ms={r["bucket"]: r["ms"] for r in Journal.load(journal) if r["kind"] == "serve_warm"},
             counter_launches=counter_launches, dispatch={},
         )
@@ -2266,6 +2316,374 @@ def serve_kernels_entries(serve) -> list:
                 library_ms=sum(r["library_ms"] for r in mine), batch=SERVE_MAX_BATCH,
                 stages={r["stage"]: {k: r[k] for k in keys + STAGE_EXTRAS if k in r} for r in mine},
             ))
+    return entries
+
+# phase 3g, the control loop: the controller's knobs (the default window; the clock is injected, so cooldown and
+# dwell pass between evaluations), the ladder it walks down and back on a v3_pallas bf16 server, what an int8w
+# dispatch launches (its LRN is the fp32 reference op), and phase 3f's bf16 results and batches
+CTL_KNOBS = dict(eval_s=0.25, window=128, min_completed=20, cooldown_s=1.0, min_dwell_s=2.0)
+CTL_LADDER = (("tighten_admission", "bulk"), ("tighten_admission", "batch"), ("narrow_buckets", ""),
+              ("downshift_dtype", "int8w"), ("upshift_dtype", "int8w"), ("widen_buckets", ""),
+              ("relax_admission", "batch"), ("relax_admission", "bulk"))
+INT8W_STAGED = dict(conv2d=2, maxpool2d=2)
+
+
+def graph_nodes(srv, tag: str) -> dict:
+    """Every live bucket graph's serve-path kernel nodes as CUDA prints them
+    ({bucket: {kernel: nodes}}), each held to what its capture counted."""
+    nodes = {}
+    for bucket in srv.buckets:
+        names = graph_kernel_nodes(srv._graphs.dump(bucket, Path("chip_smoke_out") / f"control_{tag}_{bucket}.dot"))
+        nodes[bucket] = {k: sum(mark in n for n in names) for k, mark in SERVE_MARKERS.items()}
+        require({k: v for k, v in nodes[bucket].items() if v} == srv._graphs.kernels(bucket),
+                f"control {tag} bucket {bucket}: nodes {nodes[bucket]}, capture counted {srv._graphs.kernels(bucket)}")
+        foreign = [n for n in names if not any(mark in n for mark in SERVE_MARKERS.values())
+                   and any(m in n.lower() for m in LIBRARY_CONV_MARKS)]
+        require(not foreign, f"control {tag} bucket {bucket}: a library conv in the graph: {foreign}")
+    return nodes
+
+
+def control_drain(srv, xs, tag: str, oracle) -> dict:
+    """Drain ``xs`` through ``srv`` (a request wider than its largest bucket
+    is rejected at the door), the launch counts set to 0 just before and
+    read just after: each result bitwise the live policy's eager forward on
+    its padded batch, the counts the live graphs' kernel nodes summed over
+    the dispatches, every serve-path kernel of the policy launched, no
+    cache miss; and the error against the fp32 ``v1_jit`` ``oracle`` on the
+    same batches."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+
+    journal = srv.cfg.journal_path
+    fits = [i for i, x in enumerate(xs) if len(x) <= srv.buckets[-1]]
+    for x in xs:
+        if len(x) > srv.buckets[-1]:
+            try:
+                srv.submit(x)
+                require(False, f"control {tag}: a request of {len(x)} admitted past bucket {srv.buckets[-1]}")
+            except ValueError:
+                pass
+    n_records = len(Journal.load(journal))
+    handles = [srv.submit(xs[i]) for i in fits]
+    ck.reset_launches()
+    srv.run_until_drained()
+    counts = dict(ck.LAUNCHES)
+    require([h.status for h in handles] == ["OK"] * len(fits), f"control {tag}: {[h.error for h in handles]}")
+    batches = entry_batches(Journal.load(journal)[n_records:])
+    nodes = graph_nodes(srv, tag)
+    want = {k: sum(nodes[b][k] for b, *_ in batches) for k in SERVE_MARKERS}
+    path = INT8W_STAGED if srv.current_compute == "int8w" else STAGED
+    require({k: counts[k] for k in SERVE_MARKERS} == want and all(want[k] > 0 for k in path)
+            and not any(v for k, v in counts.items() if k not in SERVE_MARKERS),
+            f"control {tag}: the drained run launched {counts}, its dispatches' graphs hold {want}")
+    require(srv.stats.cache_misses == 0, f"control {tag}: {srv.summary()}")
+    pending, groups, err, omax = list(zip(fits, handles)), [], 0.0, 0.0
+    for bucket, n_requests, _n_images, pad in batches:
+        mine = [pending.pop(0) for _ in range(n_requests)]
+        padded = torch.from_numpy(np.concatenate([xs[i] for i, _h in mine]
+                                                 + [np.zeros((pad, 227, 227, 3), np.float32)])).cuda()
+        eager = srv._fwd(srv._params, padded).cpu().numpy()
+        ref = oracle(srv._params, padded).cpu().numpy()
+        off = 0
+        for i, h in mine:
+            require(np.array_equal(h.result, eager[off : off + len(xs[i])]),
+                    f"control {tag}: request {i} (bucket {bucket}) differs from the eager {srv.current_compute} forward")
+            err = max(err, float(np.abs(h.result - ref[off : off + len(xs[i])]).max()))
+            off += len(xs[i])
+        omax = max(omax, float(np.abs(ref).max()))
+        groups.append((bucket, tuple(i for i, _h in mine)))
+    return dict(requests=fits, batches=batches, groups=groups, counts={k: counts[k] for k in SERVE_MARKERS},
+                nodes=nodes, results={i: h.result for i, h in zip(fits, handles)}, oracle_err=err, oracle_max=omax)
+
+
+def int8w_serve_rows(spec, peak_name) -> list:
+    """The kernels an int8w dispatch launches, at bucket 8's shapes: conv2d
+    on bf16 activations and the weights quantized per output channel (the
+    int8 values as bf16, zero bias, no ReLU: the rescale follows), its plain
+    version by the bf16 rule, and maxpool2d on the rescaled ReLU output."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.precision.quantize import quantize_channelwise
+
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    t = stage_inputs(torch.float32, gen, SERVE_MAX_BATCH)
+    cur, rows = t["x"].to(torch.bfloat16), []
+    for stage, w, b, s, p, pool in (("conv1", t["w1"], t["b1"], 4, 0, "pool1"), ("conv2", t["w2"], t["b2"], 1, 2, "pool2")):
+        q, scale = quantize_channelwise(w)
+        wq, zb = q.to(torch.bfloat16), torch.zeros(q.shape[-1], dtype=torch.bfloat16, device="cuda")
+        wl = wq.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        y = ck.conv2d_bias_relu(cur, wq, zb, stride=s, padding=p, relu=False)
+        n, ho, wo, k = y.shape
+        rows.append(measure(dict(
+            kernel="conv2d", stage=stage, mode="int8w",
+            run=lambda x=cur, w=wq, b=zb, s=s, p=p: ck.conv2d_bias_relu(x, w, b, stride=s, padding=p, relu=False),
+            plain=lambda x=cur, w=wq, b=zb, s=s, p=p: ck.conv2d_bias_relu_plain(x, w, b, stride=s, padding=p,
+                                                                                 relu=False),
+            library=lambda x=cur, wl=wl, s=s, p=p: F.conv2d(x.permute(0, 3, 1, 2), wl, stride=s, padding=p),
+            library_call="F.conv2d (cuDNN, bf16, channels-last, no bias)",
+            flops=2 * n * ho * wo * k * w.shape[0] * w.shape[1] * w.shape[2],
+            nbytes=(cur.numel() + wq.numel() + y.numel()) * 2 + zb.numel() * 2, peak="bf16",
+            rule=("ulp", FP32_REL),
+        ), "int8w", spec, peak_name))
+        a = torch.relu(y.float() * scale + b).to(torch.bfloat16)
+        st = pool_stage(pool, a)
+        st["mode"] = "int8w"
+        rows.append(measure(st, "int8w", spec, peak_name))
+        cur = ck.maxpool2d(a, window=3, stride=2)
+    return rows
+
+
+def control_phase(spec, peak_name, bench_rows=None, served=None) -> dict:
+    """Phase 3g: the control loop on the card at 227x227, max_batch 8.
+    ``bench_rows``: phase 3e's rows (the gate's rounds); ``served``: phase
+    3f's bf16 results and batches (None when run alone)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.configs import REGISTRY, build_forward
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.replay import (
+        ReplayKnobs, load_recorded_run, percentile_resolution, replay_recorded)
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.controller import ControllerConfig
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.loadgen import run_load
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.server import InferenceServer, ServeConfig
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.traffic import default_class_mix, slo_policy
+
+    t0 = time.perf_counter()
+    out_dir = Path("chip_smoke_out")
+    out_dir.mkdir(exist_ok=True)
+    params, xs = serve_inputs()
+    journal = out_dir / "control_v3_pallas_bf16.jsonl"
+    journal.unlink(missing_ok=True)
+    srv = InferenceServer(ServeConfig(
+        config="v3_pallas", compute="bf16", max_batch=SERVE_MAX_BATCH, journal_path=str(journal),
+        slo=slo_policy(default_class_mix((1, 2, 4, 8))), controller=ControllerConfig(**CTL_KNOBS)), params=params)
+    oracle = build_forward(REGISTRY["v1_jit"], BLOCKS12, policy="fp32", device="cuda")
+    result = {"rungs": []}
+    with knob_env({}):
+        srv.run_until_drained()  # built and every bucket captured before a request waits
+        base = control_drain(srv, xs, "base", oracle)
+        if served is not None:
+            require(base["batches"] == served["batches"]
+                    and all(np.array_equal(base["results"][i], y) for i, y in enumerate(served["results"])),
+                    "control: the controlled bf16 server differs from phase 3f's")
+        ctl, now = srv.controller, time.monotonic() + 1e6  # ahead of the dispatch loop's own evaluations
+        for step, (action, target) in enumerate(CTL_LADDER):
+            for _ in range(ctl.cfg.window):  # the protected class's outcomes: late on the way down, then on time
+                ctl.note_ok("interactive", 2000.0 if step < 4 else 100.0)
+            now += 2.5
+            graphs = srv._graphs
+            rec = ctl.evaluate(now)
+            require(rec is not None and rec["actuated"] and (rec["action"], rec["target"]) == (action, target),
+                    f"control step {step}: want {action}:{target}, got {rec}")
+            d = control_drain(srv, xs, f"{step}_{action}", oracle)
+            d.update(action=f"{action}:{target}" if target else action, action_ms=rec["ms"], level=rec["level"], buckets=list(srv.buckets),
+                     compute=srv.current_compute, recaptured=srv._graphs is not graphs,
+                     evidence_burn=rec["evidence"]["burn"].get("interactive"))
+            same_3f = [g for g in d["groups"] if g in set(base["groups"])]
+            d["bitwise_3f_batches"] = len(same_3f)
+            if action == "narrow_buckets":
+                require(srv.buckets == (1, 2, 4) and 8 not in srv._graphs and 8 not in srv._warmed,
+                        f"control: narrowing left {srv.buckets}, graphs of {sorted(srv._warmed)}")
+            if "dtype" in action:
+                pol = "int8w" if action == "downshift_dtype" else "bf16"
+                require(d["recaptured"] and d["compute"] == pol
+                        and all(n == {**{k: 0 for k in SERVE_MARKERS}, **(INT8W_STAGED if pol == "int8w" else STAGED)}
+                                for n in d["nodes"].values()),
+                        f"control {action}: recaptured {d['recaptured']} at {d['compute']}, nodes {d['nodes']}")
+            if action == "downshift_dtype":
+                records = Journal.load(journal)
+                require(any(r["kind"] == "gate_pass" and r["key"] == "controller:int8w" for r in records)
+                        and any(r["kind"] == "serve_rewarm" and r["dtype"] == "int8w" for r in records),
+                        "control: the downshift journaled no gate_pass or no int8w serve_rewarm")
+                require(d["oracle_err"] <= INT8W_REL * d["oracle_max"],
+                        f"control int8w: {d['oracle_err']:.4g} off the fp32 oracle (max {d['oracle_max']:.4g})")
+            if action == "upshift_dtype":
+                # the batches phase 3f (and the base drain) assembled alike: bitwise its bf16 graph outputs
+                for bucket, idx in same_3f:
+                    require(all(np.array_equal(d["results"][i], base["results"][i]) for i in idx),
+                            f"control upshift: batch {idx} at bucket {bucket} differs from the bf16 service's")
+                require(same_3f, "control upshift: no batch assembled as before")
+            if action == "widen_buckets":
+                require(srv.buckets == (1, 2, 4, 8) and 8 in srv._graphs, f"control: widening left {srv.buckets}")
+            log(f"control {step} {d['action']}: {rec['ms']:.3f} ms, level {rec['level']}, buckets {srv.buckets}, "
+                f"{srv.current_compute}{' (recaptured)' if d['recaptured'] else ''}; drained {d['batches']} counted "
+                f"{d['counts']} = nodes x dispatches; max_abs vs v1_jit fp32 {d['oracle_err']:.4g} "
+                f"(max {d['oracle_max']:.4g}); {len(same_3f)} batch(es) as phase 3f's")
+            result["rungs"].append({k: v for k, v in d.items() if k != "results"})
+        last = result["rungs"][-1]
+        require(last["batches"] == base["batches"] and all(np.array_equal(d["results"][i], base["results"][i])
+                                                            for i in base["results"]),
+                "control: back at the bottom of the ladder the service differs from where it started")
+        records = Journal.load(journal)
+        kinds = [r["kind"] for r in records]
+        require("serve_miss" not in kinds and srv.stats.cache_misses == 0 and kinds.count("serve_rewarm") == 2,
+                f"control: {srv.summary()} rewarms {kinds.count('serve_rewarm')}")
+        # each rewarm's captures: the serve_warm records just before it
+        result["rewarms"] = []
+        for j, r in enumerate(records):
+            if r["kind"] == "serve_rewarm":
+                warms = [w for w in records[:j] if w["kind"] == "serve_warm"][-len(r["buckets"]):]
+                result["rewarms"].append(dict(dtype=r["dtype"], ms=r["ms"], buckets=r["buckets"],
+                                              capture_ms={w["bucket"]: w["ms"] for w in warms}))
+                log(f"control rewarm {r['dtype']}: {r['ms']:.3f} ms for buckets {r['buckets']}, per bucket "
+                    + ", ".join(f"{w['bucket']}: {w['ms']:.3f}" for w in warms))
+        # evaluate's cost at level 0 on calm windows (every call past eval_s: a full evaluation, no action)
+        n_eval = 2000
+        te = time.perf_counter()
+        acted = [ctl.evaluate(now + (k + 1) * ctl.cfg.eval_s) for k in range(n_eval)]
+        result["evaluate_us"] = (time.perf_counter() - te) / n_eval * 1e6
+        require(not any(acted) and ctl.level == 0, "control: a calm evaluation acted")
+        log(f"control evaluate: {result['evaluate_us']:.2f} us a call, no action (level 0)")
+        # int8w under the graph at every bucket: one apply_compute outside the ladder, timed per bucket, then back
+        ms8 = srv.apply_compute("int8w")
+        result["int8w_graph_nodes"] = graph_nodes(srv, "int8w")
+        result["int8w_rewarm_ms"] = ms8
+        xb = xs[SERVE_SIZES.index(SERVE_MAX_BATCH)]
+        result["int8w_dispatch"] = {}
+        for bucket in srv.buckets:
+            result["int8w_dispatch"][bucket] = dt = dispatch_times(srv, bucket, xb[:bucket], per_dispatch=INT8W_STAGED)
+            log(f"control int8w dispatch bucket {bucket}: graph {dt['graph_ms']:.4f} ms, eager {dt['eager_ms']:.4f} "
+                f"ms (x{dt['speedup']:.2f}); device graph {_fmt(dt['graph_device_ms'])}, eager "
+                f"{_fmt(dt['eager_device_ms'])}")
+        log(f"control int8w rewarm of buckets {srv.buckets}: {ms8:.3f} ms")
+        srv.apply_compute("bf16")
+    srv.close()
+    result["rows8"] = int8w_serve_rows(spec, peak_name)
+
+    # replay of a journal recorded on the card: phase 3f's Poisson 50 req/s run (v3_pallas fp32), in a journal of
+    # its own
+    recorded_path = out_dir / "control_recorded.jsonl"
+    recorded_path.unlink(missing_ok=True)
+    rsrv = InferenceServer(ServeConfig(config="v3_pallas", compute="fp32", max_batch=SERVE_MAX_BATCH,
+                                       journal_path=str(recorded_path)), params=params)
+    with knob_env({}):
+        rsrv.start()
+    try:
+        run_load(rsrv, rate_rps=50.0, duration_s=3.0, seed=0)
+    finally:
+        rsrv.close()
+    recorded = load_recorded_run(recorded_path)
+    result["replay"] = {}
+    for mult in (1.0, 2.0):
+        with knob_env({}):
+            rep = replay_recorded(recorded, ReplayKnobs(traffic_mult=mult, device="cuda",
+                                                        journal_path=str(out_dir / f"control_replay_x{mult:g}.jsonl")))
+        require(rep.accounting_closed and not rep.diverged and rep.cache_misses == 0, f"replay x{mult}: {rep.summary()}")
+        if mult == 1.0:
+            require(rep.accounting_matches, f"replay: accounting differs from the record: {rep.summary()}")
+        else:
+            require(rep.n_offered == 2 * len(recorded.submits), f"replay x2: offered {rep.n_offered}")
+        pairs = {}
+        for q in (50, 99):
+            rec_q, rep_q = rep.percentile_pair(q)
+            floor = rep.knobs.percentile_floor_ms
+            pairs[f"p{q}"] = dict(recorded=rec_q, replay=rep_q,
+                                  recorded_resolution=percentile_resolution(recorded.latencies_ms, q, floor),
+                                  replay_resolution=percentile_resolution(rep.latencies_ms, q, floor),
+                                  within=rep.percentile_within_resolution(q))
+        result["replay"][f"x{mult:g}"] = dict(summary=rep.summary(), percentiles=pairs, obj=rep.to_obj())
+        log(f"replay x{mult:g}: {rep.summary()}")
+        log(f"replay x{mult:g} p50/p99 (replay/recorded, resolutions): " + "; ".join(
+            f"{q} {v['replay']:.3f}/{v['recorded']:.3f} ms (+-{v['replay_resolution']:.1f}, "
+            f"+-{v['recorded_resolution']:.1f}) within={v['within']}" for q, v in pairs.items()))
+    result["bench"] = control_bench_calls(recorded_path, bench_rows)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3g wall time: {result['seconds']:.1f} s")
+    return result
+
+
+def control_bench_calls(recorded_path, bench_rows) -> dict:
+    """The bench's replay, gate and control modes through ``python -m``: a
+    neutral replay of the card's journal exits 0; the gate over phase 3e's
+    fp32 rows (``v1_jit`` then ``v3_pallas``) as two rounds prints the
+    in-process verdict and exits by it; the control drill on ``v3_pallas``
+    closes its books on both sides, never diverges and acts on the ON side
+    (its burn clause is printed and kept, and read, not required)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.gate import evaluate
+
+    out_dir = Path("chip_smoke_out")
+    res = {}
+
+    def call(mode, **extra):
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "TPU_FRAMEWORK_"))}
+        env.update(BENCH_MODE=mode, **extra)
+        t_call = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
+                              timeout=600)
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        require(len(rows) == 1, f"bench {mode}: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        log(f"bench {mode} ({time.perf_counter() - t_call:.1f} s): rc {proc.returncode}")
+        return proc.returncode, rows[0]
+
+    rc, row = call("replay", BENCH_REPLAY_JOURNAL=str(recorded_path),
+                   BENCH_REPLAY_OUT=str(out_dir / "control_bench_replay.jsonl"))
+    require(rc == 0 and "error" not in row and row["accounting_matches"] and not row["diverged"]
+            and row["platform"] == "gpu", f"bench replay: rc {rc} {row}")
+    res["replay"] = row
+    log(f"bench replay: p50 {row['p50_ms']}/{row['recorded_p50_ms']} p99 {row['p99_ms']}/{row['recorded_p99_ms']} "
+        f"ms, value {row['value']} img/s, diverged {row['diverged']}")
+
+    if bench_rows is None:  # --control alone: one quick measure call gives the rounds
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "TPU_FRAMEWORK_"))}
+        env.update(BENCH_CONFIGS="v1_jit,v3_pallas", BENCH_DTYPE="fp32", BENCH_BATCH="8", BENCH_REPEATS="20",
+                   BENCH_BF16="0", BENCH_BREAKDOWN="0", BENCH_MAX_RETRIES="0")
+        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
+                              timeout=600)
+        bench_rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    rounds = [r for r in bench_rows if r.get("dtype") == "fp32" and r.get("config") in ("v1_jit", "v3_pallas")][:2]
+    require([r["config"] for r in rounds] == ["v1_jit", "v3_pallas"], f"gate: rounds {rounds}")
+    gate_dir = out_dir / "gate"
+    gate_dir.mkdir(exist_ok=True)
+    paths = []
+    for i, r in enumerate(rounds, 1):
+        path = gate_dir / f"BENCH_r{i:02d}.json"
+        path.write_text(json.dumps(r))  # noqa: atomic-write (a scratch file this phase reads back at once)
+        paths.append(str(path))
+    verdict = evaluate(paths)
+    rc, row = call("gate", BENCH_GATE_PATHS=str(gate_dir / "BENCH_r*.json"))
+    require(row == {"metric": "alexnet_blocks12_bench_gate", **verdict.to_obj()} and verdict.compared == 1
+            and rc == (0 if verdict.ok else 3), f"bench gate: rc {rc} {row}")
+    res["gate"] = row
+    log(f"bench gate over phase 3e's fp32 rows (v1_jit, then v3_pallas): ok={verdict.ok} rc {rc}\n{verdict.render()}")
+
+    rc, row = call("control", BENCH_CONFIG="v3_pallas", BENCH_CTL_JOURNAL_DIR=str(out_dir / "control_bench"))
+    burn = [f for f in row.get("failures", []) if "burn not strictly lower" in f]
+    require("error" not in row and row["accounting_closed"] == {"off": True, "on": True}
+            and row["diverged"] == {"off": False, "on": False} and sum(row["on_actions"].values()) > 0
+            and row["calm_actions"] == 0 and set(row["failures"]) == set(burn) and rc == (3 if burn else 0),
+            f"bench control: rc {rc} {row}")
+    res["control"] = row
+    log(f"bench control (v3_pallas fp32, 227x227, max_batch {row['max_batch']}, {row['sat_rate_rps']} req/s, "
+        f"slo_scale {row['slo_scale']}): burn {row['protected_cls']} off {row['burn_protected_off']} on "
+        f"{row['burn_protected_on']}: {'HOLDS' if not burn else 'FAILS'}; on actions {row['on_actions']}, "
+        f"value {row['value']} img/s")
+    return res
+
+
+def control_kernels_entries(control) -> list:
+    """The ``kernels`` line's entries of the int8w serve path: conv2d and
+    maxpool2d at bucket 8's shapes (phase 3g's rows, summed over stages),
+    the launches of the ladder's int8w drained run (counted at its replays,
+    held to the graphs' nodes), and launches per dispatch of bucket 8's
+    int8w graph."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    down = next(r for r in control["rungs"] if r["action"].startswith("downshift_dtype"))
+    entries = []
+    for name in INT8W_STAGED:
+        source, replaces, stages, _route = KERNELS[name]
+        mine = [r for r in control["rows8"] if r["kernel"] == name]
+        require([r["stage"] for r in mine] == list(stages), f"control {name}: stages {mine}")
+        entries.append(dict(
+            name=name, dtype="int8w", route="cuda", source=source, replaces=replaces, path="serve",
+            run=f"serve v3_pallas/bf16 -> int8w (the controller's downshift; request sizes {SERVE_SIZES})",
+            launches=down["counts"][name], launches_per_dispatch=control["int8w_graph_nodes"][SERVE_MAX_BATCH][name],
+            dispatches=len(down["batches"]),
+            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+            ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+            bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+            library_ms=sum(r["library_ms"] for r in mine), batch=SERVE_MAX_BATCH,
+            stages={r["stage"]: {k: r[k] for k in keys + STAGE_EXTRAS if k in r} for r in mine},
+        ))
     return entries
 
 
@@ -3738,6 +4156,14 @@ def main() -> int:
                                                    if k != "stdout"}
         print(json.dumps(dict(device=kind, nvidia_smi=smi, rows=rows, runs=runs), default=str), flush=True)
         return 0
+    if sys.argv[1:] == ["--control"]:
+        # phase 3g alone (its gate's two rounds from one quick measure call), from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        control = control_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, control=control,
+                              kernels=control_kernels_entries(control)), default=str), flush=True)
+        return 0
     if sys.argv[1:] == ["--record"]:
         # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_BWD_WIDE_SHA256,
         # FLASH_FWD_TILES_SHA256, FLASH_FWD_WIDE_SHA256, ENGINE_FP32_SHA256 and POOL_LRN_SHA256 hold a later tree
@@ -3802,6 +4228,10 @@ def main() -> int:
     serve = serve_phase(spec, peak_name)
     log("phase 3f: the service replayed a CUDA graph per bucket (conv2d 2, maxpool2d 2, lrn 1 a dispatch), each "
         "result bitwise its eager forward and within budget; no cache miss; bench serve/saturate and run --serve ran")
+    control = control_phase(spec, peak_name, bench["raw_rows"], serve.pop("bf16_served"))
+    log("phase 3g: the controller walked the ladder down and back, every rung's graphs (recaptured at int8w and "
+        "back) bitwise their eager forward, launches = nodes x dispatches, no cache miss; a neutral replay of a "
+        "card journal held; bench replay, gate and control ran")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
@@ -3811,6 +4241,7 @@ def main() -> int:
     line["kernels"] += lm_kernels_entries(lm_rows, {**lm["runs"], **train["runs"]})
     line["kernels"] += s2d_kernels_entries(s2d_rows, ab["runs"])
     line["kernels"] += serve_kernels_entries(serve)
+    line["kernels"] += control_kernels_entries(control)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -3819,7 +4250,8 @@ def main() -> int:
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
-             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, tune=tune, v6_tune=v6_tune,
+             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control, tune=tune,
+             v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

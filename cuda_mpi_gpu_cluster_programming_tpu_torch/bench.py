@@ -61,8 +61,12 @@ batch, single-config runs). ``BENCH_DEVICE`` (cuda|cpu) is the port's
 and row keys (:func:`_serve_main`, :func:`_saturate_main`). The JAX serve
 row's ``drill``, ``health``, ``trips`` and ``entry`` wait for the
 supervisor and the journal folds (ROADMAP Queue 1 items 3 and 8): the row
-names each in its ``skipped`` sub-object. The JAX bench's replay, gate,
-route, control and fleetcontrol modes wait for item 1's second step.
+names each in its ``skipped`` sub-object. ``BENCH_MODE=replay``,
+``control`` and ``gate`` are the JAX bench's journal replay, serving
+controller drill and regression gate (:func:`_replay_main`,
+:func:`_control_main`, :func:`_gate_main`); each prints one row and exits
+3 when its verdict fails. The route and fleetcontrol modes wait for item
+1's third step (the fleet router and its controller).
 
 The JAX bench attaches the last committed row (``perf/bench_latest.json``,
 taken on a TPU) to an error row as ``last_good``, and asks for a
@@ -80,10 +84,13 @@ BASELINE_IMG_PER_SEC = 1.0 / 0.183  # the course code's V4 best, RTX 3090 (BASEL
 METRIC = "alexnet_blocks12_images_per_sec"
 SERVE_METRIC = "alexnet_blocks12_serve_images_per_sec"
 SATURATE_METRIC = "alexnet_blocks12_serve_saturation"
+REPLAY_METRIC = "alexnet_blocks12_serve_replay"
+GATE_METRIC = "alexnet_blocks12_bench_gate"
+CONTROL_METRIC = "alexnet_blocks12_serve_autopilot"
 PACKAGE = __package__  # the child runs ``python -m <PACKAGE>.bench``
 
 MODE = os.environ.get("BENCH_MODE", "measure")
-LATER_MODES = ("replay", "gate", "route", "control", "fleetcontrol")
+LATER_MODES = ("route", "fleetcontrol")
 CONFIG = os.environ.get("BENCH_CONFIG", "v1_jit")
 CONFIGS = [c.strip() for c in os.environ.get("BENCH_CONFIGS", "").split(",") if c.strip()] or [CONFIG]
 PLAN_PATH = os.environ.get("BENCH_PLAN", "")
@@ -558,6 +565,249 @@ def _saturate_main() -> int:
         return _serve_error(SATURATE_METRIC, f"{type(e).__name__}: {e}"[:200], platform)
 
 
+def _replay_main() -> int:
+    """BENCH_MODE=replay: re-drive a recorded serve journal through a live
+    server on this device and print ONE JSON row: the replay's per-class
+    accounting against the record, both percentile pairs and the
+    divergence verdict (``observability.replay``).
+
+    Knobs (environment): BENCH_REPLAY_JOURNAL (required: the recorded
+    journal), BENCH_REPLAY_TRAFFIC_MULT (1.0), BENCH_REPLAY_DEVICES (unset =
+    recorded; more than one device waits for ROADMAP Queue 1 item 3),
+    BENCH_REPLAY_SLO_SCALE (1.0), BENCH_REPLAY_OUT (the replay's own
+    journal; default a temp file), BENCH_DEVICE.
+
+    Exit 0 with a parseable row; exit 2 (after an error row) when the
+    device does not answer or the journal cannot be replayed here; exit 3
+    on a neutral replay's divergence: this mode is a gate."""
+    def fail(msg: str, platform: str = "unknown") -> int:
+        row = _error_obj(msg, platform)
+        row["metric"] = REPLAY_METRIC
+        print(json.dumps(row))
+        return 2
+
+    src = os.environ.get("BENCH_REPLAY_JOURNAL", "")
+    if not src:
+        return fail("BENCH_REPLAY_JOURNAL not set (the recorded journal)")
+    platform, why = _serve_platform()
+    if platform is None:
+        return fail(why)
+    from .observability.replay import ReplayKnobs, load_recorded_run, replay_recorded
+
+    try:
+        recorded = load_recorded_run(src)
+    except ValueError as e:
+        return fail(f"unreplayable journal: {e}"[:300], platform)
+    devices = os.environ.get("BENCH_REPLAY_DEVICES", "")
+    try:
+        _build_library(str(recorded.config.get("config", "")))
+        report = replay_recorded(recorded, ReplayKnobs(
+            traffic_mult=float(os.environ.get("BENCH_REPLAY_TRAFFIC_MULT", "1")),
+            devices=int(devices) if devices else None,
+            slo_scale=float(os.environ.get("BENCH_REPLAY_SLO_SCALE", "1")),
+            journal_path=os.environ.get("BENCH_REPLAY_OUT", ""),
+            device=DEVICE,
+        ))
+    except Exception as e:
+        return fail(f"{type(e).__name__}: {e}"[:300], platform)
+    print(json.dumps({"metric": REPLAY_METRIC, "unit": "img/s", **report.to_obj(), "platform": platform}))
+    return 3 if report.diverged else 0
+
+
+def _control_main() -> int:
+    """BENCH_MODE=control: the serving controller's acceptance drill, ONE
+    JSON row and a gate exit.
+
+    Three journaled phases on this device:
+
+    1. CALM: a controller-ON serve run far below capacity with generous
+       SLOs: the controller must journal ZERO actions.
+    2. RECORD: a controller-OFF saturating class-mixed run, the trace both
+       replays re-drive. Its rate comes from a short saturated, SLO-free
+       probe of the service (``loadgen.saturating_rate``: about 1.5x the
+       service rate the probe measured, where the off side burns while the
+       protected class alone still fits).
+    3. A/B: ``replay`` with the controller off, then on, over the SAME
+       record under the SAME ``slo_scale`` pressure. Both sides must close
+       per-class accounting, neither may report a divergence, the ON side
+       must journal actions, and the protected class's error-budget burn
+       (``health.slo_attainment`` of each replay's journal) must be
+       strictly lower with the controller on.
+
+    Knobs (environment): BENCH_CTL_CONFIG (BENCH_CONFIG), BENCH_DTYPE,
+    BENCH_CTL_HEIGHT/WIDTH (227 on the card, 63 on the CPU),
+    BENCH_CTL_MAX_BATCH (8 on the card, 4 on the CPU), BENCH_CTL_CALM_RATE
+    (8 req/s), BENCH_CTL_SAT_RATE (default: the probe's; a number forces it
+    and skips the probe), BENCH_CTL_DURATION (1.5 s), BENCH_CTL_SLO_SCALE
+    (0.15), BENCH_CTL_SEED (0), BENCH_CTL_JOURNAL_DIR (a temp dir),
+    BENCH_DEVICE.
+
+    Always one parseable JSON row; exit 3 when an acceptance clause fails
+    (each named in the row's ``failures``), 2 when the device does not
+    answer or the drill raised, 0 otherwise."""
+    import dataclasses
+    import tempfile
+
+    def fail(msg: str, platform: str = "unknown") -> int:
+        row = _error_obj(msg, platform)
+        row["metric"] = CONTROL_METRIC
+        print(json.dumps(row))
+        return 2
+
+    platform, why = _serve_platform()
+    if platform is None:
+        return fail(why)
+    try:
+        from .models.alexnet import BLOCKS12
+        from .observability.export import load_records
+        from .observability.health import slo_attainment
+        from .observability.replay import ReplayKnobs, load_recorded_run, replay_recorded
+        from .serving.controller import ControllerConfig
+        from .serving.loadgen import run_shaped_load, saturating_rate
+        from .serving.server import InferenceServer, ServeConfig
+        from .serving.traffic import default_class_mix, slo_policy
+
+        on_card = DEVICE != "cpu"
+        size = "227" if on_card else "63"
+        model_cfg = dataclasses.replace(
+            BLOCKS12,
+            in_height=int(os.environ.get("BENCH_CTL_HEIGHT", size)),
+            in_width=int(os.environ.get("BENCH_CTL_WIDTH", size)),
+        )
+        seed = int(os.environ.get("BENCH_CTL_SEED", "0"))
+        duration = float(os.environ.get("BENCH_CTL_DURATION", "1.5"))
+        out_dir = os.environ.get("BENCH_CTL_JOURNAL_DIR") or tempfile.mkdtemp(prefix="bench_control_")
+        os.makedirs(out_dir, exist_ok=True)
+        base = ServeConfig(
+            config=os.environ.get("BENCH_CTL_CONFIG", CONFIG),
+            compute=DTYPE,
+            max_batch=int(os.environ.get("BENCH_CTL_MAX_BATCH", "8" if on_card else "4")),
+            model_cfg=model_cfg,
+            default_deadline_s=30.0,
+            device=DEVICE,
+        )
+        _build_library(base.config)
+        mix = list(default_class_mix(InferenceServer(base).buckets))
+        policy = slo_policy(mix)
+        # the default ladder and thresholds, with dwell and cooldown cut to the drill's sub-2 s windows
+        # (which makes the calm phase's zero-action clause harder to meet, not easier)
+        ctl_cfg = ControllerConfig(eval_s=0.05, cooldown_s=0.2, min_dwell_s=0.3, min_completed=10)
+
+        def serve(journal: str, *, rate: float, slo, controller):
+            srv = InferenceServer(dataclasses.replace(base, journal_path=journal, slo=slo, controller=controller))
+            srv.start()
+            try:
+                run_shaped_load(srv, shape="steady", rate_rps=rate, duration_s=duration, classes=mix, seed=seed)
+            finally:
+                srv.stop()
+                state = srv.controller.state_obj() if srv.controller is not None else None
+                srv.close()
+            return state
+
+        failures = []
+        # 1. CALM, controller ON: zero journaled actions
+        calm_jp = os.path.join(out_dir, "calm.jsonl")
+        calm_state = serve(calm_jp, rate=float(os.environ.get("BENCH_CTL_CALM_RATE", "8")), slo=policy,
+                           controller=ctl_cfg)
+        calm_actions = sum((calm_state or {}).get("actions", {}).values())
+        if calm_actions:
+            failures.append(f"calm trace journaled {calm_actions} action(s)")
+
+        # 2. RECORD a controller-OFF saturating trace at the probe's rate (or BENCH_CTL_SAT_RATE)
+        sat_jp = os.path.join(out_dir, "recorded.jsonl")
+        env_rate = os.environ.get("BENCH_CTL_SAT_RATE", "")
+        if env_rate:
+            sat_rate = float(env_rate)
+        else:
+            probe_jp = os.path.join(out_dir, "probe.jsonl")
+            psrv = InferenceServer(dataclasses.replace(base, journal_path=probe_jp))
+            psrv.start()
+            try:
+                run_shaped_load(psrv, shape="steady", rate_rps=2000.0, duration_s=0.3, classes=mix, seed=seed)
+            finally:
+                psrv.stop()
+                psrv.close()
+            sat_rate = saturating_rate(probe_jp, mix)
+        serve(sat_jp, rate=sat_rate, slo=policy, controller=None)
+        recorded = load_recorded_run(sat_jp)
+
+        # 3. the A/B replay under equal SLO pressure
+        slo_scale = float(os.environ.get("BENCH_CTL_SLO_SCALE", "0.15"))
+        reports = {
+            mode: replay_recorded(recorded, ReplayKnobs(
+                controller=mode, controller_cfg=ctl_cfg.to_obj(), slo_scale=slo_scale,
+                journal_path=os.path.join(out_dir, f"replay_{mode}.jsonl"), device=DEVICE,
+            ))
+            for mode in ("off", "on")
+        }
+        off, on = reports["off"], reports["on"]
+        for mode, rep in reports.items():
+            if not rep.accounting_closed:
+                failures.append(f"replay --controller {mode}: accounting open")
+            if rep.diverged:
+                failures.append(f"replay --controller {mode}: diverged")
+        if not on.controller_active or not sum((on.controller_state or {}).get("actions", {}).values()):
+            failures.append("controller-on replay journaled no actions")
+
+        def burn(journal: str):
+            for c in slo_attainment(load_records(journal)):
+                if c.name == ctl_cfg.protected_cls:
+                    return c.burn
+            return None
+
+        burn_off, burn_on = burn(off.journal_path), burn(on.journal_path)
+        if burn_off is None or burn_on is None or not burn_on < burn_off:
+            failures.append(
+                f"{ctl_cfg.protected_cls} burn not strictly lower with controller on ({burn_on} vs {burn_off})")
+        print(json.dumps({
+            "metric": CONTROL_METRIC,
+            "value": round(on.sustained_img_s, 1),
+            "unit": "img/s",
+            "ok": not failures,
+            "failures": failures,
+            "calm_actions": calm_actions,
+            "calm_state": calm_state,
+            "on_actions": (on.controller_state or {}).get("actions", {}),
+            "controller_state": on.controller_state,
+            "burn_protected_off": burn_off,
+            "burn_protected_on": burn_on,
+            "protected_cls": ctl_cfg.protected_cls,
+            "sat_rate_rps": round(sat_rate, 1),
+            "slo_scale": slo_scale,
+            "accounting_closed": {m: r.accounting_closed for m, r in reports.items()},
+            "diverged": {m: r.diverged for m, r in reports.items()},
+            "journals": {"calm": calm_jp, "recorded": sat_jp, "replay_off": off.journal_path,
+                         "replay_on": on.journal_path},
+            "config": base.config,
+            "dtype": base.compute,
+            "height": model_cfg.in_height,
+            "width": model_cfg.in_width,
+            "max_batch": base.max_batch,
+            "platform": platform,
+        }))
+        return 3 if failures else 0
+    except Exception as e:
+        return fail(f"{type(e).__name__}: {e}"[:300], platform)
+
+
+def _gate_main() -> int:
+    """BENCH_MODE=gate: the regression gate (``observability.gate``) over
+    the round files BENCH_GATE_PATHS names (comma-separated paths or
+    globs, taken in path-name order), ONE JSON row with the full verdict.
+    With no paths the verdict is over zero rounds: the repository's
+    ``BENCH_r*.json`` are the JAX package's TPU rounds, which no verdict
+    on the port reads. Exit 3 on any regression, 0 otherwise."""
+    import glob
+
+    from .observability.gate import evaluate
+
+    spec = os.environ.get("BENCH_GATE_PATHS", "")
+    paths = [p for part in spec.split(",") if part.strip() for p in sorted(glob.glob(part.strip()))]
+    verdict = evaluate(paths)
+    print(json.dumps({"metric": GATE_METRIC, **verdict.to_obj()}))
+    return 0 if verdict.ok else 3
+
+
 def _measure_once(configs=None) -> list:
     """One probe and measurement pass: the row list to print, one per
     ``configs`` entry (default all of ``CONFIGS``; a journal resume passes
@@ -636,12 +886,19 @@ def main() -> int:
         return _serve_main()
     if MODE == "saturate":
         return _saturate_main()
+    if MODE == "replay":
+        return _replay_main()
+    if MODE == "control":
+        return _control_main()
+    if MODE == "gate":
+        return _gate_main()
     if MODE in LATER_MODES:
-        print(f"bench: BENCH_MODE={MODE} waits for ROADMAP Queue 1 item 1's second step; "
-              "measure, serve and saturate run", file=sys.stderr)
+        print(f"bench: BENCH_MODE={MODE} waits for ROADMAP Queue 1 item 1's third step (the fleet router and "
+              "its controller); measure, serve, saturate, replay, control and gate run", file=sys.stderr)
         return 2
     if MODE != "measure":
-        print(f"bench: unknown BENCH_MODE {MODE!r} (measure, serve, saturate)", file=sys.stderr)
+        print(f"bench: unknown BENCH_MODE {MODE!r} (measure, serve, saturate, replay, control, gate)",
+              file=sys.stderr)
         return 2
     from .resilience.journal import Journal
     from .resilience.policy import Deadline, FaultLog, RetryPolicy

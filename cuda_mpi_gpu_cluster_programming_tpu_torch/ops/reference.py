@@ -64,11 +64,20 @@ def conv2d(
     function: every bf16 x bf16 product (8-bit significands) is exact in
     fp32's 24 bits, and the sums are fp32. int8 weights widen exactly too.
     The bias is added after the convolution, in the output dtype, as the
-    JAX reference does."""
+    JAX reference does.
+
+    On the CPU an fp32 convolution runs PyTorch's GEMM convolution (im2col
+    and one matmul, ``aten.thnn_conv2d``), not oneDNN's, which ``F.conv2d``
+    picks by default there: oneDNN sums each output's terms in an order that
+    depends on its thread count, 9.7e-5 to 2.5e-4 off XLA's CPU convolution
+    at outputs of order 20, where the GEMM path is within 2e-5. The choice is
+    made at this call, so it changes no process-wide switch."""
     acc = preferred_element_type or x.dtype
-    out = F.conv2d(
-        x.permute(0, 3, 1, 2).to(acc), w.permute(3, 2, 0, 1).to(acc), stride=stride, padding=padding
-    )
+    xc, wc = x.permute(0, 3, 1, 2).to(acc), w.permute(3, 2, 0, 1).to(acc)
+    if xc.device.type == "cpu" and acc == torch.float32:
+        out = torch.ops.aten.thnn_conv2d(xc, wc, list(wc.shape[2:]), None, [stride, stride], [padding, padding])
+    else:
+        out = F.conv2d(xc, wc, stride=stride, padding=padding)
     out = out.permute(0, 2, 3, 1)
     return out + b.to(out.dtype)
 

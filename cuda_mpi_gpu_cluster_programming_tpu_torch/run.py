@@ -15,6 +15,11 @@
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --serve --serve-frontend 0 \
         --traffic-shape diurnal+burst
 
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --dtype bf16 --serve \
+        --serve-controller --traffic-shape burst --serve-journal serve.jsonl
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --serve-replay serve.jsonl --replay-mult 2
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. Prints the JAX package's stdout contract
 (``Tune plan:``, ``Precision:``, ``Compile time:``, ``Final Output Shape:``,
@@ -58,11 +63,23 @@ forward captured once as a CUDA graph at warmup, journaled dispatch
 (``--serve-journal``, which also takes the spans unless ``--trace`` is
 given), ``--traffic-shape`` for a shaped load with its class mix and
 shed-by-class, ``--serve-frontend PORT`` (0: an ephemeral port) for the
-HTTP front end driven by a threaded client fleet. Prints ``Serve buckets:``,
-``Serve load:``, ``Serve class:`` (shaped), ``Serve:``, ``Serve frontend:``
-and ``Serve transport:`` lines. ``--serve --supervise`` exits 2 (the
-supervisor, ROADMAP Queue 1 item 8); ``--serve-controller``, ``--route``
-and ``--serve-replay`` exit 2 (item 1's second step).
+HTTP front end driven by a threaded client fleet, ``--serve-controller``
+for the serving controller (``serving/controller.py``: it sheds bulk, then
+batch, narrows the buckets and downshifts to int8w under pressure, and
+reverses each in turn on recovery; its signals come from the class mix's
+SLO policy, so it pairs with ``--traffic-shape`` and is inert without it).
+Prints ``Serve buckets:``, ``Serve load:``, ``Serve class:`` (shaped),
+``Serve:``, ``Serve frontend:``, ``Serve transport:`` and ``Serve
+controller:`` lines. ``--serve-replay JOURNAL`` re-drives a recorded serve
+journal through a live server (``observability/replay.py``; the journal's
+``serve_config`` record is the build, so the build flags are ignored) with
+the what-if knobs ``--replay-mult`` and ``--replay-slo-scale``, and prints
+``Replay:`` and ``Replay class:`` lines: exit 3 when a neutral replay
+diverges from the record, 2 on a journal it cannot replay
+(``--replay-devices`` above 1 waits for item 3, a supervised recording for
+item 8). ``--serve --supervise`` exits 2 (the supervisor, ROADMAP Queue 1
+item 8); ``--route`` and ``--route-dir`` exit 2 (the fleet router, item
+1's third step).
 """
 
 from __future__ import annotations
@@ -160,9 +177,26 @@ def make_parser() -> argparse.ArgumentParser:
                         "composable with '+' ('diurnal+burst'), params as key=value; requests draw a seeded "
                         "interactive/batch/bulk class mix with per-class deadlines and shed-by-class")
     p.add_argument("--serve-controller", action="store_true",
-                   help="the serving controller: waits for item 1's second step")
-    p.add_argument("--route", type=int, default=0, help="the serving fleet: waits for item 1's second step")
-    p.add_argument("--serve-replay", default="", help="journal replay of a serve run: waits for item 1's second step")
+                   help="with --serve: run the serving controller on the dispatch loop: journaled, "
+                        "hysteresis-bounded degrade and restore off the protected class's error-budget burn and "
+                        "the queue knee (shed bulk -> shed batch -> narrow buckets -> int8w downshift; reversed "
+                        "in LIFO order on recovery). Its signals come from --traffic-shape's SLO policy; "
+                        "without one it is inert. Prints a 'Serve controller:' line")
+    p.add_argument("--route", type=int, default=0,
+                   help="the fleet router over N backend processes: waits for item 1's third step")
+    p.add_argument("--route-dir", default="", help="with --route: its journal directory (item 1's third step)")
+    p.add_argument("--serve-replay", default="", metavar="JOURNAL",
+                   help="re-drive a recorded serve journal through a live server on --device (its serve_config "
+                        "record is the build: --config et al. are ignored); prints 'Replay:' and 'Replay class:' "
+                        "lines, exit 3 when a neutral replay diverges from the record, 2 when it cannot replay")
+    p.add_argument("--replay-mult", type=float, default=1.0,
+                   help="with --serve-replay: offer the recorded schedule at this traffic multiple")
+    p.add_argument("--replay-devices", type=int, default=None,
+                   help="with --serve-replay: rebuild at this shard width (above 1 waits for item 3)")
+    p.add_argument("--replay-slo-scale", type=float, default=1.0,
+                   help="with --serve-replay: scale every class SLO budget and request deadline (0.5 = twice as tight)")
+    p.add_argument("--replay-journal", default="",
+                   help="with --serve-replay: journal the replay here (itself replayable; default a temp file)")
     return p
 
 
@@ -172,9 +206,8 @@ def _waiting(args) -> str:
         return "--shards waits for the distribution tiers (ROADMAP Queue 1 item 3)"
     if args.supervise:
         return "--supervise waits for the elastic supervisor (ROADMAP Queue 1 item 8)"
-    if args.serve_controller or args.route or args.serve_replay:
-        return ("--serve-controller, --route and --serve-replay wait for the second step of serving "
-                "(ROADMAP Queue 1 item 1)")
+    if args.route or args.route_dir:
+        return "--route and --route-dir wait for the fleet router (ROADMAP Queue 1 item 1's third step)"
     if args.serve and args.fallback_chain:
         return "--serve degrades through the elastic supervisor, not --fallback-chain (ROADMAP Queue 1 item 8)"
     return ""
@@ -324,6 +357,8 @@ def _run(args) -> int:
     if waiting:
         print(waiting, file=sys.stderr)
         return 2
+    if args.serve_replay:
+        return _serve_replay(args)
     if args.config not in REGISTRY:
         print(f"unknown config {args.config!r}; try --list-configs", file=sys.stderr)
         return 2
@@ -524,6 +559,12 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
     if args.traffic_shape:
         mix = list(default_class_mix(InferenceServer(scfg, params=params, plan=plan).buckets))
         scfg = dataclasses.replace(scfg, slo=slo_policy(mix))
+    if args.serve_controller:
+        from .serving.controller import ControllerConfig
+
+        scfg = dataclasses.replace(scfg, controller=ControllerConfig())
+        if scfg.slo is None:
+            print("Serve controller: inert (no SLO policy: pair with --traffic-shape for the class-mix signals)")
     server = InferenceServer(scfg, params=params, plan=plan)
     # without --trace the serve journal takes the spans too: one file, one timeline
     serve_tracer = None
@@ -572,6 +613,37 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
     print(f"Serve: {server.summary()}")
     if frontend is not None:
         print(f"Serve transport: {' '.join(f'http_{c}={n}' for c, n in sorted(frontend.http_codes.items()))}")
+    if server.controller is not None:
+        print(f"Serve controller: {server.controller.summary()}")
+    return 0
+
+
+def _serve_replay(args) -> int:
+    """``--serve-replay``: the journal's ``serve_config`` record is the
+    build, so the build flags are ignored; re-drive, report, judge."""
+    from .observability.replay import ReplayKnobs, load_recorded_run, replay_recorded
+
+    if args.replay_mult <= 0 or args.replay_slo_scale <= 0:
+        print("--replay-mult/--replay-slo-scale must be > 0", file=sys.stderr)
+        return 2
+    try:
+        recorded = load_recorded_run(args.serve_replay)
+        report = replay_recorded(recorded, ReplayKnobs(
+            traffic_mult=args.replay_mult, devices=args.replay_devices, slo_scale=args.replay_slo_scale,
+            journal_path=args.replay_journal, device=args.device,
+        ))
+    except ValueError as e:  # unreplayable, or waiting for a ROADMAP item it names
+        print(f"--serve-replay: {e}", file=sys.stderr)
+        return 2
+    print(f"Replay source: {args.serve_replay}")
+    print(f"Replay journal: {report.journal_path}")
+    print(f"Replay: {report.summary()}")
+    for line in report.class_lines():
+        print(line)
+    if report.diverged:
+        print("replay divergence: a neutral replay broke the recorded accounting/percentile contract",
+              file=sys.stderr)
+        return 3
     return 0
 
 

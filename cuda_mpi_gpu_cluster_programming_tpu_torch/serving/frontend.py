@@ -113,6 +113,10 @@ class _Handler(BaseHTTPRequestHandler):
                 "queue": qs.to_obj(),
                 "buckets": list(fe.server.buckets),
             }
+            # the controller's state (mode, level, rung, overrides, last action, intent): a probe sees
+            # degraded-but-healthy instead of inferring it from latency; absent on an uncontrolled server
+            if fe.server.controller is not None:
+                payload["controller"] = fe.server.controller.state_obj()
             self._send_json(200, payload)
         elif self.path == "/stats":
             srv = fe.server
@@ -122,6 +126,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "http": dict(fe.http_codes),
                 "entry": srv.cfg.config,
             }
+            if srv.controller is not None:
+                payload["controller"] = srv.controller.state_obj()
             self._send_json(200, payload)
         elif self.path == "/metrics":
             # Prometheus text exposition of the process-wide registry:

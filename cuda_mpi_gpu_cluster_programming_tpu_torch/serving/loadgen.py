@@ -372,7 +372,7 @@ def saturating_rate(
 ) -> float:
     """Pick a saturating request rate from a capacity probe's measured
     service throughput — the anti-flake of an A/B of the serving
-    controller (ROADMAP Queue 1 item 1's second step).
+    controller (``BENCH_MODE=control``).
 
     A FIXED saturating rate cannot survive hosts whose speed varies 3x:
     too low and the controller-off side never burns (the A/B goes

@@ -21,7 +21,17 @@ The JAX package's ``serving/server.py`` over the port's
   ``SHED`` at assembly time and are journaled, never silently dropped.
 - **Every run can be replayed.** One ``serve_config`` record at build time
   and one ``serve_submit`` record per admission attempt carry the arrival
-  schedule as well as the outcomes.
+  schedule as well as the outcomes (``observability.replay``).
+- **The serving controller** (``ServeConfig.controller``, a
+  ``serving.controller.ControllerConfig``) is evaluated between batches
+  and moves three knobs through the actuators :meth:`apply_slo_policy`,
+  :meth:`apply_buckets` (a bucket added is captured before the batcher
+  can pick it, a bucket dropped has its graph released) and
+  :meth:`apply_compute` (the forward rebuilt at another precision policy
+  and every bucket captured again into a new ``BucketGraphs``, which
+  replaces the old one before the next dispatch). A capture there is a
+  warmup, journaled as such, never a cache miss; one that fails raises,
+  and the old graphs go on serving.
 
 ``_dispatch``'s timed region copies the padded batch into the bucket's
 static input, replays its graph and fences the stream (the counterpart of
@@ -30,9 +40,9 @@ before the next replay can overwrite it. Result slicing, spans, metrics
 and journal writes run in ``@off_timed_path`` helpers after the region.
 
 Not here yet, each refused with ``ValueError`` naming its ROADMAP Queue 1
-item: ``supervise=True`` (the elastic supervisor, item 8), ``n_shards > 1``
-(the distribution tiers, item 3) and ``controller`` (the serving
-controller, item 1's second step). The server runs on CUDA unless
+item: ``supervise=True`` (the elastic supervisor, item 8) and
+``n_shards > 1`` (the distribution tiers, item 3); ``sup`` is None, so the
+controller has no capacity rung. The server runs on CUDA unless
 ``ServeConfig.device`` asks for the CPU; without a GPU it raises.
 """
 
@@ -78,7 +88,10 @@ class ServeConfig:
     # ``mem_snapshot`` (the caching allocator's bytes, RSS on the CPU)
     # record, off the timed path. 0 disables.
     mem_snapshot_s: float = 1.0
-    controller: Any = None  # the serving controller waits for item 1's second step
+    # Optional serving.controller.ControllerConfig (or its to_obj dict): the
+    # closed-loop controller over admission, bucket width and precision.
+    # None = every knob stays as built.
+    controller: Any = None
     device: str = "cuda"
 
 
@@ -93,6 +106,7 @@ class ServeStats:
     n_failed: int = 0
     warmup_compiles: int = 0  # buckets captured (CPU: first calls)
     cache_misses: int = 0  # post-warmup dispatches at an un-warmed bucket
+    rewarm_ms: float = 0.0  # wall ms of the captures of every apply_compute
     batch_ms: List[float] = dataclasses.field(default_factory=list)
 
     def summary(self) -> str:
@@ -118,9 +132,8 @@ class InferenceServer:
             raise ValueError("supervise=True waits for the elastic supervisor (ROADMAP Queue 1 item 8)")
         if cfg.n_shards > 1:
             raise ValueError(f"n_shards={cfg.n_shards} waits for the distribution tiers (ROADMAP Queue 1 item 3)")
-        if cfg.controller is not None:
-            raise ValueError("the serving controller waits for ROADMAP Queue 1 item 1's second step")
         self.cfg = cfg
+        self.sup = None  # the elastic supervisor waits for item 8
         self.queue = AdmissionQueue(max_pending=cfg.max_pending, slo=cfg.slo)
         self.stats = ServeStats()
         self.journal = Journal(cfg.journal_path) if cfg.journal_path else None
@@ -138,8 +151,18 @@ class InferenceServer:
         self._seq_snapshot = 0
         self._last_snapshot = 0.0  # monotonic: the first _step snapshots
         self._submit_lock = threading.Lock()  # submit() is thread-safe
+        self._compute_override: Optional[str] = None  # the controller's live dtype shift
         self.buckets = self._resolve_buckets()
         self._batcher = Batcher(self.queue, self.buckets)
+        self.controller = None
+        if cfg.controller is not None:
+            from .controller import AutopilotController, ControllerConfig
+
+            ctl_cfg = (
+                cfg.controller if isinstance(cfg.controller, ControllerConfig)
+                else ControllerConfig.from_obj(cfg.controller)
+            )
+            self.controller = AutopilotController(self, ctl_cfg)
 
     # ------------------------------------------------------------- building
 
@@ -171,6 +194,12 @@ class InferenceServer:
     def device(self):
         return self._graphs.device if self._graphs is not None else None
 
+    @property
+    def current_compute(self) -> str:
+        """The precision policy the service runs now: the build's unless the
+        controller has shifted it (:meth:`apply_compute`)."""
+        return self._compute_override or self.cfg.compute
+
     def _build(self) -> None:
         from ..configs import REGISTRY, build_forward, resolve_device
         from ..models.init import init_params_deterministic, params_to
@@ -187,7 +216,7 @@ class InferenceServer:
         else:
             self._params = params_to(self._params, device=device)
         # build_forward sets the TF32 switches on the host, before any capture
-        self._fwd = build_forward(exec_cfg, model_cfg, policy=cfg.compute, device=device, plan=self._plan)
+        self._fwd = build_forward(exec_cfg, model_cfg, policy=self.current_compute, device=device, plan=self._plan)
         self._graphs = BucketGraphs(
             self._fwd, self._params, (model_cfg.in_height, model_cfg.in_width, model_cfg.in_channels), device
         )
@@ -203,7 +232,7 @@ class InferenceServer:
         journal_compile_event(
             self.journal,
             compile_event(
-                site="serve", entry=self.cfg.config, shape=shape, dtype=self.cfg.compute,
+                site="serve", entry=self.cfg.config, shape=shape, dtype=self.current_compute,
                 ms=ms, cache_hit=hit, n_shards=1,
             ),
         )
@@ -217,16 +246,20 @@ class InferenceServer:
                 self._warm_bucket(bucket)
 
     @off_timed_path
-    def _warm_bucket(self, bucket: int) -> float:
-        """Capture one bucket and journal it (``compile_event``,
-        ``serve_warm``)."""
-        ms = self._graphs.warm(bucket)
-        self._note_compile(self._graphs.shape(bucket), ms, hit=bucket in self._warmed)
+    def _warm_bucket(self, bucket: int, graphs=None) -> float:
+        """Capture one bucket into ``graphs`` (default: the live ones) and
+        journal it (``compile_event``, ``serve_warm``); warmup's unit, which
+        the controller's actuators capture through too."""
+        live = graphs is None
+        graphs = self._graphs if live else graphs
+        ms = graphs.warm(bucket)
+        self._note_compile(graphs.shape(bucket), ms, hit=live and bucket in self._warmed)
         self.stats.warmup_compiles += 1
-        self._warmed.add(bucket)
+        if live:
+            self._warmed.add(bucket)
         self._journal(
             "serve_warm", key=f"warm:b{bucket}", bucket=bucket,
-            ms=round(ms, 3), dtype=self.cfg.compute,
+            ms=round(ms, 3), dtype=self.current_compute,
         )
         return ms
 
@@ -273,7 +306,8 @@ class InferenceServer:
             channels=m.in_channels,
             slo=cfg.slo.to_obj() if cfg.slo is not None else None,
             devices=1,
-            controller=None,
+            # the controller's knobs (None = uncontrolled): a replay rebuilds it from them
+            controller=self.controller.cfg.to_obj() if self.controller is not None else None,
             device=str(self.device),
         )
 
@@ -322,6 +356,7 @@ class InferenceServer:
     def _step(self) -> None:
         self._observe_queue()
         self._observe_resources()
+        self._observe_controller()
         batch, shed = self._batcher.next_batch(self.cfg.poll_s)
         if shed:
             self._record_shed(shed)
@@ -365,8 +400,100 @@ class InferenceServer:
         self._journal(
             "serve_gauges", key=f"gauges:{self._seq_snapshot}", t_ms=t_ms,
             depth=qs.depth, pending_images=qs.pending_images, oldest_wait_ms=qs.oldest_wait_ms,
+            # the controller's ladder depth beside the queue trio (absent without one)
+            **({"ctl_level": self.controller.level} if self.controller is not None else {}),
         )
         self._journal("mem_snapshot", key=f"mem:{self._seq_snapshot}", t_ms=t_ms, **snap)
+
+    @off_timed_path
+    def _observe_controller(self) -> None:
+        """The controller's evaluation, on the between-batches cadence of the
+        queue and resource gauges: it folds signals and now and then
+        actuates, off the dispatch timed region."""
+        if self.controller is not None:
+            self.controller.evaluate(time.monotonic())
+
+    # ------------------------------------------------------ controller hooks
+    #
+    # Each actuator swaps ONE live knob, reversibly, between batches, on the
+    # dispatch thread. The controller journals the decision
+    # (``controller_action`` with its evidence); these journal only what
+    # the build-time path journals too (serve_warm, serve_rewarm).
+
+    @off_timed_path
+    def apply_slo_policy(self, policy) -> None:
+        """Swap the queue's pop-time admission policy: the queue reads
+        ``slo`` per pop under its own lock, so the attribute swap is the
+        whole cutover; admitted work is never dropped after the fact."""
+        self.queue.slo = policy
+
+    @off_timed_path
+    def apply_buckets(self, buckets) -> float:
+        """Swap the active bucket set (narrow under pressure, widen on
+        recovery). A bucket not captured on the current forward is captured
+        FIRST, then the batcher is rebuilt over the new set (its dispatch
+        seq carries over, so journal keys stay unique), and a captured
+        bucket outside the set has its graph released. Returns the wall ms
+        of the captures (0 for a pure narrowing)."""
+        buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if not buckets:
+            raise ValueError("bucket set cannot be empty")
+        ms = 0.0
+        if self._graphs is not None:
+            for bucket in buckets:
+                if bucket not in self._warmed:
+                    ms += self._warm_bucket(bucket)
+            for bucket in sorted(self._warmed - set(buckets)):
+                self._graphs.release(bucket)
+                self._warmed.discard(bucket)
+        seq = self._batcher._seq
+        self.buckets = buckets
+        self._batcher = Batcher(self.queue, buckets)
+        self._batcher._seq = seq
+        return ms
+
+    @off_timed_path
+    def apply_compute(self, compute: str) -> float:
+        """Rebuild the forward at precision policy ``compute`` and capture
+        every bucket again before the next dispatch: the controller's dtype
+        downshift and upshift, screened by its ToleranceGate first. The
+        captures go into a new ``BucketGraphs`` with a pool of its own,
+        which replaces the live one; the old one is closed after the swap,
+        so no graph of the old forward is replayed. A capture that fails
+        raises and leaves the old forward and graphs serving. Journals one
+        ``serve_rewarm`` and returns its wall ms."""
+        from ..configs import REGISTRY, build_forward
+        from ..utils.cuda_graphs import BucketGraphs
+
+        prev = self._compute_override
+        self._compute_override = compute if compute != self.cfg.compute else None
+        old = self._graphs
+        if old is None:  # not built yet: the build runs at the new policy
+            return 0.0
+        ms, graphs = 0.0, None
+        try:
+            with span("serve.rewarm", entry=self.cfg.config, dtype=compute):
+                fwd = build_forward(REGISTRY[self.cfg.config], self._model_cfg(), policy=compute,
+                                    device=old.device, plan=self._plan)
+                graphs = BucketGraphs(fwd, self._params, old.item_shape, old.device)
+                for bucket in self.buckets:
+                    ms += self._warm_bucket(bucket, graphs)
+        except BaseException:
+            if graphs is not None:
+                graphs.close()
+            self._compute_override = prev
+            raise
+        self._fwd, self._graphs = fwd, graphs
+        self._warmed = set(self.buckets)
+        old.close()
+        self.stats.rewarm_ms += ms
+        metrics_registry().counter("serve.rewarms").inc()
+        self._journal(
+            "serve_rewarm", key=f"rewarm:dtype:{compute}",
+            entry=self.cfg.config, buckets=list(self.buckets),
+            ms=round(ms, 3), dtype=compute, devices=1,
+        )
+        return ms
 
     def _dispatch(self, batch: AssembledBatch) -> None:
         """One timed region: copy into the static input -> replay -> fence.
@@ -413,6 +540,10 @@ class InferenceServer:
             req_cls[req.rid] = req.cls
             # the journal's percentiles and this histogram: one estimator, one population
             reg.histogram("serve.request_ms").observe(req.handle.latency_ms)
+        if self.controller is not None:
+            # the controller's burn windows, fed the outcomes the journal records
+            for req in batch.requests:
+                self.controller.note_ok(req.cls, lat_ms[req.rid])
         self.stats.n_batches += 1
         self.stats.n_images += batch.n_images
         self.stats.n_ok += len(batch.requests)
@@ -460,6 +591,9 @@ class InferenceServer:
         self.stats.n_shed += len(shed)
         reg = metrics_registry()
         reg.counter("serve.shed").inc(len(shed))
+        if self.controller is not None:
+            for req in shed:
+                self.controller.note_shed(req.cls)
         for req in shed:
             reason = req.shed_reason or "deadline"
             if reason == "slo":
@@ -475,6 +609,9 @@ class InferenceServer:
         cause = f"{type(e).__name__}: {e}"[:200]
         for req in batch.requests:
             req.handle._complete(FAILED, error=cause)
+        if self.controller is not None:
+            for req in batch.requests:
+                self.controller.note_fail(req.cls)
         self.stats.n_failed += len(batch.requests)
         metrics_registry().counter("serve.failed").inc(len(batch.requests))
         self._journal(

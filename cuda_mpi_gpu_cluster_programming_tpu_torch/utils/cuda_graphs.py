@@ -20,7 +20,12 @@ pool; their replays run one at a time on one stream. A capture that fails
 raises: nothing here runs the forward eagerly in a graph's place. Whatever
 ``fn`` reads besides its input (``params``, a cast of them, a quantized
 copy) is baked into the graph, so ``params`` must stay the same tensors for
-the graphs' life; :meth:`BucketGraphs.close` releases the graphs and pool.
+the graphs' life; :meth:`BucketGraphs.release` drops one bucket's graph
+and :meth:`BucketGraphs.close` releases the graphs and pool. A caller that
+changes ``fn`` (a new precision policy) builds a new :class:`BucketGraphs`,
+with a pool of its own, captures every bucket there and then closes the old
+one: no graph of the old forward is replayed after the swap, and no memory
+of a graph still live is handed to a new capture.
 
 On the CPU there is no graph: :meth:`BucketGraphs.warm` makes the first
 call at the bucket's shape and :meth:`BucketGraphs.run` calls ``fn``. That
@@ -155,6 +160,17 @@ class BucketGraphs:
             self.fence()
         self._graphs[bucket] = cap
         return (time.perf_counter() - t0) * 1e3
+
+    def release(self, bucket: int) -> None:
+        """Drop ``bucket``'s graph, static tensors and pinned buffer (on the
+        card, once the stream has run its last replay; the graph's memory
+        goes back to the shared pool), or on the CPU forget its first call. A
+        later :meth:`warm` captures it again."""
+        self._seen.discard(bucket)
+        cap = self._graphs.pop(bucket, None)
+        if cap is not None:
+            self.fence()
+            cap.graph.reset()
 
     def run(self, bucket: int, xb: np.ndarray) -> torch.Tensor:
         """``fn(params, xb)`` for a warmed bucket, without a fence. On the

@@ -205,3 +205,90 @@ def test_a_pass_that_measured_nothing_is_retried_and_labelled(monkeypatch, capsy
     (row,) = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert len(calls) == 2 and row["value"] == 50.0
     assert row["attempts"] == 2 and row["resilience"] == "retried x1 (value=0.0 (nothing measured)) -> ok"
+
+
+# ------------------------------------------- replay, control and gate modes ---
+
+
+@pytest.mark.parametrize("mode", tbench.LATER_MODES)
+def test_the_fleet_modes_name_the_third_step(mode):
+    proc, rows = _run_port(BENCH_MODE=mode)
+    assert proc.returncode == 2 and rows == [] and "item 1's third step" in proc.stderr
+
+
+def _mode_rows(monkeypatch, capsys, main, **env):
+    monkeypatch.setattr(tbench, "DEVICE", "cpu")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rc = main()
+    return rc, [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+
+
+@pytest.fixture(scope="module")
+def recorded(tmp_path_factory):
+    """A port serve journal at 63x63 under the class mix's policy."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import run as trun
+
+    path = tmp_path_factory.mktemp("bench_replay") / "serve.jsonl"
+    assert trun.main(["--config", "v1_jit", "--serve", "--device", "cpu", "--height", "63", "--width", "63",
+                      "--serve-max-batch", "2", "--serve-rate", "10", "--serve-duration", "0.3",
+                      "--traffic-shape", "steady", "--serve-journal", str(path)]) == 0
+    return path
+
+
+def test_bench_replay_row_has_the_jax_reports_keys(recorded, tmp_path, monkeypatch, capsys):
+    from cuda_mpi_gpu_cluster_programming_tpu.observability import replay as jreplay
+
+    rc, (row,) = _mode_rows(monkeypatch, capsys, tbench._replay_main, BENCH_REPLAY_JOURNAL=str(recorded),
+                            BENCH_REPLAY_TRAFFIC_MULT="2", BENCH_REPLAY_OUT=str(tmp_path / "replay.jsonl"))
+    rec = jreplay.load_recorded_run(recorded)
+    jkeys = set(jreplay.ReplayReport(jreplay.ReplayKnobs(), rec, {}, [], {}, 0, 0.0, 0.0, 0, "").to_obj())
+    assert rc == 0 and set(row) == jkeys | {"metric", "unit", "platform"}
+    assert row["metric"] == jbench.REPLAY_METRIC == tbench.REPLAY_METRIC and row["platform"] == "cpu"
+    assert row["traffic_mult"] == 2.0 and row["accounting_closed"] and row["diverged"] is False
+    assert sum(c["replay"]["offered"] for c in row["classes"].values()) == 2 * len(rec.submits)
+
+
+@pytest.mark.parametrize("env,why", [
+    (dict(), "BENCH_REPLAY_JOURNAL not set"),
+    (dict(BENCH_REPLAY_JOURNAL="missing.jsonl"), "unreplayable journal"),
+    (dict(BENCH_REPLAY_DEVICES="2"), "item 3"),
+])
+def test_bench_replay_refusals_exit_2_after_a_row(env, why, recorded, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("BENCH_REPLAY_JOURNAL", raising=False)
+    if "BENCH_REPLAY_DEVICES" in env:
+        env = dict(env, BENCH_REPLAY_JOURNAL=str(recorded))
+    rc, (row,) = _mode_rows(monkeypatch, capsys, tbench._replay_main, **env)
+    assert rc == 2 and why in row["error"] and row["metric"] == tbench.REPLAY_METRIC and row["value"] == 0.0
+
+
+def test_bench_gate_row_is_the_jax_rows(tmp_path, monkeypatch, capsys):
+    for i, value in enumerate((100.0, 80.0), 1):
+        (tmp_path / f"BENCH_r{i:02d}.json").write_text(json.dumps({"value": value}))
+    monkeypatch.setenv("BENCH_GATE_PATHS", str(tmp_path / "BENCH_r*.json"))
+    rc, (row,) = _mode_rows(monkeypatch, capsys, tbench._gate_main)
+    assert jbench._gate_main() == rc == 3
+    (jrow,) = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    assert row == jrow and row["metric"] == tbench.GATE_METRIC and len(row["regressions"]) == 1
+
+
+# the JAX control row's keys (root bench.py _control_main), and the geometry the port's row adds
+CONTROL_KEYS = {"metric", "value", "unit", "ok", "failures", "calm_actions", "calm_state", "on_actions",
+                "controller_state", "burn_protected_off", "burn_protected_on", "protected_cls", "sat_rate_rps",
+                "slo_scale", "accounting_closed", "diverged", "journals", "platform"}
+
+
+def test_bench_control_row_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """The drill's three phases at 63x63 with short windows and a forced
+    rate (no probe): the row's keys, closed books and no divergence on both
+    sides, no action on the calm trace. Whether the protected burn drops is
+    timing on a loaded CPU; the row carries both burns either way."""
+    rc, (row,) = _mode_rows(monkeypatch, capsys, tbench._control_main, BENCH_CTL_DURATION="0.4",
+                            BENCH_CTL_SAT_RATE="60", BENCH_CTL_JOURNAL_DIR=str(tmp_path), BENCH_CONFIG="v1_jit")
+    assert set(row) == CONTROL_KEYS | {"config", "dtype", "height", "width", "max_batch"}, row
+    assert row["metric"] == jbench.CONTROL_METRIC == tbench.CONTROL_METRIC and row["platform"] == "cpu"
+    assert (row["height"], row["width"], row["max_batch"]) == (63, 63, 4) and row["sat_rate_rps"] == 60.0
+    assert row["accounting_closed"] == {"off": True, "on": True} and row["diverged"] == {"off": False, "on": False}
+    assert row["calm_actions"] == 0 and row["controller_state"] is not None
+    assert rc == (0 if row["ok"] else 3) and all(Path(p).exists() for p in row["journals"].values())

@@ -36,6 +36,8 @@ from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import long_context, lm
 from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
 from cuda_mpi_gpu_cluster_programming_tpu_torch import bench
 from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import metrics, roofline, stages
+from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import export, gate, health, replay
+from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import controller
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import env_info, probe, profiling
 """
 
@@ -69,6 +71,17 @@ from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import frontend, loadgen
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import cuda_graphs
 assert run.main(["--config", "v3_pallas", "--serve", "--device", "cpu", "--height", "45", "--width", "45",
                  "--serve-duration", "0.2", "--serve-max-batch", "2", "--serve-frontend", "0"]) == 0
+""",
+    # the serving controller on a journaled shaped load, a replay of that journal, and the regression gate
+    "control": """
+import os, tempfile
+journal = os.path.join(tempfile.mkdtemp(), "serve.jsonl")
+assert run.main(["--config", "v1_jit", "--serve", "--serve-controller", "--traffic-shape", "steady",
+                 "--device", "cpu", "--height", "45", "--width", "45", "--serve-duration", "0.2",
+                 "--serve-max-batch", "2", "--serve-journal", journal]) == 0
+assert run.main(["--serve-replay", journal, "--device", "cpu", "--replay-mult", "2"]) == 0
+os.environ["BENCH_GATE_PATHS"] = journal
+assert bench._gate_main() == 0
 """,
     "long_context": """
 assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", "--seq-len", "64",

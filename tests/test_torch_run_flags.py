@@ -3,7 +3,11 @@ options (``--params``, ``--save-params``, ``--input native``, ``--trace``,
 ``--max-retries``, ``--fallback-chain``), on the CPU at 99x99, against the
 JAX package's ``run.py`` where both packages run: a checkpoint either saves
 runs in the other, and the native input is one stream. Printed first-10s
-agree to atol 2e-3 (the V6 golden's tolerance, ``tests/oracle.py``)."""
+agree to atol 2e-3 (the V6 golden's tolerance, ``tests/oracle.py``). Then
+the serving control plane's flags at 63x63: ``--serve-controller`` and its
+``Serve controller:`` line, ``--serve-replay`` with its knobs and exit
+codes, and the refusals of ``--route``/``--route-dir`` (item 1's third
+step) and of ``--replay-devices`` above 1 (item 3)."""
 
 import re
 
@@ -144,3 +148,51 @@ def test_breakdown_walks_the_full_chain(capsys):
         assert rc == 0 and [n for n, _s in layers] == ["conv1", "pool1", "conv2", "pool2", "lrn2", "conv3", "conv4",
                                                        "conv5", "pool5", "fc6", "fc7", "fc8"]
         assert layers[8][1] == "2x2x256" and layers[-1][1] == "1000"
+
+
+# ----------------------------------------------- the serving control plane ---
+
+SERVE = ["--config", "v1_jit", "--serve", "--device", "cpu", "--height", "63", "--width", "63",
+         "--serve-max-batch", "2", "--serve-rate", "10", "--serve-duration", "0.3"]
+
+
+def test_serve_controller_prints_its_line(tmp_path, capsys):
+    journal = tmp_path / "serve.jsonl"
+    rc, out, _ = _port(capsys, *SERVE, "--serve-controller", "--traffic-shape", "steady",
+                       "--serve-journal", str(journal))
+    assert rc == 0, out
+    assert re.search(r"^Serve controller: mode=(steady|degraded) level=\d+ actions=\S+$", out, re.M), out
+    assert "inert" not in out
+    (config,) = [r for r in Journal.load(journal) if r["kind"] == "serve_config"]
+    assert config["controller"]["protected_cls"] == "interactive" and config["slo"] is not None
+    rc, out, _ = _port(capsys, *SERVE, "--serve-controller")
+    assert rc == 0 and "Serve controller: inert" in out and "Serve controller: mode=steady level=0 actions=none" in out
+
+
+def test_serve_replay_re_drives_a_recorded_journal(tmp_path, capsys):
+    journal = tmp_path / "serve.jsonl"
+    assert _port(capsys, *SERVE, "--traffic-shape", "steady", "--serve-journal", str(journal))[0] == 0
+    rc, out, err = _port(capsys, "--serve-replay", str(journal), "--device", "cpu",
+                         "--replay-journal", str(tmp_path / "replay.jsonl"))
+    assert f"Replay source: {journal}" in out and "Replay journal: " in out
+    line = re.search(r"^Replay: (.+)$", out, re.M).group(1)
+    assert "accounting_matches=True closed=True" in line and "devices=recorded" in line
+    assert rc == (3 if "diverged=True" in line else 0), out + err  # a neutral divergence exits 3, as in JAX
+    assert re.search(r"^Replay class: name=interactive offered=(\d+)/\1 ", out, re.M)
+    rc, out, _ = _port(capsys, "--serve-replay", str(journal), "--device", "cpu", "--replay-mult", "2",
+                       "--replay-slo-scale", "0.5", "--replay-journal", str(tmp_path / "x2.jsonl"))
+    assert rc == 0 and "mult=2 " in out and "diverged=False" in out
+    rc, _, err = _port(capsys, "--serve-replay", str(journal), "--device", "cpu", "--replay-devices", "2")
+    assert rc == 2 and "item 3" in err
+
+
+@pytest.mark.parametrize("argv,why", [
+    (["--serve-replay", "missing.jsonl"], "no serve_submit records"),
+    (["--serve-replay", "x.jsonl", "--replay-mult", "0"], "must be > 0"),
+    (["--serve", "--route", "2"], "item 1's third step"),
+    (["--route-dir", "fleet"], "item 1's third step"),
+])
+def test_what_the_control_plane_refuses_exits_2(argv, why, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    rc, _, err = _port(capsys, "--device", "cpu", *argv)
+    assert rc == 2 and why in err

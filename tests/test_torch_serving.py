@@ -25,7 +25,6 @@ Each server is built once per module; the CUDA graph path runs on the card
 """
 
 import ast
-import contextlib
 import dataclasses
 import random
 import sys
@@ -76,17 +75,6 @@ def _inputs(seed: int = 0) -> list:
     return [rng.random((n, *IMG), dtype=np.float32) for n in SIZES]
 
 
-@contextlib.contextmanager
-def _conv_path(config: str, compute: str):
-    """The fp32 reference tier through PyTorch's GEMM convolution (oneDNN off), the other servers as they are."""
-    was = torch.backends.mkldnn.enabled
-    torch.backends.mkldnn.enabled = was and (config, compute) != ("v1_jit", "fp32")
-    try:
-        yield
-    finally:
-        torch.backends.mkldnn.enabled = was
-
-
 def _batches(records) -> list:
     return [(r["bucket"], r["n_requests"], r["n_images"], r["pad"]) for r in records if r["kind"] == "serve_batch"]
 
@@ -121,13 +109,7 @@ def port_run(jax_params, tmp_path_factory):
                                    journal_path=str(path), device="cpu"),
                 params=params_from_jax(jax_params, device="cpu"))
             handles = [srv.submit(x) for x in _inputs()]
-            # The fp32 reference tier on the CPU through PyTorch's GEMM convolution: oneDNN's (the CPU
-            # default) sums conv2's 2400 terms in an order 9.7e-5 to 2.5e-4 off XLA's here (by its thread
-            # count), past the gate's 1e-4 absolute budget; the GEMM path is within 2e-5. The default path
-            # is held to the rounding bound of its sums (test_the_default_cpu_convolution_...). On the card
-            # this tier is cuDNN with TF32 off (chip_smoke.py holds it there).
-            with _conv_path(config, compute):
-                srv.run_until_drained()
+            srv.run_until_drained()
             _PORT_RUNS[config, compute] = dict(handles=handles, records=Journal.load(path), server=srv)
         return _PORT_RUNS[config, compute]
 
@@ -309,15 +291,14 @@ def test_a_stream_through_the_port_server_is_the_jax_servers(config, compute, ja
     assert _batches(run["records"]) == _batches(jax_run["records"])
     # bitwise the port's own forward on each padded bucket, sliced: serving adds nothing to a result
     xs, handles = _inputs(), list(run["handles"])
-    with _conv_path(config, compute):
-        for bucket, n_requests, n_images, pad in _batches(run["records"]):
-            mine = [xs.pop(0) for _ in range(n_requests)]
-            padded = np.concatenate(mine + [np.zeros((pad, *IMG), np.float32)])
-            out = srv._fwd(srv._params, torch.from_numpy(padded)).numpy()
-            for x in mine:
-                h = handles.pop(0)
-                assert np.array_equal(h.result, out[: len(x)]), (config, compute, bucket)
-                out = out[len(x):]
+    for bucket, n_requests, n_images, pad in _batches(run["records"]):
+        mine = [xs.pop(0) for _ in range(n_requests)]
+        padded = np.concatenate(mine + [np.zeros((pad, *IMG), np.float32)])
+        out = srv._fwd(srv._params, torch.from_numpy(padded)).numpy()
+        for x in mine:
+            h = handles.pop(0)
+            assert np.array_equal(h.result, out[: len(x)]), (config, compute, bucket)
+            out = out[len(x):]
     assert srv.stats.cache_misses == 0 and srv.stats.warmup_compiles == len(srv.buckets) == 3
     assert srv.buckets == jax_run["server"].buckets
     kinds = [r["kind"] for r in run["records"]]
@@ -330,14 +311,12 @@ def test_a_stream_through_the_port_server_is_the_jax_servers(config, compute, ja
 
 
 def test_the_default_cpu_convolution_is_the_jax_servers_within_its_rounding_bound(tmp_path, jax_params, jax_run):
-    """The port's ``v1_jit`` fp32 server on the CPU's default convolution
-    (oneDNN, as a CPU user runs it) against the JAX server, and bitwise its
-    own forward. oneDNN sums each conv's terms in another order than XLA,
-    one that depends on its thread count: 9.7e-5 to 2.5e-4 off here at
-    |out|max 22, past the gate's 1e-4 absolute budget, which is sized for
-    outputs of order 1. The bound is the worst-case rounding of an fp32 sum
-    in any order at this output's scale: (conv1's 363 + conv2's 2400 terms)
-    x 2^-24 x |out|max (all terms are non-negative here), 3.6e-3."""
+    """The port's ``v1_jit`` fp32 server on the CPU's default convolution,
+    as a CPU user runs it (no switch set here), against the JAX server,
+    within the gate's fp32 budget, and bitwise its own forward. The default
+    is ``ops.reference.conv2d``'s GEMM convolution; oneDNN's, which
+    ``F.conv2d`` would pick, was 9.7e-5 to 2.5e-4 off here at |out|max 22,
+    past the budget's 1e-4."""
     path = tmp_path / "serve.jsonl"
     srv = server.InferenceServer(
         server.ServeConfig(config="v1_jit", max_batch=MAX_BATCH, model_cfg=CFG, journal_path=str(path), device="cpu"),
@@ -345,11 +324,9 @@ def test_the_default_cpu_convolution_is_the_jax_servers_within_its_rounding_boun
     try:
         handles = [srv.submit(x) for x in _inputs()]
         srv.run_until_drained()
-        terms = CFG.conv1.filter_size ** 2 * CFG.in_channels + CFG.conv2.filter_size ** 2 * CFG.conv1.out_channels
         for h, want in zip(handles, jax_run["results"]):
             assert h.status == queue.OK and h.result.shape == want.shape
-            diff = float(np.max(np.abs(h.result.astype(np.float64) - want)))
-            assert diff <= terms * 2.0 ** -24 * float(np.max(np.abs(want))), diff
+            assert _within_budget(h.result, want, "fp32"), np.abs(h.result - want).max()
         records = Journal.load(path)
         assert _batches(records) == _batches(jax_run["records"])
         xs = _inputs()
@@ -496,8 +473,7 @@ def test_the_graph_helper_on_the_cpu_calls_the_forward():
     assert 4 not in graphs
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("supervise", True, "item 8"), ("n_shards", 2, "item 3"), ("controller", object(), "item 1's second step")])
+@pytest.mark.parametrize("field,value,item", [("supervise", True, "item 8"), ("n_shards", 2, "item 3")])
 def test_what_waits_is_refused_naming_its_item(field, value, item):
     with pytest.raises(ValueError, match=item):
         server.InferenceServer(server.ServeConfig(device="cpu", **{field: value}))
@@ -638,9 +614,9 @@ def test_run_serve_on_the_cpu(capsys, tmp_path):
 @pytest.mark.parametrize("argv,why", [
     (["--serve", "--supervise"], "item 8"),
     (["--serve", "--fallback-chain", "auto"], "item 8"),
-    (["--serve", "--serve-controller"], "item 1"),
+    (["--route-dir", "fleet"], "item 1"),
     (["--serve", "--route", "2"], "item 1"),
-    (["--serve-replay", "serve.jsonl"], "item 1"),
+    (["--serve", "--serve-controller", "--route", "1"], "item 1"),
     (["--serve", "--shards", "2"], "item 3"),
     (["--serve", "--config", "v6_full_jit"], "Blocks 1-2 configs only"),
     (["--serve", "--traffic-shape", "tsunami"], "unknown traffic shape"),
