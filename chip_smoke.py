@@ -5,6 +5,7 @@
     python3 chip_smoke.py --record   # only the records below, from this checkout
     python3 chip_smoke.py --flash-rows   # only the flash and relu rows, phases 3b, 3c and the staged passes
     python3 chip_smoke.py --pool-rows    # only the pool and lrn rows and the staged and phases passes, from this checkout
+    python3 chip_smoke.py --tiers        # only phase 3h, the staged-parallelism tiers
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
@@ -234,6 +235,27 @@ fails ends the run with a non-zero exit code and nothing is caught:
    divergence, actions on the ON side, none on the calm trace; the
    protected class's burn off and on is printed: its clause is read, not
    required). ``python3 chip_smoke.py --control`` runs this phase alone;
+   3h. the staged-parallelism tiers (``parallel/``, ``run --shards``) at
+   227x227, batch 8, on a mesh of N shard slots on the one card:
+   ``v2.1_replicated``, ``v2.2_sharded``, ``v4_hybrid`` and
+   ``v5_collective`` at N = 1, 2, 3, 4 and 8, ``v7_tp`` and
+   ``v6_full_sharded`` at N = 1, 2 and 4, in fp32 and bf16, and the four
+   row tiers in int8w at N = 1 and 4: each output within the gate's budget
+   of ``v1_jit`` fp32 (``v6_full_jit``: rtol 2e-5, atol 2e-4; bf16 2e-2 of
+   the max); ``v4_hybrid`` and ``v5_collective`` bitwise one another at
+   every N in each dtype (the conv kernels' fixed per-output order through
+   the halos, the zero rows and the masks); each forward's launches, set
+   to 0 just before and read just after (the kernels tier conv2d 2N,
+   maxpool2d 2N, no lrn; the reference tiers none) and collectives
+   (``parallel/breakdown.expected_collectives``, ``expected_tp_collectives``);
+   ``run --config v5_collective --shards 4 --batch 1``: the golden first-10
+   and ``Mesh: 4 shards on 1 device: cuda:0``. Then ``v4_hybrid`` and
+   ``v5_collective`` through ``run.main --shards 4`` at batch 128 in fp32
+   and bf16 (launches counted over the run), ``per_pass_ms`` at batch 128
+   of ``TIER_TIMED`` beside ``v3_pallas`` and ``v1_jit``, and conv2d (conv1,
+   conv2) and maxpool2d (pool1, pool2) on the windows 4 shards run, against
+   their plain versions, timed (the kernels line's ``sharded`` entries).
+   ``python3 chip_smoke.py --tiers`` runs this phase alone;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -252,7 +274,10 @@ over their stages in one ``v6_full_pallas`` forward, and the serve path's
 (``path`` ``serve``): conv2d, maxpool2d and lrn at bucket 8's shapes, with
 the launches of the drained run (counted at its replays) and of one dispatch (bucket 8's graph's kernel
 nodes), in fp32 and bf16 (phase 3f) and in int8w (phase 3g: conv2d and maxpool2d,
-the launches of the ladder's int8w drain). Details of every
+the launches of the ladder's int8w drain), and the sharded path's (``path``
+``sharded``): conv2d and maxpool2d summed over their stages on 4 shards'
+windows, with the launches of ``run --config v5_collective --shards 4``
+(phase 3h). Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -4107,6 +4132,277 @@ def v6_kernels_entries(rows, runs) -> list:
     return entries
 
 
+# phase 3h, the staged-parallelism tiers (``run --shards``): (config, shard counts) at batch TIER_BATCH in fp32
+# and bf16; int8w at TIER_INT8W_N on the tiers that take it; per_pass_ms at batch 128 of TIER_TIMED; the conv2d
+# and maxpool2d rows at TIER_KERNEL_N shards' geometry. The kernels tier launches conv2d and maxpool2d twice a
+# shard a forward (shards that own no rows compute and are masked, as in the JAX package) and no lrn (the
+# sharded body's LRN is the reference op); the reference tiers launch no kernel.
+TIER_BATCH = 8
+TIER_ROW_N = (1, 2, 3, 4, 8)
+TIER_RUNS = (("v2.1_replicated", TIER_ROW_N), ("v2.2_sharded", TIER_ROW_N), ("v4_hybrid", TIER_ROW_N),
+             ("v5_collective", TIER_ROW_N), ("v7_tp", (1, 2, 4)), ("v6_full_sharded", (1, 2, 4)))
+TIER_INT8W_N = (1, 4)
+TIER_TIMED = (("v3_pallas", 1), ("v1_jit", 1)) + tuple(
+    (k, n) for k in ("v2.2_sharded", "v4_hybrid", "v5_collective") for n in (1, 2, 4)) + tuple(
+    (k, n) for k in ("v2.1_replicated", "v7_tp") for n in (1, 4))
+TIER_KERNEL_N = 4
+TIER_DRIVEN = ("v4_hybrid", "v5_collective")  # through run.main --shards TIER_KERNEL_N at batch 128
+
+
+def tier_params(rng):
+    """Blocks 1-2 params drawn with numpy: zero-mean weights (so ReLU clamps
+    and the mask's zeros matter) and small biases."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+
+    def w(*shape):
+        return (rng.random(shape, dtype=np.float32) - 0.5) * np.float32(4 / np.prod(shape[:3]) ** 0.5)
+
+    return init.params_from_jax({
+        "conv1": {"w": w(11, 11, 3, 96), "b": (rng.random(96, dtype=np.float32) - 0.5) * np.float32(0.2)},
+        "conv2": {"w": w(5, 5, 96, 256), "b": (rng.random(256, dtype=np.float32) - 0.5) * np.float32(0.2)},
+    })
+
+
+def tier_outputs(key, pol, ns, params, x, cfg) -> dict:
+    """One forward per shard count, the kernel launches and collectives set
+    to 0 just before it and read just after; checks (3) and (4)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import breakdown, halo
+
+    ec = configs.REGISTRY[key]
+    outs = {}
+    for n in ns:
+        fwd = configs.build_forward(ec, cfg, policy=pol, n_shards=n)
+        ck.reset_launches()
+        halo.reset_collectives()
+        out = fwd(params, x)
+        torch.cuda.synchronize()
+        launches, coll = {k: v for k, v in ck.LAUNCHES.items() if v}, dict(halo.COLLECTIVES)
+        want = dict(conv2d=2 * n, maxpool2d=2 * n) if ec.tier == "kernels" else {}
+        require(launches == want, f"{key}/{pol} at {n} shards: launches {launches}, want {want}")
+        if ec.strategy == "tp":
+            want_c = breakdown.expected_tp_collectives(cfg, n)
+        elif ec.strategy in ("halo", "staged_halo"):
+            staged = ec.strategy == "staged_halo"
+            want_c = {"all_gather" if staged else "ppermute": breakdown.expected_collectives(cfg, n, staged=staged),
+                      "ppermute" if staged else "all_gather": 0}
+        else:
+            want_c = {"ppermute": 0, "all_gather": 0}
+        require(coll == want_c, f"{key}/{pol} at {n} shards: collectives {coll}, want {want_c}")
+        require(bool(torch.isfinite(out).all()), f"{key}/{pol} at {n} shards: non-finite output")
+        outs[n] = dict(out=out, launches=launches, collectives=coll)
+    return outs
+
+
+def shard_stage_row(kernel, stage, wins, run, plain, library, flops, nbytes, pol, rule, spec, peak_name) -> dict:
+    """One row of a stage at the shards' geometry: the kernel on every
+    shard's window (one forward's launches of the stage) against its plain
+    version, then kernel, plain and library times beside the bound."""
+    got = torch.cat([run(w) for w in wins], dim=1)
+    res = compare(rule, got, torch.cat([plain(w) for w in wins], dim=1))
+    torch.cuda.synchronize()
+    # a conv's operations at its dtype's peak; a pool's compares at the fp32 peak (as ``pool_stage``)
+    bound, by = spec.bound_ms(flops, nbytes, pol if kernel.startswith("conv") else "fp32")
+    row = dict(kernel=kernel, stage=stage, mode="", dtype=pol, shards=len(wins), **res,
+               windows=[tuple(w.shape) for w in wins],
+               ms=gpu_time_ms(lambda: [run(w) for w in wins]),
+               plain_ms=gpu_time_ms(lambda: [plain(w) for w in wins], reps=5, warmup=1),
+               library_ms=gpu_time_ms(lambda: [library(w) for w in wins]),
+               bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}")
+    log(f"kernel {kernel:10s} {stage:5s} {pol} at {len(wins)} shards' windows {row['windows'][0]}: ok={row['ok']} "
+        f"tol={row['tol']} max_abs={row['max_abs_err']:.3g} | ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+        f"library={row['library_ms']:.4f} bound={bound:.4f} ({by})")
+    require(row["ok"], f"{kernel} at {stage} {pol} on the shards' windows disagrees with its plain version: {res}")
+    return row
+
+
+def tier_kernel_rows(spec, peak_name) -> list:
+    """conv2d at conv1 and conv2 and maxpool2d at pool1 and pool2 on the
+    windows ``TIER_KERNEL_N`` shards run (VALID on H, padded on W; the
+    windows as ``parallel.sharded.shard_windows`` cuts them from the
+    previous layer's masked blocks), fp32 and bf16, batch 128."""
+    import torch.nn.functional as F
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import reference as ops
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import plan, sharded
+
+    n = TIER_KERNEL_N
+    lps = {lp.name: lp for lp in plan.make_shard_plan(BLOCKS12, n).layers}
+    rows = []
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(2026)
+        t = stage_inputs(dtype, gen)
+        es = t["x"].element_size()
+        b0 = lps["conv1"].b_in
+        x = F.pad(t["x"], (0, 0, 0, 0, 0, n * b0 - t["x"].shape[1]))
+        blocks = [x[:, i * b0 : (i + 1) * b0] for i in range(n)]
+        for cname, pname, w, b, s, p in (("conv1", "pool1", t["w1"], t["b1"], 4, 0),
+                                         ("conv2", "pool2", t["w2"], t["b2"], 1, 2)):
+            lp = lps[cname]
+            wins = sharded.shard_windows(lp, blocks)
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            outs = [ck.conv2d_bias_relu(v, w, b, stride=s, padding=0, padding_w=p, relu=False) for v in wins]
+            f, c, k = w.shape[0], w.shape[2], w.shape[3]
+            flops = sum(2 * o.shape[0] * o.shape[1] * o.shape[2] * k * f * f * c for o in outs)
+            nbytes = sum(v.numel() + w.numel() + b.numel() + o.numel() for v, o in zip(wins, outs)) * es
+            rows.append(shard_stage_row(
+                "conv2d", cname, wins,
+                run=lambda v, w=w, b=b, s=s, p=p: ck.conv2d_bias_relu(v, w, b, stride=s, padding=0, padding_w=p,
+                                                                      relu=False),
+                plain=lambda v, w=w, b=b, s=s, p=p: ck.conv2d_bias_relu_plain(v, w, b, stride=s, padding=0,
+                                                                              padding_w=p, relu=False),
+                library=lambda v, wl=wl, b=b, s=s, p=p: F.conv2d(v.permute(0, 3, 1, 2), wl, b, stride=s,
+                                                                 padding=(0, p)),
+                flops=flops, nbytes=nbytes, pol=pol, rule=FP32_REL if pol == "fp32" else ("ulp", FP32_REL),
+                spec=spec, peak_name=peak_name))
+            blocks = []
+            for i, o in enumerate(outs):
+                mask = sharded._row_mask(lp.b_out, lp.l_out, i, o.dtype, o.device)
+                blocks.append(ops.relu(o if mask is None else o * mask))
+            lp = lps[pname]
+            wins = sharded.shard_windows(lp, blocks)
+            outs = [ck.maxpool2d(v, window=3, stride=2) for v in wins]
+            rows.append(shard_stage_row(
+                "maxpool2d", pname, wins,
+                run=lambda v: ck.maxpool2d(v, window=3, stride=2),
+                plain=lambda v: ck.maxpool2d_plain(v, window=3, stride=2),
+                library=lambda v: F.max_pool2d(v.permute(0, 3, 1, 2), 3, 2),
+                flops=sum(o.numel() * 9 for o in outs),
+                nbytes=sum(v.numel() + o.numel() for v, o in zip(wins, outs)) * es,
+                pol=pol, rule="bitwise", spec=spec, peak_name=peak_name))
+            blocks = []
+            for i, o in enumerate(outs):
+                mask = sharded._row_mask(lp.b_out, lp.l_out, i, o.dtype, o.device)
+                blocks.append(o if mask is None else o * mask)
+        del t, blocks, outs, wins
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tiers_phase(spec, peak_name) -> dict:
+    """Phase 3h: every tier at ``TIER_RUNS``' shard counts at 227x227, batch
+    ``TIER_BATCH``, fp32 and bf16 (int8w at ``TIER_INT8W_N``): (1) within
+    the gate's budget of ``v1_jit`` (``v6_full_jit``) fp32 in its dtype; (2)
+    ``v4_hybrid`` and ``v5_collective`` bitwise one another at every shard
+    count in each dtype; (3) the launches and (4) the collectives of each
+    forward (``tier_outputs``); (5) ``run --config v5_collective --shards 4
+    --batch 1``: the golden first-10 and the placement line. Then
+    ``TIER_DRIVEN`` through ``run.main --shards TIER_KERNEL_N`` at batch 128
+    (launches counted over the run), per_pass_ms of ``TIER_TIMED`` beside
+    ``v3_pallas``, and the kernels' rows at the shards' geometry."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet_full import ALEXNET
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.timing import amortized_stats
+
+    t0 = time.perf_counter()
+    result = {"budgets": {}, "launches": {}, "collectives": {}, "runs": {}, "per_pass_ms": {}}
+    rng = np.random.default_rng(2027)
+    params = tier_params(rng)
+    x = torch.from_numpy(rng.random((TIER_BATCH, 227, 227, 3), dtype=np.float32)).cuda()
+    v6_params = v6_he_params(rng)
+    with knob_env({}):
+        oracle = {"blocks12": configs.build_forward(configs.REGISTRY["v1_jit"])(params, x),
+                  "alexnet_full": configs.build_forward(configs.REGISTRY["v6_full_jit"])(v6_params, x)}
+        for pol in ("fp32", "bf16", "int8w"):
+            bitwise = {}
+            for key, ns in TIER_RUNS:
+                ec = configs.REGISTRY[key]
+                if pol == "int8w":
+                    if ec.strategy not in ("replicated", "halo", "staged_halo") or ec.model != "blocks12":
+                        continue
+                    ns = TIER_INT8W_N
+                full = ec.model == "alexnet_full"
+                outs = tier_outputs(key, pol, ns, v6_params if full else params, x, ALEXNET if full else BLOCKS12)
+                want = oracle[ec.model]
+                wmax = float(want.abs().max())
+                for n, o in outs.items():
+                    err = float((o["out"] - want).abs().max())
+                    if pol == "fp32":
+                        ok = (bool(torch.allclose(o["out"], want, rtol=V6_RTOL, atol=V6_ATOL)) if full
+                              else err <= FP32_ABS and err / wmax <= FP32_REL)
+                    else:
+                        ok = err / wmax <= BUDGET_REL[pol]
+                    name = f"{key}/{pol}/n{n}"
+                    log(f"tiers {name}: max_abs={err:.3g} rel_of_max={err / wmax:.3g} ok={ok} "
+                        f"launches={o['launches']} collectives={o['collectives']}")
+                    require(ok, f"{name} outside its budget against {'v6_full_jit' if full else 'v1_jit'} fp32")
+                    result["budgets"][name] = dict(max_abs=err, rel_of_max=err / wmax)
+                    result["launches"][name], result["collectives"][name] = o["launches"], o["collectives"]
+                    if key in ("v4_hybrid", "v5_collective"):
+                        bitwise[name] = o["out"]
+                del outs
+            ref = bitwise[f"v5_collective/{pol}/n1"]
+            same = all(torch.equal(o, ref) for o in bitwise.values())
+            log(f"tiers {pol}: v4_hybrid and v5_collective bitwise one another at every shard count "
+                f"({len(bitwise)} outputs): {same}")
+            require(same, f"v4_hybrid/v5_collective {pol} differ across shard counts or transports")
+            result[f"bitwise/{pol}"] = sorted(bitwise)
+            del bitwise, ref
+        del oracle, v6_params
+        torch.cuda.empty_cache()
+        out = run_cli(["--config", "v5_collective", "--shards", "4", "--batch", "1"])
+        first10 = [float(v) for v in re.search(r"^Final Output \(first 10 values\): (.+)$", out, re.M).group(1).split()]
+        placement = re.search(r"^Mesh: (.+)$", out, re.M)
+        log(f"run --config v5_collective --shards 4 --batch 1: {' '.join(f'{v:.4f}' for v in first10)} | "
+            f"Mesh: {placement.group(1) if placement else None}")
+        require(np.allclose(first10, GOLDEN_FIRST10, rtol=2e-5, atol=0), f"v5_collective --shards 4 golden {first10}")
+        require(placement is not None and placement.group(1) == "4 shards on 1 device: cuda:0",
+                f"placement line: {placement.group(0) if placement else None}")
+        result["golden/v5_collective/n4"], result["placement"] = first10, placement.group(1)
+    for key in TIER_DRIVEN:
+        for pol in ("fp32", "bf16"):
+            n = TIER_KERNEL_N
+            run = drive(key, pol, {}, dict(conv2d=2 * n, maxpool2d=2 * n), extra=("--shards", str(n)))
+            result["runs"][f"{key}/n{n}/{pol}"] = {k: v for k, v in run.items() if k != "stdout"}
+    xb = init.random_input(torch.Generator().manual_seed(1), BATCH)
+    with knob_env({}):
+        for pol in ("fp32", "bf16"):
+            for key, n in TIER_TIMED:
+                fwd = configs.build_forward(configs.REGISTRY[key], policy=pol, n_shards=n)
+                ms = amortized_stats(fwd, params, xb, n_small=3, n_large=13).per_call_ms
+                result["per_pass_ms"][f"{key}/n{n}/{pol}"] = ms
+                log(f"tiers per_pass_ms {key} at {n} shards {pol}, batch {BATCH}: {ms:.3f} "
+                    f"({BATCH / ms * 1e3:.1f} img/s)")
+    del xb
+    torch.cuda.empty_cache()
+    result["rows"] = tier_kernel_rows(spec, peak_name)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3h took {result['seconds']:.1f} s")
+    return result
+
+
+def tier_kernels_entries(tiers) -> list:
+    """The ``kernels`` line's entries of the sharded path, one per (kernel,
+    dtype): times summed over the kernel's stages at ``TIER_KERNEL_N``
+    shards' windows (one forward's launches of each), launches from the
+    ``v5_collective`` run through ``run.main --shards``."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol", "windows")
+    entries = []
+    for name in ("conv2d", "maxpool2d"):
+        source, replaces, stages, _route = KERNELS[name]
+        for pol in ("fp32", "bf16"):
+            mine = [r for r in tiers["rows"] if r["kernel"] == name and r["dtype"] == pol]
+            require([r["stage"] for r in mine] == list(stages), f"tiers {name} {pol}: stages {mine}")
+            run_key = f"v5_collective/n{TIER_KERNEL_N}/{pol}"
+            run = tiers["runs"][run_key]
+            entries.append(dict(
+                name=name, dtype=pol, route="cuda", source=source, replaces=replaces, path="sharded",
+                run=f"run --config v5_collective --shards {TIER_KERNEL_N} --dtype {pol} (batch {BATCH})",
+                launches=run["launches"][name], launches_per_forward=run["launches"][name] / run["passes"],
+                max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+                ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+                bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=sum(r["library_ms"] for r in mine), shards=TIER_KERNEL_N,
+                stages={r["stage"]: {k: r[k] for k in keys if k in r} for r in mine},
+            ))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -4163,6 +4459,14 @@ def main() -> int:
         control = control_phase(spec, peak_name)
         print(json.dumps(dict(device=kind, nvidia_smi=smi, control=control,
                               kernels=control_kernels_entries(control)), default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--tiers"]:
+        # phase 3h alone, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tiers = tiers_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, tiers=tiers, kernels=tier_kernels_entries(tiers)),
+                         default=lambda o: o.tolist() if isinstance(o, torch.Tensor) else str(o)), flush=True)
         return 0
     if sys.argv[1:] == ["--record"]:
         # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_BWD_WIDE_SHA256,
@@ -4232,6 +4536,10 @@ def main() -> int:
     log("phase 3g: the controller walked the ladder down and back, every rung's graphs (recaptured at int8w and "
         "back) bitwise their eager forward, launches = nodes x dispatches, no cache miss; a neutral replay of a "
         "card journal held; bench replay, gate and control ran")
+    tiers = tiers_phase(spec, peak_name)
+    log("phase 3h: every tier within budget of the single-device oracle at every shard count; v4_hybrid and "
+        "v5_collective bitwise one another at every shard count; conv2d and maxpool2d 2N a forward, lrn 0; "
+        "collectives as planned; run --shards 4 printed the golden and the placement")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
@@ -4242,6 +4550,7 @@ def main() -> int:
     line["kernels"] += s2d_kernels_entries(s2d_rows, ab["runs"])
     line["kernels"] += serve_kernels_entries(serve)
     line["kernels"] += control_kernels_entries(control)
+    line["kernels"] += tier_kernels_entries(tiers)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -4250,7 +4559,8 @@ def main() -> int:
         dict(device=kind, nvidia_smi=smi, spec=spec.name, build_s=info.seconds, build_log=info.log, ptxas=ptxas,
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
-             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control, tune=tune,
+             v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
+             tiers=tiers, tune=tune,
              v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))

@@ -1,20 +1,32 @@
-"""Execution-config registry for the port: the single-device stages.
+"""Execution-config registry for the port: the staged-parallelism stages.
 
-The keys are the JAX package's, so the CLI and the analysis names map 1:1:
+Each stage of the original course code (its V1..V5 source trees) is an
+``ExecConfig``: an op tier (``reference``: PyTorch library ops, cuDNN on
+the card; ``kernels``: the hand-written CUDA kernels) and a distribution
+strategy over one model definition. The keys are the JAX package's, so the
+CLI and the analysis names map 1:1:
 
-- ``v1_jit``    ↔ V1 Serial: the reference-op tier (PyTorch library ops;
-  cuDNN on the card). The oracle.
-- ``v3_pallas`` ↔ V3 CUDA: the hand-written CUDA kernel tier
-  (``ops/kernel_model.py``; the JAX package runs Pallas kernels here);
-  the ``TPU_FRAMEWORK_*`` knobs or a tuned plan pick each layer's conv,
-  pool and fusion variants.
-- ``v6_full_jit`` ↔ V6 AlexNet Full: full AlexNet (conv1-5, FC6-8) on
-  library ops (cuDNN, and cuBLAS for the FC head).
-- ``v6_full_pallas`` ↔ V6 AlexNet Full Pallas: full AlexNet with the
-  spatial part on the CUDA kernels, then the FC head as ``torch.matmul``.
+- ``v1_jit``          ↔ V1 Serial: single device, reference ops. The oracle.
+- ``v2.1_replicated`` ↔ V2.1 BroadcastAll: every shard computes the whole
+  pass on a full copy (``parallel/replicated.py``), the anti-baseline.
+- ``v2.2_sharded``    ↔ V2.2 ScatterHalo: row-sharded with neighbour halo
+  copies, reference ops (``parallel/sharded.py``).
+- ``v3_pallas``       ↔ V3 CUDA: single device, the CUDA kernels
+  (``ops/kernel_model.py``); the ``TPU_FRAMEWORK_*`` knobs or a tuned plan
+  pick each layer's conv, pool and fusion variants.
+- ``v4_hybrid``       ↔ V4 MPI+CUDA: row-sharded, the conv and pool
+  kernels on every shard, halos staged through an all_gather.
+- ``v5_collective``   ↔ V5 CUDA-aware MPI: row-sharded, the kernels on
+  every shard, device-to-device neighbour halos.
+- ``v7_tp``           ↔ V7 TensorParallel: conv filters split on K,
+  channel-halo LRN (``parallel/tensor_parallel.py``).
+- ``v6_full_jit``, ``v6_full_pallas``, ``v6_full_sharded``: full AlexNet
+  (conv1-5, FC6-8) on library ops, on the CUDA kernels (FC head
+  ``torch.matmul``), and row-sharded with the FC head on the gathered
+  features.
 
-The sharded configs (``v6_full_sharded`` among them) wait for ROADMAP
-Queue 1 item 3.
+The sharded strategies run on a mesh of shard slots (``parallel/mesh.py``):
+on one card every slot shares it.
 """
 
 from __future__ import annotations
@@ -26,7 +38,7 @@ from typing import Callable, Dict
 import torch
 
 from .models.alexnet import BLOCKS12, forward_blocks12
-from .models.alexnet_full import ALEXNET, forward_alexnet
+from .models.alexnet_full import ALEXNET, fc_head, forward_alexnet
 from .models.init import params_to
 from .ops.kernel_model import forward_alexnet_kernels, forward_blocks12_kernels
 from .ops.reference import true_fp32
@@ -40,6 +52,7 @@ class ExecConfig:
     key: str
     version_name: str  # canonical name for CSV/analysis compatibility
     tier: str  # "reference" (library ops) | "kernels" (hand-written CUDA)
+    strategy: str  # "single" | "replicated" | "halo" | "staged_halo" | "tp"
     description: str
     model: str = "blocks12"  # "blocks12" | "alexnet_full"
 
@@ -48,25 +61,52 @@ REGISTRY: Dict[str, ExecConfig] = {
     c.key: c
     for c in [
         ExecConfig(
-            "v1_jit", "V1 Serial", "reference",
+            "v1_jit", "V1 Serial", "reference", "single",
             "single-device PyTorch library ops (cuDNN on the GPU): the oracle",
         ),
         ExecConfig(
-            "v3_pallas", "V3 CUDA", "kernels",
+            "v2.1_replicated", "V2.1 BroadcastAll", "reference", "replicated",
+            "every shard computes the whole pass on a full copy (the anti-baseline)",
+        ),
+        ExecConfig(
+            "v2.2_sharded", "V2.2 ScatterHalo", "reference", "halo",
+            "1-D row decomposition, device-to-device neighbour halos, library ops",
+        ),
+        ExecConfig(
+            "v3_pallas", "V3 CUDA", "kernels", "single",
             "single-device hand-written CUDA kernels (conv+bias+ReLU, max-pool, LRN; one per block when fused)",
         ),
         ExecConfig(
-            "v6_full_jit", "V6 AlexNet Full", "reference",
+            "v4_hybrid", "V4 MPI+CUDA", "kernels", "staged_halo",
+            "row-sharded, the CUDA kernels on every shard, all_gather-staged halos (V4's host staging)",
+        ),
+        ExecConfig(
+            "v5_collective", "V5 MPI+CUDA-Aware", "kernels", "halo",
+            "row-sharded, the CUDA kernels on every shard, device-to-device neighbour halos",
+        ),
+        ExecConfig(
+            "v7_tp", "V7 TensorParallel", "reference", "tp",
+            "conv filter-bank (K-axis) decomposition: weights sharded, channel-halo LRN, boundary all_gather",
+        ),
+        ExecConfig(
+            "v6_full_jit", "V6 AlexNet Full", "reference", "single",
             "full AlexNet (conv1-5 + FC6-8) single device, library ops (cuDNN, cuBLAS)",
             model="alexnet_full",
         ),
         ExecConfig(
-            "v6_full_pallas", "V6 AlexNet Full Pallas", "kernels",
+            "v6_full_pallas", "V6 AlexNet Full Pallas", "kernels", "single",
             "full AlexNet, hand-written CUDA kernels for the spatial part, torch.matmul FC head",
+            model="alexnet_full",
+        ),
+        ExecConfig(
+            "v6_full_sharded", "V6 AlexNet Full Sharded", "reference", "halo",
+            "full AlexNet, row-sharded spatial part + FC head on the gathered features",
             model="alexnet_full",
         ),
     ]
 }
+
+SHARDED = ("replicated", "halo", "staged_halo", "tp")
 
 
 def resolve_device(device) -> torch.device:
@@ -97,15 +137,36 @@ def _resolve_variants(plan):
     return effective_layer_variants(plan, base=kv)
 
 
+def _build_sharded(exec_cfg: ExecConfig, cfg, n_shards: int, mesh, plan, variants, quantized: bool) -> Callable:
+    """The fp32 (or int8w) forward of a sharded strategy over ``mesh``."""
+    from .parallel.replicated import build_replicated_forward
+    from .parallel.sharded import build_sharded_forward
+    from .parallel.tensor_parallel import build_tp_forward
+
+    if exec_cfg.strategy == "replicated":
+        return build_replicated_forward(cfg, n_shards, mesh=mesh, quantized=quantized)
+    if exec_cfg.strategy == "tp":
+        return build_tp_forward(cfg, n_shards, mesh=mesh)
+    staged = exec_cfg.strategy == "staged_halo"
+    if exec_cfg.model == "alexnet_full":
+        spatial = build_sharded_forward(cfg, n_shards, mesh=mesh, tier=exec_cfg.tier, staged=staged, plan=plan,
+                                        variants=variants)
+        # the FC head on the gathered features (the 6x6x256 activations are small next to conv1's)
+        return lambda p, x: fc_head(p, spatial(p, x), cfg)
+    return build_sharded_forward(cfg, n_shards, mesh=mesh, tier=exec_cfg.tier, staged=staged, plan=plan,
+                                 variants=variants, quantized=quantized)
+
+
 def build_forward(
     exec_cfg: ExecConfig, model_cfg=None, policy=None, variants=None, device="cuda", plan=None,
+    n_shards: int = 1, mesh=None,
 ) -> Callable:
     """A ``(params, x) -> out`` callable for ``exec_cfg``.
 
     ``params`` and ``x`` are fp32 on ``device``, NHWC/HWIO (FC weights
-    ``(in, out)``); the output is fp32. ``model_cfg`` defaults to the
-    config's family: ``BLOCKS12`` or ``ALEXNET``. ``policy`` (a preset name
-    or ``DtypePolicy``; default fp32):
+    ``(in, out)``); the output is fp32 on ``device``. ``model_cfg`` defaults
+    to the config's family: ``BLOCKS12`` or ``ALEXNET``. ``policy`` (a
+    preset name or ``DtypePolicy``; default fp32):
 
     - ``fp32``: true fp32 everywhere. On the card, cuDNN's and cuBLAS's
       TF32 switches are turned off here, before the reference tier runs
@@ -116,57 +177,74 @@ def build_forward(
       the FC head's products come out in bf16, accumulated in fp32 on the
       card: ``ops.reference.linear``),
       and the output cast to fp32 — the cast points of the JAX package's
-      ``configs.build_forward``.
-    - ``int8w``: ``precision.quantize.forward_blocks12_int8w`` on the
-      config's tier: weights quantized per output channel inside the
-      forward, bf16 activations, fp32 accumulation (TF32 off), fp32 output.
-      Blocks 1-2 only: a full-AlexNet config raises ``ValueError``, as in
-      the JAX package.
+      ``configs.build_forward``, for every strategy.
+    - ``int8w``: weights quantized per output channel inside the forward,
+      bf16 activations, fp32 accumulation (TF32 off), fp32 output: on a
+      single device ``precision.quantize.forward_blocks12_int8w`` on the
+      config's tier, and on the halo, staged and replicated strategies their
+      quantized builders. Blocks 1-2 only, and not tensor-parallel: other
+      configs raise ``ValueError``, as in the JAX package.
+
+    ``n_shards`` (the original code's ``mpirun -np N``) and ``mesh`` (a
+    ``parallel.mesh.Mesh``; default ``make_mesh(n_shards)`` on ``device``'s
+    type: every visible GPU, or the CPU) apply to the sharded strategies; a
+    single-device config runs on ``device`` whatever they say, as in the
+    JAX package.
 
     ``variants`` (kernel tier only; the reference tier ignores it): a
     ``KernelVariants`` or per-layer ``LayerVariants``; None resolves the
     ``TPU_FRAMEWORK_*`` environment now, once, overlaid with ``plan`` (a
     ``tuning.plan.TunePlan``) when one is given: per knob an explicit
     environment variable beats the plan beats the default. The returned
-    function keeps the variants it was built with.
+    function keeps the variants it was built with; the sharded path ignores
+    ``fuse``.
     """
     dev = resolve_device(device)
     pol = resolve_policy(policy)
     full = exec_cfg.model == "alexnet_full"
-    if pol.quantized and full:
+    strategy = exec_cfg.strategy
+    if pol.quantized and (full or strategy not in ("single", "halo", "staged_halo", "replicated")):
         raise ValueError(
-            f"policy {pol.name!r} supports the Blocks 1-2 configs only (config {exec_cfg.key!r} is "
-            f"{exec_cfg.model}); a quantized full-AlexNet forward is an open ROADMAP item"
+            f"policy {pol.name!r} supports the Blocks 1-2 single-device, halo-sharded, and replicated tiers only "
+            f"(config {exec_cfg.key!r} is {exec_cfg.model}/{strategy}); quantized tensor-parallel and "
+            "full-AlexNet forwards are open ROADMAP items"
         )
     cfg = model_cfg or (ALEXNET if full else BLOCKS12)
     kv = None
     if exec_cfg.tier == "kernels":
         kv = variants if variants is not None else _resolve_variants(plan)
+
+    devices = (dev,)
+    if strategy in SHARDED:
+        from .parallel.mesh import make_mesh
+
+        mesh = mesh or make_mesh(n_shards, device=dev.type)
+        devices = mesh.distinct_devices
+        fwd = _build_sharded(exec_cfg, cfg, n_shards, mesh, plan, kv, pol.quantized)
+    elif pol.quantized:
+        def fwd(p, x):
+            return forward_blocks12_int8w(p, x, cfg, variants=kv, tier=exec_cfg.tier)
+    else:
+        if exec_cfg.tier == "kernels":
+            model_fwd = functools.partial(forward_alexnet_kernels if full else forward_blocks12_kernels, variants=kv)
+        else:
+            model_fwd = forward_alexnet if full else forward_blocks12
+
+        def fwd(p, x):
+            return model_fwd(p, x, cfg)
+
     if pol.name != "bf16":
-        true_fp32(dev)
+        for d in devices:
+            true_fp32(d)
 
-    if pol.quantized:
-        tier = exec_cfg.tier
-
-        @torch.inference_mode()
-        def forward(p, x):
-            return forward_blocks12_int8w(p, x, cfg, variants=kv, tier=tier).contiguous()
-
-        return forward
-
-    if exec_cfg.tier == "kernels":
-        fwd = functools.partial(forward_alexnet_kernels if full else forward_blocks12_kernels, variants=kv)
-    else:
-        fwd = forward_alexnet if full else forward_blocks12
-
-    if pol.name == "fp32":
-        @torch.inference_mode()
-        def forward(p, x):
-            return fwd(p, x, cfg).contiguous()
-    else:
+    if pol.name == "bf16":
         @torch.inference_mode()
         def forward(p, x):
             pb = params_to(p, dtype=torch.bfloat16)
-            return fwd(pb, x.to(torch.bfloat16), cfg).float().contiguous()
+            return fwd(pb, x.to(torch.bfloat16)).float().contiguous()
+    else:
+        @torch.inference_mode()
+        def forward(p, x):
+            return fwd(p, x).float().contiguous()
 
     return forward

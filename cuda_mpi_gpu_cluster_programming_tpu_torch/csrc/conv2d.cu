@@ -29,21 +29,24 @@ namespace {
 
 template <typename T>
 int launch(const void* x, const void* w, const void* b, void* y, int N, int H, int W, int C, int K, int F,
-           int stride, int pad, int Ho, int Wo, int relu, int k_block, int pw, int ps, int Hp, void* stream) {
-  const auto g = sm90::make_conv<T>(x, w, H, W, C, K, F, stride, pad);
+           int stride, int pad_h, int pad_w, int Ho, int Wo, int relu, int k_block, int pw, int ps, int Hp,
+           void* stream) {
+  const auto g = sm90::make_conv<T>(x, w, H, W, C, K, F, stride, pad_h, pad_w);
   return pw > 0 ? sm90::launch_hpool(g, b, y, N, Wo, relu, pw, ps, Hp, stream)
                 : sm90::launch_tiles(g, b, y, N, Ho, Wo, relu, k_block, stream);
 }
 
 }  // namespace
 
-// k_block: 0, or the output channels one block owns (K % k_block == 0).
-// pw > 0: write the H-axis max of a pw / ps pool, (N, Hp, Wo, K).
-#define CONV2D_ARGS                                                                     \
-  const void *x, const void *w, const void *b, void *y, int N, int H, int W, int C, int K, \
-      int F, int stride, int pad, int Ho, int Wo, int relu, int k_block, int pw, int ps,   \
-      int Hp, void *stream
-#define CONV2D_PASS x, w, b, y, N, H, W, C, K, F, stride, pad, Ho, Wo, relu, k_block, pw, ps, Hp, stream
+// pad_h, pad_w: zero rows and columns on each side of x (the row-sharded tier
+// runs pad_h = 0, its halos holding the rows). k_block: 0, or the output
+// channels one block owns (K % k_block == 0). pw > 0: write the H-axis max of
+// a pw / ps pool, (N, Hp, Wo, K).
+#define CONV2D_ARGS                                                                          \
+  const void *x, const void *w, const void *b, void *y, int N, int H, int W, int C, int K,      \
+      int F, int stride, int pad_h, int pad_w, int Ho, int Wo, int relu, int k_block, int pw, \
+      int ps, int Hp, void *stream
+#define CONV2D_PASS x, w, b, y, N, H, W, C, K, F, stride, pad_h, pad_w, Ho, Wo, relu, k_block, pw, ps, Hp, stream
 
 extern "C" int conv2d_bias_relu_f32(CONV2D_ARGS) { return launch<float>(CONV2D_PASS); }
 

@@ -181,7 +181,7 @@ int launch(const void* x, const void* w, const void* b, const void* scale, void*
   constexpr int VEC = C::VEC;
   const sm90::Conv<X, WT> cv{static_cast<const X*>(x), static_cast<const WT*>(w), g.H, g.W, g.C, g.K, g.F,
                              g.stride, g.pad, g.F * g.F * g.C, g.C % VEC == 0 && port::aligned16(x),
-                             g.K % (std::is_same<X, WT>::value ? VEC : 16) == 0 && port::aligned16(w)};
+                             g.K % (std::is_same<X, WT>::value ? VEC : 16) == 0 && port::aligned16(w), g.pad};
   if (!sm90::fits(cv)) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(LRN ? 1 : port::blocks_for(g.K, C::BN), port::blocks_for(g.Hp, g.band), g.N);
   kernel<<<grid, sm90::THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(

@@ -43,7 +43,7 @@ namespace {
 template <typename T>
 int launch(const void* xs8, const void* wcols, const void* b, void* y, int N, int Hs8, int Ws8, int G, int K,
            int fq8, int Ho, int Wo, int relu, void* stream) {
-  const auto g = sm90::make_conv<T>(xs8, wcols, Hs8, Ws8, G, 4 * K, fq8, /*stride=*/1, /*pad=*/0);
+  const auto g = sm90::make_conv<T>(xs8, wcols, Hs8, Ws8, G, 4 * K, fq8, /*stride=*/1, /*pad_h=*/0, /*pad_w=*/0);
   return sm90::launch_phases(g, b, y, N, Ho, Wo, K, relu, stream);
 }
 

@@ -27,7 +27,7 @@ namespace {
 template <typename T>
 int launch(const void* a, const void* w, const void* b, void* y, int N, int Ho, int Wo, int KD, int K,
            int relu, void* stream) {
-  const auto g = sm90::make_conv<T>(a, w, Ho, Wo, KD, K, /*F=*/1, /*stride=*/1, /*pad=*/0);
+  const auto g = sm90::make_conv<T>(a, w, Ho, Wo, KD, K, /*F=*/1, /*stride=*/1, /*pad_h=*/0, /*pad_w=*/0);
   return sm90::launch_tiles_cfg<sm90::Cfg<T, 128, 128>>(g, b, y, N, Ho, Wo, relu,
                                                         static_cast<cudaStream_t>(stream));
 }

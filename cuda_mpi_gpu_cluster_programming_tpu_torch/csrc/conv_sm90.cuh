@@ -67,7 +67,7 @@ struct PixMap {
 // tap (n, iy0, ix0), channel 0 (negative at a padded corner; only taps inside
 // the image are read), and (iy0, ix0) packed as two 16-bit halves for the
 // bounds test (a pixel past q_end gets a row no tap reaches, so it reads
-// zeros). 8 bytes a pixel: H, W and pad stay below 2^14 (MAX_DIM).
+// zeros). 8 bytes a pixel: H, W and both pads stay below 2^14 (MAX_DIM).
 struct Pix {
   int off, yx;
   __device__ __forceinline__ int iy0() const { return yx >> 16; }
@@ -77,7 +77,9 @@ static_assert(sizeof(Pix) == 8, "a tile keeps BM * 8 bytes of pixel origins");
 
 constexpr int MAX_DIM = 1 << 14;
 
-// The conv's operands: x (N, H, W, C) and w (F, F, C, K) = (KG, K) row-major.
+// The conv's operands: x (N, H, W, C) and w (F, F, C, K) = (KG, K) row-major,
+// x zero-padded by pad_h rows and pad_w columns on each side (the row-sharded
+// tier's convs are VALID on H, their halos holding the rows, and padded on W).
 // vec_a / vec_b: the 16-byte copies apply (C resp. K a multiple of the vector,
 // 16 for int8 weights, and the base 16-byte aligned).
 template <typename T, typename WT>
@@ -87,8 +89,9 @@ struct Conv {
   using Pixel = Pix;
   const T* x;
   const WT* w;
-  int H, W, C, K, F, stride, pad, KG;
+  int H, W, C, K, F, stride, pad_h, KG;
   int vec_a, vec_b;
+  int pad_w;
 };
 
 // The pairs operand of conv_pairs.cu, packed by the wrapper from the
@@ -135,8 +138,8 @@ __device__ __forceinline__ Pix pixel(const Conv<T, WT>& g, const PixMap& pm, int
   if (q >= pm.q_end) return Pix{0, static_cast<int>(0xC0000000u)};  // iy0 = -2^14
   const int n = pm.n0 + q / pm.per_img;
   const int r = q % pm.per_img;
-  const int iy0 = (pm.r0 + r / pm.Wo) * g.stride - g.pad;
-  const int ix0 = (r % pm.Wo) * g.stride - g.pad;
+  const int iy0 = (pm.r0 + r / pm.Wo) * g.stride - g.pad_h;
+  const int ix0 = (r % pm.Wo) * g.stride - g.pad_w;
   return Pix{n * g.H * g.W * g.C + (iy0 * g.W + ix0) * g.C,
              static_cast<int>((static_cast<unsigned>(iy0) << 16) | (static_cast<unsigned>(ix0) & 0xffffu))};
 }
@@ -688,16 +691,17 @@ conv_hpool(Conv<T, T> g, const T* __restrict__ bias, T* __restrict__ y, int Wo, 
 constexpr int HPOOL_BAND = 4;
 
 template <typename T>
-Conv<T, T> make_conv(const void* x, const void* w, int H, int W, int C, int K, int F, int stride, int pad) {
+Conv<T, T> make_conv(const void* x, const void* w, int H, int W, int C, int K, int F, int stride, int pad_h,
+                     int pad_w) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-  return Conv<T, T>{static_cast<const T*>(x), static_cast<const T*>(w), H, W, C, K, F, stride, pad, F * F * C,
-                    C % VEC == 0 && port::aligned16(x), K % VEC == 0 && port::aligned16(w)};
+  return Conv<T, T>{static_cast<const T*>(x), static_cast<const T*>(w), H, W, C, K, F, stride, pad_h, F * F * C,
+                    C % VEC == 0 && port::aligned16(x), K % VEC == 0 && port::aligned16(w), pad_w};
 }
 
 // The gather packs window origins into 16 bits (Pix): larger images are refused.
 template <typename T, typename WT>
 bool fits(const Conv<T, WT>& g) {
-  return g.H < MAX_DIM && g.W < MAX_DIM && g.pad < MAX_DIM;
+  return g.H < MAX_DIM && g.W < MAX_DIM && g.pad_h < MAX_DIM && g.pad_w < MAX_DIM;
 }
 
 // Pairs' origins are plain offsets (the wrapper keeps its operands below 2^31 elements).

@@ -33,7 +33,7 @@ namespace {
 template <typename T>
 int launch(const void* xs, const void* w, const void* b, void* y, int N, int Hs, int Ws, int cs, int K, int fq,
            int Ho, int Wo, int relu, int k_block, int pw, int ps, int Hp, void* stream) {
-  const auto g = sm90::make_conv<T>(xs, w, Hs, Ws, cs, K, fq, /*stride=*/1, /*pad=*/0);
+  const auto g = sm90::make_conv<T>(xs, w, Hs, Ws, cs, K, fq, /*stride=*/1, /*pad_h=*/0, /*pad_w=*/0);
   return pw > 0 ? sm90::launch_hpool(g, b, y, N, Wo, relu, pw, ps, Hp, stream)
                 : sm90::launch_tiles(g, b, y, N, Ho, Wo, relu, k_block, stream);
 }

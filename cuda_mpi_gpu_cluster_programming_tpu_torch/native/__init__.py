@@ -1,9 +1,15 @@
-"""The port's native (C++) tier: the synthetic-data pipeline.
+"""The port's native (C++) tier: the synthetic-data pipeline and the shard planner.
 
-The data-loader half of the JAX package's ``native/``, copied (the port
-imports nothing of it): ``csrc/dataloader.cpp`` is compiled with ``g++`` at
-first use into ``_build/`` inside this package (listed in ``.gitignore``),
-keyed on a hash of the source, and bound with ctypes.
+The JAX package's ``native/``, copied (the port imports nothing of it):
+``csrc/dataloader.cpp`` and ``csrc/shardplan.cpp`` are compiled with
+``g++`` at first use into one library in ``_build/`` inside this package
+(listed in ``.gitignore``), keyed on a hash of the sources, and bound with
+ctypes.
+
+- :func:`conv_out_dim`, :func:`pool_out_dim`: the shape calculators;
+- :func:`make_shard_plan_native`: the ``parallel.plan.ShardPlan`` of
+  ``parallel.plan.make_shard_plan``, field for field, from C++;
+- :func:`owned_range_native`: a shard's global output rows;
 
 - :func:`fill_batch`: one synthetic float32 batch (``ones``, or ``uniform``
   from a seeded LCG), bit for bit the JAX package's (``run --input native``
@@ -12,10 +18,6 @@ keyed on a hash of the source, and bound with ctypes.
 - :func:`batch_seed`: the seed of batch k of a loader stream;
 - :class:`NativeDataLoader`: a multi-threaded prefetching batch iterator
   whose batch k depends only on (seed, k), never on thread timing.
-
-The shard planner (``shardplan.cpp``: ``conv_out_dim``, ``pool_out_dim``,
-``make_shard_plan_native``, ``owned_range_native``) waits for the
-distribution tiers (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -27,11 +29,11 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "dataloader.cpp"
+_SRCS = tuple(Path(__file__).resolve().parent / "csrc" / name for name in ("dataloader.cpp", "shardplan.cpp"))
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _CXXFLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -40,9 +42,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def _build() -> Path:
-    """Compile ``dataloader.cpp`` unless the library of this source and these
+    """Compile the sources unless the library of these sources and these
     flags exists. Raises ``RuntimeError`` without ``g++`` or on a failed build."""
-    digest = hashlib.sha256(" ".join(_CXXFLAGS).encode() + _SRC.read_bytes()).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(_CXXFLAGS).encode() + b"".join(p.read_bytes() for p in _SRCS)).hexdigest()[:16]
     lib = _BUILD_DIR / f"libportnative-{digest}.so"
     if lib.exists():
         return lib
@@ -50,7 +52,7 @@ def _build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(_BUILD_DIR))
     os.close(fd)
     try:
-        subprocess.run(["g++", *_CXXFLAGS, str(_SRC), "-o", tmp], check=True, capture_output=True, text=True)
+        subprocess.run(["g++", *_CXXFLAGS, *map(str, _SRCS), "-o", tmp], check=True, capture_output=True, text=True)
     except FileNotFoundError as e:
         os.unlink(tmp)
         raise RuntimeError("g++ not found; the native tier needs a C++ toolchain") from e
@@ -75,8 +77,85 @@ def _load() -> ctypes.CDLL:
         lib.dl_next.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
         lib.dl_destroy.restype = None
         lib.dl_destroy.argtypes = [ctypes.c_void_p]
+        lib.sp_conv_out_dim.restype = ctypes.c_int
+        lib.sp_conv_out_dim.argtypes = [ctypes.c_int] * 4
+        lib.sp_pool_out_dim.restype = ctypes.c_int
+        lib.sp_pool_out_dim.argtypes = [ctypes.c_int] * 3
+        lib.sp_plan_chain.restype = ctypes.c_int
+        lib.sp_plan_chain.argtypes = [ctypes.c_int, *(ctypes.POINTER(ctypes.c_int32),) * 4, ctypes.c_int,
+                                      ctypes.c_int, ctypes.POINTER(_LayerPlanC)]
+        lib.sp_owned_range.restype = None
+        lib.sp_owned_range.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int32)] * 2
         _lib = lib
         return lib
+
+
+# ---------------------------------------------------------------- shard plan
+
+_KIND_NAME = {0: "conv", 1: "pool", 2: "pointwise"}
+_ERRORS = {-1: "degenerate layer output (filter cannot fit)", -2: "uniform window escapes padded buffer",
+           -3: "bad argument"}
+# shardplan.cpp's sp_layer_plan: LayerPlan's geometry fields, in its order
+_PLAN_FIELDS = ("filter_size", "stride", "padding", "l_in", "l_out", "b_in", "b_out", "h_top", "h_bot",
+                "s0_coef", "s0_const", "win_rows", "pad_bot")
+
+
+class _LayerPlanC(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int32)] + [(f, ctypes.c_int32) for f in _PLAN_FIELDS]
+
+
+def conv_out_dim(d: int, f: int, p: int, s: int) -> int:
+    return _load().sp_conv_out_dim(d, f, p, s)
+
+
+def pool_out_dim(d: int, f: int, s: int) -> int:
+    return _load().sp_pool_out_dim(d, f, s)
+
+
+def _chain_arrays(cfg):
+    """The layer chain as (names, kinds, filter sizes, strides, paddings)."""
+    from ..models.alexnet import ConvSpec, LrnSpec, PoolSpec
+
+    rows = []
+    for name, spec in cfg.layer_chain():
+        if isinstance(spec, ConvSpec):
+            rows.append((name, 0, spec.filter_size, spec.stride, spec.padding))
+        elif isinstance(spec, PoolSpec):
+            rows.append((name, 1, spec.window, spec.stride, 0))
+        elif isinstance(spec, LrnSpec):
+            rows.append((name, 2, 1, 1, 0))
+        else:
+            raise TypeError(f"unknown layer spec {spec!r}")
+    return [list(col) for col in zip(*rows)]
+
+
+def make_shard_plan_native(cfg, n_shards: int):
+    """``parallel.plan.make_shard_plan(cfg, n_shards)`` computed by
+    ``shardplan.cpp``: the same ``ShardPlan``, field for field."""
+    from ..parallel.plan import LayerPlan, ShardPlan
+
+    if n_shards < 1:
+        raise ValueError("n_shards must be >= 1")
+    names, kinds, fs, ss, ps = _chain_arrays(cfg)
+    n = len(names)
+
+    def arr(xs):
+        return (ctypes.c_int32 * n)(*xs)
+
+    out = (_LayerPlanC * n)()
+    rc = _load().sp_plan_chain(n, arr(kinds), arr(fs), arr(ss), arr(ps), cfg.in_height, n_shards, out)
+    if rc != 0:
+        raise ValueError(f"native plan failed: {_ERRORS.get(rc, rc)}")
+    layers = tuple(LayerPlan(name=names[i], kind=_KIND_NAME[out[i].kind],
+                             **{f: getattr(out[i], f) for f in _PLAN_FIELDS}) for i in range(n))
+    return ShardPlan(n_shards=n_shards, layers=layers)
+
+
+def owned_range_native(b_out: int, l_out: int, i: int) -> Tuple[int, int]:
+    """``parallel.plan.owned_range`` from C++."""
+    start, end = ctypes.c_int32(), ctypes.c_int32()
+    _load().sp_owned_range(b_out, l_out, i, ctypes.byref(start), ctypes.byref(end))
+    return start.value, end.value
 
 
 MODES = {"ones": 0, "uniform": 1}

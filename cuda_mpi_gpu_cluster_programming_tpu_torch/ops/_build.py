@@ -110,9 +110,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # entry: (argtypes, dtype suffixes)
-    # x, w, b, y, N, H, W, C, K, F, stride, pad, Ho, Wo, relu, k_block, hpool window, hpool stride,
+    # x, w, b, y, N, H, W, C, K, F, stride, pad_h, pad_w, Ho, Wo, relu, k_block, hpool window, hpool stride,
     # Hp, stream
-    "conv2d_bias_relu": ([_P, _P, _P, _P] + [_I] * 15 + [_P], ("f32", "bf16")),
+    "conv2d_bias_relu": ([_P, _P, _P, _P] + [_I] * 16 + [_P], ("f32", "bf16")),
     # xs, ws, b, y, N, Hs, Ws, cs, K, fq, Ho, Wo, relu, k_block, hpool window, hpool stride, Hp, stream
     "conv_taps": ([_P, _P, _P, _P] + [_I] * 13 + [_P], ("f32", "bf16")),
     # xpair, xs, wpair, wlast, b, y, N, Hs, Ws, cs, K, fq, Ho, Wo, relu, stream

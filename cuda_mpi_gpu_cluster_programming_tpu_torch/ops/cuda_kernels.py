@@ -129,8 +129,15 @@ def effective_k_block(k_block: int, k: int) -> int:
     return variants.effective_k_block(k_block, k)
 
 
-def _conv_geometry(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int):
-    """Check a conv's operands; return ``(device, (n, h, wd, c, f, k, ho, wo))``."""
+def _pad_w(padding: int, padding_w) -> int:
+    """The W-axis padding: ``padding_w``, or ``padding`` where it is None."""
+    return padding if padding_w is None else padding_w
+
+
+def _conv_geometry(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, padding: int,
+                   padding_w=None):
+    """Check a conv's operands; return ``(device, (n, h, wd, c, f, k, ho, wo))``,
+    H padded by ``padding`` and W by ``padding_w`` (default ``padding``)."""
     dev = _check(name, x, w, b)
     if x.dim() != 4 or w.dim() != 4 or w.shape[0] != w.shape[1] or w.shape[2] != x.shape[3]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and w {tuple(w.shape)} do not fit NHWC/HWIO")
@@ -138,7 +145,7 @@ def _conv_geometry(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: bias {tuple(b.shape)} for {w.shape[3]} channels")
     n, h, wd, c = x.shape
     f, k = w.shape[0], w.shape[3]
-    ho, wo = conv_out_dim(h, f, padding, stride), conv_out_dim(wd, f, padding, stride)
+    ho, wo = conv_out_dim(h, f, padding, stride), conv_out_dim(wd, f, _pad_w(padding, padding_w), stride)
     if min(n, ho, wo, k) <= 0:
         raise ValueError(f"{name}: empty output for x {tuple(x.shape)}, w {tuple(w.shape)}")
     if max(x.numel(), n * ho * wo * k, f * f * c * k) >= 2**31:
@@ -150,11 +157,11 @@ def _conv_geometry(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 SM90_MAX_DIM = 1 << 14
 
 
-def _check_sm90_dims(name: str, h: int, wd: int, padding: int) -> None:
+def _check_sm90_dims(name: str, h: int, wd: int, padding: int, padding_w: int = 0) -> None:
     """Raise where the CUDA conv mainloop refuses the image (the CPU runs any)."""
-    if max(h, wd, padding) >= SM90_MAX_DIM:
-        raise ValueError(f"{name}: H, W and padding must stay below {SM90_MAX_DIM} on CUDA, "
-                         f"got {h}, {wd}, {padding}")
+    if max(h, wd, padding, padding_w) >= SM90_MAX_DIM:
+        raise ValueError(f"{name}: H, W and both paddings must stay below {SM90_MAX_DIM} on CUDA, "
+                         f"got {h}, {wd}, {padding}, {padding_w}")
 
 
 def _hpool_dims(name: str, ho: int, hpool, k_block: int, n: int):
@@ -182,14 +189,15 @@ def _epilogue_plain(acc: torch.Tensor, b: torch.Tensor, relu: bool, dtype: torch
     return out if hpool is None else maxpool_rect_plain(out, window=(hpool[0], 1), stride=(hpool[1], 1))
 
 
-def _conv_acc_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int, padding: int) -> torch.Tensor:
+def _conv_acc_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int, padding: int, padding_w=None) -> torch.Tensor:
     """The conv's fp32 accumulator (N, Ho, Wo, K): tap by tap over (fy, fx),
     each tap one (pixels, C) x (C, K) matmul on fp32 copies of the operands
     (exact for fp32, bf16 and int8 values)."""
     n, h, wd, _c = x.shape
     f, k = w.shape[0], w.shape[3]
-    ho, wo = conv_out_dim(h, f, padding, stride), conv_out_dim(wd, f, padding, stride)
-    xf = F.pad(x.float(), (0, 0, padding, padding, padding, padding))
+    pw = _pad_w(padding, padding_w)
+    ho, wo = conv_out_dim(h, f, padding, stride), conv_out_dim(wd, f, pw, stride)
+    xf = F.pad(x.float(), (0, 0, pw, pw, padding, padding))
     wf = w.float()
     acc = torch.zeros((n * ho * wo, k), dtype=torch.float32, device=x.device)
     for fy in range(f):
@@ -200,22 +208,27 @@ def _conv_acc_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int, padding: i
 
 def conv2d_bias_relu_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
-    k_block: int = 0, hpool=None,
+    k_block: int = 0, hpool=None, padding_w=None,
 ) -> torch.Tensor:
     """Plain version of the vcol conv kernel: the fp32 accumulator, then the
     fp32 bias, ReLU and one cast to ``x.dtype`` (then the hpool H max).
     ``k_block`` changes no value."""
-    return _epilogue_plain(_conv_acc_plain(x, w, stride=stride, padding=padding), b, relu, x.dtype, hpool)
+    acc = _conv_acc_plain(x, w, stride=stride, padding=padding, padding_w=padding_w)
+    return _epilogue_plain(acc, b, relu, x.dtype, hpool)
 
 
 def conv2d_bias_relu(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
-    k_block: int = 0, hpool=None,
+    k_block: int = 0, hpool=None, padding_w=None,
 ) -> torch.Tensor:
     """Direct conv (cross-correlation) + bias + optional ReLU: the vcol body.
 
     ``x`` (N, H, W, C), ``w`` (F, F, C, K) HWIO, ``b`` (K,), all fp32 or
-    all bf16 -> (N, Ho, Wo, K) in the same dtype. ``k_block`` (0, 64, 128):
+    all bf16 -> (N, Ho, Wo, K) in the same dtype. ``padding`` zero-pads H
+    and ``padding_w`` W (default ``padding``; the row-sharded tier's convs
+    run ``padding=0``, their halos holding the rows, the JAX package's
+    ``conv2d_pallas_hvalid``); the kernel reads the padding as zeros in
+    place, so a W-only pad costs no copy. ``k_block`` (0, 64, 128):
     output channels per block where it applies (:func:`effective_k_block`),
     bitwise the unblocked result. ``hpool=(window, stride)``: also take the
     pool's H-axis max, -> (N, Hp, Wo, K); :func:`maxpool2d_w` finishes it.
@@ -230,29 +243,34 @@ def conv2d_bias_relu(
     channel-major in 16-byte runs; fp32 one fmaf chain per output in the
     fixed (fy, fx, c) order, bf16 ``mma.sync`` steps in the same order; the
     bias/ReLU/cast (and hpool) epilogue fused."""
-    dev, (n, h, wd, c, f, k, ho, wo) = _conv_geometry("conv2d_bias_relu", x, w, b, stride, padding)
+    dev, (n, h, wd, c, f, k, ho, wo) = _conv_geometry("conv2d_bias_relu", x, w, b, stride, padding, padding_w)
     kb = effective_k_block(k_block, k)
     pw, ps, hp = _hpool_dims("conv2d_bias_relu", ho, hpool, kb, n)
     if dev.type == "cpu":
-        return conv2d_bias_relu_plain(x, w, b, stride=stride, padding=padding, relu=relu, hpool=hpool)
-    _check_sm90_dims("conv2d_bias_relu", h, wd, padding)
+        return conv2d_bias_relu_plain(x, w, b, stride=stride, padding=padding, relu=relu, hpool=hpool,
+                                      padding_w=padding_w)
+    pad_w = _pad_w(padding, padding_w)
+    _check_sm90_dims("conv2d_bias_relu", h, wd, padding, pad_w)
     y = torch.empty((n, hp if pw else ho, wo, k), dtype=x.dtype, device=dev)
     _launch(
         "conv2d", "conv2d_bias_relu", x, x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        n, h, wd, c, k, f, stride, padding, ho, wo, int(relu), kb, pw, ps, hp,
+        n, h, wd, c, k, f, stride, padding, pad_w, ho, wo, int(relu), kb, pw, ps, hp,
     )
     return y
 
 
-def _s2d_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+def _s2d_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int, padding_w=None):
     """The taps/pairs/fused operands: ``(xs, ws, fq, ho, wo)`` with xs
-    (N, ho+fq-1, wo+fq-1, s*s*C) and ws (fq, fq, s*s*C, K), contiguous."""
+    (N, ho+fq-1, wo+fq-1, s*s*C) and ws (fq, fq, s*s*C, K), contiguous; x
+    zero-padded by ``padding`` rows and ``padding_w`` (default ``padding``)
+    columns in the pack."""
     f = w.shape[0]
     fq = -(-f // stride)
+    pw = _pad_w(padding, padding_w)
     ho = conv_out_dim(x.shape[1], f, padding, stride)
-    wo = conv_out_dim(x.shape[2], f, padding, stride)
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    wo = conv_out_dim(x.shape[2], f, pw, stride)
+    if padding or pw:
+        x = F.pad(x, (0, 0, pw, pw, padding, padding))
     xs = packing.space_to_depth(x, stride, ho + fq - 1, wo + fq - 1).contiguous()
     return xs, packing.weights_to_depth(w, stride, fq).contiguous(), fq, ho, wo
 
@@ -274,11 +292,11 @@ def conv_taps_packed_plain(
 
 def conv_taps_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
-    k_block: int = 0, hpool=None,
+    k_block: int = 0, hpool=None, padding_w=None,
 ) -> torch.Tensor:
     """Plain version of the taps kernel: the wrapper's operands, then
     :func:`conv_taps_packed_plain`. ``k_block`` changes no value."""
-    xs, ws, _fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    xs, ws, _fq, ho, wo = _s2d_operands(x, w, stride, padding, padding_w)
     return conv_taps_packed_plain(xs, ws, b, ho=ho, wo=wo, relu=relu, hpool=hpool)
 
 
@@ -329,10 +347,11 @@ def conv_taps_packed(
 
 def conv_taps(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
-    k_block: int = 0, hpool=None,
+    k_block: int = 0, hpool=None, padding_w=None,
 ) -> torch.Tensor:
     """Space-to-depth conv + bias + optional ReLU: the taps body. Arguments
-    and result as :func:`conv2d_bias_relu` (``k_block``, ``hpool`` too).
+    and result as :func:`conv2d_bias_relu` (``k_block``, ``hpool`` and
+    ``padding_w`` too; the padding lands in the host pack).
 
     Replaces ``_conv_kernel`` with ``_conv_epilogue``
     (cuda_mpi_gpu_cluster_programming_tpu/ops/pallas_kernels.py). Bound on
@@ -344,8 +363,8 @@ def conv_taps(
     weights ws, in the fixed (qh, qw, channel) order, which is im2col's term
     order (in both dtypes the bits of :func:`conv_pairs` and
     :func:`conv_im2col`, and at stride 1 of :func:`conv2d_bias_relu`)."""
-    _conv_geometry("conv_taps", x, w, b, stride, padding)
-    xs, ws, _fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    _conv_geometry("conv_taps", x, w, b, stride, padding, padding_w)
+    xs, ws, _fq, ho, wo = _s2d_operands(x, w, stride, padding, padding_w)
     return conv_taps_packed(xs, ws, b, ho=ho, wo=wo, relu=relu, k_block=k_block, hpool=hpool)
 
 
@@ -383,10 +402,11 @@ def conv_pairs_packed_plain(
 
 def conv_pairs_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    padding_w=None,
 ) -> torch.Tensor:
     """Plain version of the pairs kernel: the wrapper's operands, then
     :func:`conv_pairs_packed_plain`."""
-    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding, padding_w)
     return conv_pairs_packed_plain(*_pairs_operands(xs, ws, fq), b, ho=ho, wo=wo, relu=relu)
 
 
@@ -421,6 +441,7 @@ def conv_pairs_packed(
 
 def conv_pairs(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    padding_w=None,
 ) -> torch.Tensor:
     """Paired-tap conv + bias + optional ReLU: the pairs body, for fq =
     ceil(F/stride) >= 2 (at fq = 1 there is nothing to pair: the caller
@@ -436,20 +457,20 @@ def conv_pairs(
     even fq), then :func:`conv_pairs_packed`: the mainloop's implicit GEMM
     with a pairs gather, in the order qh, pairs left to right, leftover,
     which is im2col's term order (the same bits as :func:`conv_im2col`)."""
-    dev, (n, _h, _wd, _c, f, k, ho, wo) = _conv_geometry("conv_pairs", x, w, b, stride, padding)
+    dev, (n, _h, _wd, _c, f, k, ho, wo) = _conv_geometry("conv_pairs", x, w, b, stride, padding, padding_w)
     if -(-f // stride) < 2:
         raise ValueError(f"conv_pairs: nothing to pair at F={f}, stride={stride} (fq=1); run taps")
     if dev.type == "cpu":
-        return conv_pairs_plain(x, w, b, stride=stride, padding=padding, relu=relu)
-    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+        return conv_pairs_plain(x, w, b, stride=stride, padding=padding, relu=relu, padding_w=padding_w)
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding, padding_w)
     return conv_pairs_packed(*_pairs_operands(xs, ws, fq), b, ho=ho, wo=wo, relu=relu)
 
 
-def _im2col_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+def _im2col_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int, padding_w=None):
     """``(xcol, wmat, ho, wo)``: the s2d windows of every tap (qh, qw)
     concatenated on the channel axis, (N*ho*wo, fq*fq*s*s*C), and the s2d
     weights as a (fq*fq*s*s*C, K) matrix."""
-    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding)
+    xs, ws, fq, ho, wo = _s2d_operands(x, w, stride, padding, padding_w)
     wins = [xs[:, qh : qh + ho, qw : qw + wo, :] for qh in range(fq) for qw in range(fq)]
     xcol = torch.cat(wins, dim=-1).reshape(-1, fq * fq * xs.shape[3])
     return xcol, ws.reshape(-1, w.shape[3]), ho, wo
@@ -467,10 +488,11 @@ def conv_im2col_packed_plain(
 
 def conv_im2col_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    padding_w=None,
 ) -> torch.Tensor:
     """Plain version of the im2col kernel: the wrapper's operands, then
     :func:`conv_im2col_packed_plain`."""
-    xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding)
+    xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding, padding_w)
     return conv_im2col_packed_plain(xcol, wmat, b, n=x.shape[0], ho=ho, wo=wo, relu=relu)
 
 
@@ -502,6 +524,7 @@ def conv_im2col_packed(
 
 def conv_im2col(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    padding_w=None,
 ) -> torch.Tensor:
     """im2col + one GEMM + bias + optional ReLU: the fused body. Arguments
     and result as :func:`conv2d_bias_relu` without ``k_block``/``hpool``.
@@ -514,10 +537,10 @@ def conv_im2col(
     ``csrc/conv_sm90.cuh``): xcol built here with tensor code, as the JAX
     package does, then :func:`conv_im2col_packed`: the (M, KD) x (KD, K)
     GEMM as a 1 x 1 conv with the shared epilogue."""
-    dev, (n, _h, _wd, _c, _f, _k, ho, wo) = _conv_geometry("conv_im2col", x, w, b, stride, padding)
+    dev, (n, _h, _wd, _c, _f, _k, ho, wo) = _conv_geometry("conv_im2col", x, w, b, stride, padding, padding_w)
     if dev.type == "cpu":
-        return conv_im2col_plain(x, w, b, stride=stride, padding=padding, relu=relu)
-    xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding)
+        return conv_im2col_plain(x, w, b, stride=stride, padding=padding, relu=relu, padding_w=padding_w)
+    xcol, wmat, ho, wo = _im2col_operands(x, w, stride, padding, padding_w)
     return conv_im2col_packed(xcol, wmat, b, n=n, ho=ho, wo=wo, relu=relu)
 
 
@@ -530,18 +553,20 @@ def _g8_phase_columns(w8: torch.Tensor) -> torch.Tensor:
     return w8.permute(2, 3, 4, 0, 1, 5).reshape(fq8, fq8, gch, 4 * k).contiguous()
 
 
-def _g8_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int):
+def _g8_operands(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int, padding_w=None):
     """The g8 operands: ``(xs8, wcols, ho, wo)`` with xs8 (N, ho2+fq8-1,
     wo2+fq8-1, g*g*C) packed at g = 2*stride, ho2 = ceil(ho/2), and wcols
     the phase columns (:func:`_g8_phase_columns`) of the phase weight
-    frames, fq8 = ceil((F+stride)/g), contiguous."""
+    frames, fq8 = ceil((F+stride)/g), contiguous; x zero-padded by
+    ``padding`` rows and ``padding_w`` (default ``padding``) columns."""
     f, s = w.shape[0], stride
     g = 2 * s
     fq8 = -(-(f + s) // g)
+    pw = _pad_w(padding, padding_w)
     ho = conv_out_dim(x.shape[1], f, padding, s)
-    wo = conv_out_dim(x.shape[2], f, padding, s)
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
+    wo = conv_out_dim(x.shape[2], f, pw, s)
+    if padding or pw:
+        x = F.pad(x, (0, 0, pw, pw, padding, padding))
     xs8 = packing.space_to_depth(x, g, -(-ho // 2) + fq8 - 1, -(-wo // 2) + fq8 - 1).contiguous()
     return xs8, _g8_phase_columns(packing.weights_to_phase_depth(w, s, g, fq8)), ho, wo
 
@@ -567,10 +592,11 @@ def conv_g8_packed_plain(
 
 def conv_g8_plain(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    padding_w=None,
 ) -> torch.Tensor:
     """Plain version of the g8 kernel: the wrapper's operands, then
     :func:`conv_g8_packed_plain`."""
-    xs8, wcols, ho, wo = _g8_operands(x, w, stride, padding)
+    xs8, wcols, ho, wo = _g8_operands(x, w, stride, padding, padding_w)
     return conv_g8_packed_plain(xs8, wcols, b, ho=ho, wo=wo, relu=relu)
 
 
@@ -597,6 +623,7 @@ def conv_g8_packed(
 
 def conv_g8(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool = True,
+    padding_w=None,
 ) -> torch.Tensor:
     """Phase-packed conv + bias + optional ReLU: the g8 body, for stride >=
     2 (at stride 1 there are no phases to pack: the caller runs vcol, as
@@ -614,10 +641,10 @@ def conv_g8(
     :func:`conv_g8_packed`: one GEMM over the phase pixels, each one's
     window gathered once for the four phases, its store writing each
     column straight into the interleaved (N, Ho, Wo, K) output."""
-    _conv_geometry("conv_g8", x, w, b, stride, padding)
+    _conv_geometry("conv_g8", x, w, b, stride, padding, padding_w)
     if stride < 2:
         raise ValueError(f"conv_g8: no phases to pack at stride {stride}; run vcol")
-    xs8, wcols, ho, wo = _g8_operands(x, w, stride, padding)
+    xs8, wcols, ho, wo = _g8_operands(x, w, stride, padding, padding_w)
     return conv_g8_packed(xs8, wcols, b, ho=ho, wo=wo, relu=relu)
 
 

@@ -37,18 +37,20 @@ def _layer_variants(v: KernelVariants | LayerVariants, name: str) -> KernelVaria
 
 def conv(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int, relu: bool,
-    variant: str, k_block: int = 0, hpool=None,
+    variant: str, k_block: int = 0, hpool=None, padding_w=None,
 ) -> torch.Tensor:
     """The conv kernel of one variant, as the JAX package's
     ``conv2d_pallas(variant=...)`` lowers it: k_block and hpool reach the
     taps/vcol bodies only (pairs, fused and g8 ignore k_block and refuse
     hpool), pairs at fq = ceil(F/stride) < 2 runs taps (nothing to pair)
-    and g8 at stride 1 runs vcol (no phases to pack)."""
+    and g8 at stride 1 runs vcol (no phases to pack). ``padding`` pads H,
+    ``padding_w`` W (default ``padding``): the row-sharded tier runs
+    ``padding=0, padding_w=P`` (``conv2d_pallas_hvalid``)."""
     if variant not in ("taps", "pairs", "fused", "vcol", "g8"):
         raise ValueError(f"unknown conv variant {variant!r}")
     if hpool is not None and variant not in ("taps", "vcol"):
         raise ValueError(f"hpool fusion supports the taps/vcol lowering only, got {variant!r}")
-    kw = dict(stride=stride, padding=padding, relu=relu)
+    kw = dict(stride=stride, padding=padding, relu=relu, padding_w=padding_w)
     if variant == "g8" and stride >= 2:
         return ck.conv_g8(x, w, b, **kw)
     if variant in ("vcol", "g8"):

@@ -49,10 +49,13 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding: int,
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *, stride: int, padding,
     preferred_element_type: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``x`` (N, H, W, C), ``w`` (F, F, C, K), ``b`` (K,) -> (N, Ho, Wo, K).
+
+    ``padding``: zeros on each side of H and W, an int or ``(h, w)`` (the
+    row-sharded tier pads W alone, its halos holding the rows).
 
     ``preferred_element_type`` is the accumulation and output dtype (the
     JAX reference's argument of the same name); by default ``x.dtype``.
@@ -73,11 +76,12 @@ def conv2d(
     at outputs of order 20, where the GEMM path is within 2e-5. The choice is
     made at this call, so it changes no process-wide switch."""
     acc = preferred_element_type or x.dtype
+    pads = [padding, padding] if isinstance(padding, int) else [int(p) for p in padding]
     xc, wc = x.permute(0, 3, 1, 2).to(acc), w.permute(3, 2, 0, 1).to(acc)
     if xc.device.type == "cpu" and acc == torch.float32:
-        out = torch.ops.aten.thnn_conv2d(xc, wc, list(wc.shape[2:]), None, [stride, stride], [padding, padding])
+        out = torch.ops.aten.thnn_conv2d(xc, wc, list(wc.shape[2:]), None, [stride, stride], pads)
     else:
-        out = F.conv2d(xc, wc, stride=stride, padding=padding)
+        out = F.conv2d(xc, wc, stride=stride, padding=tuple(pads))
     out = out.permute(0, 2, 3, 1)
     return out + b.to(out.dtype)
 

@@ -1,0 +1,101 @@
+"""The mesh: N shard slots, each on a device.
+
+The JAX package's ``parallel/mesh.py`` builds a ``jax.sharding.Mesh`` over
+N devices and runs one program on all of them (``shard_map``). The port
+keeps that single-controller model without ``torch.distributed``: one
+process drives N shard slots, and slot ``i`` lives on
+``devices[i % len(devices)]``. By default the devices are every visible
+GPU, so 4 shards on one H100 share ``cuda:0`` (as the JAX tests' virtual
+CPU devices share one CPU), and on a 4-GPU host each shard has a card of
+its own. :meth:`Mesh.describe` says which layout a mesh has
+("4 shards on 1 device: cuda:0"), so sharing a card is never silent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+
+def device_count(device: str = "cuda") -> int:
+    """The devices a mesh of ``device``'s type may spread over: the visible
+    GPUs (0 without one), or 1 for the CPU."""
+    if torch.device(device).type == "cpu":
+        return 1
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """``shape`` = (dp, n_shards) slots, row-major in ``devices`` (one
+    ``torch.device`` a slot); the shard axis is the last, named
+    ``axis_names[-1]``."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def n_shards(self) -> int:
+        return self.shape[-1]
+
+    @property
+    def dp(self) -> int:
+        return self.shape[0] if len(self.shape) > 1 else 1
+
+    @property
+    def shard_devices(self) -> Tuple[torch.device, ...]:
+        """The devices of the shard axis (the first data-parallel row)."""
+        return self.devices[: self.n_shards]
+
+    @property
+    def distinct_devices(self) -> Tuple[torch.device, ...]:
+        return tuple(dict.fromkeys(self.devices))
+
+    def describe(self) -> str:
+        distinct = self.distinct_devices
+        lead = f"{self.n_shards} shard{'s' if self.n_shards != 1 else ''}"
+        if self.dp > 1:
+            lead += f" x {self.dp} data-parallel replicas"
+        return (f"{lead} on {len(distinct)} device{'s' if len(distinct) != 1 else ''}: "
+                f"{', '.join(str(d) for d in distinct)}")
+
+
+def make_mesh(
+    n_shards: int,
+    axis_name: str = "sp",
+    dp: int = 1,
+    devices: Optional[Sequence] = None,
+    device: str = "cuda",
+) -> Mesh:
+    """A ``(dp, n_shards)`` mesh (one axis when ``dp == 1``): slot ``i`` on
+    ``devices[i % len(devices)]``. ``devices`` defaults to every visible GPU
+    (``device="cuda"``) or the CPU (``device="cpu"``); without a GPU and
+    without ``device="cpu"`` it raises, so nothing moves to the CPU unless
+    asked."""
+    if n_shards < 1 or dp < 1:
+        raise ValueError(f"a mesh needs n_shards >= 1 and dp >= 1, got {n_shards} and {dp}")
+    if devices is None:
+        kind = torch.device(device)
+        if kind.type == "cpu":
+            devices = [torch.device("cpu")]
+        elif kind.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device is available for the mesh; pass device='cpu' for a CPU mesh")
+            devices = ([torch.device("cuda", kind.index)] if kind.index is not None
+                       else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        else:
+            raise ValueError(f"unsupported mesh device {device!r} (cuda|cpu)")
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    for d in devs:
+        if d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {d} asked for, but no CUDA device is available")
+    need = dp * n_shards
+    slots = tuple(devs[i % len(devs)] for i in range(need))
+    if dp == 1:
+        return Mesh((axis_name,), (n_shards,), slots)
+    return Mesh(("dp", axis_name), (dp, n_shards), slots)

@@ -1,0 +1,104 @@
+"""Tensor parallelism: the conv filter bank split on its output-channel (K)
+axis, ``v7_tp``.
+
+The dual of the row-sharded tier (``sharded.py``): there the activations
+are split on H and the weights replicated, with halos in image rows; here
+each shard owns K/n output channels of every conv, so the weights are split
+and the activations gathered at the block boundary, with the "halo" on the
+channel axis (the LRN's window needs ``size//2`` neighbour channels). The
+JAX package's ``parallel/tensor_parallel.py`` (``build_tp_forward``), as one
+controller over the mesh's shard slots:
+
+- block 1 on each shard's filter slice: (B, h, w, K1/n);
+- one ``all_gather`` of pool1's channels to every shard (conv2 needs all of
+  conv1's channels);
+- block 2 on each shard's slice; a channel halo (two ``ppermute``: the
+  previous shard's last ``half`` channels, the next shard's first) before
+  the LRN, zeros at the ends, which is the LRN's edge-cut window; the owned
+  slice is kept.
+
+Every output channel is computed by one shard in the single-device order,
+so the result is the reference forward's. Reference ops on every shard.
+The Megatron layout of the LM (``shard_lm_params_tp``) stays in ROADMAP
+Queue 1 item 3.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from ..models.alexnet import BLOCKS12
+from ..models.init import params_to
+from ..ops import reference as ops
+from .halo import COLLECTIVES
+from .mesh import Mesh, make_mesh
+
+
+def _channel_halo(zs, half: int):
+    """Each shard's (..., C) slice with ``half`` neighbour channels on each
+    side: the previous shard's last, the next shard's first; zeros at the
+    ends of the mesh. Two ``ppermute``s."""
+    n = len(zs)
+    COLLECTIVES["ppermute"] += 2
+    out = []
+    for j, z in enumerate(zs):
+        zero = torch.zeros((*z.shape[:-1], half), dtype=z.dtype, device=z.device)
+        left = zs[j - 1][..., -half:].to(z.device, non_blocking=True) if j > 0 else zero
+        right = zs[j + 1][..., :half].to(z.device, non_blocking=True) if j + 1 < n else zero
+        out.append(torch.cat([left, z, right], dim=-1))
+    return out
+
+
+def build_tp_forward(
+    model_cfg=BLOCKS12, n_shards: int = 1, mesh: Optional[Mesh] = None, axis_name: str = "tp",
+    with_digests: bool = False, device: str = "cuda",
+) -> Callable:
+    """``(params, x) -> out`` with the conv filters split n ways on K.
+
+    Refuses (``ValueError``) a K not divisible by ``n_shards``, an LRN
+    half-window wider than conv2's local channels, and a mesh whose shard
+    axis is not ``n_shards`` long. ``with_digests`` raises (the sentinel
+    taps: ROADMAP Queue 1 item 8)."""
+    cfg = model_cfg
+    if with_digests:
+        raise NotImplementedError("with_digests (the sentinel's in-graph taps) waits for the elastic supervisor "
+                                  "(ROADMAP Queue 1 item 8)")
+    for name, spec in (("conv1", cfg.conv1), ("conv2", cfg.conv2)):
+        if spec.out_channels % n_shards:
+            raise ValueError(f"{name} K={spec.out_channels} not divisible by {n_shards} TP shards")
+    half = cfg.lrn2.size // 2
+    local1, local2 = cfg.conv1.out_channels // n_shards, cfg.conv2.out_channels // n_shards
+    if n_shards > 1 and local2 < half:
+        raise ValueError(f"LRN window half-width {half} exceeds the {local2} local channels "
+                         f"at {n_shards} shards — channel halo would need multi-hop")
+    if mesh is None:
+        mesh = make_mesh(n_shards, axis_name=axis_name, device=device)
+    elif mesh.n_shards != n_shards:
+        raise ValueError(f"mesh axis {mesh.axis_names[-1]!r} has {mesh.n_shards} devices but "
+                         f"tp n_shards={n_shards}; the filter slices would not line up")
+    devs = mesh.shard_devices
+    c1, p1, c2, p2, n2 = cfg.conv1, cfg.pool1, cfg.conv2, cfg.pool2, cfg.lrn2
+
+    def block(x, p, i, local, cspec, pspec):
+        sl = slice(i * local, (i + 1) * local)
+        y = ops.conv2d(x, p["w"][..., sl], p["b"][sl], stride=cspec.stride, padding=cspec.padding)
+        return ops.relu_maxpool(y, window=pspec.window, stride=pspec.stride)
+
+    @torch.inference_mode()
+    def fwd(params, x):
+        on = {d: params_to(params, device=d) for d in dict.fromkeys(devs)}
+        ys = [block(x.to(d, non_blocking=True), on[d]["conv1"], i, local1, c1, p1) for i, d in enumerate(devs)]
+        COLLECTIVES["all_gather"] += 1  # conv2 contracts over every conv1 channel
+        ys = [torch.cat([y.to(d, non_blocking=True) for y in ys], dim=-1) for d in devs]
+        zs = [block(y, on[d]["conv2"], i, local2, c2, p2) for i, (y, d) in enumerate(zip(ys, devs))]
+        if n_shards > 1:
+            zs = _channel_halo(zs, half)
+        outs = [ops.lrn(z, size=n2.size, alpha=n2.alpha, beta=n2.beta, k=n2.k, alpha_over_size=n2.alpha_over_size)
+                for z in zs]
+        if n_shards > 1:
+            outs = [o[..., half:-half] for o in outs]
+        return torch.cat([o.to(x.device, non_blocking=True) for o in outs], dim=-1)
+
+    return fwd

@@ -5,7 +5,9 @@ The JAX package's ``precision/gate.py``. A screening runs the fp32 oracle
 (reference ops, true fp32) and the candidate through the same staged
 forward, with taps at every conv/pool/LRN boundary (``screen``), or holds
 the fused blocks' outputs against the oracle's block-boundary stages
-(``screen_blocks``), and compares each stage with its budget.
+(``screen_blocks``), or holds a row-sharded forward's output against the
+oracle's lrn2 at a shard count (``screen_sharded``), and compares each
+stage with its budget.
 
 Budgets are per-stage max-abs / max-rel pairs; ``rel`` is normalised by the
 oracle stage's max |value| (elementwise relative error explodes near the
@@ -313,6 +315,36 @@ class ToleranceGate:
         cand = megakernel_block_outputs(params, x, model_cfg, pol, variants=variants)
         for bname, boundary in BLOCK_BOUNDARIES:
             res.stages.append(_stage_check(bname, cand[bname], oracle[boundary], self.budget_for(pol.name, bname)))
+        self._journal(res, key)
+        return res
+
+    def screen_sharded(self, policy, params, x, model_cfg=BLOCKS12, *, n_shards: int, tier: str = "reference",
+                       staged: bool = False, key: str = "", mesh=None) -> GateResult:
+        """Screen one rung of the row-sharded tier: the whole sharded
+        forward's output under ``policy`` (int8w runs the quantized sharded
+        path, bf16 the cast around the fp32 builder, as ``configs`` ships
+        it) against the fp32 staged oracle's lrn2 boundary. The shard count
+        is part of the journalled key (``gate-sharded:<policy>|n<N>``): the
+        halo and mask machinery must hold the budget at every rung. ``mesh``
+        defaults to ``n_shards`` slots on ``x``'s device type."""
+        from ..models.init import params_to
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sharded import build_sharded_forward
+
+        pol: DtypePolicy = resolve_policy(policy)
+        key = key or f"gate-sharded:{pol.name}|n{n_shards}"
+        res = GateResult(policy=pol.name, oracle_fault=self._preflight_fault(x.device))
+        if res.oracle_fault:
+            self._journal(res, key)
+            return res
+        want = staged_policy_outputs(params, x, model_cfg, "fp32")["lrn2"]
+        fwd = build_sharded_forward(model_cfg, n_shards, mesh=mesh or make_mesh(n_shards, device=x.device.type),
+                                    tier=tier, staged=staged, quantized=pol.quantized)
+        if pol.quantized or pol.name == "fp32":
+            got = fwd(params, x)
+        else:
+            got = fwd(params_to(params, dtype=torch.bfloat16), x.to(torch.bfloat16))
+        res.stages.append(_stage_check(f"lrn2@n{n_shards}", _np(got), want, self.budget_for(pol.name, "lrn2")))
         self._journal(res, key)
         return res
 

@@ -1,7 +1,11 @@
-"""CLI runner for the port: one single-device configuration, Blocks 1-2
-(``v1_jit``, ``v3_pallas``) or full AlexNet (``v6_full_jit``, ``v6_full_pallas``).
+"""CLI runner for the port: one configuration of Blocks 1-2 (``v1_jit``,
+``v3_pallas``, and the sharded ``v2.1_replicated``, ``v2.2_sharded``,
+``v4_hybrid``, ``v5_collective``, ``v7_tp``) or full AlexNet
+(``v6_full_jit``, ``v6_full_pallas``, ``v6_full_sharded``).
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --batch 128
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v5_collective --shards 4 --breakdown
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --tune
 
@@ -21,12 +25,18 @@
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --serve-replay serve.jsonl --replay-mult 2
 
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
-no ``--device cpu`` it raises. Prints the JAX package's stdout contract
+no ``--device cpu`` it raises. ``--shards N`` runs a sharded config on a mesh
+of N shard slots (``parallel/mesh.py``: slot i on GPU i mod the visible
+GPUs, so on one card every slot shares it) and prints the placement on a
+``Mesh:`` line ("Mesh: 4 shards on 1 device: cuda:0"); a single-device
+config runs on one device whatever ``--shards`` says, as in the JAX package. Prints the JAX package's stdout contract
 (``Tune plan:``, ``Precision:``, ``Compile time:``, ``Final Output Shape:``,
 ``Final Output (first 10 values):``, ``... completed in X ms``, ``Timing
 stats:``; with ``--profile``, ``Profiler trace written to ...``; with
 ``--breakdown``, one ``Layer <name> completed in X ms -> HxWxC`` line per
-layer of the config's op tier), which the harness regexes read.
+layer of the config's op tier, and for a halo, staged or tensor-parallel
+config the static comm/compute plan, one ``Comm <layer>`` line per layer),
+which the harness regexes read.
 
 ``--tune`` sweeps {fp32, bf16, int8w} x the kernel variants of each conv
 layer (``tuning.autotune.autotune_precision``: every dtype screened by the
@@ -77,7 +87,8 @@ the what-if knobs ``--replay-mult`` and ``--replay-slo-scale``, and prints
 ``Replay:`` and ``Replay class:`` lines: exit 3 when a neutral replay
 diverges from the record, 2 on a journal it cannot replay
 (``--replay-devices`` above 1 waits for item 3, a supervised recording for
-item 8). ``--serve --supervise`` exits 2 (the supervisor, ROADMAP Queue 1
+item 8). ``--serve --shards`` above 1 exits 2 (the serving shard width,
+item 3). ``--serve --supervise`` exits 2 (the supervisor, ROADMAP Queue 1
 item 8); ``--route`` and ``--route-dir`` exit 2 (the fleet router, item
 1's third step).
 """
@@ -150,9 +161,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--fallback-chain", default="",
                    help="comma-separated config keys to degrade to when the requested config cannot build or run "
                         "its first pass, or 'auto' for the tier ladder; each step prints DEGRADED(from -> to)")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shard count of a sharded config (mpirun -np analogue): slots of a mesh over the visible "
+                        "GPUs, several to a card where there are fewer GPUs; printed on the 'Mesh:' line")
     # The JAX run.py's flags whose subsystems the port has not yet: accepted,
     # and refused with the ROADMAP Queue 1 item they wait for (_waiting).
-    p.add_argument("--shards", type=int, default=1, help="row-shard count: waits for the distribution tiers (item 3)")
     p.add_argument("--supervise", action="store_true", help="the elastic supervisor: waits for item 8")
     p.add_argument("--serve", action="store_true",
                    help="run the continuous-batching inference service under a seeded Poisson load instead of "
@@ -202,8 +215,10 @@ def make_parser() -> argparse.ArgumentParser:
 
 def _waiting(args) -> str:
     """Why a flag given cannot run yet ('' = none given)."""
-    if args.shards != 1:
-        return "--shards waits for the distribution tiers (ROADMAP Queue 1 item 3)"
+    if args.shards < 1:
+        return f"--shards must be >= 1, got {args.shards}"
+    if args.serve and args.shards != 1:
+        return "--serve --shards waits for the serving shard width (ROADMAP Queue 1 item 3)"
     if args.supervise:
         return "--supervise waits for the elastic supervisor (ROADMAP Queue 1 item 8)"
     if args.route or args.route_dir:
@@ -379,8 +394,17 @@ def _run(args) -> int:
     model_cfg = AlexNetConfig(blocks12=blocks_cfg) if full else blocks_cfg
     label = "GPU" if device.type == "cuda" else "CPU"
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     print(f"--- AlexNet {label} {exec_cfg.version_name} [{exec_cfg.key}] (batch={args.batch}) ---")
-    print(f"Devices: 1 x {dev_name} ({device.type})")
+    print(f"Devices: {n_devices} x {dev_name} ({device.type})")
+    mesh = None
+    if exec_cfg.strategy != "single":
+        from .parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.shards, device=device.type)
+        print(f"Mesh: {mesh.describe()}")
+    elif args.shards != 1:
+        print(f"Mesh: none ({exec_cfg.key} runs on one device; --shards {args.shards} does not apply)")
 
     if args.dtype and args.policy:
         print("--dtype and --policy are mutually exclusive", file=sys.stderr)
@@ -455,7 +479,8 @@ def _run(args) -> int:
     def build_and_first_pass(key):
         cfg = REGISTRY[key]
         _chaos_build_faults(cfg)
-        f = counted(build_forward(cfg, model_cfg, policy=run_dtype, device=device, plan=plan))
+        f = counted(build_forward(cfg, model_cfg, policy=run_dtype, device=device, plan=plan, n_shards=args.shards,
+                                  mesh=mesh if cfg.strategy != "single" else None))
         t0 = time.perf_counter()
         f(params, x)
         fence(device)
@@ -524,7 +549,24 @@ def _run(args) -> int:
         for name, ms, shape in layer_breakdown(params, x, model_cfg, repeats=max(1, args.repeats),
                                                warmup=n_small, compute=run_dtype, tier=exec_cfg.tier):
             print(f"Layer {name} completed in {ms:.3f} ms -> {'x'.join(str(d) for d in shape[1:])}")
+        _comm_table(exec_cfg, blocks_cfg, args, run_dtype)
     return 0
+
+
+def _comm_table(exec_cfg, blocks_cfg, args, run_dtype: str) -> None:
+    """The static comm/compute plan of a halo, staged or tensor-parallel
+    config (``parallel/breakdown.py``), as the JAX run prints it."""
+    from .parallel.breakdown import comm_compute_breakdown, format_table, tp_comm_compute_breakdown
+
+    dtype_bytes = 2 if run_dtype in ("bf16", "int8w") else 4
+    if exec_cfg.strategy in ("halo", "staged_halo"):
+        staged = exec_cfg.strategy == "staged_halo"
+        rows = comm_compute_breakdown(blocks_cfg, args.shards, batch=args.batch, dtype_bytes=dtype_bytes,
+                                      staged=staged)
+        print(format_table(rows, staged=staged))
+    elif exec_cfg.strategy == "tp":
+        rows = tp_comm_compute_breakdown(blocks_cfg, args.shards, batch=args.batch, dtype_bytes=dtype_bytes)
+        print(format_table(rows, transport="all_gather + channel-halo ppermute"))
 
 
 def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:

@@ -10,8 +10,9 @@ missing or fails, its field holds a note; collecting never raises.
 
 The JAX module's ``cpu_subprocess_env`` and ``force_virtual_cpu`` set XLA's
 virtual host devices for sharded runs on one host. The port has no
-counterpart until its sharded tiers run as ``gloo`` ranks (ROADMAP Queue 1
-item 3).
+counterpart and needs none: its mesh (``parallel/mesh.py``) places shard
+slots round-robin over the visible devices, several to a device where
+there are fewer devices than shards, the CPU included.
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.utils.env_info [--out env.json] [--no-devices]
 """

@@ -39,6 +39,9 @@ from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import metrics, ro
 from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import export, gate, health, replay
 from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import controller
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import env_info, probe, profiling
+from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import breakdown, halo, mesh, plan, replicated, sharded
+from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import tensor_parallel
+from cuda_mpi_gpu_cluster_programming_tpu_torch import native
 """
 
 _ENTRY_POINTS = {
@@ -63,6 +66,14 @@ bench.CONFIGS, bench.DEVICE, bench.BATCH, bench.REPEATS = ["v1_jit"], "cpu", 1, 
 assert bench._child() == 0
 assert run.main(["--config", "v3_pallas", "--device", "cpu", "--height", "45", "--width", "45",
                  "--repeats", "1", "--warmup", "1", "--breakdown"]) == 0
+""",
+    # the row-sharded tier through run --shards (4 shards on the CPU mesh) and the native shard planner (the
+    # replicated, tensor-parallel and breakdown modules are imported above)
+    "sharded": """
+assert run.main(["--config", "v5_collective", "--shards", "4", "--device", "cpu", "--height", "45", "--width", "45",
+                 "--repeats", "1", "--warmup", "1"]) == 0
+from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+assert native.make_shard_plan_native(BLOCKS12, 4) == plan.make_shard_plan(BLOCKS12, 4)
 """,
     # the inference service through run --serve, its HTTP front end and client fleet included
     "serve": """

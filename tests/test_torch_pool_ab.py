@@ -1,5 +1,6 @@
 """The port's pool A/B (``pool_ab.py``) and its space-to-depth pool against
-the JAX package's ``scripts/pool_ab.py``, on the CPU.
+the JAX package's ``scripts/pool_ab.py``, on the CPU. ``pool_ab.main`` and
+the wrapper's refusals are in ``tests/test_torch_pool_ab_main.py``.
 
 On the CPU ``ck.maxpool_s2d`` runs its plain PyTorch version (the CUDA
 kernel ``csrc/maxpool_s2d.cu`` runs only on the card, where
@@ -13,7 +14,6 @@ repacks only move and zero-fill them). bf16 is compared by its bits.
 """
 
 import importlib.util
-import json
 import re
 from pathlib import Path
 
@@ -34,7 +34,6 @@ _spec.loader.exec_module(jab)
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 # the JAX script's strategies, in its order (the keys of its ``strategies`` dict)
 JAX_ORDER = tuple(re.findall(r'^\s+"(\w+)": lambda', SCRIPT.read_text(), re.M))
-ROW_KEYS = {"strategy", "pool", "batch", "dtype", "ms_per_pass"}
 
 # name: ((N, H, W, C), window, stride)
 S2D_CASES = {
@@ -153,71 +152,3 @@ def test_pad_channels_bitwise_equals_jnp_pad(c, multiple):
 def test_pool_shapes_are_the_jax_scripts():
     assert pool_ab.POOL_SHAPES == jab.POOL_SHAPES
     assert JAX_ORDER == ("xla", "current", "phases", "s2d128", "sep2", "sep2p")
-
-
-def _run_main(capsys, *argv):
-    rc = pool_ab.main(["--device", "cpu", "--batch", "2", *argv])
-    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
-    return rc, rows
-
-
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("pool", sorted(pool_ab.POOL_SHAPES))
-def test_main_on_the_cpu_prints_six_rows_in_the_jax_schema(pool, dtype, capsys):
-    ck.reset_launches()
-    rc, rows = _run_main(capsys, "--pool", pool, "--dtype", dtype)
-    assert rc == 0
-    assert tuple(r["strategy"] for r in rows) == JAX_ORDER
-    for r in rows:
-        assert set(r) == ROW_KEYS, r
-        assert (r["pool"], r["batch"], r["dtype"]) == (pool, 2, dtype)
-        assert r["ms_per_pass"] > 0
-    assert all(n == 0 for n in ck.LAUNCHES.values())  # the CPU runs no kernel
-
-
-def test_a_wrong_strategy_exits_1_with_a_mismatch(capsys, monkeypatch):
-    real = ck.maxpool_s2d
-    monkeypatch.setattr(ck, "maxpool_s2d", lambda x, **kw: real(x, **kw) + 1)
-    rc, rows = _run_main(capsys, "--pool", "pool2")
-    assert rc == 1
-    assert [r["strategy"] for r in rows if r.get("mismatch")] == ["s2d128"]
-    assert all(r["mismatch"] is True for r in rows if "mismatch" in r)
-
-
-def test_a_strategy_that_raises_prints_an_error_row_and_exits_1(capsys, monkeypatch):
-    def boom(x, **kw):
-        raise RuntimeError("no such kernel")
-
-    monkeypatch.setattr(ck, "maxpool_phases", boom)
-    rc, rows = _run_main(capsys, "--pool", "pool2")
-    assert rc == 1 and len(rows) == 6
-    (err,) = [r for r in rows if "error" in r]
-    assert err["strategy"] == "current" and "no such kernel" in err["error"]
-    assert set(err) == {"strategy", "pool", "error"}
-
-
-def test_main_raises_without_a_gpu_unless_the_cpu_is_asked_for(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        pool_ab.main(["--batch", "2", "--pool", "pool2"])
-
-
-def test_the_cpu_wrapper_launches_nothing():
-    ck.reset_launches()
-    x = torch.randn((1, 9, 9, 20))
-    ck.maxpool_s2d(x, window=3, stride=2)
-    ck.maxpool_s2d_packed(ck.s2d_pool_operand(x, window=3, stride=2), 20, window=3, stride=2)
-    assert ck.LAUNCHES["maxpool_s2d"] == 0
-
-
-def test_bad_operands_raise():
-    with pytest.raises(TypeError):
-        ck.maxpool_s2d(torch.zeros((1, 9, 9, 4), dtype=torch.float64), window=3, stride=2)
-    with pytest.raises(ValueError, match="NHWC"):
-        ck.maxpool_s2d(torch.zeros((9, 9, 4)), window=3, stride=2)
-    with pytest.raises(ValueError, match="empty output"):
-        ck.maxpool_s2d(torch.zeros((1, 2, 2, 4)), window=3, stride=2)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        ck.maxpool_s2d_packed(torch.zeros((1, 5, 5, 4 * 96)), 96, window=3, stride=2)
-    with pytest.raises(ValueError, match="channels"):
-        ck.maxpool_s2d_packed(torch.zeros((1, 5, 5, 4 * 128)), 130, window=3, stride=2)

@@ -59,7 +59,7 @@ def test_v6_tiers_print_the_same_logits(capsys):
     for init in ("deterministic", "random"):
         np.testing.assert_allclose(outs["v6_full_pallas", init], outs["v6_full_jit", init], rtol=2e-5, atol=2e-4)
     assert len(set(outs["v6_full_jit", "random"][:5])) == 5
-    assert _port(capsys, "--list-configs")[1].count("v6_full_") == 2
+    assert _port(capsys, "--list-configs")[1].count("v6_full_") == 3  # jit, pallas and sharded
 
 
 def test_save_params_then_params_prints_the_same_first10(tmp_path, capsys):
@@ -117,8 +117,8 @@ def test_a_kernel_build_fault_degrades_only_with_the_flag(key, fallback, monkeyp
 
 @pytest.mark.parametrize("argv,why", [
     (["--config", "v6_full_pallas", "--fallback-chain", "v1_jit"], "crosses model families"),
-    (["--config", "v3_pallas", "--fallback-chain", "v2.2_sharded"], "unknown configs"),
-    (["--config", "v6_full_jit", "--shards", "2"], "item 3"),
+    (["--config", "v3_pallas", "--fallback-chain", "v2.3_missing"], "unknown configs"),
+    (["--config", "v7_tp", "--shards", "3"], "not divisible by 3 TP shards"),
     (["--config", "v3_pallas", "--supervise"], "item 8"),
     (["--config", "v3_pallas", "--serve", "--supervise"], "item 8"),
 ])
