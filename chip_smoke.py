@@ -6,6 +6,7 @@
     python3 chip_smoke.py --flash-rows   # only the flash and relu rows, phases 3b, 3c and the staged passes
     python3 chip_smoke.py --pool-rows    # only the pool and lrn rows and the staged and phases passes, from this checkout
     python3 chip_smoke.py --tiers        # only phase 3h, the staged-parallelism tiers
+    python3 chip_smoke.py --fleet        # only phase 3i, the serving fleet and the serving shard width
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
@@ -256,6 +257,30 @@ fails ends the run with a non-zero exit code and nothing is caught:
    conv2) and maxpool2d (pool1, pool2) on the windows 4 shards run, against
    their plain versions, timed (the kernels line's ``sharded`` entries).
    ``python3 chip_smoke.py --tiers`` runs this phase alone;
+   3i. the serving fleet (``serving/{fleet,router,fleet_controller}.py``) at
+   227x227: 3 ``v3_pallas`` fp32 backend processes at max_batch 8 on the one
+   card behind the router (each one's spawn s and ``nvidia-smi``
+   used_memory logged); a lone one-image request with ``return_output``
+   through the router to each backend (a rid homed on it): bitwise an
+   in-process server's bucket-1 result and within the fp32 budget of the
+   ``v1_jit`` oracle; the ``host_loss`` drill with ``CHAOS_SPEC=seed=1,
+   host_loss=1``: a 2 s window at 30 req/s, b1 SIGKILLed (its pid gone from
+   ``nvidia-smi`` where it was listed), a second window (requests served,
+   the router's books closed, b1 DOWN), the survivors' lone requests bitwise
+   their outputs before the kill, the restart re-admitted through
+   PROBATION as the router's journal shows, and ``recovery_ms``; each
+   backend's dispatch ms by bucket under the load (its journal) beside the
+   in-process dispatch alone; ``run.main --serve --route 3``: ``Route: ...
+   closed=True b0=up b1=up b2=up``; ``BENCH_MODE=route`` and
+   ``fleetcontrol`` with ``BENCH_CONFIG=v3_pallas`` at 227x227, max_batch 8:
+   no ``error``, the books closed (fleetcontrol: both sides, a silent calm
+   trace, fleet actions under the swell; its verdict printed, not required:
+   on the card the HTTP host path decides it); a ``v5_collective`` fp32 server at 2
+   and 4 shards under graphs: every result bitwise the eager sharded forward
+   and within the fp32 budget of ``v1_jit``, each bucket's graph conv2d 2N
+   and maxpool2d 2N kernel nodes and the planned halo collectives a replay,
+   and graph against eager dispatch ms. ``python3 chip_smoke.py --fleet``
+   runs this phase alone;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -277,7 +302,9 @@ nodes), in fp32 and bf16 (phase 3f) and in int8w (phase 3g: conv2d and maxpool2d
 the launches of the ladder's int8w drain), and the sharded path's (``path``
 ``sharded``): conv2d and maxpool2d summed over their stages on 4 shards'
 windows, with the launches of ``run --config v5_collective --shards 4``
-(phase 3h). Details of every
+(phase 3h), and the sharded serve path's (``path`` ``serve_sharded``):
+conv2d and maxpool2d at bucket 8 on the windows of 2 and 4 shards, fp32,
+with the launches of the sharded server's drained run (phase 3i). Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -4217,11 +4244,11 @@ def shard_stage_row(kernel, stage, wins, run, plain, library, flops, nbytes, pol
     return row
 
 
-def tier_kernel_rows(spec, peak_name) -> list:
+def tier_kernel_rows(spec, peak_name, n: int = TIER_KERNEL_N, batch: int = BATCH, pols=("fp32", "bf16")) -> list:
     """conv2d at conv1 and conv2 and maxpool2d at pool1 and pool2 on the
-    windows ``TIER_KERNEL_N`` shards run (VALID on H, padded on W; the
-    windows as ``parallel.sharded.shard_windows`` cuts them from the
-    previous layer's masked blocks), fp32 and bf16, batch 128."""
+    windows ``n`` shards run (VALID on H, padded on W; the windows as
+    ``parallel.sharded.shard_windows`` cuts them from the previous layer's
+    masked blocks), in each of ``pols``, at ``batch``."""
     import torch.nn.functional as F
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
@@ -4229,12 +4256,12 @@ def tier_kernel_rows(spec, peak_name) -> list:
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import reference as ops
     from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import plan, sharded
 
-    n = TIER_KERNEL_N
     lps = {lp.name: lp for lp in plan.make_shard_plan(BLOCKS12, n).layers}
     rows = []
-    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for pol in pols:
+        dtype = torch.float32 if pol == "fp32" else torch.bfloat16
         gen = torch.Generator(device="cuda").manual_seed(2026)
-        t = stage_inputs(dtype, gen)
+        t = stage_inputs(dtype, gen, batch)
         es = t["x"].element_size()
         b0 = lps["conv1"].b_in
         x = F.pad(t["x"], (0, 0, 0, 0, 0, n * b0 - t["x"].shape[1]))
@@ -4403,6 +4430,467 @@ def tier_kernels_entries(tiers) -> list:
     return entries
 
 
+# phase 3i, the serving fleet: N v3_pallas fp32 backend processes on the one card behind the router, the host_loss
+# victim (seed 1 % 3), the shard counts of the v5_collective server, and the router's knobs (the bench drill's)
+FLEET_N = 3
+FLEET_CONFIG = "v3_pallas"
+FLEET_CHAOS = "seed=1,host_loss=1"
+FLEET_RATE, FLEET_WINDOW_S = 30.0, 2.0
+FLEET_SHARDS = (2, 4)
+GOLDEN_REL = 2e-5  # the golden first-10's rtol: the main path's tolerance on the deterministic init
+
+
+def gpu_apps() -> dict:
+    """{pid: used MiB} of the compute processes ``nvidia-smi`` lists (empty
+    where the sandbox hides them), and the card's ``memory.used`` MiB."""
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60).stdout
+    used = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    pids = {}
+    for line in apps.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            pids[int(parts[0])] = int(parts[1])
+    return dict(pids=pids, card_mib=int(used[0]) if used and used[0].strip().isdigit() else None)
+
+
+def lone_request(router, index: int, x: np.ndarray) -> np.ndarray:
+    """One one-image request with ``return_output`` through the router, to a
+    rid whose crc32 home is backend ``index``: its (1, 13, 13, 256) output."""
+    import http.client
+
+    rid = next(f"lone{index}_{i}" for i in range(10_000) if router.home(f"lone{index}_{i}") == index)
+    body = json.dumps({"rid": rid, "class": "interactive", "deadline_s": 60.0, "shape": list(x.shape),
+                       "data": x.reshape(-1).tolist(), "return_output": True})
+    conn = http.client.HTTPConnection(router.host, router.port, timeout=120)
+    try:
+        conn.request("POST", "/v1/infer", body, {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        payload = json.loads(resp.read())
+    finally:
+        conn.close()
+    require(resp.status == 200 and payload.get("status") == "OK", f"lone request to b{index}: {resp.status} {payload}")
+    return np.asarray(payload["output"], np.float32).reshape(payload["output_shape"])
+
+
+def journal_dispatch_ms(path) -> dict:
+    """{bucket: median batch_ms} of a backend journal's ``serve_batch``
+    records: its dispatches' timed regions under the fleet's load."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+
+    by = {}
+    for r in Journal.load(path):
+        if r["kind"] == "serve_batch":
+            by.setdefault(int(r["bucket"]), []).append(float(r["batch_ms"]))
+    return {b: dict(median_ms=statistics.median(v), n=len(v)) for b, v in sorted(by.items())}
+
+
+def fleet_bench_calls(out_dir) -> dict:
+    """``BENCH_MODE=route`` and ``fleetcontrol`` on ``FLEET_CONFIG`` at
+    227x227, max_batch 8, through ``python -m``, each one row with no
+    ``error``. route exits 0 with its books closed, the victim ``b0`` and a
+    recovery. fleetcontrol runs at the JAX bench's defaults and exits 0
+    (``ok``) or 3 (a failed clause, named in ``failures``) with both sides'
+    books closed and no fleet action on the calm trace; ``ok`` is printed,
+    not required: on the card the host's HTTP path bounds the fleet, no
+    backend's own queue sees the swell, and the verdict fails (an open
+    failure, ROADMAP Queue 3 item 10)."""
+    res = {}
+    for mode, knobs in (("route", dict(BENCH_ROUTE_HEIGHT="227", BENCH_ROUTE_WIDTH="227", BENCH_ROUTE_MAX_BATCH="8",
+                                       BENCH_ROUTE_JOURNAL=str(out_dir / "bench_route"))),
+                        ("fleetcontrol", dict(BENCH_FLEETCTL_HEIGHT="227", BENCH_FLEETCTL_WIDTH="227",
+                                              BENCH_FLEETCTL_MAX_BATCH="8",
+                                              BENCH_FLEETCTL_JOURNAL=str(out_dir / "bench_fleetctl")))):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("BENCH_", "TPU_FRAMEWORK_")) and k != "CHAOS_SPEC"}
+        env.update(BENCH_MODE=mode, BENCH_CONFIG=FLEET_CONFIG, **knobs)
+        t_call = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
+                              timeout=600)
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        log(f"bench {mode} ({time.perf_counter() - t_call:.1f} s, rc {proc.returncode}): {rows}")
+        require(proc.returncode in ((0,) if mode == "route" else (0, 3)) and len(rows) == 1
+                and "error" not in rows[0] and rows[0]["platform"] == "gpu",
+                f"bench {mode}: rc {proc.returncode} rows {rows}\n{proc.stderr[-3000:]}")
+        row = rows[0]
+        if mode == "route":
+            require(row["accounting_closed"] is True and row["killed"] == "b0" and (row["recovery_ms"] or 0) > 0
+                    and row["backends"] == {f"b{i}": "up" for i in range(FLEET_N)}, f"bench route row: {row}")
+        else:
+            require(row["accounting_closed"] == {"on": True, "off": True} and row["calm_actions"] == 0
+                    and (proc.returncode == 0) == row["ok"], f"bench fleetcontrol row: {row}")
+            log(f"bench fleetcontrol verdict: ok={row['ok']}{'' if row['ok'] else ' OPEN FAILURE (ROADMAP Queue 3 item 10)'}"
+                f" failures={row['failures']} max_degraded {row['max_degraded']} burn {row['burn_protected']} "
+                f"fleet actions {row['fleet_actions']} capacity {row['capacity_rps']} req/s")
+        res[mode] = row
+    return res
+
+
+def sharded_serve(params, xs, n: int, out_dir) -> dict:
+    """A ``v5_collective`` fp32 server at ``n`` shards under graphs: the
+    drained stream's results bitwise the eager sharded forward on each padded
+    bucket; each bucket's graph holds conv2d 2n and maxpool2d 2n kernel nodes
+    (no lrn: the sharded tiers run the reference LRN) and no library conv,
+    its capture counted those and the halo collectives of
+    ``breakdown.expected_collectives``; the drained run's counters, set to 0
+    just before it and read just after, are the sum over its dispatches."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import breakdown, halo
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.server import InferenceServer, ServeConfig
+
+    name = f"v5_collective/n{n}"
+    journal = out_dir / f"serve_v5_n{n}.jsonl"
+    journal.unlink(missing_ok=True)
+    srv = InferenceServer(ServeConfig(config="v5_collective", n_shards=n, max_batch=SERVE_MAX_BATCH,
+                                      journal_path=str(journal)), params=params)
+    with knob_env({}):
+        srv.run_until_drained()  # builds, then captures every bucket's sharded forward
+    handles = [srv.submit(x) for x in xs]
+    ck.reset_launches()
+    halo.reset_collectives()
+    srv.run_until_drained()
+    launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+    collectives = {k: v for k, v in halo.COLLECTIVES.items() if v}
+    require([h.status for h in handles] == ["OK"] * len(xs) and srv.stats.cache_misses == 0,
+            f"serve {name}: {srv.summary()} {[h.error for h in handles]}")
+    batches = [r for r in Journal.load(journal) if r["kind"] == "serve_batch"]
+    pending = list(zip(xs, handles))
+    for rec in batches:
+        mine = [pending.pop(0) for _ in range(rec["n_requests"])]
+        padded = np.concatenate([x for x, _h in mine] + [np.zeros((rec["pad"], 227, 227, 3), np.float32)])
+        eager = srv._fwd(params, torch.from_numpy(padded).cuda()).cpu().numpy()
+        off = 0
+        for x, h in mine:
+            require(np.array_equal(h.result, eager[off : off + len(x)]),
+                    f"serve {name}: bucket {rec['bucket']} differs from the eager sharded forward")
+            off += len(x)
+    require(not pending, f"serve {name}: {len(pending)} requests in no serve_batch record")
+    want_k = dict(conv2d=2 * n, maxpool2d=2 * n)
+    want_c = {"ppermute": breakdown.expected_collectives(BLOCKS12, n, staged=False)}
+    nodes = {}
+    for bucket in srv.buckets:
+        names = graph_kernel_nodes(srv._graphs.dump(bucket, out_dir / f"serve_v5_n{n}_graph_{bucket}.dot"))
+        nodes[bucket] = {k: sum(SERVE_MARKERS[k] in nm for nm in names) for k in SERVE_MARKERS}
+        foreign = [nm for nm in names if not any(m in nm for m in SERVE_MARKERS.values())
+                   and any(m in nm.lower() for m in LIBRARY_CONV_MARKS)]
+        got_k, got_c = srv._graphs.kernels(bucket), srv._graphs.collectives(bucket)
+        log(f"serve {name} bucket {bucket}: graph kernel nodes {nodes[bucket]} of {len(names)}; capture counted "
+            f"{got_k} collectives {got_c}")
+        require(nodes[bucket] == dict(want_k, lrn=0) and got_k == want_k and got_c == want_c,
+                f"serve {name} bucket {bucket}: nodes {nodes[bucket]}, counted {got_k} {got_c}, want {want_k} "
+                f"{want_c}")
+        require(not foreign, f"serve {name} bucket {bucket}: a library conv in the graph: {foreign}")
+    dispatches = len(batches)
+    require(launches == {k: v * dispatches for k, v in want_k.items()}
+            and collectives == {k: v * dispatches for k, v in want_c.items()},
+            f"serve {name}: the drained run counted {launches} {collectives} over {dispatches} dispatches")
+    dispatch = {}
+    xb = xs[SERVE_SIZES.index(SERVE_MAX_BATCH)]
+    for bucket in (1, SERVE_MAX_BATCH):
+        dispatch[bucket] = d = dispatch_times(srv, bucket, xb[:bucket], per_dispatch=want_k)
+        log(f"serve {name} dispatch bucket {bucket}: graph {d['graph_ms']:.4f} ms, eager {d['eager_ms']:.4f} ms "
+            f"(x{d['speedup']:.2f}); device graph {_fmt(d['graph_device_ms'])}, eager {_fmt(d['eager_device_ms'])}")
+    results = np.concatenate([h.result for h in handles])
+    srv.close()
+    return dict(launches=launches, collectives=collectives, dispatches=dispatches, graph_nodes=nodes,
+                batches=entry_batches(batches), dispatch=dispatch, results=results)
+
+
+STAGE_ROUTES = ("kernels", "plain", "library")
+
+
+def stage_errors(params, x: np.ndarray) -> dict:
+    """Where the fp32 kernels' distance from float64 on the deterministic init
+    comes from: each stage of ``v3_pallas``'s default staged route (conv1,
+    pool1, conv2, pool2, lrn2) on one input, for the kernels, their plain
+    versions and the library ops (``v1_jit``), against the same stage in
+    float64 on the card, as a share of that stage's float64 max. ``own``: the
+    stage fed the float64 chain's input to it rounded to fp32 (its own
+    rounding alone); ``chain``: the fp32 chain up to and including it."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, ConvSpec, PoolSpec
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import kernel_model as km
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import reference as rops
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops.variants import KernelVariants
+
+    v = KernelVariants()
+
+    def step(route, name, spec, p, h):
+        if isinstance(spec, ConvSpec):
+            w, b, kw = p[name]["w"], p[name]["b"], dict(stride=spec.stride, padding=spec.padding)
+            if route == "kernels":
+                return km.conv(h, w, b, relu=True, variant=v.conv, k_block=v.k_block, **kw)
+            if route == "plain":
+                return ck.conv2d_bias_relu_plain(h, w, b, **kw)
+            return rops.relu(rops.conv2d(h, w, b, **kw))
+        if isinstance(spec, PoolSpec):
+            kw = dict(window=spec.window, stride=spec.stride)
+            if route == "kernels":
+                return km.pool(h, variant=v.pool, **kw)
+            return ck.maxpool2d_plain(h, **kw) if route == "plain" else rops.relu_maxpool(h, **kw)
+        kw = dict(size=spec.size, alpha=spec.alpha, beta=spec.beta, k=spec.k, alpha_over_size=spec.alpha_over_size)
+        return {"kernels": ck.lrn, "plain": ck.lrn_plain}.get(route, rops.lrn)(h, **kw)
+
+    p64 = {k: {kk: vv.double() for kk, vv in val.items()} for k, val in params.items()}
+    res = {}
+    with torch.inference_mode():
+        h64 = torch.from_numpy(x).cuda().double()
+        chains = dict.fromkeys(STAGE_ROUTES, h64.float().contiguous())
+        for name, spec in BLOCKS12.layer_chain():
+            out64 = step("library", name, spec, p64, h64)
+            top = float(out64.abs().max())
+            res[name] = {}
+            for r in STAGE_ROUTES:
+                own = step(r, name, spec, params, h64.float().contiguous())
+                chains[r] = step(r, name, spec, params, chains[r])
+                res[name][r] = dict(own=float((own.double() - out64).abs().max()) / top,
+                                    chain=float((chains[r].double() - out64).abs().max()) / top)
+            h64 = out64
+    return res
+
+
+def fleet_phase(spec, peak_name) -> dict:
+    """Phase 3i: the serving fleet on the one card at 227x227, and the serving shard width."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.export import load_records
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.batcher import power_of_two_buckets
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.fleet import BackendFleet, maybe_host_loss
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.frontend import http_fleet_load
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.router import DOWN, PROBATION, UP, FleetRouter, drill_config
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.server import InferenceServer, ServeConfig
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.traffic import default_class_mix
+
+    t0 = time.perf_counter()
+    out_dir = Path("chip_smoke_out") / "fleet"
+    if out_dir.exists():
+        import shutil
+
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    result = {}
+    rng = np.random.default_rng(2028)
+    lone_x = [rng.random((1, 227, 227, 3), dtype=np.float32) for _ in range(FLEET_N)]
+    # what each lone request must give: an in-process v3_pallas server's bucket-1 result (the backends' params:
+    # the deterministic init), within GOLDEN_REL of the max of the reference forward evaluated in float64 (the
+    # main path's tolerance on this init). The v1_jit fp32 forward (cuDNN) is read against both, and the gate's
+    # fp32 budget against it is printed, not required: on this init every conv term is positive and the kernels
+    # land past it (ROADMAP Queue 3 item 9; stage_errors says which stage)
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, forward_blocks12
+
+    with knob_env({}):
+        ref = InferenceServer(ServeConfig(config=FLEET_CONFIG, max_batch=SERVE_MAX_BATCH))
+        ref.run_until_drained()
+        handles = [ref.submit(x) for x in lone_x]
+        ref.run_until_drained()
+        want = [h.result for h in handles]
+        oracle_fwd = configs.build_forward(configs.REGISTRY["v1_jit"])
+        params = init.init_params_deterministic(device="cuda")
+        cudnn = [oracle_fwd(params, torch.from_numpy(x).cuda()).cpu().numpy() for x in lone_x]
+        p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
+        with torch.inference_mode():
+            oracle = [forward_blocks12(p64, torch.from_numpy(x).cuda().double(), BLOCKS12).cpu().numpy()
+                      for x in lone_x]
+        in_process = {b: dispatch_times(ref, b, np.concatenate(lone_x * 3)[:b]) for b in (1, 2)}
+        ref.close()
+        result["stage_errors"] = stages = [stage_errors(params, x) for x in lone_x]
+    for name in stages[0]:
+        log(f"fleet: {name} against float64, share of its max over the {FLEET_N} lone inputs (own rounding, "
+            "carried chain): " + "; ".join(
+                f"{r} {max(s[name][r]['own'] for s in stages):.3g}, {max(s[name][r]['chain'] for s in stages):.3g}"
+                for r in STAGE_ROUTES))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_parent = gpu_apps()  # the parent's own context, before the fleet
+    for b, d in in_process.items():
+        log(f"fleet: in-process {FLEET_CONFIG} dispatch bucket {b} alone: graph {d['graph_ms']:.4f} ms")
+    result["in_process_dispatch"] = in_process
+    os.environ[chaos.CHAOS_ENV] = FLEET_CHAOS  # this process alone: the fleet drops it from its children
+    chaos.reset()
+    fleet = BackendFleet(FLEET_N, out_dir, height=227, width=227, max_batch=SERVE_MAX_BATCH, config=FLEET_CONFIG)
+    router = None
+    try:
+        t_start = time.perf_counter()
+        fleet.start()
+        result["start_s"] = time.perf_counter() - t_start
+        mem = gpu_apps()
+        result["spawn_s"] = {b.name: b.spawn_s for b in fleet.backends}
+        per_backend = (mem["card_mib"] - mem_parent["card_mib"]) / FLEET_N
+        result["memory"] = dict(parent_before=mem_parent, after_warmup=mem, per_backend_mib=per_backend,
+                                by_pid={b.name: mem["pids"].get(b.pid) for b in fleet.backends})
+        log(f"fleet: {FLEET_N} {FLEET_CONFIG} backends up in {result['start_s']:.1f} s; spawn s "
+            f"{ {k: round(v, 2) for k, v in result['spawn_s'].items()} }; card memory.used {mem_parent['card_mib']} "
+            f"-> {mem['card_mib']} MiB: {per_backend:.0f} MiB a backend; used_memory by pid "
+            f"{result['memory']['by_pid']} (nvidia-smi lists {mem['pids']}: the sandbox's pid namespace)")
+        router = FleetRouter(fleet.urls(), drill_config(str(out_dir / "router.jsonl"))).start()
+        before = [lone_request(router, i, x) for i, x in enumerate(lone_x)]
+        result["lone"] = {}
+        for i, (got, w, o, c) in enumerate(zip(before, want, oracle, cudnn)):
+            err, cerr, kc = (float(np.abs(a - b).max()) for a, b in ((got, o), (c, o), (got, c)))
+            omax, cmax = float(np.abs(o).max()), float(np.abs(c).max())
+            in_budget = kc <= FP32_ABS and kc / cmax <= FP32_REL
+            log(f"fleet: b{i}'s lone request bitwise the in-process server: {np.array_equal(got, w)}; against the "
+                f"float64 reference max_abs={err:.3g} rel_of_max={err / omax:.3g} (v1_jit fp32, cuDNN: "
+                f"{cerr:.3g}, {cerr / omax:.3g}); against v1_jit fp32 {kc:.3g}, {kc / cmax:.3g}: the fp32 budget "
+                f"({FP32_ABS}, {FP32_REL} of the max) {'holds' if in_budget else 'OPEN FAILURE (ROADMAP Queue 3 item 9)'}")
+            require(np.array_equal(got, w), f"b{i}'s output differs from the in-process {FLEET_CONFIG} server's")
+            require(err / omax <= GOLDEN_REL, f"b{i}'s output farther than {GOLDEN_REL} of the max from float64")
+            result["lone"][f"b{i}"] = dict(vs_float64=err, v1_jit_vs_float64=cerr, vs_v1_jit=kc, max=omax,
+                                           v1_jit_budget_holds=in_budget)
+        mix = list(default_class_mix(power_of_two_buckets(SERVE_MAX_BATCH)))
+        pre = http_fleet_load(router.url, (227, 227, 3), shape="steady", rate_rps=FLEET_RATE,
+                              duration_s=FLEET_WINDOW_S, classes=mix, seed=0)
+        log(f"fleet pre-loss window: {pre.summary()}")
+        require(pre.n_ok > 0 and pre.n_failed == 0, f"fleet pre-loss window: {pre.summary()}")
+        result["b0_metrics_batch_ms"] = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r'^serve_batch_ms\{quantile="([0-9.]+)"\} (\S+)$', http_text(fleet.backends[0].url + "/metrics"), re.M)}
+        victim = fleet.backends[1]
+        victim_pid = victim.pid
+        t_kill = time.monotonic()
+        killed = maybe_host_loss(fleet)
+        require(killed == 1 and not victim.alive, f"host_loss killed {killed}")
+        freed_by = time.monotonic() + 10.0  # CUDA reclaims a reaped process's context
+        while True:
+            mem_killed = gpu_apps()
+            freed = mem["card_mib"] - mem_killed["card_mib"]
+            if freed >= 0.5 * per_backend or time.monotonic() > freed_by:
+                break
+            time.sleep(0.1)
+        listed = victim_pid in mem["pids"]
+        log(f"fleet: SIGKILLed b1 (pid {victim_pid}); card memory.used {mem['card_mib']} -> {mem_killed['card_mib']} "
+            f"MiB ({freed} MiB back in {(time.monotonic() - t_kill) * 1e3:.0f} ms); its pid listed before: {listed}, "
+            f"after: {victim_pid in mem_killed['pids']}")
+        require(freed >= 0.5 * per_backend, f"b1's memory was not given back: {mem['card_mib']} -> "
+                f"{mem_killed['card_mib']} MiB, {per_backend:.0f} MiB a backend")
+        require(not listed or victim_pid not in mem_killed["pids"], f"b1's pid {victim_pid} still holds the card")
+        post = http_fleet_load(router.url, (227, 227, 3), shape="steady", rate_rps=FLEET_RATE,
+                               duration_s=FLEET_WINDOW_S, classes=mix, seed=1)
+        log(f"fleet post-loss window: {post.summary()}")
+        rrep = router.report()
+        require(post.n_ok > 0 and rrep.closed, f"fleet post-loss: {post.summary()} | {rrep.summary()}")
+        require(router.backend_states()["b1"] == DOWN, f"b1 is {router.backend_states()['b1']} after the kill")
+        for i in (0, 2):
+            got = lone_request(router, i, lone_x[i])
+            require(np.array_equal(got, before[i]), f"survivor b{i}'s output moved after the kill")
+        t_restart = time.monotonic()
+        router.replace_backend(1, fleet.restart(1))
+        restart_spawn_s = fleet.backends[1].spawn_s
+        saw_probation, deadline = False, time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            st = router.backend_states()["b1"]
+            saw_probation = saw_probation or st == PROBATION
+            if st == UP:
+                break
+            time.sleep(0.02)
+        t_up = time.monotonic()
+        require(router.backend_states()["b1"] == UP and saw_probation, f"b1 did not re-admit through probation")
+        recovery_ms = (t_up - t_kill) * 1e3
+        mem_restarted = gpu_apps()
+        got = lone_request(router, 1, lone_x[1])
+        require(np.array_equal(got, before[1]), "the replacement b1's output differs from the first b1's")
+        router.stop()
+        states = [r for r in load_records(out_dir) if r["kind"] == "router_backend_state" and r["backend"] == "b1"]
+        moves = [(r["frm"], r["to"], r["reason"]) for r in states]
+        require([m[1] for m in moves if m[0] != m[1]][:3] == [DOWN, PROBATION, UP]
+                and any(m[2] == "endpoint_replaced" for m in moves), f"b1's router journal: {moves}")
+        readmit = next(r for r in states if r["reason"] == "readmit")
+        result["drill"] = dict(
+            pre=dict(summary=pre.summary(), img_s=pre.sustained_img_s, n_ok=pre.n_ok),
+            post=dict(summary=post.summary(), img_s=post.sustained_img_s, n_ok=post.n_ok),
+            router=rrep.summary(), redirects=rrep.redirects, unroutable=rrep.n_unroutable,
+            recovery_ms=recovery_ms, kill_to_restart_ms=(t_restart - t_kill) * 1e3,
+            restart_spawn_s=restart_spawn_s, probation_ms=readmit["probation_ms"],
+            readmit_to_up_ms=(t_up - t_restart) * 1e3 - restart_spawn_s * 1e3,
+            transitions=moves, memory_killed=mem_killed, memory_restarted=mem_restarted,
+        )
+        log(f"fleet: b1 re-admitted through probation {moves}; recovery_ms={recovery_ms:.1f} (kill -> restart "
+            f"{(t_restart - t_kill) * 1e3:.1f} ms: the post window; replacement's spawn {restart_spawn_s:.2f} s; "
+            f"probation {readmit['probation_ms']} ms); redirects {rrep.redirects}, unroutable {rrep.n_unroutable}")
+        result["dispatch_under_load"] = {b.name: journal_dispatch_ms(b.journal_path) for b in fleet.backends}
+        log(f"fleet: dispatch ms by bucket under the fleet's load (backend journals): {result['dispatch_under_load']}"
+            f"; b0 /metrics serve.batch_ms {result['b0_metrics_batch_ms']}")
+    finally:
+        if router is not None:
+            router.stop()
+        fleet.stop()
+        os.environ.pop(chaos.CHAOS_ENV, None)
+        chaos.reset()
+    os.environ[chaos.CHAOS_ENV] = FLEET_CHAOS  # the CLI's drill: its timer SIGKILLs b1 mid-window under load
+    try:
+        text = run_cli(["--config", FLEET_CONFIG, "--serve", "--route", str(FLEET_N), "--serve-rate", str(FLEET_RATE),
+                        "--route-dir", str(out_dir / "run_route")])
+    finally:
+        os.environ.pop(chaos.CHAOS_ENV, None)
+        chaos.reset()
+    route_line = re.search(r"^Route: .*$", text, re.M)
+    require("Route host loss: killed=b1 (chaos host_loss)" in text
+            and re.search(r"^Route recovery: killed=b1 ms=[1-9][0-9]*$", text, re.M) is not None
+            and route_line is not None and "closed=True" in route_line.group(0)
+            and " ".join(f"b{i}=up" for i in range(FLEET_N)) in route_line.group(0), f"run --route:\n{text}")
+    log("run.main --serve --route 3 with host_loss: " + " | ".join(line for line in text.splitlines()
+                                                                   if line.startswith("Route")))
+    result["run_route"] = dict(text=text, redirects=int(re.search(r" redirects=([0-9]+) ", route_line.group(0))[1]),
+                               recovery_ms=int(re.search(r"^Route recovery: killed=b1 ms=([0-9]+)$", text, re.M)[1]))
+    result["bench"] = fleet_bench_calls(out_dir)
+    params, xs = serve_inputs()
+    result["sharded"] = {}
+    with knob_env({}):
+        oracle = configs.build_forward(configs.REGISTRY["v1_jit"])
+        want = np.concatenate([oracle(params, torch.from_numpy(x).cuda()).cpu().numpy() for x in xs])
+    for n in FLEET_SHARDS:
+        res = sharded_serve(params, xs, n, out_dir)
+        err = float(np.abs(res.pop("results") - want).max())
+        wmax = float(np.abs(want).max())
+        log(f"serve v5_collective/n{n} vs v1_jit fp32: max_abs={err:.3g} rel_of_max={err / wmax:.3g}")
+        require(err <= FP32_ABS and err / wmax <= FP32_REL, f"serve v5_collective/n{n} outside the fp32 budget")
+        result["sharded"][n] = dict(res, max_abs=err)
+    result["rows8"] = {n: tier_kernel_rows(spec, peak_name, n=n, batch=SERVE_MAX_BATCH, pols=("fp32",))
+                       for n in FLEET_SHARDS}
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3i took {result['seconds']:.1f} s")
+    return result
+
+
+def http_text(url: str) -> str:
+    """The body of ``GET url`` as text."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.read().decode()
+
+
+def fleet_kernels_entries(fleet) -> list:
+    """The ``kernels`` line's entries of the sharded serve path, one per
+    (kernel, shard count), fp32: times summed over the kernel's stages on
+    the windows n shards run at bucket 8, launches from the drained run of
+    the ``v5_collective`` server at n shards (counted at its replays, held
+    to the graphs' kernel nodes)."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol", "windows")
+    entries = []
+    for name in ("conv2d", "maxpool2d"):
+        source, replaces, stages, _route = KERNELS[name]
+        for n in FLEET_SHARDS:
+            mine = [r for r in fleet["rows8"][n] if r["kernel"] == name]
+            require([r["stage"] for r in mine] == list(stages), f"serve_sharded {name} n{n}: stages {mine}")
+            srv = fleet["sharded"][n]
+            entries.append(dict(
+                name=name, dtype="fp32", route="cuda", source=source, replaces=replaces, path="serve_sharded",
+                run=f"serve v5_collective/fp32 at {n} shards (max_batch {SERVE_MAX_BATCH}, request sizes {SERVE_SIZES})",
+                launches=srv["launches"][name], launches_per_dispatch=srv["graph_nodes"][SERVE_MAX_BATCH][name],
+                dispatches=srv["dispatches"], shards=n, batch=SERVE_MAX_BATCH,
+                max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+                ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+                bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=sum(r["library_ms"] for r in mine),
+                stages={r["stage"]: {k: r[k] for k in keys if k in r} for r in mine},
+            ))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -4467,6 +4955,14 @@ def main() -> int:
         tiers = tiers_phase(spec, peak_name)
         print(json.dumps(dict(device=kind, nvidia_smi=smi, tiers=tiers, kernels=tier_kernels_entries(tiers)),
                          default=lambda o: o.tolist() if isinstance(o, torch.Tensor) else str(o)), flush=True)
+        return 0
+    if sys.argv[1:] == ["--fleet"]:
+        # phase 3i alone, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        fleet = fleet_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, fleet=fleet, kernels=fleet_kernels_entries(fleet)),
+                         default=str), flush=True)
         return 0
     if sys.argv[1:] == ["--record"]:
         # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_BWD_WIDE_SHA256,
@@ -4540,6 +5036,10 @@ def main() -> int:
     log("phase 3h: every tier within budget of the single-device oracle at every shard count; v4_hybrid and "
         "v5_collective bitwise one another at every shard count; conv2d and maxpool2d 2N a forward, lrn 0; "
         "collectives as planned; run --shards 4 printed the golden and the placement")
+    fleet = fleet_phase(spec, peak_name)
+    log("phase 3i: 3 v3_pallas backend processes shared the card, each bitwise the in-process server; host_loss "
+        "killed b1, the survivors served unchanged, the replacement re-admitted through probation; run --route "
+        "killed b1 mid-window and re-admitted it; bench route and fleetcontrol ran; the v5_collective server at 2 and 4 shards replayed its graphs bitwise")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
@@ -4551,6 +5051,7 @@ def main() -> int:
     line["kernels"] += serve_kernels_entries(serve)
     line["kernels"] += control_kernels_entries(control)
     line["kernels"] += tier_kernels_entries(tiers)
+    line["kernels"] += fleet_kernels_entries(fleet)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -4560,7 +5061,7 @@ def main() -> int:
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
              v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
-             tiers=tiers, tune=tune,
+             tiers=tiers, fleet=fleet, tune=tune,
              v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))

@@ -65,8 +65,12 @@ names each in its ``skipped`` sub-object. ``BENCH_MODE=replay``,
 ``control`` and ``gate`` are the JAX bench's journal replay, serving
 controller drill and regression gate (:func:`_replay_main`,
 :func:`_control_main`, :func:`_gate_main`); each prints one row and exits
-3 when its verdict fails. The route and fleetcontrol modes wait for item
-1's third step (the fleet router and its controller).
+3 when its verdict fails. ``BENCH_MODE=route`` and ``fleetcontrol`` are
+the JAX bench's fleet drills (:func:`_route_main`: the host-loss drill
+over N backend processes behind the router; :func:`_fleetcontrol_main`:
+the fleet controller's A/B under a correlated swell, exit 3 on a failed
+clause), with backends of ``BENCH_CONFIG`` (``v1_jit`` by default, as the
+JAX package's always are) on ``BENCH_DEVICE``.
 
 The JAX bench attaches the last committed row (``perf/bench_latest.json``,
 taken on a TPU) to an error row as ``last_good``, and asks for a
@@ -74,6 +78,7 @@ continuity batch from it. The port does neither: no number taken on a TPU
 enters a port row.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -87,10 +92,11 @@ SATURATE_METRIC = "alexnet_blocks12_serve_saturation"
 REPLAY_METRIC = "alexnet_blocks12_serve_replay"
 GATE_METRIC = "alexnet_blocks12_bench_gate"
 CONTROL_METRIC = "alexnet_blocks12_serve_autopilot"
+ROUTE_METRIC = "alexnet_blocks12_route_host_loss"
+FLEETCONTROL_METRIC = "alexnet_blocks12_fleet_control"
 PACKAGE = __package__  # the child runs ``python -m <PACKAGE>.bench``
 
 MODE = os.environ.get("BENCH_MODE", "measure")
-LATER_MODES = ("route", "fleetcontrol")
 CONFIG = os.environ.get("BENCH_CONFIG", "v1_jit")
 CONFIGS = [c.strip() for c in os.environ.get("BENCH_CONFIGS", "").split(",") if c.strip()] or [CONFIG]
 PLAN_PATH = os.environ.get("BENCH_PLAN", "")
@@ -370,9 +376,9 @@ def _build_library(config: str) -> None:
 def _serve_main() -> int:
     """BENCH_MODE=serve: one JSON row for a journaled Poisson serve run.
 
-    Knobs (environment), the JAX bench's but BENCH_SERVE_SHARDS (one shard;
-    more wait for item 3): BENCH_SERVE_CONFIG (BENCH_CONFIG), BENCH_SERVE_RATE (50
-    req/s), BENCH_SERVE_DURATION (3 s), BENCH_SERVE_MAX_BATCH (8),
+    Knobs (environment), the JAX bench's: BENCH_SERVE_CONFIG (BENCH_CONFIG),
+    BENCH_SERVE_SHARDS (1: a sharded config's shard slots, all on the card),
+    BENCH_SERVE_RATE (50 req/s), BENCH_SERVE_DURATION (3 s), BENCH_SERVE_MAX_BATCH (8),
     BENCH_SERVE_DEADLINE_S (30), BENCH_SERVE_SUPERVISE (0 here; 1 gives an
     error row naming item 8), BENCH_SERVE_JOURNAL (a temp file),
     BENCH_SERVE_HEIGHT/WIDTH (227), BENCH_SERVE_SEED (0). Always exactly one
@@ -400,6 +406,7 @@ def _serve_main() -> int:
         rate = float(os.environ.get("BENCH_SERVE_RATE", "50"))
         scfg = ServeConfig(
             config=os.environ.get("BENCH_SERVE_CONFIG", CONFIG),
+            n_shards=int(os.environ.get("BENCH_SERVE_SHARDS", "1")),
             compute=DTYPE,
             max_batch=int(os.environ.get("BENCH_SERVE_MAX_BATCH", "8")),
             plan_path=PLAN_PATH,
@@ -513,6 +520,7 @@ def _saturate_main() -> int:
         seed = int(os.environ.get("BENCH_SERVE_SEED", "0"))
         scfg = ServeConfig(
             config=os.environ.get("BENCH_SERVE_CONFIG", CONFIG),
+            n_shards=int(os.environ.get("BENCH_SERVE_SHARDS", "1")),
             compute=DTYPE,
             max_batch=int(os.environ.get("BENCH_SERVE_MAX_BATCH", "8")),
             plan_path=PLAN_PATH,
@@ -808,6 +816,339 @@ def _gate_main() -> int:
     return 0 if verdict.ok else 3
 
 
+HEALTH_SKIPPED = {"health": SERVE_SKIPPED["health"]}
+
+
+@contextlib.contextmanager
+def _chaos_armed(spec: str):
+    """``CHAOS_SPEC=spec`` in this process alone for the block (the fleet
+    drops it from its children's environment), restored after."""
+    from .resilience import chaos
+
+    prev = os.environ.get(chaos.CHAOS_ENV)
+    if spec:
+        os.environ[chaos.CHAOS_ENV] = spec
+    chaos.reset()
+    try:
+        yield
+    finally:
+        if spec:
+            if prev is None:
+                os.environ.pop(chaos.CHAOS_ENV, None)
+            else:
+                os.environ[chaos.CHAOS_ENV] = prev
+        chaos.reset()
+
+
+def _route_main() -> int:
+    """BENCH_MODE=route: one JSON row for the fleet router's host-loss
+    drill. N backend serving processes of BENCH_CONFIG on BENCH_DEVICE
+    behind ``serving.router.FleetRouter``: a load window before the loss,
+    the seeded backend SIGKILLed between windows (chaos ``host_loss``, armed
+    in this process alone), a window after it riding retry-with-redirect,
+    then the restart and its re-admission through probation. The row
+    carries the img/s before and after the loss, redirects, unroutable
+    requests, ``recovery_ms`` (kill to the replacement's readmission) and
+    the router's per-class accounting; ``health`` is null (the journal's
+    health fold waits for ROADMAP Queue 1 item 8, named in ``skipped``).
+
+    Knobs (environment), the JAX bench's: BENCH_ROUTE_N (3),
+    BENCH_ROUTE_RATE (30 req/s), BENCH_ROUTE_DURATION (2 s a window),
+    BENCH_ROUTE_HEIGHT/WIDTH (63), BENCH_ROUTE_MAX_BATCH (4),
+    BENCH_ROUTE_SEED (0), BENCH_ROUTE_JOURNAL (a temp dir),
+    BENCH_ROUTE_CHAOS (seed=<seed>,host_loss=1; "" measures steady routing
+    with no kill), BENCH_CONFIG, BENCH_DEVICE. Always exactly one JSON line,
+    exit 0."""
+    import tempfile
+    from pathlib import Path
+
+    platform, why = _serve_platform()
+    if platform is None:
+        return _serve_error(ROUTE_METRIC, why)
+    try:
+        from .serving.batcher import power_of_two_buckets
+        from .serving.fleet import BackendFleet, maybe_host_loss
+        from .serving.frontend import http_fleet_load
+        from .serving.router import UP, FleetRouter, drill_config
+        from .serving.traffic import default_class_mix
+
+        n = int(os.environ.get("BENCH_ROUTE_N", "3"))
+        rate = float(os.environ.get("BENCH_ROUTE_RATE", "30"))
+        duration = float(os.environ.get("BENCH_ROUTE_DURATION", "2"))
+        height = int(os.environ.get("BENCH_ROUTE_HEIGHT", "63"))
+        width = int(os.environ.get("BENCH_ROUTE_WIDTH", "63"))
+        max_batch = int(os.environ.get("BENCH_ROUTE_MAX_BATCH", "4"))
+        seed = int(os.environ.get("BENCH_ROUTE_SEED", "0"))
+        journal_dir = Path(os.environ.get("BENCH_ROUTE_JOURNAL") or tempfile.mkdtemp(prefix="route_bench_"))
+        journal_dir.mkdir(parents=True, exist_ok=True)
+        spec = os.environ.get("BENCH_ROUTE_CHAOS", f"seed={seed},host_loss=1")
+        mix = list(default_class_mix(power_of_two_buckets(max_batch)))
+        fleet = BackendFleet(n, journal_dir, height=height, width=width, max_batch=max_batch, config=CONFIG,
+                             device=DEVICE)
+        router = None
+        with _chaos_armed(spec):
+            try:
+                fleet.start()
+                router = FleetRouter(fleet.urls(), drill_config(str(journal_dir / "router.jsonl"))).start()
+                pre = http_fleet_load(router.url, (height, width, 3), shape="steady", rate_rps=rate,
+                                      duration_s=duration, classes=mix, seed=seed)
+                killed = maybe_host_loss(fleet) if spec else None
+                t_kill = time.monotonic()
+                post = http_fleet_load(router.url, (height, width, 3), shape="steady", rate_rps=rate,
+                                       duration_s=duration, classes=mix, seed=seed + 1)
+                recovery_ms = None
+                if killed is not None:
+                    router.replace_backend(killed, fleet.restart(killed))
+                    wait_until = time.monotonic() + 60.0
+                    while time.monotonic() < wait_until and router.backend_states()[f"b{killed}"] != UP:
+                        time.sleep(0.05)
+                    if router.backend_states()[f"b{killed}"] == UP:
+                        recovery_ms = round((time.monotonic() - t_kill) * 1e3, 1)
+                rrep = router.report()
+                spawn_s = {b.name: round(b.spawn_s, 3) for b in fleet.backends if b is not None}
+            finally:
+                if router is not None:
+                    router.stop()
+                fleet.stop()
+        print(json.dumps({
+            "metric": ROUTE_METRIC,
+            # the headline: what the fleet still delivers while one host is dead
+            "value": round(post.sustained_img_s, 1),
+            "unit": "img/s",
+            "n_backends": n,
+            "pre_loss_img_s": round(pre.sustained_img_s, 1),
+            "post_loss_img_s": round(post.sustained_img_s, 1),
+            "killed": f"b{killed}" if killed is not None else None,
+            "recovery_ms": recovery_ms,
+            "redirects": rrep.redirects,
+            "unroutable": rrep.n_unroutable,
+            "accounting_closed": rrep.closed,
+            "backends": dict(rrep.backends),
+            "router": rrep.to_obj(),
+            "rate_rps": rate,
+            "duration_s": duration,
+            "chaos": spec,
+            "journal_dir": str(journal_dir),
+            "platform": platform,
+            "config": CONFIG,
+            "height": height,
+            "width": width,
+            "max_batch": max_batch,
+            "spawn_s": spawn_s,
+            "health": None,
+            "skipped": dict(HEALTH_SKIPPED),
+        }))
+        return 0
+    except Exception as e:
+        return _serve_error(ROUTE_METRIC, f"{type(e).__name__}: {e}"[:200], platform)
+
+
+def _fleetcontrol_main() -> int:
+    """BENCH_MODE=fleetcontrol: the fleet control plane's acceptance drill,
+    ONE JSON row and a gate exit. N controlled backend processes of
+    BENCH_CONFIG on BENCH_DEVICE behind the router, four journaled phases:
+
+    1. CAPACITY: N uncontrolled backends behind a plain router take a short
+       saturated burst with the swell's own client concurrency; the
+       completed requests a second are the fleet's capacity, so the swell
+       below is sized against this host and this stack, not a constant.
+    2. CALM, fleet ON: steady load far below capacity; the FleetController
+       must journal ZERO fleet actions.
+    3. PRESSURE, fleet ON: chaos ``fleet_pressure`` swaps the load for a
+       correlated diurnal swell (base 0.65x fleet capacity, crest ~1.24x):
+       forecast pre-shedding, staggered downshift tokens and drain-vs-shed
+       must keep the most backends degraded at once below N.
+    4. PRESSURE, fleet OFF: a FRESH fleet, the SAME swell and seed with N
+       serving controllers and no fleet tier: all N degrade at once.
+
+    Acceptance (each failed clause named in ``failures``, exit 3 on any):
+    calm journals zero fleet actions; ON's most degraded at once < N while
+    OFF's == N; the ON side journals fleet actions; the protected class's
+    fleet-wide burn is strictly lower ON than OFF; the router closes
+    per-class accounting both ways. Degradation is read from the journaled
+    ``router_probe`` scrape trail (``health.fleet_summary``) and the burn
+    from the backends' journals (``health.slo_attainment``, the classes of
+    the JAX package's ``health_from_journal``): the evidence is the journal.
+    ``health`` is null (item 8, named in ``skipped``).
+
+    Knobs (environment), the JAX bench's: BENCH_FLEETCTL_N (3),
+    BENCH_FLEETCTL_DURATION (8 s: swell period == window),
+    BENCH_FLEETCTL_CALM_RATE (6 req/s), BENCH_FLEETCTL_CALM_DURATION (1 s),
+    BENCH_FLEETCTL_CAP_RPS (default: the capacity probe; a fleet-wide req/s
+    skips it), BENCH_FLEETCTL_SLO_SCALE (0.2: the children's class budgets
+    tightened, both sides equally), BENCH_FLEETCTL_WORKERS (64 client
+    threads), BENCH_FLEETCTL_HEIGHT/WIDTH (63), BENCH_FLEETCTL_MAX_BATCH
+    (4), BENCH_FLEETCTL_SEED (0), BENCH_FLEETCTL_JOURNAL (a temp dir),
+    BENCH_FLEETCTL_CHAOS (seed=<seed>,fleet_pressure=1; "" drives the swell
+    without the chaos site), BENCH_CONFIG, BENCH_DEVICE. Always one JSON
+    line; exit 2 when the device does not answer or the drill raised."""
+    import tempfile
+    from pathlib import Path
+
+    def fail(msg: str, platform: str = "unknown") -> int:
+        _serve_error(FLEETCONTROL_METRIC, msg, platform)
+        return 2
+
+    platform, why = _serve_platform()
+    if platform is None:
+        return fail(why)
+    try:
+        from .observability.export import load_records
+        from .observability.health import fleet_summary, slo_attainment
+        from .serving.batcher import power_of_two_buckets
+        from .serving.controller import ControllerConfig
+        from .serving.fleet import BackendFleet
+        from .serving.fleet_controller import FleetControllerConfig
+        from .serving.frontend import http_fleet_load
+        from .serving.loadgen import correlated_pressure, maybe_fleet_pressure
+        from .serving.router import FleetRouter, drill_config
+        from .serving.traffic import default_class_mix
+
+        n = int(os.environ.get("BENCH_FLEETCTL_N", "3"))
+        duration = float(os.environ.get("BENCH_FLEETCTL_DURATION", "8"))
+        calm_rate = float(os.environ.get("BENCH_FLEETCTL_CALM_RATE", "6"))
+        calm_s = float(os.environ.get("BENCH_FLEETCTL_CALM_DURATION", "1.0"))
+        height = int(os.environ.get("BENCH_FLEETCTL_HEIGHT", "63"))
+        width = int(os.environ.get("BENCH_FLEETCTL_WIDTH", "63"))
+        max_batch = int(os.environ.get("BENCH_FLEETCTL_MAX_BATCH", "4"))
+        seed = int(os.environ.get("BENCH_FLEETCTL_SEED", "0"))
+        slo_scale = float(os.environ.get("BENCH_FLEETCTL_SLO_SCALE", "0.2"))
+        n_workers = int(os.environ.get("BENCH_FLEETCTL_WORKERS", "64"))
+        out_dir = Path(os.environ.get("BENCH_FLEETCTL_JOURNAL") or tempfile.mkdtemp(prefix="fleetctl_bench_"))
+        out_dir.mkdir(parents=True, exist_ok=True)
+        mix = list(default_class_mix(power_of_two_buckets(max_batch)))
+        img_shape = (height, width, 3)
+        # the same short-cadence serving controller on every backend, BOTH sides: the A/B isolates the fleet tier
+        ctl_cfg = ControllerConfig(eval_s=0.05, cooldown_s=0.2, min_dwell_s=0.3, min_completed=10)
+        spec = os.environ.get("BENCH_FLEETCTL_CHAOS", f"seed={seed},fleet_pressure=1")
+        failures = []
+
+        def fleet_of(tag: str, **kw) -> BackendFleet:
+            return BackendFleet(n, out_dir / tag, height=height, width=width, max_batch=max_batch, config=CONFIG,
+                                device=DEVICE, **kw)
+
+        with _chaos_armed(spec):
+            env_cap = os.environ.get("BENCH_FLEETCTL_CAP_RPS", "")
+            if env_cap:
+                cap_rps = float(env_cap)
+            else:
+                # capacity as completed requests a second through the whole serving path, at the swell's concurrency
+                pfleet, prouter = fleet_of("probe", slo=False), None
+                try:
+                    pfleet.start()
+                    prouter = FleetRouter(pfleet.urls(), drill_config(str(out_dir / "probe" / "router.jsonl")))
+                    prouter.start()
+                    prep = http_fleet_load(prouter.url, img_shape, shape="steady", rate_rps=2500.0, duration_s=0.5,
+                                           classes=mix, seed=seed, n_workers=n_workers)
+                finally:
+                    if prouter is not None:
+                        prouter.stop()
+                    pfleet.stop()
+                if not prep.n_ok or prep.duration_s <= 0:
+                    return fail("capacity probe completed nothing", platform)
+                cap_rps = prep.n_ok / prep.duration_s
+            # crest = 0.65 x (1 + 0.9) = 1.24x capacity: the OFF side must all-degrade, while the ON side's
+            # admitted protected share stays under capacity through the crest
+            base_rate = 0.65 * cap_rps
+            fleet_cfg = FleetControllerConfig(
+                eval_s=0.1, max_concurrent_degraded=1, token_cooldown_s=0.5, drain_burn_high=1.0,
+                drain_after_s=0.5, drain_min_s=0.5, max_drained=1, min_active=max(1, n - 1), forecast=True,
+                forecast_period_s=duration,
+                # pre-shed early: the plane cannot walk a controller back up its ladder
+                forecast_horizon_s=1.5, forecast_capacity_rps=cap_rps, forecast_min_samples=6,
+                forecast_burn_high=0.7, forecast_burn_low=0.55,
+            )
+
+            def run_side(tag: str, fleet_on: bool, shape):
+                """One fleet's life: the calm window, then the swell."""
+                fleet, router = fleet_of(tag, slo_scale=slo_scale, controller=ctl_cfg), None
+                try:
+                    fleet.start()
+                    router = FleetRouter(fleet.urls(), drill_config(
+                        str(out_dir / tag / "router.jsonl"), fleet=fleet_cfg if fleet_on else None)).start()
+                    http_fleet_load(router.url, img_shape, shape="steady", rate_rps=calm_rate, duration_s=calm_s,
+                                    classes=mix, seed=seed)
+                    fc = router.fleet_controller
+                    calm_actions = sum(fc.action_counts.values()) if fc else 0
+                    if shape is None:
+                        shape = (maybe_fleet_pressure(base_rate, duration) if spec else None) or \
+                            correlated_pressure(duration)
+                    rep = http_fleet_load(router.url, img_shape, shape=shape, rate_rps=base_rate,
+                                          duration_s=duration, classes=mix, seed=seed + 1, n_workers=n_workers)
+                    return calm_actions, rep, router.report(), (fc.state_obj() if fc else None), shape
+                finally:
+                    if router is not None:
+                        router.stop()
+                    fleet.stop()
+
+            calm_actions, on_rep, on_rrep, fleet_state, shape = run_side("on", True, None)
+            if calm_actions:
+                failures.append(f"calm trace journaled {calm_actions} fleet action(s)")
+            _, off_rep, off_rrep, _, _ = run_side("off", False, shape)
+
+        fs_on = fleet_summary(load_records(str(out_dir / "on")))
+        fs_off = fleet_summary(load_records(str(out_dir / "off")))
+        max_deg_on = fs_on.get("max_simultaneous_degraded")
+        max_deg_off = fs_off.get("max_simultaneous_degraded")
+        if max_deg_on is None or not max_deg_on < n:
+            failures.append(f"fleet ON: {max_deg_on} of {n} backends degraded simultaneously (want < N)")
+        if max_deg_off != n:
+            failures.append(f"fleet OFF: max simultaneous degraded {max_deg_off} != {n} (uncoordinated side never "
+                            "all-degraded: swell too weak to prove anything)")
+        if not fs_on.get("total"):
+            failures.append("fleet ON journaled no fleet actions under the swell")
+
+        def burn(tag: str):
+            for c in slo_attainment(load_records(str(out_dir / tag))):
+                if c.name == fleet_cfg.protected_cls:
+                    return c.burn
+            return None
+
+        burn_on, burn_off = burn("on"), burn("off")
+        if burn_on is None or burn_off is None or not burn_on < burn_off:
+            failures.append(f"{fleet_cfg.protected_cls} fleet-wide burn not strictly lower with fleet control on "
+                            f"({burn_on} vs {burn_off})")
+        for tag, rrep in (("on", on_rrep), ("off", off_rrep)):
+            if not rrep.closed:
+                failures.append(f"fleet {tag}: router accounting open")
+        print(json.dumps({
+            "metric": FLEETCONTROL_METRIC,
+            # the headline: what the coordinated fleet sustains through the correlated swell
+            "value": round(on_rep.sustained_img_s, 1),
+            "unit": "img/s",
+            "ok": not failures,
+            "failures": failures,
+            "n_backends": n,
+            "calm_actions": calm_actions,
+            "fleet_actions": fs_on.get("actions", {}),
+            "fleet_refusals": fs_on.get("refusals", 0),
+            "fleet_state": fleet_state,
+            "max_degraded": {"on": max_deg_on, "off": max_deg_off},
+            "burn_protected": {"on": burn_on, "off": burn_off},
+            "protected_cls": fleet_cfg.protected_cls,
+            "off_img_s": round(off_rep.sustained_img_s, 1),
+            "capacity_rps": round(cap_rps, 1),
+            "base_rate_rps": round(base_rate, 1),
+            "slo_scale": slo_scale,
+            "shape": shape,
+            "duration_s": duration,
+            "accounting_closed": {"on": on_rrep.closed, "off": off_rrep.closed},
+            "drains": fs_on.get("drains", []),
+            "chaos": spec,
+            "journal_dir": str(out_dir),
+            "platform": platform,
+            "config": CONFIG,
+            "height": height,
+            "width": width,
+            "max_batch": max_batch,
+            "health": None,
+            "skipped": dict(HEALTH_SKIPPED),
+        }))
+        return 3 if failures else 0
+    except Exception as e:
+        return fail(f"{type(e).__name__}: {e}"[:300], platform)
+
+
 def _measure_once(configs=None) -> list:
     """One probe and measurement pass: the row list to print, one per
     ``configs`` entry (default all of ``CONFIGS``; a journal resume passes
@@ -892,13 +1233,13 @@ def main() -> int:
         return _control_main()
     if MODE == "gate":
         return _gate_main()
-    if MODE in LATER_MODES:
-        print(f"bench: BENCH_MODE={MODE} waits for ROADMAP Queue 1 item 1's third step (the fleet router and "
-              "its controller); measure, serve, saturate, replay, control and gate run", file=sys.stderr)
-        return 2
+    if MODE == "route":
+        return _route_main()
+    if MODE == "fleetcontrol":
+        return _fleetcontrol_main()
     if MODE != "measure":
-        print(f"bench: unknown BENCH_MODE {MODE!r} (measure, serve, saturate, replay, control, gate)",
-              file=sys.stderr)
+        print(f"bench: unknown BENCH_MODE {MODE!r} (measure, serve, saturate, replay, control, gate, route, "
+              "fleetcontrol)", file=sys.stderr)
         return 2
     from .resilience.journal import Journal
     from .resilience.policy import Deadline, FaultLog, RetryPolicy

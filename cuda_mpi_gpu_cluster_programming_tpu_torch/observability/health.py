@@ -15,9 +15,16 @@ controller is judged by: ``ERROR_BUDGET``, :class:`ClassHealth`,
 :func:`slo_attainment` (one class's burn of its error budget, from the
 journal alone) and :func:`controller_summary` (the controller's actions,
 and each class's burn before and after its first one), the JAX module's
-own functions. The other journal folds (incidents, capacity, availability,
-compile attribution, ``HealthReport`` and ``health_from_journal``) wait for
-ROADMAP Queue 1 item 8. Standard library only.
+own functions.
+
+The third part is the fleet control plane's fold, :func:`fleet_summary`
+(its actions and refusals, the most backends degraded at once, and each
+drain as an :class:`Incident` whose ``FLEET_DRAIN_PHASES`` sum to its
+wall), which ``BENCH_MODE=fleetcontrol`` reads its verdict from. The other
+journal folds (the trip, grow-back and backend-down incidents, capacity,
+availability, compile attribution, ``HealthReport`` and
+``health_from_journal``) wait for ROADMAP Queue 1 item 8. Standard library
+only.
 """
 
 from __future__ import annotations
@@ -32,6 +39,13 @@ from .trace import off_timed_path
 # the error budget is the 1% of completed requests allowed to violate.
 # burn = violation share / ERROR_BUDGET; burn > 1.0 is a blown budget.
 ERROR_BUDGET = 0.01
+
+# Fleet-drain incidents (serving.fleet_controller): sustained burn is
+# observed for drain_after_s (detect), the backend sits drained with its
+# home traffic spilled (drain, the remainder phase), and the LIFO readmit
+# flips it back (readmit). The phases sum to the incident wall
+# (_clamped_phases).
+FLEET_DRAIN_PHASES = ("detect", "drain", "readmit")
 
 
 @off_timed_path
@@ -278,3 +292,130 @@ def controller_summary(records: List[dict]) -> dict:
         out["burn_before"] = burns(records[:first])
         out["burn_after"] = burns(header + records[first:])
     return out
+
+
+# --------------------------------------------------------------------------
+# the fleet control plane
+
+
+@dataclasses.dataclass
+class Incident:
+    """One folded incident. ``phases`` maps phase name to exclusive ms; the
+    values sum to ``wall_ms`` by construction, with ``None`` meaning
+    *unattributed* (the sum then holds over the attributed phases). The
+    port folds one kind, ``fleet_drain`` (:func:`fleet_summary`); the JAX
+    package's trip, grow-back and backend-down incidents wait for ROADMAP
+    Queue 1 item 8."""
+
+    kind: str  # "trip" | "growback" | "backend_down" | "fleet_drain"
+    index: int
+    entry: str  # rung tripped on / promoted to, or the backend
+    cause: str
+    wall_ms: float
+    phases: Dict[str, Optional[float]]
+    t0_ms: Optional[float] = None  # tracer-epoch start (None: span-less)
+    trace_id: str = ""
+
+    @property
+    def phase_sum_ms(self) -> float:
+        return sum(v for v in self.phases.values() if v is not None)
+
+    def to_obj(self) -> dict:
+        return {
+            "kind": self.kind,
+            "index": self.index,
+            "entry": self.entry,
+            "cause": self.cause,
+            "wall_ms": round(self.wall_ms, 3),
+            "phases": {k: (round(v, 3) if v is not None else None) for k, v in self.phases.items()},
+            "t0_ms": self.t0_ms,
+        }
+
+    def render(self) -> str:
+        parts = " ".join(
+            f"{k}={'unattributed' if v is None else format(v, '.1f')}" for k, v in self.phases.items()
+        )
+        if self.kind == "trip":
+            head = f"trip {self.cause} @{self.entry}"
+        elif self.kind == "backend_down":
+            head = f"backend_down {self.entry} ({self.cause})"
+        elif self.kind == "fleet_drain":
+            head = f"fleet_drain {self.entry} ({self.cause})"
+        else:
+            head = f"growback -> {self.entry}"
+        return f"#{self.index} {head} wall={self.wall_ms:.1f}ms  {parts}"
+
+
+def _clamped_phases(
+    wall: float, order: Sequence[str], raw: Dict[str, Optional[float]], remainder: str,
+) -> Dict[str, Optional[float]]:
+    """Exclusive phases that sum EXACTLY to ``wall``: the ``remainder``
+    phase absorbs the unattributed rest; when attributed time exceeds the
+    wall (cross-clock rounding), every phase scales proportionally so the
+    identity survives instead of going negative."""
+    attributed = sum(v for v in raw.values() if v is not None)
+    if attributed > wall and attributed > 0.0:
+        scale = wall / attributed
+        raw = {k: (v * scale if v is not None else None) for k, v in raw.items()}
+        rest = 0.0
+    else:
+        rest = wall - attributed
+    phases: Dict[str, Optional[float]] = {}
+    for name in order:
+        phases[name] = rest if name == remainder else raw.get(name)
+    return phases
+
+
+def fleet_summary(records: List[dict]) -> dict:
+    """Fold the fleet control plane's trail: ``fleet_action`` and
+    ``fleet_refusal`` counts by action, the most backends degraded at once
+    (walked from the ``router_probe`` scrape trail: each backend's
+    last-seen ladder level, the largest count of nonzero levels at any
+    probe), and each drain (a ``drain`` action paired with its backend's
+    next ``readmit``) as an :class:`Incident` whose detect, drain and
+    readmit phases sum to the drain wall. An empty dict when the journal
+    has no fleet-control records."""
+    acts = [r for r in records if r.get("kind") in ("fleet_action", "fleet_refusal")]
+    probes = [r for r in records if r.get("kind") == "router_probe"]
+    if not acts and not probes:
+        return {}
+    by_kind: Dict[str, int] = {}
+    refusals = 0
+    for r in acts:
+        name = str(r.get("action") or "?")
+        by_kind[name] = by_kind.get(name, 0) + 1
+        if r.get("kind") == "fleet_refusal":
+            refusals += 1
+    levels: Dict[str, int] = {}
+    max_deg = 0
+    for r in probes:
+        lvl = r.get("level")
+        levels[str(r.get("backend") or "")] = int(lvl) if isinstance(lvl, int) else 0
+        max_deg = max(max_deg, sum(1 for v in levels.values() if v > 0))
+    drains: List[Incident] = []
+    open_drain: Dict[str, dict] = {}
+    for r in acts:
+        if r.get("kind") != "fleet_action" or not r.get("actuated", True):
+            continue
+        tgt = str(r.get("target") or "")
+        if r.get("action") == "drain":
+            open_drain.setdefault(tgt, r)
+        elif r.get("action") == "readmit" and tgt in open_drain:
+            d = open_drain.pop(tgt)
+            detect = float((d.get("evidence") or {}).get("detect_ms") or 0.0)
+            t_drain = float(d.get("t_ms") or 0.0)
+            t_up = float(r.get("t_ms") or 0.0)
+            t0 = max(0.0, t_drain - detect)
+            wall = max(0.0, t_up - t0)
+            raw: Dict[str, Optional[float]] = {"detect": min(detect, wall), "readmit": float(r.get("ms") or 0.0)}
+            drains.append(Incident(
+                kind="fleet_drain", index=len(drains) + 1, entry=tgt, cause=str(d.get("cause") or "drain"),
+                wall_ms=wall, phases=_clamped_phases(wall, FLEET_DRAIN_PHASES, raw, "drain"), t0_ms=t0,
+            ))
+    return {
+        "actions": by_kind,
+        "total": len(acts),
+        "refusals": refusals,
+        "max_simultaneous_degraded": max_deg,
+        "drains": [d.to_obj() for d in drains],
+    }

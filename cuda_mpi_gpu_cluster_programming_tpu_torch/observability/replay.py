@@ -17,6 +17,9 @@ replay:
 - ``slo_scale``: every class latency budget and per-request deadline
   scaled: "...with SLOs twice as tight?"
 - ``controller``: the controller's A/B, forced on or off over one record.
+- ``devices``: the server rebuilt at another shard width ("...at half the
+  shards?"); a sharded config's slots all share the replay server's card
+  (``serving.server.serve_mesh``), a single-device config ignores it.
 
 **The determinism contract**: a replay of a journal under its own recorded
 conditions (every knob neutral) must close per-class accounting
@@ -27,12 +30,11 @@ adjacent order statistics, floored at the dispatch poll quantum). A neutral
 replay that breaks it is a **divergence**; the CLI exits 3 on it.
 
 What the port does not replay, and refuses with a ``ValueError`` naming its
-ROADMAP Queue 1 item: ``devices`` other than one, or a journal recorded at
-more than one shard (the distribution tiers, item 3), and a journal of a
-supervised run or one holding device-loss incidents (the JAX replay scripts
-them through the elastic supervisor's ``script_fault``; the supervisor is
-item 8). A journal recorded before the replay schema (no ``serve_submit``
-records) raises too.
+ROADMAP Queue 1 item: a journal of a supervised run or one holding
+device-loss incidents (the JAX replay scripts them through the elastic
+supervisor's ``script_fault``; the supervisor is item 8). A shard width
+below one, and a journal recorded before the replay schema (no
+``serve_submit`` records), raise too.
 
 Standard library at import; torch and the serving stack load inside
 :func:`replay_recorded`.
@@ -277,7 +279,7 @@ class ReplayKnobs:
     """The what-if dials. All neutral = the determinism contract run."""
 
     traffic_mult: float = 1.0
-    devices: Optional[int] = None  # shard width override (None = recorded; > 1 waits for item 3)
+    devices: Optional[int] = None  # shard width override (None = recorded)
     slo_scale: float = 1.0
     journal_path: str = ""  # replay's own journal (default: temp file)
     wait_timeout_s: float = 120.0
@@ -521,9 +523,8 @@ def _refusal(recorded: RecordedRun, knobs: ReplayKnobs) -> str:
     """Why the port cannot replay this run with these knobs ('' = it can)."""
     cfg = recorded.config
     shards = knobs.devices if knobs.devices is not None else int(cfg.get("n_shards", 1) or 1)
-    if shards != 1:
-        return (f"a replay at {shards} devices waits for the distribution tiers (ROADMAP Queue 1 item 3); "
-                "the port serves on one device")
+    if shards < 1:
+        return f"a replay needs at least one device, got devices={shards}"
     if recorded.faults or cfg.get("supervise"):
         return (f"the recorded run was supervised ({len(recorded.faults)} device-loss incident(s)): re-driving "
                 "its fault schedule waits for the elastic supervisor (ROADMAP Queue 1 item 8)")
@@ -572,6 +573,7 @@ def _build_server(recorded: RecordedRun, knobs: ReplayKnobs):
             )
     scfg = ServeConfig(
         config=str(cfg.get("config", "v1_jit")),
+        n_shards=int(knobs.devices) if knobs.devices is not None else int(cfg.get("n_shards", 1) or 1),
         compute=str(cfg.get("compute", "fp32")),
         max_batch=int(cfg.get("max_batch", 8)),
         buckets=tuple(cfg.get("buckets") or ()) or None,

@@ -12,14 +12,22 @@ the same to both packages. The spec is a comma-separated list:
                  per-site stream seeded by (seed, site).
 
 An unknown site is a ``ValueError`` naming the valid kinds, so a typo'd
-drill fails loudly instead of never firing. The port draws at one site,
-``kernel_compile``: once per timed candidate of the autotuner
-(``tuning.autotune.tune_layer``), which records the candidate as failed and
-sweeps on (a layer whose candidates all fail degrades to the default
-variants), and once per build of a kernel-tier config in ``run.py``, which
-fails that build (``--max-retries`` retries it, ``--fallback-chain``
-degrades to the next tier). The other sites are listed so a spec written
-for the JAX package parses here too.
+drill fails loudly instead of never firing. The port draws at three sites:
+
+- ``kernel_compile``: once per timed candidate of the autotuner
+  (``tuning.autotune.tune_layer``), which records the candidate as failed
+  and sweeps on (a layer whose candidates all fail degrades to the default
+  variants), and once per build of a kernel-tier config in ``run.py``,
+  which fails that build (``--max-retries`` retries it, ``--fallback-chain``
+  degrades to the next tier);
+- ``host_loss``: ``serving.fleet.maybe_host_loss`` SIGKILLs backend
+  ``seed % n`` of a fleet (``run --serve --route``, ``BENCH_MODE=route``);
+- ``fleet_pressure``: ``serving.loadgen.maybe_fleet_pressure`` swaps a
+  fleet's load for the correlated diurnal swell
+  (``BENCH_MODE=fleetcontrol``).
+
+The other sites are listed so a spec written for the JAX package parses
+here too.
 
 Counters are per process.
 """

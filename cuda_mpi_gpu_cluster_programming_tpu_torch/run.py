@@ -24,6 +24,10 @@
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --serve-replay serve.jsonl --replay-mult 2
 
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v3_pallas --serve --route 3 --route-dir fleet
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v5_collective --serve --shards 2
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. ``--shards N`` runs a sharded config on a mesh
 of N shard slots (``parallel/mesh.py``: slot i on GPU i mod the visible
@@ -80,17 +84,27 @@ reverses each in turn on recovery; its signals come from the class mix's
 SLO policy, so it pairs with ``--traffic-shape`` and is inert without it).
 Prints ``Serve buckets:``, ``Serve load:``, ``Serve class:`` (shaped),
 ``Serve:``, ``Serve frontend:``, ``Serve transport:`` and ``Serve
-controller:`` lines. ``--serve-replay JOURNAL`` re-drives a recorded serve
-journal through a live server (``observability/replay.py``; the journal's
-``serve_config`` record is the build, so the build flags are ignored) with
-the what-if knobs ``--replay-mult`` and ``--replay-slo-scale``, and prints
-``Replay:`` and ``Replay class:`` lines: exit 3 when a neutral replay
-diverges from the record, 2 on a journal it cannot replay
-(``--replay-devices`` above 1 waits for item 3, a supervised recording for
-item 8). ``--serve --shards`` above 1 exits 2 (the serving shard width,
-item 3). ``--serve --supervise`` exits 2 (the supervisor, ROADMAP Queue 1
-item 8); ``--route`` and ``--route-dir`` exit 2 (the fleet router, item
-1's third step).
+controller:`` lines. ``--serve --shards N`` serves a sharded config at N
+shard slots, all on the server's card (``serving.server.serve_mesh``), each
+bucket's graph capturing the sharded forward. ``--serve --route N`` runs
+the fleet instead of one in-process server (``serving/fleet.py``,
+``serving/router.py``): N backend processes of ``--config`` on the run's
+device, each with every bucket captured before it announces itself, behind
+a ``FleetRouter``, the HTTP client fleet driven through the router, and
+every journal (one per backend and the router's) in ``--route-dir``; with
+``CHAOS_SPEC=seed=S,host_loss=1`` backend ``S % N`` is SIGKILLed mid-load,
+then restarted and re-admitted through the router's probation. It prints
+``Route fleet:``, ``Route load:``, ``Route class:``, ``Route host loss:``,
+``Route recovery:``, ``Route:`` and ``Health:`` lines (the JAX package's
+backends are always ``v1_jit``; the port's are ``--config``'s).
+``--serve-replay JOURNAL`` re-drives a recorded serve journal through a
+live server (``observability/replay.py``; the journal's ``serve_config``
+record is the build, so the build flags are ignored) with the what-if
+knobs ``--replay-mult``, ``--replay-slo-scale`` and ``--replay-devices``,
+and prints ``Replay:`` and ``Replay class:`` lines: exit 3 when a neutral
+replay diverges from the record, 2 on a journal it cannot replay (a
+supervised recording waits for item 8). ``--serve --supervise`` exits 2
+(the supervisor, ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -195,9 +209,14 @@ def make_parser() -> argparse.ArgumentParser:
                         "the queue knee (shed bulk -> shed batch -> narrow buckets -> int8w downshift; reversed "
                         "in LIFO order on recovery). Its signals come from --traffic-shape's SLO policy; "
                         "without one it is inert. Prints a 'Serve controller:' line")
-    p.add_argument("--route", type=int, default=0,
-                   help="the fleet router over N backend processes: waits for item 1's third step")
-    p.add_argument("--route-dir", default="", help="with --route: its journal directory (item 1's third step)")
+    p.add_argument("--route", type=int, default=0, metavar="N",
+                   help="with --serve: fleet mode, N backend serving processes of --config on --device "
+                        "(serving.fleet) behind a FleetRouter, the HTTP client fleet driven through the router: "
+                        "crc32-of-rid routing, probe-driven up/probation/quarantine hysteresis, journaled "
+                        "retry-with-redirect; prints 'Route fleet:', 'Route load:', 'Route class:' and 'Route:' "
+                        "lines")
+    p.add_argument("--route-dir", default="logs/route",
+                   help="with --route: the journal directory, one backend_<i>.jsonl per backend and router.jsonl")
     p.add_argument("--serve-replay", default="", metavar="JOURNAL",
                    help="re-drive a recorded serve journal through a live server on --device (its serve_config "
                         "record is the build: --config et al. are ignored); prints 'Replay:' and 'Replay class:' "
@@ -205,7 +224,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--replay-mult", type=float, default=1.0,
                    help="with --serve-replay: offer the recorded schedule at this traffic multiple")
     p.add_argument("--replay-devices", type=int, default=None,
-                   help="with --serve-replay: rebuild at this shard width (above 1 waits for item 3)")
+                   help="with --serve-replay: rebuild at this shard width (a sharded config's slots share the card)")
     p.add_argument("--replay-slo-scale", type=float, default=1.0,
                    help="with --serve-replay: scale every class SLO budget and request deadline (0.5 = twice as tight)")
     p.add_argument("--replay-journal", default="",
@@ -217,12 +236,10 @@ def _waiting(args) -> str:
     """Why a flag given cannot run yet ('' = none given)."""
     if args.shards < 1:
         return f"--shards must be >= 1, got {args.shards}"
-    if args.serve and args.shards != 1:
-        return "--serve --shards waits for the serving shard width (ROADMAP Queue 1 item 3)"
+    if args.route < 0:
+        return f"--route must be >= 0, got {args.route}"
     if args.supervise:
         return "--supervise waits for the elastic supervisor (ROADMAP Queue 1 item 8)"
-    if args.route or args.route_dir:
-        return "--route and --route-dir wait for the fleet router (ROADMAP Queue 1 item 1's third step)"
     if args.serve and args.fallback_chain:
         return "--serve degrades through the elastic supervisor, not --fallback-chain (ROADMAP Queue 1 item 8)"
     return ""
@@ -400,8 +417,9 @@ def _run(args) -> int:
     mesh = None
     if exec_cfg.strategy != "single":
         from .parallel.mesh import make_mesh
+        from .serving.server import serve_mesh
 
-        mesh = make_mesh(args.shards, device=device.type)
+        mesh = serve_mesh(args.shards, device) if args.serve else make_mesh(args.shards, device=device.type)
         print(f"Mesh: {mesh.describe()}")
     elif args.shards != 1:
         print(f"Mesh: none ({exec_cfg.key} runs on one device; --shards {args.shards} does not apply)")
@@ -427,6 +445,12 @@ def _run(args) -> int:
         gate_str = "none"
     print(f"Precision: dtype={run_dtype} source={source} gate={gate_str}")
 
+    if args.serve and exec_cfg.model != "blocks12":
+        print("--serve supports the Blocks 1-2 configs only", file=sys.stderr)
+        return 2
+    if args.serve and args.route:
+        # fleet mode: each backend process builds its own server; the router owns the accounting
+        return _run_route(args, blocks_cfg)
     # Params and input each from a generator of their own, so --params w.npz --seed S
     # gives the saving run's input without drawing params it will not use.
     init_det, init_rnd = (
@@ -442,9 +466,6 @@ def _run(args) -> int:
     else:
         params = init_rnd(torch.Generator().manual_seed(args.seed), model_cfg, device=device)
     if args.serve:
-        if exec_cfg.model != "blocks12":
-            print("--serve supports the Blocks 1-2 configs only", file=sys.stderr)
-            return 2
         return _serve(args, blocks_cfg, params, plan, run_dtype)
     if args.input == "native":
         try:
@@ -587,6 +608,7 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
             return 2
     scfg = ServeConfig(
         config=args.config,
+        n_shards=args.shards,
         compute=run_dtype,
         max_batch=args.serve_max_batch,
         buckets=buckets or None,
@@ -657,6 +679,70 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
         print(f"Serve transport: {' '.join(f'http_{c}={n}' for c, n in sorted(frontend.http_codes.items()))}")
     if server.controller is not None:
         print(f"Serve controller: {server.controller.summary()}")
+    return 0
+
+
+def _run_route(args, blocks_cfg) -> int:
+    """``--serve --route N``: N backend serving processes of ``--config``
+    on ``--device`` behind a ``FleetRouter``, the HTTP client fleet driven
+    through the router, every journal in ``--route-dir``. With ``host_loss``
+    chaos armed, the seeded backend is SIGKILLed mid-load, restarted after
+    the load window, and must re-admit through probation."""
+    import threading
+
+    from .serving.batcher import power_of_two_buckets
+    from .serving.fleet import BackendFleet, maybe_host_loss
+    from .serving.frontend import http_fleet_load
+    from .serving.router import UP, FleetRouter, drill_config
+    from .serving.traffic import default_class_mix
+
+    route_dir = Path(args.route_dir)
+    route_dir.mkdir(parents=True, exist_ok=True)
+    fleet = BackendFleet(args.route, route_dir, height=blocks_cfg.in_height, width=blocks_cfg.in_width,
+                         max_batch=args.serve_max_batch, config=args.config, device=args.device)
+    router = None
+    killed = [None]
+    try:
+        fleet.start()
+        router = FleetRouter(fleet.urls(), drill_config(str(route_dir / "router.jsonl"),
+                                                        deadline_s=args.serve_deadline_s or None)).start()
+        print(f"Route fleet: n={args.route} url={router.url} dir={route_dir}", flush=True)
+        mix = list(default_class_mix(power_of_two_buckets(args.serve_max_batch)))
+        # host_loss fires mid-window from a timer: the load keeps offering while the victim dies
+        timer = threading.Timer(max(0.05, args.serve_duration / 2),
+                                lambda: killed.__setitem__(0, maybe_host_loss(fleet)))
+        timer.start()
+        t_kill = time.monotonic()
+        report = http_fleet_load(
+            router.url, (blocks_cfg.in_height, blocks_cfg.in_width, blocks_cfg.in_channels),
+            shape=args.traffic_shape or "steady", rate_rps=args.serve_rate, duration_s=args.serve_duration,
+            classes=mix, seed=args.seed,
+        )
+        timer.cancel()
+        timer.join()
+        recovery_ms = None
+        if killed[0] is not None:
+            idx = killed[0]
+            print(f"Route host loss: killed=b{idx} (chaos host_loss)")
+            router.replace_backend(idx, fleet.restart(idx))
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline and router.backend_states()[f"b{idx}"] != UP:
+                time.sleep(0.05)
+            if router.backend_states()[f"b{idx}"] == UP:
+                recovery_ms = (time.monotonic() - t_kill) * 1e3
+        print(f"Route load: {report.summary()}")
+        rrep = router.report()
+        for line in rrep.class_lines():
+            print(line)
+        if recovery_ms is not None:
+            print(f"Route recovery: killed=b{killed[0]} ms={recovery_ms:.0f}")
+        print(f"Route: {rrep.summary()}")
+    finally:
+        if router is not None:
+            router.stop()
+        fleet.stop()
+    # the JAX run folds the directory with health_from_journal and prints this form when it cannot
+    print("Health: unavailable (the journal's health fold waits for ROADMAP Queue 1 item 8)")
     return 0
 
 

@@ -39,11 +39,19 @@ static input, replays its graph and fences the stream (the counterpart of
 before the next replay can overwrite it. Result slicing, spans, metrics
 and journal writes run in ``@off_timed_path`` helpers after the region.
 
-Not here yet, each refused with ``ValueError`` naming its ROADMAP Queue 1
-item: ``supervise=True`` (the elastic supervisor, item 8) and
-``n_shards > 1`` (the distribution tiers, item 3); ``sup`` is None, so the
-controller has no capacity rung. The server runs on CUDA unless
-``ServeConfig.device`` asks for the CPU; without a GPU it raises.
+**The shard width.** A sharded config (``v2.1_replicated``,
+``v2.2_sharded``, ``v4_hybrid``, ``v5_collective``, ``v7_tp``) serves at
+``ServeConfig.n_shards`` on a mesh whose slots all sit on the server's
+device (:func:`serve_mesh`), and each bucket's graph captures the whole
+sharded forward: its kernels, halo copies and masks. One graph is captured
+on one device's stream, so the mesh takes no other device; one rank a GPU
+is ROADMAP Queue 1 item 14. A single-device config
+serves on one device whatever ``n_shards`` says, as in the JAX package.
+
+Not here yet: ``supervise=True`` raises ``ValueError`` naming the elastic
+supervisor (ROADMAP Queue 1 item 8); ``sup`` is None, so the controller
+has no capacity rung. The server runs on CUDA unless ``ServeConfig.device``
+asks for the CPU; without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ class ServeConfig:
     """How to build and run the service (the CLI and bench surface)."""
 
     config: str = "v1_jit"  # configs.REGISTRY key (Blocks 1-2 configs only)
-    n_shards: int = 1  # > 1 waits for the distribution tiers (item 3)
+    n_shards: int = 1  # shard slots of a sharded config, all on the server's device (serve_mesh)
     compute: str = "fp32"  # the precision policy the service runs and warms at: fp32 | bf16 | int8w
     max_batch: int = 8
     # None = powers of two up to max_batch, or the plan's batch sizes when
@@ -130,8 +138,8 @@ class InferenceServer:
     def __init__(self, cfg: ServeConfig, params=None, plan=None):
         if cfg.supervise:
             raise ValueError("supervise=True waits for the elastic supervisor (ROADMAP Queue 1 item 8)")
-        if cfg.n_shards > 1:
-            raise ValueError(f"n_shards={cfg.n_shards} waits for the distribution tiers (ROADMAP Queue 1 item 3)")
+        if cfg.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {cfg.n_shards}")
         self.cfg = cfg
         self.sup = None  # the elastic supervisor waits for item 8
         self.queue = AdmissionQueue(max_pending=cfg.max_pending, slo=cfg.slo)
@@ -201,7 +209,7 @@ class InferenceServer:
         return self._compute_override or self.cfg.compute
 
     def _build(self) -> None:
-        from ..configs import REGISTRY, build_forward, resolve_device
+        from ..configs import REGISTRY, resolve_device
         from ..models.init import init_params_deterministic, params_to
         from ..utils.cuda_graphs import BucketGraphs
 
@@ -216,10 +224,29 @@ class InferenceServer:
         else:
             self._params = params_to(self._params, device=device)
         # build_forward sets the TF32 switches on the host, before any capture
-        self._fwd = build_forward(exec_cfg, model_cfg, policy=self.current_compute, device=device, plan=self._plan)
+        self._fwd = self._forward(self.current_compute, device)
         self._graphs = BucketGraphs(
             self._fwd, self._params, (model_cfg.in_height, model_cfg.in_width, model_cfg.in_channels), device
         )
+
+    def _forward(self, compute: str, device):
+        """``configs.build_forward`` at ``compute``: a sharded config on
+        ``serve_mesh(n_shards, device)``, a single-device one on
+        ``device``."""
+        from ..configs import REGISTRY, build_forward
+
+        exec_cfg = REGISTRY[self.cfg.config]
+        mesh = serve_mesh(self.cfg.n_shards, device) if exec_cfg.strategy != "single" else None
+        return build_forward(exec_cfg, self._model_cfg(), policy=compute, device=device, plan=self._plan,
+                             n_shards=self.cfg.n_shards, mesh=mesh)
+
+    @property
+    def shards(self) -> int:
+        """The shard slots a dispatch runs: ``n_shards`` for a sharded
+        config, 1 for a single-device one."""
+        from ..configs import REGISTRY
+
+        return self.cfg.n_shards if REGISTRY[self.cfg.config].strategy != "single" else 1
 
     @off_timed_path
     def _note_compile(self, shape, ms: float, *, hit: bool) -> None:
@@ -233,7 +260,7 @@ class InferenceServer:
             self.journal,
             compile_event(
                 site="serve", entry=self.cfg.config, shape=shape, dtype=self.current_compute,
-                ms=ms, cache_hit=hit, n_shards=1,
+                ms=ms, cache_hit=hit, n_shards=self.shards,
             ),
         )
 
@@ -462,7 +489,6 @@ class InferenceServer:
         so no graph of the old forward is replayed. A capture that fails
         raises and leaves the old forward and graphs serving. Journals one
         ``serve_rewarm`` and returns its wall ms."""
-        from ..configs import REGISTRY, build_forward
         from ..utils.cuda_graphs import BucketGraphs
 
         prev = self._compute_override
@@ -473,8 +499,7 @@ class InferenceServer:
         ms, graphs = 0.0, None
         try:
             with span("serve.rewarm", entry=self.cfg.config, dtype=compute):
-                fwd = build_forward(REGISTRY[self.cfg.config], self._model_cfg(), policy=compute,
-                                    device=old.device, plan=self._plan)
+                fwd = self._forward(compute, old.device)
                 graphs = BucketGraphs(fwd, self._params, old.item_shape, old.device)
                 for bucket in self.buckets:
                     ms += self._warm_bucket(bucket, graphs)
@@ -693,6 +718,22 @@ class InferenceServer:
         """One machine-parsed line (the run CLI's ``Serve:``)."""
         buckets = ",".join(str(b) for b in self.buckets)
         return f"{self.stats.summary()} buckets={buckets}"
+
+
+def serve_mesh(n_shards: int, device):
+    """The mesh of a sharded server: ``n_shards`` slots, every one on the
+    server's ``device``, so they share its card (a bucket's graph is
+    captured on one device's stream; one rank a GPU is ROADMAP Queue 1
+    item 14)."""
+    import torch
+
+    from ..parallel.mesh import make_mesh
+
+    # a shard's window lands on cuda:<current>, the key its slot's params are copied under
+    dev = torch.device(device)
+    if dev == torch.device("cuda"):
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return make_mesh(n_shards, axis_name="sp", devices=[dev])
 
 
 def request_latencies_from_journal(path) -> List[float]:

@@ -32,10 +32,11 @@ call at the bucket's shape and :meth:`BucketGraphs.run` calls ``fn``. That
 is the device the caller asked for, not a fallback.
 
 A kernel wrapper counts its launch in Python (``ops.cuda_kernels.LAUNCHES``),
-which inside a capture records a graph node and launches nothing. So a
-capture takes back the counts its forward added and keeps them with the
-graph, and each replay, which launches those nodes, adds them: the counters
-move with the device's launches. Each graph keeps its captured node list
+and so does a sharded forward's halo copy (``parallel.halo.COLLECTIVES``);
+inside a capture each records graph nodes and runs nothing. So a capture
+takes back the counts its forward added and keeps them with the graph, and
+each replay, which runs those nodes, adds them: the counters move with the
+device's work. Each graph keeps its captured node list
 (``keep_graph=True``), which :meth:`BucketGraphs.dump` prints as CUDA's
 Graphviz text, to check the kept counts against the nodes themselves.
 """
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda_kernels import LAUNCHES
+from ..parallel.halo import COLLECTIVES
 
 # Calls of the forward on a side stream before a capture: the first builds and
 # loads the kernel library and picks cuDNN's algorithms, the second runs warm.
@@ -60,21 +62,25 @@ class _Captured:
     """One bucket's graph, its static input and output, and the pinned host
     buffer the input is copied from."""
 
-    __slots__ = ("graph", "static_in", "static_out", "host_in", "copied", "kernels")
+    __slots__ = ("graph", "static_in", "static_out", "host_in", "copied", "kernels", "collectives")
 
-    def __init__(self, graph, static_in, static_out, host_in, kernels):
+    def __init__(self, graph, static_in, static_out, host_in, kernels, collectives):
         self.graph = graph
         self.static_in = static_in
         self.static_out = static_out
         self.host_in = host_in
         self.copied = torch.cuda.Event()  # the last copy out of host_in
         self.kernels = kernels  # {LAUNCHES key: launches} the capture recorded
+        self.collectives = collectives  # {COLLECTIVES key: runs} the capture recorded
 
     def replay(self) -> None:
-        """Launch the graph and count its kernels' launches."""
+        """Launch the graph and count its kernels' launches and its halo
+        collectives."""
         self.graph.replay()
         for name, n in self.kernels.items():
             LAUNCHES[name] += n
+        for name, n in self.collectives.items():
+            COLLECTIVES[name] += n
 
 
 class BucketGraphs:
@@ -148,14 +154,17 @@ class BucketGraphs:
                     self.fn(self.params, static_in)
             torch.cuda.current_stream(self.device).wait_stream(side)
             graph = torch.cuda.CUDAGraph(keep_graph=True)  # keep the node list for dump()
-            before = dict(LAUNCHES)
+            before = (dict(LAUNCHES), dict(COLLECTIVES))
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 static_out = self.fn(self.params, static_in)
             graph.instantiate()
-            kernels = {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
-            for name, n in kernels.items():  # recorded, not launched: a replay counts them
-                LAUNCHES[name] -= n
-            cap = _Captured(graph, static_in, static_out, host_in, kernels)
+            counted = []
+            for counter, old in zip((LAUNCHES, COLLECTIVES), before):
+                delta = {k: n - old[k] for k, n in counter.items() if n != old[k]}
+                for name, n in delta.items():  # recorded, not run: a replay counts them
+                    counter[name] -= n
+                counted.append(delta)
+            cap = _Captured(graph, static_in, static_out, host_in, *counted)
             cap.replay()
             self.fence()
         self._graphs[bucket] = cap
@@ -196,6 +205,13 @@ class BucketGraphs:
         key: launches}, from its capture; empty on the CPU)."""
         cap = self._graphs.get(bucket) if self.on_cuda else None
         return dict(cap.kernels) if cap is not None else {}
+
+    def collectives(self, bucket: int) -> dict:
+        """The halo collectives one replay of ``bucket`` runs ({COLLECTIVES
+        key: runs}, from its capture; empty on the CPU or for a forward with
+        none)."""
+        cap = self._graphs.get(bucket) if self.on_cuda else None
+        return dict(cap.collectives) if cap is not None else {}
 
     def dump(self, bucket: int, path) -> str:
         """Write ``bucket``'s captured graph to ``path`` as CUDA prints it

@@ -142,13 +142,12 @@ def test_error_row_carries_the_jax_keys_without_a_tpu_row(tmp_path, monkeypatch)
     assert tbench._error_obj("down")["config"] == tbench.CONFIG
 
 
-@pytest.mark.parametrize("mode", tbench.LATER_MODES + ("nonsense",))
+@pytest.mark.parametrize("mode", ("routes", "fleet", "nonsense"))
 def test_other_modes_exit_with_one_line(mode):
     proc, rows = _run_port(BENCH_MODE=mode)
     assert proc.returncode == 2 and rows == []
     assert len(proc.stderr.strip().splitlines()) == 1
-    if mode != "nonsense":
-        assert "Queue 1 item 1" in proc.stderr
+    assert f"unknown BENCH_MODE {mode!r}" in proc.stderr and "route, fleetcontrol" in proc.stderr
 
 
 def test_breakdown_skips_visibly():
@@ -210,10 +209,18 @@ def test_a_pass_that_measured_nothing_is_retried_and_labelled(monkeypatch, capsy
 # ------------------------------------------- replay, control and gate modes ---
 
 
-@pytest.mark.parametrize("mode", tbench.LATER_MODES)
+@pytest.mark.parametrize("mode", ("route", "fleetcontrol"))
 def test_the_fleet_modes_name_the_third_step(mode):
-    proc, rows = _run_port(BENCH_MODE=mode)
-    assert proc.returncode == 2 and rows == [] and "item 1's third step" in proc.stderr
+    """The fleet modes run now (``tests/test_torch_fleet.py``); without a
+    GPU and without BENCH_DEVICE=cpu each prints its one error row, as the
+    JAX bench does when its device probe fails: route exits 0, fleetcontrol
+    2."""
+    proc, rows = _run_port(BENCH_MODE=mode, BENCH_PROBE_TIMEOUT="120")
+    metric = tbench.ROUTE_METRIC if mode == "route" else tbench.FLEETCONTROL_METRIC
+    assert metric == getattr(jbench, "ROUTE_METRIC" if mode == "route" else "FLEETCONTROL_METRIC")
+    assert proc.returncode == (0 if mode == "route" else 2), proc.stderr[-2000:]
+    assert len(rows) == 1 and rows[0]["metric"] == metric and rows[0]["value"] == 0.0
+    assert rows[0]["error"].startswith("device ")
 
 
 def _mode_rows(monkeypatch, capsys, main, **env):
@@ -252,7 +259,7 @@ def test_bench_replay_row_has_the_jax_reports_keys(recorded, tmp_path, monkeypat
 @pytest.mark.parametrize("env,why", [
     (dict(), "BENCH_REPLAY_JOURNAL not set"),
     (dict(BENCH_REPLAY_JOURNAL="missing.jsonl"), "unreplayable journal"),
-    (dict(BENCH_REPLAY_DEVICES="2"), "item 3"),
+    (dict(BENCH_REPLAY_DEVICES="0"), "at least one device"),
 ])
 def test_bench_replay_refusals_exit_2_after_a_row(env, why, recorded, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)

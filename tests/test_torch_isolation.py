@@ -37,7 +37,7 @@ from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
 from cuda_mpi_gpu_cluster_programming_tpu_torch import bench
 from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import metrics, roofline, stages
 from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import export, gate, health, replay
-from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import controller
+from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import controller, fleet, fleet_controller, router
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import env_info, probe, profiling
 from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import breakdown, halo, mesh, plan, replicated, sharded
 from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import tensor_parallel
@@ -93,6 +93,12 @@ assert run.main(["--config", "v1_jit", "--serve", "--serve-controller", "--traff
 assert run.main(["--serve-replay", journal, "--device", "cpu", "--replay-mult", "2"]) == 0
 os.environ["BENCH_GATE_PATHS"] = journal
 assert bench._gate_main() == 0
+""",
+    # the fleet through run --serve --route: one backend process behind the router
+    "fleet": """
+import tempfile
+assert run.main(["--config", "v1_jit", "--serve", "--route", "1", "--device", "cpu", "--height", "45", "--width", "45",
+                 "--serve-duration", "0.2", "--serve-max-batch", "2", "--route-dir", tempfile.mkdtemp()]) == 0
 """,
     "long_context": """
 assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", "--seq-len", "64",

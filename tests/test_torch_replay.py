@@ -12,9 +12,10 @@ JAX package's, on the CPU.
   requests and still closes. Latencies on a loaded CPU are not compared: both
   percentile pairs are reported, and the card holds them
   (``chip_smoke.py`` phase 3g).
-- What the port cannot replay raises, naming its ROADMAP Queue 1 item: more
-  than one device (item 3), a supervised recording or one with device-loss
-  incidents (item 8).
+- What the port cannot replay raises: a shard width below one, and,
+  naming ROADMAP Queue 1 item 8, a supervised recording or one with
+  device-loss incidents (a replay at two devices is in
+  ``tests/test_torch_serving_shards.py``).
 
 63x63 geometry, seeded streams, as in ``tests/test_torch_serving.py``.
 """
@@ -213,8 +214,8 @@ def test_twice_the_traffic_offers_twice_the_requests(port_journal, tmp_path):
 
 
 @pytest.mark.parametrize("config,knobs,item", [
-    ({}, dict(devices=2), "item 3"),
-    ({"n_shards": 2, "supervise": False}, dict(), "item 3"),
+    ({}, dict(devices=0), "at least one device"),
+    ({"n_shards": 2, "supervise": True}, dict(), "item 8"),
     ({"n_shards": 1, "supervise": True}, dict(), "item 8"),
     ({"n_shards": 1, "supervise": False}, dict(), "item 8"),  # its incident records alone
 ])

@@ -6,8 +6,8 @@ runs in the other, and the native input is one stream. Printed first-10s
 agree to atol 2e-3 (the V6 golden's tolerance, ``tests/oracle.py``). Then
 the serving control plane's flags at 63x63: ``--serve-controller`` and its
 ``Serve controller:`` line, ``--serve-replay`` with its knobs and exit
-codes, and the refusals of ``--route``/``--route-dir`` (item 1's third
-step) and of ``--replay-devices`` above 1 (item 3)."""
+codes, ``--replay-devices`` above 1, and what the fleet flags still
+refuse."""
 
 import re
 
@@ -182,15 +182,16 @@ def test_serve_replay_re_drives_a_recorded_journal(tmp_path, capsys):
     rc, out, _ = _port(capsys, "--serve-replay", str(journal), "--device", "cpu", "--replay-mult", "2",
                        "--replay-slo-scale", "0.5", "--replay-journal", str(tmp_path / "x2.jsonl"))
     assert rc == 0 and "mult=2 " in out and "diverged=False" in out
-    rc, _, err = _port(capsys, "--serve-replay", str(journal), "--device", "cpu", "--replay-devices", "2")
-    assert rc == 2 and "item 3" in err
+    rc, out, _ = _port(capsys, "--serve-replay", str(journal), "--device", "cpu", "--replay-devices", "2",
+                       "--replay-journal", str(tmp_path / "d2.jsonl"))
+    assert rc == 0 and "devices=2 " in out and "accounting_matches=True" in out
 
 
 @pytest.mark.parametrize("argv,why", [
     (["--serve-replay", "missing.jsonl"], "no serve_submit records"),
     (["--serve-replay", "x.jsonl", "--replay-mult", "0"], "must be > 0"),
-    (["--serve", "--route", "2"], "item 1's third step"),
-    (["--route-dir", "fleet"], "item 1's third step"),
+    (["--serve", "--route", "-1"], "--route must be >= 0"),
+    (["--serve", "--route", "2", "--supervise"], "item 8"),
 ])
 def test_what_the_control_plane_refuses_exits_2(argv, why, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -473,7 +473,7 @@ def test_the_graph_helper_on_the_cpu_calls_the_forward():
     assert 4 not in graphs
 
 
-@pytest.mark.parametrize("field,value,item", [("supervise", True, "item 8"), ("n_shards", 2, "item 3")])
+@pytest.mark.parametrize("field,value,item", [("supervise", True, "item 8"), ("n_shards", 0, "n_shards must be")])
 def test_what_waits_is_refused_naming_its_item(field, value, item):
     with pytest.raises(ValueError, match=item):
         server.InferenceServer(server.ServeConfig(device="cpu", **{field: value}))
@@ -614,10 +614,10 @@ def test_run_serve_on_the_cpu(capsys, tmp_path):
 @pytest.mark.parametrize("argv,why", [
     (["--serve", "--supervise"], "item 8"),
     (["--serve", "--fallback-chain", "auto"], "item 8"),
-    (["--route-dir", "fleet"], "item 1"),
-    (["--serve", "--route", "2"], "item 1"),
-    (["--serve", "--serve-controller", "--route", "1"], "item 1"),
-    (["--serve", "--shards", "2"], "item 3"),
+    (["--serve", "--shards", "0"], "--shards must be >= 1"),
+    (["--serve", "--route", "2", "--fallback-chain", "auto"], "item 8"),
+    (["--serve", "--serve-controller", "--route", "1", "--supervise"], "item 8"),
+    (["--serve", "--shards", "2", "--supervise"], "item 8"),
     (["--serve", "--config", "v6_full_jit"], "Blocks 1-2 configs only"),
     (["--serve", "--traffic-shape", "tsunami"], "unknown traffic shape"),
 ])
