@@ -75,7 +75,7 @@ fails ends the run with a non-zero exit code and nothing is caught:
    the scalar and vector instances, views off 16-byte alignment, 2/2 and
    3/1 windows, LRN sizes 3 and 5 in both alpha forms, past one channel
    chunk); the fp32 taps and g8 outputs of ``engine_fp32_digest`` must
-   hash to ``ENGINE_FP32_SHA256``, the bits of their older engine, and
+   hash to ``ENGINE_FP32_SHA256``, the bits of the mainloop's 64-term fp32 partials, and
    ``maxpool2d``, its W stage and ``lrn`` (``pool_lrn_digest``, inputs
    without -0.0) to ``POOL_LRN_SHA256``, the bits of the kernels before
    their Hopper redesign; then the LM
@@ -681,7 +681,7 @@ def kernel_phase(spec, peak_name, batch: int = BATCH) -> list:
                 peak=pol, rule=FP32_REL if pol == "fp32" else ("ulp", FP32_REL),
             )
             if s == 1 and pol == "fp32" and batch == BATCH:
-                # at stride 1 taps' term order (qh, qw, c) is vcol's (fy, fx, c): one fmaf chain each
+                # at stride 1 taps' term order (qh, qw, c) is vcol's (fy, fx, c): the same 64-term partials
                 st.update(same_as=[("conv_taps", lambda x=x, w=w, b=b, p=p: ck.conv_taps(
                     x, w, b, stride=1, padding=p))])
                 CUDNN_KERNELS[f"{stage} {pol}"] = library_kernels(st["library"])
@@ -810,25 +810,28 @@ def flash_ptxas(build_log: str) -> dict:
     return dict(sorted(table.items()))
 
 
-# ``ptxas -v`` of the ``PTXAS_HELD`` files' kernels as they were before conv_taps.cu and conv_g8.cu joined
-# their mainloop, per file and dtype (bf16: int8w's too): the sorted (registers, spill-store bytes) of every
-# entry (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py --record`` in a checkout of that tree prints
-# it). The shared mainloop's callers must keep them.
+# ``ptxas -v`` of the ``PTXAS_HELD`` files' kernels, per file and dtype (bf16: int8w's too): the sorted
+# (registers, spill-store bytes) of every entry (NVIDIA H100 build, CUDA 12.8; ``python3 chip_smoke.py
+# --record`` in a checkout of the tree prints it). The shared mainloop's callers must keep them. bf16: as
+# before conv_taps.cu and conv_g8.cu joined the mainloop. fp32: re-recorded when the fp32 sum became 64-term
+# partials added into totals in shared memory (ROADMAP Queue 3 item 9), which moved the registers (the fold
+# and its addressing; conv_block's fp32 block 1 went to the 64 x 128 tile) and kept every spill at 0
 MAINLOOP_PTXAS = {
     "conv2d_cu/bf16": [[95, 0], [96, 0], [117, 0], [128, 4], [128, 28]],
-    "conv2d_cu/fp32": [[123, 0], [123, 0], [157, 0], [168, 0], [168, 0]],
+    "conv2d_cu/fp32": [[124, 0], [124, 0], [128, 0], [199, 0], [199, 0]],
     "conv_block_cu/bf16": [[223, 0], [226, 0], [228, 0], [246, 0]],
-    "conv_block_cu/fp32": [[213, 0], [255, 0]],
+    "conv_block_cu/fp32": [[213, 0], [226, 0]],
     "conv_im2col_cu/bf16": [[128, 4], [128, 28]],
-    "conv_im2col_cu/fp32": [[168, 0], [168, 0]],
+    "conv_im2col_cu/fp32": [[199, 0], [199, 0]],
     "conv_pairs_cu/bf16": [[126, 0], [126, 0]],
-    "conv_pairs_cu/fp32": [[168, 0], [227, 0]],
+    "conv_pairs_cu/fp32": [[205, 0], [207, 0]],
 }
-# sha256 of the bits of the fp32 conv_taps and conv_g8 outputs of engine_fp32_digest, as the kernels gave
-# them on their implicit-GEMM engine before they joined the Hopper mainloop (NVIDIA H100 build, CUDA 12.8;
-# ``python3 chip_smoke.py --record`` in a checkout of that tree prints it): one fmaf chain a term in kg
-# order from 0 on both, so the mainloop keeps their bits
-ENGINE_FP32_SHA256 = "eb3368a76a1b9d438c5a3db71aea90f6791810111b5beed7af0b7dc1abb63a30"
+# sha256 of the bits of the fp32 conv_taps and conv_g8 outputs of engine_fp32_digest (NVIDIA H100 build,
+# CUDA 12.8; ``python3 chip_smoke.py --record`` in a checkout of the tree prints it). Re-recorded on purpose
+# when the mainloop's fp32 sum changed from one fmaf chain a term in kg order to 64-term partials (a chain
+# from 0 over kg in [64b, 64b + 64)) added into the total in block order, the repair of ROADMAP Queue 3 item
+# 9: conv2's own rounding 2.83e-5 -> 4.6e-7 of its max
+ENGINE_FP32_SHA256 = "036eaa0fbacc842b2c819763739db8fe1121e94071a430e41612d1ed8aac02e4"
 
 
 def ptxas_entries(build_log: str) -> list:
@@ -1006,7 +1009,7 @@ def mainloop_variant_extras(kname, pol, x, w, b, s, p):
     """The bitwise references of a taps, pairs, im2col or g8 row and its
     launch on operands packed once (the kernel alone). Taps, pairs and
     im2col run the same terms in the same order on the Hopper mainloop (in
-    fp32 one fmaf chain a term, in bf16 the mainloop's tensor-core k-steps):
+    fp32 the mainloop's 64-term partials, in bf16 its tensor-core k-steps):
     pairs and im2col give taps' bits, and at stride 1 (where the s2d order is
     vcol's) all three give ``conv2d_bias_relu``'s in bf16 (fp32: the conv2d
     row's own pin). g8's terms are its own: a second launch gives its bits."""
@@ -1549,7 +1552,7 @@ def v6_kernel_phase(spec, peak_name) -> list:
                 library_call="F.conv2d (cuDNN, channels-last, bias, no ReLU)",
                 flops=2 * n * ho * wo * k * 9 * w.shape[2],
                 nbytes=(x.numel() + w.numel() + b.numel() + y.numel()) * y.element_size(),
-                # at stride 1 taps' term order is vcol's: one fmaf chain each (bf16: the same k-steps)
+                # at stride 1 taps' term order is vcol's: the same 64-term partials (bf16: the same k-steps)
                 same_as=[("conv_taps", lambda x=x, w=w, b=b: ck.conv_taps(x, w, b, stride=1, padding=1))],
             )
             stages.append(st)
@@ -4437,7 +4440,6 @@ FLEET_CONFIG = "v3_pallas"
 FLEET_CHAOS = "seed=1,host_loss=1"
 FLEET_RATE, FLEET_WINDOW_S = 30.0, 2.0
 FLEET_SHARDS = (2, 4)
-GOLDEN_REL = 2e-5  # the golden first-10's rtol: the main path's tolerance on the deterministic init
 
 
 def gpu_apps() -> dict:
@@ -4570,19 +4572,7 @@ def sharded_serve(params, xs, n: int, out_dir) -> dict:
     require(not pending, f"serve {name}: {len(pending)} requests in no serve_batch record")
     want_k = dict(conv2d=2 * n, maxpool2d=2 * n)
     want_c = {"ppermute": breakdown.expected_collectives(BLOCKS12, n, staged=False)}
-    nodes = {}
-    for bucket in srv.buckets:
-        names = graph_kernel_nodes(srv._graphs.dump(bucket, out_dir / f"serve_v5_n{n}_graph_{bucket}.dot"))
-        nodes[bucket] = {k: sum(SERVE_MARKERS[k] in nm for nm in names) for k in SERVE_MARKERS}
-        foreign = [nm for nm in names if not any(m in nm for m in SERVE_MARKERS.values())
-                   and any(m in nm.lower() for m in LIBRARY_CONV_MARKS)]
-        got_k, got_c = srv._graphs.kernels(bucket), srv._graphs.collectives(bucket)
-        log(f"serve {name} bucket {bucket}: graph kernel nodes {nodes[bucket]} of {len(names)}; capture counted "
-            f"{got_k} collectives {got_c}")
-        require(nodes[bucket] == dict(want_k, lrn=0) and got_k == want_k and got_c == want_c,
-                f"serve {name} bucket {bucket}: nodes {nodes[bucket]}, counted {got_k} {got_c}, want {want_k} "
-                f"{want_c}")
-        require(not foreign, f"serve {name} bucket {bucket}: a library conv in the graph: {foreign}")
+    nodes = sharded_graph_nodes(srv, name, n, out_dir / f"serve_v5_n{n}")
     dispatches = len(batches)
     require(launches == {k: v * dispatches for k, v in want_k.items()}
             and collectives == {k: v * dispatches for k, v in want_c.items()},
@@ -4597,6 +4587,33 @@ def sharded_serve(params, xs, n: int, out_dir) -> dict:
     srv.close()
     return dict(launches=launches, collectives=collectives, dispatches=dispatches, graph_nodes=nodes,
                 batches=entry_batches(batches), dispatch=dispatch, results=results)
+
+
+def sharded_graph_nodes(srv, name: str, n: int, stem) -> dict:
+    """Each bucket graph of a server on an ``n``-shard kernels rung holds
+    conv2d 2n and maxpool2d 2n kernel nodes, no lrn (the sharded tiers run
+    the reference LRN) and no library conv; its capture counted those and
+    the halo collectives of ``breakdown.expected_collectives``. Returns the
+    nodes by bucket."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import breakdown
+
+    want_k = dict(conv2d=2 * n, maxpool2d=2 * n)
+    want_c = {"ppermute": breakdown.expected_collectives(BLOCKS12, n, staged=False)}
+    nodes = {}
+    for bucket in srv.buckets:
+        names = graph_kernel_nodes(srv._graphs.dump(bucket, f"{stem}_graph_{bucket}.dot"))
+        nodes[bucket] = {k: sum(SERVE_MARKERS[k] in nm for nm in names) for k in SERVE_MARKERS}
+        foreign = [nm for nm in names if not any(m in nm for m in SERVE_MARKERS.values())
+                   and any(m in nm.lower() for m in LIBRARY_CONV_MARKS)]
+        got_k, got_c = srv._graphs.kernels(bucket), srv._graphs.collectives(bucket)
+        log(f"serve {name} bucket {bucket}: graph kernel nodes {nodes[bucket]} of {len(names)}; capture counted "
+            f"{got_k} collectives {got_c}")
+        require(nodes[bucket] == dict(want_k, lrn=0) and got_k == want_k and got_c == want_c,
+                f"serve {name} bucket {bucket}: nodes {nodes[bucket]}, counted {got_k} {got_c}, want {want_k} "
+                f"{want_c}")
+        require(not foreign, f"serve {name} bucket {bucket}: a library conv in the graph: {foreign}")
+    return nodes
 
 
 STAGE_ROUTES = ("kernels", "plain", "library")
@@ -4652,10 +4669,94 @@ def stage_errors(params, x: np.ndarray) -> dict:
     return res
 
 
+def fp32_check(tag: str, got: np.ndarray, o: np.ndarray, c: np.ndarray) -> dict:
+    """One fp32 forward's output ``got`` held to the gate's fp32 budget
+    against the same forward in float64 (``o``) and to no farther from it
+    than ``v1_jit`` (cuDNN, ``c``). Its distance to ``v1_jit`` is printed
+    and recorded, not required: on phase 3i's inputs cuDNN's own fp32
+    rounding is past the budget of float64 (ROADMAP Queue 3 item 11)."""
+    err, cerr, kc = (float(np.abs(a - b).max()) for a, b in ((got, o), (c, o), (got, c)))
+    omax, cmax = float(np.abs(o).max()), float(np.abs(c).max())
+    exact = err <= FP32_ABS and err / omax <= FP32_REL
+    oracle_in = cerr <= FP32_ABS and cerr / omax <= FP32_REL
+    in_budget = kc <= FP32_ABS and kc / cmax <= FP32_REL
+    log(f"fp32 accuracy {tag}: against float64 max_abs={err:.3g} rel_of_max={err / omax:.3g} (the gate's fp32 budget "
+        f"({FP32_ABS}, {FP32_REL} of the max) {'holds' if exact else 'FAILS'}); v1_jit (cuDNN) against float64 "
+        f"{cerr:.3g}, {cerr / omax:.3g} (the budget {'holds' if oracle_in else 'fails: ROADMAP Queue 3 item 11'}); "
+        f"against v1_jit {kc:.3g}, {kc / cmax:.3g} (the budget {'holds' if in_budget else 'fails, not required'})")
+    require(exact and err <= cerr, f"{tag} is past the gate's fp32 budget against the float64 forward, or farther "
+            f"from it than v1_jit: {err}, {err / omax} of the max (v1_jit {cerr})")
+    return dict(vs_float64=err, v1_jit_vs_float64=cerr, vs_v1_jit=kc, max=omax, rel_vs_v1_jit=kc / cmax,
+                rel_vs_float64=err / omax, v1_jit_budget_holds=in_budget, float64_budget_holds=exact)
+
+
+# conv2's own fp32 rounding on the lone inputs of phase 3i (stage_errors' ``own``, a share of the stage's float64
+# max), at most what cuDNN's F.conv2d gives in the same run: the summation order of conv_sm90.cuh's fp32 path
+# (ROADMAP Queue 3 item 9, closed); 1.35e-5 was cuDNN's figure in PR 21's run
+def fp32_accuracy(lone_x):
+    """The fp32 kernels on phase 3i's lone inputs (the deterministic init,
+    uniform [0, 1) pixels: every conv term positive): ``stage_errors`` per
+    input, conv2's own rounding held to at most the library's, and the
+    staged ``v3_pallas`` forward through ``fp32_check``. Returns the record
+    and, per input, the float64 and ``v1_jit`` outputs it was held to."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, forward_blocks12
+
+    params = init.init_params_deterministic(device="cuda")
+    p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
+    oracle, cudnn = [], []
+    with knob_env({}):
+        kern = configs.build_forward(configs.REGISTRY["v3_pallas"])
+        v1 = configs.build_forward(configs.REGISTRY["v1_jit"])
+        res = {"stage_errors": [stage_errors(params, x) for x in lone_x], "forward": []}
+        for i, x in enumerate(lone_x):
+            xt = torch.from_numpy(x).cuda()
+            with torch.inference_mode():
+                oracle.append(forward_blocks12(p64, xt.double(), BLOCKS12).cpu().numpy())
+            cudnn.append(v1(params, xt).cpu().numpy())
+            res["forward"].append(fp32_check(f"v3_pallas input {i}", kern(params, xt).cpu().numpy(), oracle[-1],
+                                             cudnn[-1]))
+    stages = res["stage_errors"]
+    for name in stages[0]:
+        log(f"fp32 accuracy: {name} against float64, share of its max over the {len(lone_x)} inputs (own rounding, "
+            "carried chain): " + "; ".join(
+                f"{r} {max(s[name][r]['own'] for s in stages):.3g}, {max(s[name][r]['chain'] for s in stages):.3g}"
+                for r in STAGE_ROUTES))
+    own = {r: max(s["conv2"][r]["own"] for s in stages) for r in STAGE_ROUTES}
+    require(own["kernels"] <= own["library"], f"conv2's own fp32 rounding {own['kernels']:.3g} is past the "
+            f"library's {own['library']:.3g}")
+    res["conv2_own"] = own
+    return res, (oracle, cudnn)
+
+
+def conv_fp32_rows(spec, peak_name) -> dict:
+    """``--conv-fp32``: the fp32 conv summation order's records from this
+    checkout: the mainloop's ptxas table, the engine digest, the conv1 and
+    conv2 rows (kernel, plain, library, bound), the fused blocks bitwise
+    their staged chains, ``fp32_accuracy`` and phase 3h's bitwise tiers."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
+
+    info = _build.build()
+    table = ptxas_table(info.log)
+    for key, entries in table.items():
+        log(f"ptxas {key}: [registers, spill-store bytes] {entries}")
+    engine = engine_fp32_digest()
+    log(f"engine fp32 bits: taps and g8 hash to {engine['sha256']}")
+    rows = [r for r in kernel_phase(spec, peak_name) if r["kernel"] == "conv2d"]
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    blocks = [block_row(case, "fp32", spec, peak_name) for case in block_cases("fp32", gen)]
+    rng = np.random.default_rng(2028)
+    acc, _refs = fp32_accuracy([rng.random((1, 227, 227, 3), dtype=np.float32) for _ in range(FLEET_N)])
+    tiers = tiers_phase(spec, peak_name)
+    return dict(ptxas=table, engine_fp32=engine, conv_rows=rows, block_rows=blocks, accuracy=acc,
+                tiers_bitwise={k: v for k, v in tiers.items() if k.startswith("bitwise/")},
+                tiers_budgets=tiers["budgets"], tiers_per_pass_ms=tiers["per_pass_ms"])
+
+
 def fleet_phase(spec, peak_name) -> dict:
     """Phase 3i: the serving fleet on the one card at 227x227, and the serving shard width."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
-    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
     from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.export import load_records
     from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
     from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.batcher import power_of_two_buckets
@@ -4676,33 +4777,16 @@ def fleet_phase(spec, peak_name) -> dict:
     rng = np.random.default_rng(2028)
     lone_x = [rng.random((1, 227, 227, 3), dtype=np.float32) for _ in range(FLEET_N)]
     # what each lone request must give: an in-process v3_pallas server's bucket-1 result (the backends' params:
-    # the deterministic init), within GOLDEN_REL of the max of the reference forward evaluated in float64 (the
-    # main path's tolerance on this init). The v1_jit fp32 forward (cuDNN) is read against both, and the gate's
-    # fp32 budget against it is printed, not required: on this init every conv term is positive and the kernels
-    # land past it (ROADMAP Queue 3 item 9; stage_errors says which stage)
-    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, forward_blocks12
-
+    # the deterministic init), and fp32_accuracy's float64 and v1_jit forwards on the same inputs (fp32_check)
     with knob_env({}):
         ref = InferenceServer(ServeConfig(config=FLEET_CONFIG, max_batch=SERVE_MAX_BATCH))
         ref.run_until_drained()
         handles = [ref.submit(x) for x in lone_x]
         ref.run_until_drained()
         want = [h.result for h in handles]
-        oracle_fwd = configs.build_forward(configs.REGISTRY["v1_jit"])
-        params = init.init_params_deterministic(device="cuda")
-        cudnn = [oracle_fwd(params, torch.from_numpy(x).cuda()).cpu().numpy() for x in lone_x]
-        p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
-        with torch.inference_mode():
-            oracle = [forward_blocks12(p64, torch.from_numpy(x).cuda().double(), BLOCKS12).cpu().numpy()
-                      for x in lone_x]
         in_process = {b: dispatch_times(ref, b, np.concatenate(lone_x * 3)[:b]) for b in (1, 2)}
         ref.close()
-        result["stage_errors"] = stages = [stage_errors(params, x) for x in lone_x]
-    for name in stages[0]:
-        log(f"fleet: {name} against float64, share of its max over the {FLEET_N} lone inputs (own rounding, "
-            "carried chain): " + "; ".join(
-                f"{r} {max(s[name][r]['own'] for s in stages):.3g}, {max(s[name][r]['chain'] for s in stages):.3g}"
-                for r in STAGE_ROUTES))
+    result["accuracy"], (oracle, cudnn) = fp32_accuracy(lone_x)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem_parent = gpu_apps()  # the parent's own context, before the fleet
@@ -4730,17 +4814,9 @@ def fleet_phase(spec, peak_name) -> dict:
         before = [lone_request(router, i, x) for i, x in enumerate(lone_x)]
         result["lone"] = {}
         for i, (got, w, o, c) in enumerate(zip(before, want, oracle, cudnn)):
-            err, cerr, kc = (float(np.abs(a - b).max()) for a, b in ((got, o), (c, o), (got, c)))
-            omax, cmax = float(np.abs(o).max()), float(np.abs(c).max())
-            in_budget = kc <= FP32_ABS and kc / cmax <= FP32_REL
-            log(f"fleet: b{i}'s lone request bitwise the in-process server: {np.array_equal(got, w)}; against the "
-                f"float64 reference max_abs={err:.3g} rel_of_max={err / omax:.3g} (v1_jit fp32, cuDNN: "
-                f"{cerr:.3g}, {cerr / omax:.3g}); against v1_jit fp32 {kc:.3g}, {kc / cmax:.3g}: the fp32 budget "
-                f"({FP32_ABS}, {FP32_REL} of the max) {'holds' if in_budget else 'OPEN FAILURE (ROADMAP Queue 3 item 9)'}")
+            log(f"fleet: b{i}'s lone request bitwise the in-process server: {np.array_equal(got, w)}")
             require(np.array_equal(got, w), f"b{i}'s output differs from the in-process {FLEET_CONFIG} server's")
-            require(err / omax <= GOLDEN_REL, f"b{i}'s output farther than {GOLDEN_REL} of the max from float64")
-            result["lone"][f"b{i}"] = dict(vs_float64=err, v1_jit_vs_float64=cerr, vs_v1_jit=kc, max=omax,
-                                           v1_jit_budget_holds=in_budget)
+            result["lone"][f"b{i}"] = fp32_check(f"fleet b{i}'s lone request", got, o, c)
         mix = list(default_class_mix(power_of_two_buckets(SERVE_MAX_BATCH)))
         pre = http_fleet_load(router.url, (227, 227, 3), shape="steady", rate_rps=FLEET_RATE,
                               duration_s=FLEET_WINDOW_S, classes=mix, seed=0)
@@ -4891,6 +4967,267 @@ def fleet_kernels_entries(fleet) -> list:
     return entries
 
 
+# phase 3j, the elastic supervisor: the v5_collective ladder at SUP_SHARDS slots (halo@4:pallas) and the single-device
+# v3_pallas one (single@1:pallas) at 227x227, batch SUP_BATCH; the chaos drills; per_pass_ms at BATCH with and without
+# the digest taps; a supervised v5_collective server whose controller walks degrade_capacity down and back
+SUP_SHARDS = 4
+SUP_BATCH = 8
+SUP_DRILLS = (
+    # (name, CHAOS_SPEC, supervised batches, the rung it must end on, trip kinds, promotions)
+    ("stage_sdc", "seed=3,stage_sdc=1", 1, "halo@2:pallas", ["stage_digest"], 0),
+    ("device_loss", "seed=3,device_loss=1", 1, "halo@2:pallas", ["device_loss"], 0),
+    ("mesh_shrink", "seed=3,mesh_shrink=2", 1, "halo@2:pallas", ["mesh_shrink"], 0),
+    ("device_rejoin", "seed=3,mesh_shrink=2,device_rejoin=2", 4, "halo@4:pallas", ["mesh_shrink"], 1),
+    ("flap", "seed=3,flap=3", 8, "halo@2:pallas", ["mesh_shrink"], 0),
+)
+
+
+def supervise_phase(spec, peak_name) -> dict:
+    """Phase 3j: the elastic supervisor on the card. (1) A clean supervised
+    ``v5_collective`` forward at ``SUP_SHARDS`` slots (``halo@4:pallas``) and
+    the ``v3_pallas`` one (``single@1:pallas``): 0 trips, the requested
+    rung, within the gate's fp32 budget of ``v1_jit``, and one forward's
+    launches, counted from 0 just before each run and read just after:
+    conv2d 8, maxpool2d 8 at ``halo@4:pallas`` (the sharded kernels tier
+    runs the reference LRN, as in the JAX package), conv2d 2, maxpool2d 2,
+    lrn 1 at ``single@1:pallas``. (2) Each
+    of ``SUP_DRILLS``: the journal's kinds, the rung it lands on, and the
+    last output bitwise a fresh, uninjected supervisor pinned to that rung;
+    flap ends in quarantine, device_rejoin in a promotion. (3) per_pass_ms
+    at ``BATCH`` in fp32 and bf16 of the supervised forward (taps included)
+    and of the same rung without them, two rounds, with each one's host and
+    device ms a call. (4) A supervised ``v5_collective`` server: a
+    controller's ``degrade_capacity`` down and ``promote_capacity`` back,
+    each recapturing every bucket (conv2d 2n, maxpool2d 2n kernel nodes a
+    graph), every result bitwise its rung's eager forward, each drained
+    run's launches counted alone and equal to its dispatches' graph nodes,
+    the dispatch ms (graph, eager; and screened, with the screen's digest
+    check and journal append apart) at each rung. The main path's launches
+    are (1)'s and (4)'s drained runs'."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.supervisor import Supervisor, default_ladder
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.controller import AutopilotController, ControllerConfig
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.server import InferenceServer, ServeConfig
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.timing import amortized_stats
+
+    t0 = time.perf_counter()
+    out_dir = Path("chip_smoke_out") / "supervise"
+    if out_dir.exists():  # the journals of an earlier run would count again
+        import shutil
+
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    result = {"drills": {}, "per_pass_ms": {}, "launches": {}}
+    rng = np.random.default_rng(2031)
+    params = tier_params(rng)
+    x = torch.from_numpy(rng.random((SUP_BATCH, 227, 227, 3), dtype=np.float32)).cuda()
+    halo = default_ladder("halo", "kernels", SUP_SHARDS)
+    single = default_ladder("single", "kernels", 1)
+
+    def sup(ladder, **kw):
+        return Supervisor(BLOCKS12, ladder, **kw)
+
+    with knob_env({}):
+        oracle = configs.build_forward(configs.REGISTRY["v1_jit"])(params, x)
+        wmax = float(oracle.abs().max())
+        for name, ladder, want in (("halo", halo, dict(conv2d=2 * SUP_SHARDS, maxpool2d=2 * SUP_SHARDS)),
+                                   ("single", single, STAGED)):
+            s = sup(ladder, journal=Journal(out_dir / f"clean_{name}.jsonl"))
+            ck.reset_launches()
+            got = s.execute(params, x)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in ck.LAUNCHES.items() if v}
+            err = float((got - oracle).abs().max())
+            log(f"supervise clean {ladder[0].key}: trips={len(s.trips)} entry={s.entry.key} max_abs={err:.3g} "
+                f"rel_of_max={err / wmax:.3g} launches {launched} | Supervisor: {s.summary()}")
+            require(not s.trips and s.entry.key == ladder[0].key, f"clean supervised run tripped: {s.summary()}")
+            require(err <= FP32_ABS and err / wmax <= FP32_REL, f"clean {ladder[0].key} outside the fp32 budget")
+            require(launched == want, f"clean {ladder[0].key}: launches {launched}, want {want} (one forward)")
+            result[f"clean/{name}"] = dict(entry=s.entry.key, max_abs=err, rel_of_max=err / wmax)
+            result["launches"][f"clean/{name}"] = launched
+        # the drills, each against a fresh uninjected supervisor pinned to the rung it lands on
+        for name, spec_text, batches, want_entry, want_kinds, want_promotions in SUP_DRILLS:
+            os.environ[chaos.CHAOS_ENV] = spec_text
+            chaos.reset()
+            path = out_dir / f"drill_{name}.jsonl"
+            try:
+                s = sup(halo, journal=Journal(path))
+                p = params
+                for step in range(batches):
+                    got = s.execute(p, x, step=step)
+                    promoted = s.maybe_promote(p)
+                    if promoted is not None:
+                        p = promoted
+                if want_promotions:
+                    got = s.execute(p, x)  # a screened batch on the promoted rung
+            finally:
+                os.environ.pop(chaos.CHAOS_ENV, None)
+                chaos.reset()
+            fresh = sup([s.entry]).execute(params, x)
+            kinds = [r["kind"] for r in Journal.load(path)]
+            same = bool(torch.equal(got, fresh))
+            log(f"supervise drill {name} ({spec_text}): trips={[t.kind for t in s.trips]} entry={s.entry.key} "
+                f"promotions={s.promotions} pool={s.pool.summary()} quarantined={s.pool.n_quarantined} bitwise the "
+                f"fresh rung: {same} | journal kinds: {' '.join(kinds)}")
+            require([t.kind for t in s.trips] == want_kinds, f"drill {name}: trips {[t.kind for t in s.trips]}")
+            require(s.entry.key == want_entry and s.promotions == want_promotions, f"drill {name}: {s.summary()}")
+            require(same, f"drill {name}: the replay differs from a fresh {s.entry.key}")
+            if name == "flap":
+                require(s.pool.n_quarantined == 1 and "mesh_quarantine" in kinds, f"flap did not quarantine: {kinds}")
+            result["drills"][name] = dict(summary=s.summary(), kinds=kinds, bitwise_fresh=same)
+        # the supervised server: degrade_capacity down and back through the controller's actuators
+        srv = InferenceServer(ServeConfig(config="v5_collective", n_shards=SUP_SHARDS, supervise=True,
+                                          max_batch=SERVE_MAX_BATCH, journal_path=str(out_dir / "serve.jsonl")))
+        srv.run_until_drained()
+        ctl = AutopilotController(srv, ControllerConfig())
+        require(("degrade_capacity", "") in ctl._rungs(), f"no degrade_capacity rung: {ctl._rungs()}")
+        xs = [rng.random((n, 227, 227, 3), dtype=np.float32) for n in SERVE_SIZES]
+        result["server"] = {}
+        probe = Journal(out_dir / "probe.jsonl")  # the screen's journal append, timed on the same disk
+        for action in ("start", "degrade", "promote"):
+            if action == "degrade":
+                undo, extra = ctl._apply("degrade_capacity", "")
+                require(undo is not None, f"degrade_capacity refused: {extra}")
+            elif action == "promote":
+                ok, extra = ctl._unapply("degrade_capacity", "", undo)
+                require(ok, f"promote_capacity refused: {extra}")
+            rung, n = srv.sup.entry.key, srv.sup.entry.n_shards
+            want = dict(conv2d=2 * n, maxpool2d=2 * n)
+            nodes = sharded_graph_nodes(srv, f"supervised {rung}", n, out_dir / f"serve_{action}")
+            handles = [srv.submit(xx) for xx in xs]
+            n_batches = sum(r["kind"] == "serve_batch" for r in Journal.load(out_dir / "serve.jsonl"))
+            ck.reset_launches()
+            srv.run_until_drained()
+            launched = {k: v for k, v in ck.LAUNCHES.items() if v}
+            dispatches = sum(r["kind"] == "serve_batch" for r in Journal.load(out_dir / "serve.jsonl")) - n_batches
+            require(launched == {k: v * dispatches for k, v in want.items()},
+                    f"supervised server at {rung}: the drained run counted {launched} over {dispatches} dispatches, "
+                    f"want {want} a dispatch")
+            result["launches"][f"server/{action}"] = launched
+            eager = srv.sup.fwd()
+            bitwise = all(h.status == "OK" and np.array_equal(
+                h.result, eager(srv._params, torch.from_numpy(xx).cuda())[0].cpu().numpy()) for h, xx in zip(handles, xs))
+            times = dispatch_times(srv, SERVE_MAX_BATCH, np.concatenate(xs)[:SERVE_MAX_BATCH], per_dispatch=want)
+            xb = np.concatenate(xs)[:SERVE_MAX_BATCH]
+            graphs = srv._graphs
+            screened, screen, append = [], [], []
+            for i in range(SERVE_TIMED):
+                t1 = time.perf_counter()
+                srv.sup.execute(srv._params, xb, runner=lambda _f, _p, xx: graphs.run(SERVE_MAX_BATCH, xx))
+                screened.append((time.perf_counter() - t1) * 1e3)
+                # the same screen's two host parts, after a fenced replay: the digests' copy and check, and a
+                # journal append (flushed and fsync'd, as each sup_ok record is)
+                _out, digests = graphs.run(SERVE_MAX_BATCH, xb)
+                graphs.fence()
+                t1 = time.perf_counter()
+                srv.sup.checker.check(0, digests)
+                t2 = time.perf_counter()
+                probe.append("sup_ok", key=f"probe:{action}:{i}", entry=rung)
+                screen.append((t2 - t1) * 1e3)
+                append.append((time.perf_counter() - t2) * 1e3)
+            times.update(screened_ms=statistics.median(screened), screen_check_ms=statistics.median(screen),
+                         journal_append_ms=statistics.median(append))
+            log(f"supervised server {action}: rung={rung} rewarms={srv.stats.rewarms} rewarm_ms={srv.stats.rewarm_ms:.1f} "
+                f"promotions={srv.stats.promotions} cache_misses={srv.stats.cache_misses} bitwise_eager={bitwise} "
+                f"drained launches {launched} over {dispatches} dispatches | bucket {SERVE_MAX_BATCH} dispatch graph "
+                f"{times['graph_ms']:.4f} ms, eager {times['eager_ms']:.4f}, graph screened by the supervisor "
+                f"{times['screened_ms']:.4f} (of it, after a fenced replay: the digests' copy and check "
+                f"{times['screen_check_ms']:.4f}, a journal append {times['journal_append_ms']:.4f}; device graph "
+                f"{times['graph_device_ms']}, eager {times['eager_device_ms']})")
+            require(bitwise and srv.stats.cache_misses == 0, f"supervised server at {rung}: bitwise {bitwise}, "
+                    f"misses {srv.stats.cache_misses}")
+            result["server"][action] = dict(rung=rung, rewarms=srv.stats.rewarms, rewarm_ms=srv.stats.rewarm_ms,
+                                            dispatches=dispatches, graph_nodes=nodes, **times)
+        require([result["server"][a]["rung"] for a in ("start", "degrade", "promote")]
+                == ["halo@4:pallas", "halo@2:pallas", "halo@4:pallas"] and srv.stats.rewarms == 2,
+                f"degrade_capacity walk: {result['server']}")
+        kinds = [r["kind"] for r in Journal.load(out_dir / "serve.jsonl")]
+        require(kinds.count("serve_rewarm") == 2 and "sup_promote" in kinds, f"serve journal: {kinds}")
+        srv.close()
+        # the main path's launches: the clean runs' and the server's drained runs', each counted alone
+        main = {}
+        for counted in result["launches"].values():
+            for k, v in counted.items():
+                main[k] = main.get(k, 0) + v
+        result["main_launches"] = main
+        log(f"supervise: launches of the clean runs and the server's drained runs {result['launches']}, in all {main}")
+        # per_pass_ms at BATCH, the supervised forward (taps) against the same rung without them, two rounds
+        # interleaved; each with its device ms a call (torch.profiler) and its host ms a call (the time to
+        # enqueue one call on an idle card): a pass whose host ms passes its device ms is host-bound
+        xb = init_random_batch(BATCH)
+        result["host_ms"], result["device_ms"] = {}, {}
+        for pol in ("fp32", "bf16"):
+            s = sup(halo, policy=pol)
+            s.execute(params, xb)
+            plain = configs.build_forward(configs.REGISTRY["v5_collective"], policy=pol, n_shards=SUP_SHARDS)
+            fwds = (("taps", s.fwd()), ("no_taps", plain))
+            for _round in range(2):
+                for tag, fwd in fwds:
+                    ms = amortized_stats(fwd, params, xb, n_small=3, n_large=13).per_call_ms
+                    result["per_pass_ms"].setdefault(f"{tag}/{pol}", []).append(ms)
+            for tag, fwd in fwds:
+                host = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fwd(params, xb)
+                    host.append((time.perf_counter() - t1) * 1e3)
+                torch.cuda.synchronize()
+                result["host_ms"][f"{tag}/{pol}"] = statistics.median(host)
+                result["device_ms"][f"{tag}/{pol}"] = replay_kernels(lambda: fwd(params, xb), reps=3)["device_ms"]
+            log(f"supervise per_pass_ms halo@{SUP_SHARDS}:pallas {pol} batch {BATCH} (two rounds): taps "
+                + ", ".join(f"{v:.3f}" for v in result["per_pass_ms"][f"taps/{pol}"]) + "; no taps "
+                + ", ".join(f"{v:.3f}" for v in result["per_pass_ms"][f"no_taps/{pol}"])
+                + f" | host ms a call: taps {result['host_ms'][f'taps/{pol}']:.3f}, no taps "
+                f"{result['host_ms'][f'no_taps/{pol}']:.3f} | device ms a call: taps "
+                f"{_fmt(result['device_ms'][f'taps/{pol}'])}, no taps {_fmt(result['device_ms'][f'no_taps/{pol}'])}")
+        del xb
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    result["rows"] = tier_kernel_rows(spec, peak_name, n=SUP_SHARDS, batch=SUP_BATCH, pols=("fp32",))
+    result["rows"].append(measure(lrn_stage(stage_inputs(torch.float32, gen, SUP_BATCH)["q2"], "fp32"), "fp32", spec,
+                                  peak_name))
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3j took {result['seconds']:.1f} s")
+    return result
+
+
+def init_random_batch(batch: int) -> torch.Tensor:
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+
+    return init.random_input(torch.Generator().manual_seed(1), batch)
+
+
+def supervise_kernels_entries(sup) -> list:
+    """The ``kernels`` line's entries of the supervised path (fp32, batch
+    ``SUP_BATCH``): conv2d and maxpool2d timed on the windows the
+    ``halo@4:pallas`` rung runs, lrn at lrn2 (the ``single@1:pallas``
+    floor's); launches of phase 3j's main path: its two clean runs and the
+    supervised server's three drained runs, each counted alone."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol", "windows")
+    entries = []
+    for name in ("conv2d", "maxpool2d", "lrn"):
+        source, replaces, stages, _route = KERNELS[name]
+        mine = [r for r in sup["rows"] if r["kernel"] == name]
+        require([r["stage"] for r in mine] == list(stages), f"supervise {name}: stages {mine}")
+        entries.append(dict(
+            name=name, dtype="fp32", route="cuda", source=source, replaces=replaces, path="supervised",
+            run=f"phase 3j: the supervised v5_collective ({SUP_SHARDS} slots) and v3_pallas ladders, batch "
+                f"{SUP_BATCH}: the clean runs and the supervised server's drained runs",
+            launches=sup["main_launches"].get(name, 0), batch=SUP_BATCH,
+            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+            ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+            bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+            library_ms=sum(r["library_ms"] for r in mine),
+            stages={r["stage"]: {k: r[k] for k in keys if k in r} for r in mine},
+        ))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -4963,6 +5300,23 @@ def main() -> int:
         fleet = fleet_phase(spec, peak_name)
         print(json.dumps(dict(device=kind, nvidia_smi=smi, fleet=fleet, kernels=fleet_kernels_entries(fleet)),
                          default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--supervise"]:
+        # phase 3j alone, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sup = supervise_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, supervise=sup, kernels=supervise_kernels_entries(sup)),
+                         default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--conv-fp32"]:
+        # the fp32 conv summation order's records (ptxas, engine bits, conv rows, fused bitwise, accuracy,
+        # bitwise tiers), from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = conv_fp32_rows(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, **out),
+                         default=lambda o: o.tolist() if isinstance(o, torch.Tensor) else str(o)), flush=True)
         return 0
     if sys.argv[1:] == ["--record"]:
         # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_BWD_WIDE_SHA256,
@@ -5040,6 +5394,10 @@ def main() -> int:
     log("phase 3i: 3 v3_pallas backend processes shared the card, each bitwise the in-process server; host_loss "
         "killed b1, the survivors served unchanged, the replacement re-admitted through probation; run --route "
         "killed b1 mid-window and re-admitted it; bench route and fleetcontrol ran; the v5_collective server at 2 and 4 shards replayed its graphs bitwise")
+    sup = supervise_phase(spec, peak_name)
+    log("phase 3j: the supervised v5_collective and v3_pallas ladders ran clean on their requested rungs through "
+        "conv2d, maxpool2d and lrn; every drill's replay was bitwise its rung's fresh output, flap ended in "
+        "quarantine, rejoin in a promotion; the supervised server walked degrade_capacity down and back")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
@@ -5052,6 +5410,7 @@ def main() -> int:
     line["kernels"] += control_kernels_entries(control)
     line["kernels"] += tier_kernels_entries(tiers)
     line["kernels"] += fleet_kernels_entries(fleet)
+    line["kernels"] += supervise_kernels_entries(sup)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -5061,7 +5420,7 @@ def main() -> int:
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
              v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
-             tiers=tiers, fleet=fleet, tune=tune,
+             tiers=tiers, fleet=fleet, supervise=sup, tune=tune,
              v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))

@@ -59,8 +59,10 @@ batch, single-config runs). ``BENCH_DEVICE`` (cuda|cpu) is the port's
 ``BENCH_MODE=serve`` and ``saturate`` run the inference service
 (``serving/``) in this process, after the probe, with the JAX bench's knobs
 and row keys (:func:`_serve_main`, :func:`_saturate_main`). The JAX serve
-row's ``drill``, ``health``, ``trips`` and ``entry`` wait for the
-supervisor and the journal folds (ROADMAP Queue 1 items 3 and 8): the row
+row's ``trips`` and ``entry`` come with ``BENCH_SERVE_SUPERVISE=1`` (the
+service under the elastic supervisor); its ``drill`` (the in-load fault
+drills, which ``chip_smoke.py`` phase 3j runs on the card) and ``health``
+(the journal folds, ROADMAP Queue 1 item 8's step 3) are not here: the row
 names each in its ``skipped`` sub-object. ``BENCH_MODE=replay``,
 ``control`` and ``gate`` are the JAX bench's journal replay, serving
 controller drill and regression gate (:func:`_replay_main`,
@@ -302,15 +304,14 @@ def _child() -> int:
     return 0
 
 
-SUPERVISE_REFUSED = "BENCH_SERVE_SUPERVISE=1: the elastic supervisor waits for ROADMAP Queue 1 item 8"
-# The JAX serve row's keys that wait for later ROADMAP items, each named in the port row's ``skipped``.
+# The JAX serve row's keys the port row does not fill, each named in its ``skipped``.
 SERVE_SKIPPED = {
-    "drill": "the in-load device_loss and mesh drills wait for the supervisor and the sharded tiers "
-             "(ROADMAP Queue 1 items 3 and 8)",
-    "health": "the journal's health fold waits for ROADMAP Queue 1 item 8",
-    "trips": "the supervisor's trips wait for ROADMAP Queue 1 item 8",
-    "entry": "the supervisor's ladder entry waits for ROADMAP Queue 1 item 8",
+    "drill": "the in-load device_loss, mesh_shrink and grow-back drills are not on the bench row "
+             "(chip_smoke.py phase 3j runs them on a supervised server)",
+    "health": "the journal's health fold waits for ROADMAP Queue 1 item 8 (step 3)",
 }
+# The keys a supervised serve row adds (BENCH_SERVE_SUPERVISE=1), as the JAX row does.
+SUPERVISED_KEYS = ("trips", "entry")
 
 
 def _plan_policy_for(model_cfg, device) -> str:
@@ -379,8 +380,9 @@ def _serve_main() -> int:
     Knobs (environment), the JAX bench's: BENCH_SERVE_CONFIG (BENCH_CONFIG),
     BENCH_SERVE_SHARDS (1: a sharded config's shard slots, all on the card),
     BENCH_SERVE_RATE (50 req/s), BENCH_SERVE_DURATION (3 s), BENCH_SERVE_MAX_BATCH (8),
-    BENCH_SERVE_DEADLINE_S (30), BENCH_SERVE_SUPERVISE (0 here; 1 gives an
-    error row naming item 8), BENCH_SERVE_JOURNAL (a temp file),
+    BENCH_SERVE_DEADLINE_S (30), BENCH_SERVE_SUPERVISE (0 here, 1 in the JAX
+    bench: 1 serves under the elastic supervisor and adds ``trips`` and
+    ``entry``), BENCH_SERVE_JOURNAL (a temp file),
     BENCH_SERVE_HEIGHT/WIDTH (227), BENCH_SERVE_SEED (0). Always exactly one
     JSON line, exit 0.
     """
@@ -398,8 +400,6 @@ def _serve_main() -> int:
         from .serving.server import InferenceServer, ServeConfig, request_latencies_from_journal
         from .tuning.plan import device_kind
 
-        if os.environ.get("BENCH_SERVE_SUPERVISE", "0") != "0":
-            return _serve_error(SERVE_METRIC, SUPERVISE_REFUSED, platform)
         model_cfg = _serve_model_cfg()
         journal_path = os.environ.get("BENCH_SERVE_JOURNAL") or os.path.join(
             tempfile.gettempdir(), f"serve_journal_{os.getpid()}.jsonl")
@@ -412,6 +412,7 @@ def _serve_main() -> int:
             plan_path=PLAN_PATH,
             journal_path=journal_path,
             default_deadline_s=float(os.environ.get("BENCH_SERVE_DEADLINE_S", "30")) or None,
+            supervise=os.environ.get("BENCH_SERVE_SUPERVISE", "0") != "0",
             model_cfg=model_cfg,
             device=DEVICE,
         )
@@ -460,6 +461,9 @@ def _serve_main() -> int:
             "journal": journal_path,
             "trace_id": tracer.trace_id,
         }
+        if server.sup is not None:
+            row["trips"] = [t.kind for t in server.sup.trips]
+            row["entry"] = server.sup.entry.key
         if os.environ.get("BENCH_BREAKDOWN", "1") != "0":
             # per-stage attribution at the largest bucket the service dispatches
             bucket = server.buckets[-1]
@@ -511,8 +515,6 @@ def _saturate_main() -> int:
         from .serving.server import InferenceServer, ServeConfig
         from .serving.traffic import default_class_mix, slo_policy
 
-        if os.environ.get("BENCH_SERVE_SUPERVISE", "0") != "0":
-            return _serve_error(SATURATE_METRIC, SUPERVISE_REFUSED, platform)
         model_cfg = _serve_model_cfg()
         journal_path = os.environ.get("BENCH_SERVE_JOURNAL") or os.path.join(
             tempfile.gettempdir(), f"saturate_journal_{os.getpid()}.jsonl")
@@ -525,6 +527,7 @@ def _saturate_main() -> int:
             max_batch=int(os.environ.get("BENCH_SERVE_MAX_BATCH", "8")),
             plan_path=PLAN_PATH,
             journal_path=journal_path,
+            supervise=os.environ.get("BENCH_SERVE_SUPERVISE", "0") != "0",
             model_cfg=model_cfg,
             device=DEVICE,
         )

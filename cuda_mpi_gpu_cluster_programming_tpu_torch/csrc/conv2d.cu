@@ -19,8 +19,8 @@
 // tile (128 x 64 for k_block = 64 and hpool) of 256 threads, a 3-stage (fp32)
 // or 4-stage (bf16) cp.async ring of 32-term slices, the pixels gathered
 // channel-major in 16-byte runs (conv2, C = 96) or term by term (conv1,
-// C = 3); fp32 as one fmaf chain per output in kg order (bitwise
-// conv_taps.cu's at stride 1), bf16 as mma.sync.m16n8k16 steps in kg order
+// C = 3); fp32 in the mainloop's two-level order, a partial a 64-term block
+// in kg order (bitwise conv_taps.cu's at stride 1), bf16 as mma.sync.m16n8k16 steps in kg order
 // (the same steps as conv_block.cu's conv, so the fused block stays bitwise
 // the staged chain).
 #include "conv_sm90.cuh"

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel _block_kernel (cuda_mpi_gpu_cluster_programming_tpu/
 // ops/megakernel.py) behind conv_block_pallas and int8w_conv_block_pallas.
 // Per output element it computes, in this order:
-//   1. the conv sum in fp32: one fmaf per term in the fixed order
-//      kg = (fy*F + fx)*C + c from 0, zeros outside the padded image, exactly
-//      the chain of conv2d.cu;
+//   1. the conv sum in fp32 in the fixed order kg = (fy*F + fx)*C + c
+//      from 0, a partial a 64-term block added into the total in block
+//      order, zeros outside the padded image, exactly the sum of conv2d.cu;
 //   2. int8w only: acc * scale[k] (rounded, never fused into an FMA) on the
 //      uncast fp32 accumulator;
 //   3. + bias in fp32, ReLU (-0.0 to +0.0, a NaN stays NaN), one cast to the interior type
@@ -39,10 +39,10 @@
 // rows from the ring and writes them. Only the first conv row of each band after
 // the first is computed twice: 3 of 55 rows in block 1, 1 of 27 in block 2.
 // The conv step is conv2d.cu's: the Hopper mainloop of conv_sm90.cuh over
-// (new pixels x channels) tiles, fp32 as the same fmaf chain, bf16 and int8w
+// (new pixels x channels) tiles, fp32 in the same two-level order, bf16 and int8w
 // as the same mma.sync.m16n8k16 steps in kg order, its stages in shared
-// memory before the ring. Block 1 (no LRN) takes a 128 x 128 tile: the
-// 110 new pixels of a pooled row, and all of conv1's 96 channels. Block 2
+// memory before the ring. Block 1 (no LRN) takes a 128 x 128 tile (fp32: two
+// 64 x 128 tiles): the 110 new pixels of a pooled row, and all of conv1's 96 channels. Block 2
 // (LRN) in bf16 and int8w walks two pooled rows a step: their 108 new pixels
 // (4 conv rows of 27) are one 128 x 128 tile, in two channel chunks, and the
 // ring holds the 5 conv rows they read. In fp32 it walks one: 54 new pixels,
@@ -199,7 +199,9 @@ int dispatch(const void* x, const void* w, const void* b, const void* scale, voi
                    lrn_size, lrn_a, lrn_beta, lrn_k};
   // Block 2 (LRN), bf16 and int8w: two pooled rows a step, their 108 new pixels one 128-row tile
   // beside a 5-row ring of all channels. fp32, whose ring is twice the bytes: one pooled row a step,
-  // its 54 new pixels a 64-row tile with 3 stages. Block 1: one pooled row, 110 pixels.
+  // its 54 new pixels a 64-row tile with 3 stages. Block 1: one pooled row, 110 pixels, one 128-row
+  // tile in bf16 and int8w; in fp32 two 64-row tiles, since the 128-row tile's stages, its 64 KB of
+  // partial totals and the ring would pass the 227 KB a block may have (the bits are the tile's either way).
   if (lrn) {
     if constexpr (sizeof(X) == 4) {
       return launch<sm90::Cfg<X, 64, 128>, 1, true, X, WT, BT, MID, OUT_LRN>(x, w, b, scale, y, g, stream);
@@ -207,7 +209,11 @@ int dispatch(const void* x, const void* w, const void* b, const void* scale, voi
       return launch<sm90::Cfg<X, 128, 128>, 2, true, X, WT, BT, MID, OUT_LRN>(x, w, b, scale, y, g, stream);
     }
   }
-  return launch<sm90::Cfg<X, 128, 128>, 1, false, X, WT, BT, MID, MID>(x, w, b, scale, y, g, stream);
+  if constexpr (sizeof(X) == 4) {
+    return launch<sm90::Cfg<X, 64, 128>, 1, false, X, WT, BT, MID, MID>(x, w, b, scale, y, g, stream);
+  } else {
+    return launch<sm90::Cfg<X, 128, 128>, 1, false, X, WT, BT, MID, MID>(x, w, b, scale, y, g, stream);
+  }
 }
 
 }  // namespace

@@ -26,7 +26,7 @@
 // past Ho or Wo (odd Ho or Wo) reads the packing's zero rows and is not
 // written. The reduction runs kg = (qh*fq8 + qw)*G + c over all fq8*fq8*G
 // terms, the frame's zeros included (conv1: 768 a column against vcol's 363;
-// a zero weight adds an exact zero): fp32 one fmaf chain a term, bf16 the
+// a zero weight adds an exact zero): fp32 the mainloop's 64-term partials, bf16 the
 // mainloop's mma.sync k-steps. That order of the non-zero terms is not the
 // taps order, so g8 agrees with the other conv bodies within the conv
 // tolerance, not bitwise.

@@ -13,7 +13,7 @@
 // conv_sm90.cuh (make_conv with W = Wo, F = 1, stride 1, no padding): each
 // pixel's KD terms are one contiguous row of xcol, gathered in 16-byte
 // cp.async runs (KD is a multiple of the vector at both stages). The terms
-// run in kd order, the taps order: fp32 one fmaf chain a term (the bits of
+// run in kd order, the taps order: fp32 the mainloop's 64-term partials (the bits of
 // conv_taps.cu), bf16 the mainloop's mma.sync k-steps (the bits of
 // conv_pairs.cu, and of conv2d.cu at stride 1).
 //

@@ -16,7 +16,7 @@
 // order, and im2col's xcol order, term for term, with the same weight rows:
 // so pairs gives the bits of conv_im2col.cu in both dtypes (the same A row,
 // B column and k-steps), of conv2d.cu at stride 1 (where the s2d order is
-// vcol's) and, in fp32, of conv_taps.cu (one fmaf chain in kg order).
+// vcol's) and, in fp32, of conv_taps.cu (the same 64-term partials in kg order).
 //
 // Bound on the H100: operations, as conv2d.cu (FFMA in fp32, the tensor
 // cores in bf16); the pair operands cost 2x the input bytes. Design: the

@@ -14,11 +14,20 @@
 // kernels and a Conv caller's code is what it was before Pairs existed. A block of
 // 256 threads computes a BM x BN tile in BK = 32-term slices that a
 // STAGES-deep ring of shared-memory buffers brings in ahead of the math:
-//   * fp32 (T = float): FFMA, each output one fmaf chain in kg order from 0
-//     (TF32 is out by the port's fp32 contract), so any two tile shapes, and
-//     any two callers whose terms agree, give the same bits. A thread owns TM pixels
-//     (TY apart) x 8 channels (two runs of 4, BN/2 apart) and reads them as
-//     8- and 16-byte shared loads: 2 terms of a pixel, 4 channels of a term.
+//   * fp32 (T = float): FFMA (TF32 is out by the port's fp32 contract) in a
+//     fixed two-level order: each block of FOLD stages' terms, kg in
+//     [b*FOLD*BK, (b+1)*FOLD*BK), is one fmaf chain from 0 (a partial), and
+//     the partials are added into the output's total in block order. The
+//     blocks are fixed by the absolute term index, so any two tile shapes,
+//     and any two callers whose terms agree, give the same bits; a padding
+//     tap is a zero term of its block. One chain of all KG terms (2400 at
+//     conv2) rounded 2.1x cuDNN's error on same-sign sums; 64-term partials
+//     cut the longest chain to 64 + KG / 64 terms. The totals live in shared
+//     memory after the pixel origins (ACC floats a thread, read and written
+//     as float4), so the partials take no registers beyond the accumulators.
+//     A thread owns TM pixels (TY apart) x 8 channels (two runs of 4, BN/2
+//     apart) and reads them as 8- and 16-byte shared loads: 2 terms of a
+//     pixel, 4 channels of a term.
 //   * bf16 (T = bf16; int8w, whose int8 weights widen to bf16 exactly): the
 //     tensor cores, mma.sync.m16n8k16 with fp32 accumulators and ldmatrix
 //     (.trans for the row-major weights), the k16 steps in kg order from 0.
@@ -53,6 +62,7 @@ namespace sm90 {
 
 constexpr int THREADS = 256;
 constexpr int BK = 32;  // reduction terms a stage holds
+constexpr int FOLD = 2;  // fp32: stages a partial sum covers (64 terms)
 constexpr int SMEM_LIMIT = 232448;  // the 227 KB a block may opt into
 
 // ------------------------------------------------------------------ operands
@@ -179,8 +189,6 @@ struct Cfg {
   static constexpr int MIN_BLOCKS = MMA ? 2 : 1;
   static constexpr int A_ELEMS = BM * SA, B_ELEMS = BK * SB;
   static constexpr int STAGE_BYTES = (A_ELEMS + B_ELEMS) * static_cast<int>(sizeof(S));
-  // the stages, then the tile's pixel origins (Pix per pixel row)
-  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BM * 8;
   // A, vector path: CPR 16-byte runs per pixel row, AV pixels a thread
   static constexpr int CPR = BK / VEC;
   static constexpr int AV = BM * CPR / THREADS;
@@ -194,9 +202,14 @@ struct Cfg {
   // MMA: WARPS_M x WARPS_N warps, a warp WM x 32: MT m16 tiles x 4 n8 tiles
   static constexpr int WARPS_N = BN / 32, WARPS_M = 8 / WARPS_N, WM = BM / WARPS_M, MT = WM / 16;
   static constexpr int ACC = MMA ? MT * 4 * 4 : TM * 8;  // accumulators a thread
+  // fp32: the running totals of the partials, ACC floats a thread, [e / 4][thread] as float4
+  static constexpr int TOT_BYTES = MMA ? 0 : ACC * THREADS * 4;
+  // the stages, then the tile's pixel origins (Pix per pixel row), then the fp32 totals
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BM * 8 + TOT_BYTES;
   static_assert(AV >= 1 && AR >= 1 && BV >= 1 && BM * CPR % THREADS == 0 && THREADS % BM == 0, "loaders");
   static_assert(MMA ? (WARPS_M * WARPS_N == 8 && WM % 16 == 0) : (TM * TY == BM && TX * 8 == BN), "tiles");
   static_assert(STAGE_BYTES % 16 == 0, "every stage starts 16-byte aligned");
+  static_assert(MMA || ACC % 4 == 0, "fp32 totals go in float4 rows");
 
   // Tile coordinates (pixel row m, channel column n) of accumulator e.
   __device__ __forceinline__ static void coord(int e, int& m, int& n) {
@@ -479,8 +492,9 @@ struct Loop {
 };
 
 // acc = the tile of pixel rows [q0, q0 + BM) of `pm` times weight columns
-// [n0, n0 + BN), over all KG terms in order. `stages` is the block's
-// C::SMEM_BYTES of shared memory; it is free again when this returns.
+// [n0, n0 + BN), over all KG terms in order (fp32: a partial a block of FOLD
+// stages, added into the totals in block order). `stages` is the block's C::SMEM_BYTES of
+// shared memory; it is free again when this returns.
 template <class C, int AM = A_ANY, class G>
 __device__ __forceinline__ void mainloop(const G& g, const PixMap& pm, int q0, int n0, unsigned char* stages,
                                          float (&acc)[C::ACC]) {
@@ -495,6 +509,8 @@ __device__ __forceinline__ void mainloop(const G& g, const PixMap& pm, int q0, i
   // there at every stage rather than held in registers
   P* pa = reinterpret_cast<P*>(stages + C::STAGES * C::STAGE_BYTES);
   for (int m = threadIdx.x; m < C::BM; m += THREADS) pa[m] = pixel(g, pm, q0 + m);
+  // fp32: this thread's totals, float4 e/4 of thread t at [e/4][t] (16-byte rows: no bank conflicts)
+  float4* tot = reinterpret_cast<float4*>(stages + C::STAGES * C::STAGE_BYTES + C::BM * 8) + threadIdx.x;
   __syncthreads();
   const bool b8 = L::B8 && g.vec_b;  // int8 weights through registers, a stage ahead
   const int KT = (g.KG + BK - 1) / BK;
@@ -533,7 +549,34 @@ __device__ __forceinline__ void mainloop(const G& g, const PixMap& pm, int q0, i
       if (b8 && nk + 1 < KT) next_b8 = L::fetch_b8(g, (nk + 1) * BK, n0);
     }
     const int cur = kt % C::STAGES;
-    L::compute(ring + cur * C::STAGE_BYTES, reinterpret_cast<const S*>(stages) + cur * STAGE, acc);
+    if constexpr (C::MMA) {
+      L::compute(ring + cur * C::STAGE_BYTES, reinterpret_cast<const S*>(stages) + cur * STAGE, acc);
+    } else {
+      // a block's partial: one chain from 0 over its FOLD stages, then into the totals (the first stored)
+      if (kt % FOLD == 0) {
+#pragma unroll
+        for (int e = 0; e < C::ACC; ++e) acc[e] = 0.f;
+      }
+      L::compute(ring + cur * C::STAGE_BYTES, reinterpret_cast<const S*>(stages) + cur * STAGE, acc);
+      if (kt % FOLD == FOLD - 1 || kt == KT - 1) {
+#pragma unroll
+        for (int e = 0; e < C::ACC; e += 4) {
+          float4 t = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+          if (kt >= FOLD) {
+            const float4 o = tot[(e / 4) * THREADS];
+            t = make_float4(__fadd_rn(o.x, t.x), __fadd_rn(o.y, t.y), __fadd_rn(o.z, t.z), __fadd_rn(o.w, t.w));
+          }
+          tot[(e / 4) * THREADS] = t;
+        }
+      }
+    }
+  }
+  if constexpr (!C::MMA) {
+#pragma unroll
+    for (int e = 0; e < C::ACC; e += 4) {
+      const float4 t = tot[(e / 4) * THREADS];
+      acc[e] = t.x, acc[e + 1] = t.y, acc[e + 2] = t.z, acc[e + 3] = t.w;
+    }
   }
   cp_async_wait<0>();
   __syncthreads();

@@ -15,7 +15,7 @@
 // Hopper mainloop of conv_sm90.cuh. The TPU kernel's order, qh outer, qw,
 // then the cs channels (kg = (qh*fq + qw)*cs + c), is the mainloop's
 // (fy*F + fx)*C + c term for term, and the terms are im2col's xcol columns:
-// fp32 one fmaf chain a term (the bits of conv_pairs.cu and conv_im2col.cu,
+// fp32 the mainloop's 64-term partials (the bits of conv_pairs.cu and conv_im2col.cu,
 // and of conv2d.cu at stride 1, where the s2d order is vcol's), bf16 the
 // mainloop's mma.sync k-steps (the same three-way bits). cs is a multiple of
 // the 16-byte vector at both stages (48, 96), so each pixel's terms come in

@@ -29,12 +29,13 @@ estimator's resolution (:func:`percentile_resolution`: the bracket between
 adjacent order statistics, floored at the dispatch poll quantum). A neutral
 replay that breaks it is a **divergence**; the CLI exits 3 on it.
 
-What the port does not replay, and refuses with a ``ValueError`` naming its
-ROADMAP Queue 1 item: a journal of a supervised run or one holding
-device-loss incidents (the JAX replay scripts them through the elastic
-supervisor's ``script_fault``; the supervisor is item 8). A shard width
-below one, and a journal recorded before the replay schema (no
-``serve_submit`` records), raise too.
+A supervised run replays supervised, and its recorded incidents (each
+``sup_trip`` with its ``mesh_shrink``: the step, the kind, the slots lost)
+are re-driven through the supervisor's ``script_fault`` at the same steps
+with the same slot ids, no seeded re-draw. A journal holding incidents but
+recorded unsupervised, a shard width below one, and a journal recorded
+before the replay schema (no ``serve_submit`` records) raise
+``ValueError``.
 
 Standard library at import; torch and the serving stack load inside
 :func:`replay_recorded`.
@@ -525,9 +526,9 @@ def _refusal(recorded: RecordedRun, knobs: ReplayKnobs) -> str:
     shards = knobs.devices if knobs.devices is not None else int(cfg.get("n_shards", 1) or 1)
     if shards < 1:
         return f"a replay needs at least one device, got devices={shards}"
-    if recorded.faults or cfg.get("supervise"):
-        return (f"the recorded run was supervised ({len(recorded.faults)} device-loss incident(s)): re-driving "
-                "its fault schedule waits for the elastic supervisor (ROADMAP Queue 1 item 8)")
+    if recorded.faults and not cfg.get("supervise"):
+        return (f"recorded run has {len(recorded.faults)} device-loss incident(s) but was not supervised — cannot "
+                "re-drive the chaos schedule without the ladder")
     return ""
 
 
@@ -577,6 +578,7 @@ def _build_server(recorded: RecordedRun, knobs: ReplayKnobs):
         compute=str(cfg.get("compute", "fp32")),
         max_batch=int(cfg.get("max_batch", 8)),
         buckets=tuple(cfg.get("buckets") or ()) or None,
+        supervise=bool(cfg.get("supervise", False)),
         journal_path=knobs.journal_path,
         max_pending=int(cfg.get("max_pending", 1024)),
         poll_s=float(cfg.get("poll_s", 0.02)),
@@ -600,9 +602,10 @@ def replay_recorded(
 
     The offered schedule is paced on the wall clock exactly as recorded
     (offsets normalized to the first arrival); every handle is awaited
-    (bounded), so per-class accounting closes by construction. A run the
-    port cannot replay raises ``ValueError`` naming its ROADMAP item
-    (module docstring) before any server is built."""
+    (bounded), so per-class accounting closes by construction. Scripted
+    faults re-drive the recorded incident trail at the same supervised
+    steps with the same slot ids. A run the port cannot replay raises
+    ``ValueError`` (module docstring) before any server is built."""
     import tempfile
 
     import numpy as np
@@ -649,6 +652,9 @@ def replay_recorded(
     drained = False
     try:
         server.start()
+        if server.sup is not None:
+            for f in recorded.faults:
+                server.sup.script_fault(f.step, kind=f.kind, device_ids=f.lost, cause=f"replay:{f.cause or f.kind}")
         t_first = schedule[0].t_ms if schedule else 0.0
         with span(
             "replay.load",

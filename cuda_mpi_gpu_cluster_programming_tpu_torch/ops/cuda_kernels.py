@@ -240,8 +240,9 @@ def conv2d_bias_relu(
     bf16. Design (``csrc/conv2d.cu`` on the Hopper mainloop of
     ``csrc/conv_sm90.cuh``): an implicit GEMM over 128 x 128 (pixels x
     channels) tiles, 32-term slices in a cp.async ring, the pixels gathered
-    channel-major in 16-byte runs; fp32 one fmaf chain per output in the
-    fixed (fy, fx, c) order, bf16 ``mma.sync`` steps in the same order; the
+    channel-major in 16-byte runs; fp32 in the fixed (fy, fx, c) order as
+    64-term partials added into the total in order, bf16 ``mma.sync`` steps
+    in the same order; the
     bias/ReLU/cast (and hpool) epilogue fused."""
     dev, (n, h, wd, c, f, k, ho, wo) = _conv_geometry("conv2d_bias_relu", x, w, b, stride, padding, padding_w)
     kb = effective_k_block(k_block, k)

@@ -79,6 +79,8 @@ def conv2d(
     pads = [padding, padding] if isinstance(padding, int) else [int(p) for p in padding]
     xc, wc = x.permute(0, 3, 1, 2).to(acc), w.permute(3, 2, 0, 1).to(acc)
     if xc.device.type == "cpu" and acc == torch.float32:
+        if torch.is_grad_enabled() and (xc.requires_grad or wc.requires_grad):
+            xc, wc = xc.contiguous(), wc.contiguous()  # the same values; the layout its backward needs
         out = torch.ops.aten.thnn_conv2d(xc, wc, list(wc.shape[2:]), None, [stride, stride], pads)
     else:
         out = F.conv2d(xc, wc, stride=stride, padding=tuple(pads))

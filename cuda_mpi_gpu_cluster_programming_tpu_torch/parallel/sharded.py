@@ -124,6 +124,7 @@ def build_sharded_forward(
     quantized: bool = False,
     variants=None,
     device: str = "cuda",
+    differentiable: bool = False,
 ) -> Callable:
     """``(params, x) -> out`` running row-sharded over ``n_shards`` slots.
 
@@ -148,11 +149,17 @@ def build_sharded_forward(
     before the mask; activations are bf16 between stages, and the LRN and
     the output fp32.
 
-    ``with_digests`` (the JAX package's in-graph sentinel taps) raises: it
-    waits for the supervisor, ROADMAP Queue 1 item 8."""
-    if with_digests:
-        raise NotImplementedError("with_digests (the sentinel's in-graph taps) waits for the elastic supervisor "
-                                  "(ROADMAP Queue 1 item 8)")
+    ``with_digests``: the JAX package's sentinel taps. The function returns
+    ``(out, {layer: (n_shards,) float32})``: one ``tree_digest`` of each
+    shard's block at every Conv1/Pool1/Conv2/Pool2/LRN2 boundary (the
+    conv's after its ReLU), on the home device, computed on the device
+    beside the forward (no host sync; ``resilience.sentinel.StageDigests``
+    screens them off the timed path). The output's bits are the same with
+    and without them.
+
+    ``differentiable``: run with autograd (the training step's forward,
+    ``training.make_train_step``); by default the forward runs in
+    inference mode."""
     if tier not in ("reference", "kernels"):
         raise ValueError(f"tier must be reference|kernels, got {tier!r}")
     mesh = mesh or make_mesh(n_shards, axis_name=AXIS, device=device)
@@ -185,7 +192,9 @@ def build_sharded_forward(
     h_pad = n * splan.layers[0].b_in  # equal blocks: H padded to n * b0
     b0, l_final = splan.layers[0].b_in, splan.l_final
 
-    @torch.inference_mode()
+    if with_digests:
+        from ..resilience.sentinel import shard_digests
+
     def fwd(params, x):
         if quantized:
             from ..precision.quantize import quantize_conv_params
@@ -198,20 +207,24 @@ def build_sharded_forward(
         if x.shape[1] < h_pad:
             x = F.pad(x, (0, 0, 0, 0, 0, h_pad - x.shape[1]))
         blocks = [x[:, i * b0 : (i + 1) * b0].to(d, non_blocking=True) for i, d in enumerate(devs)]
+        digs = {}
         for lp in splan.layers:
             spec = specs[lp.name]
             if lp.kind == "pointwise":
                 # int8w: the LRN computes in fp32 (squares and pow need the headroom)
                 blocks = [ops.lrn(b.float() if quantized else b, size=spec.size, alpha=spec.alpha, beta=spec.beta,
                                   k=spec.k, alpha_over_size=spec.alpha_over_size) for b in blocks]
-                continue
-            conv_fn, pool_fn = layer_fns[lp.name]
-            blocks = _apply_spatial(lp, blocks, params_on, spec, conv_fn, pool_fn, staged)
-            if lp.kind == "conv":
-                blocks = [ops.relu(b) for b in blocks]
-                if quantized:
-                    blocks = [b.to(torch.bfloat16) for b in blocks]  # bf16 between quantized stages
+            else:
+                conv_fn, pool_fn = layer_fns[lp.name]
+                blocks = _apply_spatial(lp, blocks, params_on, spec, conv_fn, pool_fn, staged)
+                if lp.kind == "conv":
+                    blocks = [ops.relu(b) for b in blocks]
+                    if quantized:
+                        blocks = [b.to(torch.bfloat16) for b in blocks]  # bf16 between quantized stages
+            if with_digests:
+                digs[lp.name] = shard_digests(blocks).to(x.device, non_blocking=True)
         home = x.device
-        return torch.cat([b.to(home, non_blocking=True) for b in blocks], dim=1)[:, :l_final]
+        out = torch.cat([b.to(home, non_blocking=True) for b in blocks], dim=1)[:, :l_final]
+        return (out, digs) if with_digests else out
 
-    return fwd
+    return fwd if differentiable else torch.inference_mode()(fwd)

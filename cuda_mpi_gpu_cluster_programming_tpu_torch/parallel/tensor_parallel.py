@@ -53,18 +53,18 @@ def _channel_halo(zs, half: int):
 
 def build_tp_forward(
     model_cfg=BLOCKS12, n_shards: int = 1, mesh: Optional[Mesh] = None, axis_name: str = "tp",
-    with_digests: bool = False, device: str = "cuda",
+    with_digests: bool = False, device: str = "cuda", differentiable: bool = False,
 ) -> Callable:
     """``(params, x) -> out`` with the conv filters split n ways on K.
 
     Refuses (``ValueError``) a K not divisible by ``n_shards``, an LRN
     half-window wider than conv2's local channels, and a mesh whose shard
-    axis is not ``n_shards`` long. ``with_digests`` raises (the sentinel
-    taps: ROADMAP Queue 1 item 8)."""
+    axis is not ``n_shards`` long. ``with_digests``: also return the JAX
+    package's taps, ``{layer: (n_shards,) float32}``, one ``tree_digest``
+    of each shard's local channel slice at every Conv1/Pool1/Conv2/Pool2/
+    LRN2 boundary, on the input's device (the output's bits do not move).
+    ``differentiable``: autograd on (the training step's forward)."""
     cfg = model_cfg
-    if with_digests:
-        raise NotImplementedError("with_digests (the sentinel's in-graph taps) waits for the elastic supervisor "
-                                  "(ROADMAP Queue 1 item 8)")
     for name, spec in (("conv1", cfg.conv1), ("conv2", cfg.conv2)):
         if spec.out_channels % n_shards:
             raise ValueError(f"{name} K={spec.out_channels} not divisible by {n_shards} TP shards")
@@ -81,24 +81,36 @@ def build_tp_forward(
     devs = mesh.shard_devices
     c1, p1, c2, p2, n2 = cfg.conv1, cfg.pool1, cfg.conv2, cfg.pool2, cfg.lrn2
 
-    def block(x, p, i, local, cspec, pspec):
+    if with_digests:
+        from ..resilience.sentinel import shard_digests
+
+    def block(x, p, i, local, cspec, pspec, taps=None):
         sl = slice(i * local, (i + 1) * local)
         y = ops.conv2d(x, p["w"][..., sl], p["b"][sl], stride=cspec.stride, padding=cspec.padding)
+        if taps is not None:
+            taps.append(ops.relu(y))  # the conv's tap after its ReLU; the pooled value below is unchanged
         return ops.relu_maxpool(y, window=pspec.window, stride=pspec.stride)
 
-    @torch.inference_mode()
     def fwd(params, x):
+        digs, t1, t2 = {}, ([] if with_digests else None), ([] if with_digests else None)
         on = {d: params_to(params, device=d) for d in dict.fromkeys(devs)}
-        ys = [block(x.to(d, non_blocking=True), on[d]["conv1"], i, local1, c1, p1) for i, d in enumerate(devs)]
+        ys = [block(x.to(d, non_blocking=True), on[d]["conv1"], i, local1, c1, p1, t1) for i, d in enumerate(devs)]
+        if with_digests:
+            digs["conv1"], digs["pool1"] = shard_digests(t1).to(x.device), shard_digests(ys).to(x.device)
         COLLECTIVES["all_gather"] += 1  # conv2 contracts over every conv1 channel
         ys = [torch.cat([y.to(d, non_blocking=True) for y in ys], dim=-1) for d in devs]
-        zs = [block(y, on[d]["conv2"], i, local2, c2, p2) for i, (y, d) in enumerate(zip(ys, devs))]
+        zs = [block(y, on[d]["conv2"], i, local2, c2, p2, t2) for i, (y, d) in enumerate(zip(ys, devs))]
+        if with_digests:
+            digs["conv2"], digs["pool2"] = shard_digests(t2).to(x.device), shard_digests(zs).to(x.device)
         if n_shards > 1:
             zs = _channel_halo(zs, half)
         outs = [ops.lrn(z, size=n2.size, alpha=n2.alpha, beta=n2.beta, k=n2.k, alpha_over_size=n2.alpha_over_size)
                 for z in zs]
         if n_shards > 1:
             outs = [o[..., half:-half] for o in outs]
-        return torch.cat([o.to(x.device, non_blocking=True) for o in outs], dim=-1)
+        if with_digests:
+            digs["lrn2"] = shard_digests(outs).to(x.device)
+        out = torch.cat([o.to(x.device, non_blocking=True) for o in outs], dim=-1)
+        return (out, digs) if with_digests else out
 
-    return fwd
+    return fwd if differentiable else torch.inference_mode()(fwd)

@@ -28,6 +28,11 @@
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v5_collective --serve --shards 2
 
+    CHAOS_SPEC=seed=3,stage_sdc=1 python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v5_collective \
+        --shards 4 --supervise --supervisor-journal sup.jsonl
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.run --config v5_collective --shards 4 --serve --supervise
+
 Runs on the GPU unless ``--device cpu`` is given; with no CUDA device and
 no ``--device cpu`` it raises. ``--shards N`` runs a sharded config on a mesh
 of N shard slots (``parallel/mesh.py``: slot i on GPU i mod the visible
@@ -102,9 +107,24 @@ live server (``observability/replay.py``; the journal's ``serve_config``
 record is the build, so the build flags are ignored) with the what-if
 knobs ``--replay-mult``, ``--replay-slo-scale`` and ``--replay-devices``,
 and prints ``Replay:`` and ``Replay class:`` lines: exit 3 when a neutral
-replay diverges from the record, 2 on a journal it cannot replay (a
-supervised recording waits for item 8). ``--serve --supervise`` exits 2
-(the supervisor, ROADMAP Queue 1 item 8).
+replay diverges from the record, 2 on a journal it cannot replay; a
+supervised recording replays through the supervisor, its recorded slot
+losses scripted at their steps.
+
+Supervision: ``--supervise`` runs a Blocks 1-2 config under the elastic
+supervisor (``resilience/supervisor.py``): the forward of each rung of
+its ladder (the config's strategy at N, N/2, ... shards, replicated, the
+single-device reference floor; ``--dtype`` fp32 or bf16) carries the
+sentinel's digest taps, every screened batch is checked off the timed
+path, and a trip degrades a rung and replays the batch, printing
+``DEGRADED(halo@4:pallas -> halo@2:pallas): cause`` on stdout and, after
+the timed passes (taps included), one ``Supervisor: attempts=...
+entry=... kinds=...`` line. ``--supervisor-journal PATH`` journals every
+transition. ``--supervise`` refuses full AlexNet and ``--fallback-chain``
+(exit 2, the JAX package's words). ``--serve --supervise`` serves under the
+supervisor: a trip's batch replays on the new rung after every bucket's
+graph is captured again there, and the controller gains its
+``degrade_capacity`` rung. ``--route`` backends are not supervised.
 """
 
 from __future__ import annotations
@@ -178,9 +198,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--shards", type=int, default=1,
                    help="shard count of a sharded config (mpirun -np analogue): slots of a mesh over the visible "
                         "GPUs, several to a card where there are fewer GPUs; printed on the 'Mesh:' line")
-    # The JAX run.py's flags whose subsystems the port has not yet: accepted,
-    # and refused with the ROADMAP Queue 1 item they wait for (_waiting).
-    p.add_argument("--supervise", action="store_true", help="the elastic supervisor: waits for item 8")
+    p.add_argument("--supervise", action="store_true",
+                   help="run under the elastic supervisor: each rung's forward carries per-stage digest taps, every "
+                        "screened batch is checked off the timed path, and a trip (stage_digest / shard_divergence / "
+                        "device_loss / mesh_shrink) degrades down the shard ladder and replays the batch. Blocks 1-2 "
+                        "configs only; prints one machine-parsed 'Supervisor: ...' line")
+    p.add_argument("--supervisor-journal", default="",
+                   help="with --supervise: journal every build/trip/degrade/ok transition to this jsonl path")
     p.add_argument("--serve", action="store_true",
                    help="run the continuous-batching inference service under a seeded Poisson load instead of "
                         "the one-shot forward: admission queue with per-request deadlines, bucketed batches, a "
@@ -238,11 +262,28 @@ def _waiting(args) -> str:
         return f"--shards must be >= 1, got {args.shards}"
     if args.route < 0:
         return f"--route must be >= 0, got {args.route}"
-    if args.supervise:
-        return "--supervise waits for the elastic supervisor (ROADMAP Queue 1 item 8)"
     if args.serve and args.fallback_chain:
-        return "--serve degrades through the elastic supervisor, not --fallback-chain (ROADMAP Queue 1 item 8)"
+        return "--serve degrades through the supervisor ladder (--supervise); drop --fallback-chain"
+    if args.serve and args.route and args.supervise:
+        return ("--route serves unsupervised backends (the fleet's router is what survives a backend's loss); "
+                "drop --supervise")
     return ""
+
+
+def _supervisor(args, exec_cfg, model_cfg, plan, run_dtype: str, device):
+    """``(Supervisor, '')`` over the config's default ladder at
+    ``--shards``, DEGRADED events printed to stdout; ``(None, why)`` when
+    the config has no ladder."""
+    from .resilience.journal import Journal
+    from .resilience.supervisor import Supervisor, default_ladder
+
+    try:
+        ladder = default_ladder(exec_cfg.strategy, exec_cfg.tier, args.shards)
+    except ValueError as e:
+        return None, f"cannot supervise config {exec_cfg.key!r}: {e}"
+    journal = Journal(args.supervisor_journal) if args.supervisor_journal else None
+    return Supervisor(model_cfg, ladder, plan=plan, journal=journal, on_event=lambda ev: print(ev, flush=True),
+                      policy=run_dtype, device=device), ""
 
 
 def _chaos_build_faults(exec_cfg) -> None:
@@ -399,6 +440,12 @@ def _run(args) -> int:
     if why:
         print(why, file=sys.stderr)
         return 2
+    if args.supervise and exec_cfg.model != "blocks12":
+        print("--supervise supports the Blocks 1-2 configs only", file=sys.stderr)
+        return 2
+    if args.supervise and args.fallback_chain:
+        print("--supervise has its own degradation ladder; drop --fallback-chain", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
 
     blocks_cfg = dataclasses.replace(
@@ -444,6 +491,9 @@ def _run(args) -> int:
     else:
         gate_str = "none"
     print(f"Precision: dtype={run_dtype} source={source} gate={gate_str}")
+    if args.supervise and run_dtype not in ("fp32", "bf16"):
+        print(f"--supervise runs fp32 or bf16 (its ladder's rungs have no {run_dtype} form)", file=sys.stderr)
+        return 2
 
     if args.serve and exec_cfg.model != "blocks12":
         print("--serve supports the Blocks 1-2 configs only", file=sys.stderr)
@@ -517,14 +567,35 @@ def _run(args) -> int:
         chain, should_degrade=(lambda e: isinstance(e, (ValueError, chaos.InjectedFault))) if len(chain) == 1 else None,
         on_event=lambda ev: print(ev, flush=True),
     )
-    try:
-        ran_key, (fwd, compile_ms) = degrader.run(
-            lambda key: retry_call(lambda: build_and_first_pass(key), policy=retry, deadline=deadline)
-        )
-    except DegradationExhausted as e:
-        print(f"cannot build config {chain[-1]!r}: {e.last}", file=sys.stderr)
-        return 2
-    exec_cfg = REGISTRY[ran_key]  # what follows reports the tier that ran
+    sup = None
+    if args.supervise:
+        # the supervisor owns the build, its chaos draws and its ladder: the retry and Degrader path is bypassed
+        sup, why = _supervisor(args, exec_cfg, model_cfg, plan, run_dtype, device)
+        if sup is None:
+            print(why, file=sys.stderr)
+            return 2
+
+        def run_counted(f, p, xx):
+            nonlocal passes
+            passes += 1
+            return f(p, xx)
+
+        try:
+            sup.execute(params, x, runner=run_counted)
+        except DegradationExhausted as e:
+            print(f"supervisor: every ladder rung failed: {e.last}", file=sys.stderr)
+            return 2
+        fwd = counted(sup.fwd())  # (params, x) -> (out, digests): the taps ride the timed path
+        compile_ms = sup.compile_ms or 0.0
+    else:
+        try:
+            ran_key, (fwd, compile_ms) = degrader.run(
+                lambda key: retry_call(lambda: build_and_first_pass(key), policy=retry, deadline=deadline)
+            )
+        except DegradationExhausted as e:
+            print(f"cannot build config {chain[-1]!r}: {e.last}", file=sys.stderr)
+            return 2
+        exec_cfg = REGISTRY[ran_key]  # what follows reports the tier that ran
 
     n_small = max(1, args.warmup)
     if args.profile:
@@ -539,7 +610,12 @@ def _run(args) -> int:
                 sp.set(per_pass_ms=round(st.per_call_ms, 4))
     if args.profile:
         print(f"Profiler trace written to {Path(args.profile) / TRACE_FILE}")
-    out = fwd(params, x).cpu().numpy()
+    if sup is not None:
+        # a screened pass (off the timed path), then the machine-parsed supervisor line
+        out = sup.execute(params, x, runner=run_counted).cpu().numpy()
+        print(f"Supervisor: {sup.summary()}")
+    else:
+        out = fwd(params, x).cpu().numpy()
     per_pass_ms = st.per_call_ms
 
     shape_str = "x".join(str(d) for d in out.shape[1:])
@@ -613,6 +689,7 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
         max_batch=args.serve_max_batch,
         buckets=buckets or None,
         plan_path=args.plan,
+        supervise=args.supervise,
         journal_path=args.serve_journal,
         default_deadline_s=args.serve_deadline_s or None,
         model_cfg=blocks_cfg,
@@ -679,6 +756,8 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
         print(f"Serve transport: {' '.join(f'http_{c}={n}' for c, n in sorted(frontend.http_codes.items()))}")
     if server.controller is not None:
         print(f"Serve controller: {server.controller.summary()}")
+    if server.sup is not None:
+        print(f"Supervisor: {server.sup.summary()}")  # the one-shot --supervise line
     return 0
 
 

@@ -23,11 +23,14 @@ the saturation knee:
    captures every bucket's graph again before its next dispatch. A failed
    screen journals the refusal (``downshift_refused`` beside the gate's own
    ``gate_fail``) and the rung is skipped, never silently adopted.
-
-The JAX ladder's fourth rung, ``degrade_capacity``, asks the elastic
-supervisor for one rung down; the port's server has no supervisor yet
-(``server.sup`` is None, ROADMAP Queue 1 item 8), so :meth:`_rungs` leaves
-it out, as the JAX controller does for an unsupervised server.
+4. ``degrade_capacity``: one supervised rung down, asked of the elastic
+   supervisor through ``server.request_degrade`` as a capacity decision
+   (cause ``requested: ...``), the server's graphs captured again on the
+   new rung; its reversal, ``promote_capacity``, is ``request_promote``,
+   verified against the current rung like any promotion (a refused one
+   keeps the rung, journaled). A supervised server only: its ladder's rungs
+   carry no dtype, so it has no ``downshift_dtype`` rung, and an
+   unsupervised one has no capacity rung.
 
 Every transition journals one ``controller_action`` record with its
 **evidence** (the signal values, the thresholds they crossed, and the
@@ -259,9 +262,9 @@ class AutopilotController:
 
     def _rungs(self) -> List[Tuple[str, str]]:
         """The pressure ladder available to THIS server, in escalation
-        order. Availability is structural (the port's server is
-        unsupervised: it has no capacity rung); refusals discovered at
-        actuation time land in ``_blocked`` instead."""
+        order. Availability is structural (an unsupervised server has no
+        capacity rung; a supervised one has no dtype axis); refusals
+        discovered at actuation time land in ``_blocked`` instead."""
         cfg, srv = self.cfg, self.server
         rungs: List[Tuple[str, str]] = []
         if cfg.enable_admission and self.base_slo is not None:
@@ -273,7 +276,8 @@ class AutopilotController:
         if cfg.enable_dtype and srv.sup is None:
             if srv.cfg.compute != cfg.downshift_to:
                 rungs.append(("downshift_dtype", cfg.downshift_to))
-        # degrade_capacity (enable_degrade) needs a supervised server: item 8
+        if cfg.enable_degrade and srv.sup is not None:
+            rungs.append(("degrade_capacity", ""))
         return rungs
 
     @property
@@ -448,6 +452,11 @@ class AutopilotController:
                 "gate_margin": _finite(res.margin),
                 "frm": srv.cfg.compute,
             }
+        if action == "degrade_capacity":
+            frm = srv.sup.entry.key
+            if not srv.request_degrade("controller: protected-class burn"):
+                return None, {"cause": "ladder floor reached"}
+            return frm, {"frm": frm, "to": srv.sup.entry.key}
         raise ValueError(f"unknown rung {action!r}")
 
     @off_timed_path
@@ -462,6 +471,12 @@ class AutopilotController:
         if action == "downshift_dtype":
             srv.apply_compute(undo)
             return True, {"to": undo}
+        if action == "degrade_capacity":
+            frm = srv.sup.entry.key
+            if not srv.request_promote():
+                # a refused grow-back (sup_promote_refused is journaled): stay degraded, attributably
+                return False, {"cause": "promotion refused", "frm": frm}
+            return True, {"frm": frm, "to": srv.sup.entry.key}
         raise ValueError(f"unknown rung {action!r}")
 
     @off_timed_path

@@ -48,10 +48,21 @@ on one device's stream, so the mesh takes no other device; one rank a GPU
 is ROADMAP Queue 1 item 14. A single-device config
 serves on one device whatever ``n_shards`` says, as in the JAX package.
 
-Not here yet: ``supervise=True`` raises ``ValueError`` naming the elastic
-supervisor (ROADMAP Queue 1 item 8); ``sup`` is None, so the controller
-has no capacity rung. The server runs on CUDA unless ``ServeConfig.device``
-asks for the CPU; without a GPU it raises.
+**Degradation, not 500s.** With ``supervise=True`` the forward is the
+elastic supervisor's (``resilience/supervisor.py``, on ``sup``): each
+rung's forward, digest taps included, is what every bucket's graph
+captures, and a dispatch replays the graph through
+:meth:`~..resilience.supervisor.Supervisor.execute`, which screens the
+digests after it. A trip walks the ladder; the supervisor's ``on_rebuild``
+(:meth:`_rewarm`) captures every bucket again on the new rung, into a new
+``BucketGraphs`` that replaces the old one, and the tripped batch replays
+there: its requests are served, never dropped. Between batches
+:meth:`_maybe_promote` climbs back once healed slots graduate, recapturing
+the same way, and the controller gains its ``degrade_capacity`` rung
+(:meth:`request_degrade`, :meth:`request_promote`); a supervised server has
+no dtype rung (the ladder's rungs carry none), as in the JAX package. The
+server runs on CUDA unless ``ServeConfig.device`` asks for the CPU; without
+a GPU it raises.
 """
 
 from __future__ import annotations
@@ -82,7 +93,7 @@ class ServeConfig:
     # plan_path names a plan covering this point (tuning.plan.plan_batches).
     buckets: Optional[Tuple[int, ...]] = None
     plan_path: str = ""
-    supervise: bool = False  # the elastic supervisor waits for item 8
+    supervise: bool = False  # serve under the elastic supervisor (sup)
     journal_path: str = ""
     max_pending: int = 1024
     poll_s: float = 0.02
@@ -114,7 +125,9 @@ class ServeStats:
     n_failed: int = 0
     warmup_compiles: int = 0  # buckets captured (CPU: first calls)
     cache_misses: int = 0  # post-warmup dispatches at an un-warmed bucket
-    rewarm_ms: float = 0.0  # wall ms of the captures of every apply_compute
+    rewarm_ms: float = 0.0  # wall ms of the captures of every apply_compute and every rung's recapture
+    rewarms: int = 0  # recaptures of every bucket: dtype shifts and supervised rebuilds
+    promotions: int = 0  # supervised grow-back climbs committed mid-serve
     batch_ms: List[float] = dataclasses.field(default_factory=list)
 
     def summary(self) -> str:
@@ -135,13 +148,14 @@ class InferenceServer:
     order. :meth:`close` releases the captured graphs.
     """
 
-    def __init__(self, cfg: ServeConfig, params=None, plan=None):
-        if cfg.supervise:
-            raise ValueError("supervise=True waits for the elastic supervisor (ROADMAP Queue 1 item 8)")
+    def __init__(self, cfg: ServeConfig, params=None, plan=None, ladder=None):
+        # ``ladder``: the supervisor's LadderEntry list (supervise only; default the config's ladder at
+        # n_shards): a drill pins a clean comparison server to the rung a faulted run landed on
         if cfg.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {cfg.n_shards}")
         self.cfg = cfg
-        self.sup = None  # the elastic supervisor waits for item 8
+        self._ladder = ladder
+        self.sup = None  # the Supervisor in supervise mode, made at the build
         self.queue = AdmissionQueue(max_pending=cfg.max_pending, slo=cfg.slo)
         self.stats = ServeStats()
         self.journal = Journal(cfg.journal_path) if cfg.journal_path else None
@@ -223,8 +237,18 @@ class InferenceServer:
             self._params = init_params_deterministic(model_cfg, device=device)
         else:
             self._params = params_to(self._params, device=device)
-        # build_forward sets the TF32 switches on the host, before any capture
-        self._fwd = self._forward(self.current_compute, device)
+        if cfg.supervise:
+            from ..resilience.supervisor import Supervisor, default_ladder
+
+            self.sup = Supervisor(
+                model_cfg, self._ladder or default_ladder(exec_cfg.strategy, exec_cfg.tier, cfg.n_shards),
+                plan=self._plan, journal=self.journal, on_rebuild=self._rewarm, site="serve",
+                policy=self.current_compute, device=device,
+            )
+            self._fwd = self.sup.fwd()
+        else:
+            # build_forward sets the TF32 switches on the host, before any capture
+            self._fwd = self._forward(self.current_compute, device)
         self._graphs = BucketGraphs(
             self._fwd, self._params, (model_cfg.in_height, model_cfg.in_width, model_cfg.in_channels), device
         )
@@ -276,11 +300,16 @@ class InferenceServer:
     def _warm_bucket(self, bucket: int, graphs=None) -> float:
         """Capture one bucket into ``graphs`` (default: the live ones) and
         journal it (``compile_event``, ``serve_warm``); warmup's unit, which
-        the controller's actuators capture through too."""
+        the controller's actuators and the supervisor's rebuilds capture
+        through too. Supervised, the ``compile_event`` is the supervisor's
+        (its per-rung ledger)."""
         live = graphs is None
         graphs = self._graphs if live else graphs
         ms = graphs.warm(bucket)
-        self._note_compile(graphs.shape(bucket), ms, hit=live and bucket in self._warmed)
+        if self.sup is not None:
+            self.sup.note_warm(graphs.shape(bucket), self.current_compute, ms)
+        else:
+            self._note_compile(graphs.shape(bucket), ms, hit=live and bucket in self._warmed)
         self.stats.warmup_compiles += 1
         if live:
             self._warmed.add(bucket)
@@ -381,6 +410,8 @@ class InferenceServer:
     # ------------------------------------------------------------- dispatch
 
     def _step(self) -> None:
+        # grow-back first, between batches: a promotion recaptures every bucket before the next batch
+        self._maybe_promote()
         self._observe_queue()
         self._observe_resources()
         self._observe_controller()
@@ -480,6 +511,74 @@ class InferenceServer:
         return ms
 
     @off_timed_path
+    def _rewarm(self, entry) -> None:
+        """The supervisor's ``on_rebuild``: a degrade or a promotion landed on
+        a freshly built rung, so every bucket is captured again on its
+        forward, into a new ``BucketGraphs`` that replaces the live one
+        (then closed) before the tripped batch replays. The params are
+        resharded onto the rung's surviving slots first. Journals
+        ``serve_rewarm``."""
+        from ..utils.cuda_graphs import BucketGraphs
+
+        with span("serve.rewarm", entry=entry.key):
+            self._params = self.sup.reshard(self._params)
+            old = self._graphs
+            fwd = self.sup.fwd()
+            graphs = BucketGraphs(fwd, self._params, old.item_shape, old.device)
+            ms = 0.0
+            try:
+                for bucket in self.buckets:
+                    ms += self._warm_bucket(bucket, graphs)
+            except BaseException:
+                graphs.close()
+                raise
+            self._fwd, self._graphs = fwd, graphs
+            self._warmed = set(self.buckets)
+            old.close()
+            self.stats.rewarm_ms += ms
+            self.stats.rewarms += 1
+            metrics_registry().counter("serve.rewarms").inc()
+            self._journal("serve_rewarm", key=f"rewarm:{entry.key}", entry=entry.key, buckets=list(self.buckets),
+                          ms=round(ms, 3), devices=self.sup.pool.n_alive)
+
+    @off_timed_path
+    def _maybe_promote(self) -> None:
+        """Between batches: when healed slots have graduated, the supervised
+        promotion (its ``on_rebuild`` recaptures every bucket first)."""
+        if self.sup is None:
+            return
+        state = self.sup.maybe_promote(self._params)
+        if state is not None:
+            self._params = state
+            self.stats.promotions += 1
+            metrics_registry().counter("serve.promotions").inc()
+
+    @off_timed_path
+    def request_degrade(self, cause: str) -> bool:
+        """One supervised rung down as a capacity decision (the controller's
+        ``degrade_capacity``): the walk, recapture and journal trail of a
+        trip, with cause ``requested: ...``. False unsupervised or at the
+        floor."""
+        if self.sup is None:
+            return False
+        return self.sup.request_degrade(cause)
+
+    @off_timed_path
+    def request_promote(self) -> bool:
+        """One rung up, verified against the current rung like any promotion
+        (a refusal journals ``sup_promote_refused`` and leaves the rung).
+        False when nothing was adopted."""
+        if self.sup is None:
+            return False
+        state = self.sup.request_promote(self._params)
+        if state is None:
+            return False
+        self._params = state
+        self.stats.promotions += 1
+        metrics_registry().counter("serve.promotions").inc()
+        return True
+
+    @off_timed_path
     def apply_compute(self, compute: str) -> float:
         """Rebuild the forward at precision policy ``compute`` and capture
         every bucket again before the next dispatch: the controller's dtype
@@ -488,9 +587,12 @@ class InferenceServer:
         which replaces the live one; the old one is closed after the swap,
         so no graph of the old forward is replayed. A capture that fails
         raises and leaves the old forward and graphs serving. Journals one
-        ``serve_rewarm`` and returns its wall ms."""
+        ``serve_rewarm`` and returns its wall ms. A supervised server has no
+        dtype actuation (its ladder's rungs carry no dtype): it raises."""
         from ..utils.cuda_graphs import BucketGraphs
 
+        if self.sup is not None:
+            raise RuntimeError("dtype actuation is unsupervised-only — supervised servers degrade through the ladder")
         prev = self._compute_override
         self._compute_override = compute if compute != self.cfg.compute else None
         old = self._graphs
@@ -512,6 +614,7 @@ class InferenceServer:
         self._warmed = set(self.buckets)
         old.close()
         self.stats.rewarm_ms += ms
+        self.stats.rewarms += 1
         metrics_registry().counter("serve.rewarms").inc()
         self._journal(
             "serve_rewarm", key=f"rewarm:dtype:{compute}",
@@ -538,15 +641,22 @@ class InferenceServer:
         try:
             if miss:
                 capture_ms = self._graphs.warm(batch.bucket)
-            out = self._graphs.run(batch.bucket, xb)
+            if self.sup is not None:
+                # the supervisor replays the live graph (a trip's rebuild swaps in new graphs) and screens its digests
+                out = self.sup.execute(self._params, xb, runner=lambda _f, _p, x: self._graphs.run(batch.bucket, x))
+            else:
+                out = self._graphs.run(batch.bucket, xb)
             self._graphs.fence()
-        except Exception as e:  # noqa — the forward raised: every request of the batch FAILS with the cause
+        except Exception as e:  # noqa — the forward raised or the ladder ran out: every request FAILS with the cause
             self._record_failed(batch, e)
             return
         batch_ms = (time.perf_counter() - t0) * 1e3
         if miss:
             self._warmed.add(batch.bucket)
-            self._note_compile(self._graphs.shape(batch.bucket), capture_ms, hit=False)
+            if self.sup is not None:
+                self.sup.note_warm(self._graphs.shape(batch.bucket), self.current_compute, capture_ms)
+            else:
+                self._note_compile(self._graphs.shape(batch.bucket), capture_ms, hit=False)
         self._complete(batch, out, batch_ms)
 
     @off_timed_path
@@ -584,7 +694,7 @@ class InferenceServer:
             dsid = tr.emit(
                 "serve.dispatch", t0, t1, track="dispatch",
                 bucket=batch.bucket, seq=batch.seq,
-                n_requests=len(batch.requests), entry=self.cfg.config,
+                n_requests=len(batch.requests), entry=self._entry_key(),
             )
             trace_fields = {"trace_id": tr.trace_id, "span_id": dsid}
             for req in batch.requests:
@@ -607,7 +717,7 @@ class InferenceServer:
             batch_ms=round(batch_ms, 3),
             req_lat_ms=lat_ms,
             req_cls=req_cls,
-            entry=self.cfg.config,
+            entry=self._entry_key(),
             **trace_fields,
         )
 
@@ -714,10 +824,16 @@ class InferenceServer:
         if self.journal is not None:
             self.journal.append(kind, key=key, **{**current_ids(), **payload})
 
+    def _entry_key(self) -> str:
+        """What served a batch: the supervisor's rung, or the config."""
+        return self.sup.entry.key if self.sup is not None else self.cfg.config
+
     def summary(self) -> str:
         """One machine-parsed line (the run CLI's ``Serve:``)."""
         buckets = ",".join(str(b) for b in self.buckets)
-        return f"{self.stats.summary()} buckets={buckets}"
+        tail = (f" entry={self.sup.entry.key} trips={len(self.sup.trips)} promotions={self.sup.promotions}"
+                if self.sup is not None else "")
+        return f"{self.stats.summary()} buckets={buckets}{tail}"
 
 
 def serve_mesh(n_shards: int, device):

@@ -1,4 +1,4 @@
-"""Adam over a params tree, in optax's arithmetic.
+"""Adam and SGD over a params tree, in optax's arithmetic.
 
 ``adam(lr)`` returns ``(init, update)``, the two halves of ``optax.adam``:
 ``init(params)`` is the state (``count`` int32, first and second moments
@@ -14,6 +14,9 @@ optax's (``scale_by_adam``, then ``scale_by_learning_rate``):
 ``torch.optim.Adam`` rounds in another order (it folds the bias
 corrections into the step size), so it would not match the JAX package's
 training step to fp32 rounding.
+
+``sgd(lr)`` is ``optax.sgd`` without momentum: no state (``()``), and
+``update = (-lr) * g``, the fp32 product of optax's ``scale(-lr)``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,18 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, eps_r
         updates = tree_map(
             lambda m, v: -lr * ((m / c1.to(m.dtype)) / (torch.sqrt(v / c2.to(v.dtype) + eps_root) + eps)), mu, nu)
         return updates, {"count": count, "mu": mu, "nu": nu}
+
+    return init, update
+
+
+def sgd(lr: float) -> Tuple[Callable, Callable]:
+    def init(params: Any) -> tuple:
+        del params
+        return ()
+
+    def update(grads: Any, state: tuple, params: Any = None) -> Tuple[Any, tuple]:
+        del params
+        return tree_map(lambda g: (-lr) * g, grads), state
 
     return init, update
 

@@ -83,12 +83,16 @@ def amortized_stats(
 
         per_call = (T(n_large) - T(n_small)) / (n_large - n_small)
 
-    with each T a chain of calls ended by the device fence. The chain grows
-    until the long run clearly dominates the short one and, on a GPU,
-    accumulates ``work_floor_ms`` (default :data:`GPU_WORK_FLOOR_MS`; 0 on
-    the CPU). If even ``max_chain`` calls cannot escape the fence's shadow,
-    the conservative T(n)/n is returned with ``shadowed`` set. The pair is
-    then re-measured until ci95 < 5% of the median or ``max_samples``."""
+    with each T a chain of calls ended by the device fence. On a GPU the
+    chain grows until the long run clearly dominates the short one and
+    accumulates ``work_floor_ms`` (default :data:`GPU_WORK_FLOOR_MS`); if
+    even ``max_chain`` calls cannot escape the fence's shadow, the
+    conservative T(n)/n is returned with ``shadowed`` set. The pair is then
+    re-measured until ci95 < 5% of the median or ``max_samples``. The CPU
+    runs each call synchronously, so its work is fixed whatever the host's
+    load: the chain stays at ``n_large`` (a long run under 1.5x the short
+    one is a preempted short run, not a fence's shadow: T(n_large)/n_large
+    is returned, ``shadowed``) and ``min_samples`` pairs are drawn."""
     if n_large <= n_small:
         raise ValueError(f"n_large ({n_large}) must exceed n_small ({n_small})")
     if min_samples < 1 or max_samples < min_samples:
@@ -115,6 +119,8 @@ def amortized_stats(
     t_small = run(n_small)
     n = n_large
     t_large = run(n)
+    if device.type != "cuda":
+        max_chain, max_samples = n_large, min_samples  # no fence to amortize; the spread is the host's load
     while (t_large < 1.5 * t_small or t_large * 1e3 < work_floor_ms) and n < max_chain:
         n = min(max_chain, n * 2)
         t_large = run(n)

@@ -7,7 +7,8 @@ detects, redirects, keeps its per-class ledger closed, and re-admits the
 restarted process only through probation), ``run --serve --route 2`` and
 ``BENCH_MODE=route`` at 2 backends. Every backend is ``v1_jit`` at 63x63 on
 ``--device cpu``. The JAX drill's incident fold and timeline export wait
-for ROADMAP Queue 1 item 8; the journal trail they read is checked here.
+for ROADMAP Queue 1 item 8's step 3 (the journal folds; its step 1, the
+supervisor, is in); the journal trail they read is checked here.
 """
 
 import json

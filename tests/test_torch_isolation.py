@@ -40,8 +40,10 @@ from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import export, gat
 from cuda_mpi_gpu_cluster_programming_tpu_torch.serving import controller, fleet, fleet_controller, router
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import env_info, probe, profiling
 from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import breakdown, halo, mesh, plan, replicated, sharded
-from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import tensor_parallel
-from cuda_mpi_gpu_cluster_programming_tpu_torch import native
+from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import elastic, tensor_parallel
+from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import supervisor
+from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import checkpoint
+from cuda_mpi_gpu_cluster_programming_tpu_torch import native, training
 """
 
 _ENTRY_POINTS = {
@@ -74,6 +76,29 @@ assert run.main(["--config", "v5_collective", "--shards", "4", "--device", "cpu"
                  "--repeats", "1", "--warmup", "1"]) == 0
 from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
 assert native.make_shard_plan_native(BLOCKS12, 4) == plan.make_shard_plan(BLOCKS12, 4)
+""",
+    # the elastic supervisor through run --supervise with a chaos drill, a supervised server, a supervised
+    # training step over the elastic pool, and a sharded checkpoint resharded on load
+    "supervise": """
+import dataclasses, os, tempfile
+os.environ["CHAOS_SPEC"] = "seed=3,stage_sdc=1"
+assert run.main(["--config", "v2.2_sharded", "--shards", "2", "--supervise", "--device", "cpu", "--height", "45",
+                 "--width", "45", "--repeats", "1", "--warmup", "1"]) == 0
+del os.environ["CHAOS_SPEC"]
+assert run.main(["--config", "v5_collective", "--shards", "2", "--serve", "--supervise", "--device", "cpu",
+                 "--height", "45", "--width", "45", "--serve-duration", "0.2", "--serve-max-batch", "2"]) == 0
+from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, output_shape
+cfg = dataclasses.replace(BLOCKS12, in_height=45, in_width=45)
+p = init.init_params_deterministic(cfg, device="cpu")
+x = init.deterministic_input(1, cfg, device="cpu")
+y = torch.zeros((1, *output_shape(cfg)))
+sup = supervisor.Supervisor(cfg, supervisor.train_ladder(sp_shards=2), device="cpu",
+                            step_builder=training.make_elastic_step_builder(cfg, device="cpu"))
+out = sup.supervise_step(p, (), x, y, step=0)
+d = tempfile.mkdtemp()
+checkpoint.save_train_state_sharded(d, out[0], out[1], 1, n_shards=3)
+assert checkpoint.load_train_state_sharded(d, out[0], out[1], target_shards=1, device="cpu")[2] == 1
 """,
     # the inference service through run --serve, its HTTP front end and client fleet included
     "serve": """

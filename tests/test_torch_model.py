@@ -195,6 +195,28 @@ def test_amortized_stats_on_cpu_measures_a_positive_time():
     assert st.per_call_ms > 0 and st.n_chain >= 6
 
 
+def test_amortized_stats_on_cpu_does_a_fixed_amount_of_work():
+    """On the CPU a preempted short run (here: a slow first chain) neither
+    doubles the long chain nor draws more pairs than ``min_samples``: the
+    call count is fixed whatever the host's load."""
+    import time
+
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        if 2 <= len(calls) <= 3:  # the first short chain, preempted
+            time.sleep(0.05)
+        return x
+
+    st = ttiming.amortized_stats(fn, torch.ones(1), n_small=2, n_large=6, min_samples=3, max_samples=15)
+    assert st.n_chain == 6 and st.shadowed and len(calls) == 1 + 2 + 6
+    calls.clear()
+    st = ttiming.amortized_stats(lambda x: calls.append(1) or x, torch.ones(1), n_small=2, n_large=6, min_samples=3,
+                                 max_samples=15)
+    assert st.n_chain == 6 and len(calls) <= 1 + 2 * 3 * (2 + 6)
+
+
 @pytest.mark.parametrize(
     "name, part",
     [("NVIDIA H100 80GB HBM3", "H100 SXM"), ("NVIDIA H100 PCIe", "H100 PCIe"), ("NVIDIA H100 NVL", "H100 NVL")],

@@ -12,9 +12,10 @@ JAX package's, on the CPU.
   requests and still closes. Latencies on a loaded CPU are not compared: both
   percentile pairs are reported, and the card holds them
   (``chip_smoke.py`` phase 3g).
-- What the port cannot replay raises: a shard width below one, and,
-  naming ROADMAP Queue 1 item 8, a supervised recording or one with
-  device-loss incidents (a replay at two devices is in
+- What the port cannot replay raises: a shard width below one, and a
+  recording with device-loss incidents that was not supervised. A
+  supervised recording replays through the supervisor, its incidents
+  scripted at their steps (a replay at two devices is in
   ``tests/test_torch_serving_shards.py``).
 
 63x63 geometry, seeded streams, as in ``tests/test_torch_serving.py``.
@@ -215,9 +216,7 @@ def test_twice_the_traffic_offers_twice_the_requests(port_journal, tmp_path):
 
 @pytest.mark.parametrize("config,knobs,item", [
     ({}, dict(devices=0), "at least one device"),
-    ({"n_shards": 2, "supervise": True}, dict(), "item 8"),
-    ({"n_shards": 1, "supervise": True}, dict(), "item 8"),
-    ({"n_shards": 1, "supervise": False}, dict(), "item 8"),  # its incident records alone
+    ({"n_shards": 1, "supervise": False}, dict(), "was not supervised"),  # incident records, no ladder
 ])
 def test_what_the_port_cannot_replay_names_its_item(config, knobs, item):
     records = _incident_records({**CONFIG, **config})
@@ -227,3 +226,16 @@ def test_what_the_port_cannot_replay_names_its_item(config, knobs, item):
     recorded = replay.recorded_run_from_records(records)
     with pytest.raises(ValueError, match=item):
         replay.replay_recorded(recorded, replay.ReplayKnobs(device="cpu", **knobs))
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_a_supervised_incident_trail_replays_through_the_supervisor(shards, tmp_path):
+    """A supervised recording replays supervised: its incidents are scripted
+    at their steps (here past the replay's last batch, so none fires), and
+    the books close. (The trail is hand-made, its failed batch with no
+    cause: ``tests/test_torch_supervisor.py`` replays a recorded one.)"""
+    recorded = replay.recorded_run_from_records(_incident_records({**CONFIG, "n_shards": shards}))
+    rep = replay.replay_recorded(recorded, replay.ReplayKnobs(device="cpu", journal_path=str(tmp_path / "r.jsonl")))
+    assert rep.scripted_faults == 2 and rep.accounting_closed and rep.n_offered == len(recorded.submits)
+    kinds = [r["kind"] for r in Journal.load(tmp_path / "r.jsonl")]
+    assert kinds[0] == "sup_build" and "sup_ok" in kinds and "sup_trip" not in kinds

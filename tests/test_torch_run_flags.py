@@ -119,8 +119,8 @@ def test_a_kernel_build_fault_degrades_only_with_the_flag(key, fallback, monkeyp
     (["--config", "v6_full_pallas", "--fallback-chain", "v1_jit"], "crosses model families"),
     (["--config", "v3_pallas", "--fallback-chain", "v2.3_missing"], "unknown configs"),
     (["--config", "v7_tp", "--shards", "3"], "not divisible by 3 TP shards"),
-    (["--config", "v3_pallas", "--supervise"], "item 8"),
-    (["--config", "v3_pallas", "--serve", "--supervise"], "item 8"),
+    (["--config", "v6_full_jit", "--supervise"], "Blocks 1-2"),
+    (["--config", "v2.2_sharded", "--supervise", "--fallback-chain", "auto"], "degradation ladder"),
 ])
 def test_refused_flags_exit_2(argv, why, capsys):
     rc, _out, err = _port(capsys, *argv, "--device", "cpu")
@@ -191,9 +191,20 @@ def test_serve_replay_re_drives_a_recorded_journal(tmp_path, capsys):
     (["--serve-replay", "missing.jsonl"], "no serve_submit records"),
     (["--serve-replay", "x.jsonl", "--replay-mult", "0"], "must be > 0"),
     (["--serve", "--route", "-1"], "--route must be >= 0"),
-    (["--serve", "--route", "2", "--supervise"], "item 8"),
+    (["--serve", "--route", "2", "--supervise"], "unsupervised backends"),
 ])
 def test_what_the_control_plane_refuses_exits_2(argv, why, capsys, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     rc, _, err = _port(capsys, "--device", "cpu", *argv)
     assert rc == 2 and why in err
+
+
+def test_supervise_refusals_are_the_jax_clis(capsys):
+    """``--supervise`` refuses full AlexNet and ``--fallback-chain`` with the
+    JAX CLI's exit code and words."""
+    for argv in (["--config", "v6_full_jit", "--supervise"],
+                 ["--config", "v2.2_sharded", "--supervise", "--fallback-chain", "auto"]):
+        assert jrun.main(argv) == 2
+        jerr = capsys.readouterr().err.strip().splitlines()[-1]
+        rc, _out, err = _port(capsys, *argv, "--device", "cpu")
+        assert rc == 2 and err.strip().splitlines()[-1] == jerr

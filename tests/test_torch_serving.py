@@ -473,10 +473,13 @@ def test_the_graph_helper_on_the_cpu_calls_the_forward():
     assert 4 not in graphs
 
 
-@pytest.mark.parametrize("field,value,item", [("supervise", True, "item 8"), ("n_shards", 0, "n_shards must be")])
-def test_what_waits_is_refused_naming_its_item(field, value, item):
+@pytest.mark.parametrize("fields,item", [({"supervise": True, "compute": "int8w"}, "fp32 or bf16"),
+                                         ({"n_shards": 0}, "n_shards must be")])
+def test_what_waits_is_refused_naming_its_item(fields, item):
+    """A shard width below one is refused at construction; a supervised
+    server at int8w at its build (the supervisor's rungs run fp32 or bf16)."""
     with pytest.raises(ValueError, match=item):
-        server.InferenceServer(server.ServeConfig(device="cpu", **{field: value}))
+        server.InferenceServer(server.ServeConfig(device="cpu", model_cfg=CFG, **fields)).run_until_drained()
 
 
 def test_a_full_alexnet_config_is_refused():
@@ -553,8 +556,9 @@ def test_bench_serve_row_has_the_jax_rows_keys(bench_cpu, monkeypatch, capsys):
     (row,) = _rows(capsys)
     assert "error" not in row, row
     want = _jax_row_keys("_serve_main", ROOT / "bench.py", "row")
-    assert set(row) == (want - set(tbench.SERVE_SKIPPED)) | {"skipped"}
-    assert set(row["skipped"]) == {"drill", "health", "trips", "entry"} <= want
+    # unsupervised, the row has no trips or entry (neither has the JAX one)
+    assert set(row) == (want - set(tbench.SERVE_SKIPPED) - set(tbench.SUPERVISED_KEYS)) | {"skipped"}
+    assert set(row["skipped"]) == {"drill", "health"} <= want and set(tbench.SUPERVISED_KEYS) <= want
     assert row["metric"] == tbench.SERVE_METRIC == "alexnet_blocks12_serve_images_per_sec"
     assert row["platform"] == "cpu" and row["value"] > 0 and row["buckets"] == [1, 2, 4]
     assert row["cache_misses_post_warmup"] == 0 and row["warmup_compiles"] == 3
@@ -585,10 +589,18 @@ def test_bench_saturate_rows_have_the_jax_rows_keys(bench_cpu, monkeypatch, caps
 @pytest.mark.parametrize("mode", ["serve", "saturate"])
 def test_bench_serve_modes_refuse_the_supervisor_and_a_dead_probe(mode, bench_cpu, monkeypatch, capsys):
     main = tbench._serve_main if mode == "serve" else tbench._saturate_main
-    monkeypatch.setenv("BENCH_SERVE_SUPERVISE", "1")
+    monkeypatch.setenv("BENCH_SERVE_SUPERVISE", "1")  # the JAX bench's default: a supervised service
+    monkeypatch.setenv("BENCH_SERVE_DURATION", "0.3")
+    monkeypatch.setenv("BENCH_SAT_RATES", "20")
+    monkeypatch.setenv("BENCH_SAT_DURATION", "0.25")
+    monkeypatch.setenv("BENCH_BREAKDOWN", "0")
     assert main() == 0
-    (row,) = _rows(capsys)
-    assert row["value"] == 0.0 and "item 8" in row["error"] and row["platform"] == "cpu"
+    rows = _rows(capsys)
+    assert rows and all("error" not in r for r in rows), rows
+    if mode == "serve":
+        (row,) = rows
+        assert row["supervise"] is True and row["trips"] == [] and row["entry"] == "single@1:pallas"
+        assert row["value"] > 0 and row["platform"] == "cpu" and row["cache_misses_post_warmup"] == 0
     monkeypatch.setenv("BENCH_SERVE_SUPERVISE", "0")
     monkeypatch.setattr(tbench, "DEVICE", "cuda")
     import cuda_mpi_gpu_cluster_programming_tpu_torch.utils.probe as tprobe
@@ -612,15 +624,35 @@ def test_run_serve_on_the_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,why", [
-    (["--serve", "--supervise"], "item 8"),
-    (["--serve", "--fallback-chain", "auto"], "item 8"),
+    (["--serve", "--fallback-chain", "auto"], "degrades through the supervisor ladder"),
     (["--serve", "--shards", "0"], "--shards must be >= 1"),
-    (["--serve", "--route", "2", "--fallback-chain", "auto"], "item 8"),
-    (["--serve", "--serve-controller", "--route", "1", "--supervise"], "item 8"),
-    (["--serve", "--shards", "2", "--supervise"], "item 8"),
+    (["--serve", "--route", "2", "--fallback-chain", "auto"], "drop --fallback-chain"),
+    (["--serve", "--serve-controller", "--route", "1", "--supervise"], "unsupervised backends"),
+    (["--serve", "--supervise", "--dtype", "int8w"], "fp32 or bf16"),
     (["--serve", "--config", "v6_full_jit"], "Blocks 1-2 configs only"),
     (["--serve", "--traffic-shape", "tsunami"], "unknown traffic shape"),
 ])
 def test_run_serve_refusals_exit_2(argv, why, capsys):
     rc = trun.main(["--device", "cpu", "--height", "63", "--width", "63", *argv])
     assert rc == 2 and why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,entry", [
+    (["--config", "v3_pallas"], "single@1:pallas"),
+    (["--config", "v5_collective", "--shards", "2"], "halo@2:pallas"),
+])
+def test_run_serve_supervise_on_the_cpu(argv, entry, capsys, tmp_path):
+    """``run --serve --supervise``: the service under the supervisor, its
+    ``Serve:`` line naming the rung and a ``Supervisor:`` line, every
+    request served, nothing captured on the request path."""
+    journal = tmp_path / "serve.jsonl"
+    rc = trun.main(["--serve", "--supervise", "--device", "cpu", "--height", "63", "--width", "63",
+                    "--serve-max-batch", "2", "--serve-duration", "0.3", "--serve-rate", "20",
+                    "--serve-journal", str(journal), *argv])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    serve_line = next(line for line in out.splitlines() if line.startswith("Serve: "))
+    assert f"entry={entry} trips=0 promotions=0" in serve_line and "cache_misses=0" in serve_line
+    assert f"Supervisor: attempts=" in out and f"entry={entry} kinds=none" in out
+    kinds = [r["kind"] for r in Journal.load(journal)]
+    assert kinds.count("sup_ok") >= 1 and "sup_trip" not in kinds and kinds[0] == "sup_build"

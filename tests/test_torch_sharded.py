@@ -183,8 +183,34 @@ def test_v4_v5_kernels_tier_take_jax_variants_and_a_plan(monkeypatch):
     got = build_sharded_forward(T_SMALL, 2, tier="kernels", variants=KernelVariants(k_block=64), device="cpu")(
         *_port_args(*CASE))
     np.testing.assert_allclose(got.numpy(), base, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_sharded_forward(T_SMALL, 2, with_digests=True, device="cpu")
+    # the sentinel's taps ride beside the output and move none of its bits
+    out, digs = build_sharded_forward(T_SMALL, 2, tier="kernels", with_digests=True, device="cpu")(
+        *_port_args(*CASE))
+    assert np.array_equal(out.numpy(), _port("v5_collective", 2))
+    assert sorted(digs) == ["conv1", "conv2", "lrn2", "pool1", "pool2"]
+    assert all(d.shape == (2,) and d.dtype == torch.float32 for d in digs.values())
+
+
+@pytest.mark.parametrize("strategy", ["halo", "tp"])
+def test_digest_taps_match_the_jax_packages(strategy):
+    """``with_digests=True``: the port's per-stage, per-shard digests are
+    the JAX package's (``tree_digest`` inside its ``shard_map`` body)
+    within 1e-6 of each, at 2 shards on the reference tier."""
+    from cuda_mpi_gpu_cluster_programming_tpu.parallel.sharded import build_sharded_forward as jbuild
+    from cuda_mpi_gpu_cluster_programming_tpu.parallel.tensor_parallel import build_tp_forward as jtp
+
+    params, x = CASE
+    if strategy == "halo":
+        jout, jdigs = jbuild(J_SMALL, 2, with_digests=True)(jax.tree.map(np.asarray, params), x)
+        out, digs = build_sharded_forward(T_SMALL, 2, with_digests=True, device="cpu")(*_port_args(*CASE))
+    else:
+        jout, jdigs = jtp(J_SMALL, 2, with_digests=True)(jax.tree.map(np.asarray, params), x)
+        out, digs = build_tp_forward(T_SMALL, 2, with_digests=True, device="cpu")(*_port_args(*CASE))
+    _within(out.numpy(), np.asarray(jout), "fp32")
+    assert sorted(digs) == sorted(jdigs) == ["conv1", "conv2", "lrn2", "pool1", "pool2"]
+    for name, want in jdigs.items():
+        want = np.asarray(want, np.float64)
+        np.testing.assert_allclose(digs[name].double().numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
 
 
 # --------------------------------------------------- (c) across shard counts
