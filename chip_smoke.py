@@ -7,6 +7,7 @@
     python3 chip_smoke.py --pool-rows    # only the pool and lrn rows and the staged and phases passes, from this checkout
     python3 chip_smoke.py --tiers        # only phase 3h, the staged-parallelism tiers
     python3 chip_smoke.py --fleet        # only phase 3i, the serving fleet and the serving shard width
+    python3 chip_smoke.py --train        # only phase 3k, the training CLI and the journal folds
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
@@ -281,6 +282,27 @@ fails ends the run with a non-zero exit code and nothing is caught:
    and maxpool2d 2N kernel nodes and the planned halo collectives a replay,
    and graph against eager dispatch ms. ``python3 chip_smoke.py --fleet``
    runs this phase alone;
+   3k. the training CLI (``python -m <port>.train``) at 227x227x3, batch 4,
+   fp32 on the card: a clean ``--steps 6 --checkpoint-every 2`` run; the
+   same under ``CHAOS_SPEC=seed=3,sdc=1`` (``SDC(``, a rollback, and
+   committed losses equal to the clean run's); a ``nan_loss=1`` drill that
+   recovers; ``nan_loss=99 --max-rollbacks 2``, exit 3; the finished run
+   relaunched (``already complete``); ``--checkpoint-shards 4`` and its
+   resume, whose losses are the clean run's; ``--sp 4 --supervise-steps``
+   under ``device_loss`` (``Elastic: ... replays=`` at least 1 and a
+   ``Health:`` line that is not ``unavailable``); the ms a step of the
+   single-device and the ``--sp 4`` step (CUDA events). No port kernel runs
+   (the launch counts stay 0: the step differentiates the reference
+   forward). Then ``health_from_journal`` over the journals of 3f, 3i (the
+   route directory), 3j (each drill and the supervised server) and 3k's
+   work dir: every incident's phases sum to its wall within 1 us, the 3j
+   drills fold trips, the route directory a backend-down incident;
+   ``export_trace`` of each loads as JSON with its incident lane (the drill
+   journals, 3k's) and router lane (the route directory); ``python -m
+   <port>.observability health --json`` on a 3j drill journal exits 0 and
+   ``--fail-on-budget-burn`` on a burned journal exits 3. ``python3
+   chip_smoke.py --train`` runs this phase alone (the earlier phases'
+   journals folded when present);
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -5006,6 +5028,7 @@ def supervise_phase(spec, peak_name) -> dict:
     are (1)'s and (4)'s drained runs'."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.trace import Tracer, set_tracer
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
     from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
     from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
@@ -5054,8 +5077,10 @@ def supervise_phase(spec, peak_name) -> dict:
             os.environ[chaos.CHAOS_ENV] = spec_text
             chaos.reset()
             path = out_dir / f"drill_{name}.jsonl"
+            jr = Journal(path)
+            set_tracer(Tracer(journal=jr))  # the drill's spans: phase 3k folds and exports its incidents
             try:
-                s = sup(halo, journal=Journal(path))
+                s = sup(halo, journal=jr)
                 p = params
                 for step in range(batches):
                     got = s.execute(p, x, step=step)
@@ -5065,6 +5090,7 @@ def supervise_phase(spec, peak_name) -> dict:
                 if want_promotions:
                     got = s.execute(p, x)  # a screened batch on the promoted rung
             finally:
+                set_tracer(None)
                 os.environ.pop(chaos.CHAOS_ENV, None)
                 chaos.reset()
             fresh = sup([s.entry]).execute(params, x)
@@ -5228,6 +5254,200 @@ def supervise_kernels_entries(sup) -> list:
     return entries
 
 
+# phase 3k, the training CLI at full width and the journal folds
+TRAIN_ARGS = ("--height", "227", "--width", "227", "--batch", "4")
+TRAIN_TIMED = 10  # steps timed by CUDA events, after 2 warm ones
+TRAIN_SP = 4
+PHASE_SUM_ABS_MS = 1e-3  # an incident's phases against its wall: 1 us of rounding
+
+
+def run_train(argv, spec: str = "", want_rc: int = 0) -> str:
+    """``train.main(argv)`` on the card, ``CHAOS_SPEC=spec`` for the call
+    alone; its stdout and stderr, the exit code required."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import train
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
+
+    if spec:
+        os.environ[chaos.CHAOS_ENV] = spec
+    chaos.reset()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            rc = train.main(list(argv) + list(TRAIN_ARGS))
+    finally:
+        os.environ.pop(chaos.CHAOS_ENV, None)
+        chaos.reset()
+    out = buf.getvalue()
+    require(rc == want_rc, f"train {argv} (CHAOS_SPEC={spec!r}) returned {rc}, want {want_rc}:\n{out[-3000:]}")
+    return out
+
+
+def train_losses(out: str) -> list:
+    return [float(line.split("loss = ")[1]) for line in out.splitlines() if "loss = " in line]
+
+
+def train_step_ms(sp_shards: int) -> dict:
+    """Milliseconds a training step at 227x227x3, batch 4, fp32 (sgd, grad
+    norm on, as the CLI's), by CUDA events over ``TRAIN_TIMED`` steps after
+    2 warm ones, and the host's wall for the same steps."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12 as cfg
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import output_shape
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.init import init_params_random
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.training import make_train_step
+
+    init, step = make_train_step(cfg, sp_shards=sp_shards, with_grad_norm=True)
+    params = init_params_random(torch.Generator().manual_seed(0), cfg)
+    state = init(params)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((4, 227, 227, 3), generator=gen, device="cuda")
+    y = torch.rand((4, *output_shape(cfg)), generator=gen, device="cuda")
+    for _ in range(2):
+        params, state = step(params, state, x, y)[:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        params, state = step(params, state, x, y)[:2]
+    end.record()
+    torch.cuda.synchronize()
+    return dict(ms=start.elapsed_time(end) / TRAIN_TIMED, host_ms=(time.perf_counter() - t0) * 1e3 / TRAIN_TIMED)
+
+
+def fold_journal(name: str, path, need_trip=False, need_down=False, need_incident_lane=False,
+                 need_router_lane=False) -> dict:
+    """``health_from_journal`` and ``export_trace`` of one journal (file or
+    directory): every incident's phases sum to its wall, the trace loads
+    with the lanes asked for."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.export import _PIDS, export_trace
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.health import health_from_journal
+
+    rep = health_from_journal(path)
+    for inc in rep.incidents:
+        require(abs(inc.phase_sum_ms - inc.wall_ms) <= PHASE_SUM_ABS_MS,
+                f"{name}: incident {inc.render()} phases sum to {inc.phase_sum_ms} ms, wall {inc.wall_ms} ms")
+    kinds = [i.kind for i in rep.incidents]
+    require(not need_trip or "trip" in kinds, f"{name}: no trip incident folded ({kinds})")
+    require(not need_down or "backend_down" in kinds, f"{name}: no backend_down incident folded ({kinds})")
+    trace_path = Path(str(path).rstrip("/") + ".trace.json")
+    info = export_trace(path, trace_path)
+    trace = json.loads(trace_path.read_text())
+    require(isinstance(trace.get("traceEvents"), list) and trace["traceEvents"], f"{name}: no traceEvents")
+    pids = {e["pid"] for e in trace["traceEvents"] if e.get("ph") != "M"}
+    lanes = {lane: _PIDS[lane] in pids for lane in ("incident", "router")}
+    require(not need_incident_lane or lanes["incident"], f"{name}: the exported trace has no incident lane")
+    require(not need_router_lane or lanes["router"], f"{name}: the exported trace has no router lane")
+    log(f"train folds {name}: Health: {rep.summary_line()} | incidents {kinds} | trace events={info['events']} "
+        f"spans={info['spans']} lanes {lanes}")
+    return dict(summary=rep.summary_line(), incidents=[i.to_obj() for i in rep.incidents], trace=info, lanes=lanes)
+
+
+def train_cli_phase(nvidia_smi: str, full: bool = True) -> dict:
+    """Phase 3k: the training CLI at full width on the card, then the health
+    and export folds over the journals of 3f, 3i, 3j and this phase.
+    ``full``: the earlier phases' journals must be there (``--train`` alone
+    folds those present)."""
+    import shutil
+
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    out_dir = Path("chip_smoke_out") / "train"
+    if out_dir.exists():  # a resumable work dir of an earlier run would resume
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    result = {"nvidia_smi": nvidia_smi}
+    ck.reset_launches()
+    steps = ["--steps", "6", "--checkpoint-every", "2"]
+    clean = run_train(steps + ["--work-dir", str(out_dir / "clean")])
+    losses = train_losses(clean)
+    require(len(losses) == 6 and all(np.isfinite(losses)), f"clean run losses {losses}")
+    sdc = run_train(steps + ["--work-dir", str(out_dir / "sdc")], spec="seed=3,sdc=1")
+    require("SDC(" in sdc and "rollback to last-good step" in sdc, f"sdc drill:\n{sdc[-2000:]}")
+    require(train_losses(sdc) == losses, f"sdc drill losses {train_losses(sdc)} != clean {losses}")
+    nan = run_train(["--steps", "4", "--checkpoint-every", "2", "--work-dir", str(out_dir / "nan")], spec="nan_loss=1")
+    require("SDC(nan_loss)" in nan and len(train_losses(nan)) == 4, f"nan_loss=1 drill:\n{nan[-2000:]}")
+    run_train(["--steps", "4", "--checkpoint-every", "2", "--max-rollbacks", "2", "--work-dir", str(out_dir / "nan99")],
+              spec="nan_loss=99", want_rc=3)
+    again = run_train(steps + ["--work-dir", str(out_dir / "clean")])
+    require("already complete at step 6" in again, f"relaunch:\n{again[-2000:]}")
+    sharded = ["--checkpoint-every", "2", "--checkpoint-shards", "4", "--work-dir", str(out_dir / "shards")]
+    first = run_train(["--steps", "2"] + sharded)
+    resumed = run_train(["--steps", "4"] + sharded)
+    require("Resumed training state" in resumed and "at step 2" in resumed, f"sharded resume:\n{resumed[-2000:]}")
+    require(train_losses(first) + train_losses(resumed) == losses[:4],
+            f"sharded run {train_losses(first) + train_losses(resumed)} != clean {losses[:4]}")
+    sup = run_train(["--steps", "4", "--sp", str(TRAIN_SP), "--checkpoint-every", "2", "--supervise-steps",
+                     "--work-dir", str(out_dir / "sup")], spec="seed=3,device_loss=1")
+    elastic = next((line for line in sup.splitlines() if line.startswith("Elastic: ")), "")
+    health = next((line for line in sup.splitlines() if line.startswith("Health: ")), "")
+    m = re.search(r"replays=(\d+)", elastic)
+    require(m is not None and int(m.group(1)) >= 1, f"supervised drill: {elastic!r}\n{sup[-2000:]}")
+    require(health and "unavailable" not in health, f"supervised drill: {health!r}")
+    launched = {k: v for k, v in ck.LAUNCHES.items() if v}
+    require(not launched, f"the training CLI launched port kernels: {launched}")
+    result.update(losses=losses, elastic=elastic, health=health, mesh=next(
+        (line for line in sup.splitlines() if line.startswith("Mesh: ")), ""))
+    result["step_ms"] = {"single": train_step_ms(0), f"sp{TRAIN_SP}": train_step_ms(TRAIN_SP)}
+    wall = {name: float(re.search(r"Training completed in ([0-9.]+) ms", text).group(1))
+            for name, text in (("clean", clean), ("sup", sup))}
+    result["cli_wall_ms"] = wall
+    one, sp = result["step_ms"]["single"], result["step_ms"][f"sp{TRAIN_SP}"]
+    log(f"train: 227x227x3 batch 4 fp32 | {nvidia_smi} | ms a step single {one['ms']:.3f} (host {one['host_ms']:.3f}), "
+        f"sp{TRAIN_SP} {sp['ms']:.3f} (host {sp['host_ms']:.3f}) | CLI walls: clean 6 steps {wall['clean']:.1f} ms, "
+        f"supervised sp{TRAIN_SP} drill 4 steps {wall['sup']:.1f} ms | losses {losses}")
+    log(f"train: sdc drill rolled back and matched the clean losses; nan_loss=1 recovered; nan_loss=99 exit 3; "
+        f"relaunch already complete; sharded resume matched; {elastic} | {health}; launches of port kernels: none "
+        "(the step differentiates the reference forward)")
+
+    # the folds over every journal the run recorded
+    folds = {}
+    base = Path("chip_smoke_out")
+    serve = sorted(base.glob("serve_*.jsonl"))
+    drills = sorted((base / "supervise").glob("drill_*.jsonl"))
+    route = base / "fleet"
+    present = dict(serve=bool(serve), route=(route / "router.jsonl").exists(), supervise=bool(drills))
+    if full:
+        require(all(present.values()), f"phase 3k: earlier phases' journals missing: {present}")
+    for path in serve:
+        folds[path.name] = fold_journal(f"3f {path.name}", path)
+    if present["route"]:
+        folds["fleet"] = fold_journal("3i route directory", route, need_down=True, need_router_lane=True)
+    trips = 0
+    for path in drills:
+        folds[path.name] = fold_journal(f"3j {path.name}", path, need_incident_lane=True)
+        trips += sum(i["kind"] == "trip" for i in folds[path.name]["incidents"])
+    require(not drills or trips >= 1, "3j: no drill journal folded a trip incident")
+    if (base / "supervise" / "serve.jsonl").exists():
+        folds["supervise/serve.jsonl"] = fold_journal("3j supervised server", base / "supervise" / "serve.jsonl")
+    folds["train/sup"] = fold_journal("3k supervised training", out_dir / "sup" / "journal.jsonl", need_trip=True,
+                                      need_incident_lane=True)
+    result["folds"] = folds
+    result["journals_present"] = present
+
+    # the observability CLI: health --json on a drill journal (or 3k's), exit 0; a burned journal, exit 3
+    drill = drills[0] if drills else out_dir / "sup" / "journal.jsonl"
+    cli = [sys.executable, "-m", f"{PORT}.observability", "health", "--journal"]
+    proc = subprocess.run(cli + [str(drill), "--json"], capture_output=True, text=True, timeout=120)
+    require(proc.returncode == 0 and json.loads(proc.stdout)["n_records"] > 0,
+            f"observability health --json {drill}: rc {proc.returncode}\n{proc.stderr[-2000:]}")
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience.journal import Journal
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.slo import SLOClass, SLOPolicy
+
+    burned = out_dir / "burned.jsonl"
+    jr = Journal(burned)
+    jr.append("serve_config", key="cfg", slo=SLOPolicy([SLOClass("tight", 10.0)]).to_obj(), devices=1)
+    jr.append("serve_batch", key="b:0", bucket=2, batch_ms=60.0, req_lat_ms={"r0": 50.0, "r1": 5.0},
+              req_cls={"r0": "tight", "r1": "tight"})
+    proc = subprocess.run(cli + [str(burned), "--fail-on-budget-burn"], capture_output=True, text=True, timeout=120)
+    require(proc.returncode == 3 and "health gate: FAIL" in proc.stderr,
+            f"observability health --fail-on-budget-burn on a burned journal: rc {proc.returncode}\n{proc.stderr}")
+    log(f"train: observability health --json {drill.name} exit 0; --fail-on-budget-burn on a burned journal exit 3")
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3k took {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -5308,6 +5528,13 @@ def main() -> int:
         sup = supervise_phase(spec, peak_name)
         print(json.dumps(dict(device=kind, nvidia_smi=smi, supervise=sup, kernels=supervise_kernels_entries(sup)),
                          default=str), flush=True)
+        return 0
+    if sys.argv[1:] == ["--train"]:
+        # phase 3k alone, from this checkout: the earlier phases' journals are folded where present
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, train_cli=train_cli_phase(smi, full=False)), default=str),
+              flush=True)
         return 0
     if sys.argv[1:] == ["--conv-fp32"]:
         # the fp32 conv summation order's records (ptxas, engine bits, conv rows, fused bitwise, accuracy,
@@ -5398,6 +5625,10 @@ def main() -> int:
     log("phase 3j: the supervised v5_collective and v3_pallas ladders ran clean on their requested rungs through "
         "conv2d, maxpool2d and lrn; every drill's replay was bitwise its rung's fresh output, flap ended in "
         "quarantine, rejoin in a promotion; the supervised server walked degrade_capacity down and back")
+    train_cli = train_cli_phase(smi)
+    log("phase 3k: the training CLI trained at 227x227 (the sdc drill's losses the clean run's, nan_loss=99 exit 3, "
+        "the sharded resume the clean run's, the supervised sp 4 drill replayed) with no port kernel launched; every "
+        "incident folded from the 3f/3i/3j/3k journals sums to its wall and each export loads with its lanes")
     tune = tune_phase()
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
@@ -5420,7 +5651,7 @@ def main() -> int:
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
              v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
-             tiers=tiers, fleet=fleet, supervise=sup, tune=tune,
+             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, tune=tune,
              v6_tune=v6_tune,
              kernels=line["kernels"]), indent=1,
         default=str))

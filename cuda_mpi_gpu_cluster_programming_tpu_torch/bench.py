@@ -61,9 +61,9 @@ batch, single-config runs). ``BENCH_DEVICE`` (cuda|cpu) is the port's
 and row keys (:func:`_serve_main`, :func:`_saturate_main`). The JAX serve
 row's ``trips`` and ``entry`` come with ``BENCH_SERVE_SUPERVISE=1`` (the
 service under the elastic supervisor); its ``drill`` (the in-load fault
-drills, which ``chip_smoke.py`` phase 3j runs on the card) and ``health``
-(the journal folds, ROADMAP Queue 1 item 8's step 3) are not here: the row
-names each in its ``skipped`` sub-object. ``BENCH_MODE=replay``,
+drills, which ``chip_smoke.py`` phase 3j runs on the card) is not here: the
+row names it in its ``skipped`` sub-object. Its ``health`` is the JAX row's,
+the serve journal's fold (:func:`_health_obj`). ``BENCH_MODE=replay``,
 ``control`` and ``gate`` are the JAX bench's journal replay, serving
 controller drill and regression gate (:func:`_replay_main`,
 :func:`_control_main`, :func:`_gate_main`); each prints one row and exits
@@ -308,7 +308,6 @@ def _child() -> int:
 SERVE_SKIPPED = {
     "drill": "the in-load device_loss, mesh_shrink and grow-back drills are not on the bench row "
              "(chip_smoke.py phase 3j runs them on a supervised server)",
-    "health": "the journal's health fold waits for ROADMAP Queue 1 item 8 (step 3)",
 }
 # The keys a supervised serve row adds (BENCH_SERVE_SUPERVISE=1), as the JAX row does.
 SUPERVISED_KEYS = ("trips", "entry")
@@ -477,6 +476,7 @@ def _serve_main() -> int:
         row["metrics"] = metrics_registry().summary()
         if os.environ.get("BENCH_METRICS"):
             metrics_registry().export(os.environ["BENCH_METRICS"])
+        row["health"] = _health_obj(journal_path)
         row["skipped"] = dict(SERVE_SKIPPED)
         print(json.dumps(row))
         return 0
@@ -642,8 +642,9 @@ def _control_main() -> int:
        record under the SAME ``slo_scale`` pressure. Both sides must close
        per-class accounting, neither may report a divergence, the ON side
        must journal actions, and the protected class's error-budget burn
-       (``health.slo_attainment`` of each replay's journal) must be
-       strictly lower with the controller on.
+       (``health_from_journal(...).classes`` of each replay's journal)
+       must be strictly lower with the controller on. The row's ``health``
+       is the ON replay journal's fold.
 
     Knobs (environment): BENCH_CTL_CONFIG (BENCH_CONFIG), BENCH_DTYPE,
     BENCH_CTL_HEIGHT/WIDTH (227 on the card, 63 on the CPU),
@@ -670,8 +671,7 @@ def _control_main() -> int:
         return fail(why)
     try:
         from .models.alexnet import BLOCKS12
-        from .observability.export import load_records
-        from .observability.health import slo_attainment
+        from .observability.health import health_from_journal
         from .observability.replay import ReplayKnobs, load_recorded_run, replay_recorded
         from .serving.controller import ControllerConfig
         from .serving.loadgen import run_shaped_load, saturating_rate
@@ -761,7 +761,7 @@ def _control_main() -> int:
             failures.append("controller-on replay journaled no actions")
 
         def burn(journal: str):
-            for c in slo_attainment(load_records(journal)):
+            for c in health_from_journal(journal).classes:
                 if c.name == ctl_cfg.protected_cls:
                     return c.burn
             return None
@@ -795,6 +795,7 @@ def _control_main() -> int:
             "width": model_cfg.in_width,
             "max_batch": base.max_batch,
             "platform": platform,
+            "health": _health_obj(on.journal_path),
         }))
         return 3 if failures else 0
     except Exception as e:
@@ -819,7 +820,17 @@ def _gate_main() -> int:
     return 0 if verdict.ok else 3
 
 
-HEALTH_SKIPPED = {"health": SERVE_SKIPPED["health"]}
+def _health_obj(journal_path) -> dict:
+    """A row's ``health`` sub-object: the journal's (or journal
+    directory's) ``HealthReport`` with its one-line summary, or ``error``
+    when the fold raises: evidence beside the headline, never a lost row."""
+    try:
+        from .observability.health import health_from_journal
+
+        rep = health_from_journal(journal_path)
+        return {"summary": rep.summary_line(), **rep.to_obj()}
+    except Exception as e:  # noqa: BLE001
+        return {"error": f"{type(e).__name__}: {e}"[:200]}
 
 
 @contextlib.contextmanager
@@ -852,8 +863,8 @@ def _route_main() -> int:
     then the restart and its re-admission through probation. The row
     carries the img/s before and after the loss, redirects, unroutable
     requests, ``recovery_ms`` (kill to the replacement's readmission) and
-    the router's per-class accounting; ``health`` is null (the journal's
-    health fold waits for ROADMAP Queue 1 item 8, named in ``skipped``).
+    the router's per-class accounting; ``health`` is the fold of the
+    journal directory (the router's and every backend's journal).
 
     Knobs (environment), the JAX bench's: BENCH_ROUTE_N (3),
     BENCH_ROUTE_RATE (30 req/s), BENCH_ROUTE_DURATION (2 s a window),
@@ -938,8 +949,7 @@ def _route_main() -> int:
             "width": width,
             "max_batch": max_batch,
             "spawn_s": spawn_s,
-            "health": None,
-            "skipped": dict(HEALTH_SKIPPED),
+            "health": _health_obj(journal_dir),
         }))
         return 0
     except Exception as e:
@@ -970,9 +980,9 @@ def _fleetcontrol_main() -> int:
     fleet-wide burn is strictly lower ON than OFF; the router closes
     per-class accounting both ways. Degradation is read from the journaled
     ``router_probe`` scrape trail (``health.fleet_summary``) and the burn
-    from the backends' journals (``health.slo_attainment``, the classes of
-    the JAX package's ``health_from_journal``): the evidence is the journal.
-    ``health`` is null (item 8, named in ``skipped``).
+    from the backends' journals (``health_from_journal(...).classes``): the
+    evidence is the journal. ``health`` is the fold of the ON side's
+    directory.
 
     Knobs (environment), the JAX bench's: BENCH_FLEETCTL_N (3),
     BENCH_FLEETCTL_DURATION (8 s: swell period == window),
@@ -997,7 +1007,7 @@ def _fleetcontrol_main() -> int:
         return fail(why)
     try:
         from .observability.export import load_records
-        from .observability.health import fleet_summary, slo_attainment
+        from .observability.health import fleet_summary, health_from_journal
         from .serving.batcher import power_of_two_buckets
         from .serving.controller import ControllerConfig
         from .serving.fleet import BackendFleet
@@ -1102,7 +1112,7 @@ def _fleetcontrol_main() -> int:
             failures.append("fleet ON journaled no fleet actions under the swell")
 
         def burn(tag: str):
-            for c in slo_attainment(load_records(str(out_dir / tag))):
+            for c in health_from_journal(str(out_dir / tag)).classes:
                 if c.name == fleet_cfg.protected_cls:
                     return c.burn
             return None
@@ -1144,8 +1154,7 @@ def _fleetcontrol_main() -> int:
             "height": height,
             "width": width,
             "max_batch": max_batch,
-            "health": None,
-            "skipped": dict(HEALTH_SKIPPED),
+            "health": _health_obj(out_dir / "on"),
         }))
         return 3 if failures else 0
     except Exception as e:

@@ -247,4 +247,19 @@ def build_forward(
         def forward(p, x):
             return fwd(p, x).float().contiguous()
 
-    return forward
+    return _observed(forward, exec_cfg, pol.name, n_shards)
+
+
+def _observed(fn: Callable, exec_cfg: ExecConfig, dtype: str, n_shards: int) -> Callable:
+    """The compile-observer gate (``observability.health``): with an
+    observer installed (``health.set_compile_observer``), the first call per
+    input shape is timed with the device fenced and reported as a
+    ``compile_event`` at ``site="build"``; with none, ``fn`` itself comes
+    back. There is no compiler cost model to ask, so the event's flops
+    fields are null."""
+    from .observability.health import get_compile_observer, observed_first_calls
+
+    if get_compile_observer() is None:
+        return fn
+    return observed_first_calls(fn, site="build", entry=exec_cfg.key, dtype=dtype,
+                                n_shards=n_shards if exec_cfg.strategy != "single" else 1)

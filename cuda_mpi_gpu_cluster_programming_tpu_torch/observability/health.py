@@ -1,51 +1,77 @@
-"""Compile-event journaling: the one instrumentation point of every warmup.
+"""Fleet health over the journal alone: incident MTTR decomposition,
+availability and SLO attainment, and compile-cost attribution.
 
-The first part of the JAX package's ``observability/health.py``: the
-``compile_event`` record a compiling call site journals, and the
-process-wide observer hook. In the port the unit that is "compiled" once
-per shape is a serving bucket's CUDA graph (``utils.cuda_graphs``), so a
-record's ``ms`` is the wall time of that bucket's first call: its warm
-calls, the capture and one fenced replay on the card, the first call on
-the CPU. ``xla_flops`` and ``xla_bytes`` keep the JAX record's keys and are
-``null``: no compiler cost model stands behind a captured graph, and null
-is how the JAX package records "no cost analysis" too.
+The JAX package's ``observability/health.py``. Any recorded run (serve,
+route, train, bench, replay) folds into one :class:`HealthReport`:
 
-The second part is the per-class SLO attainment fold the serving
-controller is judged by: ``ERROR_BUDGET``, :class:`ClassHealth`,
-:func:`slo_attainment` (one class's burn of its error budget, from the
-journal alone) and :func:`controller_summary` (the controller's actions,
-and each class's burn before and after its first one), the JAX module's
-own functions.
+- **Compile events**: the one instrumentation point every warmup shares
+  (the supervisor's first calls, the server's warmup and re-warm, and
+  ``configs.build_forward``'s first calls when an observer is installed,
+  :func:`observed_first_calls`). In the port the unit "compiled" once per
+  shape is a serving bucket's CUDA graph (``utils.cuda_graphs``) or a
+  forward's first call (the kernel library's load, cuDNN's algorithm
+  choice), so a record's ``ms`` is the wall time of that first call with
+  the device fenced. ``xla_flops`` and ``xla_bytes`` keep the JAX record's
+  keys and are ``null``: the port has no compiler cost model to ask (the JAX
+  module's ``xla_cost_analysis`` has no counterpart), and null is how the
+  JAX package records "no cost analysis", so the flops cross-check
+  (:func:`_flops_check`) reports ``unavailable``.
+- **Incidents** (:func:`incidents_from_records`): trips (trip -> degrade ->
+  compile/rewarm -> reshard -> replay), grow-backs (probation -> spot_check
+  -> compile -> promote), the router's backend-down windows (detect ->
+  drain -> redirect -> readmit) and, in the fleet fold, drains. Each
+  incident's phases sum to its wall time by construction
+  (:func:`_clamped_phases`); a journal with no ``compile_event`` reports
+  the compile phase as None (unattributed), never as 0.
+- **Availability and SLO attainment**: a device-seconds capacity timeline
+  from ``mesh_shrink``/``sup_promote`` (:func:`capacity_timeline`), each
+  class's served/shed/failed against its ``SLOClass`` budget with its
+  error-budget burn (:func:`slo_attainment`), the serving controller's
+  actions (:func:`controller_summary`) and the fleet control plane's
+  (:func:`fleet_summary`).
 
-The third part is the fleet control plane's fold, :func:`fleet_summary`
-(its actions and refusals, the most backends degraded at once, and each
-drain as an :class:`Incident` whose ``FLEET_DRAIN_PHASES`` sum to its
-wall), which ``BENCH_MODE=fleetcontrol`` reads its verdict from. The other
-journal folds (the trip, grow-back and backend-down incidents, capacity,
-availability, compile attribution, ``HealthReport`` and
-``health_from_journal``) wait for ROADMAP Queue 1 item 8. Standard library
-only.
+``python -m cuda_mpi_gpu_cluster_programming_tpu_torch.observability health
+--journal J [--json] [--fail-on-budget-burn]`` renders the report (exit 3
+on a blown budget). Standard library and ``serving.slo`` at import time:
+torch is imported only inside :func:`observed_first_calls`' fence.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..serving.slo import SLOClass, SLOPolicy
 from .trace import off_timed_path
 
+# The JAX package's agreement tolerance between a compiler's flops count and
+# the analytic ledger (its cost model bills pools and LRN another way). The
+# port records no compiler count, so its own checks report "unavailable";
+# the tolerance stays for journals recorded by the JAX package.
+FLOPS_RTOL = 0.5
 # Each class is operated against its p99 target (slo.SLOClass.slo_ms):
 # the error budget is the 1% of completed requests allowed to violate.
 # burn = violation share / ERROR_BUDGET; burn > 1.0 is a blown budget.
 ERROR_BUDGET = 0.01
 
+# The trip-incident phase order (rendered and exported in this order; the
+# phases tile the incident wall time exactly).
+TRIP_PHASES = ("detect", "degrade", "compile", "rewarm", "reshard", "replay")
+GROWBACK_PHASES = ("probation", "spot_check", "compile", "promote")
+# Router backend-down incidents (serving.router): the probes notice a dead
+# host (detect), in-flight traffic drains into failures and redirects (drain,
+# the remainder phase), later traffic redirects away (redirect), and the
+# restarted backend waits out probation (readmit).
+BACKEND_DOWN_PHASES = ("detect", "drain", "redirect", "readmit")
 # Fleet-drain incidents (serving.fleet_controller): sustained burn is
 # observed for drain_after_s (detect), the backend sits drained with its
 # home traffic spilled (drain, the remainder phase), and the LIFO readmit
 # flips it back (readmit). The phases sum to the incident wall
 # (_clamped_phases).
 FLEET_DRAIN_PHASES = ("detect", "drain", "readmit")
+
+_DTYPE_TO_LEDGER = {"float32": "fp32", "fp32": "fp32", "bfloat16": "bf16", "bf16": "bf16"}
 
 
 @off_timed_path
@@ -117,6 +143,46 @@ def journal_compile_observer(journal) -> Callable[[dict], None]:
         journal_compile_event(journal, rec)
 
     return _observe
+
+
+def observed_first_calls(fn, *, site: str, entry: str, dtype: str, n_shards: int = 1):
+    """Wrap a ``(params, x) -> out`` forward so the first call per input
+    shape is timed, the device fenced, and reported to the installed
+    compile observer as a ``compile_event``. Applied only when an observer
+    is installed at build time (``configs.build_forward`` checks); every
+    other build keeps the bare callable."""
+    seen: set = set()
+
+    def wrapped(params, x):
+        shape = tuple(int(d) for d in getattr(x, "shape", ()))
+        if shape in seen:
+            return fn(params, x)
+        t0 = time.perf_counter()
+        out = fn(params, x)
+        _fence(out)
+        ms = (time.perf_counter() - t0) * 1e3
+        seen.add(shape)
+        _report_first_call(site=site, entry=entry, shape=shape, dtype=dtype, ms=ms, n_shards=n_shards)
+        return out
+
+    wrapped.__wrapped__ = fn
+    return wrapped
+
+
+def _fence(out) -> None:
+    """Wait for the device that computed ``out``."""
+    import torch
+
+    if isinstance(out, torch.Tensor) and out.is_cuda:
+        torch.cuda.synchronize(out.device)
+
+
+@off_timed_path
+def _report_first_call(*, site, entry, shape, dtype, ms, n_shards) -> None:
+    obs = get_compile_observer()
+    if obs is None:
+        return
+    obs(compile_event(site=site, entry=entry, shape=shape, dtype=dtype, ms=ms, cache_hit=False, n_shards=n_shards))
 
 
 # --------------------------------------------------------------------------
@@ -295,17 +361,21 @@ def controller_summary(records: List[dict]) -> dict:
 
 
 # --------------------------------------------------------------------------
-# the fleet control plane
+# incidents
+
+
+def _fmt_phases(phases: Dict[str, Optional[float]]) -> str:
+    return " ".join(f"{k}={'unattributed' if v is None else format(v, '.1f')}" for k, v in phases.items())
 
 
 @dataclasses.dataclass
 class Incident:
-    """One folded incident. ``phases`` maps phase name to exclusive ms; the
+    """One folded incident: a trip, a grow-back, a router backend-down
+    window (:func:`incidents_from_records`) or a fleet drain
+    (:func:`fleet_summary`). ``phases`` maps phase name to exclusive ms; the
     values sum to ``wall_ms`` by construction, with ``None`` meaning
-    *unattributed* (the sum then holds over the attributed phases). The
-    port folds one kind, ``fleet_drain`` (:func:`fleet_summary`); the JAX
-    package's trip, grow-back and backend-down incidents wait for ROADMAP
-    Queue 1 item 8."""
+    *unattributed* (a journal without ``compile_event`` records; the sum
+    then holds over the attributed phases)."""
 
     kind: str  # "trip" | "growback" | "backend_down" | "fleet_drain"
     index: int
@@ -332,9 +402,6 @@ class Incident:
         }
 
     def render(self) -> str:
-        parts = " ".join(
-            f"{k}={'unattributed' if v is None else format(v, '.1f')}" for k, v in self.phases.items()
-        )
         if self.kind == "trip":
             head = f"trip {self.cause} @{self.entry}"
         elif self.kind == "backend_down":
@@ -343,7 +410,7 @@ class Incident:
             head = f"fleet_drain {self.entry} ({self.cause})"
         else:
             head = f"growback -> {self.entry}"
-        return f"#{self.index} {head} wall={self.wall_ms:.1f}ms  {parts}"
+        return f"#{self.index} {head} wall={self.wall_ms:.1f}ms  {_fmt_phases(self.phases)}"
 
 
 def _clamped_phases(
@@ -419,3 +486,472 @@ def fleet_summary(records: List[dict]) -> dict:
         "max_simultaneous_degraded": max_deg,
         "drains": [d.to_obj() for d in drains],
     }
+
+
+def _span_tree(spans: List[dict]) -> Dict[str, List[dict]]:
+    kids: Dict[str, List[dict]] = {}
+    for s in spans:
+        pid = s.get("parent_id") or ""
+        if pid:
+            kids.setdefault(pid, []).append(s)
+    return kids
+
+
+def _subtree(root: dict, kids) -> List[dict]:
+    out, frontier = [root], [root]
+    while frontier:
+        nxt = []
+        for s in frontier:
+            for c in kids.get(s.get("span_id") or "", ()):
+                out.append(c)
+                nxt.append(c)
+        frontier = nxt
+    return out
+
+
+def _dur(spans: List[dict], name: str) -> float:
+    return sum(float(s.get("dur_ms") or 0.0) for s in spans if s.get("name") == name)
+
+
+def incidents_from_records(records: List[dict]) -> List[Incident]:
+    """Fold a journal's trail into :class:`Incident` objects.
+
+    With span records (a traced run) the ``sup.trip``/``sup.recover`` span
+    trees give each incident's wall time, and their children
+    (``sup.degrade`` over ``serve.rewarm``, ``sup.replay`` over
+    ``sup.reshard``, ``sup.promote``) the exclusive phase times. Compile
+    time comes from the ``compile_event`` records between the trip record
+    and its recovery record (``sup_ok``/``sup_step``) in append order; a
+    journal with no ``compile_event`` at all reports the phase as None.
+    Span-less journals fall back to the attributed ms fields alone
+    (``serve_rewarm.ms``, ``sup_promote.ms``, probation ``ms``): the wall
+    is then the phase sum and ``detect`` zero. Router backend-down windows
+    open at a transition to ``down`` and close at the backend's readmission
+    to ``up``, starting ``detect_ms`` before the down verdict."""
+    spans = [r for r in records if r.get("kind") == "span"]
+    kids = _span_tree(spans)
+    has_ce = any(r.get("kind") == "compile_event" for r in records)
+
+    trip_spans = sorted((s for s in spans if s.get("name") == "sup.trip"), key=lambda s: float(s.get("t0_ms") or 0.0))
+    recover_spans = sorted((s for s in spans if s.get("name") == "sup.recover"),
+                           key=lambda s: float(s.get("t0_ms") or 0.0))
+    # committed recoveries only: a refused candidate leaves a sup.recover span with no sup.promote child
+    committed = [s for s in recover_spans if any(c.get("name") == "sup.promote" for c in _subtree(s, kids))]
+
+    trip_recs = [(i, r) for i, r in enumerate(records) if r.get("kind") == "sup_trip"]
+    promote_recs = [(i, r) for i, r in enumerate(records) if r.get("kind") == "sup_promote"]
+    ce_recs = [(i, r) for i, r in enumerate(records) if r.get("kind") == "compile_event"]
+    pass_recs = [(i, r) for i, r in enumerate(records)
+                 if r.get("kind") == "mesh_probation" and r.get("event") == "pass"]
+
+    def _ce_ms(lo: int, hi: int) -> float:
+        return sum(float(r.get("ms") or 0.0) for i, r in ce_recs if lo < i < hi)
+
+    incidents: List[Incident] = []
+
+    # trips
+    end_kinds = ("sup_ok", "sup_step", "sup_trip")
+    for n, (idx, rec) in enumerate(trip_recs):
+        hi = next((i for i, r in enumerate(records) if i > idx and r.get("kind") in end_kinds), len(records))
+        compile_p: Optional[float] = _ce_ms(idx, hi) if has_ce else None
+        c = compile_p or 0.0
+        sp = trip_spans[n] if n < len(trip_spans) else None
+        if sp is not None:
+            sub = _subtree(sp, kids)
+            wall = float(sp.get("dur_ms") or 0.0)
+            rewarm_s = _dur(sub, "serve.rewarm")
+            reshard_s = _dur(sub, "sup.reshard")
+            raw = {
+                "degrade": max(0.0, _dur(sub, "sup.degrade") - rewarm_s),
+                "compile": compile_p,
+                "rewarm": max(0.0, rewarm_s - min(c, rewarm_s)),
+                "reshard": reshard_s,
+                "replay": max(0.0, _dur(sub, "sup.replay") - reshard_s),
+            }
+            t0: Optional[float] = float(sp.get("t0_ms") or 0.0)
+            trace_id = str(sp.get("trace_id") or "")
+        else:
+            rewarm_s = sum(float(r.get("ms") or 0.0) for i, r in enumerate(records)
+                           if idx < i < hi and r.get("kind") == "serve_rewarm")
+            raw = {"degrade": 0.0, "compile": compile_p, "rewarm": max(0.0, rewarm_s - min(c, rewarm_s)),
+                   "reshard": 0.0, "replay": 0.0}
+            wall = sum(v for v in raw.values() if v is not None)
+            t0, trace_id = None, ""
+        incidents.append(Incident(
+            kind="trip", index=len(incidents) + 1, entry=str(rec.get("entry") or ""),
+            cause=str(rec.get("sdc_kind") or rec.get("cause") or "trip"), wall_ms=wall,
+            phases=_clamped_phases(wall, TRIP_PHASES, raw, "detect"), t0_ms=t0, trace_id=trace_id,
+        ))
+
+    # grow-backs
+    used_pass: set = set()
+    for n, (idx, rec) in enumerate(promote_recs):
+        # the probation the heal waited out: the latest unconsumed "pass" record before this promotion
+        prob_ms, prob_idx = 0.0, None
+        for i, r in pass_recs:
+            if i < idx and i not in used_pass:
+                prob_ms, prob_idx = float(r.get("ms") or 0.0), i
+        if prob_idx is not None:
+            used_pass.add(prob_idx)
+        compile_p = _ce_ms(prob_idx if prob_idx is not None else -1, idx + 1) if has_ce else None
+        c = compile_p or 0.0
+        sp = committed[n] if n < len(committed) else None
+        if sp is not None:
+            promote_s = _dur(_subtree(sp, kids), "sup.promote")
+            wall = prob_ms + float(sp.get("dur_ms") or 0.0)
+            # the incident starts when its probation started, so an exported parent covers both to scale
+            t0 = max(0.0, float(sp.get("t0_ms") or 0.0) - prob_ms)
+            trace_id = str(sp.get("trace_id") or "")
+        else:
+            promote_s = float(rec.get("ms") or 0.0)
+            wall = None
+            t0, trace_id = None, ""
+        raw = {"probation": prob_ms, "compile": compile_p, "promote": max(0.0, promote_s - min(c, promote_s))}
+        if wall is None:
+            wall = sum(v for v in raw.values() if v is not None)
+        incidents.append(Incident(
+            kind="growback", index=len(incidents) + 1, entry=str(rec.get("to") or ""),
+            cause=f"promote {rec.get('frm', '?')} -> {rec.get('to', '?')}", wall_ms=wall,
+            phases=_clamped_phases(wall, GROWBACK_PHASES, raw, "spot_check"), t0_ms=t0, trace_id=trace_id,
+        ))
+
+    # router backend-down windows: an endpoint replacement journals frm == to and is no transition; a backend
+    # still down at the journal's end is an open outage, not an incident
+    state_recs = [(i, r) for i, r in enumerate(records)
+                  if r.get("kind") == "router_backend_state" and r.get("frm") != r.get("to")]
+    redirect_recs = [(i, r) for i, r in enumerate(records) if r.get("kind") == "router_redirect"]
+    open_down: Dict[str, Tuple[int, dict]] = {}
+    for i, r in state_recs:
+        b = str(r.get("backend") or "")
+        if r.get("to") == "down":
+            open_down.setdefault(b, (i, r))
+        elif r.get("to") == "up" and b in open_down:
+            oi, orec = open_down.pop(b)
+            detect = float(orec.get("detect_ms") or 0.0)
+            t_down = float(orec.get("t_ms") or 0.0)
+            t0 = max(0.0, t_down - detect)
+            wall = max(0.0, float(r.get("t_ms") or 0.0) - t0)
+            red_ts = [float(rr.get("t_ms") or 0.0) for j, rr in redirect_recs if oi < j < i and rr.get("frm") == b]
+            raw = {
+                "detect": detect,
+                "redirect": max(0.0, max(red_ts) - t_down) if red_ts else 0.0,
+                "readmit": float(r.get("probation_ms") or 0.0),
+            }
+            incidents.append(Incident(
+                kind="backend_down", index=len(incidents) + 1, entry=b,
+                cause=str(orec.get("reason") or "probe_failed"), wall_ms=wall,
+                phases=_clamped_phases(wall, BACKEND_DOWN_PHASES, raw, "drain"), t0_ms=t0,
+            ))
+    return incidents
+
+
+# --------------------------------------------------------------------------
+# availability (the device-seconds capacity timeline)
+
+
+def capacity_timeline(records: List[dict]) -> Tuple[Optional[int], float, List[Tuple[float, int]]]:
+    """``(initial_devices, duration_ms, [(t_ms, devices), ...])``. The
+    serve epoch's ``t_ms``-bearing records (``serve_submit``,
+    ``serve_gauges``, ``mem_snapshot``) are the clock: each capacity change
+    (``mesh_shrink``, ``sup_promote``) is timed at the nearest preceding
+    ``t_ms``. A journal without a serve epoch has a zero duration."""
+    t = 0.0
+    dev0: Optional[int] = None
+    segs: List[Tuple[float, int]] = []
+    for r in records:
+        k = r.get("kind")
+        if k in ("serve_submit", "serve_gauges", "mem_snapshot"):
+            tm = r.get("t_ms")
+            if isinstance(tm, (int, float)):
+                t = max(t, float(tm))
+        elif k == "serve_config":
+            d = r.get("devices")
+            if dev0 is None and isinstance(d, int) and d > 0:
+                dev0 = d
+                segs.append((0.0, d))
+        elif k == "mesh_shrink":
+            before = r.get("before")
+            if dev0 is None and isinstance(before, int) and before > 0:
+                dev0 = before
+                segs.append((0.0, before))
+            after = r.get("after")
+            if isinstance(after, int):
+                segs.append((t, after))
+        elif k == "sup_promote":
+            d = r.get("devices")
+            if isinstance(d, int) and d > 0:
+                if dev0 is None:
+                    dev0 = d
+                    segs.append((0.0, d))
+                segs.append((t, d))
+    return dev0, t, segs
+
+
+def availability_from_records(records: List[dict]) -> Tuple[Optional[float], Optional[float], Optional[int], float]:
+    """``(availability, delivered_device_ms, initial_devices,
+    duration_ms)``: delivered device time over the capacity timeline
+    against the whole fleet's; None without a capacity signal or a serve
+    epoch to time it."""
+    dev0, dur, segs = capacity_timeline(records)
+    if dev0 is None or dur <= 0.0:
+        return None, None, dev0, dur
+    delivered = 0.0
+    cur, last = dev0, 0.0
+    for tm, dev in segs:
+        tm = min(max(tm, 0.0), dur)
+        delivered += cur * (tm - last)
+        cur, last = dev, tm
+    delivered += cur * (dur - last)
+    return delivered / (dev0 * dur), delivered, dev0, dur
+
+
+# --------------------------------------------------------------------------
+# compile-cost attribution and the flops cross-check
+
+
+def compile_attribution(records: List[dict]) -> dict:
+    """Fold the ``compile_event`` trail: compiles and ms per (site, entry,
+    shape, dtype), the totals, and the flops cross-check of each row
+    (:func:`_flops_check`). ``unattributed`` is True for a journal with no
+    ``compile_event``: compile time is then unknown, not zero."""
+    evs = [r for r in records if r.get("kind") == "compile_event"]
+    groups: Dict[tuple, dict] = {}
+    for r in evs:
+        key = (str(r.get("site") or ""), str(r.get("entry") or ""), tuple(r.get("shape") or ()),
+               str(r.get("dtype") or ""))
+        g = groups.setdefault(key, {
+            "site": key[0], "entry": key[1], "shape": list(key[2]), "dtype": key[3],
+            "n_shards": max(1, int(r.get("n_shards") or 1)), "compiles": 0, "cache_hits": 0, "ms": 0.0,
+            "xla_flops": None, "xla_bytes": None,
+        })
+        if r.get("cache_hit"):
+            g["cache_hits"] += 1
+        else:
+            g["compiles"] += 1
+            g["ms"] += float(r.get("ms") or 0.0)
+        for f in ("xla_flops", "xla_bytes"):
+            if g[f] is None and isinstance(r.get(f), (int, float)):
+                g[f] = float(r[f])
+    rows = [{**g, "ms": round(g["ms"], 3)} for g in groups.values()]
+    rows.sort(key=lambda g: g["ms"], reverse=True)
+    checks = [_flops_check(g) for g in rows]
+    return {
+        "unattributed": not evs,
+        "events": len(evs),
+        "total_ms": round(sum(float(r.get("ms") or 0.0) for r in evs if not r.get("cache_hit")), 3),
+        "tolerance": FLOPS_RTOL,
+        "rows": rows,
+        "flops_checks": [c for c in checks if c is not None],
+    }
+
+
+def _flops_check(g: dict) -> Optional[dict]:
+    """One row's compiler-vs-ledger verdict from the row's own shape:
+    ``agree`` (within :data:`FLOPS_RTOL` of ``roofline.pass_ledger``),
+    ``diverges``, or ``unavailable`` (no compiler count, which is every
+    row the port records, or a geometry the ledger cannot model)."""
+    shape = g.get("shape") or []
+    base = {"entry": g["entry"], "shape": shape, "dtype": g["dtype"], "xla_flops": g["xla_flops"],
+            "ledger_flops": None, "ratio": None, "tolerance": FLOPS_RTOL}
+    if g["xla_flops"] is None:
+        return {**base, "verdict": "unavailable"}
+    ledger_dtype = _DTYPE_TO_LEDGER.get(g["dtype"])
+    if len(shape) != 4 or ledger_dtype is None:
+        return {**base, "verdict": "unavailable"}
+    try:
+        from ..models.alexnet import BLOCKS12
+        from .roofline import pass_ledger
+
+        cfg = dataclasses.replace(BLOCKS12, in_height=int(shape[1]), in_width=int(shape[2]))
+        ledger = sum(s.flops for s in pass_ledger(cfg=cfg, dtype=ledger_dtype, batch=int(shape[0])))
+    except Exception:  # noqa: BLE001 — an unmodelable geometry degrades visibly
+        return {**base, "verdict": "unavailable"}
+    if not ledger:
+        return {**base, "verdict": "unavailable"}
+    # a partitioned program's count may be per shard: compare under both conventions, keep the closer, report it
+    n_sh = max(1, int(g.get("n_shards") or 1))
+    best_scale, best_err = 1, abs(g["xla_flops"] - ledger) / ledger
+    if n_sh > 1:
+        err = abs(g["xla_flops"] * n_sh - ledger) / ledger
+        if err < best_err:
+            best_scale, best_err = n_sh, err
+    return {
+        **base,
+        "ledger_flops": float(ledger),
+        "shard_scale": best_scale,
+        "ratio": round(g["xla_flops"] * best_scale / ledger, 4),
+        "verdict": "agree" if best_err <= FLOPS_RTOL else "diverges",
+    }
+
+
+# --------------------------------------------------------------------------
+# the report
+
+
+@dataclasses.dataclass
+class HealthReport:
+    """The folded health of one journal (or a directory of them):
+    incidents, availability, ranked SLO attainment, flap and quarantine
+    counts, compile attribution, and the controller and fleet folds (absent
+    from :meth:`to_obj` when empty, as in the JAX package)."""
+
+    incidents: List[Incident]
+    classes: List[ClassHealth]
+    availability: Optional[float]
+    delivered_device_ms: Optional[float]
+    devices: Optional[int]
+    duration_ms: float
+    flaps: int
+    quarantines: int
+    probation_enters: int
+    probation_passes: int
+    compile: dict
+    n_records: int
+    controller: dict = dataclasses.field(default_factory=dict)
+    fleet: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def trips(self) -> List[Incident]:
+        return [i for i in self.incidents if i.kind == "trip"]
+
+    @property
+    def mttr_ms(self) -> Optional[float]:
+        ts = self.trips
+        return sum(i.wall_ms for i in ts) / len(ts) if ts else None
+
+    @property
+    def worst_burn(self) -> Optional[float]:
+        burns = [c.burn for c in self.classes if c.burn is not None]
+        return max(burns) if burns else None
+
+    @property
+    def budget_blown(self) -> bool:
+        return any(c.blown for c in self.classes)
+
+    def to_obj(self) -> dict:
+        return {
+            "n_records": self.n_records,
+            "incidents": [i.to_obj() for i in self.incidents],
+            "mttr_ms": round(self.mttr_ms, 3) if self.mttr_ms is not None else None,
+            "availability": round(self.availability, 6) if self.availability is not None else None,
+            "devices": self.devices,
+            "duration_ms": round(self.duration_ms, 3),
+            "delivered_device_ms": (round(self.delivered_device_ms, 3)
+                                    if self.delivered_device_ms is not None else None),
+            "flaps": self.flaps,
+            "quarantines": self.quarantines,
+            "probation_enters": self.probation_enters,
+            "probation_passes": self.probation_passes,
+            "classes": [c.to_obj() for c in self.classes],
+            "worst_burn": round(self.worst_burn, 3) if self.worst_burn is not None else None,
+            "budget_blown": self.budget_blown,
+            "compile": self.compile,
+            **({"controller": self.controller} if self.controller else {}),
+            **({"fleet": self.fleet} if self.fleet else {}),
+        }
+
+    def summary_line(self) -> str:
+        """One machine-parseable line for the run and train CLIs (``Health: ...``)."""
+        avail = f"{self.availability * 100:.2f}%" if self.availability is not None else "n/a"
+        mttr = f"{self.mttr_ms:.1f}" if self.mttr_ms is not None else "n/a"
+        burn = f"{self.worst_burn:.2f}x" if self.worst_burn is not None else "n/a"
+        comp = "unattributed" if self.compile.get("unattributed") else f"{self.compile.get('total_ms', 0.0):.1f}"
+        return (f"incidents={len(self.incidents)} mttr_ms={mttr} availability={avail} worst_burn={burn} "
+                f"compile_ms={comp} budget_blown={self.budget_blown}")
+
+    def render(self) -> str:
+        lines = [f"Fleet health: {self.summary_line()}"]
+        if self.devices is not None and self.duration_ms > 0:
+            lines.append(f"  capacity: {self.devices} devices over {self.duration_ms / 1e3:.2f}s; flaps={self.flaps} "
+                         f"quarantines={self.quarantines} probation={self.probation_passes}/{self.probation_enters} "
+                         "passed")
+        if self.incidents:
+            lines.append("Incidents (phase decomposition sums to wall time):")
+            lines.extend(f"  {inc.render()}" for inc in self.incidents)
+        else:
+            lines.append("Incidents: none")
+        if self.classes:
+            lines.append(f"SLO attainment (ranked by error-budget burn; budget = {ERROR_BUDGET:.0%} of completed):")
+            lines.extend(f"  {c.render()}" for c in self.classes)
+        if self.controller:
+            ctl = self.controller
+            acts = ",".join(f"{k}={v}" for k, v in sorted(ctl["actions"].items()))
+            lines.append(f"Autopilot: {ctl['total']} action(s) ({acts}); refused={ctl['refused']} "
+                         f"reversals={ctl['reversals']}")
+            if "burn_after" in ctl:
+
+                def fmt(v):
+                    return f"{v:.2f}x" if v is not None else "n/a"
+
+                before = ctl.get("burn_before") or {}
+                for name in sorted(set(before) | set(ctl["burn_after"])):
+                    lines.append(f"  burn {name or '(default)'}: {fmt(before.get(name))} before first action -> "
+                                 f"{fmt(ctl['burn_after'].get(name))} after")
+        if self.fleet:
+            fl = self.fleet
+            acts = ",".join(f"{k}={v}" for k, v in sorted(fl["actions"].items())) or "none"
+            lines.append(f"Fleet control: {fl['total']} action(s) ({acts}); refusals={fl['refusals']} "
+                         f"max_degraded={fl['max_simultaneous_degraded']}")
+            for d in fl["drains"]:
+                lines.append(f"  drain {d['entry']} ({d['cause']}) wall={d['wall_ms']:.1f}ms  "
+                             f"{_fmt_phases(d['phases'])}")
+        comp = self.compile
+        if comp.get("unattributed"):
+            lines.append("Compile attribution: unattributed (journal predates compile_event records — compile time "
+                         "is unknown, not zero)")
+        else:
+            lines.append(f"Compile attribution: {comp['events']} event(s), {comp['total_ms']:.1f} ms compiling "
+                         f"(XLA-vs-ledger tolerance ±{comp['tolerance']:.0%}):")
+            for g in comp["rows"]:
+                lines.append(f"  {g['site']:<10s} {g['entry']:<22s} shape={tuple(g['shape'])} {g['dtype']} "
+                             f"compiles={g['compiles']} hits={g['cache_hits']} ms={g['ms']:.1f}")
+            for c in comp["flops_checks"]:
+                if c["verdict"] == "unavailable":
+                    lines.append(f"  flops-check {c['entry']} shape={tuple(c['shape'])}: unavailable "
+                                 "(no XLA cost analysis on this backend)")
+                else:
+                    lines.append(f"  flops-check {c['entry']} shape={tuple(c['shape'])}: xla={c['xla_flops']:.3e} "
+                                 f"ledger={c['ledger_flops']:.3e} ratio={c['ratio']:.3f} -> {c['verdict']}")
+        return "\n".join(lines)
+
+
+def _quarantine(r: dict) -> bool:
+    return r.get("kind") == "mesh_quarantine" or (
+        r.get("kind") == "router_backend_state" and r.get("to") == "quarantined")
+
+
+def health_from_records(records: List[dict]) -> HealthReport:
+    """Any journal's records (serve, route, train, bench, replay) folded
+    into a :class:`HealthReport`. The router's backend hysteresis counts in
+    the same flap, quarantine and probation counters as the elastic pool's
+    device records."""
+    availability, delivered, devices, duration = availability_from_records(records)
+    return HealthReport(
+        incidents=incidents_from_records(records),
+        classes=slo_attainment(records),
+        availability=availability,
+        delivered_device_ms=delivered,
+        devices=devices,
+        duration_ms=duration,
+        flaps=sum(int(r.get("flaps") or 0) for r in records if _quarantine(r)),
+        quarantines=sum(1 for r in records if _quarantine(r)),
+        probation_enters=sum(
+            1 for r in records
+            if (r.get("kind") == "mesh_probation" and r.get("event") == "enter")
+            or (r.get("kind") == "router_backend_state" and r.get("to") == "probation")),
+        probation_passes=sum(
+            1 for r in records
+            if (r.get("kind") == "mesh_probation" and r.get("event") == "pass")
+            or (r.get("kind") == "router_backend_state" and r.get("to") == "up" and r.get("reason") == "readmit")),
+        compile=compile_attribution(records),
+        n_records=len(records),
+        controller=controller_summary(records),
+        fleet=fleet_summary(records),
+    )
+
+
+def health_from_journal(path) -> HealthReport:
+    """A ``.jsonl`` journal (or a directory of them) loaded and folded."""
+    from .export import load_records
+
+    return health_from_records(load_records(path))

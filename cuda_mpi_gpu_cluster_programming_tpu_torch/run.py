@@ -89,7 +89,8 @@ reverses each in turn on recovery; its signals come from the class mix's
 SLO policy, so it pairs with ``--traffic-shape`` and is inert without it).
 Prints ``Serve buckets:``, ``Serve load:``, ``Serve class:`` (shaped),
 ``Serve:``, ``Serve frontend:``, ``Serve transport:`` and ``Serve
-controller:`` lines. ``--serve --shards N`` serves a sharded config at N
+controller:`` lines, and with ``--serve-journal`` the journal's ``Health:``
+fold (``observability/health.py``). ``--serve --shards N`` serves a sharded config at N
 shard slots, all on the server's card (``serving.server.serve_mesh``), each
 bucket's graph capturing the sharded forward. ``--serve --route N`` runs
 the fleet instead of one in-process server (``serving/fleet.py``,
@@ -758,7 +759,21 @@ def _serve(args, blocks_cfg, params, plan, run_dtype: str) -> int:
         print(f"Serve controller: {server.controller.summary()}")
     if server.sup is not None:
         print(f"Supervisor: {server.sup.summary()}")  # the one-shot --supervise line
+    if scfg.journal_path:
+        _print_health(scfg.journal_path)
     return 0
+
+
+def _print_health(journal) -> None:
+    """The ``Health:`` line: the journal's health fold (``observability
+    health --journal`` renders it whole). A fold that raises prints the JAX
+    CLI's ``unavailable`` form: the fold is evidence, not the run's result."""
+    from .observability.health import health_from_journal
+
+    try:
+        print(f"Health: {health_from_journal(journal).summary_line()}")
+    except Exception as e:  # noqa: BLE001
+        print(f"Health: unavailable ({type(e).__name__}: {e})")
 
 
 def _run_route(args, blocks_cfg) -> int:
@@ -820,8 +835,7 @@ def _run_route(args, blocks_cfg) -> int:
         if router is not None:
             router.stop()
         fleet.stop()
-    # the JAX run folds the directory with health_from_journal and prints this form when it cannot
-    print("Health: unavailable (the journal's health fold waits for ROADMAP Queue 1 item 8)")
+    _print_health(route_dir)
     return 0
 
 

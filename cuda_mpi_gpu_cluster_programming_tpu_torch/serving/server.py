@@ -361,7 +361,8 @@ class InferenceServer:
             width=m.in_width,
             channels=m.in_channels,
             slo=cfg.slo.to_obj() if cfg.slo is not None else None,
-            devices=1,
+            # the capacity timeline's start (health.capacity_timeline): a supervised server's surviving slots
+            devices=self.sup.pool.n_alive if self.sup is not None else 1,
             # the controller's knobs (None = uncontrolled): a replay rebuilds it from them
             controller=self.controller.cfg.to_obj() if self.controller is not None else None,
             device=str(self.device),

@@ -23,6 +23,7 @@ steps over the mesh the supervisor passes (its surviving slots).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -126,6 +127,11 @@ def make_train_step(
         if mesh is not None and mesh.n_shards != sp_shards:
             raise ValueError(f"mesh 'sp' axis has {mesh.n_shards} devices but sp_shards={sp_shards}; "
                              "the halo/ownership plan would be built for the wrong shard count")
+        if mesh is not None and mesh.dp > 1:
+            # a (dp, sp) mesh: the whole batch through the first data-parallel row's shard slots (the
+            # replicated-params discipline keeps params and batch on the home device, as without sp)
+            mesh = dataclasses.replace(mesh, axis_names=mesh.axis_names[-1:], shape=(sp_shards,),
+                                       devices=mesh.shard_devices)
         fwd = build_sharded_forward(cfg, n_shards=sp_shards, mesh=mesh, device=device, differentiable=True)
         return opt[0], _step(opt, _mse(_remat(fwd) if remat else fwd), with_grad_norm=with_grad_norm)
     if tp_shards and tp_shards >= 1:

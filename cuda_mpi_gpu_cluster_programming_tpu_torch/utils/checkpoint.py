@@ -2,6 +2,8 @@
 
 - **npz**: one archive of the tree, keys its paths joined by '/'
   (``layers/0/wqkv``); lists come back from their integer keys.
+  :func:`save_train_state` writes the training state (params, optimizer
+  state, step) as one such archive.
 - **sharded tree** (:func:`save_tree_sharded`, :func:`load_tree_sharded`):
   the sorted keys dealt round-robin over N shard files
   (``shard_NNN.genGGGGGGGG.npz``), each written atomically, then a
@@ -114,6 +116,24 @@ def load_params_npz(path: str | Path, like: Optional[Any] = None) -> Any:
         t = torch.from_numpy(flat[key])
         leaves.append(t.to(want.device) if isinstance(want, torch.Tensor) else t)
     return tree_unflatten(like, leaves)
+
+
+def save_train_state(path: str | Path, params: Any, opt_state: Any, step: int) -> Path:
+    """The training state in one atomic npz: params, optimizer state and
+    the step they are valid at (``step`` updates applied), keys
+    ``params/...``, ``opt_state/...`` and ``step``: the last-good state a
+    sentinel rollback restores."""
+    return save_params_npz(path, {"params": params, "opt_state": opt_state, "step": np.asarray(step, np.int64)})
+
+
+def load_train_state(path: str | Path, like_params: Any, like_opt_state: Any) -> Tuple[Any, Any, int]:
+    """``(params, opt_state, step)`` from :func:`save_train_state`, in
+    exactly the given structures, each leaf on its ``like`` leaf's device.
+    A truncated or corrupt file raises ``ValueError``, a missing leaf
+    ``KeyError``."""
+    like = {"params": like_params, "opt_state": like_opt_state, "step": np.zeros((), np.int64)}
+    tree = load_params_npz(path, like=like)
+    return tree["params"], tree["opt_state"], int(tree["step"])
 
 
 def _read_npz(path: Path, what: str) -> Dict[str, np.ndarray]:

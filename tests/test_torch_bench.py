@@ -293,7 +293,8 @@ def test_bench_control_row_on_the_cpu(tmp_path, monkeypatch, capsys):
     timing on a loaded CPU; the row carries both burns either way."""
     rc, (row,) = _mode_rows(monkeypatch, capsys, tbench._control_main, BENCH_CTL_DURATION="0.4",
                             BENCH_CTL_SAT_RATE="60", BENCH_CTL_JOURNAL_DIR=str(tmp_path), BENCH_CONFIG="v1_jit")
-    assert set(row) == CONTROL_KEYS | {"config", "dtype", "height", "width", "max_batch"}, row
+    assert set(row) == CONTROL_KEYS | {"config", "dtype", "height", "width", "max_batch", "health"}, row
+    assert row["health"]["summary"].startswith("incidents=") and "classes" in row["health"], row["health"]
     assert row["metric"] == jbench.CONTROL_METRIC == tbench.CONTROL_METRIC and row["platform"] == "cpu"
     assert (row["height"], row["width"], row["max_batch"]) == (63, 63, 4) and row["sat_rate_rps"] == 60.0
     assert row["accounting_closed"] == {"off": True, "on": True} and row["diverged"] == {"off": False, "on": False}

@@ -6,9 +6,9 @@ the seeded ``host_loss`` chaos site SIGKILLs one mid-run, the router
 detects, redirects, keeps its per-class ledger closed, and re-admits the
 restarted process only through probation), ``run --serve --route 2`` and
 ``BENCH_MODE=route`` at 2 backends. Every backend is ``v1_jit`` at 63x63 on
-``--device cpu``. The JAX drill's incident fold and timeline export wait
-for ROADMAP Queue 1 item 8's step 3 (the journal folds; its step 1, the
-supervisor, is in); the journal trail they read is checked here.
+``--device cpu``. The drill's directory folds into a backend-down
+incident whose phases sum to its wall (``health_from_journal``), and the
+run's and the bench row's health are that fold.
 """
 
 import json
@@ -21,7 +21,8 @@ from pathlib import Path
 
 import pytest
 
-from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.export import load_records
+from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.export import load_records, to_trace_events
+from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.health import health_from_journal, health_from_records
 from cuda_mpi_gpu_cluster_programming_tpu_torch.observability.metrics import registry as metrics_registry
 from cuda_mpi_gpu_cluster_programming_tpu_torch.resilience import chaos
 from cuda_mpi_gpu_cluster_programming_tpu_torch.serving.batcher import power_of_two_buckets
@@ -87,6 +88,13 @@ def test_host_loss_drill_across_process_boundary(tmp_path, monkeypatch):
         assert any(r["reason"] == "endpoint_replaced" for r in states)
         kinds = {r["kind"] for r in recs}
         assert {"router_config", "router_route", "serve_config", "serve_batch"} <= kinds  # both trails, one dir
+        # the directory folds one phase-decomposed backend_down incident and exports with the router's lane
+        rep = health_from_records(recs)
+        downs = [i for i in rep.incidents if i.kind == "backend_down" and i.entry == "b1"]
+        assert len(downs) == 1 and downs[0].phase_sum_ms == pytest.approx(downs[0].wall_ms, abs=1e-6)
+        names = {e["args"]["name"] for e in to_trace_events(recs)["traceEvents"]
+                 if e.get("ph") == "M" and e.get("name") == "process_name"}
+        assert {"router", "incident", "serve"} <= names
     finally:
         if router is not None:
             router.stop()
@@ -112,7 +120,12 @@ def test_run_route_cli(tmp_path):
     route_line = next(line for line in out.splitlines() if line.startswith("Route: "))
     assert "closed=True" in route_line and "b0=up b1=up" in route_line
     assert re.search(r" redirects=[0-9]+ ", route_line)
-    assert "Health: unavailable (" in out and "item 8" in out
+    health = next(line for line in out.splitlines() if line.startswith("Health: "))
+    assert "unavailable" not in health and "incidents=" in health and "budget_blown=" in health, health
+    rep = health_from_journal(tmp_path / "route")
+    assert health == f"Health: {rep.summary_line()}"
+    downs = [i for i in rep.incidents if i.kind == "backend_down" and i.entry == "b1"]
+    assert downs and all(i.phase_sum_ms == pytest.approx(i.wall_ms, abs=1e-6) for i in downs)
     assert (tmp_path / "route" / "router.jsonl").exists() and (tmp_path / "route" / "backend_0.jsonl").exists()
     recs = load_records(tmp_path / "route")
     moves = [r["to"] for r in recs if r["kind"] == "router_backend_state" and r["backend"] == "b1"
@@ -138,4 +151,6 @@ def test_bench_route_mode(tmp_path):
     assert row["killed"] == "b0"  # seed 0 % 2
     assert row["recovery_ms"] is not None and row["recovery_ms"] > 0
     assert row["backends"] == {"b0": "up", "b1": "up"}
-    assert row["health"] is None and "item 8" in row["skipped"]["health"]
+    assert "skipped" not in row and "error" not in row["health"], row["health"]
+    assert row["health"]["summary"] == health_from_journal(tmp_path / "route").summary_line()
+    assert any(i["kind"] == "backend_down" and i["entry"] == "b0" for i in row["health"]["incidents"])

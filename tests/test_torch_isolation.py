@@ -125,6 +125,19 @@ import tempfile
 assert run.main(["--config", "v1_jit", "--serve", "--route", "1", "--device", "cpu", "--height", "45", "--width", "45",
                  "--serve-duration", "0.2", "--serve-max-batch", "2", "--route-dir", tempfile.mkdtemp()]) == 0
 """,
+    # the training CLI: a supervised sp run with its checkpoints and journal, then the observability CLI's
+    # health and export over that journal
+    "train": """
+import os, tempfile
+from cuda_mpi_gpu_cluster_programming_tpu_torch import train
+from cuda_mpi_gpu_cluster_programming_tpu_torch.observability import __main__ as obs_cli
+work = tempfile.mkdtemp()
+assert train.main(["--device", "cpu", "--steps", "2", "--batch", "1", "--height", "45", "--width", "45", "--sp", "2",
+                   "--checkpoint-every", "1", "--supervise-steps", "--work-dir", work]) == 0
+journal = os.path.join(work, "journal.jsonl")
+assert obs_cli.main(["health", "--journal", journal, "--json"]) == 0
+assert obs_cli.main(["export", "--journal", journal, "--out", os.path.join(work, "trace.json")]) == 0
+""",
     "long_context": """
 assert long_context.main(["--strategy", "flash", "--verify", "--device", "cpu", "--seq-len", "64",
                           "--heads", "2", "--head-dim", "16", "--repeats", "1", "--warmup", "1"]) == 0

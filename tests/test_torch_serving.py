@@ -558,7 +558,8 @@ def test_bench_serve_row_has_the_jax_rows_keys(bench_cpu, monkeypatch, capsys):
     want = _jax_row_keys("_serve_main", ROOT / "bench.py", "row")
     # unsupervised, the row has no trips or entry (neither has the JAX one)
     assert set(row) == (want - set(tbench.SERVE_SKIPPED) - set(tbench.SUPERVISED_KEYS)) | {"skipped"}
-    assert set(row["skipped"]) == {"drill", "health"} <= want and set(tbench.SUPERVISED_KEYS) <= want
+    assert set(row["skipped"]) == {"drill"} <= want and set(tbench.SUPERVISED_KEYS) <= want
+    assert "health" in want and row["health"]["summary"].startswith("incidents=0 ") and row["health"]["compile"]
     assert row["metric"] == tbench.SERVE_METRIC == "alexnet_blocks12_serve_images_per_sec"
     assert row["platform"] == "cpu" and row["value"] > 0 and row["buckets"] == [1, 2, 4]
     assert row["cache_misses_post_warmup"] == 0 and row["warmup_compiles"] == 3
