@@ -8,6 +8,7 @@
     python3 chip_smoke.py --tiers        # only phase 3h, the staged-parallelism tiers
     python3 chip_smoke.py --fleet        # only phase 3i, the serving fleet and the serving shard width
     python3 chip_smoke.py --train        # only phase 3k, the training CLI and the journal folds
+    python3 chip_smoke.py --sp           # only phase 3l, the LM's sequence and tensor parallelism
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
@@ -303,6 +304,24 @@ fails ends the run with a non-zero exit code and nothing is caught:
    ``--fail-on-budget-burn`` on a burned journal exits 3. ``python3
    chip_smoke.py --train`` runs this phase alone (the earlier phases'
    journals folded when present);
+   3l. the LM's sequence and tensor parallelism, 4 slots sharing the card:
+   ``long_context`` at its defaults (B 1, L 4096, H 8, D 64, causal) with
+   ``--strategy ring`` and ``ulysses``, ``--shards 4``, both engines, fp32
+   and bf16, ``--verify`` PASSED, beside ``--strategy flash`` in the same
+   call; at TINY_LM, batch 8, L 1024: ``forward_lm`` with ring and Ulysses
+   flash at 4 shards against the reference forward, tp 2 and 4 (flash) and
+   sp x tp 2 x 2 (ring flash, heads over "tp") against the whole tree's
+   flash forward, and one training step of each whose loss and gradients
+   are the single-device flash step's (``TRAIN_LOSS_RTOL``,
+   ``TRAIN_GRAD_REL``); ``examples.lm --attn ring --sp-engine flash`` and
+   ``--attn ulysses``, ``--shards 4``, at their defaults, PASSED; flash
+   launches as tabled (causal ring n(n+1)/2 of each kernel a layer, Ulysses
+   n, tp one a slot, the einsum engine none) and the ``halo.COLLECTIVES``
+   (ppermute 2n, all_to_all 4, psum 2 a layer); flash_fwd, flash_dq and
+   flash_dkv at every slot shape these paths give them (``SP_SHAPES``; the
+   backward with an lse cotangent where the ring's merge gives one) against
+   their plain versions, timed beside SDPA. ``python3 chip_smoke.py --sp``
+   runs this phase alone;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -326,7 +345,10 @@ the launches of the ladder's int8w drain), and the sharded path's (``path``
 windows, with the launches of ``run --config v5_collective --shards 4``
 (phase 3h), and the sharded serve path's (``path`` ``serve_sharded``):
 conv2d and maxpool2d at bucket 8 on the windows of 2 and 4 shards, fp32,
-with the launches of the sharded server's drained run (phase 3i). Details of every
+with the launches of the sharded server's drained run (phase 3i), and the
+sequence-parallel path's (``path`` ``sequence_parallel``): flash_fwd,
+flash_dq and flash_dkv at the slot shapes of phase 3l's runs, with their
+launches. Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -466,6 +488,20 @@ BUDGET_REL = {"bf16": BF16_REL, "int8w": INT8W_REL}
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class PhaseClock:
+    """Wall seconds a phase of the whole run, logged as each ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.laps = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = now - self.t
+        self.t = now
+        log(f"phase {name} wall: {self.laps[name]:.1f} s")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -2050,12 +2086,15 @@ def bench_phase(runs) -> dict:
 
     t0 = time.perf_counter()
     result = {"rows": {}}
-    for env_extra, expected in BENCH_CALLS:
+    for i, (env_extra, expected) in enumerate(BENCH_CALLS):
         env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "TPU_FRAMEWORK_"))}
-        env.update(env_extra, BENCH_MAX_RETRIES="0")
+        # depth cut to make room for phase 3l: BENCH_REPEATS 100 (the bench's default 200), and the first call
+        # alone through the parent (its probe, the measuring child, the relay); the others run that child
+        # itself, whose rows the parent relays unchanged
+        env.update(env_extra, BENCH_MAX_RETRIES="0", BENCH_REPEATS="100")
         t_call = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
-                              timeout=900)
+        proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench", *(["--child"] if i else [])],
+                              capture_output=True, text=True, env=env, timeout=900)
         require(proc.returncode == 0, f"bench {env_extra}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
         rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
         result.setdefault("raw_rows", []).extend(rows)  # phase 3g's regression gate reads them as rounds
@@ -2346,7 +2385,8 @@ def serve_bench_calls() -> dict:
     res = {}
     for mode in ("serve", "saturate"):
         env = {k: v for k, v in os.environ.items() if not k.startswith(("BENCH_", "TPU_FRAMEWORK_"))}
-        env.update(BENCH_MODE=mode, BENCH_CONFIG="v3_pallas")
+        # depth cut to make room for phase 3l: serve's window 1.5 s (its default 3), saturate's 1 s a rate (2)
+        env.update(BENCH_MODE=mode, BENCH_CONFIG="v3_pallas", BENCH_SERVE_DURATION="1.5", BENCH_SAT_DURATION="1")
         t_call = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"{PORT}.bench"], capture_output=True, text=True, env=env,
                               timeout=600)
@@ -3018,12 +3058,12 @@ def flash_case(shape, causal, dtype, gen, block_q=128, block_k=128) -> dict:
     return dict(q=q, k=k, v=v, res=res)
 
 
-def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> dict:
+def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name, profiled=True) -> dict:
     """Phase 2 row of flash_fwd at one shape: checked by :func:`flash_case`
     (plain version, oracle, a second launch bitwise), timed by CUDA events
     around a call (``ms``) and the kernel's own device time
-    (``device_ms``, :func:`device_time_ms`) beside the plain version, SDPA
-    (the same two ways) and the bound."""
+    (``device_ms``, :func:`device_time_ms`; not read when ``profiled`` is
+    false) beside the plain version, SDPA (the same two ways) and the bound."""
     import torch.nn.functional as F
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
@@ -3041,8 +3081,9 @@ def flash_row(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> dict:
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal)
     row = dict(
         kernel="flash_fwd", stage=stage, mode="" if causal else "full", dtype=pol, shape=list(shape), **res,
-        ms=gpu_time_ms(run), device_ms=device_time_ms(run, "flash_fwd_"), plain_ms=gpu_time_ms(plain),
-        library_ms=gpu_time_ms(sdpa), library_device_ms=device_time_ms(sdpa),
+        ms=gpu_time_ms(run), device_ms=device_time_ms(run, "flash_fwd_") if profiled else None,
+        plain_ms=gpu_time_ms(plain),
+        library_ms=gpu_time_ms(sdpa), library_device_ms=device_time_ms(sdpa) if profiled else None,
         library_call="F.scaled_dot_product_attention (is_causal; (B, H, L, D) views)",
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}",
     )
@@ -3103,10 +3144,12 @@ def flash_bwd_case(shape, causal, dtype, gen, block_q=128, block_k=128, lse_grad
     return dict(args=args, kw=kw, res=res)
 
 
-def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> list:
+def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name, lse_grad=False, profiled=True) -> list:
     """Phase 2 rows of flash_dq and flash_dkv at one shape: checked by
-    :func:`flash_bwd_case`, timed (CUDA events around a call, and the
-    kernel's own device time, :func:`device_time_ms`) beside their plain versions, SDPA's
+    :func:`flash_bwd_case` (``lse_grad``: with an lse cotangent, as the
+    ring's merge gives them), timed (CUDA events around a call, and the
+    kernel's own device time, :func:`device_time_ms`, unless ``profiled`` is
+    false) beside their plain versions, SDPA's
     backward (the same two ways: one ``torch.autograd.grad`` on a retained
     ``scaled_dot_product_attention`` graph: dq, dk and dv together, so the
     same time stands in both rows) and the bound."""
@@ -3114,7 +3157,7 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
 
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
 
-    case = flash_bwd_case(shape, causal, dtype, gen)
+    case = flash_bwd_case(shape, causal, dtype, gen, lse_grad=lse_grad)
     args, kw = case["args"], case["kw"]
     q, k, v, g = args[:4]
     torch.cuda.synchronize()
@@ -3122,7 +3165,8 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
     o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     g_t = g.transpose(1, 2).contiguous()
     library_ms = gpu_time_ms(lambda: torch.autograd.grad(o, leaves, g_t, retain_graph=True))
-    library_device_ms = device_time_ms(lambda: torch.autograd.grad(o, leaves, g_t, retain_graph=True))
+    library_device_ms = (device_time_ms(lambda: torch.autograd.grad(o, leaves, g_t, retain_graph=True))
+                         if profiled else None)
     del o, leaves
     b, l, h, d = shape
     rows = []
@@ -3137,12 +3181,14 @@ def flash_bwd_rows(stage, shape, causal, pol, dtype, gen, spec, peak_name) -> li
         bound, by = spec.bound_ms(flops, nbytes, pol)
         row = dict(
             kernel=name, stage=stage, mode="" if causal else "full", dtype=pol, shape=list(shape), **res,
-            ms=gpu_time_ms(run), device_ms=device_time_ms(run, f"{name}_kernel"), plain_ms=gpu_time_ms(plain),
+            ms=gpu_time_ms(run), device_ms=device_time_ms(run, f"{name}_kernel") if profiled else None,
+            plain_ms=gpu_time_ms(plain), lse_grad=lse_grad,
             library_ms=library_ms, library_device_ms=library_device_ms,
             library_call="torch.autograd.grad of F.scaled_dot_product_attention (is_causal; dq, dk, dv together)",
             bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, peak=f"{spec.name} {peak_name(pol)}",
         )
-        log(f"kernel {name}{'' if causal else '[full]'} {stage} {'x'.join(map(str, shape))} {pol}: "
+        log(f"kernel {name}{'' if causal else '[full]'} {stage} {'x'.join(map(str, shape))} {pol}"
+            f"{' (lse cotangent)' if lse_grad else ''}: "
             f"ok={res['ok']} tol={res['tol']} max_abs={res['max_abs_err']:.3g} bitwise_rerun={res['bitwise_rerun']} "
             + (f"vs_oracle={res['ref_max_abs_err']:.3g} ({res['ref_ok']}) " if "ref_ok" in res else "")
             + f"| ms={row['ms']:.4f} device_ms={row['device_ms'] or float('nan'):.4f} plain={row['plain_ms']:.4f} "
@@ -4241,6 +4287,7 @@ def tier_outputs(key, pol, ns, params, x, cfg) -> dict:
                       "ppermute" if staged else "all_gather": 0}
         else:
             want_c = {"ppermute": 0, "all_gather": 0}
+        want_c = {**dict.fromkeys(coll, 0), **want_c}  # every other collective (the LM's among them) 0 times
         require(coll == want_c, f"{key}/{pol} at {n} shards: collectives {coll}, want {want_c}")
         require(bool(torch.isfinite(out).all()), f"{key}/{pol} at {n} shards: non-finite output")
         outs[n] = dict(out=out, launches=launches, collectives=coll)
@@ -4460,7 +4507,8 @@ def tier_kernels_entries(tiers) -> list:
 FLEET_N = 3
 FLEET_CONFIG = "v3_pallas"
 FLEET_CHAOS = "seed=1,host_loss=1"
-FLEET_RATE, FLEET_WINDOW_S = 30.0, 2.0
+# the drill's windows, 1 s each (2 s before the sequence-parallel phase 3l joined the script)
+FLEET_RATE, FLEET_WINDOW_S = 30.0, 1.0
 FLEET_SHARDS = (2, 4)
 
 
@@ -4514,17 +4562,21 @@ def fleet_bench_calls(out_dir) -> dict:
     """``BENCH_MODE=route`` and ``fleetcontrol`` on ``FLEET_CONFIG`` at
     227x227, max_batch 8, through ``python -m``, each one row with no
     ``error``. route exits 0 with its books closed, the victim ``b0`` and a
-    recovery. fleetcontrol runs at the JAX bench's defaults and exits 0
+    recovery. fleetcontrol runs at the JAX bench's defaults but a 4 s swell and
+    a 0.5 s calm window (route's windows 1 s) and exits 0
     (``ok``) or 3 (a failed clause, named in ``failures``) with both sides'
     books closed and no fleet action on the calm trace; ``ok`` is printed,
     not required: on the card the host's HTTP path bounds the fleet, no
     backend's own queue sees the swell, and the verdict fails (an open
     failure, ROADMAP Queue 3 item 10)."""
     res = {}
+    # depth cut to make room for phase 3l: route's windows 1 s (its default 2), fleetcontrol's swell 4 s and calm
+    # window 0.5 s (its defaults 8 and 1); every path and check of both calls runs as before
     for mode, knobs in (("route", dict(BENCH_ROUTE_HEIGHT="227", BENCH_ROUTE_WIDTH="227", BENCH_ROUTE_MAX_BATCH="8",
-                                       BENCH_ROUTE_JOURNAL=str(out_dir / "bench_route"))),
+                                       BENCH_ROUTE_DURATION="1", BENCH_ROUTE_JOURNAL=str(out_dir / "bench_route"))),
                         ("fleetcontrol", dict(BENCH_FLEETCTL_HEIGHT="227", BENCH_FLEETCTL_WIDTH="227",
-                                              BENCH_FLEETCTL_MAX_BATCH="8",
+                                              BENCH_FLEETCTL_MAX_BATCH="8", BENCH_FLEETCTL_DURATION="4",
+                                              BENCH_FLEETCTL_CALM_DURATION="0.5",
                                               BENCH_FLEETCTL_JOURNAL=str(out_dir / "bench_fleetctl")))):
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(("BENCH_", "TPU_FRAMEWORK_")) and k != "CHAOS_SPEC"}
@@ -5448,6 +5500,262 @@ def train_cli_phase(nvidia_smi: str, full: bool = True) -> dict:
     return result
 
 
+# phase 3l, the LM's sequence and tensor parallelism on the one card: ring and Ulysses over SP_SHARDS slots
+SP_SHARDS = 4
+SP_LC_ARGS = ("--repeats", "5", "--warmup", "2")  # long_context's timing depth in 3l (its defaults 10 and 3)
+# the flash kernels' per-slot shapes on 3l's paths (B, L, H, D): long_context's defaults at 4 shards (the ring's
+# L/4 block, Ulysses' H/4 heads over the whole L), TINY_LM at batch 8 and L 1024 (ring; Ulysses and tp 4 share
+# the one-head shape), examples.lm's defaults (batch 4, L 128) at 4 shards, tp 2 and sp x tp 2 x 2
+SP_SHAPES = {
+    "lc_ring": (1, LONG_CONTEXT[1] // SP_SHARDS, LONG_CONTEXT[2], LONG_CONTEXT[3]),
+    "lc_ulysses": (1, LONG_CONTEXT[1], LONG_CONTEXT[2] // SP_SHARDS, LONG_CONTEXT[3]),
+    "lm_ring": (LM_BATCH, 1024 // SP_SHARDS, 4, 32),
+    "lm_ulysses": (LM_BATCH, 1024, 4 // SP_SHARDS, 32),
+    "cli_ring": (4, 128 // SP_SHARDS, 4, 32),
+    "lm_tp2": (LM_BATCH, 1024, 2, 32),
+    "lm_sp2_tp2": (LM_BATCH, 512, 2, 32),
+}
+SP_FLASH_PER_CALL = {"ring": SP_SHARDS * (SP_SHARDS + 1) // 2, "ulysses": SP_SHARDS}  # causal, each flash kernel
+
+
+def sp_attention_runs(result) -> None:
+    """3l's long_context runs at its defaults (B 1, L 4096, H 8, D 64,
+    causal), ``--shards 4 --verify``: ring and Ulysses, both engines, fp32
+    and bf16, beside ``--strategy flash`` in the same call; the verdict
+    PASSED (1e-4 fp32, 3e-2 bf16 against the oracle), flash_fwd launches
+    n(n+1)/2 a ring call and n a Ulysses call with the flash engine, none
+    with einsum, and the ``Mesh:`` line naming the card."""
+    lc_shape = "x".join(map(str, LONG_CONTEXT))
+    for pol in ("fp32", "bf16"):
+        for strategy, engine in (("flash", None), ("ring", "einsum"), ("ring", "flash"), ("ulysses", "einsum"),
+                                 ("ulysses", "flash")):
+            argv = ["--strategy", strategy, "--verify", "--dtype", pol, *SP_LC_ARGS]
+            name = f"long_context --strategy {strategy}/{pol}"
+            per_call = 1
+            if engine is not None:
+                argv += ["--shards", str(SP_SHARDS), "--engine", engine]
+                name = f"long_context --strategy {strategy} --engine {engine}/{pol}"
+                per_call = SP_FLASH_PER_CALL[strategy] if engine == "flash" else 0
+            r = run_long_context(argv)
+            want = _launches(flash_fwd=per_call * r["calls"])
+            log(f"path {name}: {r['ms']:.4f} ms ({r['tok_s']} tok/s) max|delta|={r['max_delta']:.3g} "
+                f"launches flash_fwd={r['launches']['flash_fwd']} calls={r['calls']}")
+            require(r["shape"] == lc_shape, f"{name}: shape {r['shape']}")
+            require(r["calls"] > 0 and r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+            if engine is not None:
+                require(f"Mesh: {SP_SHARDS} shards on 1 device: cuda:0" in r["stdout"], f"{name}: no Mesh line")
+            result["runs"][name] = dict({k: v for k, v in r.items() if k != "stdout"}, passes=r["calls"])
+
+
+def sp_lm_runs(result) -> None:
+    """3l's LM at TINY_LM, batch 8, L 1024 (fp32): ``forward_lm`` with ring
+    and Ulysses flash at 4 shards against the reference forward, tp 2, tp 4
+    (flash) and sp x tp 2 x 2 (ring flash, heads over "tp") against the
+    whole tree's flash forward; one training step of each against the
+    single-device flash step (the loss and every gradient leaf, the TP
+    pieces joined); launches and collectives as tabled; ms beside the
+    single-device flash forward and step."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as tf
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import halo
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import tensor_parallel as ttp
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel.mesh import make_mesh
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.optim import adam
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.tree import tree_leaves
+
+    cfg = tf.TINY_LM
+    layers = cfg.n_layers
+    gen = torch.Generator().manual_seed(2040)
+    params = tf.init_transformer(cfg, generator=gen, device="cuda")
+    loss_toks = torch.randint(0, cfg.vocab, (LM_BATCH, cfg.max_len + 1), generator=gen).cuda()
+    toks = loss_toks[:, :-1]
+    n_tok = LM_BATCH * cfg.max_len
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    sp_mesh = make_mesh(SP_SHARDS)
+    meshes = {"tp2": make_mesh(2, axis_name="tp"), "tp4": make_mesh(4, axis_name="tp"),
+              "sp2_tp2": make_mesh(2, axis_name="tp", dp=2, dp_axis_name="sp")}
+    tp_params = {key: ttp.shard_lm_params_tp(params, m, axis_name="tp") for key, m in meshes.items()}
+    # name: (config, params, mesh, flash launches a layer, collectives a layer)
+    ring, uly = SP_FLASH_PER_CALL["ring"], SP_FLASH_PER_CALL["ulysses"]
+    cases = {
+        "flash": (flash_cfg, params, None, 1, {}),
+        f"ring flash, {SP_SHARDS} shards": (dataclasses.replace(flash_cfg, attn_impl="ring", attn_engine="flash",
+                                                                 sp_shards=SP_SHARDS), params, sp_mesh, ring,
+                                             dict(ppermute=2 * SP_SHARDS)),
+        f"ulysses flash, {SP_SHARDS} shards": (dataclasses.replace(flash_cfg, attn_impl="ulysses", attn_engine="flash",
+                                                                    sp_shards=SP_SHARDS), params, sp_mesh, uly,
+                                                dict(all_to_all=4)),
+        "tp 2, flash": (flash_cfg, tp_params["tp2"], meshes["tp2"], 2, dict(psum=2)),
+        "tp 4, flash": (flash_cfg, tp_params["tp4"], meshes["tp4"], 4, dict(psum=2)),
+        "sp x tp 2 x 2, ring flash": (dataclasses.replace(flash_cfg, attn_impl="ring", attn_engine="flash", sp_shards=2,
+                                                          sp_head_axis="tp"), tp_params["sp2_tp2"], meshes["sp2_tp2"],
+                                      2 * 3, dict(ppermute=4, psum=2)),
+    }
+    with torch.inference_mode():
+        ref = tf.forward_lm(params, toks, cfg)
+        flash_out = tf.forward_lm(params, toks, flash_cfg)
+    caught = {}
+    for name, (c, p, mesh, per_layer, coll) in cases.items():
+        ck.reset_launches()
+        halo.reset_collectives()
+        with torch.inference_mode():
+            out = tf.forward_lm(p, toks, c, mesh=mesh)
+        torch.cuda.synchronize()
+        launches, collectives = dict(ck.LAUNCHES), dict(halo.COLLECTIVES)
+        want = _launches(flash_fwd=per_layer * layers)
+        want_c = {**dict.fromkeys(collectives, 0), **{k: v * layers for k, v in coll.items()}}
+        oracle, oname = (ref, "reference") if name.startswith(("ring", "ulysses")) or name == "flash" else (
+            flash_out, "the whole tree's flash forward")
+        err = float((out - oracle).abs().max())
+        ok = bool(torch.allclose(out, oracle, rtol=LM_RTOL, atol=LM_ATOL))
+        with torch.inference_mode():
+            ms = gpu_time_ms(lambda: tf.forward_lm(p, toks, c, mesh=mesh), reps=10)
+        log(f"path forward_lm {name}/fp32: {ms:.4f} ms ({n_tok / ms * 1e3:.0f} tok/s) vs {oname} max_abs={err:.3g} "
+            f"ok={ok}; launches flash_fwd={launches['flash_fwd']} collectives "
+            + " ".join(f"{k}={v}" for k, v in collectives.items() if v))
+        require(launches == want, f"forward_lm {name}: launches {launches}, want {want}")
+        require(collectives == want_c, f"forward_lm {name}: collectives {collectives}, want {want_c}")
+        require(tuple(out.shape) == (LM_BATCH, cfg.max_len, cfg.vocab) and ok, f"forward_lm {name}: max_abs {err}")
+        result["runs"][f"forward_lm {name}/fp32"] = dict(ms=ms, tok_s=n_tok / ms * 1e3, max_abs=err, launches=launches,
+                                                         collectives=collectives, passes=1)
+        # one training step, the gradients caught on their way to the optimizer
+        init, update = adam(1e-3)
+
+        def spy(grads, state, q=None, update=update, name=name):
+            caught.setdefault(name, ttp.gather_lm_params_tp(grads))  # the first step's: the timed ones move on
+            return update(grads, state, q)
+
+        _, step = tf.make_lm_train_step(c, mesh=mesh, optimizer=(init, spy))
+        ck.reset_launches()
+        _, _, loss = step(p, init(p), loss_toks)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        want = _launches(**dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), per_layer * layers))
+        require(launches == want, f"make_lm_train_step {name}: launches {launches}, want {want}")
+        p_run, s_run = p, init(p)
+
+        def one_step(step=step):
+            nonlocal p_run, s_run
+            p_run, s_run, _ = step(p_run, s_run, loss_toks)
+
+        ms = gpu_time_ms(one_step, reps=5, warmup=1)
+        base = result["runs"].get("make_lm_train_step flash/fp32")
+        loss_rel = 0.0 if base is None else abs(float(loss) - base["loss"]) / abs(base["loss"])
+        grad_rel = 0.0 if base is None else max(
+            float((a - b).abs().max()) / float(b.abs().max().clamp_min(1e-30))
+            for a, b in zip(tree_leaves(caught[name]), tree_leaves(caught["flash"])))
+        log(f"path make_lm_train_step {name}/fp32: {ms:.4f} ms a step ({n_tok / ms * 1e3:.0f} tok/s) loss "
+            f"{float(loss):.6f}; vs the single-device flash step: loss rel {loss_rel:.3g} (tol "
+            f"{TRAIN_LOSS_RTOL['fp32']:g}), largest gradient gap {grad_rel:.3g} of its leaf's max (tol "
+            f"{TRAIN_GRAD_REL['fp32']:g}); launches flash_fwd={launches['flash_fwd']} flash_dq={launches['flash_dq']} "
+            f"flash_dkv={launches['flash_dkv']}")
+        require(np.isfinite(float(loss)) and loss_rel <= TRAIN_LOSS_RTOL["fp32"]
+                and grad_rel <= TRAIN_GRAD_REL["fp32"], f"make_lm_train_step {name}: loss {loss_rel}, grads {grad_rel}")
+        result["runs"][f"make_lm_train_step {name}/fp32"] = dict(ms=ms, tok_s=n_tok / ms * 1e3, loss=float(loss),
+                                                                 loss_rel=loss_rel, grad_rel=grad_rel,
+                                                                 launches=launches, passes=1)
+        del p_run, s_run
+    for attn, engine in (("ring", "flash"), ("ulysses", "einsum")):
+        r = run_lm_cli(["--attn", attn, "--sp-engine", engine, "--shards", str(SP_SHARDS), "--generate", "16"])
+        name = f"examples.lm --attn {attn} --sp-engine {engine} --shards {SP_SHARDS}"
+        per = ring * layers * r["steps"] if engine == "flash" else 0
+        want = _launches(flash_fwd=per, flash_dq=per, flash_dkv=per)
+        log(f"path {name}: {r['ms']:.1f} ms for {r['steps']} steps ({r['ms'] / r['steps']:.3f} ms a step, "
+            f"{r['tok_s']} tok/s) loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}; launches "
+            f"flash_fwd={r['launches']['flash_fwd']} flash_dq={r['launches']['flash_dq']} "
+            f"flash_dkv={r['launches']['flash_dkv']}; PASSED, generation PASSED")
+        require(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+        require(f"Mesh: {SP_SHARDS} shards on 1 device: cuda:0" in r["stdout"], f"{name}: no Mesh line")
+        result["runs"][name] = {k: v for k, v in r.items() if k != "stdout"}
+
+
+def sp_kernel_rows(spec, peak_name) -> list:
+    """3l's flash rows at the per-slot shapes its paths give the kernels
+    (``SP_SHAPES``): flash_fwd, and flash_dq and flash_dkv with an lse
+    cotangent where the ring's merge differentiates them, each against its
+    plain version (the rules of phase 2's rows), timed by CUDA events beside
+    the plain version, SDPA and the bound (no profiler: phase 2 reads the
+    kernels' device time). The ring's diagonal hop is causal, its earlier
+    ones full; the tp and sp x tp shapes are checked, not timed."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(2041)
+    for pol, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        rows.append(flash_row("lc_ring", SP_SHAPES["lc_ring"], True, pol, dtype, gen, spec, peak_name, profiled=False))
+        rows.append(flash_row("lc_ring", SP_SHAPES["lc_ring"], False, pol, dtype, gen, spec, peak_name, profiled=False))
+        rows.append(flash_row("lc_ulysses", SP_SHAPES["lc_ulysses"], True, pol, dtype, gen, spec, peak_name,
+                              profiled=False))
+    dtype = torch.float32
+    for stage, causals, lse_grad in (("lm_ring", (True, False), True), ("lm_ulysses", (True,), False),
+                                     ("cli_ring", (True, False), True)):
+        for causal in causals:
+            rows.append(flash_row(stage, SP_SHAPES[stage], causal, "fp32", dtype, gen, spec, peak_name,
+                                  profiled=False))
+            rows += flash_bwd_rows(stage, SP_SHAPES[stage], causal, "fp32", dtype, gen, spec, peak_name,
+                                   lse_grad=lse_grad, profiled=False)
+    for stage, causals in (("lm_tp2", (True,)), ("lm_sp2_tp2", (True, False))):
+        for causal in causals:
+            fwd = flash_case(SP_SHAPES[stage], causal, dtype, gen)["res"]
+            bwd = flash_bwd_case(SP_SHAPES[stage], causal, dtype, gen, lse_grad=stage == "lm_sp2_tp2")["res"]
+            log(f"kernel flash_fwd, flash_dq, flash_dkv{'' if causal else '[full]'} {stage} "
+                f"{'x'.join(map(str, SP_SHAPES[stage]))} fp32: fwd ok={fwd['ok_all']} max_abs={fwd['max_abs_err']:.3g}; "
+                + "; ".join(f"{k} ok={v['ok_all']} max_abs={v['max_abs_err']:.3g}" for k, v in bwd.items()))
+            require(fwd["ok_all"] and all(v["ok_all"] for v in bwd.values()), f"flash at {stage}: {fwd} {bwd}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sp_phase(spec, peak_name) -> dict:
+    """Phase 3l: the LM's sequence and tensor parallelism on the card
+    (:func:`sp_attention_runs`, :func:`sp_lm_runs`, :func:`sp_kernel_rows`),
+    every slot on cuda:0."""
+    t0 = time.perf_counter()
+    result = {"runs": {}}
+    sp_attention_runs(result)
+    sp_lm_runs(result)
+    result["rows"] = sp_kernel_rows(spec, peak_name)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3l took {result['seconds']:.1f} s")
+    return result
+
+
+def sp_kernels_entries(sp) -> list:
+    """The ``kernels`` line's entries of the sequence-parallel path: flash_fwd
+    at the ring's and Ulysses' long_context slot shapes (fp32, bf16; runs:
+    ``long_context --strategy ring|ulysses --engine flash``), and flash_fwd,
+    flash_dq and flash_dkv at TINY_LM's ring and Ulysses slot shapes (runs:
+    one ``make_lm_train_step`` step with ring or Ulysses flash at 4 shards)
+    and at examples.lm's ring slot shape (run: ``examples.lm --attn ring
+    --sp-engine flash --shards 4``). Times are the causal rows'; the full
+    rows (the ring's earlier hops) go under ``modes``."""
+    lc = {"ring": "long_context --strategy ring --engine flash", "ulysses": "long_context --strategy ulysses --engine flash"}
+    step = {"ring": f"make_lm_train_step ring flash, {SP_SHARDS} shards/fp32",
+            "ulysses": f"make_lm_train_step ulysses flash, {SP_SHARDS} shards/fp32"}
+    plan = [("flash_fwd", pol, f"lc_{s}", f"{lc[s]}/{pol}") for s in ("ring", "ulysses") for pol in ("fp32", "bf16")]
+    plan += [(k, "fp32", f"lm_{s}", step[s]) for s in ("ring", "ulysses") for k in ("flash_fwd", "flash_dq", "flash_dkv")]
+    plan += [(k, "fp32", "cli_ring", f"examples.lm --attn ring --sp-engine flash --shards {SP_SHARDS}")
+             for k in ("flash_fwd", "flash_dq", "flash_dkv")]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    entries = []
+    for name, pol, stage, run_key in plan:
+        mine = [r for r in sp["rows"] if r["kernel"] == name and r["dtype"] == pol and r["stage"] == stage]
+        (row,) = [r for r in mine if not r.get("mode")]
+        run = sp["runs"][run_key]
+        source, replaces = LM_KERNELS[name]
+        entry = dict(
+            name=name, dtype=pol, route="cuda", source=source, replaces=replaces, path="sequence_parallel",
+            run=run_key, stage=stage, shape=row["shape"], launches=run["launches"][name],
+            launches_per_call=run["launches"][name] / run["passes"],
+            max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], library_call=row["library_call"],
+        )
+        modes = [r for r in mine if r.get("mode")]
+        if modes:
+            entry["modes"] = {r["mode"]: {k: r.get(k) for k in keys} for r in modes}
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -5536,6 +5844,15 @@ def main() -> int:
         print(json.dumps(dict(device=kind, nvidia_smi=smi, train_cli=train_cli_phase(smi, full=False)), default=str),
               flush=True)
         return 0
+    if sys.argv[1:] == ["--sp"]:
+        # phase 3l alone, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        sp = sp_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, sp=sp, kernels=sp_kernels_entries(sp)), default=str),
+              flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--conv-fp32"]:
         # the fp32 conv summation order's records (ptxas, engine bits, conv rows, fused bitwise, accuracy,
         # bitwise tiers), from this checkout
@@ -5565,6 +5882,7 @@ def main() -> int:
                               engine_fp32_sha256=engine["sha256"], engine_fp32_items=engine["items"],
                               pool_lrn_sha256=pool_lrn["sha256"], pool_lrn_items=pool_lrn["items"])), flush=True)
         return 0
+    clock = PhaseClock()
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -5591,47 +5909,68 @@ def main() -> int:
     log(f"pool and LRN bits: maxpool2d, its W stage and lrn hash to {pool_lrn['sha256']} "
         f"(POOL_LRN_SHA256 {POOL_LRN_SHA256})")
     require(pool_lrn["sha256"] == POOL_LRN_SHA256, f"pool or LRN bits moved: {pool_lrn['items']}")
+    clock.lap("2")
     log("phase 2: every kernel agrees with its plain version, at the main path's shapes and off it; "
         "fp32 taps and g8 keep the bits of ENGINE_FP32_SHA256, the pools and LRN those of POOL_LRN_SHA256")
     main = main_path_phase()
+    clock.lap("3")
     log("phase 3: main path ran through the kernels, golden and budgets hold")
     v6 = v6_path_phase()
+    clock.lap("3 v6")
     log("phase 3: full AlexNet ran through the kernels on every route, within budget of v6_full_jit; "
         "--save-params/--params, --input native, --trace and the chaos drill held")
     lm = lm_path_phase()
+    clock.lap("3b")
     log("phase 3b: long_context and the LM's forward, loss, decode and generation ran through flash_fwd")
     train = train_path_phase()
+    clock.lap("3c")
     log("phase 3c: the LM's training step and examples.lm ran through flash_fwd, flash_dq and flash_dkv")
     ab = pool_ab_phase()
+    clock.lap("3d")
     log("phase 3d: pool_ab ran every strategy through its kernel, each bitwise F.max_pool2d")
     bench = bench_phase(main["runs"])
+    clock.lap("3e")
     log("phase 3e: the bench printed every row to its contract; run --breakdown and --profile ran")
     serve = serve_phase(spec, peak_name)
+    clock.lap("3f")
     log("phase 3f: the service replayed a CUDA graph per bucket (conv2d 2, maxpool2d 2, lrn 1 a dispatch), each "
         "result bitwise its eager forward and within budget; no cache miss; bench serve/saturate and run --serve ran")
     control = control_phase(spec, peak_name, bench["raw_rows"], serve.pop("bf16_served"))
+    clock.lap("3g")
     log("phase 3g: the controller walked the ladder down and back, every rung's graphs (recaptured at int8w and "
         "back) bitwise their eager forward, launches = nodes x dispatches, no cache miss; a neutral replay of a "
         "card journal held; bench replay, gate and control ran")
     tiers = tiers_phase(spec, peak_name)
+    clock.lap("3h")
     log("phase 3h: every tier within budget of the single-device oracle at every shard count; v4_hybrid and "
         "v5_collective bitwise one another at every shard count; conv2d and maxpool2d 2N a forward, lrn 0; "
         "collectives as planned; run --shards 4 printed the golden and the placement")
     fleet = fleet_phase(spec, peak_name)
+    clock.lap("3i")
     log("phase 3i: 3 v3_pallas backend processes shared the card, each bitwise the in-process server; host_loss "
         "killed b1, the survivors served unchanged, the replacement re-admitted through probation; run --route "
         "killed b1 mid-window and re-admitted it; bench route and fleetcontrol ran; the v5_collective server at 2 and 4 shards replayed its graphs bitwise")
     sup = supervise_phase(spec, peak_name)
+    clock.lap("3j")
     log("phase 3j: the supervised v5_collective and v3_pallas ladders ran clean on their requested rungs through "
         "conv2d, maxpool2d and lrn; every drill's replay was bitwise its rung's fresh output, flap ended in "
         "quarantine, rejoin in a promotion; the supervised server walked degrade_capacity down and back")
     train_cli = train_cli_phase(smi)
+    clock.lap("3k")
     log("phase 3k: the training CLI trained at 227x227 (the sdc drill's losses the clean run's, nan_loss=99 exit 3, "
         "the sharded resume the clean run's, the supervised sp 4 drill replayed) with no port kernel launched; every "
         "incident folded from the 3f/3i/3j/3k journals sums to its wall and each export loads with its lanes")
+    sp = sp_phase(spec, peak_name)
+    clock.lap("3l")
+    log(f"phase 3l: ring and Ulysses ({SP_SHARDS} slots on the card, both engines, fp32 and bf16) within the "
+        "oracle's tolerance in long_context, forward_lm and a training step; tp 2, tp 4 and sp x tp 2 x 2 within "
+        "the whole tree's; both examples.lm runs PASSED; flash launches and collectives as tabled; every slot "
+        "shape's flash kernels agree with their plain versions")
     tune = tune_phase()
+    clock.lap("4")
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
     v6_tune = v6_tune_phase()
+    clock.lap("4 v6")
     log("phase 4: the v6 tuner swept five conv layers with no failed candidate, then hit its cache")
     line = kernels_line(rows, main["runs"])
     line["kernels"] += v6_kernels_entries(rows + v6_rows, v6["runs"])
@@ -5642,6 +5981,7 @@ def main() -> int:
     line["kernels"] += tier_kernels_entries(tiers)
     line["kernels"] += fleet_kernels_entries(fleet)
     line["kernels"] += supervise_kernels_entries(sup)
+    line["kernels"] += sp_kernels_entries(sp)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -5651,8 +5991,8 @@ def main() -> int:
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
              v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
-             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, tune=tune,
-             v6_tune=v6_tune,
+             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, sp=sp, tune=tune,
+             v6_tune=v6_tune, phase_seconds=clock.laps,
              kernels=line["kernels"]), indent=1,
         default=str))
     print(json.dumps(line), flush=True)

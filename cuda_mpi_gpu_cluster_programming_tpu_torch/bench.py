@@ -584,7 +584,7 @@ def _replay_main() -> int:
 
     Knobs (environment): BENCH_REPLAY_JOURNAL (required: the recorded
     journal), BENCH_REPLAY_TRAFFIC_MULT (1.0), BENCH_REPLAY_DEVICES (unset =
-    recorded; more than one device waits for ROADMAP Queue 1 item 3),
+    recorded; N rebuilds a sharded config at N slots on this device),
     BENCH_REPLAY_SLO_SCALE (1.0), BENCH_REPLAY_OUT (the replay's own
     journal; default a temp file), BENCH_DEVICE.
 

@@ -1,4 +1,4 @@
-"""Byte-LM training demo on one device: the transformer LM end to end.
+"""Byte-LM training demo: the transformer LM end to end.
 
 Trains the tiny decoder-only LM on a synthetic repeating-byte corpus until
 the pattern is memorized: the loss must fall below a threshold or the run
@@ -7,17 +7,24 @@ FAILs (and ``--generate N`` must continue the pattern).
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn flash
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn flash --compute bf16 --generate 16
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --device cpu --seq-len 64 --batch 2
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn ring --shards 4 --sp-engine flash
 
 The port of the JAX package's ``examples/lm.py``, with the same flags plus
 ``--device`` and the same stdout contract lines. Runs on the GPU unless
 ``--device cpu`` is given. ``--attn flash`` trains through the
 hand-written flash kernels (per layer and step: one ``flash_fwd``, one
 ``flash_dq``, one ``flash_dkv``; ``--remat`` adds a second ``flash_fwd``).
-``--experts`` runs the mixture of experts replicated on the one device.
-The multi-device flags (``--attn ring|ulysses``, ``--shards`` above 1,
-``--sp-engine flash``, ``--fake-devices``, ``--pp-stages``, ``--fsdp``)
-are not ported yet and exit 2 before any work. The weights are drawn from
-a seeded ``torch.Generator`` (JAX's PRNG is not reproduced).
+``--attn ring|ulysses`` trains with sequence-parallel attention over
+``--shards`` slots (``parallel/sequence_parallel.py``), each slot's block
+through ``--sp-engine`` (``einsum``, or ``flash``: per layer and step the
+causal ring launches n(n+1)/2 of each flash kernel, Ulysses n). The slots
+share the visible devices round-robin (``parallel/mesh.py``), printed on a
+``Mesh:`` line, so the JAX CLI's "--shards exceeds the device count" guard
+has no counterpart; ``--fake-devices N`` parses, so the JAX command lines
+run unchanged, and changes nothing. ``--experts`` runs the mixture of
+experts replicated on the home device. ``--pp-stages`` and ``--fsdp`` are
+not ported yet and exit 2 before any work. The weights are drawn from a
+seeded ``torch.Generator`` (JAX's PRNG is not reproduced).
 """
 
 from __future__ import annotations
@@ -37,11 +44,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=40)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--seq-len", type=int, default=128, help="training context length")
-    p.add_argument("--attn", choices=["reference", "flash", "ring", "ulysses"], default="reference",
-                   help="ring/ulysses (sequence parallel) are not ported yet: exit 2")
-    p.add_argument("--shards", type=int, default=1, help="sp shards for ring/ulysses (not ported yet)")
+    p.add_argument("--attn", choices=["reference", "flash", "ring", "ulysses"], default="reference")
+    p.add_argument("--shards", type=int, default=1, help="sp shards for ring/ulysses")
     p.add_argument("--sp-engine", choices=["einsum", "flash"], default="einsum",
-                   help="within-shard engine for ring/ulysses (not ported yet)")
+                   help="within-shard engine for ring/ulysses (both train: ulysses via the whole-sequence "
+                   "VJP, ring via the joint (out, lse) VJP)")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--period", type=int, default=8, help="repeating-pattern period")
     p.add_argument("--experts", type=int, default=0,
@@ -63,21 +70,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--target-loss", type=float, default=1.0, help="PASS threshold")
     p.add_argument("--save-params", help="save trained params to this .npz")
     p.add_argument("--resume", help="load initial params from this .npz checkpoint")
-    p.add_argument("--fake-devices", type=int, default=0, help="virtual devices (not ported yet)")
+    p.add_argument("--fake-devices", type=int, default=0,
+                   help="accepted for the JAX command lines; the --shards slots share the visible devices")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
 
 def _unported(args) -> str | None:
-    """The first multi-device flag given, with the ROADMAP item it waits for."""
-    if args.attn in ("ring", "ulysses"):
-        return _NOT_PORTED.format(f"--attn {args.attn} (sequence parallel)", 3)
-    if args.shards > 1:
-        return _NOT_PORTED.format(f"--shards {args.shards} (sequence parallel)", 3)
-    if args.sp_engine != "einsum":
-        return _NOT_PORTED.format(f"--sp-engine {args.sp_engine} (sequence parallel)", 3)
-    if args.fake_devices:
-        return _NOT_PORTED.format("--fake-devices (several devices)", 3)
+    """The first flag of a tier not ported yet, with the ROADMAP item it waits for."""
     if args.pp_stages:
         return _NOT_PORTED.format("--pp-stages (pipeline parallel)", 9)
     if args.fsdp:
@@ -85,14 +85,38 @@ def _unported(args) -> str | None:
     return None
 
 
-def _guard(args, max_len: int) -> str | None:
-    """The JAX CLI's argument checks for one device, in its words."""
+def _guard(args, max_len: int, n_heads: int) -> str | None:
+    """The JAX CLI's argument checks, in its words (but the device-count
+    one: slots are not bounded by devices here)."""
     from ..ops.flash_attention import flash_block
 
-    if args.attn == "flash":
+    def flash_len_err(flag: str):
         bq = flash_block(args.seq_len)
         if args.seq_len % bq:
-            return f"--attn flash needs --seq-len divisible by {bq} (got {args.seq_len})"
+            return f"{flag} needs --seq-len divisible by {bq} (got {args.seq_len})"
+        return None
+
+    err = None
+    if args.attn == "flash":
+        err = flash_len_err("--attn flash")
+    elif args.attn in ("ring", "ulysses"):
+        if args.shards < 1:
+            err = f"--shards must be >= 1, got {args.shards}"
+        elif args.seq_len % args.shards:
+            err = f"--attn {args.attn} needs --seq-len divisible by --shards ({args.seq_len} % {args.shards} != 0)"
+        elif args.attn == "ulysses" and n_heads % args.shards:
+            err = f"--attn ulysses needs --shards dividing n_heads={n_heads} (got {args.shards})"
+        elif args.sp_engine == "flash":
+            if args.attn == "ring":
+                # the ring's rule is per shard: each hop's block is seq-len/shards rows
+                lb = args.seq_len // args.shards
+                if lb % flash_block(lb):
+                    err = (f"--sp-engine flash with --attn ring needs the per-shard block (seq-len/shards = {lb}) "
+                           f"to divide by the flash block ({flash_block(lb)})")
+            else:  # ulysses: the slot's flash attends the full sequence
+                err = flash_len_err("--sp-engine flash")
+    if err is not None:
+        return err
     if args.accum_steps < 1:
         return f"--accum-steps must be >= 1, got {args.accum_steps}"
     if args.batch % args.accum_steps:
@@ -133,7 +157,7 @@ def main(argv=None) -> int:
     from ..models.transformer import TINY_LM, init_transformer, make_lm_train_step
 
     eff_max_len = max(TINY_LM.max_len, args.seq_len)
-    err = _unported(args) or _guard(args, eff_max_len)
+    err = _unported(args) or _guard(args, eff_max_len, TINY_LM.n_heads)
     if err is not None:
         print(err, file=sys.stderr)
         return 2
@@ -142,8 +166,13 @@ def main(argv=None) -> int:
     from ..ops import cuda_kernels
 
     device = resolve_device(args.device)
-    cfg = dataclasses.replace(TINY_LM, attn_impl=args.attn, max_len=eff_max_len, n_experts=args.experts,
-                              remat=args.remat)
+    cfg = dataclasses.replace(TINY_LM, attn_impl=args.attn, attn_engine=args.sp_engine, sp_shards=args.shards,
+                              max_len=eff_max_len, n_experts=args.experts, remat=args.remat)
+    mesh = None
+    if args.attn in ("ring", "ulysses"):
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.shards, device=device.type)
     if args.resume:
         params, err = _resume(args, cfg, device)
         if err is not None:
@@ -168,10 +197,13 @@ def main(argv=None) -> int:
         f"d={cfg.d_model}{extras}) ---"
     )
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"Devices: 1 x {dev_name} ({device.type})")
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    print(f"Devices: {n_dev} x {dev_name} ({device.type})")
+    if mesh is not None:
+        print(f"Mesh: {mesh.describe()}")
 
     opt_init, step = make_lm_train_step(
-        cfg, lr=args.lr, accum_steps=args.accum_steps,
+        cfg, mesh=mesh, lr=args.lr, accum_steps=args.accum_steps,
         compute_dtype=torch.bfloat16 if args.compute == "bf16" else None,
     )
     opt_state = opt_init(params)

@@ -1,14 +1,20 @@
-"""Long-context attention demo/bench on one device: the O(L^2) reference
-op against the flash kernel.
+"""Long-context attention demo/bench: ring vs Ulysses vs single-device.
 
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.long_context --strategy flash --verify
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.long_context --strategy ring --shards 4 --engine flash --verify
 
 The port of the JAX package's ``examples/long_context.py``, with the same
 flags plus ``--device`` and the same stdout contract lines. Runs on the
 GPU unless ``--device cpu`` is given. ``--strategy single`` is the
 reference op, ``flash`` the hand-written flash kernel (one ``flash_fwd``
-launch per call). The sequence-parallel strategies ``ring`` and
-``ulysses`` are not ported yet: they exit 2 before any work. Inputs are
+launch per call), ``ring`` and ``ulysses`` the sequence-parallel
+attention over ``--shards`` slots (``parallel/sequence_parallel.py``),
+each slot's block through ``--engine`` (``einsum``, or ``flash``: causal
+ring n(n+1)/2 ``flash_fwd`` launches a call, Ulysses n). The slots share
+the visible devices round-robin (``parallel/mesh.py``), printed on a
+``Mesh:`` line; ``--fake-devices N`` parses, so the JAX command lines run
+unchanged, and changes nothing. The ``KV resident per device`` line is a
+slot's: L/n tokens for the ring, H/n heads for Ulysses. Inputs are
 standard normal from a seeded ``torch.Generator`` (JAX's PRNG is not
 reproduced).
 """
@@ -16,12 +22,8 @@ reproduced).
 from __future__ import annotations
 
 import argparse
-import sys
 
 import torch
-
-_SP_MISSING = ("strategy {!r} (sequence parallel over several devices) is not ported yet: "
-               "it waits for ROADMAP Queue 1 item 3; use --strategy single or flash")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -34,7 +36,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--strategy", choices=["single", "flash", "ring", "ulysses"], default="ring",
         help="single = O(L^2) reference op; flash = the hand-written flash kernel; "
-        "ring/ulysses = sequence parallel (not ported yet: exits 2)",
+        "ring/ulysses = sequence parallel over the mesh's --shards slots",
     )
     p.add_argument("--causal", action="store_true", default=True)
     p.add_argument("--no-causal", dest="causal", action="store_false")
@@ -43,26 +45,26 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--repeats", type=int, default=10)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--engine", choices=["einsum", "flash"], default="einsum",
-                   help="within-shard engine for ring/ulysses (not ported yet)")
+                   help="within-shard engine for ring/ulysses: einsum = fp32 score blocks; flash = the flash "
+                   "kernel per hop/shard (O(block) memory); both differentiable")
     p.add_argument("--verify", action="store_true",
                    help="also run the reference op and report max |delta|")
     p.add_argument("--fake-devices", type=int, default=0,
-                   help="virtual devices for ring/ulysses (not ported yet)")
+                   help="accepted for the JAX command lines; the --shards slots share the visible devices")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if args.strategy in ("ring", "ulysses"):
-        print(_SP_MISSING.format(args.strategy), file=sys.stderr)
-        return 2
 
     from ..configs import resolve_device
     from ..ops import cuda_kernels
     from ..ops.attention import attention
     from ..ops.flash_attention import flash_attention
     from ..ops.reference import true_fp32
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sequence_parallel import ring_attention, ulysses_attention
     from ..utils.timing import amortized_ms
 
     device = resolve_device(args.device)
@@ -72,7 +74,15 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     q, k, v = (torch.randn(shape, generator=gen).to(device=device, dtype=dtype) for _ in range(3))
 
-    op = attention if args.strategy == "single" else flash_attention
+    mesh = None
+    if args.strategy in ("ring", "ulysses"):
+        mesh = make_mesh(args.shards, device=device.type)
+        sp = ring_attention if args.strategy == "ring" else ulysses_attention
+
+        def op(q, k, v, causal):
+            return sp(q, k, v, n_shards=args.shards, causal=causal, mesh=mesh, engine=args.engine)
+    else:
+        op = attention if args.strategy == "single" else flash_attention
     calls = 0
 
     @torch.inference_mode()
@@ -88,10 +98,16 @@ def main(argv=None) -> int:
         f"H={args.heads}, D={args.head_dim}, {args.dtype}, "
         f"causal={args.causal}) ---"
     )
-    print(f"Devices: 1 x {dev_name} ({device.type})")
-    # one device keeps every token and head
-    kv_bytes = 2 * args.batch * args.seq_len * args.heads * args.head_dim * q.element_size()
-    print(f"KV resident per device: {args.seq_len} tokens x {args.heads} heads ({kv_bytes / 2**20:.2f} MiB)")
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    print(f"Devices: {n_dev} x {dev_name} ({device.type})")
+    if mesh is not None:
+        print(f"Mesh: {mesh.describe()}")
+    # per slot: the ring keeps L/n tokens x all heads, Ulysses all L tokens x H/n heads (after the
+    # all_to_all), one device every token and head
+    kv_tokens = args.seq_len // (args.shards if args.strategy == "ring" else 1)
+    kv_heads = args.heads // (args.shards if args.strategy == "ulysses" else 1)
+    kv_bytes = 2 * args.batch * kv_tokens * kv_heads * args.head_dim * q.element_size()
+    print(f"KV resident per device: {kv_tokens} tokens x {kv_heads} heads ({kv_bytes / 2**20:.2f} MiB)")
 
     before = dict(cuda_kernels.LAUNCHES)
     out = fn(q, k, v)

@@ -1,14 +1,25 @@
 """Decoder-only transformer LM: forward, loss, training step and KV-cache decode.
 
-The port of the JAX package's ``models/transformer.py`` on one device.
-Pre-norm decoder blocks with RMSNorm, learned positions, a weight-tied
-head, and a pluggable attention op:
+The port of the JAX package's ``models/transformer.py``. Pre-norm decoder
+blocks with RMSNorm, learned positions, a weight-tied head, and a
+pluggable attention op:
 
 - ``attn_impl="reference"``: the O(L^2) oracle (``ops.attention``);
 - ``attn_impl="flash"``: the hand-written flash kernels
   (``ops.flash_attention``: one ``flash_fwd`` launch per layer forward,
   one ``flash_dq`` and one ``flash_dkv`` per layer backward);
-- ``"ring"``/``"ulysses"`` (sequence parallel) are not ported yet and raise.
+- ``attn_impl="ring"``/``"ulysses"``: sequence parallel over ``sp_shards``
+  slots of the mesh (``parallel.sequence_parallel``), each slot's block
+  through ``attn_engine`` (``einsum``, or ``flash``: the flash kernels on
+  every hop or slot), heads split over ``sp_head_axis`` when it is set.
+
+``forward_lm``, ``lm_loss`` and ``make_lm_train_step`` take the mesh the
+sequence-parallel attention runs over, and params in either layout: the
+whole tree, or ``parallel.tensor_parallel.shard_lm_params_tp``'s Megatron
+layout, whose decoder block runs each tp slot's heads and FFN slice and
+sums the row-parallel products over the slots (two ``psum`` reductions a dense
+block). Decode and generation run on one device, as in the JAX package
+(TP params are joined first).
 
 The FFN is dense, or a Switch-style top-1 mixture of experts
 (``n_experts > 0``) with a capacity limit and dense one-hot dispatch.
@@ -40,8 +51,6 @@ from .init import _tensor_from_array
 
 Params = Dict[str, Any]
 
-_SP_MISSING = "attn_impl {!r} (sequence parallel) is not ported yet: it waits for ROADMAP Queue 1 item 3"
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -51,7 +60,7 @@ class TransformerConfig:
     n_layers: int = 2
     d_ff: int = 512
     max_len: int = 1024
-    attn_impl: str = "reference"  # reference | flash | ring | ulysses (the last two not ported)
+    attn_impl: str = "reference"  # reference | flash | ring | ulysses
     sp_shards: int = 1  # ring/ulysses mesh size
     sp_head_axis: Optional[str] = None
     attn_engine: str = "einsum"  # within-shard engine for ring/ulysses
@@ -144,15 +153,23 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def _attend(q, k, v, cfg: TransformerConfig):
+def _attend(q, k, v, cfg: TransformerConfig, mesh=None):
     if cfg.attn_impl == "reference":
         return attention(q, k, v, causal=True)
     if cfg.attn_impl == "flash":
         from ..ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=True)
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(_SP_MISSING.format(cfg.attn_impl))
+    if cfg.attn_impl == "ring":
+        from ..parallel.sequence_parallel import ring_attention
+
+        return ring_attention(q, k, v, n_shards=cfg.sp_shards, causal=True, mesh=mesh,
+                              head_axis=cfg.sp_head_axis, engine=cfg.attn_engine)
+    if cfg.attn_impl == "ulysses":
+        from ..parallel.sequence_parallel import ulysses_attention
+
+        return ulysses_attention(q, k, v, n_shards=cfg.sp_shards, causal=True, mesh=mesh,
+                                 head_axis=cfg.sp_head_axis, engine=cfg.attn_engine)
     raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
 
@@ -200,26 +217,66 @@ def _qkv(h: torch.Tensor, wqkv: torch.Tensor, cfg: TransformerConfig):
     return qkv[:, :, 0].view(shape), qkv[:, :, 1].view(shape), qkv[:, :, 2].view(shape)
 
 
-def decoder_block(layer: Params, x: torch.Tensor, *, cfg: TransformerConfig, return_aux: bool = False):
-    """One pre-norm decoder block: attention + (dense | MoE) FFN."""
+def _tp_attention(layer: Params, h: torch.Tensor, cfg: TransformerConfig, mesh):
+    """The column-parallel half of a TP block: each tp slot's q, k, v for
+    its H/tp heads (from its ``wqkv`` piece) and their attention, on that
+    slot; a sequence-parallel attention gets the heads joined on h's
+    device and splits them over its own slot groups. Returns each slot's
+    (B, L, D/tp) output, on its slot."""
+    b, l, d = h.shape
+    tp = len(layer["wqkv"])
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads {cfg.n_heads} not divisible by {tp} tp shards: a head would span two slots")
+    dl, shape = d // tp, (b, l, cfg.n_heads // tp, cfg.head_dim)
+    qkvs = []
+    for w in layer["wqkv"]:
+        qkv = (h.to(w.device, non_blocking=True) @ w.reshape(d, 3 * dl)).view(b, l, 3, dl)
+        qkvs.append(tuple(qkv[:, :, i].view(shape) for i in range(3)))
+    if cfg.attn_impl in ("reference", "flash"):
+        return [_attend(q, k, v, cfg).reshape(b, l, dl) for q, k, v in qkvs]
+    joined = [torch.cat([t[i].to(h.device, non_blocking=True) for t in qkvs], dim=2) for i in range(3)]
+    out = _attend(*joined, cfg, mesh).reshape(b, l, d)
+    return [out[..., j * dl:(j + 1) * dl].to(w.device, non_blocking=True) for j, w in enumerate(layer["wqkv"])]
+
+
+def decoder_block(layer: Params, x: torch.Tensor, *, cfg: TransformerConfig, mesh=None, return_aux: bool = False):
+    """One pre-norm decoder block: attention + (dense | MoE) FFN. ``mesh``:
+    the slots a ring or Ulysses attention runs over. A layer in the TP
+    layout (pieces a slot) runs its heads and its dense FFN's ``d_ff/tp``
+    slice on each tp slot and sums the row-parallel products of ``wo`` and
+    ``w_down`` over the slots (``psum``) on x's device, where the
+    replicated norms and a MoE FFN (its experts belong to "ep", not "tp")
+    run whole."""
+    from ..parallel.tensor_parallel import psum
+
     b, l, _ = x.shape
-    q, k, v = _qkv(rmsnorm(x, layer["attn_norm"]["g"]), layer["wqkv"], cfg)
-    out = _attend(q, k, v, cfg)
-    x = x + out.reshape(b, l, cfg.d_model) @ layer["wo"]
+    tp = isinstance(layer["wqkv"], list)
+    h = rmsnorm(x, layer["attn_norm"]["g"])
+    if tp:
+        x = x + psum([o @ w for o, w in zip(_tp_attention(layer, h, cfg, mesh), layer["wo"])], x.device)
+    else:
+        out = _attend(*_qkv(h, layer["wqkv"], cfg), cfg, mesh)
+        x = x + out.reshape(b, l, cfg.d_model) @ layer["wo"]
     h = rmsnorm(x, layer["mlp_norm"]["g"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.n_experts:
         ffn, aux = moe_ffn(layer, h, cfg, return_aux=True)
         x = x + ffn
+    elif tp:
+        x = x + psum([_gelu(h.to(wu.device, non_blocking=True) @ wu) @ wd
+                      for wu, wd in zip(layer["w_up"], layer["w_down"])], x.device)
     else:
         x = x + _gelu(h @ layer["w_up"]) @ layer["w_down"]
     return (x, aux) if return_aux else x
 
 
-def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_LM, return_aux: bool = False):
+def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_LM, mesh=None,
+               return_aux: bool = False):
     """tokens (B, L) integers -> logits (B, L, vocab). Causal, weight-tied
-    head. ``return_aux`` also returns the mean MoE load-balance loss over
-    layers (0.0 for dense configs)."""
+    head. ``mesh``: the slots of a ring or Ulysses attention (default: a
+    mesh of ``sp_shards`` slots on the tokens' device type). ``return_aux``
+    also returns the mean MoE load-balance loss over layers (0.0 for dense
+    configs)."""
     l = tokens.shape[1]
     if l > cfg.max_len:
         raise ValueError(f"sequence length {l} exceeds max_len {cfg.max_len}")
@@ -228,7 +285,7 @@ def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TI
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(lyr, h):
-        return decoder_block(lyr, h, cfg=cfg, return_aux=True)
+        return decoder_block(lyr, h, cfg=cfg, mesh=mesh, return_aux=True)
 
     for layer in params["layers"]:
         if cfg.remat:
@@ -243,10 +300,11 @@ def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TI
     return logits
 
 
-def lm_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_LM, aux_coef: float = 0.01):
+def lm_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_LM, mesh=None,
+            aux_coef: float = 0.01):
     """Next-token cross-entropy (fp32), mean over (B, L-1); MoE configs add
     ``aux_coef`` x the Switch load-balance loss."""
-    logits, aux = forward_lm(params, tokens[:, :-1], cfg, return_aux=True)
+    logits, aux = forward_lm(params, tokens[:, :-1], cfg, mesh, return_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, tokens[:, 1:].long()[..., None])[..., 0]
     loss = -torch.mean(ll)
@@ -256,10 +314,17 @@ def lm_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_
 
 
 def make_lm_train_step(
-    cfg: TransformerConfig = TINY_LM, optimizer=None, lr: float = 1e-3, loss_fn=None, accum_steps: int = 1,
-    compute_dtype=None,
+    cfg: TransformerConfig = TINY_LM, mesh=None, optimizer=None, lr: float = 1e-3, loss_fn=None,
+    accum_steps: int = 1, compute_dtype=None,
 ):
-    """``(init_fn, step_fn)`` for LM training on one device.
+    """``(init_fn, step_fn)`` for LM training.
+
+    ``mesh``: the slots of a ring or Ulysses attention, as in
+    :func:`forward_lm`. TP params (``shard_lm_params_tp``) train as they
+    are: the gradient of each piece is its slot's, and the optimizer
+    updates the pieces (Adam is elementwise). As in the JAX package's step
+    on a ``(dp, ...)`` mesh, the whole batch is one step's: the data-parallel
+    axis only places it (here on the mesh's first row of slots).
 
     ``optimizer`` is an ``(init, update)`` pair in optax's convention
     (default ``utils.optim.adam(lr)``, optax's arithmetic). ``loss_fn(params,
@@ -281,7 +346,7 @@ def make_lm_train_step(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     opt_init, opt_update = optimizer if optimizer is not None else adam(lr)
     if loss_fn is None:
-        loss_fn = lambda p, t: lm_loss(p, t, cfg)  # noqa: E731
+        loss_fn = lambda p, t: lm_loss(p, t, cfg, mesh)  # noqa: E731
 
     def value_and_grad(gp, tokens):
         leaves = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(gp)]
@@ -417,6 +482,9 @@ def _decode_scan(params, prompt, cfg, steps, temperature, generator, collect_log
     total = plen + steps
     if total > cfg.max_len:
         raise ValueError(f"prompt + steps = {total} exceeds max_len {cfg.max_len}")
+    from ..parallel.tensor_parallel import gather_lm_params_tp
+
+    params = gather_lm_params_tp(params)  # decode runs on one device
     embed = params["embed"]
     true_fp32(embed.device)
     caches = init_kv_cache(cfg, b, embed.dtype, embed.device)

@@ -15,6 +15,11 @@ shard where :func:`halo_exchange` moves h_top + h_bot.
 Each collective run adds one to :data:`COLLECTIVES` under its JAX name,
 once for the whole mesh as one ``ppermute`` or ``all_gather`` is one
 operation of the SPMD program (the JAX tests count them in the jaxpr).
+The LM's tiers count theirs here too: the ring's K and V rotations
+(``ppermute``, ``parallel/sequence_parallel.py``), Ulysses' reshards
+(``all_to_all``) and the Megatron block's two reductions (``psum``,
+``parallel/tensor_parallel.py``). A copy to the slot's own device is a
+no-op ``.to()`` and still counts: the program ran the collective.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import List, Sequence
 import torch
 
 # Collectives run since the last reset, by the JAX primitive each stands for.
-COLLECTIVES = {"ppermute": 0, "all_gather": 0}
+COLLECTIVES = {"ppermute": 0, "all_gather": 0, "all_to_all": 0, "psum": 0}
 
 
 def reset_collectives() -> None:

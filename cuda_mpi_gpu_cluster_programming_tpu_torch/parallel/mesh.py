@@ -9,6 +9,11 @@ GPU, so 4 shards on one H100 share ``cuda:0`` (as the JAX tests' virtual
 CPU devices share one CPU), and on a 4-GPU host each shard has a card of
 its own. :meth:`Mesh.describe` says which layout a mesh has
 ("4 shards on 1 device: cuda:0"), so sharing a card is never silent.
+
+Both axes are named, as in the JAX package: ``make_mesh(2, axis_name="tp",
+dp=4, dp_axis_name="sp")`` is the ``(sp, tp)`` mesh of the LM's sp x tp
+composition, and :meth:`Mesh.axis_groups` gives the slots along one axis
+(the ring's and the tensor-parallel reduction's groups).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ def device_count(device: str = "cuda") -> int:
 class Mesh:
     """``shape`` = (dp, n_shards) slots, row-major in ``devices`` (one
     ``torch.device`` a slot); the shard axis is the last, named
-    ``axis_names[-1]``."""
+    ``axis_names[-1]``, the leading one ``axis_names[0]`` ("dp" unless the
+    caller named it)."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
@@ -54,11 +60,31 @@ class Mesh:
     def distinct_devices(self) -> Tuple[torch.device, ...]:
         return tuple(dict.fromkeys(self.devices))
 
+    def axis_size(self, name: str) -> Optional[int]:
+        """The length of axis ``name``, None if the mesh has no such axis."""
+        return dict(zip(self.axis_names, self.shape)).get(name)
+
+    def axis_groups(self, name: str) -> Tuple[Tuple[torch.device, ...], ...]:
+        """The slots along axis ``name``, one group for each index of the
+        other axis, in that index's order: on a ``(sp, tp)`` mesh,
+        ``axis_groups("sp")[j]`` is the ring of head group ``j`` and
+        ``axis_groups("tp")[i]`` the tensor-parallel slots of row ``i``."""
+        if name not in self.axis_names:
+            raise ValueError(f"axis {name!r} not in mesh axes {self.axis_names}")
+        if len(self.shape) == 1:
+            return (self.devices,)
+        rows, cols = self.shape
+        if name == self.axis_names[-1]:
+            return tuple(self.devices[r * cols:(r + 1) * cols] for r in range(rows))
+        return tuple(self.devices[c::cols] for c in range(cols))
+
     def describe(self) -> str:
         distinct = self.distinct_devices
         lead = f"{self.n_shards} shard{'s' if self.n_shards != 1 else ''}"
-        if self.dp > 1:
+        if self.dp > 1 and self.axis_names[0] == "dp":
             lead += f" x {self.dp} data-parallel replicas"
+        elif self.dp > 1:
+            lead = f"{self.dp} x {self.n_shards} slots ({self.axis_names[0]} x {self.axis_names[-1]})"
         return (f"{lead} on {len(distinct)} device{'s' if len(distinct) != 1 else ''}: "
                 f"{', '.join(str(d) for d in distinct)}")
 
@@ -67,11 +93,12 @@ def make_mesh(
     n_shards: int,
     axis_name: str = "sp",
     dp: int = 1,
+    dp_axis_name: str = "dp",
     devices: Optional[Sequence] = None,
     device: str = "cuda",
 ) -> Mesh:
-    """A ``(dp, n_shards)`` mesh (one axis when ``dp == 1``): slot ``i`` on
-    ``devices[i % len(devices)]``. ``devices`` defaults to every visible GPU
+    """A ``(dp, n_shards)`` mesh (one axis when ``dp == 1``), its axes named
+    ``(dp_axis_name, axis_name)``: slot ``i`` on ``devices[i % len(devices)]``. ``devices`` defaults to every visible GPU
     (``device="cuda"``) or the CPU (``device="cpu"``); without a GPU and
     without ``device="cpu"`` it raises, so nothing moves to the CPU unless
     asked."""
@@ -98,4 +125,4 @@ def make_mesh(
     slots = tuple(devs[i % len(devs)] for i in range(need))
     if dp == 1:
         return Mesh((axis_name,), (n_shards,), slots)
-    return Mesh(("dp", axis_name), (dp, n_shards), slots)
+    return Mesh((dp_axis_name, axis_name), (dp, n_shards), slots)

@@ -19,13 +19,27 @@ controller over the mesh's shard slots:
 
 Every output channel is computed by one shard in the single-device order,
 so the result is the reference forward's. Reference ops on every shard.
-The Megatron layout of the LM (``shard_lm_params_tp``) stays in ROADMAP
-Queue 1 item 3.
+
+The transformer LM's Megatron layout (:func:`shard_lm_params_tp`, the JAX
+package's function of that name): column-parallel ``wqkv`` and ``w_up``,
+row-parallel ``wo`` and ``w_down``, the rest replicated. In the JAX
+package the placement is the whole implementation and GSPMD inserts the
+two all-reduces a block; here a sharded leaf becomes a list of its tp
+slots' pieces, each on its slot's device, and ``models.transformer``'s
+decoder block runs each slot's heads and ``d_ff/tp`` slice of the FFN and
+sums the partial products of ``wo`` and ``w_down`` over the slots
+(:func:`psum`). The list is a node of the params tree, so ``tree_leaves``
+and the optimizer see one leaf a slot; Adam is elementwise, so each piece
+updates as its part of the whole leaf would. The ``psum`` adds the slots'
+partials in slot order, so the TP forward is the unsharded one within
+rounding, not bit for bit (the JAX package holds its TP forward to rtol
+2e-5, atol 1e-5 of the unsharded one). :func:`gather_lm_params_tp` joins
+the pieces back into the JAX tree's layout.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -114,3 +128,94 @@ def build_tp_forward(
         return (out, digs) if with_digests else out
 
     return fwd if differentiable else torch.inference_mode()(fwd)
+
+
+# --- Megatron-style tensor parallelism for the transformer LM family ----
+
+_LM_TP_SPECS = {
+    "wqkv": "tp_col",  # (D, 3, D) -> shard the last (per-projection) dim
+    "w_up": "tp_col",  # (D, F)    -> shard the output dim
+    "wo": "tp_row",  # (D, D)    -> shard the input dim
+    "w_down": "tp_row",  # (F, D)    -> shard the input dim
+}
+
+
+def _lm_tp_dim(key, leaf) -> Optional[int]:
+    """The dim a leaf splits on, None for a replicated one. The ndim rules
+    keep this the dense Megatron layout: ``wqkv`` is the (D, 3, D) rank-3
+    exception (split on the last dim, so the q/k/v boundaries stay aligned);
+    MoE expert stacks share the ``w_up``/``w_down`` names at rank 3 but
+    belong to the "ep" axis, so they stay replicated."""
+    if key == "wqkv" and leaf.ndim == 3:
+        return 2
+    kind = _LM_TP_SPECS.get(key)
+    if kind is not None and leaf.ndim == 2:
+        return 1 if kind == "tp_col" else 0
+    return None
+
+
+def _map_keyed(fn, tree, key=None):
+    """``fn(key, leaf)`` over a params tree, ``key`` the dict key a leaf (or
+    a list of tp pieces, which ``fn`` receives whole) hangs from."""
+    if isinstance(tree, dict):
+        return {k: (fn(k, v) if k in _LM_TP_SPECS and isinstance(v, (list, tuple)) else _map_keyed(fn, v, k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_keyed(fn, v, key) for v in tree)
+    return fn(key, tree)
+
+
+def shard_lm_params_tp(params, mesh: Optional[Mesh] = None, *, n_shards: int = 0, axis_name: str = "tp"):
+    """The transformer LM's params in the Megatron TP layout over the mesh's
+    ``axis_name`` slots (default: a mesh of ``n_shards`` slots on the
+    params' device type).
+
+    Column-parallel matrices split their last dim, row-parallel their
+    first, into a list of contiguous pieces, piece ``j`` on the ``j``-th
+    ``axis_name`` slot of the mesh's first row; embeddings, the position
+    table, norms and MoE expert stacks stay whole on the mesh's first
+    device. Divisibility is validated leaf by leaf, in the JAX package's
+    words."""
+    if mesh is None:
+        mesh = make_mesh(n_shards, axis_name=axis_name, device=params["embed"].device.type)
+    tp = mesh.axis_size(axis_name)
+    if tp is None:
+        raise ValueError(f"axis {axis_name!r} not in mesh axes {tuple(mesh.axis_names)}")
+    devs, home = mesh.axis_groups(axis_name)[0], mesh.devices[0]
+
+    def put(key, leaf):
+        dim = _lm_tp_dim(key, leaf)
+        if dim is None:
+            return leaf.to(home)
+        if leaf.shape[dim] % tp:
+            raise ValueError(f"{key} dim {dim} size {leaf.shape[dim]} not divisible by {tp} '{axis_name}' shards")
+        return [piece.to(dev, memory_format=torch.contiguous_format, copy=True)
+                for piece, dev in zip(torch.chunk(leaf, tp, dim=dim), devs)]
+
+    return _map_keyed(put, params)
+
+
+def gather_lm_params_tp(params, device=None) -> Any:
+    """The whole params tree of :func:`shard_lm_params_tp`'s pieces: each
+    sharded leaf the concatenation of its pieces (on ``device``, default the
+    first piece's), the rest as they are; a tree without pieces comes back
+    unchanged."""
+
+    def join(key, leaf):
+        if not isinstance(leaf, (list, tuple)):
+            return leaf
+        dev = device if device is not None else leaf[0].device
+        return torch.cat([p.to(dev) for p in leaf], dim=_lm_tp_dim(key, leaf[0]))
+
+    return _map_keyed(join, params)
+
+
+def psum(parts: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """The tensor-parallel all-reduce of one block's row-parallel product:
+    the slots' partial sums added in slot order on ``device`` (one ``psum``
+    of the SPMD program; its broadcast half is each slot's next read)."""
+    COLLECTIVES["psum"] += 1
+    total = parts[0].to(device, non_blocking=True)
+    for part in parts[1:]:
+        total = total + part.to(device, non_blocking=True)
+    return total

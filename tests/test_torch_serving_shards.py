@@ -102,7 +102,7 @@ def test_a_two_shard_server_is_the_jax_sharded_forward_within_budget(tmp_path):
             off += len(x)
     assert not pending
     per_dispatch = breakdown.expected_collectives(T_SMALL, 2, staged=False)
-    assert collectives == {"ppermute": per_dispatch * len(batches), "all_gather": 0}
+    assert collectives == {**dict.fromkeys(collectives, 0), "ppermute": per_dispatch * len(batches)}
     cfg = next(r for r in Journal.load(journal) if r["kind"] == "serve_config")
     assert cfg["n_shards"] == 2 and cfg["config"] == "v5_collective"
 

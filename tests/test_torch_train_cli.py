@@ -3,7 +3,9 @@ the npz checkpoints ``utils/checkpoint.py`` writes and reads, bitwise in
 both directions, and the ``examples/lm.py`` CLI on the CPU (its contract,
 convergence, bf16 with accumulation, remat and experts, generation, save
 and resume, and the guards that exit 2 before any work, in the JAX CLI's
-words). The training step itself is in ``tests/test_torch_train.py``.
+words). The training step itself is in ``tests/test_torch_train.py``; the
+sequence-parallel and tensor-parallel steps in ``tests/test_torch_lm_tp.py``,
+the CLI's sequence-parallel runs in ``tests/test_torch_lm_sp_cli.py``.
 """
 
 import dataclasses
@@ -142,11 +144,14 @@ def test_cli_resume_mismatches_exit_2(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["--attn", "ring"], "Queue 1 item 3"),
-    (["--attn", "ulysses"], "Queue 1 item 3"),
-    (["--shards", "2"], "Queue 1 item 3"),
-    (["--sp-engine", "flash"], "Queue 1 item 3"),
-    (["--fake-devices", "4"], "Queue 1 item 3"),
+    (["--attn", "ring", "--shards", "0"], "--shards must be >= 1, got 0"),
+    (["--attn", "ring", "--shards", "3"], "--attn ring needs --seq-len divisible by --shards (128 % 3 != 0)"),
+    (["--attn", "ulysses", "--shards", "8"], "--attn ulysses needs --shards dividing n_heads=4 (got 8)"),
+    (["--attn", "ring", "--sp-engine", "flash", "--seq-len", "200"],
+     "--sp-engine flash with --attn ring needs the per-shard block (seq-len/shards = 200) to divide by the flash "
+     "block (128)"),
+    (["--attn", "ulysses", "--sp-engine", "flash", "--shards", "2", "--seq-len", "200"],
+     "--sp-engine flash needs --seq-len divisible by 128 (got 200)"),
     (["--pp-stages", "2"], "Queue 1 item 9"),
     (["--fsdp"], "Queue 1 item 9"),
     (["--steps", "0"], "--steps must be >= 1, got 0"),
@@ -166,7 +171,9 @@ def test_cli_guard_words_are_the_jax_clis(capsys):
     from cuda_mpi_gpu_cluster_programming_tpu.examples import lm as jlm
 
     for argv in (["--attn", "flash", "--seq-len", "200"], ["--accum-steps", "3", "--batch", "2"],
-                 ["--generate", "1020"], ["--steps", "0"]):
+                 ["--generate", "1020"], ["--steps", "0"], ["--attn", "ring", "--shards", "3"],
+                 ["--attn", "ulysses", "--shards", "8"], ["--attn", "ring", "--sp-engine", "flash", "--seq-len", "200"],
+                 ["--attn", "ulysses", "--sp-engine", "flash", "--shards", "2", "--seq-len", "200"]):
         assert jlm.main(argv) == 2
         want = capsys.readouterr().err
         assert lm.main(argv + ["--device", "cpu"]) == 2

@@ -247,10 +247,15 @@ def test_transformer_lm_module_owns_the_params(dense):
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])
-def test_sequence_parallel_impls_name_the_roadmap_item(dense, impl):
-    _, params, toks = dense
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ttf.forward_lm(params, torch.from_numpy(toks), _port_cfg(CFG, attn_impl=impl))
+def test_sequence_parallel_forward_lm_matches_jax(dense, impl):
+    """attn_impl ring|ulysses over 2 "sp" slots (the flash engine) against the
+    JAX package's on its mesh, the same weights and tokens."""
+    jparams, params, toks = dense
+    over = dict(attn_impl=impl, attn_engine="flash", sp_shards=2)
+    want = jtf.forward_lm(jparams, jnp.asarray(toks), dataclasses.replace(CFG, **over))
+    got = ttf.forward_lm(params, torch.from_numpy(toks), _port_cfg(CFG, **over))
+    assert got.shape == (2, 40, CFG.vocab)
+    _close(got, want)
     with pytest.raises(ValueError, match="attn_engine"):
         ttf.TransformerConfig(attn_engine="xla")
 
@@ -269,10 +274,16 @@ def test_long_context_cli_on_the_cpu(capsys, strategy, dtype):
 
 
 @pytest.mark.parametrize("strategy", ["ring", "ulysses"])
-def test_long_context_sequence_parallel_exits_2(capsys, strategy):
-    assert long_context.main(["--strategy", strategy, "--device", "cpu"]) == 2
-    captured = capsys.readouterr()
-    assert "Queue 1 item 3" in captured.err and captured.out == ""
+def test_long_context_sequence_parallel_on_the_cpu(capsys, strategy):
+    argv = ["--strategy", strategy, "--shards", "2", "--engine", "flash", "--verify", "--device", "cpu", "--seq-len",
+            "256", "--heads", "2", "--head-dim", "32", "--repeats", "2", "--warmup", "1", "--fake-devices", "2"]
+    assert long_context.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "Mesh: 2 shards on 1 device: cpu" in out
+    # a slot's KV: the ring keeps L/n tokens, Ulysses H/n heads
+    resident = "128 tokens x 2 heads" if strategy == "ring" else "256 tokens x 1 heads"
+    assert f"KV resident per device: {resident}" in out
+    assert "Final Output Shape: 1x256x2x32" in out and "-> PASSED" in out
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
