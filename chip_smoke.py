@@ -9,6 +9,8 @@
     python3 chip_smoke.py --fleet        # only phase 3i, the serving fleet and the serving shard width
     python3 chip_smoke.py --train        # only phase 3k, the training CLI and the journal folds
     python3 chip_smoke.py --sp           # only phase 3l, the LM's sequence and tensor parallelism
+    python3 chip_smoke.py --lm-tiers     # only phase 3m, the LM's pipeline, FSDP and expert tiers, examples.matmul
+    python3 chip_smoke.py --conv-oracle  # only the candidates for the reference tier's fp32 conv, timed
 
 Run from the root of the repository, on a host with one CUDA GPU and the
 CUDA toolkit (``nvcc``). ``--record`` builds the library and prints one
@@ -265,7 +267,10 @@ fails ends the run with a non-zero exit code and nothing is caught:
    used_memory logged); a lone one-image request with ``return_output``
    through the router to each backend (a rid homed on it): bitwise an
    in-process server's bucket-1 result and within the fp32 budget of the
-   ``v1_jit`` oracle; the ``host_loss`` drill with ``CHAOS_SPEC=seed=1,
+   ``v1_jit`` oracle (whose fp32 convs run on float64 copies, itself within
+   the budget of the float64 forward, and conv1's and conv2's own rounding
+   within half of it) and no farther from float64 than cuDNN's ``F.conv2d``
+   forward; the ``host_loss`` drill with ``CHAOS_SPEC=seed=1,
    host_loss=1``: a 2 s window at 30 req/s, b1 SIGKILLed (its pid gone from
    ``nvidia-smi`` where it was listed), a second window (requests served,
    the router's books closed, b1 DOWN), the survivors' lone requests bitwise
@@ -322,6 +327,26 @@ fails ends the run with a non-zero exit code and nothing is caught:
    backward with an lse cotangent where the ring's merge gives one) against
    their plain versions, timed beside SDPA. ``python3 chip_smoke.py --sp``
    runs this phase alone;
+   3m. the LM's pipeline, FSDP and expert tiers, 4 slots sharing the card,
+   at TINY_LM, batch 8, L 1024, flash attention: ``pipeline_lm_forward`` at
+   (S, M) = (2, 4), (1, 1) and on a (dp 2, pp 2) mesh, the FSDP forward at
+   dp 4 and at dp 2 x ring flash sp 4, the ep forward (4 experts over 4
+   slots), each within ``LM_RTOL``/``LM_ATOL`` of the single-device flash
+   forward (the replicated MoE one for ep); one fp32 training step of each
+   whose loss and gradients are the single-device step's
+   (``TRAIN_LOSS_RTOL``, ``TRAIN_GRAD_REL``), FSDP's also
+   ``tests/test_fsdp.py``'s loss and params-after-a-step rules; a bf16 step
+   of pp 2 x 4 and fsdp dp 4; flash launches and ``halo.COLLECTIVES`` as
+   tabled (pp: L x M flash a forward, M + S - 2 ppermute; fsdp: dp x L, one
+   all_gather a leaf, one reduce_scatter a leaf a step; ep: L, two
+   all_to_all a layer); ``examples.lm --attn flash`` with ``--pp-stages 2``,
+   ``--fsdp --fake-devices 4`` and ``--experts 4 --fake-devices 4`` at their
+   defaults, PASSED with generation PASSED; ``examples.matmul`` at n = 4096
+   with 1, 2 and 4 shards and every strategy, ``Test: PASSED`` and bitwise
+   ``mat_mult_serial``; flash_fwd, flash_dq and flash_dkv at every slot and
+   microbatch shape of these paths (``TIER_SHAPES``) against their plain
+   versions, timed beside SDPA. ``python3 chip_smoke.py --lm-tiers`` runs
+   this phase alone;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -348,6 +373,9 @@ conv2d and maxpool2d at bucket 8 on the windows of 2 and 4 shards, fp32,
 with the launches of the sharded server's drained run (phase 3i), and the
 sequence-parallel path's (``path`` ``sequence_parallel``): flash_fwd,
 flash_dq and flash_dkv at the slot shapes of phase 3l's runs, with their
+launches, and the pipeline's, FSDP's and expert path's (``path``
+``pipeline``, ``fsdp``, ``expert``): flash_fwd, flash_dq and flash_dkv at
+the slot and microbatch shapes of phase 3m's steps and CLI runs, with their
 launches. Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
@@ -4690,17 +4718,19 @@ def sharded_graph_nodes(srv, name: str, n: int, stem) -> dict:
     return nodes
 
 
-STAGE_ROUTES = ("kernels", "plain", "library")
+STAGE_ROUTES = ("kernels", "plain", "library", "oracle")
 
 
 def stage_errors(params, x: np.ndarray) -> dict:
-    """Where the fp32 kernels' distance from float64 on the deterministic init
-    comes from: each stage of ``v3_pallas``'s default staged route (conv1,
-    pool1, conv2, pool2, lrn2) on one input, for the kernels, their plain
-    versions and the library ops (``v1_jit``), against the same stage in
-    float64 on the card, as a share of that stage's float64 max. ``own``: the
-    stage fed the float64 chain's input to it rounded to fp32 (its own
-    rounding alone); ``chain``: the fp32 chain up to and including it."""
+    """Where the fp32 forwards' distance from float64 on the deterministic
+    init comes from: each stage of ``v3_pallas``'s default staged route
+    (conv1, pool1, conv2, pool2, lrn2) on one input, for the kernels, their
+    plain versions, the library ops (cuDNN's ``F.conv2d`` itself, as
+    ``oracle_conv``'s ``cudnn`` route) and the reference tier (``v1_jit``'s
+    ops, the oracle: its fp32 convs on float64 copies), against the same
+    stage in float64 on the card, as a share of that stage's float64 max.
+    ``own``: the stage fed the float64 chain's input rounded to fp32 (its
+    own rounding alone); ``chain``: the fp32 chain up to and including it."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, ConvSpec, PoolSpec
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import kernel_model as km
@@ -4716,6 +4746,8 @@ def stage_errors(params, x: np.ndarray) -> dict:
                 return km.conv(h, w, b, relu=True, variant=v.conv, k_block=v.k_block, **kw)
             if route == "plain":
                 return ck.conv2d_bias_relu_plain(h, w, b, **kw)
+            if route == "library":
+                return oracle_conv("cudnn", h, w, b, **kw)
             return rops.relu(rops.conv2d(h, w, b, **kw))
         if isinstance(spec, PoolSpec):
             kw = dict(window=spec.window, stride=spec.stride)
@@ -4731,7 +4763,7 @@ def stage_errors(params, x: np.ndarray) -> dict:
         h64 = torch.from_numpy(x).cuda().double()
         chains = dict.fromkeys(STAGE_ROUTES, h64.float().contiguous())
         for name, spec in BLOCKS12.layer_chain():
-            out64 = step("library", name, spec, p64, h64)
+            out64 = step("library", name, spec, p64, h64)  # F.conv2d on float64 tensors computes in float64
             top = float(out64.abs().max())
             res[name] = {}
             for r in STAGE_ROUTES:
@@ -4743,25 +4775,52 @@ def stage_errors(params, x: np.ndarray) -> dict:
     return res
 
 
-def fp32_check(tag: str, got: np.ndarray, o: np.ndarray, c: np.ndarray) -> dict:
+def cudnn_forward(params, x: torch.Tensor) -> torch.Tensor:
+    """The Blocks 1-2 forward on the reference ops with cuDNN's ``F.conv2d``
+    at each conv in fp32 (``oracle_conv``'s ``cudnn`` route): ``v1_jit`` as
+    it was before its convs moved to float64 copies, the library every fp32
+    forward is held to be no farther from float64 than."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, ConvSpec, PoolSpec
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import reference as rops
+
+    h = x
+    with torch.inference_mode():
+        for name, spec in BLOCKS12.layer_chain():
+            if isinstance(spec, ConvSpec):
+                h = oracle_conv("cudnn", h, params[name]["w"], params[name]["b"], stride=spec.stride,
+                                padding=spec.padding)
+            elif isinstance(spec, PoolSpec):
+                h = rops.relu_maxpool(h, window=spec.window, stride=spec.stride)
+            else:
+                h = rops.lrn(h, size=spec.size, alpha=spec.alpha, beta=spec.beta, k=spec.k,
+                             alpha_over_size=spec.alpha_over_size)
+    return h
+
+
+def fp32_check(tag: str, got: np.ndarray, o: np.ndarray, c: np.ndarray, lib: np.ndarray) -> dict:
     """One fp32 forward's output ``got`` held to the gate's fp32 budget
-    against the same forward in float64 (``o``) and to no farther from it
-    than ``v1_jit`` (cuDNN, ``c``). Its distance to ``v1_jit`` is printed
-    and recorded, not required: on phase 3i's inputs cuDNN's own fp32
-    rounding is past the budget of float64 (ROADMAP Queue 3 item 11)."""
-    err, cerr, kc = (float(np.abs(a - b).max()) for a, b in ((got, o), (c, o), (got, c)))
+    against the same forward in float64 (``o``) and against ``v1_jit`` (the
+    reference tier, the gate's oracle, ``c``), and to no farther from
+    float64 than cuDNN's forward (``lib``, :func:`cudnn_forward`). The
+    oracle's own distance from float64 is held to the budget too (ROADMAP
+    Queue 3 item 11, closed: its fp32 convs run on float64 copies)."""
+    err, cerr, lerr, kc = (float(np.abs(a - b).max()) for a, b in ((got, o), (c, o), (lib, o), (got, c)))
     omax, cmax = float(np.abs(o).max()), float(np.abs(c).max())
     exact = err <= FP32_ABS and err / omax <= FP32_REL
     oracle_in = cerr <= FP32_ABS and cerr / omax <= FP32_REL
     in_budget = kc <= FP32_ABS and kc / cmax <= FP32_REL
     log(f"fp32 accuracy {tag}: against float64 max_abs={err:.3g} rel_of_max={err / omax:.3g} (the gate's fp32 budget "
-        f"({FP32_ABS}, {FP32_REL} of the max) {'holds' if exact else 'FAILS'}); v1_jit (cuDNN) against float64 "
-        f"{cerr:.3g}, {cerr / omax:.3g} (the budget {'holds' if oracle_in else 'fails: ROADMAP Queue 3 item 11'}); "
-        f"against v1_jit {kc:.3g}, {kc / cmax:.3g} (the budget {'holds' if in_budget else 'fails, not required'})")
-    require(exact and err <= cerr, f"{tag} is past the gate's fp32 budget against the float64 forward, or farther "
-            f"from it than v1_jit: {err}, {err / omax} of the max (v1_jit {cerr})")
-    return dict(vs_float64=err, v1_jit_vs_float64=cerr, vs_v1_jit=kc, max=omax, rel_vs_v1_jit=kc / cmax,
-                rel_vs_float64=err / omax, v1_jit_budget_holds=in_budget, float64_budget_holds=exact)
+        f"({FP32_ABS}, {FP32_REL} of the max) {'holds' if exact else 'FAILS'}); v1_jit against float64 {cerr:.3g}, "
+        f"{cerr / omax:.3g} (the budget {'holds' if oracle_in else 'FAILS'}); cuDNN's F.conv2d forward against "
+        f"float64 {lerr:.3g}, {lerr / omax:.3g}; against v1_jit {kc:.3g}, {kc / cmax:.3g} (the budget "
+        f"{'holds' if in_budget else 'FAILS'})")
+    require(exact and err <= lerr, f"{tag} is past the gate's fp32 budget against the float64 forward, or farther "
+            f"from it than cuDNN's forward: {err}, {err / omax} of the max (cuDNN {lerr})")
+    require(oracle_in and in_budget, f"{tag}: v1_jit is {cerr} from float64 ({cerr / omax} of the max), the forward "
+            f"{kc} from v1_jit ({kc / cmax} of its max): past the gate's fp32 budget")
+    return dict(vs_float64=err, v1_jit_vs_float64=cerr, cudnn_vs_float64=lerr, vs_v1_jit=kc, max=omax,
+                rel_vs_v1_jit=kc / cmax, rel_vs_float64=err / omax, v1_jit_budget_holds=in_budget,
+                float64_budget_holds=exact, oracle_budget_holds=oracle_in)
 
 
 # conv2's own fp32 rounding on the lone inputs of phase 3i (stage_errors' ``own``, a share of the stage's float64
@@ -4770,16 +4829,18 @@ def fp32_check(tag: str, got: np.ndarray, o: np.ndarray, c: np.ndarray) -> dict:
 def fp32_accuracy(lone_x):
     """The fp32 kernels on phase 3i's lone inputs (the deterministic init,
     uniform [0, 1) pixels: every conv term positive): ``stage_errors`` per
-    input, conv2's own rounding held to at most the library's, and the
-    staged ``v3_pallas`` forward through ``fp32_check``. Returns the record
-    and, per input, the float64 and ``v1_jit`` outputs it was held to."""
+    input, conv2's own rounding held to at most the library's (cuDNN's
+    ``F.conv2d``), the oracle's conv1 and conv2 within half the gate's fp32
+    budget, and the staged ``v3_pallas`` forward through ``fp32_check``.
+    Returns the record and, per input, the float64, ``v1_jit`` and cuDNN
+    forwards it was held to."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
     from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12, forward_blocks12
 
     params = init.init_params_deterministic(device="cuda")
     p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
-    oracle, cudnn = [], []
+    oracle, v1_out, cudnn = [], [], []
     with knob_env({}):
         kern = configs.build_forward(configs.REGISTRY["v3_pallas"])
         v1 = configs.build_forward(configs.REGISTRY["v1_jit"])
@@ -4788,9 +4849,10 @@ def fp32_accuracy(lone_x):
             xt = torch.from_numpy(x).cuda()
             with torch.inference_mode():
                 oracle.append(forward_blocks12(p64, xt.double(), BLOCKS12).cpu().numpy())
-            cudnn.append(v1(params, xt).cpu().numpy())
+            v1_out.append(v1(params, xt).cpu().numpy())
+            cudnn.append(cudnn_forward(params, xt).cpu().numpy())
             res["forward"].append(fp32_check(f"v3_pallas input {i}", kern(params, xt).cpu().numpy(), oracle[-1],
-                                             cudnn[-1]))
+                                             v1_out[-1], cudnn[-1]))
     stages = res["stage_errors"]
     for name in stages[0]:
         log(f"fp32 accuracy: {name} against float64, share of its max over the {len(lone_x)} inputs (own rounding, "
@@ -4799,16 +4861,20 @@ def fp32_accuracy(lone_x):
                 for r in STAGE_ROUTES))
     own = {r: max(s["conv2"][r]["own"] for s in stages) for r in STAGE_ROUTES}
     require(own["kernels"] <= own["library"], f"conv2's own fp32 rounding {own['kernels']:.3g} is past the "
-            f"library's {own['library']:.3g}")
-    res["conv2_own"] = own
-    return res, (oracle, cudnn)
+            f"library's (cuDNN's F.conv2d) {own['library']:.3g}")
+    oracle_own = {c: max(s[c]["oracle"]["own"] for s in stages) for c in ("conv1", "conv2")}
+    require(all(v <= FP32_REL / 2 for v in oracle_own.values()),
+            f"the oracle's fp32 convs' own rounding {oracle_own} is past half the gate's fp32 budget")
+    res["conv2_own"], res["oracle_own"] = own, oracle_own
+    return res, (oracle, v1_out, cudnn)
 
 
 def conv_fp32_rows(spec, peak_name) -> dict:
     """``--conv-fp32``: the fp32 conv summation order's records from this
     checkout: the mainloop's ptxas table, the engine digest, the conv1 and
     conv2 rows (kernel, plain, library, bound), the fused blocks bitwise
-    their staged chains, ``fp32_accuracy`` and phase 3h's bitwise tiers."""
+    their staged chains, ``fp32_accuracy``, ``conv_oracle_phase`` and phase
+    3h's bitwise tiers."""
     from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import _build
 
     info = _build.build()
@@ -4822,10 +4888,101 @@ def conv_fp32_rows(spec, peak_name) -> dict:
     blocks = [block_row(case, "fp32", spec, peak_name) for case in block_cases("fp32", gen)]
     rng = np.random.default_rng(2028)
     acc, _refs = fp32_accuracy([rng.random((1, 227, 227, 3), dtype=np.float32) for _ in range(FLEET_N)])
+    oracle = conv_oracle_phase()
     tiers = tiers_phase(spec, peak_name)
-    return dict(ptxas=table, engine_fp32=engine, conv_rows=rows, block_rows=blocks, accuracy=acc,
+    return dict(ptxas=table, engine_fp32=engine, conv_rows=rows, block_rows=blocks, accuracy=acc, conv_oracle=oracle,
                 tiers_bitwise={k: v for k, v in tiers.items() if k.startswith("bitwise/")},
                 tiers_budgets=tiers["budgets"], tiers_per_pass_ms=tiers["per_pass_ms"])
+
+
+ORACLE_CONV_ROUTES = ("cudnn", "gemm", "float64")
+
+
+def oracle_conv(route: str, x, w, b, *, stride: int, padding) -> torch.Tensor:
+    """conv + bias + ReLU on NHWC fp32 by one candidate route of the
+    reference tier's fp32 conv: ``cudnn`` (``F.conv2d``, cuDNN's heuristic's
+    algorithm), ``gemm`` (PyTorch's GEMM convolution, ``aten.thnn_conv2d``)
+    or ``float64`` (``F.conv2d`` on float64 copies, rounded once to fp32);
+    the bias added in fp32 after the conv, as ``ops.reference.conv2d``."""
+    import torch.nn.functional as F
+
+    pads = [padding, padding] if isinstance(padding, int) else [int(p) for p in padding]
+    xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if route == "cudnn":
+        out = F.conv2d(xc, wc, stride=stride, padding=tuple(pads))
+    elif route == "gemm":
+        out = torch.ops.aten.thnn_conv2d(xc.contiguous(), wc.contiguous(), list(wc.shape[2:]), None,
+                                         [stride, stride], pads)
+    else:
+        out = F.conv2d(xc.double(), wc.double(), stride=stride, padding=tuple(pads)).float()
+    return torch.relu(out.permute(0, 2, 3, 1) + b)
+
+
+def conv_oracle_phase() -> dict:
+    """Queue 3 item 11's measurement: each ``ORACLE_CONV_ROUTES`` route's own
+    fp32 rounding at conv1 and conv2 against float64 on the card (its
+    stage's float64 chain input rounded to fp32, the error a share of the
+    stage's float64 max, as ``stage_errors``' ``own``), on phase 3i's lone
+    inputs (the deterministic init, three uniform [0, 1) images) and on
+    phase 3j's (``tier_params``, a batch of 8), and its ms at batch 128;
+    then ``v1_jit``'s fp32 and bf16 per-pass ms at batch 128 and phase 3k's
+    AlexNet training step, which run whatever route ``ops.reference.conv2d``
+    takes in this checkout."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models.alexnet import BLOCKS12
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import reference as rops
+
+    rng = np.random.default_rng(2028)
+    lone = (init.init_params_deterministic(device="cuda"),
+            [torch.from_numpy(rng.random((1, 227, 227, 3), dtype=np.float32)).cuda() for _ in range(FLEET_N)])
+    rng = np.random.default_rng(2031)
+    sup_params = tier_params(rng)
+    sup = (sup_params, [torch.from_numpy(rng.random((SUP_BATCH, 227, 227, 3), dtype=np.float32)).cuda()])
+    c1, p1, c2 = BLOCKS12.conv1, BLOCKS12.pool1, BLOCKS12.conv2
+    res = {"own": {}, "ms": {}}
+    with torch.inference_mode():
+        for set_name, (params, xs) in (("lone", lone), ("random", sup)):
+            p64 = {k: {kk: vv.double() for kk, vv in v.items()} for k, v in params.items()}
+            for route in ORACLE_CONV_ROUTES:
+                own = {"conv1": 0.0, "conv2": 0.0}
+                for x in xs:
+                    h64 = x.double()
+                    for name, spec in (("conv1", c1), ("conv2", c2)):
+                        kw = dict(stride=spec.stride, padding=spec.padding)
+                        out64 = torch.relu(torch.nn.functional.conv2d(
+                            h64.permute(0, 3, 1, 2), p64[name]["w"].permute(3, 2, 0, 1), **kw).permute(0, 2, 3, 1)
+                            + p64[name]["b"])
+                        got = oracle_conv(route, h64.float().contiguous(), params[name]["w"], params[name]["b"], **kw)
+                        own[name] = max(own[name], float((got.double() - out64).abs().max()) / float(out64.abs().max()))
+                        if name == "conv1":
+                            h64 = rops.relu_maxpool(out64, window=p1.window, stride=p1.stride)
+                res["own"][f"{set_name}/{route}"] = own
+                log(f"conv oracle {route} on the {set_name} inputs: own rounding against float64, share of the "
+                    f"stage's max: conv1 {own['conv1']:.3g}, conv2 {own['conv2']:.3g} (half the fp32 budget: "
+                    f"{FP32_REL / 2:g})")
+        gen = torch.Generator(device="cuda").manual_seed(2042)
+        params = sup_params
+        x1 = torch.rand((BATCH, 227, 227, 3), generator=gen, device="cuda")
+        x2 = torch.rand((BATCH, 27, 27, 96), generator=gen, device="cuda")
+        for route in ORACLE_CONV_ROUTES:
+            ms = [gpu_time_ms(lambda route=route, x=x, n=n, s=s: oracle_conv(
+                route, x, params[n]["w"], params[n]["b"], stride=s.stride, padding=s.padding), reps=10)
+                for x, n, s in ((x1, "conv1", c1), (x2, "conv2", c2))]
+            res["ms"][route] = dict(conv1=ms[0], conv2=ms[1])
+            log(f"conv oracle {route} at batch {BATCH}: conv1 {ms[0]:.4f} ms, conv2 {ms[1]:.4f} ms")
+        res["v1_jit_per_pass_ms"] = {}
+        with knob_env({}):
+            for pol in ("fp32", "bf16"):
+                fwd = configs.build_forward(configs.REGISTRY["v1_jit"], policy=pol)
+                ms = gpu_time_ms(lambda fwd=fwd: fwd(params, x1), reps=10)
+                res["v1_jit_per_pass_ms"][pol] = ms
+                log(f"conv oracle: v1_jit {pol} at batch {BATCH}: {ms:.4f} ms a pass (ops.reference.conv2d as "
+                    f"this checkout routes it)")
+    res["train_step"] = train_step_ms(1)
+    log(f"conv oracle: the AlexNet training step (227x227, batch 4, fp32): {res['train_step']['ms']:.4f} ms "
+        f"(host {res['train_step']['host_ms']:.4f})")
+    return res
 
 
 def fleet_phase(spec, peak_name) -> dict:
@@ -4851,7 +5008,7 @@ def fleet_phase(spec, peak_name) -> dict:
     rng = np.random.default_rng(2028)
     lone_x = [rng.random((1, 227, 227, 3), dtype=np.float32) for _ in range(FLEET_N)]
     # what each lone request must give: an in-process v3_pallas server's bucket-1 result (the backends' params:
-    # the deterministic init), and fp32_accuracy's float64 and v1_jit forwards on the same inputs (fp32_check)
+    # the deterministic init), and fp32_accuracy's float64, v1_jit and cuDNN forwards on the same inputs (fp32_check)
     with knob_env({}):
         ref = InferenceServer(ServeConfig(config=FLEET_CONFIG, max_batch=SERVE_MAX_BATCH))
         ref.run_until_drained()
@@ -4860,7 +5017,7 @@ def fleet_phase(spec, peak_name) -> dict:
         want = [h.result for h in handles]
         in_process = {b: dispatch_times(ref, b, np.concatenate(lone_x * 3)[:b]) for b in (1, 2)}
         ref.close()
-    result["accuracy"], (oracle, cudnn) = fp32_accuracy(lone_x)
+    result["accuracy"], (oracle, v1_out, cudnn) = fp32_accuracy(lone_x)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem_parent = gpu_apps()  # the parent's own context, before the fleet
@@ -4887,10 +5044,10 @@ def fleet_phase(spec, peak_name) -> dict:
         router = FleetRouter(fleet.urls(), drill_config(str(out_dir / "router.jsonl"))).start()
         before = [lone_request(router, i, x) for i, x in enumerate(lone_x)]
         result["lone"] = {}
-        for i, (got, w, o, c) in enumerate(zip(before, want, oracle, cudnn)):
+        for i, (got, w, o, c, lib) in enumerate(zip(before, want, oracle, v1_out, cudnn)):
             log(f"fleet: b{i}'s lone request bitwise the in-process server: {np.array_equal(got, w)}")
             require(np.array_equal(got, w), f"b{i}'s output differs from the in-process {FLEET_CONFIG} server's")
-            result["lone"][f"b{i}"] = fp32_check(f"fleet b{i}'s lone request", got, o, c)
+            result["lone"][f"b{i}"] = fp32_check(f"fleet b{i}'s lone request", got, o, c, lib)
         mix = list(default_class_mix(power_of_two_buckets(SERVE_MAX_BATCH)))
         pre = http_fleet_load(router.url, (227, 227, 3), shape="steady", rate_rps=FLEET_RATE,
                               duration_s=FLEET_WINDOW_S, classes=mix, seed=0)
@@ -5756,6 +5913,347 @@ def sp_kernels_entries(sp) -> list:
     return entries
 
 
+# phase 3m, the LM's FSDP, pipeline and expert tiers and examples/matmul.py on the one card
+TIER_SLOTS = 4
+# tests/test_pipeline.py's and tests/test_expert_parallel.py's forward tolerance, printed: on the card a microbatch's
+# or a slot's rows go through cuBLAS at other row counts than the whole batch's, so the products sum in another
+# order (pp 2 x 4 read 4.58e-5 max abs against it); held: LM_RTOL, LM_ATOL, the fp32 parity rule of 3b and 3l
+TIER_RTOL, TIER_ATOL = 2e-5, 1e-5
+# tests/test_fsdp.py:77-79 at its lr 1e-2: the loss, and the params after one step, held here after an SGD step:
+# Adam's first update, lr g / (|g| + eps), turns the gradients' rounding into up to lr where |g| is near eps
+# (5.7e-5 on the CPU for fsdp dp 4 against one device), so its gap is printed beside, not held
+FSDP_LOSS_RTOL, FSDP_PARAM_RTOL, FSDP_PARAM_ATOL = 1e-5, 2e-5, 2e-6
+MATMUL_N = 4096
+# the flash kernels' per-slot and per-microbatch shapes on 3m's paths (B, L, H, D): TINY_LM at batch 8, L 1024 in
+# 4 microbatches (pp 2 x 4), over 4 dp slots (fsdp) or 2 microbatches over dp 2 (dp 2 x pp 2): 2 rows; fsdp dp 2 x
+# ring sp 4: 4 rows of an L/4 block; ep: the whole batch on the home slot; examples.lm's defaults (batch 4, L 128):
+# pp 2 stages x 2 microbatches 2 rows, fsdp over 4 slots 1 row, ep the whole 4
+TIER_SHAPES = {
+    "lm_mb": (2, 1024, 4, 32),
+    "lm_fsdp_ring": (4, 1024 // TIER_SLOTS, 4, 32),
+    "lm_ep": (LM_BATCH, 1024, 4, 32),
+    "cli_pp": (2, 128, 4, 32),
+    "cli_fsdp": (1, 128, 4, 32),
+    "cli_ep": (4, 128, 4, 32),
+}
+
+
+def tier_lm_runs(result) -> None:
+    """3m's LM at TINY_LM, batch 8, L 1024, ``--attn flash``: the pipelined
+    forward at (S, M) = (2, 4), (1, 1) and on a (dp 2, pp 2) mesh, the FSDP
+    forward at dp 4 and at dp 2 x ring flash sp 4, and the ep forward (4
+    experts over 4 slots), each against the single-device flash forward (the
+    replicated MoE one for ep) within ``LM_RTOL``, ``LM_ATOL`` (the JAX CPU
+    tests' ``TIER_RTOL``, ``TIER_ATOL`` printed beside); one fp32 training step of each against the
+    single-device step (the loss and every gradient leaf, the pieces joined;
+    FSDP also the JAX test's loss and params-after-a-step rules, the params
+    after an SGD step); one bf16
+    step of pp 2 x 4 and fsdp dp 4 against the single-device bf16 step;
+    launches and collectives as tabled; ms beside the single-device ones."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as tf
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import expert, fsdp, halo, pipeline
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel.mesh import make_mesh
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.optim import adam, sgd
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(tf.TINY_LM, attn_impl="flash")
+    layers = cfg.n_layers
+    gen = torch.Generator().manual_seed(2050)
+    params = tf.init_transformer(cfg, generator=gen, device="cuda")
+    moe_cfg = dataclasses.replace(cfg, n_experts=TIER_SLOTS)
+    moe_params = tf.init_transformer(moe_cfg, generator=gen, device="cuda")
+    loss_toks = torch.randint(0, cfg.vocab, (LM_BATCH, cfg.max_len + 1), generator=gen).cuda()
+    toks = loss_toks[:, :-1]
+    n_tok = LM_BATCH * cfg.max_len
+    ring_cfg = dataclasses.replace(cfg, attn_impl="ring", attn_engine="flash", sp_shards=TIER_SLOTS)
+    dp_mesh, dpsp_mesh = make_mesh(TIER_SLOTS, axis_name="dp"), make_mesh(TIER_SLOTS, axis_name="sp", dp=2)
+    n_leaves = len(tree_leaves(params))
+    ring = TIER_SLOTS * (TIER_SLOTS + 1) // 2
+
+    def pp(n_stages, m, dp=1):
+        mesh = make_mesh(n_stages, axis_name="pp", dp=dp)
+        kw = dict(n_stages=n_stages, n_microbatches=m, mesh=mesh, dp_axis="dp" if dp > 1 else None)
+        return (lambda p, t: pipeline.pipeline_lm_forward(p, t, cfg, **kw),
+                lambda p, t: pipeline.pipeline_lm_loss(p, t, cfg, **kw))
+
+    # name: (path, params, step config, step mesh, (forward, loss_fn), baseline, flash_fwd a forward,
+    #        collectives a forward, bf16 step too); a pipeline of S stages and M
+    #        microbatches hands off M + S - 2 times (a step whose every output is the last stage's hands nothing)
+    cases = {
+        "pp 2 x 4mb": ("pipeline", params, cfg, None, pp(2, 4), "dense", 2 * 4, dict(ppermute=4), True),
+        "pp 1 x 1mb": ("pipeline", params, cfg, None, pp(1, 1), "dense", 2, {}, False),
+        "dp 2 x pp 2 x 2mb": ("pipeline", params, cfg, None, pp(2, 2, dp=2), "dense", 2 * 2 * 2, dict(ppermute=2),
+                              False),
+        f"fsdp dp {TIER_SLOTS}": ("fsdp", fsdp.shard_params_fsdp(params, dp_mesh), cfg, dp_mesh,
+                                  (lambda p, t: tf.forward_lm(p, t, cfg, mesh=dp_mesh), None), "dense",
+                                  TIER_SLOTS * layers, dict(all_gather=n_leaves), True),
+        # each dp row's ring is a call of its own, so the two rows' hops count apart (2 ppermute a hop a row)
+        f"fsdp dp 2 x ring flash sp {TIER_SLOTS}": (
+            "fsdp", fsdp.shard_params_fsdp(params, dpsp_mesh), ring_cfg, dpsp_mesh,
+            (lambda p, t: tf.forward_lm(p, t, ring_cfg, mesh=dpsp_mesh), None), "dense", 2 * ring * layers,
+            dict(all_gather=n_leaves, ppermute=2 * 2 * TIER_SLOTS * layers), False),
+        f"ep {TIER_SLOTS} experts over {TIER_SLOTS} slots": (
+            "expert", expert.shard_moe_params(moe_params, make_mesh(TIER_SLOTS, axis_name="ep")), moe_cfg, None,
+            (lambda p, t: tf.forward_lm(p, t, moe_cfg), None), "moe", layers, dict(all_to_all=2 * layers), False),
+    }
+    base = {"dense": (cfg, params), "moe": (moe_cfg, moe_params)}
+    caught, ref_out, ref_step = {}, {}, {}
+
+    def run_step(key, c, p, mesh, loss_fn, compute_dtype=None, opt=None):
+        """One step from ``p`` (Adam at lr 1e-3 unless ``opt`` is given), the
+        gradients caught on their way to the optimizer; (new params, loss,
+        launches, collectives, step, init)."""
+        init, update = opt or adam(1e-3)
+
+        def spy(grads, state, q=None):
+            caught.setdefault(key, fsdp.gather_params(grads))
+            return update(grads, state, q)
+
+        _, step = tf.make_lm_train_step(c, mesh=mesh, optimizer=(init, spy), loss_fn=loss_fn,
+                                        compute_dtype=compute_dtype)
+        state = init(p)
+        ck.reset_launches()
+        halo.reset_collectives()
+        new, _, loss = step(p, state, loss_toks)
+        torch.cuda.synchronize()
+        return new, float(loss), dict(ck.LAUNCHES), dict(halo.COLLECTIVES), step, init
+
+    for bkey, (c, p) in base.items():
+        with torch.inference_mode():
+            ref_out[bkey] = tf.forward_lm(p, toks, c)
+            ms = gpu_time_ms(lambda c=c, p=p: tf.forward_lm(p, toks, c), reps=10)
+        result["runs"][f"forward_lm single {bkey}/fp32"] = dict(ms=ms, tok_s=n_tok / ms * 1e3)
+        for pol, dtype in (("fp32", None), ("bf16", torch.bfloat16)) if bkey == "dense" else (("fp32", None),):
+            new, loss, _, _, step, init = run_step(f"single {bkey}/{pol}", c, p, None, None, dtype)
+            ref_step[f"{bkey}/{pol}"] = dict(params=new, loss=loss)
+            ms = timed_steps(step, init, p, loss_toks)
+            result["runs"][f"make_lm_train_step single {bkey}/{pol}"] = dict(ms=ms, tok_s=n_tok / ms * 1e3, loss=loss)
+            log(f"path make_lm_train_step single-device {bkey} flash/{pol}: {ms:.4f} ms a step, loss {loss:.6f}")
+    fsdp_ref = {o: run_step(f"single dense/{o}", cfg, params, None, None, opt=f(1e-2))[:2]
+                for o, f in (("sgd", sgd), ("adam", adam))}
+
+    for name, (path, p, c, mesh, (fwd, loss_fn), bkey, flash_n, coll, bf16) in cases.items():
+        ck.reset_launches()
+        halo.reset_collectives()
+        with torch.inference_mode():
+            out = fwd(p, toks)
+        torch.cuda.synchronize()
+        launches, collectives = dict(ck.LAUNCHES), dict(halo.COLLECTIVES)
+        want = _launches(flash_fwd=flash_n)
+        want_c = {**dict.fromkeys(collectives, 0), **coll}
+        oracle = ref_out[bkey]
+        err = float((out - oracle).abs().max())
+        rel = err / float(oracle.abs().max())
+        ok = tuple(out.shape) == (LM_BATCH, cfg.max_len, cfg.vocab) and bool(
+            torch.allclose(out, oracle, rtol=LM_RTOL, atol=LM_ATOL))
+        jax_rule = bool(torch.allclose(out, oracle, rtol=TIER_RTOL, atol=TIER_ATOL))
+        with torch.inference_mode():
+            ms = gpu_time_ms(lambda fwd=fwd, p=p: fwd(p, toks), reps=10)
+        log(f"path {path} forward {name}/fp32: {ms:.4f} ms ({n_tok / ms * 1e3:.0f} tok/s) vs the single-device flash "
+            f"forward max_abs={err:.3g} ({rel:.3g} of its max; rtol {LM_RTOL:g}, atol {LM_ATOL:g}) ok={ok}, the JAX "
+            f"CPU tests' rtol {TIER_RTOL:g}, atol {TIER_ATOL:g} {'holds' if jax_rule else 'missed (not held)'}; "
+            f"launches flash_fwd={launches['flash_fwd']} collectives "
+            + " ".join(f"{k}={v}" for k, v in collectives.items() if v))
+        require(launches == want, f"{path} forward {name}: launches {launches}, want {want}")
+        require(collectives == want_c, f"{path} forward {name}: collectives {collectives}, want {want_c}")
+        require(ok, f"{path} forward {name}: max_abs {err}")
+        result["runs"][f"{path} forward {name}/fp32"] = dict(ms=ms, tok_s=n_tok / ms * 1e3, max_abs=err, rel_of_max=rel,
+                                                             jax_rule_holds=jax_rule, launches=launches,
+                                                             collectives=collectives, passes=1)
+        for pol, dtype in (("fp32", None), ("bf16", torch.bfloat16)) if bf16 else (("fp32", None),):
+            key = f"{name}/{pol}"
+            new, loss, launches, collectives, step, init = run_step(key, c, p, mesh, loss_fn, dtype)
+            want = _launches(**dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), flash_n))
+            want_c = {**dict.fromkeys(collectives, 0), **coll,
+                      **(dict(reduce_scatter=n_leaves) if path == "fsdp" else {})}
+            require(launches == want, f"{path} step {key}: launches {launches}, want {want}")
+            require(collectives == want_c, f"{path} step {key}: collectives {collectives}, want {want_c}")
+            ref = ref_step[f"{bkey}/{pol}"]
+            loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+            grad_rel = max(float((a - b).abs().max()) / float(b.abs().max().clamp_min(1e-30))
+                           for a, b in zip(tree_leaves(caught[key]), tree_leaves(caught[f"single {bkey}/{pol}"])))
+            ms = timed_steps(step, init, p, loss_toks)
+            rec = dict(ms=ms, tok_s=n_tok / ms * 1e3, loss=loss, loss_rel=loss_rel, grad_rel=grad_rel,
+                       launches=launches, collectives=collectives, passes=1)
+            extra = ""
+            if path == "fsdp" and pol == "fp32":
+                # tests/test_fsdp.py's rules at its lr 1e-2: the loss, and the params after one step (SGD held,
+                # Adam printed: FSDP_PARAM_RTOL's note)
+                gaps = {}
+                for o, f in (("sgd", sgd), ("adam", adam)):
+                    new2, loss2 = run_step(f"{key}/{o}", c, p, mesh, loss_fn, opt=f(1e-2))[:2]
+                    pairs = list(zip(tree_leaves(fsdp.gather_params(new2)), tree_leaves(fsdp_ref[o][0])))
+                    gaps[o] = dict(loss_rel=abs(loss2 - fsdp_ref[o][1]) / abs(fsdp_ref[o][1]),
+                                   gap=max(float((a - b).abs().max()) for a, b in pairs),
+                                   ok=all(torch.allclose(a, b, rtol=FSDP_PARAM_RTOL, atol=FSDP_PARAM_ATOL)
+                                          for a, b in pairs), sharded=fsdp.sharded_fraction(new2))
+                g = gaps["sgd"]
+                extra = (f"; lr 1e-2: loss rel {g['loss_rel']:.3g} (tol {FSDP_LOSS_RTOL:g}), params after an SGD "
+                         f"step max gap {g['gap']:.3g} (rtol {FSDP_PARAM_RTOL:g}, atol {FSDP_PARAM_ATOL:g}) "
+                         f"ok={g['ok']}, after an Adam step {gaps['adam']['gap']:.3g} (not held), "
+                         f"{g['sharded']:.0%} of param bytes still sharded")
+                require(g["loss_rel"] <= FSDP_LOSS_RTOL and g["ok"] and g["sharded"] > 0.95
+                        and gaps["adam"]["sharded"] > 0.95, f"{path} step {key}{extra}")
+                rec["fsdp_rules"] = gaps
+            log(f"path {path} make_lm_train_step {key}: {ms:.4f} ms a step ({n_tok / ms * 1e3:.0f} tok/s) loss "
+                f"{loss:.6f}; vs the single-device step: loss rel {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL[pol]:g}), "
+                f"largest gradient gap {grad_rel:.3g} of its leaf's max (tol {TRAIN_GRAD_REL[pol]:g}); launches "
+                f"flash_fwd={launches['flash_fwd']} flash_dq={launches['flash_dq']} flash_dkv={launches['flash_dkv']}"
+                + extra)
+            require(np.isfinite(loss) and loss_rel <= TRAIN_LOSS_RTOL[pol] and grad_rel <= TRAIN_GRAD_REL[pol],
+                    f"{path} step {key}: loss {loss_rel}, grads {grad_rel}")
+            require(all(t.dtype == torch.float32 for t in tree_leaves(new)), f"{path} step {key}: masters not fp32")
+            result["runs"][f"{path} make_lm_train_step {key}"] = rec
+    caught.clear()
+
+
+def timed_steps(step, init, p, toks, reps: int = 5) -> float:
+    """ms a training step from ``p``, the params carried from step to step."""
+    state = {"p": p, "s": init(p)}
+
+    def one():
+        state["p"], state["s"], _ = step(state["p"], state["s"], toks)
+
+    return gpu_time_ms(one, reps=reps, warmup=1)
+
+
+TIER_CLI = (("pipeline", ["--pp-stages", "2"], 2 * 2),  # 2 microbatches x 2 layers a step (bubbles skipped)
+            ("fsdp", ["--fsdp", "--fake-devices", str(TIER_SLOTS)], TIER_SLOTS * 2),  # 4 dp slots x 2 layers
+            ("expert", ["--experts", str(TIER_SLOTS), "--fake-devices", str(TIER_SLOTS)], 2))  # the home slot's
+
+
+def tier_cli_runs(result) -> None:
+    """``examples.lm --attn flash --generate 16`` at its defaults (40 steps,
+    batch 4, L 128) with ``--pp-stages 2``, ``--fsdp --fake-devices 4`` and
+    ``--experts 4 --fake-devices 4``: PASSED, generation PASSED, the banner's
+    tier and the ``Mesh:`` line, every flash kernel launched as tabled."""
+    banner = {"pipeline": ", pp=2x2mb", "fsdp": f", fsdp over {TIER_SLOTS} devices (100% of param bytes sharded)",
+              "expert": f", experts={TIER_SLOTS}, ep-sharded over {TIER_SLOTS} devices"}
+    mesh = {"pipeline": "Mesh: 2 shards on 1 device: cuda:0", "fsdp": f"Mesh: {TIER_SLOTS} shards on 1 device: cuda:0",
+            "expert": f"Mesh: {TIER_SLOTS} shards on 1 device: cuda:0"}
+    for path, flags, per_step in TIER_CLI:
+        r = run_lm_cli(["--attn", "flash", "--generate", "16", *flags])
+        name = f"examples.lm --attn flash {' '.join(flags)}"
+        per = per_step * r["steps"]
+        want = _launches(flash_fwd=per, flash_dq=per, flash_dkv=per)
+        log(f"path {name}: {r['ms']:.1f} ms for {r['steps']} steps ({r['ms'] / r['steps']:.3f} ms a step, "
+            f"{r['tok_s']} tok/s) loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}; launches "
+            f"flash_fwd={r['launches']['flash_fwd']} flash_dq={r['launches']['flash_dq']} "
+            f"flash_dkv={r['launches']['flash_dkv']}; PASSED, generation PASSED")
+        require(r["launches"] == want, f"{name}: launches {r['launches']}, want {want}")
+        require(banner[path] in r["stdout"] and mesh[path] in r["stdout"], f"{name}: banner or Mesh line\n{r['stdout']}")
+        result["runs"][name] = {k: v for k, v in r.items() if k != "stdout"}
+
+
+def matmul_runs(result) -> None:
+    """``examples.matmul`` at n = 4096 with ``--shards`` 1, 2 and 4 and every
+    strategy: ``Test: PASSED`` on its stdout, the strategy's product bitwise
+    ``mat_mult_serial`` (integer operands: exact), ring's ``ppermute`` n a
+    call, and its ms by CUDA events beside the serial product's."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import matmul
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import halo
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator().manual_seed(0)
+    a, b = matmul.init_data(gen, MATMUL_N), matmul.init_data(gen, MATMUL_N)
+    serial = matmul.mat_mult_serial(a, b)
+    serial_ms = gpu_time_ms(lambda: matmul.mat_mult_serial(a, b), reps=10)
+    result["matmul"] = {"serial_ms": serial_ms}
+    for n in (1, 2, 4):
+        mesh = make_mesh(n)
+        for strategy in matmul.STRATEGIES:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = matmul.main([str(MATMUL_N), "--shards", str(n), "--strategy", strategy])
+            out = buf.getvalue()
+            require(rc == 0 and "pid=0: Test: PASSED" in out, f"examples.matmul {n} {strategy}:\n{out}")
+            halo.reset_collectives()
+            got = matmul.mat_mult_distributed(a, b, n, strategy, mesh)
+            torch.cuda.synchronize()
+            hops = halo.COLLECTIVES["ppermute"]
+            bitwise = bool(torch.equal(got, serial))
+            ms = gpu_time_ms(lambda n=n, strategy=strategy, mesh=mesh: matmul.mat_mult_distributed(
+                a, b, n, strategy, mesh), reps=10)
+            log(f"path examples.matmul {MATMUL_N} --shards {n} --strategy {strategy}: Test: PASSED; bitwise "
+                f"mat_mult_serial {bitwise} (exact); {ms:.4f} ms against the serial product's {serial_ms:.4f}; "
+                f"ppermute {hops}")
+            require(bitwise, f"examples.matmul {n} {strategy}: not bitwise mat_mult_serial")
+            require(hops == (n if strategy == "ring" else 0), f"examples.matmul {n} {strategy}: ppermute {hops}")
+            result["matmul"][f"{strategy}/{n}"] = dict(ms=ms, bitwise=bitwise, ppermute=hops)
+
+
+def lm_tier_kernel_rows(spec, peak_name) -> list:
+    """3m's flash rows at the per-slot and per-microbatch shapes its paths
+    give the kernels (``TIER_SHAPES``), fp32: flash_fwd, flash_dq and
+    flash_dkv (with an lse cotangent at the ring's block), each against its
+    plain version, timed by CUDA events beside the plain version, SDPA and
+    the bound; the ring block's full rows (its earlier hops) too."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(2051)
+    for stage, shape in TIER_SHAPES.items():
+        ring = stage == "lm_fsdp_ring"
+        for causal in (True, False) if ring else (True,):
+            rows.append(flash_row(stage, shape, causal, "fp32", torch.float32, gen, spec, peak_name, profiled=False))
+            rows += flash_bwd_rows(stage, shape, causal, "fp32", torch.float32, gen, spec, peak_name, lse_grad=ring,
+                                   profiled=False)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_tiers_phase(spec, peak_name) -> dict:
+    """Phase 3m: the LM's FSDP, pipeline and expert tiers and
+    ``examples/matmul.py`` on the card (:func:`tier_lm_runs`,
+    :func:`tier_cli_runs`, :func:`matmul_runs`, :func:`lm_tier_kernel_rows`),
+    every slot on cuda:0."""
+    t0 = time.perf_counter()
+    result = {"runs": {}}
+    tier_lm_runs(result)
+    tier_cli_runs(result)
+    matmul_runs(result)
+    result["rows"] = lm_tier_kernel_rows(spec, peak_name)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3m took {result['seconds']:.1f} s")
+    return result
+
+
+def lm_tier_kernels_entries(tiers) -> list:
+    """The ``kernels`` line's entries of the pipeline, fsdp and expert paths:
+    flash_fwd, flash_dq and flash_dkv at each path's slot or microbatch shape
+    on TINY_LM (runs: one fp32 ``make_lm_train_step`` step of pp 2 x 4, fsdp
+    dp 4 and dp 2 x ring sp 4, ep 4) and at examples.lm's (runs: the three
+    CLI calls). Times are the causal rows'; the ring block's full rows go
+    under ``modes``."""
+    cli = {path: f"examples.lm --attn flash {' '.join(flags)}" for path, flags, _ in TIER_CLI}
+    plan = [("pipeline", "lm_mb", "pipeline make_lm_train_step pp 2 x 4mb/fp32"),
+            ("fsdp", "lm_mb", f"fsdp make_lm_train_step fsdp dp {TIER_SLOTS}/fp32"),
+            ("fsdp", "lm_fsdp_ring", f"fsdp make_lm_train_step fsdp dp 2 x ring flash sp {TIER_SLOTS}/fp32"),
+            ("expert", "lm_ep", f"expert make_lm_train_step ep {TIER_SLOTS} experts over {TIER_SLOTS} slots/fp32"),
+            ("pipeline", "cli_pp", cli["pipeline"]), ("fsdp", "cli_fsdp", cli["fsdp"]),
+            ("expert", "cli_ep", cli["expert"])]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol")
+    entries = []
+    for path, stage, run_key in plan:
+        run = tiers["runs"][run_key]
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            mine = [r for r in tiers["rows"] if r["kernel"] == name and r["stage"] == stage]
+            (row,) = [r for r in mine if not r.get("mode")]
+            source, replaces = LM_KERNELS[name]
+            entry = dict(
+                name=name, dtype="fp32", route="cuda", source=source, replaces=replaces, path=path, run=run_key,
+                stage=stage, shape=row["shape"], launches=run["launches"][name],
+                launches_per_call=run["launches"][name] / run["passes"],
+                max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+                ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], library_call=row["library_call"],
+            )
+            modes = [r for r in mine if r.get("mode")]
+            if modes:
+                entry["modes"] = {r["mode"]: {k: r.get(k) for k in keys} for r in modes}
+            entries.append(entry)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -5853,6 +6351,15 @@ def main() -> int:
               flush=True)
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--lm-tiers"]:
+        # phase 3m alone, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tiers = lm_tiers_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, lm_tiers=tiers, kernels=lm_tier_kernels_entries(tiers)),
+                         default=str), flush=True)
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--conv-fp32"]:
         # the fp32 conv summation order's records (ptxas, engine bits, conv rows, fused bitwise, accuracy,
         # bitwise tiers), from this checkout
@@ -5861,6 +6368,13 @@ def main() -> int:
         out = conv_fp32_rows(spec, peak_name)
         print(json.dumps(dict(device=kind, nvidia_smi=smi, **out),
                          default=lambda o: o.tolist() if isinstance(o, torch.Tensor) else str(o)), flush=True)
+        return 0
+    if sys.argv[1:] == ["--conv-oracle"]:
+        # Queue 3 item 11's candidates for the reference tier's fp32 conv, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, conv_oracle=conv_oracle_phase()), default=str), flush=True)
+        print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--record"]:
         # the records MAINLOOP_PTXAS, FLASH_SWEEP_SHA256, FLASH_BWD_TILES_SHA256, FLASH_BWD_WIDE_SHA256,
@@ -5966,6 +6480,13 @@ def main() -> int:
         "oracle's tolerance in long_context, forward_lm and a training step; tp 2, tp 4 and sp x tp 2 x 2 within "
         "the whole tree's; both examples.lm runs PASSED; flash launches and collectives as tabled; every slot "
         "shape's flash kernels agree with their plain versions")
+    lm_tiers = lm_tiers_phase(spec, peak_name)
+    clock.lap("3m")
+    log(f"phase 3m: the pipelined (pp 2 x 4, 1 x 1, dp 2 x pp 2), FSDP (dp {TIER_SLOTS}, dp 2 x ring flash sp "
+        f"{TIER_SLOTS}) and ep ({TIER_SLOTS} experts over {TIER_SLOTS} slots) forwards and steps within tolerance of "
+        "the single-device flash ones, bf16 steps of pp and fsdp too; the three examples.lm runs PASSED; "
+        "examples.matmul at n = 4096 bitwise mat_mult_serial at 1, 2, 4 shards for every strategy; flash launches "
+        "and collectives as tabled; every slot shape's flash kernels agree with their plain versions")
     tune = tune_phase()
     clock.lap("4")
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
@@ -5982,6 +6503,7 @@ def main() -> int:
     line["kernels"] += fleet_kernels_entries(fleet)
     line["kernels"] += supervise_kernels_entries(sup)
     line["kernels"] += sp_kernels_entries(sp)
+    line["kernels"] += lm_tier_kernels_entries(lm_tiers)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -5991,7 +6513,7 @@ def main() -> int:
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
              v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
-             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, sp=sp, tune=tune,
+             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, sp=sp, lm_tiers=lm_tiers, tune=tune,
              v6_tune=v6_tune, phase_seconds=clock.laps,
              kernels=line["kernels"]), indent=1,
         default=str))

@@ -8,6 +8,8 @@ FAILs (and ``--generate N`` must continue the pattern).
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn flash --compute bf16 --generate 16
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --device cpu --seq-len 64 --batch 2
     python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn ring --shards 4 --sp-engine flash
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn flash --fsdp --fake-devices 4
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm --attn flash --pp-stages 2 --microbatches 4
 
 The port of the JAX package's ``examples/lm.py``, with the same flags plus
 ``--device`` and the same stdout contract lines. Runs on the GPU unless
@@ -17,14 +19,23 @@ hand-written flash kernels (per layer and step: one ``flash_fwd``, one
 ``--attn ring|ulysses`` trains with sequence-parallel attention over
 ``--shards`` slots (``parallel/sequence_parallel.py``), each slot's block
 through ``--sp-engine`` (``einsum``, or ``flash``: per layer and step the
-causal ring launches n(n+1)/2 of each flash kernel, Ulysses n). The slots
-share the visible devices round-robin (``parallel/mesh.py``), printed on a
-``Mesh:`` line, so the JAX CLI's "--shards exceeds the device count" guard
-has no counterpart; ``--fake-devices N`` parses, so the JAX command lines
-run unchanged, and changes nothing. ``--experts`` runs the mixture of
-experts replicated on the home device. ``--pp-stages`` and ``--fsdp`` are
-not ported yet and exit 2 before any work. The weights are drawn from a
-seeded ``torch.Generator`` (JAX's PRNG is not reproduced).
+causal ring launches n(n+1)/2 of each flash kernel, Ulysses n).
+``--pp-stages S`` pipelines the decoder stack over S "pp" slots
+(``parallel/pipeline.py``, ``--microbatches`` M: each microbatch's layers
+on their stage's slot, the bubbles skipped). ``--fsdp`` splits every param
+and the batch over the "dp" slots (``parallel/fsdp.py``), on a ``(dp, sp)``
+mesh with ``--attn ring|ulysses``. ``--experts E`` runs a mixture of
+experts, its expert stacks split over the "ep" slots
+(``parallel/expert.py``) when the slot count divides E (and no pipeline
+runs), else whole on the home device. The slots of every tier share the
+visible devices round-robin (``parallel/mesh.py``), printed on a ``Mesh:``
+line, so the JAX CLI's "exceeds N available device(s)" guards have no
+counterpart. The slot count of the tiers the JAX CLI sizes by its device
+count (fsdp's dp = slots / sp, ep's ep) is ``--fake-devices N`` when given
+and otherwise the visible GPU count (1 on the CPU), so the JAX command
+lines (``--fsdp --fake-devices 4``) run the JAX geometry; for ``--shards``
+it changes nothing. The weights are drawn from a seeded
+``torch.Generator`` (JAX's PRNG is not reproduced).
 """
 
 from __future__ import annotations
@@ -35,9 +46,6 @@ import sys
 import time
 
 import torch
-
-_NOT_PORTED = "{} is not ported yet: it waits for ROADMAP Queue 1 item {}"
-
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cuda_mpi_gpu_cluster_programming_tpu_torch.examples.lm")
@@ -52,10 +60,15 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--period", type=int, default=8, help="repeating-pattern period")
     p.add_argument("--experts", type=int, default=0,
-                   help="MoE experts per FFN (0 = dense), replicated on the one device")
-    p.add_argument("--pp-stages", type=int, default=0, help="pipeline stages (not ported yet)")
+                   help="MoE experts per FFN (0 = dense); the expert axis ep-shards over the slots when the slot "
+                   "count (--fake-devices, else the visible GPUs) divides it, else runs whole on the home device")
+    p.add_argument("--pp-stages", type=int, default=0,
+                   help="pipeline stages for the decoder stack (0 = no pipeline)")
     p.add_argument("--microbatches", type=int, default=2, help="pp microbatches")
-    p.add_argument("--fsdp", action="store_true", help="ZeRO/FSDP sharding (not ported yet)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO/FSDP: shard params+optimizer over 'dp' and split the batch over the same axis. "
+                   "Composes with --attn ring/ulysses --shards N on a (dp, sp) mesh (dp = slots/N). Not combinable "
+                   "with --pp-stages or ep-sharded --experts")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize each decoder block (torch.utils.checkpoint): activation "
                    "memory O(1) in depth at ~1 extra forward of work")
@@ -71,23 +84,22 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-params", help="save trained params to this .npz")
     p.add_argument("--resume", help="load initial params from this .npz checkpoint")
     p.add_argument("--fake-devices", type=int, default=0,
-                   help="accepted for the JAX command lines; the --shards slots share the visible devices")
+                   help="the slot count of --fsdp and ep-sharded --experts (the JAX CLI's device count; default the "
+                   "visible GPUs, 1 on the CPU); the slots share the visible devices, and --shards is not bounded by it")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
 
-def _unported(args) -> str | None:
-    """The first flag of a tier not ported yet, with the ROADMAP item it waits for."""
-    if args.pp_stages:
-        return _NOT_PORTED.format("--pp-stages (pipeline parallel)", 9)
-    if args.fsdp:
-        return _NOT_PORTED.format("--fsdp", 9)
-    return None
+def _slot_count(args) -> int:
+    """The slots of the tiers the JAX CLI sizes by its device count: ``--fake-devices``, else the visible GPUs."""
+    from ..parallel.mesh import device_count
+
+    return args.fake_devices or max(1, device_count(args.device))
 
 
-def _guard(args, max_len: int, n_heads: int) -> str | None:
-    """The JAX CLI's argument checks, in its words (but the device-count
-    one: slots are not bounded by devices here)."""
+def _guard(args, max_len: int, n_heads: int, n_layers: int, n_dev: int) -> str | None:
+    """The JAX CLI's argument checks, in its words and order (but the
+    device-count ones: slots are not bounded by devices here)."""
     from ..ops.flash_attention import flash_block
 
     def flash_len_err(flag: str):
@@ -117,10 +129,29 @@ def _guard(args, max_len: int, n_heads: int) -> str | None:
                 err = flash_len_err("--sp-engine flash")
     if err is not None:
         return err
+    if args.pp_stages:
+        if n_layers % args.pp_stages:
+            return f"--pp-stages must divide n_layers={n_layers}, got {args.pp_stages}"
+        if args.microbatches < 1 or args.batch % args.microbatches:
+            return f"--microbatches must divide --batch ({args.batch} % {args.microbatches} != 0)"
+    if args.fsdp:
+        sp = args.shards if args.attn in ("ring", "ulysses") else 1
+        if args.pp_stages:
+            return "--fsdp is not combinable with --pp-stages"
+        if args.experts and n_dev > 1 and args.experts % n_dev == 0:
+            return "--fsdp is not combinable with ep-sharded --experts"
+        if n_dev % sp:
+            return (f"--fsdp with --attn {args.attn} --shards {sp} needs the device count ({n_dev}) divisible by "
+                    f"the sp shards")
+        if args.batch % (n_dev // sp):
+            return f"--fsdp needs --batch divisible by the dp axis ({n_dev}//{sp} = {n_dev // sp} device(s))"
     if args.accum_steps < 1:
         return f"--accum-steps must be >= 1, got {args.accum_steps}"
     if args.batch % args.accum_steps:
         return f"--accum-steps must divide --batch ({args.batch} % {args.accum_steps} != 0)"
+    if args.pp_stages and (args.batch // args.accum_steps) % args.microbatches:
+        return (f"--accum-steps {args.accum_steps} with --pp-stages leaves microbatches of "
+                f"{args.batch // args.accum_steps} rows, not divisible by --microbatches {args.microbatches}")
     plen = min(16, args.seq_len)
     if args.generate > 0 and plen + args.generate > max_len:
         return f"--generate {args.generate} exceeds max_len {max_len} - prompt {plen}"
@@ -157,21 +188,21 @@ def main(argv=None) -> int:
     from ..models.transformer import TINY_LM, init_transformer, make_lm_train_step
 
     eff_max_len = max(TINY_LM.max_len, args.seq_len)
-    err = _unported(args) or _guard(args, eff_max_len, TINY_LM.n_heads)
+    n_dev = _slot_count(args)
+    err = _guard(args, eff_max_len, TINY_LM.n_heads, TINY_LM.n_layers, n_dev)
     if err is not None:
         print(err, file=sys.stderr)
         return 2
 
     from ..configs import resolve_device
     from ..ops import cuda_kernels
+    from ..parallel.mesh import Mesh, make_mesh
 
     device = resolve_device(args.device)
     cfg = dataclasses.replace(TINY_LM, attn_impl=args.attn, attn_engine=args.sp_engine, sp_shards=args.shards,
                               max_len=eff_max_len, n_experts=args.experts, remat=args.remat)
     mesh = None
     if args.attn in ("ring", "ulysses"):
-        from ..parallel.mesh import make_mesh
-
         mesh = make_mesh(args.shards, device=device.type)
     if args.resume:
         params, err = _resume(args, cfg, device)
@@ -181,12 +212,37 @@ def main(argv=None) -> int:
         print(f"Resumed params from {args.resume}")
     else:
         params = init_transformer(cfg, generator=torch.Generator().manual_seed(args.seed), device=device)
+    # expert parallelism when the slot count divides the expert count (and no pipeline runs), as the JAX CLI
+    ep_note, ep_mesh = "", None
+    if args.experts and not args.pp_stages and n_dev > 1 and args.experts % n_dev == 0:
+        from ..parallel.expert import shard_moe_params
+
+        ep_mesh = make_mesh(n_dev, axis_name="ep", device=device.type)
+        params = shard_moe_params(params, ep_mesh)
+        ep_note = f", ep-sharded over {n_dev} devices"
     # +1 token: the next-token shift leaves seq-len positions to predict
     base = torch.arange(args.seq_len + 1, dtype=torch.int64) % args.period
     tokens = base[None].repeat(args.batch, 1).to(device)
+    fsdp_note = ""
+    if args.fsdp:
+        from ..parallel.fsdp import shard_params_fsdp, sharded_fraction
+
+        if args.attn in ("ring", "ulysses") and args.shards > 1:
+            # the (dp, sp) mesh: params and batch over dp, each dp row's ring or all-to-all over its sp slots
+            dp = n_dev // args.shards
+            slots = make_mesh(args.shards, dp=dp, device=device.type).devices
+            mesh = Mesh(("dp", "sp"), (dp, args.shards), slots)
+            mesh_note = f"(dp={dp}) x sp={args.shards}"
+        else:
+            mesh = make_mesh(n_dev, axis_name="dp", device=device.type)
+            mesh_note = f"over {n_dev} devices"
+        params = shard_params_fsdp(params, mesh)
+        fsdp_note = f", fsdp {mesh_note} ({sharded_fraction(params):.0%} of param bytes sharded)"
 
     extras = (
-        (f", experts={cfg.n_experts}" if cfg.n_experts else "")
+        (f", experts={cfg.n_experts}{ep_note}" if cfg.n_experts else "")
+        + (f", pp={args.pp_stages}x{args.microbatches}mb" if args.pp_stages else "")
+        + fsdp_note
         + (", remat" if args.remat else "")
         + (", bf16-mixed" if args.compute == "bf16" else "")
         + (f", accum={args.accum_steps}" if args.accum_steps > 1 else "")
@@ -197,15 +253,26 @@ def main(argv=None) -> int:
         f"d={cfg.d_model}{extras}) ---"
     )
     dev_name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    print(f"Devices: {n_dev} x {dev_name} ({device.type})")
-    if mesh is not None:
-        print(f"Mesh: {mesh.describe()}")
+    n_gpu = torch.cuda.device_count() if device.type == "cuda" else 1
+    print(f"Devices: {n_gpu} x {dev_name} ({device.type})")
 
-    opt_init, step = make_lm_train_step(
-        cfg, mesh=mesh, lr=args.lr, accum_steps=args.accum_steps,
-        compute_dtype=torch.bfloat16 if args.compute == "bf16" else None,
-    )
+    step_kw = dict(lr=args.lr, accum_steps=args.accum_steps,
+                   compute_dtype=torch.bfloat16 if args.compute == "bf16" else None)
+    if args.pp_stages:
+        # the same loss through the shared step factory, the GPipe schedule inside it
+        from ..parallel.pipeline import pipeline_lm_loss
+
+        pp_mesh = make_mesh(args.pp_stages, axis_name="pp", device=device.type)
+        print(f"Mesh: {pp_mesh.describe()}")
+        opt_init, step = make_lm_train_step(
+            cfg, loss_fn=lambda p, t: pipeline_lm_loss(p, t, cfg, n_stages=args.pp_stages,
+                                                       n_microbatches=args.microbatches, mesh=pp_mesh),
+            **step_kw)
+    else:
+        for m in (mesh, ep_mesh):
+            if m is not None:
+                print(f"Mesh: {m.describe()}")
+        opt_init, step = make_lm_train_step(cfg, mesh=mesh, **step_kw)
     opt_state = opt_init(params)
     before = dict(cuda_kernels.LAUNCHES)
     first = last = None
@@ -223,9 +290,10 @@ def main(argv=None) -> int:
     launches = " ".join(f"{name}={n - before[name]}" for name, n in cuda_kernels.LAUNCHES.items())
     print(f"Kernel launches: {launches} steps={args.steps}")
     if args.save_params:
+        from ..parallel.fsdp import gather_params
         from ..utils.checkpoint import save_params_npz
 
-        save_params_npz(args.save_params, params)
+        save_params_npz(args.save_params, gather_params(params))  # whole leaves, as the JAX CLI writes
         print(f"Saved params to {args.save_params}")
     ok = last <= args.target_loss
     print(

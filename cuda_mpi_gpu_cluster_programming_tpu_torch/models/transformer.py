@@ -18,8 +18,13 @@ sequence-parallel attention runs over, and params in either layout: the
 whole tree, or ``parallel.tensor_parallel.shard_lm_params_tp``'s Megatron
 layout, whose decoder block runs each tp slot's heads and FFN slice and
 sums the row-parallel products over the slots (two ``psum`` reductions a dense
-block). Decode and generation run on one device, as in the JAX package
-(TP params are joined first).
+block). ``parallel.fsdp.shard_params_fsdp``'s FSDP layout (every leaf in
+its dp slots' pieces) splits the batch over the dp slots, each slot
+running the forward on its rows with the params gathered onto it;
+``parallel.expert.shard_moe_params``' layout runs each MoE layer's experts
+on their "ep" slots; ``parallel.pipeline`` stages the decoder blocks.
+Decode and generation run on one device, as in the JAX package (split
+params are joined first).
 
 The FFN is dense, or a Switch-style top-1 mixture of experts
 (``n_experts > 0``) with a capacity limit and dense one-hot dispatch.
@@ -179,8 +184,9 @@ def moe_ffn(layer: Params, h: torch.Tensor, cfg: TransformerConfig, return_aux: 
     Routing is fp32/int throughout (the queue positions come from an fp32
     cumsum); tokens past an expert's capacity ``max(1, int(cf * T / E))``
     are dropped (the residual carries them). Dispatch and combine are
-    dense one-hot einsums in h's dtype. ``return_aux`` also returns the
-    Switch load-balance loss ``E * sum_e f_e * P_e``."""
+    dense one-hot einsums in h's dtype; experts in "ep" pieces
+    (``parallel.expert``) run on their slots. ``return_aux`` also returns
+    the Switch load-balance loss ``E * sum_e f_e * P_e``."""
     b, l, d = h.shape
     e = cfg.n_experts
     t = b * l
@@ -197,8 +203,13 @@ def moe_ffn(layer: Params, h: torch.Tensor, cfg: TransformerConfig, return_aux: 
     slot = (pos[:, None] == torch.arange(cap, device=h.device)[None, :]).float()  # (T, C)
     dispatch = (onehot[:, :, None] * slot[:, None, :] * keep[:, None, None]).to(h.dtype)
     xin = torch.einsum("tec,td->ecd", dispatch, hf)  # (E, C, D)
-    hidden = _gelu(torch.einsum("ecd,edf->ecf", xin, layer["w_up"]))
-    out_e = torch.einsum("ecf,efd->ecd", hidden, layer["w_down"])  # (E, C, D)
+    from ..parallel.expert import expert_ffn, is_expert_sharded
+
+    if is_expert_sharded(layer["w_up"]):  # the experts on their "ep" slots
+        out_e = expert_ffn(xin, layer["w_up"], layer["w_down"], _gelu)
+    else:
+        hidden = _gelu(torch.einsum("ecd,edf->ecf", xin, layer["w_up"]))
+        out_e = torch.einsum("ecf,efd->ecd", hidden, layer["w_down"])  # (E, C, D)
     combine = dispatch * gate[:, None, None].to(h.dtype)
     out = torch.einsum("tec,ecd->td", combine, out_e).reshape(b, l, d)
     if not return_aux:
@@ -276,7 +287,18 @@ def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TI
     head. ``mesh``: the slots of a ring or Ulysses attention (default: a
     mesh of ``sp_shards`` slots on the tokens' device type). ``return_aux``
     also returns the mean MoE load-balance loss over layers (0.0 for dense
-    configs)."""
+    configs). FSDP params: the batch split over their dp slots, each
+    slot's rows through the gathered tree on that slot, over its dp row of
+    a ``(dp, sp)`` mesh; the logits joined on the tokens' device, the aux
+    the slots' mean."""
+    from ..parallel import fsdp
+
+    if fsdp.has_pieces(params, "dp"):
+        outs = fsdp.run_slots(params, tokens, mesh, lambda p, t, m: forward_lm(p, t, cfg, m, return_aux=True))
+        logits = torch.cat([o.to(tokens.device) for o, _ in outs], dim=0)
+        if return_aux:
+            return logits, torch.stack([a.to(tokens.device) for _, a in outs]).mean()
+        return logits
     l = tokens.shape[1]
     if l > cfg.max_len:
         raise ValueError(f"sequence length {l} exceeds max_len {cfg.max_len}")
@@ -303,7 +325,14 @@ def forward_lm(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TI
 def lm_loss(params: Params, tokens: torch.Tensor, cfg: TransformerConfig = TINY_LM, mesh=None,
             aux_coef: float = 0.01):
     """Next-token cross-entropy (fp32), mean over (B, L-1); MoE configs add
-    ``aux_coef`` x the Switch load-balance loss."""
+    ``aux_coef`` x the Switch load-balance loss. FSDP params: each dp
+    slot's loss on its rows, as :func:`forward_lm` splits them, and their
+    mean on the tokens' device."""
+    from ..parallel import fsdp
+
+    if fsdp.has_pieces(params, "dp"):
+        losses = fsdp.run_slots(params, tokens, mesh, lambda p, t, m: lm_loss(p, t, cfg, m, aux_coef))
+        return torch.stack([x.to(tokens.device) for x in losses]).mean()
     logits, aux = forward_lm(params, tokens[:, :-1], cfg, mesh, return_aux=True)
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, tokens[:, 1:].long()[..., None])[..., 0]
@@ -323,8 +352,13 @@ def make_lm_train_step(
     :func:`forward_lm`. TP params (``shard_lm_params_tp``) train as they
     are: the gradient of each piece is its slot's, and the optimizer
     updates the pieces (Adam is elementwise). As in the JAX package's step
-    on a ``(dp, ...)`` mesh, the whole batch is one step's: the data-parallel
-    axis only places it (here on the mesh's first row of slots).
+    on a ``(dp, ...)`` mesh, the whole batch is one step's: for params that
+    are not FSDP's the data-parallel axis only places it (here on the
+    mesh's first row of slots). FSDP params (``parallel.fsdp``) split it:
+    each dp slot runs the loss on its B/dp rows with the params gathered
+    onto it, the step's loss is the slots' mean, the gradients reach each
+    piece through the gather (the reduce-scatter) and Adam updates the
+    pieces. Expert-sharded params (``parallel.expert``) train as they are.
 
     ``optimizer`` is an ``(init, update)`` pair in optax's convention
     (default ``utils.optim.adam(lr)``, optax's arithmetic). ``loss_fn(params,
@@ -482,9 +516,10 @@ def _decode_scan(params, prompt, cfg, steps, temperature, generator, collect_log
     total = plen + steps
     if total > cfg.max_len:
         raise ValueError(f"prompt + steps = {total} exceeds max_len {cfg.max_len}")
+    from ..parallel.fsdp import gather_params
     from ..parallel.tensor_parallel import gather_lm_params_tp
 
-    params = gather_lm_params_tp(params)  # decode runs on one device
+    params = gather_lm_params_tp(gather_params(params))  # decode runs on one device
     embed = params["embed"]
     true_fp32(embed.device)
     caches = init_kv_cache(cfg, b, embed.dtype, embed.device)

@@ -18,8 +18,12 @@ operation of the SPMD program (the JAX tests count them in the jaxpr).
 The LM's tiers count theirs here too: the ring's K and V rotations
 (``ppermute``, ``parallel/sequence_parallel.py``), Ulysses' reshards
 (``all_to_all``) and the Megatron block's two reductions (``psum``,
-``parallel/tensor_parallel.py``). A copy to the slot's own device is a
-no-op ``.to()`` and still counts: the program ran the collective.
+``parallel/tensor_parallel.py``), FSDP's gathers of a leaf and their
+gradients' ``reduce_scatter`` (``parallel/fsdp.py``), the expert layer's
+dispatch and return (``all_to_all``, ``parallel/expert.py``) and the
+pipeline's hand-offs (``ppermute``, ``parallel/pipeline.py``). A copy to
+the slot's own device is a no-op ``.to()`` and still counts: the program
+ran the collective.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import List, Sequence
 import torch
 
 # Collectives run since the last reset, by the JAX primitive each stands for.
-COLLECTIVES = {"ppermute": 0, "all_gather": 0, "all_to_all": 0, "psum": 0}
+COLLECTIVES = {"ppermute": 0, "all_gather": 0, "all_to_all": 0, "psum": 0, "reduce_scatter": 0}
 
 
 def reset_collectives() -> None:

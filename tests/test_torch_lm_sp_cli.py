@@ -11,6 +11,7 @@ lengthen the CLI file's worker.
 import pytest
 
 from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import lm
+from torch_threads import one_intra_op_thread  # noqa: unused-import (an autouse fixture)
 
 
 @pytest.mark.parametrize("sp_engine", ["einsum", "flash"])

@@ -15,6 +15,7 @@ import torch
 
 from cuda_mpi_gpu_cluster_programming_tpu_torch import pool_ab
 from cuda_mpi_gpu_cluster_programming_tpu_torch.ops import cuda_kernels as ck
+from torch_threads import one_intra_op_thread  # noqa: unused-import (an autouse fixture)
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "pool_ab.py"
 DTYPES = ("fp32", "bf16")

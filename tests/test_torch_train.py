@@ -35,6 +35,7 @@ from cuda_mpi_gpu_cluster_programming_tpu.models import transformer as jtf
 from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as ttf
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import optim
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+from torch_threads import one_intra_op_thread  # noqa: unused-import (an autouse fixture)
 
 # tests/test_decode.py's config, dense, and a top-1 MoE whose capacity drops tokens
 GRAD_KW = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, max_len=96)

@@ -21,6 +21,7 @@ from cuda_mpi_gpu_cluster_programming_tpu_torch.examples import lm
 from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as ttf
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils import checkpoint as tckpt
 from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.tree import tree_leaves
+from torch_threads import one_intra_op_thread  # noqa: unused-import (an autouse fixture)
 
 # tests/test_decode.py's top-1 MoE whose capacity drops tokens
 MOE_KW = dict(d_model=64, n_heads=2, n_layers=2, d_ff=128, max_len=64, n_experts=4, capacity_factor=0.5)
@@ -152,8 +153,8 @@ def test_cli_resume_mismatches_exit_2(capsys, tmp_path):
      "block (128)"),
     (["--attn", "ulysses", "--sp-engine", "flash", "--shards", "2", "--seq-len", "200"],
      "--sp-engine flash needs --seq-len divisible by 128 (got 200)"),
-    (["--pp-stages", "2"], "Queue 1 item 9"),
-    (["--fsdp"], "Queue 1 item 9"),
+    (["--pp-stages", "3"], "--pp-stages must divide n_layers=2, got 3"),
+    (["--fsdp", "--pp-stages", "2"], "--fsdp is not combinable with --pp-stages"),
     (["--steps", "0"], "--steps must be >= 1, got 0"),
     (["--attn", "flash", "--seq-len", "200"], "--attn flash needs --seq-len divisible by 128 (got 200)"),
     (["--accum-steps", "0"], "--accum-steps must be >= 1, got 0"),
@@ -173,7 +174,8 @@ def test_cli_guard_words_are_the_jax_clis(capsys):
     for argv in (["--attn", "flash", "--seq-len", "200"], ["--accum-steps", "3", "--batch", "2"],
                  ["--generate", "1020"], ["--steps", "0"], ["--attn", "ring", "--shards", "3"],
                  ["--attn", "ulysses", "--shards", "8"], ["--attn", "ring", "--sp-engine", "flash", "--seq-len", "200"],
-                 ["--attn", "ulysses", "--sp-engine", "flash", "--shards", "2", "--seq-len", "200"]):
+                 ["--attn", "ulysses", "--sp-engine", "flash", "--shards", "2", "--seq-len", "200"],
+                 ["--pp-stages", "3"], ["--fsdp", "--pp-stages", "2", "--batch", "2"]):
         assert jlm.main(argv) == 2
         want = capsys.readouterr().err
         assert lm.main(argv + ["--device", "cpu"]) == 2
