@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train        # only phase 3k, the training CLI and the journal folds
     python3 chip_smoke.py --sp           # only phase 3l, the LM's sequence and tensor parallelism
     python3 chip_smoke.py --lm-tiers     # only phase 3m, the LM's pipeline, FSDP and expert tiers, examples.matmul
+    python3 chip_smoke.py --distributed  # only phase 3n, one rank per process over torch.distributed
     python3 chip_smoke.py --conv-oracle  # only the candidates for the reference tier's fp32 conv, timed
 
 Run from the root of the repository, on a host with one CUDA GPU and the
@@ -345,8 +346,26 @@ fails ends the run with a non-zero exit code and nothing is caught:
    with 1, 2 and 4 shards and every strategy, ``Test: PASSED`` and bitwise
    ``mat_mult_serial``; flash_fwd, flash_dq and flash_dkv at every slot and
    microbatch shape of these paths (``TIER_SHAPES``) against their plain
-   versions, timed beside SDPA. ``python3 chip_smoke.py --lm-tiers`` runs
+   versions, timed beside SDPA; ROADMAP Queue 3 item 13's ruling: one
+   device's ``forward_lm`` on each microbatch's rows and its chain at pp's
+   shapes against pp 2 x 4's rows (the chain bitwise), and ep's per-slot
+   expert einsums against one device's batched ones (printed), and item
+   12's: the |g| where the FSDP Adam step's params are furthest from one
+   device's (printed). ``python3 chip_smoke.py --lm-tiers`` runs
    this phase alone;
+   3n. one rank per process over ``torch.distributed`` on the one card
+   (``parallel/distributed.py``): the self-test PASSED at 1 rank under
+   nccl and at 2 ranks under gloo (2 slots a rank); ``run.main`` under
+   ``launch_local`` and gloo (nccl refuses two ranks on one card) for
+   ``v5_collective`` at 2 shards over 2 ranks and 4 over 4, and
+   ``v4_hybrid`` at 4 over 4, fp32, batch 128: rank 0's output bitwise the
+   one-process slot path's at the same N (sha256 of its float32 bytes) and
+   within the fp32 budget of ``v1_jit``, conv2d and maxpool2d 2 a slot a
+   forward on every rank, the bytes staged through host memory printed,
+   per_pass_ms beside the one-process slots'; conv2d and maxpool2d on the
+   windows of one slot a rank (2 and 4 shards) against their plain
+   versions, timed. ``python3 chip_smoke.py --distributed`` runs this phase
+   alone;
 4. the autotuner: ``run.main --config v3_pallas --tune`` at 227x227, batch
    32, sweeping fp32, bf16 and int8w with the gate journaled and
    preflighted; it must print ``Tune plan: swept``, every dtype's plan must
@@ -376,7 +395,9 @@ flash_dq and flash_dkv at the slot shapes of phase 3l's runs, with their
 launches, and the pipeline's, FSDP's and expert path's (``path``
 ``pipeline``, ``fsdp``, ``expert``): flash_fwd, flash_dq and flash_dkv at
 the slot and microbatch shapes of phase 3m's steps and CLI runs, with their
-launches. Details of every
+launches, and the rank path's (``path`` ``distributed``): conv2d and
+maxpool2d on the windows of one slot a rank at 2 and 4 ranks, with the
+launches summed over the ranks of phase 3n's ``v5_collective`` runs. Details of every
 phase also go to ``chip_smoke_out/chip_smoke.json`` (listed in ``.gitignore``).
 
 Tolerances, kernel against plain version on the same inputs:
@@ -5920,8 +5941,10 @@ TIER_SLOTS = 4
 # order (pp 2 x 4 read 4.58e-5 max abs against it); held: LM_RTOL, LM_ATOL, the fp32 parity rule of 3b and 3l
 TIER_RTOL, TIER_ATOL = 2e-5, 1e-5
 # tests/test_fsdp.py:77-79 at its lr 1e-2: the loss, and the params after one step, held here after an SGD step:
-# Adam's first update, lr g / (|g| + eps), turns the gradients' rounding into up to lr where |g| is near eps
-# (5.7e-5 on the CPU for fsdp dp 4 against one device), so its gap is printed beside, not held
+# Adam's first update, lr g / (|g| + eps), turns the gradients' rounding into up to lr where |g| is near eps. At
+# TINY_LM on the CPU the JAX package's own FSDP pair misses that rule after Adam (2.44e-4 at |g| 1.4e-8) with
+# gradients 3.59e-7 of their leaf's max apart, the port's pair 1.99e-4 with 2.73e-7 (ROADMAP Queue 3 item 12,
+# ruled), so the Adam gap is printed beside, with the |g| where it lies, not held
 FSDP_LOSS_RTOL, FSDP_PARAM_RTOL, FSDP_PARAM_ATOL = 1e-5, 2e-5, 2e-6
 MATMUL_N = 4096
 # the flash kernels' per-slot and per-microbatch shapes on 3m's paths (B, L, H, D): TINY_LM at batch 8, L 1024 in
@@ -5998,7 +6021,7 @@ def tier_lm_runs(result) -> None:
             (lambda p, t: tf.forward_lm(p, t, moe_cfg), None), "moe", layers, dict(all_to_all=2 * layers), False),
     }
     base = {"dense": (cfg, params), "moe": (moe_cfg, moe_params)}
-    caught, ref_out, ref_step = {}, {}, {}
+    caught, ref_out, ref_step, tier_out = {}, {}, {}, {}
 
     def run_step(key, c, p, mesh, loss_fn, compute_dtype=None, opt=None):
         """One step from ``p`` (Adam at lr 1e-3 unless ``opt`` is given), the
@@ -6040,6 +6063,7 @@ def tier_lm_runs(result) -> None:
             out = fwd(p, toks)
         torch.cuda.synchronize()
         launches, collectives = dict(ck.LAUNCHES), dict(halo.COLLECTIVES)
+        tier_out[name] = out
         want = _launches(flash_fwd=flash_n)
         want_c = {**dict.fromkeys(collectives, 0), **coll}
         oracle = ref_out[bkey]
@@ -6084,14 +6108,19 @@ def tier_lm_runs(result) -> None:
                 for o, f in (("sgd", sgd), ("adam", adam)):
                     new2, loss2 = run_step(f"{key}/{o}", c, p, mesh, loss_fn, opt=f(1e-2))[:2]
                     pairs = list(zip(tree_leaves(fsdp.gather_params(new2)), tree_leaves(fsdp_ref[o][0])))
-                    gaps[o] = dict(loss_rel=abs(loss2 - fsdp_ref[o][1]) / abs(fsdp_ref[o][1]),
-                                   gap=max(float((a - b).abs().max()) for a, b in pairs),
+                    # the single step's |g| where the params are furthest apart (Queue 3 item 12's ruling:
+                    # the Adam gap sits where |g| is near eps)
+                    gap, g_at = max((float((a - b).abs().max()), float(g.flatten()[(a - b).abs().argmax()].abs()))
+                                    for (a, b), g in zip(pairs, tree_leaves(caught[f"single dense/{o}"])))
+                    gaps[o] = dict(loss_rel=abs(loss2 - fsdp_ref[o][1]) / abs(fsdp_ref[o][1]), gap=gap,
+                                   abs_grad_at_gap=g_at,
                                    ok=all(torch.allclose(a, b, rtol=FSDP_PARAM_RTOL, atol=FSDP_PARAM_ATOL)
                                           for a, b in pairs), sharded=fsdp.sharded_fraction(new2))
                 g = gaps["sgd"]
                 extra = (f"; lr 1e-2: loss rel {g['loss_rel']:.3g} (tol {FSDP_LOSS_RTOL:g}), params after an SGD "
                          f"step max gap {g['gap']:.3g} (rtol {FSDP_PARAM_RTOL:g}, atol {FSDP_PARAM_ATOL:g}) "
-                         f"ok={g['ok']}, after an Adam step {gaps['adam']['gap']:.3g} (not held), "
+                         f"ok={g['ok']}, after an Adam step {gaps['adam']['gap']:.3g} at |g| "
+                         f"{gaps['adam']['abs_grad_at_gap']:.3g} (not held: ROADMAP Queue 3 item 12's ruling), "
                          f"{g['sharded']:.0%} of param bytes still sharded")
                 require(g["loss_rel"] <= FSDP_LOSS_RTOL and g["ok"] and g["sharded"] > 0.95
                         and gaps["adam"]["sharded"] > 0.95, f"{path} step {key}{extra}")
@@ -6106,6 +6135,74 @@ def tier_lm_runs(result) -> None:
             require(all(t.dtype == torch.float32 for t in tree_leaves(new)), f"{path} step {key}: masters not fp32")
             result["runs"][f"{path} make_lm_train_step {key}"] = rec
     caught.clear()
+    result["microbatch_ruling"] = tier_split_ruling(cfg, params, moe_cfg, moe_params, toks, tier_out["pp 2 x 4mb"],
+                                                    tier_out[f"ep {TIER_SLOTS} experts over {TIER_SLOTS} slots"],
+                                                    ref_out["moe"])
+
+
+def tier_split_ruling(cfg, params, moe_cfg, moe_params, toks, pp_out, ep_out, moe_single) -> dict:
+    """ROADMAP Queue 3 item 13 on the card: is a split forward's gap to one
+    device's the pipeline's (or the expert split's) own order, or cuBLAS at
+    other row counts? pp 2 x 4: one device's ``forward_lm`` on each
+    microbatch's own rows against pp's rows of it; and one device's chain at
+    pp's shapes (the decoder blocks a microbatch at a time, the final norm
+    and head on the whole batch, as ``pipeline_lm_forward`` runs them). ep 4:
+    ``parallel.expert.expert_ffn``'s per-slot einsums against the batched
+    einsums of the unsplit layer on the same (E, C, D) dispatch tensor, at
+    the layer's own shapes. A split that is bitwise one device's run at its
+    own shapes differs only where the platform's kernels differ with the
+    row count (the ruling printed); one that is not is a fault of the split
+    (required: bitwise)."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import transformer as tf
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel import expert
+
+    mb = LM_BATCH // 4
+    res = {}
+    with torch.inference_mode():
+        own = [tf.forward_lm(params, toks[j * mb:(j + 1) * mb], cfg) for j in range(4)]
+        own_bitwise = [bool(torch.equal(o, pp_out[j * mb:(j + 1) * mb])) for j, o in enumerate(own)]
+        own_gap = max(float((o - pp_out[j * mb:(j + 1) * mb]).abs().max()) for j, o in enumerate(own))
+        x = params["embed"][toks.long()] + params["pos"][:toks.shape[1]][None]
+        blocks = []
+        for j in range(4):
+            h = x[j * mb:(j + 1) * mb]
+            for layer in params["layers"]:
+                h = tf.decoder_block(layer, h, cfg=cfg)
+            blocks.append(h)
+        chain = tf.rmsnorm(torch.cat(blocks), params["final_norm"]["g"]) @ params["embed"].T
+        chain_bitwise = bool(torch.equal(chain, pp_out))
+        e, d, t = moe_cfg.n_experts, moe_cfg.d_model, toks.numel()
+        cap = max(1, int(moe_cfg.capacity_factor * t / e))
+        gen = torch.Generator(device=toks.device).manual_seed(2052)
+        xin = torch.randn((e, cap, d), generator=gen, device=toks.device)
+        layer = moe_params["layers"][0]
+        batched = torch.einsum("ecf,efd->ecd", tf._gelu(torch.einsum("ecd,edf->ecf", xin, layer["w_up"])),
+                               layer["w_down"])
+        split = expert.expert_ffn(xin, torch.chunk(layer["w_up"], TIER_SLOTS), torch.chunk(layer["w_down"], TIER_SLOTS),
+                                  tf._gelu)
+        ep_bitwise = bool(torch.equal(split, batched))
+        ep_einsum_gap = float((split - batched).abs().max())
+        one = [torch.einsum("ecf,efd->ecd", tf._gelu(torch.einsum("ecd,edf->ecf", xin[i:i + 1],
+                                                                  layer["w_up"][i:i + 1])), layer["w_down"][i:i + 1])
+               for i in range(e)]
+        ep_own_bitwise = bool(torch.equal(split, torch.cat(one)))
+    ep_gap = float((ep_out - moe_single).abs().max())
+    res = dict(pp_microbatch_bitwise=own_bitwise, pp_microbatch_gap=own_gap, pp_chain_bitwise=chain_bitwise,
+               ep_einsum_bitwise=ep_bitwise, ep_einsum_gap=ep_einsum_gap, ep_one_expert_bitwise=ep_own_bitwise,
+               ep_forward_gap=ep_gap)
+    pp_rule = ("the platform's (other row counts pick other cuBLAS kernels)" if chain_bitwise
+               else "the pipeline's own order (a fault)")
+    ep_rule = ("the platform's (the batched einsum over E experts runs another cuBLAS kernel than E/ep)"
+               if ep_own_bitwise else "the expert split's own order (a fault)")
+    log(f"ruling Queue 3 item 13, pp 2 x 4: one device's forward_lm on each microbatch's rows vs pp's bitwise "
+        f"{own_bitwise} (max abs {own_gap:.3g}); one device's chain at pp's shapes bitwise {chain_bitwise}: {pp_rule}")
+    log(f"ruling Queue 3 item 13, ep {TIER_SLOTS}: expert_ffn's per-slot einsums vs the batched einsums of one device at "
+        f"{e}x{cap}x{d} bitwise {ep_bitwise} (max abs {ep_einsum_gap:.3g}), vs one einsum an expert bitwise "
+        f"{ep_own_bitwise}; the ep forward {ep_gap:.3g} from one device's (rtol {TIER_RTOL:g}, atol {TIER_ATOL:g} "
+        f"{'holds' if torch.allclose(ep_out, moe_single, rtol=TIER_RTOL, atol=TIER_ATOL) else 'missed'}): {ep_rule}")
+    require(chain_bitwise, "pp 2 x 4: not bitwise one device's chain at its shapes (the pipeline's order differs)")
+    require(ep_own_bitwise, "ep: expert_ffn not bitwise one einsum an expert (the split's order differs)")
+    return res
 
 
 def timed_steps(step, init, p, toks, reps: int = 5) -> float:
@@ -6254,6 +6351,153 @@ def lm_tier_kernels_entries(tiers) -> list:
     return entries
 
 
+
+# phase 3n, one rank per process over torch.distributed on the one card: (config, ranks, shards) driven through
+# run.main under parallel.distributed.launch_local and gloo (nccl refuses two ranks on one card), fp32, batch 128,
+# --init random; each rank N/R consecutive slots. The kernels tier launches conv2d and maxpool2d twice a slot a
+# forward on every rank
+DIST_RUNS = (("v5_collective", 2, 2), ("v5_collective", 4, 4), ("v4_hybrid", 4, 4))
+DIST_TIMEOUT_S = 300
+
+
+def dist_selftests() -> dict:
+    """The self-test (``parallel.distributed``: each global slot's id + 1
+    summed in slot order inside a rank, all-reduced, n(n+1)/2) at 1 rank under
+    nccl and at 2 ranks under gloo, 2 slots a rank, on the card: PASSED."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel.distributed import launch_local
+
+    res = {}
+    for n, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = launch_local(n, slots_per_process=2, module_args=["--device", "cuda"], device="cuda",
+                             backend=backend, timeout_s=DIST_TIMEOUT_S)
+        lines = [line for r in ranks for line in r.stdout.splitlines() if line.startswith("rank=")]
+        ok = all(r.returncode == 0 for r in ranks) and len(lines) == n and all(l.endswith("PASSED") for l in lines)
+        log(f"distributed self-test {n} rank(s) x 2 slots under {backend} ({time.perf_counter() - t0:.1f} s): "
+            + " | ".join(lines))
+        require(ok, f"self-test {n} ranks {backend}: " + "\n".join(r.stdout[-2000:] for r in ranks))
+        res[f"{n}/{backend}"] = dict(lines=lines, seconds=time.perf_counter() - t0)
+    return res
+
+
+def dist_one_process(key, n, params, x) -> dict:
+    """The one-process slot path of ``key`` at ``n`` shards on the inputs
+    ``run.main --init random`` draws: its output's sha256 (float32 bytes), its
+    distance from the fp32 oracle and its per_pass_ms."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch import configs
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.utils.timing import amortized_stats
+
+    fwd = configs.build_forward(configs.REGISTRY[key], n_shards=n)
+    out = fwd(params, x)
+    oracle = configs.build_forward(configs.REGISTRY["v1_jit"])(params, x)
+    err = float((out - oracle).abs().max())
+    ms = amortized_stats(fwd, params, x, n_small=3, n_large=13).per_call_ms
+    return dict(sha256=hashlib.sha256(out.cpu().numpy().astype(np.float32).tobytes()).hexdigest(), max_abs=err,
+                rel_of_max=err / float(oracle.abs().max()), per_pass_ms=ms)
+
+
+def dist_rank_runs() -> dict:
+    """``DIST_RUNS`` through ``run.main`` over R gloo ranks on the card: each
+    rank's ``Rank i/R:`` line (launches conv2d 2 and maxpool2d 2 a slot a
+    forward, collectives the one-process counts, bytes staged through host
+    memory), rank 0's contract lines and output sha256 bitwise the
+    one-process slot path's at the same N, within the oracle's fp32 budget,
+    and its per_pass_ms beside the one-process one."""
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.models import init
+    from cuda_mpi_gpu_cluster_programming_tpu_torch.parallel.distributed import launch_local
+
+    params = init.init_params_random(torch.Generator().manual_seed(0), device="cuda")
+    x = init.random_input(torch.Generator().manual_seed(1), BATCH, device="cuda")
+    res = {}
+    with knob_env({}):
+        for key, ranks, n in DIST_RUNS:
+            one = dist_one_process(key, n, params, x)
+            # the estimator at 5 / 2 (3h's drive runs 10 / 3): 30 passes, of which v4_hybrid's take ~0.5 s each
+            argv = ["--config", key, "--shards", str(n), "--batch", str(BATCH), "--init", "random", "--repeats", "5",
+                    "--warmup", "2", "--dist-backend", "gloo"]
+            t0 = time.perf_counter()
+            procs = launch_local(ranks, module=f"{PORT}.run", module_args=argv, device="cuda", backend="gloo",
+                                 timeout_s=DIST_TIMEOUT_S)
+            seconds = time.perf_counter() - t0
+            name = f"{key} --shards {n} over {ranks} ranks"
+            require(all(p.returncode == 0 for p in procs), f"{name}: " + "\n".join(p.stdout[-3000:] for p in procs))
+            out0 = procs[0].stdout
+            lines = [re.search(rf"^Rank {i}/{ranks}: (.+)$", p.stdout, re.M) for i, p in enumerate(procs)]
+            require(all(lines), f"{name}: a Rank line is missing")
+            per = n // ranks
+            rank_rows = []
+            for i, m in enumerate(lines):
+                text = m.group(1)
+                kern = dict((k, float(v)) for k, v in re.findall(r"(conv2d|maxpool2d|lrn)=([0-9.]+)", text))
+                coll = dict((k, float(v)) for k, v in re.findall(r"(ppermute|all_gather)=([0-9.]+)", text))
+                staged = float(re.search(r"staged=([0-9]+)", text).group(1))
+                passes = int(re.search(r"passes=(\d+)", text).group(1))
+                rank_rows.append(dict(line=text, launches_per_forward=kern, collectives_per_forward=coll,
+                                      staged_bytes_per_forward=staged, passes=passes,
+                                      per_pass_ms=float(re.search(r"per_pass_ms=([0-9.]+)", text).group(1))))
+                require(kern == {"conv2d": 2.0 * per, "maxpool2d": 2.0 * per},
+                        f"{name} rank {i}: launches a forward {kern}, want conv2d {2 * per}, maxpool2d {2 * per}")
+                require(staged > 0 and "device=0" in text, f"{name} rank {i}: bytes across ranks {text}")
+            digest = re.search(r"^Output sha256: (\w+)$", out0, re.M).group(1)
+            mesh = re.search(r"^Mesh: (.+)$", out0, re.M).group(1)
+            ms = float(re.search(r"completed in ([0-9.]+) ms", out0).group(1))
+            bitwise = digest == one["sha256"]
+            ok = one["max_abs"] <= FP32_ABS and one["rel_of_max"] <= FP32_REL
+            log(f"distributed {name} ({seconds:.1f} s, {mesh}): per_pass_ms {ms:.3f} against the one-process "
+                f"{n} slots' {one['per_pass_ms']:.3f}; rank 0's output bitwise the one-process output: {bitwise}; "
+                f"that output max_abs {one['max_abs']:.3g} ({one['rel_of_max']:.3g} of the max) from v1_jit fp32 "
+                f"ok={ok}; " + " | ".join(f"rank {i}: {r['line']}" for i, r in enumerate(rank_rows)))
+            require(bitwise, f"{name}: rank 0's output {digest}, one process {one['sha256']}")
+            require(ok, f"{name}: outside the fp32 budget of v1_jit: {one}")
+            require(f"over {ranks} rank" in mesh and "(gloo" in mesh, f"{name}: Mesh: {mesh}")
+            res[name] = dict(per_pass_ms=ms, one_process=one, seconds=seconds, mesh=mesh, ranks=rank_rows,
+                             launches={k: int(sum(r["launches_per_forward"].get(k, 0) * r["passes"] for r in rank_rows))
+                                       for k in ("conv2d", "maxpool2d")},
+                             passes=rank_rows[0]["passes"])
+    return res
+
+
+def dist_phase(spec, peak_name) -> dict:
+    """Phase 3n: one rank per process over ``torch.distributed`` on the one
+    card (:func:`dist_selftests`, :func:`dist_rank_runs`), and conv2d and
+    maxpool2d on the rank windows (one slot a rank at 2 and 4 ranks: 2 and
+    4 shards' windows) against their plain versions, fp32."""
+    t0 = time.perf_counter()
+    result = dict(selftests=dist_selftests(), runs=dist_rank_runs())
+    result["rows"] = {n: tier_kernel_rows(spec, peak_name, n=n, pols=("fp32",)) for n in (2, 4)}
+    result["seconds"] = time.perf_counter() - t0
+    log(f"phase 3n took {result['seconds']:.1f} s")
+    return result
+
+
+def dist_kernels_entries(dist) -> list:
+    """The ``kernels`` line's entries of the rank path (``path``
+    ``distributed``): conv2d and maxpool2d summed over their stages on the
+    windows of one slot a rank (2 and 4 shards), the launches summed over the
+    ranks of ``run.main --config v5_collective`` at that many ranks."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err", "max_rel_err", "tol", "windows")
+    entries = []
+    for n in (2, 4):
+        run_key = f"v5_collective --shards {n} over {n} ranks"
+        run = dist["runs"][run_key]
+        for name in ("conv2d", "maxpool2d"):
+            source, replaces, stages, _route = KERNELS[name]
+            mine = [r for r in dist["rows"][n] if r["kernel"] == name]
+            require([r["stage"] for r in mine] == list(stages), f"distributed {name} at {n}: stages {mine}")
+            entries.append(dict(
+                name=name, dtype="fp32", route="cuda", source=source, replaces=replaces, path="distributed",
+                run=f"run --config v5_collective --shards {n} --dist-backend gloo over {n} ranks (batch {BATCH})",
+                launches=run["launches"][name], ranks=n,
+                launches_per_forward_per_rank=run["ranks"][0]["launches_per_forward"][name],
+                max_abs_err=max(r["max_abs_err"] for r in mine), within_tolerance=all(r["ok"] for r in mine),
+                ms=sum(r["ms"] for r in mine), plain_ms=sum(r["plain_ms"] for r in mine),
+                bound_ms=sum(r["bound_ms"] for r in mine), bound_by=max(mine, key=lambda r: r["bound_ms"])["bound_by"],
+                library_ms=sum(r["library_ms"] for r in mine),
+                stages={r["stage"]: {k: r[k] for k in keys if k in r} for r in mine},
+            ))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a CUDA GPU", file=sys.stderr)
@@ -6357,6 +6601,15 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         tiers = lm_tiers_phase(spec, peak_name)
         print(json.dumps(dict(device=kind, nvidia_smi=smi, lm_tiers=tiers, kernels=lm_tier_kernels_entries(tiers)),
+                         default=str), flush=True)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--distributed"]:
+        # phase 3n alone, from this checkout
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist = dist_phase(spec, peak_name)
+        print(json.dumps(dict(device=kind, nvidia_smi=smi, distributed=dist, kernels=dist_kernels_entries(dist)),
                          default=str), flush=True)
         print(smi, flush=True)
         return 0
@@ -6487,6 +6740,11 @@ def main() -> int:
         "the single-device flash ones, bf16 steps of pp and fsdp too; the three examples.lm runs PASSED; "
         "examples.matmul at n = 4096 bitwise mat_mult_serial at 1, 2, 4 shards for every strategy; flash launches "
         "and collectives as tabled; every slot shape's flash kernels agree with their plain versions")
+    dist = dist_phase(spec, peak_name)
+    clock.lap("3n")
+    log("phase 3n: the self-test PASSED at 1 rank under nccl and 2 under gloo; run.main over 2 and 4 gloo ranks on "
+        "the card gave rank 0 the one-process output bit for bit, within the oracle's budget; conv2d and maxpool2d "
+        "2 a slot a forward on every rank; the rank windows' kernels agree with their plain versions")
     tune = tune_phase()
     clock.lap("4")
     log("phase 4: the tuner swept every dtype with no failed candidate, then hit its cache")
@@ -6504,6 +6762,7 @@ def main() -> int:
     line["kernels"] += supervise_kernels_entries(sup)
     line["kernels"] += sp_kernels_entries(sp)
     line["kernels"] += lm_tier_kernels_entries(lm_tiers)
+    line["kernels"] += dist_kernels_entries(dist)
 
     out_dir = Path("chip_smoke_out")
     out_dir.mkdir(exist_ok=True)
@@ -6513,7 +6772,8 @@ def main() -> int:
              flash_ptxas=flash_regs, sass=sass, engine_fp32=engine, pool_lrn=pool_lrn,
              cudnn_kernels=CUDNN_KERNELS, stages=rows + v6_rows + lm_rows + s2d_rows, edge_cases=edges, main_path=main,
              v6_path=v6, lm_path=lm, train_path=train, pool_ab=ab, bench=bench, serve=serve, control=control,
-             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, sp=sp, lm_tiers=lm_tiers, tune=tune,
+             tiers=tiers, fleet=fleet, supervise=sup, train_cli=train_cli, sp=sp, lm_tiers=lm_tiers, distributed=dist,
+             tune=tune,
              v6_tune=v6_tune, phase_seconds=clock.laps,
              kernels=line["kernels"]), indent=1,
         default=str))

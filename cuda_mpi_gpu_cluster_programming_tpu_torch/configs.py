@@ -151,8 +151,13 @@ def _build_sharded(exec_cfg: ExecConfig, cfg, n_shards: int, mesh, plan, variant
     if exec_cfg.model == "alexnet_full":
         spatial = build_sharded_forward(cfg, n_shards, mesh=mesh, tier=exec_cfg.tier, staged=staged, plan=plan,
                                         variants=variants)
-        # the FC head on the gathered features (the 6x6x256 activations are small next to conv1's)
-        return lambda p, x: fc_head(p, spatial(p, x), cfg)
+        # the FC head on the gathered features (the 6x6x256 activations are small next to conv1's); across
+        # ranks on rank 0, which alone holds them
+        def full_forward(p, x):
+            feats = spatial(p, x)
+            return None if feats is None else fc_head(p, feats, cfg)
+
+        return full_forward
     return build_sharded_forward(cfg, n_shards, mesh=mesh, tier=exec_cfg.tier, staged=staged, plan=plan,
                                  variants=variants, quantized=quantized)
 
@@ -187,9 +192,11 @@ def build_forward(
 
     ``n_shards`` (the original code's ``mpirun -np N``) and ``mesh`` (a
     ``parallel.mesh.Mesh``; default ``make_mesh(n_shards)`` on ``device``'s
-    type: every visible GPU, or the CPU) apply to the sharded strategies; a
-    single-device config runs on ``device`` whatever they say, as in the
-    JAX package.
+    type: every visible GPU, or the CPU; under a process group the mesh
+    across its ranks) apply to the sharded strategies; a single-device
+    config runs on ``device`` whatever they say, as in the JAX package.
+    Across ranks the sharded forward returns the output on rank 0 and None
+    on the others.
 
     ``variants`` (kernel tier only; the reference tier ignores it): a
     ``KernelVariants`` or per-layer ``LayerVariants``; None resolves the
@@ -237,15 +244,18 @@ def build_forward(
         for d in devices:
             true_fp32(d)
 
+    def fp32_out(out):
+        return None if out is None else out.float().contiguous()  # None: another rank holds the output
+
     if pol.name == "bf16":
         @torch.inference_mode()
         def forward(p, x):
             pb = params_to(p, dtype=torch.bfloat16)
-            return fwd(pb, x.to(torch.bfloat16)).float().contiguous()
+            return fp32_out(fwd(pb, x.to(torch.bfloat16)))
     else:
         @torch.inference_mode()
         def forward(p, x):
-            return fwd(p, x).float().contiguous()
+            return fp32_out(fwd(p, x))
 
     return _observed(forward, exec_cfg, pol.name, n_shards)
 

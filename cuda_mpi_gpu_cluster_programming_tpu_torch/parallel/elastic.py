@@ -33,7 +33,8 @@ the drills (``CHAOS_SPEC`` ``mesh_shrink``, ``device_rejoin``, ``flap``)
 exercise every path on the card as on the CPU. A real fault of the one
 card kills the process; the serving fleet (``serving/fleet.py``: backend
 processes behind the router) is what survives that. A pool over physical
-cards, one rank a GPU, comes with ROADMAP Queue 1 item 14.
+cards (a rank a card over ``parallel/distributed.py``'s process group) is
+ROADMAP Queue 1 item 17.
 """
 
 from __future__ import annotations

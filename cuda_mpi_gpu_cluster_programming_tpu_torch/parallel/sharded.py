@@ -19,6 +19,12 @@ Each shard computes exactly the output rows it owns (``plan.py``), so
 nothing is trimmed. Shards that share a device run in order on its current
 stream.
 
+Across ranks (a mesh of ``parallel/distributed.py``'s process group: the
+course's ``mpirun`` layer), each rank takes the whole input, as each JAX
+process does, keeps the rows of its own slots and computes only those;
+the halos cross rank boundaries (``halo.py``) and rank 0 gathers the
+output. The other ranks' forward returns None.
+
 Tiers: ``reference`` (``ops/reference.py``: cuDNN on the card) or
 ``kernels`` (the conv and pool kernels of ``ops/kernel_model.py`` on every
 shard, the counterpart of the JAX package's Pallas tier). The LRN is the
@@ -36,7 +42,7 @@ import torch.nn.functional as F
 from ..models.alexnet import BLOCKS12
 from ..models.init import params_to
 from ..ops import reference as ops
-from .halo import exchange
+from .halo import exchange, gather_to_rank0
 from .mesh import Mesh, make_mesh
 from .plan import LayerPlan, make_shard_plan
 
@@ -52,14 +58,17 @@ def _row_mask(b_out: int, l_out: int, i: int, dtype, device) -> Optional[torch.T
     return (g < l_out).to(dtype).reshape(1, b_out, 1, 1)
 
 
-def shard_windows(lp: LayerPlan, blocks, staged: bool = False):
+def shard_windows(lp: LayerPlan, blocks, staged: bool = False, mesh=None):
     """Each shard's contiguous (N, win_rows, W, C) input window of layer
     ``lp``: its block with the halos exchanged and ``pad_bot`` zero rows
     appended, from the row ``s0`` (clamped into the buffer, as
     ``lax.dynamic_slice`` clamps it; only a shard that owns nothing needs
-    the clamp)."""
+    the clamp). Across ranks (``mesh``), None for another rank's slot."""
     wins = []
-    for i, buf in enumerate(exchange(staged)(blocks, lp.h_top, lp.h_bot)):
+    for i, buf in enumerate(exchange(staged)(blocks, lp.h_top, lp.h_bot, mesh)):
+        if buf is None:
+            wins.append(None)
+            continue
         if lp.pad_bot:
             buf = F.pad(buf, (0, 0, 0, 0, 0, lp.pad_bot))
         s0 = min(max(i * lp.s0_coef + lp.s0_const, 0), buf.shape[1] - lp.win_rows)
@@ -67,10 +76,15 @@ def shard_windows(lp: LayerPlan, blocks, staged: bool = False):
     return wins
 
 
-def _apply_spatial(lp: LayerPlan, blocks, params_on, spec, conv_fn: Callable, pool_fn: Callable, staged: bool):
-    """One conv or pool layer over every shard's (N, b_in, W, C) block."""
+def _apply_spatial(lp: LayerPlan, blocks, params_on, spec, conv_fn: Callable, pool_fn: Callable, staged: bool,
+                   mesh=None):
+    """One conv or pool layer over every shard's (N, b_in, W, C) block (this
+    rank's, across ranks)."""
     out = []
-    for i, win in enumerate(shard_windows(lp, blocks, staged)):
+    for i, win in enumerate(shard_windows(lp, blocks, staged, mesh)):
+        if win is None:
+            out.append(None)
+            continue
         if lp.kind == "conv":
             p = params_on[win.device][lp.name]
             if "scale" in p:
@@ -159,12 +173,19 @@ def build_sharded_forward(
 
     ``differentiable``: run with autograd (the training step's forward,
     ``training.make_train_step``); by default the forward runs in
-    inference mode."""
+    inference mode.
+
+    A mesh across ranks: each rank keeps its slots' rows of ``x`` and
+    computes them; rank 0 returns the whole output, the others None. The
+    digests and autograd are one process's (ValueError across ranks)."""
     if tier not in ("reference", "kernels"):
         raise ValueError(f"tier must be reference|kernels, got {tier!r}")
     mesh = mesh or make_mesh(n_shards, axis_name=AXIS, device=device)
     if mesh.n_shards != n_shards or mesh.dp != 1:
         raise ValueError(f"mesh {mesh.shape} does not give {n_shards} row shards on one data-parallel replica")
+    ranked = mesh.owners is not None
+    if ranked and (with_digests or differentiable):
+        raise ValueError("the sentinel digests and autograd run in one process; a mesh across ranks has neither")
     n = n_shards
     splan = make_shard_plan(model_cfg, n)
     devs = mesh.shard_devices
@@ -203,27 +224,36 @@ def build_sharded_forward(
             params = {name: {"w": e["q"], "scale": e["scale"], "b": e["b"]}
                       for name, e in quantize_conv_params(params).items()}
             x = x.to(torch.bfloat16)
-        params_on = {d: params_to(params, device=d) for d in dict.fromkeys(devs)}
+        params_on = {d: params_to(params, device=d) for d in mesh.distinct_devices}
         if x.shape[1] < h_pad:
             x = F.pad(x, (0, 0, 0, 0, 0, h_pad - x.shape[1]))
-        blocks = [x[:, i * b0 : (i + 1) * b0].to(d, non_blocking=True) for i, d in enumerate(devs)]
+        blocks = [x[:, i * b0 : (i + 1) * b0].to(d, non_blocking=True) if mesh.is_local(i) else None
+                  for i, d in enumerate(devs)]
+
+        def each(fn, bs):
+            return [None if b is None else fn(b) for b in bs]
+
         digs = {}
         for lp in splan.layers:
             spec = specs[lp.name]
             if lp.kind == "pointwise":
                 # int8w: the LRN computes in fp32 (squares and pow need the headroom)
-                blocks = [ops.lrn(b.float() if quantized else b, size=spec.size, alpha=spec.alpha, beta=spec.beta,
-                                  k=spec.k, alpha_over_size=spec.alpha_over_size) for b in blocks]
+                blocks = each(lambda b: ops.lrn(b.float() if quantized else b, size=spec.size, alpha=spec.alpha,
+                                                beta=spec.beta, k=spec.k, alpha_over_size=spec.alpha_over_size),
+                              blocks)
             else:
                 conv_fn, pool_fn = layer_fns[lp.name]
-                blocks = _apply_spatial(lp, blocks, params_on, spec, conv_fn, pool_fn, staged)
+                blocks = _apply_spatial(lp, blocks, params_on, spec, conv_fn, pool_fn, staged, mesh)
                 if lp.kind == "conv":
-                    blocks = [ops.relu(b) for b in blocks]
+                    blocks = each(ops.relu, blocks)
                     if quantized:
-                        blocks = [b.to(torch.bfloat16) for b in blocks]  # bf16 between quantized stages
+                        blocks = each(lambda b: b.to(torch.bfloat16), blocks)  # bf16 between quantized stages
             if with_digests:
                 digs[lp.name] = shard_digests(blocks).to(x.device, non_blocking=True)
         home = x.device
+        if ranked:
+            out = gather_to_rank0(blocks, mesh, home)
+            return None if out is None else out[:, :l_final]
         out = torch.cat([b.to(home, non_blocking=True) for b in blocks], dim=1)[:, :l_final]
         return (out, digs) if with_digests else out
 

@@ -19,6 +19,11 @@ controller over the mesh's shard slots:
 
 Every output channel is computed by one shard in the single-device order,
 so the result is the reference forward's. Reference ops on every shard.
+Across ranks (a mesh of ``parallel/distributed.py``'s process group) each
+rank computes its slots' channels, the ``all_gather`` and the two
+``ppermute`` cross the ranks (``halo.gather_rows``, ``halo.shift``), and
+rank 0 gathers the output's channels; with no ``psum`` on this path the
+output stays bitwise the one-process one.
 
 The transformer LM's Megatron layout (:func:`shard_lm_params_tp`, the JAX
 package's function of that name): column-parallel ``wqkv`` and ``w_up``,
@@ -46,23 +51,17 @@ import torch
 from ..models.alexnet import BLOCKS12
 from ..models.init import params_to
 from ..ops import reference as ops
-from .halo import COLLECTIVES
+from .halo import COLLECTIVES, shift, gather_rows, gather_to_rank0
 from .mesh import Mesh, make_mesh
 
 
-def _channel_halo(zs, half: int):
+def _channel_halo(zs, half: int, mesh=None):
     """Each shard's (..., C) slice with ``half`` neighbour channels on each
     side: the previous shard's last, the next shard's first; zeros at the
-    ends of the mesh. Two ``ppermute``s."""
-    n = len(zs)
-    COLLECTIVES["ppermute"] += 2
-    out = []
-    for j, z in enumerate(zs):
-        zero = torch.zeros((*z.shape[:-1], half), dtype=z.dtype, device=z.device)
-        left = zs[j - 1][..., -half:].to(z.device, non_blocking=True) if j > 0 else zero
-        right = zs[j + 1][..., :half].to(z.device, non_blocking=True) if j + 1 < n else zero
-        out.append(torch.cat([left, z, right], dim=-1))
-    return out
+    ends of the mesh. Two ``ppermute``s (across ranks, this rank's slots)."""
+    left = shift(zs, 1, lambda t: t[..., -half:], mesh)
+    right = shift(zs, -1, lambda t: t[..., :half], mesh)
+    return [None if z is None else torch.cat([a, z, b], dim=-1) for a, z, b in zip(left, zs, right)]
 
 
 def build_tp_forward(
@@ -77,7 +76,9 @@ def build_tp_forward(
     package's taps, ``{layer: (n_shards,) float32}``, one ``tree_digest``
     of each shard's local channel slice at every Conv1/Pool1/Conv2/Pool2/
     LRN2 boundary, on the input's device (the output's bits do not move).
-    ``differentiable``: autograd on (the training step's forward)."""
+    ``differentiable``: autograd on (the training step's forward). A mesh
+    across ranks: rank 0 returns the output, the others None (neither
+    digests nor autograd there)."""
     cfg = model_cfg
     for name, spec in (("conv1", cfg.conv1), ("conv2", cfg.conv2)):
         if spec.out_channels % n_shards:
@@ -93,6 +94,10 @@ def build_tp_forward(
         raise ValueError(f"mesh axis {mesh.axis_names[-1]!r} has {mesh.n_shards} devices but "
                          f"tp n_shards={n_shards}; the filter slices would not line up")
     devs = mesh.shard_devices
+    ranked = mesh.owners is not None
+    if ranked and (with_digests or differentiable):
+        raise ValueError("the sentinel digests and autograd run in one process; a mesh across ranks has neither")
+    local = mesh.local_slots
     c1, p1, c2, p2, n2 = cfg.conv1, cfg.pool1, cfg.conv2, cfg.pool2, cfg.lrn2
 
     if with_digests:
@@ -107,23 +112,31 @@ def build_tp_forward(
 
     def fwd(params, x):
         digs, t1, t2 = {}, ([] if with_digests else None), ([] if with_digests else None)
-        on = {d: params_to(params, device=d) for d in dict.fromkeys(devs)}
-        ys = [block(x.to(d, non_blocking=True), on[d]["conv1"], i, local1, c1, p1, t1) for i, d in enumerate(devs)]
+        on = {d: params_to(params, device=d) for d in mesh.distinct_devices}
+        ys = [block(x.to(d, non_blocking=True), on[d]["conv1"], i, local1, c1, p1, t1) if i in local else None
+              for i, d in enumerate(devs)]
         if with_digests:
             digs["conv1"], digs["pool1"] = shard_digests(t1).to(x.device), shard_digests(ys).to(x.device)
         COLLECTIVES["all_gather"] += 1  # conv2 contracts over every conv1 channel
-        ys = [torch.cat([y.to(d, non_blocking=True) for y in ys], dim=-1) for d in devs]
-        zs = [block(y, on[d]["conv2"], i, local2, c2, p2, t2) for i, (y, d) in enumerate(zip(ys, devs))]
+        if ranked:
+            whole = gather_rows(ys, mesh, devs[local[0]], dim=-1)
+            ys = [whole.to(d, non_blocking=True) if i in local else None for i, d in enumerate(devs)]
+        else:
+            ys = [torch.cat([y.to(d, non_blocking=True) for y in ys], dim=-1) for d in devs]
+        zs = [block(y, on[d]["conv2"], i, local2, c2, p2, t2) if i in local else None
+              for i, (y, d) in enumerate(zip(ys, devs))]
         if with_digests:
             digs["conv2"], digs["pool2"] = shard_digests(t2).to(x.device), shard_digests(zs).to(x.device)
         if n_shards > 1:
-            zs = _channel_halo(zs, half)
-        outs = [ops.lrn(z, size=n2.size, alpha=n2.alpha, beta=n2.beta, k=n2.k, alpha_over_size=n2.alpha_over_size)
-                for z in zs]
+            zs = _channel_halo(zs, half, mesh)
+        outs = [None if z is None else ops.lrn(z, size=n2.size, alpha=n2.alpha, beta=n2.beta, k=n2.k,
+                                               alpha_over_size=n2.alpha_over_size) for z in zs]
         if n_shards > 1:
-            outs = [o[..., half:-half] for o in outs]
+            outs = [None if o is None else o[..., half:-half] for o in outs]
         if with_digests:
             digs["lrn2"] = shard_digests(outs).to(x.device)
+        if ranked:
+            return gather_to_rank0(outs, mesh, x.device, dim=-1)
         out = torch.cat([o.to(x.device, non_blocking=True) for o in outs], dim=-1)
         return (out, digs) if with_digests else out
 

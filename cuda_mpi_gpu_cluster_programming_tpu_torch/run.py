@@ -126,6 +126,22 @@ transition. ``--supervise`` refuses full AlexNet and ``--fallback-chain``
 supervisor: a trip's batch replays on the new rung after every bucket's
 graph is captured again there, and the controller gains its
 ``degrade_capacity`` rung. ``--route`` backends are not supervised.
+
+Ranks: launched as one rank of a cluster (``parallel/distributed.py``'s
+``launch_local`` or ``launch_plan``, or ``torchrun``: torch's
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set), the run
+joins the process group first, before any CUDA use, under
+``--dist-backend`` (default: the launcher's ``TPU_FRAMEWORK_DIST_BACKEND``,
+else nccl on CUDA and gloo on the CPU; several ranks on one card take
+gloo, as nccl refuses them). ``--shards N`` over R ranks needs N % R == 0
+and gives each rank N/R consecutive slots; a single-device config runs
+whole on each rank. Rank 0 prints the contract lines and ``Output sha256:``
+(its output's float32 bytes); every rank then prints one ``Rank i/R:``
+line (its slots, per_pass_ms, kernel launches, collectives and bytes across
+ranks a forward). The serving, supervision, tuning, fallback, profile, trace and
+save-params modes run in one process (exit 2 across ranks).
+
+    python -m cuda_mpi_gpu_cluster_programming_tpu_torch.parallel.distributed --local-cluster 2 --device cpu --backend gloo
 """
 
 from __future__ import annotations
@@ -133,6 +149,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
+import io
+import re
 import sys
 import time
 from pathlib import Path
@@ -199,6 +218,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--shards", type=int, default=1,
                    help="shard count of a sharded config (mpirun -np analogue): slots of a mesh over the visible "
                         "GPUs, several to a card where there are fewer GPUs; printed on the 'Mesh:' line")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="as a rank of a cluster (torch's MASTER_ADDR/WORLD_SIZE/RANK set): the process group's "
+                        "backend (default $TPU_FRAMEWORK_DIST_BACKEND, else nccl on CUDA, gloo on the CPU; nccl "
+                        "refuses two ranks on one card)")
     p.add_argument("--supervise", action="store_true",
                    help="run under the elastic supervisor: each rung's forward carries per-stage digest taps, every "
                         "screened batch is checked off the timed path, and a trip (stage_digest / shard_divergence / "
@@ -370,6 +393,11 @@ def _tuning(args, model_cfg, device, pinned: str, run_dtype: str, source: str):
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    # Join a cluster when launched as a rank (a no-op otherwise), before any CUDA use, as the JAX run.py does.
+    from .parallel.distributed import maybe_initialize_from_env
+
+    if maybe_initialize_from_env(backend=args.dist_backend, device=args.device):
+        return _run_rank(args)
     if not args.trace:
         return _run(args)
     from .observability.trace import Tracer, set_tracer
@@ -383,6 +411,79 @@ def main(argv=None) -> int:
     finally:
         set_tracer(previous)
         tracer.journal.close()
+
+
+class _Tee(io.TextIOBase):
+    """Writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+
+def _run_rank(args) -> int:
+    """``_run`` as one rank of the process group: the same run on every
+    rank (each builds the params and the whole input from the seed), rank
+    0's contract lines printed and the others' kept, then one ``Rank i/R:``
+    line a rank. The group is left at the end."""
+    from .configs import REGISTRY
+    from .parallel import halo
+
+    dist = torch.distributed
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        modes = (("--serve", args.serve), ("--serve-replay", args.serve_replay), ("--supervise", args.supervise),
+                 ("--tune", args.tune), ("--fallback-chain", args.fallback_chain), ("--profile", args.profile),
+                 ("--trace", args.trace), ("--save-params", args.save_params))
+        refused = [flag for flag, on in modes if on]
+        sharded = args.config in REGISTRY and REGISTRY[args.config].strategy != "single"
+        why = ""
+        if refused:
+            why = (f"{', '.join(refused)} run in one process, not across ranks (a sharded server over cards and the "
+                   "elastic pool over cards are ROADMAP Queue 1 item 17)")
+        elif sharded and args.shards % world:
+            why = (f"--shards {args.shards} does not split over {world} ranks: each rank takes N/R consecutive "
+                   "slots, so N % R must be 0")
+        if why:
+            print(why, file=sys.stderr)
+            return 2
+        halo.reset_collectives()
+        kept = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, kept) if rank == 0 else kept):
+            rc = _run(args)
+        print(f"Rank {rank}/{world}: {_rank_summary(kept.getvalue(), args, rank, world, sharded)}", flush=True)
+        return rc
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_summary(text: str, args, rank: int, world: int, sharded: bool) -> str:
+    """A rank's slots and what its run's contract lines say, a forward."""
+    from .parallel import halo
+
+    per = args.shards // world
+    where = (f"slots {rank * per}-{rank * per + per - 1} of {args.shards}" if sharded
+             else "the whole forward (a single-device config)")
+    ms = re.search(r"Forward Pass completed in ([0-9.]+) ms", text)
+    launches = re.search(r"^Kernel launches: (.*) passes=(\d+)$", text, re.M)
+    digest = re.search(r"^Output sha256: (\w+)$", text, re.M)
+    passes = int(launches.group(2)) if launches else 0
+    kernels = " ".join(f"{k}={int(v) / passes:g}" for k, v in re.findall(r"(\w+)=(\d+)", launches.group(1))
+                       if int(v)) if passes else ""
+    coll = " ".join(f"{k}={v / passes:g}" for k, v in halo.COLLECTIVES.items() if v) if passes else ""
+    wire = " ".join(f"{k}={v / passes:.0f}" for k, v in halo.WIRE.items()) if passes else ""
+    return (f"{where} ({torch.distributed.get_backend()}); per_pass_ms={ms.group(1) if ms else 'none'}; "
+            f"a forward: launches {kernels or 'none'}; collectives {coll or 'none'}; bytes across ranks "
+            f"{wire or 'none'}; "
+            f"output {'sha256 ' + digest.group(1) if digest else 'on rank 0'}; passes={passes}")
 
 
 def _fallback_chain(args, exec_cfg, registry):
@@ -606,7 +707,8 @@ def _run(args) -> int:
         profile_ctx = lambda _dir: contextlib.nullcontext()  # noqa: E731
     with profile_ctx(args.profile):
         with obs_span("run.measure", config=exec_cfg.key, batch=args.batch, dtype=run_dtype) as sp:
-            st = amortized_stats(fwd, params, x, n_small=n_small, n_large=n_small + max(1, args.repeats))
+            st = amortized_stats(fwd, params, x, n_small=n_small, n_large=n_small + max(1, args.repeats),
+                                 lockstep=mesh is not None and mesh.owners is not None)
             if sp is not None:
                 sp.set(per_pass_ms=round(st.per_call_ms, 4))
     if args.profile:
@@ -616,14 +718,16 @@ def _run(args) -> int:
         out = sup.execute(params, x, runner=run_counted).cpu().numpy()
         print(f"Supervisor: {sup.summary()}")
     else:
-        out = fwd(params, x).cpu().numpy()
+        res = fwd(params, x)
+        out = None if res is None else res.cpu().numpy()  # None: a rank of a cluster whose output rank 0 holds
     per_pass_ms = st.per_call_ms
 
-    shape_str = "x".join(str(d) for d in out.shape[1:])
-    first10 = " ".join(f"{v:.4f}" for v in out[0].reshape(-1)[:10])
     print(f"Compile time: {compile_ms:.1f} ms")
-    print(f"Final Output Shape: {shape_str}")
-    print(f"Final Output (first 10 values): {first10}")
+    if out is not None:
+        print(f"Final Output Shape: {'x'.join(str(d) for d in out.shape[1:])}")
+        print(f"Final Output (first 10 values): {' '.join(f'{v:.4f}' for v in out[0].reshape(-1)[:10])}")
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            print(f"Output sha256: {hashlib.sha256(out.astype('float32').tobytes()).hexdigest()}")
     print(
         f"AlexNet {label} Forward Pass completed in {per_pass_ms:.3f} ms "
         f"(amortized over {args.repeats} fenced passes; "

@@ -14,9 +14,10 @@ so the router never proxies to a backend that is still capturing, and host
 loss is a process fault: the ``host_loss`` chaos site SIGKILLs a backend
 mid-load, across a process boundary.
 
-On the card every backend uses the parent's device (``device``): N CUDA
-contexts share one GPU, and the CUDA driver time-slices their kernels. A card
-per backend is ROADMAP Queue 1 item 14's concern. Before spawning a fleet
+On the card backend ``i`` sees one card, visible card ``i % count`` of the
+parent's (``CUDA_VISIBLE_DEVICES``), and runs on ``device`` there: on a
+host with several cards each backend has one of its own; on one card the N
+CUDA contexts share it, and the CUDA driver time-slices their kernels. Before spawning a fleet
 on the card, :meth:`BackendFleet.start` loads the kernel library in the
 parent (``ops._build``), so the children find it built and none runs
 ``nvcc``. The children start together and are awaited together, so the
@@ -184,9 +185,23 @@ class BackendFleet:
             cmd.extend(["--controller", json.dumps(obj)])
         return cmd
 
+    def visible_card(self, index: int) -> Optional[str]:
+        """Backend ``index``'s ``CUDA_VISIBLE_DEVICES``: the parent's visible
+        card ``index % count`` (None on the CPU or without a card)."""
+        import torch
+
+        if self.device == "cpu" or not torch.cuda.is_available():
+            return None
+        visible = [c.strip() for c in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",") if c.strip()]
+        count = torch.cuda.device_count()
+        return visible[index % len(visible)] if visible else str(index % count)
+
     def _launch(self, index: int):
         jpath = str(self.journal_dir / f"backend_{index}.jsonl")
         env = {**os.environ, **self._extra_env}
+        card = self.visible_card(index)
+        if card is not None:
+            env["CUDA_VISIBLE_DEVICES"] = card
         env["PYTHONPATH"] = (str(_PKG_ROOT) + os.pathsep + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
         env.pop(chaos.CHAOS_ENV, None)
         t0 = time.monotonic()

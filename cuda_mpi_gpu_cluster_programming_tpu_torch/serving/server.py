@@ -44,8 +44,9 @@ and journal writes run in ``@off_timed_path`` helpers after the region.
 ``ServeConfig.n_shards`` on a mesh whose slots all sit on the server's
 device (:func:`serve_mesh`), and each bucket's graph captures the whole
 sharded forward: its kernels, halo copies and masks. One graph is captured
-on one device's stream, so the mesh takes no other device; one rank a GPU
-is ROADMAP Queue 1 item 14. A single-device config
+on one device's stream, so the mesh takes no other device; a server whose
+slots span cards (a rank a card, ``parallel/distributed.py``) is ROADMAP
+Queue 1 item 17. A single-device config
 serves on one device whatever ``n_shards`` says, as in the JAX package.
 
 **Degradation, not 500s.** With ``supervise=True`` the forward is the
@@ -840,8 +841,8 @@ class InferenceServer:
 def serve_mesh(n_shards: int, device):
     """The mesh of a sharded server: ``n_shards`` slots, every one on the
     server's ``device``, so they share its card (a bucket's graph is
-    captured on one device's stream; one rank a GPU is ROADMAP Queue 1
-    item 14)."""
+    captured on one device's stream; slots across cards are ROADMAP Queue
+    1 item 17)."""
     import torch
 
     from ..parallel.mesh import make_mesh

@@ -77,7 +77,7 @@ class AmortizedStats:
 def amortized_stats(
     fn: Callable, *args: Any, n_small: int = 10, n_large: int = 110,
     max_chain: int = 4096, work_floor_ms: Optional[float] = None,
-    min_samples: int = 3, max_samples: int = 15,
+    min_samples: int = 3, max_samples: int = 15, lockstep: bool = False,
 ) -> AmortizedStats:
     """Per-call wall time of ``fn(*args)``:
 
@@ -92,7 +92,14 @@ def amortized_stats(
     runs each call synchronously, so its work is fixed whatever the host's
     load: the chain stays at ``n_large`` (a long run under 1.5x the short
     one is a preempted short run, not a fence's shadow: T(n_large)/n_large
-    is returned, ``shadowed``) and ``min_samples`` pairs are drawn."""
+    is returned, ``shadowed``) and ``min_samples`` pairs are drawn.
+
+    ``lockstep``: the number of calls is fixed before the first, whatever
+    the clocks read (the ranks of a process group, whose every call holds
+    collectives, must make the same calls): the chain stays at ``n_large``
+    and exactly ``min_samples`` pairs run; a pair whose long run is under
+    1.5x its short one gives no sample, and with none left T(n_large)/n_large
+    is returned, ``shadowed``."""
     if n_large <= n_small:
         raise ValueError(f"n_large ({n_large}) must exceed n_small ({n_small})")
     if min_samples < 1 or max_samples < min_samples:
@@ -116,6 +123,13 @@ def amortized_stats(
         total += dt
         return dt
 
+    if lockstep:
+        pairs = [(run(n_small), run(n_large)) for _ in range(min_samples)]
+        kept = [(tl - ts) / (n_large - n_small) * 1e3 for ts, tl in pairs if tl >= 1.5 * ts]
+        if not kept:
+            return AmortizedStats(samples_ms=[pairs[-1][1] / n_large * 1e3], n_chain=n_large, shadowed=True,
+                                  total_measured_s=total)
+        return AmortizedStats(samples_ms=kept, n_chain=n_large, shadowed=False, total_measured_s=total)
     t_small = run(n_small)
     n = n_large
     t_large = run(n)

@@ -9,8 +9,8 @@ bitwise the port's own eager sharded forward on each padded bucket; each
 dispatch runs the halo collectives the JAX tests count. A journal recorded
 at one shard replays at ``devices=2`` with identical per-class accounting,
 from the library, the run CLI and the bench. ``run --serve --shards 2`` and
-``BENCH_SERVE_SHARDS=2`` serve at two shards. A serving mesh across two
-devices is refused, naming ROADMAP Queue 1 item 14. On the card,
+``BENCH_SERVE_SHARDS=2`` serve at two shards. A serving mesh takes only
+the server's device (slots across cards are ROADMAP Queue 1 item 17). On the card,
 ``chip_smoke.py`` phase 3i holds the graphs' captures of the sharded
 forward (kernel nodes, collectives, bits).
 """
